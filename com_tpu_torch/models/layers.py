@@ -1,0 +1,82 @@
+"""Shared building blocks over NHWC tensors: batch norm, conv, ConvBNReLU.
+
+Counterpart of ``com_tpu/models/layers.py``.  Activations stay NHWC as in
+the JAX package; weights keep PyTorch's layouts and pcdet's names (Conv2d
+(O, I, kH, kW), BatchNorm weight/bias/running_mean/running_var), so a
+pcdet state_dict loads as it is.  Library convs see the NHWC tensor as a
+channels_last NCHW view, which costs no copy.
+
+Only inference is ported: the norms use running statistics and raise in
+training mode.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.conv2d import conv3x3
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode batch norm over the last axis, in f32, cast back to the
+    input dtype (f32 statistics under mixed precision)."""
+
+    def __init__(self, features: int, eps: float = 1e-3):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+        self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError("batch-statistics mode comes with the training slice")
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return ((x.float() - self.running_mean) * mul + self.bias).to(x.dtype)
+
+
+class MaskedBatchNorm(BatchNorm):
+    """The PFN's norm: in training its statistics exclude padded rows; in
+    eval (the only mode ported) it is BatchNorm and ignores the mask."""
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        return super().forward(x)
+
+
+class Conv2d(nn.Module):
+    """Square conv over NHWC input with symmetric padding kernel // 2.
+
+    Stride-1, bias-free 3x3 convs run on ``conv3x3`` (kernel K2); every other
+    shape (strided, with bias, other sizes) is a library conv.  ``dtype``
+    casts input and weight for the product (bf16 under mixed precision)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
+                 bias: bool = False, dtype=None, padding: int | None = None):
+        super().__init__()
+        self.kernel, self.stride, self.dtype = kernel, stride, dtype
+        self.padding = kernel // 2 if padding is None else padding
+        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or x.dtype
+        x = x.to(dt)
+        w = self.weight.to(dt)
+        if self.kernel == 3 and self.stride == 1 and self.padding == 1 and self.bias is None:
+            return conv3x3(x.contiguous(), w.permute(2, 3, 1, 0).contiguous())
+        b = None if self.bias is None else self.bias.to(dt)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=self.stride, padding=self.padding)
+        return y.permute(0, 2, 3, 1).contiguous()
+
+
+class ConvBNReLU(nn.Sequential):
+    """Conv + BN + ReLU over NHWC; children ``0`` (conv) and ``1`` (norm)
+    as in pcdet's Sequential blocks."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
+                 bias: bool = False, eps: float = 1e-3, dtype=None):
+        super().__init__(Conv2d(cin, cout, kernel, stride, bias=bias, dtype=dtype),
+                         BatchNorm(cout, eps=eps), nn.ReLU())

@@ -1,0 +1,87 @@
+"""Per-point run totals over pillar-sorted rows (kernel K1).
+
+Counterpart of ``com_tpu/ops/pallas/seg_scan.py``: the dynamic-pillar VFE
+reduces over the points of each pillar and broadcasts the result back to
+every point, for the cluster mean (sum) and the PFN max feedback (max).  With
+points sorted by pillar id each pillar is a contiguous run.
+
+``run_bcast`` launches the CUDA kernel (``csrc/seg_scan.cu``) for a CUDA
+tensor and runs ``run_bcast_plain`` for a CPU tensor; there is no other
+route.  Forward only: the gradient comes with the training slice.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _kernels
+
+launches = 0  # K1 launches by run_bcast since the last reset
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def run_bcast_plain(vals: torch.Tensor, seg: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """Plain PyTorch version: per-sample segment table over compact run ranks
+    (``_run_bcast_ref`` semantics), reduced in f32, cast back to the input
+    dtype.  A run is a maximal stretch of equal consecutive ids."""
+    b, n, c = vals.shape
+    first = torch.ones((b, n), dtype=torch.bool, device=vals.device)
+    first[:, 1:] = seg[:, 1:] != seg[:, :-1]
+    rank = torch.cumsum(first.to(torch.int64), dim=1) - 1
+    idx = (rank + torch.arange(b, device=vals.device)[:, None] * n).reshape(-1)
+    v = vals.reshape(b * n, c).float()
+    if op == "sum":
+        table = torch.zeros((b * n, c), dtype=torch.float32, device=vals.device)
+        table.index_add_(0, idx, v)
+    else:
+        table = torch.full((b * n, c), -math.inf, dtype=torch.float32, device=vals.device)
+        table.scatter_reduce_(0, idx[:, None].expand(-1, c), v, "amax", include_self=True)
+        table = torch.where(torch.isfinite(table), table, torch.zeros((), dtype=table.dtype,
+                                                                      device=table.device))
+    return table[idx].reshape(b, n, c).to(vals.dtype)
+
+
+def run_bcast(vals: torch.Tensor, seg: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """Per-row run totals, batched per sample.
+
+    Args:
+        vals: (B, N, C) float32 or bfloat16, contiguous.
+        seg: (B, N) int32 ids, sorted within each sample so equal ids are
+            contiguous (padded rows carry a large id and sort last).
+        op: "sum" or "max".
+
+    Returns:
+        (B, N, C) in vals' dtype: at (b, i) the reduction of vals[b] over the
+        rows j with seg[b, j] == seg[b, i].
+    """
+    if op not in ("sum", "max"):
+        raise ValueError(f"op must be 'sum' or 'max', got {op!r}")
+    if vals.device.type == "cpu":
+        return run_bcast_plain(vals, seg, op)
+    if vals.device.type != "cuda":
+        raise ValueError(f"run_bcast: unsupported device {vals.device}")
+    if vals.dim() != 3 or seg.shape != vals.shape[:2]:
+        raise ValueError(f"run_bcast: vals {tuple(vals.shape)} and seg {tuple(seg.shape)}")
+    if vals.dtype not in _DTYPES or seg.dtype != torch.int32:
+        raise TypeError(f"run_bcast: vals {vals.dtype} (want f32/bf16), "
+                        f"seg {seg.dtype} (want int32)")
+    if seg.device != vals.device or not (vals.is_contiguous() and seg.is_contiguous()):
+        raise ValueError("run_bcast: vals and seg must be contiguous on one device")
+    b, n, c = vals.shape
+    out = torch.empty_like(vals)
+    if out.numel() == 0:
+        return out
+    lib = _kernels.library("seg_scan")
+    nt = -(-n // lib.k1_tile_rows())
+    head = torch.empty((b, nt, c), dtype=torch.float32, device=vals.device)
+    tail = torch.empty_like(head)
+    with torch.cuda.device(vals.device):
+        err = lib.k1_run_bcast(vals.data_ptr(), seg.data_ptr(), out.data_ptr(),
+                               head.data_ptr(), tail.data_ptr(), b, n, c,
+                               int(op == "max"), _DTYPES[vals.dtype], _kernels.stream_of(vals))
+    _kernels.check(err, "run_bcast (K1)")
+    global launches
+    launches += 1
+    return out

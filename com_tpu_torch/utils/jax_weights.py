@@ -1,0 +1,148 @@
+"""Weight bridge: the JAX package's flax variables -> the port's modules.
+
+The port names its parameters as pcdet does, so this is the inverse of the
+rules the JAX package uses to import a pcdet state_dict (its
+``utils/torch_import.py``), written again here: for each pcdet key, the flax
+leaf it came from and the layout change back to PyTorch.
+
+    flax Dense (in, out)              -> Linear (out, in)
+    flax Conv (kH, kW, I, O)          -> Conv2d (O, I, kH, kW)
+    flax ConvTranspose (kH, kW, I, O) -> ConvTranspose2d (I, O, kH, kW),
+                                         spatially flipped
+    BN scale/bias, mean/var           -> weight/bias, running_mean/var
+
+The 1x1 stride-1 deblock is a plain flax Conv but a pcdet ConvTranspose2d,
+so it takes the transposed-conv layout too.  Covers the CenterPoint-Pillar
+slots: DynamicPillarVFE, BaseBEVBackbone, CenterHead.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_TRANSFORMS = {
+    "copy": lambda a: a,
+    "linear": lambda a: a.T,
+    "conv2d": lambda a: a.transpose(3, 2, 0, 1),
+    "deconv2d": lambda a: a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1],
+}
+
+
+def _bn(tkey, path):
+    """(pcdet key, collection, flax path, transform) for one batch norm."""
+    return [(f"{tkey}.weight", "params", (*path, "scale"), "copy"),
+            (f"{tkey}.bias", "params", (*path, "bias"), "copy"),
+            (f"{tkey}.running_mean", "batch_stats", (*path, "mean"), "copy"),
+            (f"{tkey}.running_var", "batch_stats", (*path, "var"), "copy")]
+
+
+def _pfn_rules(vfe_cfg, top):
+    rules = []
+    for i in range(len(vfe_cfg.get("NUM_FILTERS", []))):
+        p = (top, f"_PFNLayer_{i}")
+        rules.append((f"vfe.pfn_layers.{i}.linear.weight", "params", (*p, "Dense_0", "kernel"),
+                      "linear"))
+        rules += _bn(f"vfe.pfn_layers.{i}.norm", (*p, "MaskedBatchNorm_0"))
+    return rules
+
+
+def _backbone_rules(cfg, top):
+    """blocks.{i}.{1 + 3k} conv / .{2 + 3k} norm <- body/ConvBNReLU_{g}
+    (numbered across blocks); deblocks.{i}.0 / .1 <- body/ConvTranspose_{t}
+    or Conv_{c} and body/BatchNorm_{i}."""
+    layer_nums = list(cfg.get("LAYER_NUMS", []))
+    up_strides = list(cfg.get("UPSAMPLE_STRIDES", []))
+    body = (top, "body")
+    rules, g, n_ct, n_cv = [], 0, 0, 0
+    for i, ln in enumerate(layer_nums):
+        for k in range(ln + 1):
+            seq = 1 + 3 * k
+            rules.append((f"backbone_2d.blocks.{i}.{seq}.weight", "params",
+                          (*body, f"ConvBNReLU_{g}", "Conv_0", "kernel"), "conv2d"))
+            rules += _bn(f"backbone_2d.blocks.{i}.{seq + 1}", (*body, f"ConvBNReLU_{g}",
+                                                              "BatchNorm_0"))
+            g += 1
+    for i, us in enumerate(up_strides):
+        key = f"backbone_2d.deblocks.{i}.0.weight"
+        if us > 1 or i >= len(layer_nums):
+            rules.append((key, "params", (*body, f"ConvTranspose_{n_ct}", "kernel"), "deconv2d"))
+            n_ct += 1
+        else:
+            rules.append((key, "params", (*body, f"Conv_{n_cv}", "kernel"),
+                          "deconv2d" if us == 1 else "conv2d"))
+            n_cv += 1
+        rules += _bn(f"backbone_2d.deblocks.{i}.1", (*body, f"BatchNorm_{i}"))
+    return rules
+
+
+def _center_head_rules(cfg, top, class_names):
+    bias = bool(cfg.get("USE_BIAS_BEFORE_NORM", False))
+    rules = [("dense_head.shared_conv.0.weight", "params", (top, "shared_conv", "Conv_0",
+                                                           "kernel"), "conv2d")]
+    if bias:
+        rules.append(("dense_head.shared_conv.0.bias", "params",
+                      (top, "shared_conv", "Conv_0", "bias"), "copy"))
+    rules += _bn("dense_head.shared_conv.1", (top, "shared_conv", "BatchNorm_0"))
+    head_dict = dict(cfg["SEPARATE_HEAD_CFG"]["HEAD_DICT"])
+    for h, names in enumerate(cfg["CLASS_NAMES_EACH_HEAD"]):
+        specs = dict(head_dict)
+        specs["hm"] = {"out_channels": len([n for n in names if n in class_names]),
+                       "num_conv": cfg.get("NUM_HM_CONV", 2)}
+        for name, spec in specs.items():
+            t, p = f"dense_head.heads_list.{h}.{name}", (top, f"head_{h}")
+            nc = int(spec["num_conv"])
+            for j in range(nc - 1):
+                conv = (*p, f"{name}_conv{j}", "Conv_0")
+                rules.append((f"{t}.{j}.0.weight", "params", (*conv, "kernel"), "conv2d"))
+                if bias:
+                    rules.append((f"{t}.{j}.0.bias", "params", (*conv, "bias"), "copy"))
+                rules += _bn(f"{t}.{j}.1", (*p, f"{name}_conv{j}", "BatchNorm_0"))
+            rules.append((f"{t}.{nc - 1}.weight", "params", (*p, f"{name}_out", "kernel"),
+                          "conv2d"))
+            rules.append((f"{t}.{nc - 1}.bias", "params", (*p, f"{name}_out", "bias"), "copy"))
+    return rules
+
+
+def bridge_rules(model_cfg, class_names, params) -> list:
+    """Every (pcdet key, collection, flax path, transform) of the model.
+    ``params`` (the flax "params" tree) gives the top-level scope names."""
+    def top(prefix):
+        for name in params:
+            if name.startswith(prefix):
+                return name
+        raise KeyError(f"no flax scope starting with {prefix!r} in {sorted(params)}")
+
+    rules = _pfn_rules(model_cfg["VFE"], top(model_cfg["VFE"]["NAME"]))
+    if model_cfg.get("BACKBONE_2D") is not None:
+        rules += _backbone_rules(model_cfg["BACKBONE_2D"], top("BaseBEVBackbone"))
+    rules += _center_head_rules(model_cfg["DENSE_HEAD"], top("CenterHead"), list(class_names))
+    return rules
+
+
+def state_dict_from_jax(variables, model_cfg, class_names) -> dict:
+    """{pcdet key: numpy array} from flax ``{"params", "batch_stats"}``."""
+    out = {}
+    for key, coll, path, transform in bridge_rules(model_cfg, class_names,
+                                                   variables["params"]):
+        node = variables[coll]
+        for part in path:
+            node = node[part]
+        out[key] = np.array(_TRANSFORMS[transform](np.asarray(node, np.float32)), order="C")
+    return out
+
+
+def load_jax_variables(net: torch.nn.Module, variables, model_cfg, class_names):
+    """Load flax variables (nested dicts of arrays) into ``net`` in place.
+    Every parameter and running statistic of ``net`` must be covered."""
+    sd = state_dict_from_jax(variables, model_cfg, class_names)
+    own = net.state_dict()
+    missing = [k for k in own if k not in sd and not k.endswith("num_batches_tracked")]
+    unknown = [k for k in sd if k not in own]
+    if missing or unknown:
+        raise KeyError(f"weight bridge: missing {missing}, unknown {unknown}")
+    with torch.no_grad():
+        for k, v in sd.items():
+            if tuple(own[k].shape) != v.shape:
+                raise ValueError(f"weight bridge: {k} is {tuple(own[k].shape)}, got {v.shape}")
+            own[k].copy_(torch.from_numpy(v))
+    return net
