@@ -1,29 +1,49 @@
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure raises, and the script exits non-zero):
 
 1. Device and build: the card's name and power limit, TF32 switches set and
-   printed, every CUDA kernel built from ``com_tpu_torch/csrc`` at once.
+   printed, every CUDA kernel built from ``com_tpu_torch/csrc`` at once (one
+   ``nvcc`` per source, all started together).
 2. Each kernel against its plain PyTorch version on the card, at the shapes
-   the serving path gives it, with the stated tolerance; then CUDA-event
-   times of the kernel, the plain version and, where one exists, a single
-   library call computing the same function.
-3. A small-input reference: the port's eval step at a 64x64 grid in f32 on
-   the card against the same step on the CPU (plain versions only).
+   the serving and training paths give it, with the stated tolerance: K1
+   forward and its backward (the max split over tied maxima), K2 forward
+   and dgrad (through the autograd.Function against conv3x3_plain's
+   autograd), K2w, K3 in both modes; then CUDA-event times of the kernel,
+   the plain version and, where one exists, a single library call
+   computing the same function.
+3. Small-input references at a 64x64 grid in f32, the card against the CPU
+   (plain versions only): the eval step, and one train step (loss, every
+   gradient, the batch statistics per channel, the confidence
+   accumulators).
 4. Serving: CenterPoint-Pillar from the flagship YAML at full width (468x468
    grid, 163,840 points a scene, batch 2, K = 500) with seeded random
    weights behind the port's BatchServer; three single-scene requests (one
-   full batch, one padded), responses checked.  Kernel launch counters are
-   zeroed just before and read just after.  Then the device time of each
-   stage of one eval step (CUDA events), and K4 on the boxes the model
+   full batch, one padded), responses checked.  Then the device time of
+   each stage of one eval step (CUDA events), and K4 on the boxes the model
    decodes.
-5. The ``kernels`` line, then the device line as the last line.
+5. Training path A, the flagship config at full width: ``train_model`` for
+   2 mini-epochs of 3 steps over synthetic Waymo-like batches (2 scenes of
+   163,840 presorted points, 500 object slots of which ~100 are real),
+   finite losses, gradients (at each epoch's last step, outside the timed
+   intervals) and parameters, the epoch-end (3, 96) confidence feedback;
+   the step time and its stages (forward, loss, backward, optimizer) by
+   CUDA events, peak memory; then the loss must fall over 10 steps on one
+   repeated batch.
+6. Training path B, ``centerpoint_pillar_car_com1.yaml`` (single-class
+   Vehicle, ``UCL: True``, ``MERGE_SCORES: True``): 2 steps, which launch
+   K3 in last_wins mode for the COM loss mask.
+7. Launch counts: every counter is zeroed just before each path (serving,
+   A, B) and read just after, against the expected counts per forward or
+   per step.  Then the ``kernels`` line, the card's name and power limit,
+   and the device line as the last line.
 
 ``python3 chip_smoke.py --profile`` also runs torch.profiler over three
-eval steps and prints the device busy share and its kernel table.
-It needs no network and builds into ``build/kernels`` inside the checkout.
+eval steps and three train steps and prints the device busy share and the
+kernel table of each.  It needs no network and builds into
+``build/kernels`` inside the checkout.
 """
 from __future__ import annotations
 
@@ -40,8 +60,17 @@ import torch
 REPO = Path(__file__).resolve().parent
 CONFIG = "configs/waymo_models/com/centerpoint_pillar_3cls_com.yaml"
 BATCH, POINTS, FEATS = 2, 163840, 5
+CAR_CONFIG = "configs/waymo_models/com/centerpoint_pillar_car_com1.yaml"
+NUM_MAX_OBJS, REAL_OBJS = 500, 100
+# kernel launches per serving forward and per train step (K1 forward +
+# backward, K2 forward + dgrad, K2w, K3 by mode, K4)
+EXPECT_SERVING = {"seg_scan": 2, "conv3x3": 14, "nms": 1}
+EXPECT_TRAIN = {"seg_scan": 2, "seg_scan_bwd": 2, "conv3x3": 14, "conv3x3_dgrad": 14,
+                "conv3x3_wgrad": 14, "stamp_gauss": 1}
+EXPECT_TRAIN_UCL = {**EXPECT_TRAIN, "stamp_last_wins": 1}
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 non-tensor
+STATS_RTOL = 1e-5  # small train reference: batch statistics, card against CPU
 
 
 def waymo_like_points(rng, b, n, pc_range):
@@ -92,6 +121,87 @@ def bound_ms(nbytes, ops, dtype):
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def presort_by_pillar(pts, pc_range, vsize):
+    """Stable sort of each scene's points by flat BEV pillar id, as the
+    ``sort_points_by_bev_pillar`` data processor does (out-of-range points
+    last), so the VFE can take ``ASSUME_SORTED_POINTS``."""
+    pr = np.asarray(pc_range, np.float32)
+    vs = np.asarray(vsize, np.float32)
+    nx = int(round((pc_range[3] - pc_range[0]) / vsize[0]))
+    ny = int(round((pc_range[4] - pc_range[1]) / vsize[1]))
+    nz = max(1, int(round((pc_range[5] - pc_range[2]) / vsize[2])))
+    out = np.empty_like(pts)
+    for b in range(pts.shape[0]):
+        vi = np.floor((pts[b, :, :3] - pr[None, :3]) / vs[None, :]).astype(np.int64)
+        ok = ((vi[:, 0] >= 0) & (vi[:, 0] < nx) & (vi[:, 1] >= 0) & (vi[:, 1] < ny)
+              & (vi[:, 2] >= 0) & (vi[:, 2] < nz))
+        out[b] = pts[b][np.argsort(np.where(ok, vi[:, 1] * nx + vi[:, 0], nx * ny),
+                                   kind="stable")]
+    return out
+
+
+def waymo_like_batch(rng, b, n, pc_range, vsize, num_classes, m=NUM_MAX_OBJS, real=REAL_OBJS):
+    """One training batch: presorted Waymo-like scenes and (b, m, 8) gt_boxes
+    with ~``real`` objects a scene (Vehicle/Pedestrian/Cyclist-sized, three
+    20 x 15 m ones whose gaussian radius, ~23 cells, passes the stamp's clip
+    of 16), plus the COM side arrays made as the JAX package's synthetic
+    batch makes them."""
+    pts = presort_by_pillar(waymo_like_points(rng, b, n, pc_range), pc_range, vsize)
+    gt = np.zeros((b, m, 8), np.float32)
+    half = min(pc_range[3], pc_range[4]) * 0.9
+    k = rng.randint(real - 10, real + 11, b)
+    sizes = np.array([[4.6, 2.0, 1.7], [0.9, 0.9, 1.8], [1.8, 0.8, 1.7]], np.float32)
+    for i in range(b):
+        cls = rng.randint(1, num_classes + 1, k[i])
+        gt[i, :k[i], 0:2] = rng.uniform(-half, half, (k[i], 2))
+        gt[i, :k[i], 2] = rng.uniform(-0.5, 1.5, k[i])
+        gt[i, :k[i], 3:6] = sizes[cls - 1] * rng.uniform(0.8, 1.25, (k[i], 3))
+        gt[i, :3, 3:5] = (20.0, 15.0)
+        gt[i, 3, :2] = gt[i, 4, :2] + 0.1  # two objects in one cell
+        gt[i, :k[i], 6] = rng.uniform(-np.pi, np.pi, k[i])
+        gt[i, :k[i], 7] = cls
+    real_mask = gt[..., 7] > 0
+    return {"points": pts, "points_mask": np.ones((b, n), bool), "gt_boxes": gt,
+            "num_points_in_gt": real_mask.astype(np.float32) * 10,
+            "true_object": real_mask.astype(np.float32),
+            "occupancy_ratio": rng.rand(b, m).astype(np.float32),
+            "facade_type": rng.randint(0, 4, (b, m)).astype(np.float32)}
+
+
+COUNTERS = {  # counter name -> (module, attribute)
+    "seg_scan": ("seg_scan", "launches"), "seg_scan_bwd": ("seg_scan", "bwd_launches"),
+    "conv3x3": ("conv2d", "launches"), "conv3x3_dgrad": ("conv2d", "dgrad_launches"),
+    "conv3x3_wgrad": ("conv2d", "wgrad_launches"), "stamp_gauss": ("stamp", "gauss_launches"),
+    "stamp_last_wins": ("stamp", "last_wins_launches"), "nms": ("nms", "launches"),
+}
+
+
+def _ops_module(name):
+    import importlib
+
+    return importlib.import_module(f"com_tpu_torch.ops.{name}")
+
+
+def reset_counters():
+    for mod, attr in COUNTERS.values():
+        setattr(_ops_module(mod), attr, 0)
+
+
+def read_counters():
+    return {k: getattr(_ops_module(mod), attr) for k, (mod, attr) in COUNTERS.items()}
+
+
+def check_launches(what, counts, expect, units):
+    """Each expected counter must read its count per unit times the units,
+    the others 0."""
+    per = {k: v / max(units, 1) for k, v in counts.items()}
+    print(f"launches per {what}: {json.dumps(per)}")
+    for k, v in counts.items():
+        if v != expect.get(k, 0) * units:
+            raise AssertionError(f"{what}: {k} launched {v} times in {units}, "
+                                 f"expected {expect.get(k, 0)} each")
 
 
 def phase_device_and_build():
@@ -201,11 +311,179 @@ def check_conv3x3(dev, entries):
                                 bound_ms=bms, bound_by=by, library_ms=lib_ms, kernel="conv3x3"))
 
 
-def load_config(grid=None):
+def check_seg_scan_bwd(dev, entries):
+    """K1's backward: the max over pillar runs in bf16 at (2, 163840, 32)
+    with many tied maxima, against run_bcast_plain's autograd."""
+    from com_tpu_torch.ops import seg_scan
+    from com_tpu_torch.ops.voxelize import point_voxel_ids
+
+    pc_range = (-74.88, -74.88, -2.0, 74.88, 74.88, 4.0)
+    pts = torch.from_numpy(waymo_like_points(np.random.RandomState(11), BATCH, POINTS,
+                                             pc_range)).to(dev)
+    flat, _ = point_voxel_ids(pts[..., :3], pc_range, (0.32, 0.32, 6.0), (468, 468, 1))
+    seg = torch.sort(flat, dim=1).values.contiguous()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    # values on a coarse grid, so most pillars hold tied maxima
+    vals = (torch.randn((BATCH, POINTS, 32), device=dev, generator=gen) * 2).round() / 2
+    vals = vals.to(torch.bfloat16)
+    g = torch.randn((BATCH, POINTS, 32), device=dev, generator=gen).to(torch.bfloat16)
+    runs = []
+    for fn in (seg_scan.run_bcast, seg_scan.run_bcast_plain):
+        v = vals.clone().requires_grad_()
+        out = fn(v, seg, "max")
+        runs.append((v, out, torch.autograd.grad(out, v, g, retain_graph=True)[0]))
+    torch.cuda.synchronize()
+    (v, out, got), (pv, pout, want) = runs
+    scale = seg_scan.run_bcast_plain(g.float().abs(), seg, "sum")
+    err = (got.float() - want.float()).abs()
+    at_max = (vals == out).to(torch.float32)
+    tied = int(((at_max > 0) & (seg_scan.run_bcast_plain(at_max, seg, "sum") > 1)).sum())
+    ok = bool((err <= 1e-5 * scale + 2.0 ** -7 * want.float().abs() + 1e-6).all())
+    print(f"K1 run_bcast max backward bf16 (2,163840,32): {tied} (row, channel) maxima tied "
+          f"within their pillar; "
+          f"max_abs_err={err.max().item():.3e} (|err| <= 1e-5 * run sum|g| + 2^-7 * |plain|,"
+          f" two bf16 roundings) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("K1 backward disagrees with its plain version")
+    ms = cuda_ms(lambda: torch.autograd.grad(out, v, g, retain_graph=True), 20)
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(pout, pv, g, retain_graph=True), 5)
+    # reads g, vals, out and seg once, writes dvals; a few f32 operations an element
+    bms, by = bound_ms(nbytes(g, vals, out, seg, got), 6 * g.numel(), torch.float32)
+    entries.append(dict(name="seg_scan.run_bcast max backward bf16 (2,163840,32)", route="cuda",
+                        source="com_tpu_torch/csrc/seg_scan.cu",
+                        replaces="com_tpu/ops/pallas/seg_scan.py:284",
+                        max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                        bound_by=by, library_ms=None, kernel="seg_scan_bwd"))
+
+
+def check_conv3x3_backward(dev, entries):
+    """K2 dgrad (K2 on the output gradient with the rotated kernel) through
+    the autograd.Function, and K2w, at the backbone's three shapes."""
+    from com_tpu_torch.ops import conv2d
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for h, c in ((468, 64), (234, 128), (117, 256)):
+        flops = 2 * 9 * c * c * BATCH * h * h
+        x0 = torch.randn((BATCH, h, h, c), device=dev, generator=gen).to(torch.bfloat16)
+        w = (torch.randn((3, 3, c, c), device=dev, generator=gen) / math.sqrt(9 * c))
+        w = w.to(torch.bfloat16)
+        g = torch.randn((BATCH, h, h, c), device=dev, generator=gen).to(torch.bfloat16)
+        runs = []
+        for fn in (conv2d.conv3x3, conv2d.conv3x3_plain):
+            x = x0.clone().requires_grad_()
+            y = fn(x, w)
+            runs.append((x, y, torch.autograd.grad(y, x, g, retain_graph=True)[0]))
+        torch.cuda.synchronize()
+        (x, y, got), (px, py, want) = runs
+        w_rot = w.float().flip(0).flip(1).transpose(2, 3)
+        absref = conv2d.conv3x3_plain(g.float().abs(), w_rot.abs())
+        err = (got.float() - want.float()).abs()
+        ok = bool((err <= 1e-5 * absref + 2.0 ** -7 * want.float().abs()).all())
+        label = f"bf16 (2,{h},{h},{c}->{c})"
+        print(f"K2 conv3x3 dgrad {label}: max_abs_err={err.max().item():.3e} "
+              f"(|err| <= 1e-5 * conv(|g|,|w_rot|) + 2^-7 * |plain|) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K2 dgrad {label} disagrees with its plain version")
+        ms = cuda_ms(lambda: torch.autograd.grad(y, x, g, retain_graph=True), 10)
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(py, px, g, retain_graph=True), 5)
+        gc = g.permute(0, 3, 1, 2)  # NHWC storage = channels_last NCHW view
+        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        lib_ms = cuda_ms(lambda: torch.nn.grad.conv2d_input((BATCH, c, h, h), wc, gc,
+                                                            padding=1), 10)
+        bms, by = bound_ms(nbytes(g, w, got), flops, torch.bfloat16)
+        entries.append(dict(name=f"conv2d.conv3x3 dgrad {label}", route="cuda",
+                            source="com_tpu_torch/csrc/conv3x3.cu",
+                            replaces="com_tpu/ops/pallas/conv2d.py:544",
+                            max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                            bound_by=by, library_ms=lib_ms, kernel="conv3x3_dgrad"))
+        del runs, x, y, px, py, got, want, absref, err
+
+        for dt in (torch.float32, torch.bfloat16):
+            xd, gd = x0.to(dt), g.to(dt)
+            got = conv2d.conv3x3_wgrad(xd, gd)
+            want = conv2d.conv3x3_wgrad_plain(xd, gd)
+            absref = conv2d.conv3x3_wgrad_plain(xd.float().abs(), gd.float().abs())
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            rnd = 0.0 if dt == torch.float32 else 2.0 ** -8
+            ok = bool((err <= 1e-5 * absref + rnd * want.abs()).all())
+            label = f"{str(dt).split('.')[-1]} (2,{h},{h},{c}->{c})"
+            print(f"K2w conv3x3_wgrad {label}: max_abs_err={err.max().item():.3e} "
+                  f"(|err| <= 1e-5 * sum|x||g| + {rnd:g} * |plain|) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K2w {label} disagrees with its plain version")
+            ms = cuda_ms(lambda: conv2d.conv3x3_wgrad(xd, gd), 10)
+            plain_ms = cuda_ms(lambda: conv2d.conv3x3_wgrad_plain(xd, gd), 5)
+            xc, gc = xd.permute(0, 3, 1, 2), gd.permute(0, 3, 1, 2)
+            lib_ms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(xc, (c, c, 3, 3), gc,
+                                                                 padding=1), 10)
+            bms, by = bound_ms(nbytes(xd, gd, got), flops, dt)
+            entries.append(dict(name=f"conv2d.conv3x3_wgrad {label}", route="cuda",
+                                source="com_tpu_torch/csrc/conv3x3_wgrad.cu",
+                                replaces="com_tpu/ops/pallas/conv2d.py:235",
+                                max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+                                bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                                kernel="conv3x3_wgrad"))
+            del got, want, absref, err
+
+
+def check_stamp(dev, entries):
+    """K3 in both modes on the training path's canvas (2, 3, 468, 468) with
+    500 object slots: ~100 real objects a sample, some invalid slots among
+    them, radii past the clip, overlapping windows, centers on the edges."""
+    from com_tpu_torch.ops import stamp
+
+    rng = np.random.RandomState(14)
+    b, n, c, h, w = BATCH, NUM_MAX_OBJS, 3, 468, 468
+    centers = np.stack([rng.randint(0, w, (b, n)), rng.randint(0, h, (b, n))], -1)
+    centers[:, :20] = centers[:, 20:40]  # overlapping windows, same centers
+    centers[:, 40, 0] = 0
+    centers[:, 41, 1] = h - 1
+    radii = rng.randint(2, 24, (b, n))
+    cls = rng.randint(0, c, (b, n))
+    values = rng.uniform(0.5, 1.5, (b, n)).astype(np.float32)
+    valid = np.zeros((b, n), bool)
+    valid[:, :REAL_OBJS] = rng.rand(b, REAL_OBJS) > 0.05
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+            (centers.astype(np.int32), radii.astype(np.int32), cls.astype(np.int32), values,
+             valid)]
+    r = np.clip(radii, 0, 16)
+    cells = int(((2 * r + 1) ** 2 * valid).sum())
+    for mode, fill in (("gauss", 0.0), ("last_wins", 1.0)):
+        got = stamp.stamp_windows(*args, c, h, w, mode, fill=fill)
+        want = stamp.stamp_windows_plain(*args, c, h, w, mode, fill=fill)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if mode == "gauss":
+            bi, oi = np.nonzero(valid)
+            centre = got[tuple(torch.as_tensor(a, device=dev) for a in (
+                bi, cls[bi, oi], centers[bi, oi, 1], centers[bi, oi, 0]))]
+            ok = err <= 2e-6 and bool((centre == 1.0).all())
+            tol = "<= 2e-6 (analytic f32 exp against the f64-built table), centers exactly 1.0"
+        else:
+            ok, tol = err == 0.0, "exact"
+        print(f"K3 stamp_windows {mode} (2,3,468,468) {int(valid.sum())} objects in "
+              f"{b * n} slots: max_abs_err={err:.3e} ({tol}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K3 {mode} disagrees with its plain version")
+        ms = cuda_ms(lambda: stamp.stamp_windows(*args, c, h, w, mode, fill=fill), 50)
+        plain_ms = cuda_ms(lambda: stamp.stamp_windows_plain(*args, c, h, w, mode, fill=fill), 10)
+        # the canvas written once, the objects read once; an exp and a max
+        # (gauss) or one index max (last_wins) per window cell of a valid object
+        bms, by = bound_ms(nbytes(got, *args), cells * (2 if mode == "gauss" else 1),
+                           torch.float32)
+        entries.append(dict(name=f"stamp.stamp_windows {mode} (2,3,468,468) 500 slots",
+                            route="cuda", source="com_tpu_torch/csrc/stamp.cu",
+                            replaces="com_tpu/ops/pallas/stamp.py:137", max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+                            kernel=f"stamp_{mode}"))
+
+
+def load_config(grid=None, config=CONFIG):
     from com_tpu_torch.models.detectors import DatasetMeta
     from com_tpu_torch.utils.config import cfg_from_yaml_file
 
-    cfg = cfg_from_yaml_file(str(REPO / CONFIG))
+    cfg = cfg_from_yaml_file(str(REPO / config))
     vsize = [0.32, 0.32, 6.0]
     pc_range = list(cfg.DATA_CONFIG.POINT_CLOUD_RANGE)
     if grid is None:
@@ -288,7 +566,6 @@ def check_small_reference(dev):
 
 def serve(dev):
     from com_tpu_torch.models.detectors import build_network
-    from com_tpu_torch.ops import conv2d, nms, seg_scan
     from com_tpu_torch.serving.server import BatchServer
     from com_tpu_torch.train.eval import make_eval_step
 
@@ -313,13 +590,13 @@ def serve(dev):
     server = BatchServer(timed_step, {"points": ((BATCH, POINTS, FEATS), "float32")},
                          max_wait_ms=200.0, score_thresh=thresh, device=dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    seg_scan.launches = conv2d.launches = nms.launches = 0
+    reset_counters()
     try:
         futures = [server.submit(scenes[i]) for i in range(3)]
         results = [f.result(timeout=600) for f in futures]
     finally:
         server.close()
-    counts = {"seg_scan": seg_scan.launches, "conv3x3": conv2d.launches, "nms": nms.launches}
+    counts = read_counters()
     peak = torch.cuda.max_memory_allocated(dev)
     forwards = server.stats.batches
     print(f"serving: {len(results)} requests in {forwards} batches "
@@ -333,12 +610,9 @@ def serve(dev):
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"request {i} returned a malformed response")
-    expect = {"seg_scan": 2, "conv3x3": 14, "nms": 1}
-    print(f"launches per forward: "
-          f"{json.dumps({k: counts[k] / max(forwards, 1) for k in counts})} (expected {expect})")
-    for k, per in expect.items():
-        if forwards != 2 or counts[k] != per * forwards:
-            raise AssertionError(f"{k}: {counts[k]} launches in {forwards} forwards")
+    if forwards != 2:
+        raise AssertionError(f"serving ran {forwards} forwards, expected 2")
+    check_launches("serving forward", counts, EXPECT_SERVING, forwards)
     return counts, net, step, cfg, meta, scenes
 
 
@@ -404,21 +678,275 @@ def profile_step(step, scenes):
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=30))
 
 
+def shift_norm_biases(net, by=3.0):
+    """Move every norm's bias up by ``by``: with almost no ReLU input near 0,
+    a rounding-sized difference between two devices flips no ReLU, and the
+    gradients can be compared element by element."""
+    from com_tpu_torch.models.layers import BatchNorm
+
+    with torch.no_grad():
+        for mod in net.modules():
+            if isinstance(mod, BatchNorm):
+                mod.bias.add_(by)
+    return net
+
+
+def build_trainer(dev, cfg, meta, steps_per_epoch, seed=0, **step_kw):
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.train.optim import build_optimizer
+    from com_tpu_torch.train.state import TrainState
+    from com_tpu_torch.train.step import conf_shape_for, make_train_step
+
+    names = list(cfg.CLASS_NAMES)
+    net = build_network(cfg.MODEL, meta, device=dev, seed=seed)
+    opt, _ = build_optimizer(net, cfg.OPTIMIZATION,
+                             int(cfg.OPTIMIZATION.NUM_EPOCHS) * steps_per_epoch, steps_per_epoch)
+    state = TrainState.create(net, opt, len(cfg.MODEL.DENSE_HEAD.CLASS_NAMES_EACH_HEAD),
+                              conf_shape_for(cfg.MODEL, names), device=dev)
+    step = make_train_step(net, cfg.MODEL, names, meta, opt, meta.grid_size[1::-1], device=dev,
+                           **step_kw)
+    return net, opt, state, step
+
+
+def stat_err(s0, s1, norm):
+    """Per channel, the two runs' batch mean and variance of one norm apart,
+    relative to the second moment E[x^2] = var + mean^2 (the mean against its
+    square root): the scale of the f32 sums both are computed from."""
+    mean, var = s1[f"{norm}.running_mean"], s1[f"{norm}.running_var"]
+    second = (var + mean * mean).clamp_min(1e-12)
+    return torch.maximum((s0[f"{norm}.running_mean"] - mean).abs() / second.sqrt(),
+                         (s0[f"{norm}.running_var"] - var).abs() / second)
+
+
+def check_small_train_reference(dev):
+    """One train step at a 64x64 grid in f32 (UCL on, so both K3 modes run)
+    on the card (kernels) against the same weights on the CPU (plain
+    versions): loss, every gradient, the updated batch statistics and the
+    confidence accumulators."""
+    from com_tpu_torch.models.layers import BatchNorm
+
+    cfg, meta = load_config(grid=(64, 64, 1))
+    cfg.MODEL.MIXED_PRECISION = False
+    cfg.MODEL.VFE.ASSUME_SORTED_POINTS = True
+    cfg.MODEL.DENSE_HEAD.LOSS_CURRICULUM.UCL = True
+    cfg.MODEL.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.NUM_MAX_OBJS = 64
+    batch = waymo_like_batch(np.random.RandomState(15), BATCH, 4096, meta.point_cloud_range,
+                             meta.voxel_size, 3, m=64, real=20)
+    runs = []
+    for d in (dev, "cpu"):
+        net, _, state, step = build_trainer(d, cfg, meta, 1, seed=7)
+        shift_norm_biases(net)
+        running = {k: v for k, v in net.state_dict().items() if "running" in k}
+        for v in running.values():  # from 0, one update is (1 - 0.99) x the batch statistic
+            v.zero_()
+        loss = step.loss_fn(state, batch, 0)[0]
+        loss.backward()
+        grads = {k: p.grad.float().cpu().clone() for k, p in net.named_parameters()}
+        stats = {k: v.cpu() / (1 - BatchNorm.MOMENTUM) for k, v in running.items()}
+        runs.append((float(loss.detach()), grads, stats))
+        net.zero_grad(set_to_none=True)
+        state, _ = step(state, batch, 0)
+        runs[-1] += (state.conf_sum.cpu(), state.conf_cnt.cpu())
+    (l0, g0, s0, cs0, cc0), (l1, g1, s1, cs1, cc1) = runs
+    gmax = max(float(g.abs().max()) for g in g1.values())
+    gerr = max(float(((g0[k] - g1[k]).abs() / (1e-3 * g1[k].abs().max() + 1e-5 * gmax)).max())
+               for k in g1)
+    serr = max(float(stat_err(s0, s1, k.rsplit(".", 1)[0]).max())
+               for k in s1 if k.endswith("running_mean"))
+    ok = (abs(l0 - l1) <= 1e-4 * abs(l1) and gerr <= 1.0 and serr <= STATS_RTOL
+          and torch.equal(cc0, cc1) and float((cs0 - cs1).abs().max()) <= 1e-4
+          and float(cc1.sum()) > 0)
+    print(f"small train reference (64x64 f32, card vs CPU): loss {l0:.6f} vs {l1:.6f}; "
+          f"{len(g1)} gradients within 1e-3 of their max + 1e-5 of the net's max "
+          f"(worst at {gerr:.3f} of that); batch statistics rel {serr:.2e} "
+          f"(<= {STATS_RTOL:g}); "
+          f"confidence counts {int(cc1.sum())} equal {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the card's train step disagrees with the CPU reference")
+
+
+class SyntheticLoader:
+    """The duck-typed loader ``train_model`` reads: ``set_epoch``, iteration
+    over host batches, ``dataset.set_confidence_groups`` (which records)."""
+
+    class _Dataset:
+        def __init__(self):
+            self.confidence_groups = []
+
+        def set_confidence_groups(self, conf):
+            self.confidence_groups.append(np.array(conf))
+
+    def __init__(self, batches, steps):
+        self.batches, self.steps = batches, steps
+        self.dataset = self._Dataset()
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
+    def __iter__(self):
+        return (self.batches[i % len(self.batches)] for i in range(self.steps))
+
+
+def train_path(dev, config, label, epochs, steps, expect_conf, expect_launches, grid=None,
+               points=POINTS):
+    """``train_model`` over synthetic batches, at full width unless a
+    smaller ``grid`` is given (for rehearsals); returns the launch counts
+    and what the later phases need."""
+    from com_tpu_torch.train.loop import train_model
+
+    cfg, meta = load_config(grid, config)
+    cfg.MODEL.VFE.ASSUME_SORTED_POINTS = True  # the batches come presorted
+    rng = np.random.RandomState(16)
+    batches = [waymo_like_batch(rng, BATCH, points, meta.point_cloud_range, meta.voxel_size,
+                                len(cfg.CLASS_NAMES)) for _ in range(2)]
+    net, opt, state, step = build_trainer(dev, cfg, meta, steps)
+    loader = SyntheticLoader(batches, steps)
+    params = [p for p in net.parameters()]
+    marks, losses, finite = [], [], []
+
+    def all_finite(tensors):
+        return torch.stack([torch.isfinite(t).all() for t in tensors]).all()
+
+    def hook(epoch, it, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((epoch, ev))
+        losses.append(metrics["loss"])
+        if it == steps - 1:  # the interval after an epoch's last step is not timed
+            finite.append(all_finite(p.grad for p in params))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    t0 = time.perf_counter()
+    state, iters = train_model(step, state, loader, num_epochs=epochs, metric_hook=hook,
+                               device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    # a non-finite gradient at any step leaves NaN in the parameters: the
+    # global-norm clip spreads it to every gradient and Adam's moments keep it
+    finite.append(all_finite(params))
+    losses = torch.stack(losses).float().cpu().numpy()
+    step_ms = [a.elapsed_time(b) for (ea, a), (eb, b) in zip(marks, marks[1:]) if ea == eb]
+    conf = loader.dataset.confidence_groups
+    ok = (iters == epochs * steps and np.isfinite(losses).all()
+          and bool(torch.stack(finite).all()) and float(state.conf_cnt.sum()) > 0
+          and len(conf) == epochs
+          and all(c.shape == expect_conf and np.isfinite(c).all() for c in conf))
+    print(f"training path {label}: {iters} steps in {epochs} mini-epochs, {wall:.2f} s wall; "
+          f"losses {[round(float(x), 4) for x in losses]}; gradients (last step of each "
+          f"epoch) and parameters finite: "
+          f"{bool(torch.stack(finite).all())}; conf_cnt of the last epoch "
+          f"{int(state.conf_cnt.sum())}; feedback {[c.shape for c in conf]} finite "
+          f"{all(np.isfinite(c).all() for c in conf)} {'ok' if ok else 'FAIL'}")
+    if step_ms:
+        print(f"  step time (CUDA events between steps, the first of each epoch left out): "
+              f"mean {np.mean(step_ms):.3f} ms over {len(step_ms)} "
+              f"{[round(x, 3) for x in step_ms]}; max_memory_allocated {peak / 2**30:.2f} GiB")
+    if not ok:
+        raise AssertionError(f"training path {label} failed its checks")
+    check_launches(f"{label} step", counts, expect_launches, iters)
+    return counts, (net, opt, state, step, batches[0], cfg, meta)
+
+
+def stage_and_overfit(dev, trainer, steps=10):
+    """The flagship step's stages by CUDA events (forward, loss, backward,
+    optimizer; mean over the steps after the first), and the overfit check:
+    the loss falls over ``steps`` steps on one repeated batch."""
+    from com_tpu_torch.train.step import make_train_step
+
+    net, opt, state, _, batch, cfg, meta = trainer
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    step = make_train_step(net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, opt,
+                           meta.grid_size[1::-1], device=dev, stage_hook=mark)
+    dev_batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    losses, sums = [], {}
+    for i in range(steps):
+        marks.clear()
+        state, metrics = step(state, dev_batch, 0)
+        losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        if i:
+            for (name, a), (_, b) in zip(marks, marks[1:]):
+                sums[name] = sums.get(name, 0.0) + a.elapsed_time(b) / (steps - 1)
+    losses = [float(x) for x in losses]
+    total = sum(sums.values())
+    print(f"stage ms (one flagship train step, batch {BATCH}, mean of {steps - 1}): "
+          f"{json.dumps({k: round(v, 3) for k, v in sums.items()})} total {total:.3f}")
+    ok = np.isfinite(losses).all() and losses[-1] < losses[0]
+    print(f"overfit: loss over {steps} steps on one batch {[round(x, 4) for x in losses]} "
+          f"falls {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the loss does not fall on a repeated batch")
+    return step, dev_batch
+
+
+def profile_train(state, step, dev_batch):
+    """torch.profiler over three flagship train steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            state, _ = step(state, dev_batch, 0)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    print(f"profile: 3 train steps in {wall_us / 1e3:.3f} ms wall, device busy "
+          f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f} %), {len(spans)} device events")
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=30))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
     dev = torch.device("cuda", 0)
+    profile = "--profile" in sys.argv[1:]
     smi = phase_device_and_build()
     entries = []
     check_seg_scan(dev, entries)
+    check_seg_scan_bwd(dev, entries)
     check_conv3x3(dev, entries)
+    check_conv3x3_backward(dev, entries)
+    check_stamp(dev, entries)
     check_small_reference(dev)
-    counts, net, step, cfg, meta, scenes = serve(dev)
+    check_small_train_reference(dev)
+    serve_counts, net, step, cfg, meta, scenes = serve(dev)
     stage_breakdown(net, step, scenes)
-    if "--profile" in sys.argv[1:]:
+    if profile:
         profile_step(step, scenes)
     check_nms(dev, entries, net, cfg, meta)
+    del net, step
+    torch.cuda.empty_cache()
+    a_counts, trainer = train_path(dev, CONFIG, "A (flagship)", 2, 3, (3, 96), EXPECT_TRAIN)
+    step, dev_batch = stage_and_overfit(dev, trainer)
+    if profile:
+        profile_train(trainer[2], step, dev_batch)
+    del trainer, step, dev_batch
+    torch.cuda.empty_cache()
+    b_counts, _ = train_path(dev, CAR_CONFIG, "B (car_com1, UCL)", 1, 2, (1, 96),
+                             EXPECT_TRAIN_UCL)
+    # each kernel's launches on the path that runs it: training path A,
+    # serving for K4, path B for K3's last_wins mode
+    counts = {**a_counts, "nms": serve_counts["nms"],
+              "stamp_last_wins": b_counts["stamp_last_wins"]}
     for e in entries:
         e["launches"] = counts[e.pop("kernel")]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -2,9 +2,13 @@
 
 A second package beside ``com_tpu`` (the JAX reference, which it never
 imports).  Its modules mirror ``com_tpu``'s layout; plain tensor code is
-PyTorch, and each Pallas kernel of the JAX package on the ported path is a
-CUDA C++ kernel under ``csrc/`` built for ``sm_90a`` at first use.  This
-slice serves CenterPoint-Pillar: ``models.detectors.build_network``,
-``train.eval.make_eval_step`` and ``serving.server.BatchServer``, on kernels
-K1 (``ops.seg_scan``), K2 (``ops.conv2d``) and K4 (``ops.nms``).
+PyTorch, and each Pallas kernel of the JAX package on the ported paths is a
+CUDA C++ kernel under ``csrc/`` built for ``sm_90a`` at first use.
+CenterPoint-Pillar is served (``models.detectors.build_network``,
+``train.eval.make_eval_step``, ``serving.server.BatchServer``) and trained
+with COMLoss and the epoch-end COMAug feedback (``train.optim``,
+``train.state``, ``train.step.make_train_step``, ``train.loop.train_model``),
+on kernels K1 (``ops.seg_scan``, forward and backward), K2 and K2w
+(``ops.conv2d``, forward, dgrad and wgrad), K3 (``ops.stamp``) and K4
+(``ops.nms``).
 """

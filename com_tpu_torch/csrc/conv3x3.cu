@@ -1,8 +1,10 @@
-// K2: 3x3 stride-1 SAME convolution, NHWC x HWIO -> NHWC (forward only).
+// K2: 3x3 stride-1 SAME convolution, NHWC x HWIO -> NHWC.
 //
 // Replaces com_tpu/ops/pallas/conv2d.py `_conv3x3_fwd_pallas`
 // (`_conv_kernel`): nine taps accumulated in f32, input and output in the
-// input's dtype (float32 or bfloat16).
+// input's dtype (float32 or bfloat16).  The backward pass launches it too,
+// for the input gradient: the output gradient convolved with the kernel
+// rotated 180 degrees and its channel axes swapped (conv2d.py:544-553).
 //
 // What bounds it on an H100: operations.  At the serving shapes (2, 468,
 // 468, 64->64), (2, 234, 234, 128->128) and (2, 117, 117, 256->256) each

@@ -1,9 +1,11 @@
-// K1: per-row run totals over pillar-sorted rows (forward only).
+// K1: per-row run totals over pillar-sorted rows.
 //
 // Replaces com_tpu/ops/pallas/seg_scan.py `_run_bcast_pallas`
 // (`_fwd_kernel` and `_rev_kernel`): for vals (B, N, C) and per-sample
 // sorted segment ids seg (B, N), out[b, i] = sum or max of vals[b, j] over
-// all j with seg[b, j] == seg[b, i].
+// all j with seg[b, j] == seg[b, i].  The backward pass of either op is
+// built from its sums (seg_scan.py:284-299): the run sum of the gradient
+// and, for max, the run count of tied maxima.
 //
 // What bounds it on an H100: bytes.  The work is one read of vals and seg
 // and one write of out, a few operations per element; at the serving shapes

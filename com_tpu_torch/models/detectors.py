@@ -4,8 +4,10 @@ A detector is the slot chain vfe -> map_to_bev (skipped when the VFE wrote
 ``spatial_features``) -> backbone_2d -> dense_head over a batch dict.  The
 slots are attributes named as in pcdet, so ``state_dict()`` keys read
 ``vfe.pfn_layers.0.linear.weight``, ``backbone_2d.blocks.0.1.weight``,
-``dense_head.shared_conv.0.weight``...  This slice ports the CenterPoint
-inference path; the other slots and detectors come later.
+``dense_head.shared_conv.0.weight``...  CenterPoint is ported, for
+inference and training (``net.train()`` puts the norms in batch-statistics
+mode; the head returns raw predictions in both modes); the other slots and
+detectors come later.
 """
 from __future__ import annotations
 

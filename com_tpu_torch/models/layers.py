@@ -6,8 +6,11 @@ the JAX package; weights keep PyTorch's layouts and pcdet's names (Conv2d
 pcdet state_dict loads as it is.  Library convs see the NHWC tensor as a
 channels_last NCHW view, which costs no copy.
 
-Only inference is ported: the norms use running statistics and raise in
-training mode.
+In training mode the norms normalise with batch statistics as flax's
+``nn.BatchNorm`` and the JAX package's ``MaskedBatchNorm`` do (f32, biased
+variance E[x^2] - E[x]^2 clipped at 0) and update their running statistics
+with flax's momentum 0.99; torch's own batch norm would keep the unbiased
+variance, and its running statistics would drift from the JAX package's.
 """
 from __future__ import annotations
 
@@ -19,8 +22,10 @@ from ..ops.conv2d import conv3x3
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch norm over the last axis, in f32, cast back to the
-    input dtype (f32 statistics under mixed precision)."""
+    """Batch norm over the last axis, in f32, cast back to the input dtype
+    (f32 statistics under mixed precision)."""
+
+    MOMENTUM = 0.99  # flax's: the share of the old running statistics kept
 
     def __init__(self, features: int, eps: float = 1e-3):
         super().__init__()
@@ -31,19 +36,42 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _batch_stats(self, x: torch.Tensor, mask: torch.Tensor | None):
+        """Mean and biased variance over every axis but the last, in f32;
+        with a mask only the rows where it is true count."""
+        c = x.shape[-1]
+        xf = x.float().reshape(-1, c)
+        if mask is None:
+            cnt = float(xf.shape[0])
+            s, sq = xf.sum(0), (xf * xf).sum(0)
+        else:
+            m = mask.reshape(-1, 1).to(torch.float32)
+            cnt = torch.clamp(m.sum(), min=1.0)
+            s, sq = (xf * m).sum(0), (xf * xf * m).sum(0)
+        mean = s / cnt
+        return mean, torch.clamp(sq / cnt - mean * mean, min=0.0)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError("batch-statistics mode comes with the training slice")
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x.float() - self.running_mean) * mul + self.bias).to(x.dtype)
+            mean, var = self._batch_stats(x, mask)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x.float() - mean) * mul + self.bias).to(x.dtype)
 
 
 class MaskedBatchNorm(BatchNorm):
-    """The PFN's norm: in training its statistics exclude padded rows; in
-    eval (the only mode ported) it is BatchNorm and ignores the mask."""
+    """The PFN's norm: in training its statistics exclude the rows where
+    ``mask`` is false (padded and out-of-range points); in eval it is
+    BatchNorm and ignores the mask."""
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
-        return super().forward(x)
+        return super().forward(x, mask)
 
 
 class Conv2d(nn.Module):

@@ -20,11 +20,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("seg_scan", "conv3x3", "nms")
+KERNELS = ("seg_scan", "conv3x3", "conv3x3_wgrad", "stamp", "nms")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures: name -> (restype, argtypes).  Pointers and the stream are
 # c_void_p: ctypes would pass a bare Python int as a 32-bit int.
 SIGNATURES = {
@@ -34,6 +34,13 @@ SIGNATURES = {
     },
     "conv3x3": {
         "k2_conv3x3": (I, (P, P, P, I, I, I, I, I, I, P)),
+    },
+    "conv3x3_wgrad": {
+        "k2w_resident_blocks": (I, ()),
+        "k2w_conv3x3_wgrad": (I, (P, P, P, P, I, I, I, I, I, I, I, P)),
+    },
+    "stamp": {
+        "k3_stamp": (I, (P, P, P, P, P, P, P, I, I, I, I, I, I, F, P)),
     },
     "nms": {
         "k4_smem_bytes": (LL, (I,)),

@@ -1,14 +1,20 @@
-"""3x3 stride-1 SAME convolution over NHWC feature maps (kernel K2).
+"""3x3 stride-1 SAME convolution over NHWC feature maps, with gradient
+(kernels K2 and K2w).
 
 Counterpart of ``com_tpu/ops/pallas/conv2d.py``: every stride-1, bias-free
 3x3 conv of the BEV backbone.  Layouts are the JAX package's: x is
 (B, H, W, Cin), w is HWIO (3, 3, Cin, Cout); accumulation is f32 and the
 output has x's dtype.
 
-``conv3x3`` launches the CUDA kernel (``csrc/conv3x3.cu``) for a CUDA
-tensor and runs ``conv3x3_plain`` for a CPU tensor.  The TPU kernel's split
-of wide inputs into <=128-channel slices existed only for the TPU's VMEM
-and is not carried over.  Forward only.
+``conv3x3`` is a ``torch.autograd.Function`` after ``_conv3x3_bwd``
+(``conv2d.py:537-555``): the input gradient (dgrad) is K2 again on the
+output gradient with the kernel rotated 180 degrees and its channel axes
+swapped; the weight gradient is K2w (``conv3x3_wgrad``), f32 (3, 3, Cin,
+Cout) cast to w's dtype.  Each launches its CUDA kernel (``csrc/conv3x3.cu``,
+``csrc/conv3x3_wgrad.cu``) for a CUDA tensor and runs its plain version
+(``conv3x3_plain``, ``conv3x3_wgrad_plain``) for a CPU tensor.  The TPU
+kernel's split of wide inputs into <=128-channel slices existed only for the
+TPU's VMEM and is not carried over.
 """
 from __future__ import annotations
 
@@ -17,9 +23,13 @@ import torch.nn.functional as F
 
 from . import _kernels
 
-launches = 0  # K2 launches by conv3x3 since the last reset
+launches = 0        # K2 launches by conv3x3's forward since the last reset
+dgrad_launches = 0  # K2 launches by conv3x3's backward (dgrad) since the last reset
+wgrad_launches = 0  # K2w launches since the last reset
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_WGRAD_WAVES = 2  # K2w's grid: this many full waves of the blocks a card holds at once
+_resident_blocks: dict[int, int] = {}  # device index -> K2w blocks it holds at once
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -36,18 +46,35 @@ def conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc.to(x.dtype)
 
 
-def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """3x3 stride-1 SAME conv, NHWC (B, H, W, Cin) x HWIO (3, 3, Cin, Cout)."""
+def conv3x3_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the weight gradient: nine shifted
+    (B*H*W, Cin)^T @ (B*H*W, Cout) products in f32 (``conv2d.py:350-361``)."""
+    b, h, wd, cin = x.shape
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    gf = g.float().reshape(b * h * wd, -1)
+    taps = [xp[:, dy:dy + h, dx:dx + wd, :].reshape(b * h * wd, cin).t() @ gf
+            for dy in range(3) for dx in range(3)]
+    return torch.stack(taps).reshape(3, 3, cin, gf.shape[-1])
+
+
+def _check(x, w, what):
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise TypeError(f"{what}: {x.dtype} and {w.dtype} (want one of f32/bf16)")
+    if w.device != x.device or not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError(f"{what}: inputs must be contiguous on one device")
+
+
+def _k2(x: torch.Tensor, w: torch.Tensor, counter: str) -> torch.Tensor:
+    """One K2 call: the kernel for a CUDA tensor, the plain version for a
+    CPU tensor.  A launch adds one to the module counter named ``counter``
+    (``launches`` or ``dgrad_launches``)."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3x3: unsupported device {x.device}")
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, x.shape[-1]):
         raise ValueError(f"conv3x3: x {tuple(x.shape)} and w {tuple(w.shape)}")
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
-        raise TypeError(f"conv3x3: x {x.dtype} and w {w.dtype} (want one of f32/bf16)")
-    if w.device != x.device or not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("conv3x3: x and w must be contiguous on one device")
+    _check(x, w, "conv3x3")
     b, h, wd, cin = x.shape
     cout = w.shape[-1]
     y = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
@@ -58,6 +85,68 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         err = lib.k2_conv3x3(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, cin, cout,
                              _DTYPES[x.dtype], _kernels.stream_of(x))
     _kernels.check(err, "conv3x3 (K2)")
-    global launches
-    launches += 1
+    globals()[counter] += 1
     return y
+
+
+def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Weight gradient of ``conv3x3`` (kernel K2w): (3, 3, Cin, Cout) f32
+    from x (B, H, W, Cin) and the output gradient g (B, H, W, Cout)."""
+    if x.device.type == "cpu":
+        return conv3x3_wgrad_plain(x, g)
+    if x.dim() != 4 or g.dim() != 4 or x.shape[:3] != g.shape[:3]:
+        raise ValueError(f"conv3x3_wgrad: x {tuple(x.shape)} and g {tuple(g.shape)}")
+    _check(x, g, "conv3x3_wgrad")
+    b, h, wd, cin = x.shape
+    cout = g.shape[-1]
+    dw = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
+    if dw.numel() == 0:
+        return dw
+    if x.numel() == 0 or g.numel() == 0:
+        return dw.zero_()
+    lib = _kernels.library("conv3x3_wgrad")
+    with torch.cuda.device(x.device):
+        if x.device.index not in _resident_blocks:
+            cap = lib.k2w_resident_blocks()
+            if cap <= 0:
+                raise RuntimeError("conv3x3_wgrad (K2w): occupancy query failed")
+            _resident_blocks[x.device.index] = cap
+        groups = 9 * -(-cin // 64) * -(-cout // 64)
+        chunks = max(1, min(_WGRAD_WAVES * _resident_blocks[x.device.index] // groups,
+                            -(-(b * h * wd) // 256)))
+        part = torch.empty((chunks, 3, 3, cin, cout), dtype=torch.float32, device=x.device)
+        err = lib.k2w_conv3x3_wgrad(x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(),
+                                    b, h, wd, cin, cout, chunks, _DTYPES[x.dtype],
+                                    _kernels.stream_of(x))
+    _kernels.check(err, "conv3x3_wgrad (K2w)")
+    global wgrad_launches
+    wgrad_launches += 1
+    return dw
+
+
+class _Conv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        y = _k2(x, w, "launches")
+        ctx.save_for_backward(x, w)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # dgrad: the output gradient correlated with the spatially
+            # rotated, in/out-swapped kernel, again a 3x3 SAME conv
+            w_rot = w.flip(0).flip(1).transpose(2, 3).to(g.dtype).contiguous()
+            dx = _k2(g, w_rot, "dgrad_launches").to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = conv3x3_wgrad(x, g).to(w.dtype)
+        return dx, dw
+
+
+def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """3x3 stride-1 SAME conv, NHWC (B, H, W, Cin) x HWIO (3, 3, Cin, Cout),
+    differentiable in x and w."""
+    return _Conv3x3.apply(x, w)

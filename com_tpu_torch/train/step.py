@@ -1,0 +1,165 @@
+"""The train step for CenterPoint detectors (counterpart of
+``com_tpu/train/step.py``, CenterPoint branch).
+
+One call runs forward, target assignment, the CenterNet or COM losses,
+backward, the optimizer update and the on-device accumulation of the
+per-(class, group) confidence statistics, with no sync with the host.  The
+anchor-head, RoI-head and point-head branches are not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..losses.centernet import focal_loss_centernet, reg_loss_centernet, sigmoid_clamped
+from ..losses.curriculum import CurriculumAux, focal_loss_center_curriculum, group_confidences
+from ..models.dense_heads.target_assign import assign_centerpoint_targets, cluster_com_groups
+from .state import check_same_device
+
+_VEHICLE_NAMES = ("vehicle", "car", "truck", "bus", "van", "trailer", "construction_vehicle")
+BATCH_KEYS = ("points", "points_mask", "gt_boxes", "num_points_in_gt", "true_object",
+              "occupancy_ratio", "facade_type")
+
+
+def _head_groups(model_cfg, class_names):
+    return [tuple(class_names.index(n) + 1 for n in names if n in class_names)
+            for names in model_cfg["DENSE_HEAD"]["CLASS_NAMES_EACH_HEAD"]]
+
+
+def vehicle_class_ids(class_names):
+    """Global 1-based ids of the classes that use the 96-group vehicle
+    scheme (case-insensitive: Waymo's Vehicle, KITTI's Car, nuScenes' car)."""
+    return tuple(i + 1 for i, n in enumerate(class_names) if str(n).lower() in _VEHICLE_NAMES)
+
+
+def conf_shape_for(model_cfg, class_names):
+    """(num_class, num_groups) of the curriculum confidence tensor: 96 groups
+    with a vehicle-like class or several classes, else 15."""
+    n = len(class_names)
+    return (n, 96 if (vehicle_class_ids(class_names) or n > 1) else 15)
+
+
+def com_groups_for(batch, gt_boxes, is_cur, class_names):
+    """Per-object COM group ids, or zeros when the curriculum is off or the
+    batch has no COM side arrays."""
+    if is_cur and "true_object" in batch:
+        zeros = torch.zeros(gt_boxes.shape[:2], dtype=gt_boxes.dtype, device=gt_boxes.device)
+        return cluster_com_groups(gt_boxes, batch["true_object"],
+                                  batch.get("occupancy_ratio", zeros),
+                                  batch.get("facade_type", zeros),
+                                  vehicle_ids=vehicle_class_ids(class_names) or (-1,))
+    return torch.zeros(gt_boxes.shape[:2], dtype=torch.int32, device=gt_boxes.device)
+
+
+def compute_centerpoint_loss(batch, model_cfg, class_names, meta, curriculum_states, epoch,
+                             fmap_hw):
+    """Loss over all head groups.  Returns (loss, new_states, aux_list, tb).
+    The heatmap's own size is authoritative over ``fmap_hw``."""
+    head_cfg = model_cfg["DENSE_HEAD"]
+    ta_cfg = head_cfg["TARGET_ASSIGNER_CONFIG"]
+    lw = head_cfg["LOSS_CONFIG"]["LOSS_WEIGHTS"]
+    stride = int(ta_cfg.get("FEATURE_MAP_STRIDE", 1))
+    curriculum_cfg = head_cfg.get("LOSS_CURRICULUM", None)
+    is_cur = curriculum_cfg is not None
+    num_class, num_groups = conf_shape_for(model_cfg, class_names)
+    hm0 = batch["pred_dicts"][0]["hm"]
+    fmap_h, fmap_w = int(hm0.shape[1]), int(hm0.shape[2])
+
+    gt_boxes = batch["gt_boxes"]
+    npgt = batch.get("num_points_in_gt", torch.zeros(gt_boxes.shape[:2], device=gt_boxes.device))
+    group = com_groups_for(batch, gt_boxes, is_cur, class_names)
+    head_order = tuple(head_cfg["SEPARATE_HEAD_CFG"]["HEAD_ORDER"])
+    code_w = torch.as_tensor(list(lw["code_weights"]), dtype=torch.float32, device=hm0.device)
+
+    total = 0.0
+    new_states, aux_list, tb = [], [], {}
+    for idx, (pred_dict, class_ids) in enumerate(zip(batch["pred_dicts"],
+                                                     _head_groups(model_cfg, class_names))):
+        targets = assign_centerpoint_targets(
+            gt_boxes, npgt, group, class_ids, fmap_h, fmap_w, meta.point_cloud_range,
+            meta.voxel_size, stride, gaussian_overlap=float(ta_cfg.get("GAUSSIAN_OVERLAP", 0.1)),
+            min_radius=int(ta_cfg.get("MIN_RADIUS", 2)), min_points=int(ta_cfg.get("MIN_POINTS", 0)),
+            epoch_gate=int(epoch) <= int(ta_cfg.get("EPOCH_THRED", 100)))
+        hm = sigmoid_clamped(pred_dict["hm"])
+        if is_cur:
+            hm_loss, new_state, aux = focal_loss_center_curriculum(
+                hm, targets, curriculum_states[idx], curriculum_cfg, epoch, num_class, num_groups)
+        else:
+            hm_loss = focal_loss_centernet(hm, targets.heatmaps)
+            new_state = curriculum_states[idx] if curriculum_states else None
+            conf_sum, conf_cnt = group_confidences(hm, targets, num_class, num_groups)
+            aux = CurriculumAux(conf_sum, conf_cnt, torch.zeros((), device=hm.device),
+                                targets.mask)
+        hm_loss = hm_loss * float(lw.get("cls_weight", 1.0))
+        pred_boxes = torch.cat([pred_dict[n] for n in head_order], dim=-1)
+        reg = reg_loss_centernet(pred_boxes, targets.inds, targets.target_boxes, aux.box_mask)
+        loc_loss = (reg * code_w).sum() * float(lw.get("loc_weight", 2.0))
+        total = total + hm_loss + loc_loss
+        new_states.append(new_state)
+        aux_list.append(aux)
+        tb[f"hm_loss_head_{idx}"] = hm_loss
+        tb[f"loc_loss_head_{idx}"] = loc_loss
+        tb[f"confidence_head_{idx}"] = aux.avg_confidence
+    return total, tuple(new_states), aux_list, tb
+
+
+def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, device=None,
+                    stage_hook=None):
+    """A ``train_step(state, batch, epoch) -> (state, metrics)`` over ``net``.
+
+    ``batch`` holds the ``BATCH_KEYS`` arrays (numpy or tensors); they move
+    to the model's device.  The step updates ``state`` in place (model,
+    optimizer, curriculum EMA, confidence accumulators) and returns it with
+    device-side metrics.  ``device`` follows the entry-point rule: CUDA
+    unless the caller passes another, and it must hold the model.
+    ``train_step.loss_fn(state, batch, epoch)`` runs forward and loss only
+    (it updates the norms' running statistics), for comparing gradients.
+    ``stage_hook(name)``, when given, is called as each stage starts
+    ("forward", "loss", "backward", "optimizer") and once at the end ("end").
+    """
+    head_cfg = model_cfg.get("DENSE_HEAD")
+    if head_cfg is None:
+        raise NotImplementedError("point-proposal detectors are not ported yet")
+    if "ANCHOR_GENERATOR_CONFIG" in head_cfg:
+        raise NotImplementedError("the anchor-head loss is not ported yet")
+    for slot in ("ROI_HEAD", "POINT_HEAD"):
+        if model_cfg.get(slot) is not None:
+            raise NotImplementedError(f"the {slot} loss is not ported yet")
+    dev = check_same_device(net, device)
+    class_names = list(class_names)
+    hook = stage_hook or (lambda name: None)
+
+    def forward(batch):
+        inputs = {k: torch.as_tensor(batch[k], device=dev) for k in BATCH_KEYS if k in batch}
+        net.train()
+        return net(inputs)
+
+    def loss_fn(state, batch, epoch):
+        out = forward(batch)
+        return compute_centerpoint_loss(out, model_cfg, class_names, meta, state.curriculum,
+                                        epoch, fmap_hw)
+
+    def train_step(state, batch, epoch):
+        hook("forward")
+        out = forward(batch)
+        hook("loss")
+        loss, new_cur, aux_list, tb = compute_centerpoint_loss(
+            out, model_cfg, class_names, meta, state.curriculum, epoch, fmap_hw)
+        hook("backward")
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        hook("optimizer")
+        optimizer.step()
+        conf_sum = sum(a.confidence_sum for a in aux_list)
+        conf_cnt = sum(a.confidence_cnt for a in aux_list)
+        if state.conf_sum is not None:  # epoch statistics stay on the device
+            state.conf_sum.add_(conf_sum)
+            state.conf_cnt.add_(conf_cnt)
+        state.curriculum = new_cur
+        state.step += 1
+        hook("end")
+        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in tb.items()},
+                   "confidence_sum": conf_sum, "confidence_cnt": conf_cnt}
+        return state, metrics
+
+    train_step.loss_fn = loss_fn
+    return train_step

@@ -13,7 +13,10 @@ leaf it came from and the layout change back to PyTorch.
 
 The 1x1 stride-1 deblock is a plain flax Conv but a pcdet ConvTranspose2d,
 so it takes the transposed-conv layout too.  Covers the CenterPoint-Pillar
-slots: DynamicPillarVFE, BaseBEVBackbone, CenterHead.
+slots: DynamicPillarVFE, BaseBEVBackbone, CenterHead.  For comparing a train
+step, ``params_from_jax`` maps any tree shaped like flax "params" (its
+gradients, its updated parameters) into the same pcdet names, and
+``curriculum_state_from_jax`` carries the COMLoss EMA state across.
 """
 from __future__ import annotations
 
@@ -119,16 +122,38 @@ def bridge_rules(model_cfg, class_names, params) -> list:
     return rules
 
 
+def _leaf(tree, path, transform):
+    for part in path:
+        tree = tree[part]
+    return np.array(_TRANSFORMS[transform](np.asarray(tree, np.float32)), order="C")
+
+
 def state_dict_from_jax(variables, model_cfg, class_names) -> dict:
     """{pcdet key: numpy array} from flax ``{"params", "batch_stats"}``."""
-    out = {}
-    for key, coll, path, transform in bridge_rules(model_cfg, class_names,
-                                                   variables["params"]):
-        node = variables[coll]
-        for part in path:
-            node = node[part]
-        out[key] = np.array(_TRANSFORMS[transform](np.asarray(node, np.float32)), order="C")
-    return out
+    return {key: _leaf(variables[coll], path, transform)
+            for key, coll, path, transform in bridge_rules(model_cfg, class_names,
+                                                           variables["params"])}
+
+
+def params_from_jax(params, model_cfg, class_names) -> dict:
+    """{pcdet key: numpy array} of the parameters alone, from a tree shaped
+    like flax "params": the parameters, their gradients or their update.
+    The layout changes are linear, so a gradient maps as its parameter."""
+    return {key: _leaf(params, path, transform)
+            for key, coll, path, transform in bridge_rules(model_cfg, class_names, params)
+            if coll == "params"}
+
+
+def curriculum_state_from_jax(states, device=None) -> tuple:
+    """The JAX package's per-head ``CurriculumState`` tuple as the port's."""
+    from ..losses.curriculum import CurriculumState
+
+    def t(v, dtype):
+        return torch.as_tensor(np.array(v), dtype=dtype, device=device)
+
+    return tuple(CurriculumState(t(s.avg_confidence, torch.float32), t(s.mean, torch.float32),
+                                 t(s.std, torch.float32), t(s.initialized, torch.bool))
+                 for s in states)
 
 
 def load_jax_variables(net: torch.nn.Module, variables, model_cfg, class_names):

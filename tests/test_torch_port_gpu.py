@@ -6,14 +6,19 @@ fixture).  On the card:
     python -m pytest tests/test_torch_port_gpu.py -m gpu -q
 
 Shapes are small but ragged (tiles cut, runs crossing tile edges, whole-
-sample runs).  Max, keep masks and launch counts are exact; f32 sums and
-convs are held to f32 rounding, bf16 convs to one bf16 rounding.
+sample runs, objects past the map's edge).  Max, keep masks, last-wins
+stamps and launch counts are exact; gaussian stamps within 2e-6 (analytic
+exp against the f64-built table); f32 sums and convs are held to f32
+rounding, bf16 ones to one or two bf16 roundings.  The backward passes (K1
+max and sum, K2 dgrad, K2w) are held against the plain versions' autograd.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
 
-from com_tpu_torch.ops import conv2d, nms, seg_scan
+from com_tpu_torch.ops import conv2d, nms, seg_scan, stamp
 
 pytestmark = pytest.mark.gpu
 
@@ -79,6 +84,104 @@ def test_greedy_suppress_kernel(dev, k):
     assert torch.equal(got, nms.greedy_suppress_plain(over, valid))
 
 
+@pytest.mark.parametrize("mode", ["gauss", "last_wins"])
+@pytest.mark.parametrize("b,n,c,h,w", [(2, 40, 3, 70, 52), (1, 500, 3, 117, 90), (2, 1, 1, 5, 7)])
+def test_stamp_kernel(dev, mode, b, n, c, h, w):
+    rng = np.random.RandomState(b * 100 + n + h)
+    centers = np.stack([rng.randint(-3, w + 3, (b, n)), rng.randint(-3, h + 3, (b, n))], -1)
+    radii = rng.randint(-1, 20, (b, n))
+    cls = rng.randint(0, c + 1, (b, n))
+    values = rng.uniform(0.5, 1.5, (b, n)).astype(np.float32)
+    valid = rng.rand(b, n) > 0.3
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+            (centers.astype(np.int32), radii.astype(np.int32), cls.astype(np.int32), values, valid)]
+    fill = 0.0 if mode == "gauss" else 1.0
+    before = (stamp.gauss_launches, stamp.last_wins_launches)
+    got = stamp.stamp_windows(*args, c, h, w, mode, fill=fill)
+    torch.cuda.synchronize()
+    after = (stamp.gauss_launches, stamp.last_wins_launches)
+    assert after[mode == "last_wins"] == before[mode == "last_wins"] + 1
+    want = stamp.stamp_windows_plain(*args, c, h, w, mode, fill=fill)
+    if mode == "gauss":
+        assert float((got - want).abs().max()) <= 2e-6
+        cx, cy, rr, cl = stamp._preprocess(args[0], args[1], args[2], args[4], c, h, w, 16)
+        bi, oi = torch.nonzero(rr >= 0, as_tuple=True)
+        assert bool((got[bi, cl[bi, oi].long(), cy[bi, oi].long(), cx[bi, oi].long()] == 1.0).all())
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,cin,cout,offset", [
+    (2, 23, 37, 8, 16, 0), (1, 17, 117, 64, 72, 0), (1, 9, 9, 13, 3, 0), (2, 30, 30, 130, 70, 0),
+    (2, 19, 41, 64, 64, 1)])  # x off a 16-byte boundary takes the element-wise loads
+def test_conv3x3_wgrad_kernel(dev, dtype, b, h, w, cin, cout, offset):
+    g = torch.Generator(device=dev).manual_seed(h * w + cin + cout)
+    shape = (b, h, w, cin)
+    x = torch.randn(math.prod(shape) + offset, device=dev, generator=g).to(dtype)[offset:]
+    x = x.view(shape)
+    gy = torch.randn((b, h, w, cout), device=dev, generator=g).to(dtype)
+    before = conv2d.wgrad_launches
+    got = conv2d.conv3x3_wgrad(x, gy)
+    torch.cuda.synchronize()
+    assert conv2d.wgrad_launches == before + 1 and got.dtype == torch.float32
+    want = conv2d.conv3x3_wgrad_plain(x, gy)
+    absref = conv2d.conv3x3_wgrad_plain(x.float().abs(), gy.float().abs())
+    assert bool(((got - want).abs() <= 1e-5 * absref + 1e-6).all())
+    assert torch.equal(got, conv2d.conv3x3_wgrad(x, gy))  # no atomics: the same every run
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_backward_kernels(dev, dtype):
+    """dgrad (K2 on the rotated kernel) and wgrad (K2w) through the
+    autograd.Function, against conv3x3_plain's autograd."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    x0 = torch.randn((2, 21, 34, 16), device=dev, generator=g).to(dtype)
+    w0 = (torch.randn((3, 3, 16, 24), device=dev, generator=g) / 12).to(dtype)
+    gy = torch.randn((2, 21, 34, 24), device=dev, generator=g).to(dtype)
+    grads = []
+    for fn in (conv2d.conv3x3, conv2d.conv3x3_plain):
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        before = (conv2d.dgrad_launches, conv2d.wgrad_launches)
+        fn(x, w).backward(gy)
+        torch.cuda.synchronize()
+        if fn is conv2d.conv3x3:
+            assert (conv2d.dgrad_launches, conv2d.wgrad_launches) == (before[0] + 1, before[1] + 1)
+        grads.append((x.grad, w.grad))
+    (dx, dw), (pdx, pdw) = grads
+    assert dx.dtype == dtype and dw.dtype == dtype
+    rnd = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    w_rot = w0.float().flip(0).flip(1).transpose(2, 3)
+    absdx = conv2d.conv3x3_plain(gy.float().abs(), w_rot.abs())
+    absdw = conv2d.conv3x3_wgrad_plain(x0.float().abs(), gy.float().abs())
+    assert bool(((dx.float() - pdx.float()).abs() <= 1e-5 * absdx + rnd * pdx.float().abs()).all())
+    assert bool(((dw.float() - pdw.float()).abs() <= 1e-5 * absdw + rnd * pdw.float().abs()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["sum", "max"])
+def test_run_bcast_backward_kernel(dev, dtype, op):
+    rng = np.random.RandomState(7)
+    b, n, c = 2, 3 * 1024 + 5, 32
+    seg = torch.from_numpy(np.sort(rng.randint(0, 300, (b, n)), axis=1).astype(np.int32)).to(dev)
+    vals = torch.from_numpy((np.round(rng.randn(b, n, c) * 2) / 2).astype(np.float32))
+    vals = vals.to(dev).to(dtype)
+    gy = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(dev).to(dtype)
+    grads = []
+    for fn in (seg_scan.run_bcast, seg_scan.run_bcast_plain):
+        v = vals.clone().requires_grad_()
+        before = seg_scan.bwd_launches
+        fn(v, seg, op).backward(gy)
+        torch.cuda.synchronize()
+        if fn is seg_scan.run_bcast:
+            assert seg_scan.bwd_launches == before + (1 if op == "sum" else 2)
+        grads.append(v.grad.float())
+    got, want = grads
+    scale = seg_scan.run_bcast_plain(gy.float().abs(), seg, "sum")
+    rnd = 0.0 if dtype == torch.float32 else 2.0 ** -7  # gsum, then the split, rounded
+    assert bool(((got - want).abs() <= 1e-5 * scale + rnd * want.abs() + 1e-6).all())
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros((1, 4, 4, 2), device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -91,6 +194,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         nms.greedy_suppress(torch.zeros((1, 3, 3), device=dev), torch.ones((1, 3), device=dev,
                                                                           dtype=torch.bool))
+    with pytest.raises(TypeError):
+        conv2d.conv3x3_wgrad(x, torch.zeros((1, 4, 4, 2), device=dev, dtype=torch.float16))
+    with pytest.raises(TypeError):
+        stamp.stamp_windows(torch.zeros((1, 2, 2), device=dev), torch.zeros((1, 2), device=dev),
+                            torch.zeros((1, 2), device=dev), torch.zeros((1, 2), device=dev),
+                            torch.ones((1, 2), device=dev, dtype=torch.bool), 1, 4, 4, "gauss")
 
 
 def test_serving_step_matches_cpu(dev):
@@ -119,3 +228,70 @@ def test_serving_step_matches_cpu(dev):
         a = np.concatenate([gb[i][gv[i]], gs[i][gv[i]][:, None]], -1)
         c = np.concatenate([cb[i][cv[i]], cs[i][cv[i]][:, None]], -1)
         assert np.abs(a[:, None] - c[None]).max(-1).min(1).max() <= 1e-3
+
+
+def test_train_step_matches_cpu(dev):
+    """One train step at a 32x32 grid in f32 from the same weights: card
+    (kernels) against CPU (plain versions): loss, every gradient, the
+    batch-norm statistics and the confidence accumulators.  The running
+    statistics start at 0, so after one forward they are (1 - 0.99) times
+    the batch statistics, which are compared per channel against the
+    second moment E[x^2] that both are summed from."""
+    from com_tpu_torch.models.detectors import DatasetMeta, build_network
+    from com_tpu_torch.models.layers import BatchNorm
+    from com_tpu_torch.train.optim import build_optimizer
+    from com_tpu_torch.train.state import TrainState
+    from com_tpu_torch.train.step import conf_shape_for, make_train_step
+    from com_tpu_torch.utils.config import cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file("configs/waymo_models/com/centerpoint_pillar_3cls_com.yaml")
+    cfg.MODEL.MIXED_PRECISION = False
+    cfg.MODEL.DENSE_HEAD.LOSS_CURRICULUM.UCL = True
+    names = list(cfg.CLASS_NAMES)
+    meta = DatasetMeta(names, (-5.12, -5.12, -2.0, 5.12, 5.12, 4.0), (0.32, 0.32, 6.0),
+                       (32, 32, 1), 5)
+    rng = np.random.RandomState(0)
+    pts = rng.uniform(-5, 5, (2, 2048, 5)).astype(np.float32)
+    pts[..., 2] = rng.uniform(-1.5, 3.5, (2, 2048))
+    gt = np.zeros((2, 16, 8), np.float32)
+    gt[:, :6, 0:2] = rng.uniform(-4, 4, (2, 6, 2))
+    gt[:, :6, 3:6] = rng.uniform(1.0, 3.0, (2, 6, 3))
+    gt[:, :6, 7] = rng.randint(1, 4, (2, 6))
+    batch = {"points": pts, "points_mask": np.ones((2, 2048), bool), "gt_boxes": gt,
+             "true_object": (gt[..., 7] > 0).astype(np.float32),
+             "occupancy_ratio": rng.rand(2, 16).astype(np.float32),
+             "facade_type": rng.randint(0, 4, (2, 16)).astype(np.float32)}
+    runs = []
+    for d in (dev, "cpu"):
+        net = build_network(cfg.MODEL, meta, device=d, seed=3)
+        opt, _ = build_optimizer(net, cfg.OPTIMIZATION, 100, 10)
+        state = TrainState.create(net, opt, 1, conf_shape_for(cfg.MODEL, names), device=d)
+        step = make_train_step(net, cfg.MODEL, names, meta, opt, (32, 32), device=d)
+        running = {k: v for k, v in net.state_dict().items() if "running" in k}
+        for v in running.values():
+            v.zero_()
+        loss, _, _, _ = step.loss_fn(state, batch, 0)
+        loss.backward()
+        grads = {k: p.grad.cpu() for k, p in net.named_parameters()}
+        stats = {k: v.cpu() / (1 - BatchNorm.MOMENTUM) for k, v in running.items()}
+        net.zero_grad()
+        state, m = step(state, batch, 0)
+        runs.append((float(loss.detach()), grads, stats, state.conf_sum.cpu(),
+                     state.conf_cnt.cpu()))
+    (l0, g0, s0, cs0, cc0), (l1, g1, s1, cs1, cc1) = runs
+    assert abs(l0 - l1) <= 1e-4 * abs(l1)
+    # a conv bias before a training-mode norm has a true gradient of 0: what
+    # it reads is rounding noise of the whole net, hence the global term
+    gmax = max(float(g.abs().max()) for g in g1.values())
+    for k in g1:
+        tol = 1e-3 * float(g1[k].abs().max()) + 1e-5 * gmax
+        assert float((g0[k] - g1[k]).abs().max()) <= tol, k
+    for k in s1:
+        if k.endswith("running_mean"):
+            norm = k.rsplit(".", 1)[0]
+            mean, var = s1[k], s1[f"{norm}.running_var"]
+            second = (var + mean * mean).clamp_min(1e-12)
+            assert float(((s0[k] - mean).abs() / second.sqrt()).max()) <= 1e-5, k
+            assert float(((s0[f"{norm}.running_var"] - var).abs() / second).max()) <= 1e-5, k
+    assert torch.equal(cc0, cc1)
+    assert float((cs0 - cs1).abs().max()) <= 1e-4

@@ -139,8 +139,12 @@ def test_masked_batch_norm_eval_matches_jax():
         bn.running_var.copy_(_t(v["batch_stats"]["var"]))
         got = bn(_t(x), _t(mask))
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
-    with pytest.raises(NotImplementedError):
-        bn.train()(_t(x))
+    # training mode normalises with the masked rows' own statistics (held
+    # against flax in tests/test_torch_port_train_ops.py): their mean comes
+    # out as the bias
+    with torch.no_grad():
+        out = bn.train()(_t(x), _t(mask))
+    np.testing.assert_allclose(out.numpy()[mask].mean(0), bn.bias.detach().numpy(), atol=1e-5)
 
 
 @pytest.mark.parametrize("stride,size", [(2, 10), (2, 9), (1, 7)])

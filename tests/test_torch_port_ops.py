@@ -181,7 +181,8 @@ _C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
 @pytest.mark.parametrize("name", _kernels.KERNELS)
 def test_ctypes_signatures_match_the_sources(name):
     """Every C entry point of csrc/<name>.cu is declared for ctypes with its
-    return type and one argtype per parameter, pointers as c_void_p."""
+    return type and one argtype per parameter, pointers as c_void_p and
+    floats as c_float."""
     src = (_kernels.CSRC / f"{name}.cu").read_text()
     decls = {m.group(2): (m.group(1), m.group(3)) for m in re.finditer(
         r'extern "C" (int|long long) (\w+)\(([^)]*)\)', src)}
@@ -192,7 +193,9 @@ def test_ctypes_signatures_match_the_sources(name):
         assert restype is _C_TYPES[ret], fn
         assert len(argtypes) == len(params), fn
         for p, t in zip(params, argtypes):
-            assert t is (ctypes.c_void_p if "*" in p else ctypes.c_int), (fn, p)
+            want = (ctypes.c_void_p if "*" in p
+                    else ctypes.c_float if p.startswith("float ") else ctypes.c_int)
+            assert t is want, (fn, p)
 
 
 def test_build_all_waits_for_every_nvcc(monkeypatch, tmp_path):
@@ -211,7 +214,7 @@ def test_build_all_waits_for_every_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc failed for seg_scan.cu"):
         _kernels.build_all()
     built = sorted(p.name.split("-")[0] for p in (tmp_path / "build").glob("*.so"))
-    assert built == ["libconv3x3", "libnms"]
+    assert built == sorted(f"lib{n}" for n in _kernels.KERNELS if n != "seg_scan")
     assert "Used 10 registers" in _kernels.library_path("nms").with_suffix(".log").read_text()
     paths = _kernels.build_all(("nms", "conv3x3"))  # built ones are not rebuilt
     assert all(p.exists() for p in paths.values())
