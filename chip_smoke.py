@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths and its wgrad
+sweep on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -6,25 +7,29 @@ Phases (any failure raises, and the script exits non-zero):
 
 1. Device and build: the card's name and power limit, TF32 switches set and
    printed, every CUDA kernel built from ``com_tpu_torch/csrc`` at once (one
-   ``nvcc`` per source, all started together).
+   ``nvcc`` per source, all started together), the HMMA (tensor-core)
+   instructions in T1-T4's SASS counted (none fails).
 2. Each kernel against its plain PyTorch version on the card, at the shapes
-   the serving and training paths give it, with the stated tolerance: K1
-   forward and its backward (the max split over tied maxima), K2 forward
-   and dgrad (through the autograd.Function against conv3x3_plain's
-   autograd), K2w, K3 in both modes; then CUDA-event times of the kernel,
-   the plain version and, where one exists, a single library call
-   computing the same function.
-3. Small-input references at a 64x64 grid in f32, the card against the CPU
+   its path gives it, with the stated tolerance: K1 forward and its
+   backward (the max split over tied maxima), K2 forward and dgrad (through
+   the autograd.Function against conv3x3_plain's autograd), K2w, T1-T4 at
+   (2,468,468,64->64) and (2,468,468,128->64) with th 8 and 16, K3 in both
+   modes; then CUDA-event times of the kernel, the plain version and, where
+   one exists, a single library call computing the same function.
+3. The wgrad-formulation sweep (``com_tpu_torch.tools.perf.
+   microbench_wgrad_kernels.run``) at those shapes over T1-T4 and K2w, the
+   path of T1-T4: every line within the oracle's tolerance.
+4. Small-input references at a 64x64 grid in f32, the card against the CPU
    (plain versions only): the eval step, and one train step (loss, every
    gradient, the batch statistics per channel, the confidence
    accumulators).
-4. Serving: CenterPoint-Pillar from the flagship YAML at full width (468x468
+5. Serving: CenterPoint-Pillar from the flagship YAML at full width (468x468
    grid, 163,840 points a scene, batch 2, K = 500) with seeded random
    weights behind the port's BatchServer; three single-scene requests (one
    full batch, one padded), responses checked.  Then the device time of
    each stage of one eval step (CUDA events), and K4 on the boxes the model
    decodes.
-5. Training path A, the flagship config at full width: ``train_model`` for
+6. Training path A, the flagship config at full width: ``train_model`` for
    2 mini-epochs of 3 steps over synthetic Waymo-like batches (2 scenes of
    163,840 presorted points, 500 object slots of which ~100 are real),
    finite losses, gradients (at each epoch's last step, outside the timed
@@ -32,18 +37,19 @@ Phases (any failure raises, and the script exits non-zero):
    the step time and its stages (forward, loss, backward, optimizer) by
    CUDA events, peak memory; then the loss must fall over 10 steps on one
    repeated batch.
-6. Training path B, ``centerpoint_pillar_car_com1.yaml`` (single-class
+7. Training path B, ``centerpoint_pillar_car_com1.yaml`` (single-class
    Vehicle, ``UCL: True``, ``MERGE_SCORES: True``): 2 steps, which launch
    K3 in last_wins mode for the COM loss mask.
-7. Launch counts: every counter is zeroed just before each path (serving,
-   A, B) and read just after, against the expected counts per forward or
-   per step.  Then the ``kernels`` line, the card's name and power limit,
-   and the device line as the last line.
+8. Launch counts: every counter is zeroed just before each path (the
+   sweep, serving, A, B) and read just after, against the calls the sweep
+   reports and the expected counts per forward or per step.  Then the
+   ``kernels`` line, the card's name and power limit, and the device line
+   as the last line.
 
-``python3 chip_smoke.py --profile`` also runs torch.profiler over three
-eval steps and three train steps and prints the device busy share and the
-kernel table of each.  It needs no network and builds into
-``build/kernels`` inside the checkout.
+``python3 chip_smoke.py --profile`` also runs torch.profiler over one sweep
+pass over T1-T4, three eval steps and three train steps and prints the
+kernel table of each (and the device busy share of the steps).  It needs no
+network and builds into ``build/kernels`` inside the checkout.
 """
 from __future__ import annotations
 
@@ -71,6 +77,11 @@ EXPECT_TRAIN_UCL = {**EXPECT_TRAIN, "stamp_last_wins": 1}
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 non-tensor
 STATS_RTOL = 1e-5  # small train reference: batch statistics, card against CPU
+WGRAD_SHAPES = ((2, 468, 468, 64, 64), (2, 468, 468, 128, 64))  # the sweep's (B, H, W, Cin, Cout)
+WGRAD_THS = (8, 16)
+# variant -> (TPU kernel, line of its pallas_call in tools/perf/microbench_wgrad_kernels.py)
+WGRAD_VARIANTS = {"gcol": ("T1", 84), "xcol": ("T2", 128), "gt9": ("T3", 175),
+                  "gtcol": ("T4", 220)}
 
 
 def waymo_like_points(rng, b, n, pc_range):
@@ -175,6 +186,7 @@ COUNTERS = {  # counter name -> (module, attribute)
     "conv3x3": ("conv2d", "launches"), "conv3x3_dgrad": ("conv2d", "dgrad_launches"),
     "conv3x3_wgrad": ("conv2d", "wgrad_launches"), "stamp_gauss": ("stamp", "gauss_launches"),
     "stamp_last_wins": ("stamp", "last_wins_launches"), "nms": ("nms", "launches"),
+    **{f"wgrad_{v}": ("wgrad_variants", f"{v}_launches") for v in WGRAD_VARIANTS},
 }
 
 
@@ -225,6 +237,14 @@ def phase_device_and_build():
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}")
+    # T1-T4 must run on the tensor cores: their SASS holds HMMA instructions
+    sass = subprocess.run([str(Path(_kernels._nvcc()).with_name("cuobjdump")), "-sass",
+                           str(paths["wgrad_variants"])], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    hmma = sum(" HMMA." in line for line in sass.splitlines())
+    print(f"sass: wgrad_variants holds {hmma} HMMA instructions {'ok' if hmma else 'FAIL'}")
+    if not hmma:
+        raise AssertionError("the T1-T4 kernels hold no tensor-core instruction")
     return smi
 
 
@@ -425,6 +445,88 @@ def check_conv3x3_backward(dev, entries):
                                 bound_ms=bms, bound_by=by, library_ms=lib_ms,
                                 kernel="conv3x3_wgrad"))
             del got, want, absref, err
+
+
+def check_wgrad_variants(dev, entries):
+    """T1-T4 against their plain versions at the sweep's shapes and th, with
+    the kernel's, the plain version's and conv2d_weight's times."""
+    from com_tpu_torch.ops import wgrad_variants as wv
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    for b, h, w, cin, cout in WGRAD_SHAPES:
+        x = (torch.randn((b, h, w, cin), device=dev, generator=gen) * 0.3).to(torch.bfloat16)
+        g = (torch.randn((b, h, w, cout), device=dev, generator=gen) * 0.3).to(torch.bfloat16)
+        absref = wv.oracle(x.abs(), g.abs())
+        xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)  # channels_last NCHW views
+        lib_ms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(xc, (cout, cin, 3, 3), gc,
+                                                             padding=1), 10)
+        flops = 2 * 9 * cin * cout * b * h * w
+        label = f"bf16 ({b},{h},{w},{cin}->{cout})"
+        for th in WGRAD_THS:
+            for v, (tn, line) in WGRAD_VARIANTS.items():
+                fn, plain = wv.VARIANTS[v]
+                got = fn(x, g, th)
+                want = plain(x, g, th)
+                torch.cuda.synchronize()
+                err = (got - want).abs()
+                ok = bool((err <= 1e-5 * absref).all())
+                name = f"wgrad_variants.wgrad_{v} ({tn}) th={th} {label}"
+                print(f"{name}: max_abs_err={err.max().item():.3e} (|err| <= 1e-5 * sum|x||g|) "
+                      f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{tn} th={th} {label} disagrees with its plain version")
+                ms = cuda_ms(lambda: fn(x, g, th), 20)
+                plain_ms = cuda_ms(lambda: plain(x, g, th), 3, warmup=1)
+                bms, by = bound_ms(nbytes(x, g, got), flops, torch.bfloat16)
+                entries.append(dict(name=name, route="cuda",
+                                    source="com_tpu_torch/csrc/wgrad_variants.cu",
+                                    replaces=f"tools/perf/microbench_wgrad_kernels.py:{line}",
+                                    max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                                    kernel=f"wgrad_{v}"))
+                del got, want, err
+        del x, g, absref, xc, gc
+    torch.cuda.empty_cache()
+
+
+def wgrad_sweep(dev, iters=3):
+    """The port's sweep over T1-T4 and K2w (v0) at full shapes: every row
+    within the oracle's tolerance, and each kernel launched as often as the
+    sweep says it called it."""
+    from com_tpu_torch.tools.perf import microbench_wgrad_kernels as mb
+
+    torch.cuda.synchronize()
+    reset_counters()
+    rows = mb.run(WGRAD_SHAPES, WGRAD_THS, ("v0", *WGRAD_VARIANTS), iters, device=dev)
+    torch.cuda.synchronize()
+    counts = read_counters()
+    expect = {}
+    for r in rows:
+        key = "conv3x3_wgrad" if r["variant"] == "v0" else f"wgrad_{r['variant']}"
+        expect[key] = expect.get(key, 0) + r["calls"]
+    bad = [r["name"] for r in rows if not r["ok"]]
+    print(f"wgrad sweep: {len(rows)} lines, launches {json.dumps(counts)}; "
+          f"every line within 1e-5 * sum|x||g| of the oracle: {'ok' if not bad else bad}")
+    if bad:
+        raise AssertionError(f"wgrad sweep: {bad} disagree with the oracle")
+    for k, v in counts.items():
+        if v != expect.get(k, 0):
+            raise AssertionError(f"wgrad sweep: {k} launched {v} times, the sweep called it "
+                                 f"{expect.get(k, 0)} times")
+    return counts
+
+
+def profile_wgrad_sweep(dev):
+    """torch.profiler over one sweep pass over T1-T4 (one timed call each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from com_tpu_torch.tools.perf import microbench_wgrad_kernels as mb
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        mb.run(WGRAD_SHAPES, WGRAD_THS, tuple(WGRAD_VARIANTS), 1, device=dev)
+        torch.cuda.synchronize()
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
 
 
 def check_stamp(dev, entries):
@@ -925,6 +1027,10 @@ def main():
     check_seg_scan_bwd(dev, entries)
     check_conv3x3(dev, entries)
     check_conv3x3_backward(dev, entries)
+    check_wgrad_variants(dev, entries)
+    sweep_counts = wgrad_sweep(dev)
+    if profile:
+        profile_wgrad_sweep(dev)
     check_stamp(dev, entries)
     check_small_reference(dev)
     check_small_train_reference(dev)
@@ -944,9 +1050,10 @@ def main():
     b_counts, _ = train_path(dev, CAR_CONFIG, "B (car_com1, UCL)", 1, 2, (1, 96),
                              EXPECT_TRAIN_UCL)
     # each kernel's launches on the path that runs it: training path A,
-    # serving for K4, path B for K3's last_wins mode
+    # serving for K4, path B for K3's last_wins mode, the sweep for T1-T4
     counts = {**a_counts, "nms": serve_counts["nms"],
-              "stamp_last_wins": b_counts["stamp_last_wins"]}
+              "stamp_last_wins": b_counts["stamp_last_wins"],
+              **{f"wgrad_{v}": sweep_counts[f"wgrad_{v}"] for v in WGRAD_VARIANTS}}
     for e in entries:
         e["launches"] = counts[e.pop("kernel")]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -10,5 +10,7 @@ with COMLoss and the epoch-end COMAug feedback (``train.optim``,
 ``train.state``, ``train.step.make_train_step``, ``train.loop.train_model``),
 on kernels K1 (``ops.seg_scan``, forward and backward), K2 and K2w
 (``ops.conv2d``, forward, dgrad and wgrad), K3 (``ops.stamp``) and K4
-(``ops.nms``).
+(``ops.nms``).  ``tools.perf.microbench_wgrad_kernels`` sweeps four
+tensor-core formulations of the conv weight gradient, T1-T4
+(``ops.wgrad_variants``), against K2w.
 """

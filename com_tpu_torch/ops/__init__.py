@@ -1,2 +1,3 @@
 """Tensor ops of the port: plain PyTorch, and the wrappers of the
-hand-written CUDA kernels (K1 ``seg_scan``, K2 ``conv2d``, K4 ``nms``)."""
+hand-written CUDA kernels (K1 ``seg_scan``, K2 and K2w ``conv2d``, K3
+``stamp``, K4 ``nms``, T1-T4 ``wgrad_variants``)."""

@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("seg_scan", "conv3x3", "conv3x3_wgrad", "stamp", "nms")
+KERNELS = ("seg_scan", "conv3x3", "conv3x3_wgrad", "stamp", "nms", "wgrad_variants")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,6 +46,10 @@ SIGNATURES = {
         "k4_smem_bytes": (LL, (I,)),
         "k4_packed_words": (LL, (I,)),
         "k4_greedy_suppress": (I, (P, P, P, P, I, I, P)),
+    },
+    "wgrad_variants": {
+        f"t{i}_wgrad_{v}": (I, (P, P, P, P, I, I, I, I, I, I, P))
+        for i, v in enumerate(("gcol", "xcol", "gt9", "gtcol"), 1)
     },
 }
 

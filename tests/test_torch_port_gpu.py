@@ -11,6 +11,8 @@ stamps and launch counts are exact; gaussian stamps within 2e-6 (analytic
 exp against the f64-built table); f32 sums and convs are held to f32
 rounding, bf16 ones to one or two bf16 roundings.  The backward passes (K1
 max and sum, K2 dgrad, K2w) are held against the plain versions' autograd.
+The wgrad formulations T1-T4 are held to 1e-5 * sum |x||g| (bf16 products
+are exact in f32).
 """
 import math
 
@@ -18,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from com_tpu_torch.ops import conv2d, nms, seg_scan, stamp
+from com_tpu_torch.ops import conv2d, nms, seg_scan, stamp, wgrad_variants
 
 pytestmark = pytest.mark.gpu
 
@@ -182,6 +184,33 @@ def test_run_bcast_backward_kernel(dev, dtype, op):
     assert bool(((got - want).abs() <= 1e-5 * scale + rnd * want.abs() + 1e-6).all())
 
 
+@pytest.mark.parametrize("th", [8, 16])
+@pytest.mark.parametrize("b,h,w,cin,cout,offset", [
+    (2, 21, 37, 13, 24, 0), (1, 19, 65, 40, 8, 0), (2, 9, 131, 64, 72, 0), (1, 35, 23, 136, 16, 0),
+    (2, 17, 29, 16, 32, 1)])  # x off a 16-byte boundary takes the element-wise loads
+@pytest.mark.parametrize("variant", ["gcol", "xcol", "gt9", "gtcol"])
+def test_wgrad_variant_kernel(dev, variant, b, h, w, cin, cout, offset, th):
+    g = torch.Generator(device=dev).manual_seed(h * w + cin + cout)
+    shape = (b, h, w, cin)
+    x = (torch.randn(math.prod(shape) + offset, device=dev, generator=g) * 0.3)
+    x = x.to(torch.bfloat16)[offset:].view(shape)
+    gy = (torch.randn((b, h, w, cout), device=dev, generator=g) * 0.3).to(torch.bfloat16)
+    fn, plain = wgrad_variants.VARIANTS[variant]
+    counter = f"{variant}_launches"
+    before = getattr(wgrad_variants, counter)
+    got = fn(x, gy, th)
+    torch.cuda.synchronize()
+    assert getattr(wgrad_variants, counter) == before + 1
+    assert got.dtype == torch.float32 and got.shape == (3, 3, cin, cout)
+    want = plain(x, gy, th)
+    absref = wgrad_variants.oracle(x.float().abs(), gy.float().abs())
+    assert bool(((got - want).abs() <= 1e-5 * absref).all())
+    assert torch.equal(got, fn(x, gy, th))  # no atomics: the same every run
+    with pytest.raises(TypeError):
+        fn(x.float(), gy.float(), th)
+    assert getattr(wgrad_variants, counter) == before + 2
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros((1, 4, 4, 2), device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -196,6 +225,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                                                           dtype=torch.bool))
     with pytest.raises(TypeError):
         conv2d.conv3x3_wgrad(x, torch.zeros((1, 4, 4, 2), device=dev, dtype=torch.float16))
+    for fn, _ in wgrad_variants.VARIANTS.values():
+        with pytest.raises(ValueError):  # more channels than the halo rows hold
+            fn(torch.zeros((1, 4, 4, 264), device=dev, dtype=torch.bfloat16),
+               torch.zeros((1, 4, 4, 8), device=dev, dtype=torch.bfloat16), 8)
+        with pytest.raises(ValueError):
+            fn(torch.zeros((1, 4, 4, 8), device=dev, dtype=torch.bfloat16).transpose(1, 2),
+               torch.zeros((1, 4, 4, 8), device=dev, dtype=torch.bfloat16), 8)
     with pytest.raises(TypeError):
         stamp.stamp_windows(torch.zeros((1, 2, 2), device=dev), torch.zeros((1, 2), device=dev),
                             torch.zeros((1, 2), device=dev), torch.zeros((1, 2), device=dev),

@@ -181,14 +181,31 @@ def test_config_loader_matches_jax():
         config.cfg_from_list(["MODEL.NO_SUCH_KEY.X", "1"], trees[1])
 
 
-_FORBIDDEN = re.compile(r"^\s*(import\s+(jax|com_tpu|__graft_entry__)\b"
-                        r"|from\s+(jax|com_tpu|__graft_entry__)\b)", re.M)
+# JAX, the JAX package, and the repository's top-level ``tools`` (its TPU
+# sweeps and ``tools/perf/tpu_timeit.py``); the port's own tools are
+# ``com_tpu_torch.tools``
+_FORBIDDEN = re.compile(r"^\s*(import\s+(jax|com_tpu|__graft_entry__|tools)\b"
+                        r"|from\s+(jax|com_tpu|__graft_entry__|tools)\b)", re.M)
 
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in [*(REPO / "com_tpu_torch").rglob("*.py"),
                                        REPO / "chip_smoke.py"]))
 def test_port_imports_no_jax(path):
-    """The port and chip_smoke.py import neither JAX nor the JAX package."""
+    """The port and chip_smoke.py import neither JAX nor the JAX package,
+    nor the repository's TPU tools."""
     text = (REPO / path).read_text()
     assert not _FORBIDDEN.search(text), path
+
+
+@pytest.mark.parametrize("line,forbidden", [
+    ("import tools.perf.tpu_timeit", True),
+    ("from tools.perf import microbench_wgrad_kernels", True),
+    ("    from tools import train", True), ("import jax.numpy as jnp", True),
+    ("from com_tpu.ops import conv2d", True),
+    ("from com_tpu_torch.tools.perf import microbench_wgrad_kernels", False),
+    ("import toolsmith", False), ("from .tools import x", False)])
+def test_import_guard_pattern(line, forbidden):
+    """The guard catches the JAX side and the top-level tools, and lets the
+    port's own ``com_tpu_torch.tools`` through."""
+    assert bool(_FORBIDDEN.search(line)) == forbidden

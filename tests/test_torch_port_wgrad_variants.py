@@ -1,0 +1,100 @@
+"""The wgrad-formulation sweep's kernels T1-T4 against the JAX package's
+microbenchmark, on the CPU.
+
+Same numpy-seeded bf16 inputs into both.  JAX runs each Pallas kernel of
+``tools/perf/microbench_wgrad_kernels.py`` in interpret mode: the module's
+``pl`` is swapped, for the test only, for a namespace whose ``pallas_call``
+interprets (the shared pallas module is left alone).  The port runs each
+variant's plain version on CPU tensors, through the wrapper that launches
+the kernel on the card.  Heights are not multiples of th (the pad rows),
+cin differs from cout and h from w (a flipped tap shows).  Tolerance:
+1e-5 * sum |x||g| element by element, both against each other and against
+the JAX oracle; bf16 products are exact in f32, so only the order of f32
+sums differs.
+"""
+import functools
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from com_tpu_torch.ops import conv2d, wgrad_variants
+from com_tpu_torch.tools.perf import microbench_wgrad_kernels as port_mb
+from tools.perf import microbench_wgrad_kernels as mb
+
+torch.set_num_threads(2)
+
+VARIANTS = ("gcol", "xcol", "gt9", "gtcol")
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    ns = types.SimpleNamespace(**vars(pl))
+    ns.pallas_call = functools.partial(pl.pallas_call, interpret=True)
+    monkeypatch.setattr(mb, "pl", ns)
+
+
+def _inputs(seed, b, h, w, cin, cout):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((b, h, w, cin)) * 0.3).astype(np.float32)
+    g = (rng.standard_normal((b, h, w, cout)) * 0.3).astype(np.float32)
+    xj, gj = jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(g).astype(jnp.bfloat16)
+    # the same bf16 values on both sides
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(torch.bfloat16)
+    gt = torch.from_numpy(np.array(gj.astype(jnp.float32))).to(torch.bfloat16)
+    return xj, gj, xt, gt
+
+
+@pytest.mark.parametrize("th", [8, 16])
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("b,h,w,cin,cout", [(2, 20, 12, 8, 16), (1, 19, 10, 16, 8)])
+def test_wgrad_variant_matches_jax(interpret, variant, th, b, h, w, cin, cout):
+    xj, gj, xt, gt = _inputs(b * 100 + h, b, h, w, cin, cout)
+    want = np.asarray(getattr(mb, f"wgrad_{variant}")(xj, gj, th))
+    ref = np.asarray(mb.oracle(xj, gj))
+    before = getattr(wgrad_variants, f"{variant}_launches")
+    got = getattr(wgrad_variants, f"wgrad_{variant}")(xt, gt, th)
+    assert getattr(wgrad_variants, f"{variant}_launches") == before  # the CPU launches nothing
+    assert got.dtype == torch.float32 and got.shape == (3, 3, cin, cout)
+    got = got.numpy()
+    tol = 1e-5 * wgrad_variants.oracle(xt.float().abs(), gt.float().abs()).numpy()
+    assert want.shape == got.shape
+    assert (np.abs(got - want) <= tol).all()
+    assert (np.abs(got - ref) <= tol).all()
+    assert (np.abs(want - ref) <= tol).all()
+    # the flipped gradient is far off: the check can see a wrong shift
+    assert not (np.abs(got[::-1, ::-1] - ref) <= tol).all()
+
+
+def test_plain_versions_take_any_float_dtype():
+    _, _, xt, gt = _inputs(3, 1, 11, 7, 5, 3)
+    ref = wgrad_variants.oracle(xt, gt)
+    for variant in VARIANTS:
+        plain = wgrad_variants.VARIANTS[variant][1]
+        for dt in (torch.float32, torch.float64):
+            out = plain(xt.to(dt), gt.to(dt), 4)
+            assert out.dtype == torch.float32
+            torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_sweep_run_on_cpu_launches_nothing():
+    counters = [*(f"{v}_launches" for v in VARIANTS)]
+    before = [getattr(wgrad_variants, c) for c in counters] + [conv2d.wgrad_launches]
+    rows = port_mb.run(shapes=((1, 13, 9, 8, 16),), ths=(8,), variants=("v0", *VARIANTS),
+                       iters=3, device="cpu")
+    after = [getattr(wgrad_variants, c) for c in counters] + [conv2d.wgrad_launches]
+    assert after == before
+    assert [r["name"] for r in rows] == ["v0 current", *(f"{v} th=8" for v in VARIANTS)]
+    for r in rows:
+        assert r["ok"] and r["err"] <= 1e-5 and r["calls"] == 1
+        assert r["ms"] is None and r["tflops"] is None
+
+
+def test_wrappers_take_the_cpu_path_only_for_cpu_tensors():
+    x = torch.zeros((1, 4, 4, 2), device="meta", dtype=torch.bfloat16)
+    for variant in VARIANTS:
+        with pytest.raises(ValueError, match="unsupported device meta"):
+            wgrad_variants.VARIANTS[variant][0](x, x, 8)
