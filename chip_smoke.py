@@ -7,8 +7,9 @@ Phases (any failure raises, and the script exits non-zero):
 
 1. Device and build: the card's name and power limit, TF32 switches set and
    printed, every CUDA kernel built from ``com_tpu_torch/csrc`` at once (one
-   ``nvcc`` per source, all started together), the HMMA (tensor-core)
-   instructions in T1-T4's SASS counted (none fails).
+   ``nvcc`` per source, all started together), the tensor-core
+   instructions (HGMMA, HMMA) in the SASS of K2, K2w and T1-T4 counted
+   (none fails).
 2. Each kernel against its plain PyTorch version on the card, at the shapes
    its path gives it, with the stated tolerance: K1 forward and its
    backward (the max split over tied maxima), K2 forward and dgrad (through
@@ -237,14 +238,18 @@ def phase_device_and_build():
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}")
-    # T1-T4 must run on the tensor cores: their SASS holds HMMA instructions
-    sass = subprocess.run([str(Path(_kernels._nvcc()).with_name("cuobjdump")), "-sass",
-                           str(paths["wgrad_variants"])], capture_output=True, text=True,
-                          timeout=120, check=True).stdout
-    hmma = sum(" HMMA." in line for line in sass.splitlines())
-    print(f"sass: wgrad_variants holds {hmma} HMMA instructions {'ok' if hmma else 'FAIL'}")
-    if not hmma:
-        raise AssertionError("the T1-T4 kernels hold no tensor-core instruction")
+    # the bf16 K2 and K2w and T1-T4 must run on the tensor cores: their SASS
+    # holds HGMMA (wgmma) or HMMA (mma.sync) instructions
+    cuobjdump = str(Path(_kernels._nvcc()).with_name("cuobjdump"))
+    for name in ("conv3x3", "conv3x3_wgrad", "wgrad_variants"):
+        sass = subprocess.run([cuobjdump, "-sass", str(paths[name])], capture_output=True,
+                              text=True, timeout=120, check=True).stdout.splitlines()
+        counts = {op: sum(f" {op}." in line for line in sass) for op in ("HGMMA", "HMMA")}
+        ok = any(counts.values())
+        print(f"sass: {name} holds {counts['HGMMA']} HGMMA and {counts['HMMA']} HMMA "
+              f"instructions {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"csrc/{name}.cu holds no tensor-core instruction")
     return smi
 
 
@@ -377,8 +382,9 @@ def check_seg_scan_bwd(dev, entries):
 
 
 def check_conv3x3_backward(dev, entries):
-    """K2 dgrad (K2 on the output gradient with the rotated kernel) through
-    the autograd.Function, and K2w, at the backbone's three shapes."""
+    """K2 dgrad (K2 on the output gradient with the rotated kernel) checked
+    through the autograd.Function and timed as the call its backward makes
+    (``conv3x3_dgrad``), and K2w, at the backbone's three shapes."""
     from com_tpu_torch.ops import conv2d
 
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -395,8 +401,7 @@ def check_conv3x3_backward(dev, entries):
             runs.append((x, y, torch.autograd.grad(y, x, g, retain_graph=True)[0]))
         torch.cuda.synchronize()
         (x, y, got), (px, py, want) = runs
-        w_rot = w.float().flip(0).flip(1).transpose(2, 3)
-        absref = conv2d.conv3x3_plain(g.float().abs(), w_rot.abs())
+        absref = conv2d.conv3x3_plain(g.float().abs(), conv2d.rotate_kernel(w.float().abs()))
         err = (got.float() - want.float()).abs()
         ok = bool((err <= 1e-5 * absref + 2.0 ** -7 * want.float().abs()).all())
         label = f"bf16 (2,{h},{h},{c}->{c})"
@@ -404,8 +409,9 @@ def check_conv3x3_backward(dev, entries):
               f"(|err| <= 1e-5 * conv(|g|,|w_rot|) + 2^-7 * |plain|) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K2 dgrad {label} disagrees with its plain version")
-        ms = cuda_ms(lambda: torch.autograd.grad(y, x, g, retain_graph=True), 10)
-        plain_ms = cuda_ms(lambda: torch.autograd.grad(py, px, g, retain_graph=True), 5)
+        # the call the backward makes: K2 on g with the rotated kernel
+        ms = cuda_ms(lambda: conv2d.conv3x3_dgrad(g, w), 10)
+        plain_ms = cuda_ms(lambda: conv2d.conv3x3_plain(g, conv2d.rotate_kernel(w)), 5)
         gc = g.permute(0, 3, 1, 2)  # NHWC storage = channels_last NCHW view
         wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         lib_ms = cuda_ms(lambda: torch.nn.grad.conv2d_input((BATCH, c, h, h), wc, gc,

@@ -4,7 +4,8 @@ Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into its own
 shared library with a plain C interface and loaded with ``ctypes``; nothing
 includes PyTorch's headers, so a build takes seconds.  Libraries go to
 ``build/kernels/`` at the repository root (listed in ``.gitignore``), named
-by a hash of the source and flags, and are built at first use.
+by a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+and are built at first use.
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all.
 """
 from __future__ import annotations
@@ -33,11 +34,14 @@ SIGNATURES = {
         "k1_run_bcast": (I, (P, P, P, P, P, I, I, I, I, I, P)),
     },
     "conv3x3": {
-        "k2_conv3x3": (I, (P, P, P, I, I, I, I, I, I, P)),
+        "k2_conv3x3_f32": (I, (P, P, P, I, I, I, I, I, P)),
+        "k2_conv3x3_bf16": (I, (P, P, P, I, I, I, I, I, P)),
     },
     "conv3x3_wgrad": {
-        "k2w_resident_blocks": (I, ()),
-        "k2w_conv3x3_wgrad": (I, (P, P, P, P, I, I, I, I, I, I, I, P)),
+        "k2w_resident_blocks_f32": (I, ()),
+        "k2w_conv3x3_wgrad_f32": (I, (P, P, P, P, I, I, I, I, I, I, P)),
+        "k2w_resident_blocks_bf16": (I, ()),
+        "k2w_conv3x3_wgrad_bf16": (I, (P, P, P, P, I, I, I, I, I, I, I, P)),
     },
     "stamp": {
         "k3_stamp": (I, (P, P, P, P, P, P, P, I, I, I, I, I, I, F, P)),
@@ -67,8 +71,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """Where csrc/<name>.cu builds to, named by a hash of the source, every
+    shared header under csrc/ (``*.cuh``) and the flags, so that an edit to
+    any of them builds anew."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -9,10 +9,11 @@ output has x's dtype.
 ``conv3x3`` is a ``torch.autograd.Function`` after ``_conv3x3_bwd``
 (``conv2d.py:537-555``): the input gradient (dgrad) is K2 again on the
 output gradient with the kernel rotated 180 degrees and its channel axes
-swapped; the weight gradient is K2w (``conv3x3_wgrad``), f32 (3, 3, Cin,
-Cout) cast to w's dtype.  Each launches its CUDA kernel (``csrc/conv3x3.cu``,
-``csrc/conv3x3_wgrad.cu``) for a CUDA tensor and runs its plain version
-(``conv3x3_plain``, ``conv3x3_wgrad_plain``) for a CPU tensor.  The TPU
+swapped (``rotate_kernel``); the weight gradient is K2w (``conv3x3_wgrad``),
+f32 (3, 3, Cin, Cout) cast to w's dtype.  Each launches its CUDA kernel
+(``csrc/conv3x3.cu``, ``csrc/conv3x3_wgrad.cu``) for a CUDA tensor: bf16 on
+the tensor cores, f32 on the CUDA cores.  For a CPU tensor each runs its
+plain version (``conv3x3_plain``, ``conv3x3_wgrad_plain``).  The TPU
 kernel's split of wide inputs into <=128-channel slices existed only for the
 TPU's VMEM and is not carried over.
 """
@@ -27,9 +28,13 @@ launches = 0        # K2 launches by conv3x3's forward since the last reset
 dgrad_launches = 0  # K2 launches by conv3x3's backward (dgrad) since the last reset
 wgrad_launches = 0  # K2w launches since the last reset
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_WGRAD_WAVES = 2  # K2w's grid: this many full waves of the blocks a card holds at once
-_resident_blocks: dict[int, int] = {}  # device index -> K2w blocks it holds at once
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}  # the C entry points' dtype suffix
+# K2w's grid: this many full waves of the blocks a card holds at once (f32:
+# fixed pixel chunks, so a second wave evens out the tail; bf16: chunks cut
+# to equal runs of row segments, so one wave)
+_WGRAD_WAVES = {torch.float32: 2, torch.bfloat16: 1}
+WGRAD_SEGMENT = 64  # pixels of a row segment, the bf16 K2w's step
+_resident_blocks: dict[tuple[int, torch.dtype], int] = {}  # (device, dtype) -> K2w blocks at once
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -57,10 +62,28 @@ def conv3x3_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.stack(taps).reshape(3, 3, cin, gf.shape[-1])
 
 
+def rotate_kernel(w: torch.Tensor) -> torch.Tensor:
+    """The dgrad kernel: w (3, 3, Cin, Cout) rotated 180 degrees with its
+    channel axes swapped, (3, 3, Cout, Cin), contiguous."""
+    return w.flip(0).flip(1).transpose(2, 3).contiguous()
+
+
+def wgrad_plan(b: int, h: int, wd: int, cin: int, cout: int, resident: int) -> tuple[int, int]:
+    """(chunks, steps a chunk) of the bf16 K2w: its B * H * ceil(W / 64) row
+    segments cut into equal runs, one f32 partial each, so that the grid
+    (3 * ceil(Cin / 64) * ceil(Cout / 64) tiles x chunks) is one wave of the
+    ``resident`` blocks the card holds at once.  No chunk is empty."""
+    steps = b * h * -(-wd // WGRAD_SEGMENT)
+    tiles = 3 * -(-cin // 64) * -(-cout // 64)
+    chunks = max(1, min(_WGRAD_WAVES[torch.bfloat16] * resident // tiles, steps, 65535))
+    per = -(-steps // chunks)
+    return -(-steps // per), per
+
+
 def _check(x, w, what):
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+    if x.dtype not in _SUFFIX or w.dtype != x.dtype:
         raise TypeError(f"{what}: {x.dtype} and {w.dtype} (want one of f32/bf16)")
     if w.device != x.device or not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError(f"{what}: inputs must be contiguous on one device")
@@ -82,11 +105,19 @@ def _k2(x: torch.Tensor, w: torch.Tensor, counter: str) -> torch.Tensor:
         return y
     lib = _kernels.library("conv3x3")
     with torch.cuda.device(x.device):
-        err = lib.k2_conv3x3(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, cin, cout,
-                             _DTYPES[x.dtype], _kernels.stream_of(x))
+        fn = getattr(lib, f"k2_conv3x3_{_SUFFIX[x.dtype]}")
+        err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, cin, cout,
+                 _kernels.stream_of(x))
     _kernels.check(err, "conv3x3 (K2)")
     globals()[counter] += 1
     return y
+
+
+def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Input gradient of ``conv3x3`` (K2 dgrad): the output gradient g
+    (B, H, W, Cout) correlated with the spatially rotated, in/out-swapped
+    kernel, again a 3x3 SAME conv, (B, H, W, Cin) in g's dtype."""
+    return _k2(g, rotate_kernel(w.to(g.dtype)), "dgrad_launches")
 
 
 def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -105,19 +136,26 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if x.numel() == 0 or g.numel() == 0:
         return dw.zero_()
     lib = _kernels.library("conv3x3_wgrad")
+    sfx = _SUFFIX[x.dtype]
     with torch.cuda.device(x.device):
-        if x.device.index not in _resident_blocks:
-            cap = lib.k2w_resident_blocks()
+        key = (x.device.index, x.dtype)
+        if key not in _resident_blocks:
+            cap = getattr(lib, f"k2w_resident_blocks_{sfx}")()
             if cap <= 0:
                 raise RuntimeError("conv3x3_wgrad (K2w): occupancy query failed")
-            _resident_blocks[x.device.index] = cap
-        groups = 9 * -(-cin // 64) * -(-cout // 64)
-        chunks = max(1, min(_WGRAD_WAVES * _resident_blocks[x.device.index] // groups,
-                            -(-(b * h * wd) // 256)))
+            _resident_blocks[key] = cap
+        if x.dtype == torch.bfloat16:
+            chunks, per = wgrad_plan(b, h, wd, cin, cout, _resident_blocks[key])
+            args = (chunks, per)
+        else:
+            groups = 9 * -(-cin // 64) * -(-cout // 64)
+            chunks = max(1, min(_WGRAD_WAVES[x.dtype] * _resident_blocks[key] // groups,
+                                -(-(b * h * wd) // 256)))
+            args = (chunks,)
         part = torch.empty((chunks, 3, 3, cin, cout), dtype=torch.float32, device=x.device)
-        err = lib.k2w_conv3x3_wgrad(x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(),
-                                    b, h, wd, cin, cout, chunks, _DTYPES[x.dtype],
-                                    _kernels.stream_of(x))
+        err = getattr(lib, f"k2w_conv3x3_wgrad_{sfx}")(
+            x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(), b, h, wd, cin, cout,
+            *args, _kernels.stream_of(x))
     _kernels.check(err, "conv3x3_wgrad (K2w)")
     global wgrad_launches
     wgrad_launches += 1
@@ -137,10 +175,7 @@ class _Conv3x3(torch.autograd.Function):
         g = g.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            # dgrad: the output gradient correlated with the spatially
-            # rotated, in/out-swapped kernel, again a 3x3 SAME conv
-            w_rot = w.flip(0).flip(1).transpose(2, 3).to(g.dtype).contiguous()
-            dx = _k2(g, w_rot, "dgrad_launches").to(x.dtype)
+            dx = conv3x3_dgrad(g, w).to(x.dtype)
         if ctx.needs_input_grad[1]:
             dw = conv3x3_wgrad(x, g).to(w.dtype)
         return dx, dw

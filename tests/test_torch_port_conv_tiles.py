@@ -1,0 +1,117 @@
+"""What the tensor-core K2 and K2w leave to Python, on the CPU: the dgrad
+kernel's re-layout (``rotate_kernel``, run by ``conv3x3_dgrad``), the bf16
+K2w's split of the pixels into chunks of row segments (``wgrad_plan``), the
+build's hash over the shared headers, and the sources that the tile sweep
+(``tools/perf/conv_tiles.py``) derives from the kernels.
+
+The re-layout and the chunked sum are held against ``conv3x3_plain`` /
+``conv3x3_wgrad_plain`` and against the JAX package's Pallas kernels in
+interpret mode (its own dgrad through ``jax.vjp``, ``_conv3x3_wgrad_pallas``),
+on numpy-seeded f32 inputs, atol 1e-4 (sums taken in another order).
+"""
+import zlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from com_tpu.ops.pallas.conv2d import _conv3x3_wgrad_pallas
+from com_tpu.ops.pallas.conv2d import conv3x3 as jax_conv3x3
+from com_tpu_torch.ops import _kernels, conv2d
+from com_tpu_torch.tools.perf import conv_tiles
+
+torch.set_num_threads(2)
+
+
+def _rng(*key):
+    return np.random.RandomState(zlib.crc32(repr(key).encode()))
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", [(1, 9, 13, 8, 5), (2, 6, 70, 3, 16)])
+def test_rotated_kernel_dgrad_matches_jax(b, h, w, cin, cout):
+    """dgrad as the backward runs it (``conv3x3_dgrad``: K2 on g with
+    ``rotate_kernel(w)``), against the JAX package's own dgrad (its fwd kernel on the rotated,
+    swapped kernel, interpret mode)."""
+    rng = _rng("rot", b, h, w, cin, cout)
+    x = rng.randn(b, h, w, cin).astype(np.float32)
+    k = (rng.randn(3, 3, cin, cout) * 0.2).astype(np.float32)
+    g = rng.randn(b, h, w, cout).astype(np.float32)
+    _, vjp = jax.vjp(lambda xx: jax_conv3x3(xx, jnp.asarray(k), "interpret"), jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    rot = conv2d.rotate_kernel(torch.from_numpy(k))
+    assert rot.shape == (3, 3, cout, cin) and rot.is_contiguous()
+    got = conv2d.conv3x3_dgrad(torch.from_numpy(g), torch.from_numpy(k)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(got, conv2d.conv3x3_plain(torch.from_numpy(g), rot).numpy())
+    # the rotation is the 180-degree turn with the channel axes swapped
+    np.testing.assert_array_equal(rot.numpy()[0, 2, cout - 1, 0], k[2, 0, 0, cout - 1])
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,resident", [
+    (2, 468, 468, 64, 64, 264), (2, 234, 234, 128, 128, 264), (2, 117, 117, 256, 256, 264),
+    (1, 1, 3, 8, 8, 264), (2, 5, 130, 300, 72, 132), (1, 3, 64, 64, 64, 1)])
+def test_wgrad_plan_covers_every_segment_once(b, h, w, cin, cout, resident):
+    chunks, per = conv2d.wgrad_plan(b, h, w, cin, cout, resident)
+    steps = b * h * -(-w // conv2d.WGRAD_SEGMENT)
+    tiles = 3 * -(-cin // 64) * -(-cout // 64)
+    assert 1 <= chunks <= 65535 and per >= 1
+    assert (chunks - 1) * per < steps <= chunks * per  # no chunk empty, none left over
+    assert chunks * tiles <= max(resident, tiles)      # at most one wave
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,resident", [(2, 9, 70, 8, 16, 30), (1, 7, 20, 5, 3, 9)])
+def test_wgrad_chunked_sum_matches_jax(b, h, w, cin, cout, resident):
+    """The bf16 K2w's arithmetic in plain PyTorch: one f32 partial for each
+    chunk's row segments (the output pixels it holds), then the partials
+    added in chunk order; against conv3x3_wgrad_plain and the JAX kernel."""
+    rng = _rng("wgc", b, h, w, cin, cout)
+    x = rng.randn(b, h, w, cin).astype(np.float32)
+    g = rng.randn(b, h, w, cout).astype(np.float32)
+    chunks, per = conv2d.wgrad_plan(b, h, w, cin, cout, resident)
+    assert chunks > 1
+    seg = conv2d.WGRAD_SEGMENT
+    segs = -(-w // seg)
+    # the step of each output pixel: s = (b * H + h) * segs + column // 64
+    step = ((np.arange(b)[:, None, None] * h + np.arange(h)[None, :, None]) * segs
+            + np.arange(w)[None, None, :] // seg)
+    tx, tg = torch.from_numpy(x), torch.from_numpy(g)
+    dw = torch.zeros((3, 3, cin, cout))
+    for c in range(chunks):
+        mask = torch.from_numpy(((step >= c * per) & (step < (c + 1) * per)).astype(np.float32))
+        dw = dw + conv2d.conv3x3_wgrad_plain(tx, tg * mask[..., None])
+    want = np.asarray(_conv3x3_wgrad_pallas(jnp.asarray(x), jnp.asarray(g), interpret=True))
+    np.testing.assert_allclose(dw.numpy(), want, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(dw.numpy(), conv2d.conv3x3_wgrad_plain(tx, tg).numpy(), atol=1e-4,
+                               rtol=0)
+
+
+def test_library_path_hashes_shared_headers(monkeypatch, tmp_path):
+    """A change to a shared header under csrc/ names a new library, so the
+    kernels that include it build anew."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    header = tmp_path / "h.cuh"
+    header.write_text("// one\n")
+    monkeypatch.setattr(_kernels, "CSRC", tmp_path)
+    before = _kernels.library_path("k")
+    assert _kernels.library_path("k") == before
+    header.write_text("// two\n")
+    assert _kernels.library_path("k") != before
+
+
+@pytest.mark.parametrize("variant", conv_tiles.DEFAULT + ("k2:4,16,5", "k2w:3,64,64,4,3"))
+def test_tile_sweep_sources(variant):
+    """The tile sweep's copies of the kernel sources: each constant set once,
+    each diagnostic's pattern found; the shipped tiles are the sources' own."""
+    kernel, values, diag = conv_tiles.parse(variant)
+    text = conv_tiles.variant_source(kernel, values, diag)
+    src, names = conv_tiles.CONSTANTS[kernel]
+    for name, value in zip(names, values):
+        assert f"constexpr int {name} = {value};" in text
+    assert ("fetch(t + kStages - 1);" in text) == (diag != "noload")
+    assert ("hopper::mma_bf16(" in text) == (diag != "nomma")
+    if not diag and variant in conv_tiles.DEFAULT:
+        assert text == (_kernels.CSRC / f"{src}.cu").read_text()
+    with pytest.raises(ValueError):
+        conv_tiles.parse(variant.replace(":", ":1,"))
