@@ -11,12 +11,17 @@ Phases (any failure raises, and the script exits non-zero):
    instructions (HGMMA, HMMA) in the SASS of K2, K2w and T1-T4 counted
    (none fails).
 2. Each kernel against its plain PyTorch version on the card, at the shapes
-   its path gives it, with the stated tolerance: K1 forward and its
-   backward (the max split over tied maxima), K2 forward and dgrad (through
+   its path gives it, with the stated tolerance: K1 forward (on a batch
+   whose sample 1 is one whole-sample run, and on two real scenes) and its
+   fused max backward (the run's gradient split over tied maxima), K2
+   forward and dgrad (through
    the autograd.Function against conv3x3_plain's autograd), K2w, T1-T4 at
    (2,468,468,64->64) and (2,468,468,128->64) with th 8 and 16, K3 in both
-   modes; then CUDA-event times of the kernel, the plain version and, where
-   one exists, a single library call computing the same function.
+   modes; then CUDA-event times of the kernel (``ms``: calls as the host
+   issues them; ``device_ms``: the calls queued behind a spin kernel, the
+   device time of a call even where it is shorter than its launch), the
+   plain version and, where one exists, a single library call computing the
+   same function.
 3. The wgrad-formulation sweep (``com_tpu_torch.tools.perf.
    microbench_wgrad_kernels.run``) at those shapes over T1-T4 and K2w, the
    path of T1-T4: every line within the oracle's tolerance.
@@ -72,7 +77,7 @@ NUM_MAX_OBJS, REAL_OBJS = 500, 100
 # kernel launches per serving forward and per train step (K1 forward +
 # backward, K2 forward + dgrad, K2w, K3 by mode, K4)
 EXPECT_SERVING = {"seg_scan": 2, "conv3x3": 14, "nms": 1}
-EXPECT_TRAIN = {"seg_scan": 2, "seg_scan_bwd": 2, "conv3x3": 14, "conv3x3_dgrad": 14,
+EXPECT_TRAIN = {"seg_scan": 2, "seg_scan_bwd": 1, "conv3x3": 14, "conv3x3_dgrad": 14,
                 "conv3x3_wgrad": 14, "stamp_gauss": 1}
 EXPECT_TRAIN_UCL = {**EXPECT_TRAIN, "stamp_last_wins": 1}
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
@@ -123,6 +128,15 @@ def cuda_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters):
+    """Mean milliseconds a call takes on the card with the calls queued
+    behind a spin kernel (the sweep's ``call_ms(..., queued=True)``): the
+    device time of a call, also of one shorter than its launch."""
+    from com_tpu_torch.tools.perf.conv_tiles import call_ms
+
+    return call_ms(fn, iters, queued=True)
 
 
 def bound_ms(nbytes, ops, dtype):
@@ -254,6 +268,9 @@ def phase_device_and_build():
 
 
 def check_seg_scan(dev, entries):
+    """K1 forward on the VFE's inputs: two Waymo-like scenes presorted by
+    pillar, and the same with sample 1 one run over the whole sample (a
+    padded, empty scene; the rows kept comparable with the first port)."""
     from com_tpu_torch.ops import seg_scan
     from com_tpu_torch.ops.voxelize import point_voxel_ids
 
@@ -263,40 +280,44 @@ def check_seg_scan(dev, entries):
     pts = torch.from_numpy(waymo_like_points(np.random.RandomState(1), BATCH, POINTS,
                                              pc_range)).to(dev)
     flat, _ = point_voxel_ids(pts[..., :3], pc_range, (0.32, 0.32, 6.0), grid)
-    seg = torch.sort(flat, dim=1).values
-    seg[1] = hw  # sample 1: one run over the whole sample (a padded, empty scene)
-    seg = seg.contiguous()
+    scenes = torch.sort(flat, dim=1).values.contiguous()
+    padded = scenes.clone()
+    padded[1] = hw  # sample 1: one run over the whole sample
     gen = torch.Generator(device=dev).manual_seed(2)
     ones = torch.ones((BATCH, POINTS, 1), device=dev)
     sum_in = torch.cat([pts[..., :3], ones, torch.zeros((BATCH, POINTS, 4), device=dev)],
                        -1).contiguous()
     max_in = torch.randn((BATCH, POINTS, 32), device=dev, generator=gen).to(torch.bfloat16)
-    for op, vals, label in (("sum", sum_in, "f32 (2,163840,8)"),
-                            ("max", max_in, "bf16 (2,163840,32)")):
-        got = seg_scan.run_bcast(vals, seg, op)
-        want = seg_scan.run_bcast_plain(vals, seg, op)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        if op == "max":
-            tol = "bit-exact"
-            ok = torch.equal(got, want)
-        else:
-            # f32 rounding of a differently ordered sum, scaled by sum |x|
-            scale = seg_scan.run_bcast_plain(vals.abs(), seg, "sum")
-            tol = "|err| <= 1e-5 * run sum|x| + 1e-6"
-            ok = bool((err <= 1e-5 * scale + 1e-6).all())
-        print(f"K1 run_bcast {op} {label}: max_abs_err={err.max().item():.3e} ({tol}) "
-              f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"K1 {op} disagrees with its plain version")
-        ms = cuda_ms(lambda: seg_scan.run_bcast(vals, seg, op), 50)
-        plain_ms = cuda_ms(lambda: seg_scan.run_bcast_plain(vals, seg, op), 10)
-        bms, by = bound_ms(nbytes(vals, seg, got), vals.numel(), torch.float32)
-        entries.append(dict(name=f"seg_scan.run_bcast {op} {label}", route="cuda",
-                            source="com_tpu_torch/csrc/seg_scan.cu",
-                            replaces="com_tpu/ops/pallas/seg_scan.py:122",
-                            max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
-                            bound_ms=bms, bound_by=by, library_ms=None, kernel="seg_scan"))
+    for seg, where in ((padded, ""), (scenes, ", two scenes")):
+        for op, vals, label in (("sum", sum_in, f"f32 (2,163840,8){where}"),
+                                ("max", max_in, f"bf16 (2,163840,32){where}")):
+            got = seg_scan.run_bcast(vals, seg, op)
+            want = seg_scan.run_bcast_plain(vals, seg, op)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            if op == "max":
+                tol = "bit-exact"
+                ok = torch.equal(got, want)
+            else:
+                # f32 rounding of a differently ordered sum, scaled by sum |x|
+                scale = seg_scan.run_bcast_plain(vals.abs(), seg, "sum")
+                tol = "|err| <= 1e-5 * run sum|x| + 1e-6"
+                ok = bool((err <= 1e-5 * scale + 1e-6).all())
+            if not ok:
+                raise AssertionError(f"K1 {op} {label} disagrees with its plain version")
+            ms = cuda_ms(lambda: seg_scan.run_bcast(vals, seg, op), 50)
+            dev_ms = device_ms(lambda: seg_scan.run_bcast(vals, seg, op), 50)
+            plain_ms = cuda_ms(lambda: seg_scan.run_bcast_plain(vals, seg, op), 10)
+            bms, by = bound_ms(nbytes(vals, seg, got), vals.numel(), torch.float32)
+            print(f"K1 run_bcast {op} {label}: max_abs_err={err.max().item():.3e} ({tol}) ok; "
+                  f"{ms:.4f} ms a call as the host issues them, {dev_ms:.4f} ms queued on the "
+                  f"card, bound {bms:.5f} ms")
+            entries.append(dict(name=f"seg_scan.run_bcast {op} {label}", route="cuda",
+                                source="com_tpu_torch/csrc/seg_scan.cu",
+                                replaces="com_tpu/ops/pallas/seg_scan.py:122",
+                                max_abs_err=err.max().item(), ms=ms, device_ms=dev_ms,
+                                plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+                                kernel="seg_scan"))
 
 
 def check_conv3x3(dev, entries):
@@ -323,6 +344,7 @@ def check_conv3x3(dev, entries):
             if not ok:
                 raise AssertionError(f"K2 {label} disagrees with its plain version")
             ms = cuda_ms(lambda: conv2d.conv3x3(x, w), 10)
+            dev_ms = device_ms(lambda: conv2d.conv3x3(x, w), 10)
             plain_ms = cuda_ms(lambda: conv2d.conv3x3_plain(x, w), 5)
             xc = x.permute(0, 3, 1, 2)  # NHWC storage = channels_last NCHW view
             wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -332,13 +354,15 @@ def check_conv3x3(dev, entries):
             entries.append(dict(name=f"conv2d.conv3x3 {label}", route="cuda",
                                 source="com_tpu_torch/csrc/conv3x3.cu",
                                 replaces="com_tpu/ops/pallas/conv2d.py:208",
-                                max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+                                max_abs_err=err.max().item(), ms=ms,
+                                device_ms=dev_ms, plain_ms=plain_ms,
                                 bound_ms=bms, bound_by=by, library_ms=lib_ms, kernel="conv3x3"))
 
 
 def check_seg_scan_bwd(dev, entries):
     """K1's backward: the max over pillar runs in bf16 at (2, 163840, 32)
-    with many tied maxima, against run_bcast_plain's autograd."""
+    with many tied maxima, against run_bcast_plain's autograd; timed as the
+    one fused launch the backward makes."""
     from com_tpu_torch.ops import seg_scan
     from com_tpu_torch.ops.voxelize import point_voxel_ids
 
@@ -370,14 +394,21 @@ def check_seg_scan_bwd(dev, entries):
           f" two bf16 roundings) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("K1 backward disagrees with its plain version")
-    ms = cuda_ms(lambda: torch.autograd.grad(out, v, g, retain_graph=True), 20)
-    plain_ms = cuda_ms(lambda: torch.autograd.grad(pout, pv, g, retain_graph=True), 5)
+    # the call the backward makes: one fused launch (out detached: the
+    # forward's output as autograd saved it)
+    fwd_out = out.detach()
+    ms = cuda_ms(lambda: seg_scan.run_bcast_max_bwd(g, vals, fwd_out, seg), 50)
+    dev_ms = device_ms(lambda: seg_scan.run_bcast_max_bwd(g, vals, fwd_out, seg), 50)
+    plain_ms = cuda_ms(lambda: seg_scan.run_bcast_max_bwd_plain(g, vals, fwd_out, seg), 10)
     # reads g, vals, out and seg once, writes dvals; a few f32 operations an element
     bms, by = bound_ms(nbytes(g, vals, out, seg, got), 6 * g.numel(), torch.float32)
+    print(f"K1 max backward: {ms:.4f} ms a fused call as the host issues them, {dev_ms:.4f} ms "
+          f"queued on the card, bound {bms:.5f} ms")
     entries.append(dict(name="seg_scan.run_bcast max backward bf16 (2,163840,32)", route="cuda",
                         source="com_tpu_torch/csrc/seg_scan.cu",
                         replaces="com_tpu/ops/pallas/seg_scan.py:284",
-                        max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                        max_abs_err=err.max().item(), ms=ms,
+                        device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms,
                         bound_by=by, library_ms=None, kernel="seg_scan_bwd"))
 
 
@@ -411,6 +442,7 @@ def check_conv3x3_backward(dev, entries):
             raise AssertionError(f"K2 dgrad {label} disagrees with its plain version")
         # the call the backward makes: K2 on g with the rotated kernel
         ms = cuda_ms(lambda: conv2d.conv3x3_dgrad(g, w), 10)
+        dev_ms = device_ms(lambda: conv2d.conv3x3_dgrad(g, w), 10)
         plain_ms = cuda_ms(lambda: conv2d.conv3x3_plain(g, conv2d.rotate_kernel(w)), 5)
         gc = g.permute(0, 3, 1, 2)  # NHWC storage = channels_last NCHW view
         wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -420,7 +452,8 @@ def check_conv3x3_backward(dev, entries):
         entries.append(dict(name=f"conv2d.conv3x3 dgrad {label}", route="cuda",
                             source="com_tpu_torch/csrc/conv3x3.cu",
                             replaces="com_tpu/ops/pallas/conv2d.py:544",
-                            max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                            max_abs_err=err.max().item(), ms=ms,
+                            device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms,
                             bound_by=by, library_ms=lib_ms, kernel="conv3x3_dgrad"))
         del runs, x, y, px, py, got, want, absref, err
 
@@ -439,6 +472,7 @@ def check_conv3x3_backward(dev, entries):
             if not ok:
                 raise AssertionError(f"K2w {label} disagrees with its plain version")
             ms = cuda_ms(lambda: conv2d.conv3x3_wgrad(xd, gd), 10)
+            dev_ms = device_ms(lambda: conv2d.conv3x3_wgrad(xd, gd), 10)
             plain_ms = cuda_ms(lambda: conv2d.conv3x3_wgrad_plain(xd, gd), 5)
             xc, gc = xd.permute(0, 3, 1, 2), gd.permute(0, 3, 1, 2)
             lib_ms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(xc, (c, c, 3, 3), gc,
@@ -447,7 +481,8 @@ def check_conv3x3_backward(dev, entries):
             entries.append(dict(name=f"conv2d.conv3x3_wgrad {label}", route="cuda",
                                 source="com_tpu_torch/csrc/conv3x3_wgrad.cu",
                                 replaces="com_tpu/ops/pallas/conv2d.py:235",
-                                max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+                                max_abs_err=err.max().item(), ms=ms,
+                                device_ms=dev_ms, plain_ms=plain_ms,
                                 bound_ms=bms, bound_by=by, library_ms=lib_ms,
                                 kernel="conv3x3_wgrad"))
             del got, want, absref, err
@@ -482,12 +517,14 @@ def check_wgrad_variants(dev, entries):
                 if not ok:
                     raise AssertionError(f"{tn} th={th} {label} disagrees with its plain version")
                 ms = cuda_ms(lambda: fn(x, g, th), 20)
+                dev_ms = device_ms(lambda: fn(x, g, th), 20)
                 plain_ms = cuda_ms(lambda: plain(x, g, th), 3, warmup=1)
                 bms, by = bound_ms(nbytes(x, g, got), flops, torch.bfloat16)
                 entries.append(dict(name=name, route="cuda",
                                     source="com_tpu_torch/csrc/wgrad_variants.cu",
                                     replaces=f"tools/perf/microbench_wgrad_kernels.py:{line}",
-                                    max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+                                    max_abs_err=err.max().item(), ms=ms,
+                                    device_ms=dev_ms, plain_ms=plain_ms,
                                     bound_ms=bms, bound_by=by, library_ms=lib_ms,
                                     kernel=f"wgrad_{v}"))
                 del got, want, err
@@ -575,6 +612,7 @@ def check_stamp(dev, entries):
         if not ok:
             raise AssertionError(f"K3 {mode} disagrees with its plain version")
         ms = cuda_ms(lambda: stamp.stamp_windows(*args, c, h, w, mode, fill=fill), 50)
+        dev_ms = device_ms(lambda: stamp.stamp_windows(*args, c, h, w, mode, fill=fill), 50)
         plain_ms = cuda_ms(lambda: stamp.stamp_windows_plain(*args, c, h, w, mode, fill=fill), 10)
         # the canvas written once, the objects read once; an exp and a max
         # (gauss) or one index max (last_wins) per window cell of a valid object
@@ -583,8 +621,8 @@ def check_stamp(dev, entries):
         entries.append(dict(name=f"stamp.stamp_windows {mode} (2,3,468,468) 500 slots",
                             route="cuda", source="com_tpu_torch/csrc/stamp.cu",
                             replaces="com_tpu/ops/pallas/stamp.py:137", max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
-                            kernel=f"stamp_{mode}"))
+                            device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                            library_ms=None, kernel=f"stamp_{mode}"))
 
 
 def load_config(grid=None, config=CONFIG):
@@ -631,12 +669,14 @@ def check_nms(dev, entries, net, cfg, meta):
     if err:
         raise AssertionError("K4 disagrees with its plain version")
     ms = cuda_ms(lambda: nms.greedy_suppress(over, sv), 50)
+    dev_ms = device_ms(lambda: nms.greedy_suppress(over, sv), 50)
     plain_ms = cuda_ms(lambda: nms.greedy_suppress_plain(over, sv), 3, warmup=1)
     bms, by = bound_ms(nbytes(over, sv, got), over.numel(), torch.float32)
     entries.append(dict(name="nms.greedy_suppress (2,500,500)", route="cuda",
                         source="com_tpu_torch/csrc/nms.cu",
                         replaces="com_tpu/ops/pallas/nms_kernel.py:56",
-                        max_abs_err=float(err), ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                        max_abs_err=float(err), ms=ms,
+                        device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms,
                         bound_by=by, library_ms=None, kernel="nms"))
 
 
@@ -1062,8 +1102,8 @@ def main():
               **{f"wgrad_{v}": sweep_counts[f"wgrad_{v}"] for v in WGRAD_VARIANTS}}
     for e in entries:
         e["launches"] = counts[e.pop("kernel")]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "device_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

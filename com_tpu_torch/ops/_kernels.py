@@ -30,8 +30,8 @@ P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # c_void_p: ctypes would pass a bare Python int as a 32-bit int.
 SIGNATURES = {
     "seg_scan": {
-        "k1_tile_rows": (I, ()),
-        "k1_run_bcast": (I, (P, P, P, P, P, I, I, I, I, I, P)),
+        "k1_tile_rows": (I, (I, I, I)),
+        "k1_call": (I, (P, P, P, P, P, P, I, I, I, I, I, P)),
     },
     "conv3x3": {
         "k2_conv3x3_f32": (I, (P, P, P, I, I, I, I, I, P)),

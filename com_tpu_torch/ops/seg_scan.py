@@ -6,11 +6,13 @@ every point, for the cluster mean (sum) and the PFN max feedback (max).  With
 points sorted by pillar id each pillar is a contiguous run.
 
 ``run_bcast`` is a ``torch.autograd.Function`` whose backward is the JAX
-package's VJP (``seg_scan.py:277-299``), built from K1 sums: for sum, the
-run sum of g; for max, ``tied * gsum / max(nties, 1)``, the run's gradient
-split evenly over its tied maxima.  Every K1 call, forward or backward,
-launches the CUDA kernel (``csrc/seg_scan.cu``) for a CUDA tensor and runs
-``run_bcast_plain`` for a CPU tensor; there is no other route.
+package's VJP (``seg_scan.py:277-299``): for sum, the run sum of g (one K1
+sum); for max, ``tied * gsum / max(nties, 1)``, the run's gradient split
+evenly over its tied maxima, in one fused kernel call that sums g and
+counts the ties in f32 and rounds once.  Every call, forward or backward,
+launches the CUDA kernels (``csrc/seg_scan.cu``, entry ``k1_call``) for a
+CUDA tensor and runs the plain version (``run_bcast_plain``,
+``run_bcast_max_bwd_plain``) for a CPU tensor; there is no other route.
 """
 from __future__ import annotations
 
@@ -20,10 +22,11 @@ import torch
 
 from . import _kernels
 
-launches = 0      # K1 launches by run_bcast's forward since the last reset
-bwd_launches = 0  # K1 (sum) launches by run_bcast's backward since the last reset
+launches = 0      # run_bcast forward calls that launched K1 since the last reset
+bwd_launches = 0  # K1 sum or max-backward launches by run_bcast's backward since the last reset
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_OPS = {"sum": 0, "max": 1, "max_bwd": 2}
 
 
 def run_bcast_plain(vals: torch.Tensor, seg: torch.Tensor, op: str = "sum") -> torch.Tensor:
@@ -47,36 +50,81 @@ def run_bcast_plain(vals: torch.Tensor, seg: torch.Tensor, op: str = "sum") -> t
     return table[idx].reshape(b, n, c).to(vals.dtype)
 
 
+def run_bcast_max_bwd_plain(g: torch.Tensor, vals: torch.Tensor, out: torch.Tensor,
+                            seg: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the max's backward (``seg_scan.py:284-299``):
+    each run's sum of g split evenly over its tied maxima (rows where vals ==
+    out), computed in f32 and cast once to vals' dtype."""
+    tied = (vals == out).float()
+    gsum = run_bcast_plain(g.float(), seg, "sum")
+    nties = run_bcast_plain(tied, seg, "sum")
+    return (tied * gsum / torch.clamp(nties, min=1.0)).to(vals.dtype)
+
+
+def _check(what: str, seg: torch.Tensor, *ts: torch.Tensor) -> None:
+    """What the kernels take: (B, N, C) f32/bf16 tensors of one dtype and
+    (B, N) int32 ids, all contiguous on one CUDA device."""
+    v = ts[0]
+    if v.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {v.device}")
+    if v.dim() != 3 or seg.shape != v.shape[:2] or any(t.shape != v.shape for t in ts):
+        raise ValueError(f"{what}: {[tuple(t.shape) for t in ts]} and seg {tuple(seg.shape)}")
+    if v.dtype not in _DTYPES or any(t.dtype != v.dtype for t in ts) or seg.dtype != torch.int32:
+        raise TypeError(f"{what}: {[t.dtype for t in ts]} (want one of f32/bf16), "
+                        f"seg {seg.dtype} (want int32)")
+    if any(t.device != v.device or not t.is_contiguous() for t in (*ts, seg)):
+        raise ValueError(f"{what}: tensors must be contiguous on one device")
+
+
+def _scratch(lib, vals: torch.Tensor, op: int) -> torch.Tensor:
+    """One call's f32 scratch: the head and tail partials of the tiles and
+    their carries, (4, B, tiles, C) values of one f32 (op 0, 1) or a pair
+    (op 2, the max backward)."""
+    b, n, c = vals.shape
+    nt = -(-n // lib.k1_tile_rows(c, _DTYPES[vals.dtype], op))
+    return torch.empty((4, b, nt, c, 2 if op == 2 else 1), dtype=torch.float32,
+                       device=vals.device)
+
+
+def _launch(op: str, seg: torch.Tensor, vals: torch.Tensor, counter: str,
+            g: torch.Tensor | None = None, out: torch.Tensor | None = None) -> torch.Tensor:
+    """One K1 call on CUDA tensors (``k1_call``): the run totals of vals (op
+    "sum" or "max"), or the max's backward from g, vals and the forward's
+    out (op "max_bwd").  The launch adds one to the module counter named
+    ``counter`` (``launches`` or ``bwd_launches``)."""
+    _check(f"run_bcast {op}", seg, *(t for t in (g, vals, out) if t is not None))
+    b, n, c = vals.shape
+    y = torch.empty_like(vals)
+    if y.numel() == 0:
+        return y
+    lib = _kernels.library("seg_scan")
+    code = _OPS[op]
+    scratch = _scratch(lib, vals, code)
+    ptrs = (None if t is None else t.data_ptr() for t in (g, vals, out, seg, y, scratch))
+    with torch.cuda.device(vals.device):
+        err = lib.k1_call(*ptrs, b, n, c, code, _DTYPES[vals.dtype], _kernels.stream_of(vals))
+    _kernels.check(err, f"run_bcast {op} (K1)")
+    globals()[counter] += 1
+    return y
+
+
 def _k1(vals: torch.Tensor, seg: torch.Tensor, op: str, counter: str) -> torch.Tensor:
-    """One K1 call: the kernel for a CUDA tensor, the plain version for a
-    CPU tensor.  A launch adds one to the module counter named ``counter``
-    (``launches`` or ``bwd_launches``)."""
+    """One K1 sum or max: the kernel for a CUDA tensor, the plain version
+    for a CPU tensor."""
     if vals.device.type == "cpu":
         return run_bcast_plain(vals, seg, op)
-    if vals.device.type != "cuda":
-        raise ValueError(f"run_bcast: unsupported device {vals.device}")
-    if vals.dim() != 3 or seg.shape != vals.shape[:2]:
-        raise ValueError(f"run_bcast: vals {tuple(vals.shape)} and seg {tuple(seg.shape)}")
-    if vals.dtype not in _DTYPES or seg.dtype != torch.int32:
-        raise TypeError(f"run_bcast: vals {vals.dtype} (want f32/bf16), "
-                        f"seg {seg.dtype} (want int32)")
-    if seg.device != vals.device or not (vals.is_contiguous() and seg.is_contiguous()):
-        raise ValueError("run_bcast: vals and seg must be contiguous on one device")
-    b, n, c = vals.shape
-    out = torch.empty_like(vals)
-    if out.numel() == 0:
-        return out
-    lib = _kernels.library("seg_scan")
-    nt = -(-n // lib.k1_tile_rows())
-    head = torch.empty((b, nt, c), dtype=torch.float32, device=vals.device)
-    tail = torch.empty_like(head)
-    with torch.cuda.device(vals.device):
-        err = lib.k1_run_bcast(vals.data_ptr(), seg.data_ptr(), out.data_ptr(),
-                               head.data_ptr(), tail.data_ptr(), b, n, c,
-                               int(op == "max"), _DTYPES[vals.dtype], _kernels.stream_of(vals))
-    _kernels.check(err, "run_bcast (K1)")
-    globals()[counter] += 1
-    return out
+    return _launch(op, seg, vals, counter)
+
+
+def run_bcast_max_bwd(g: torch.Tensor, vals: torch.Tensor, out: torch.Tensor,
+                      seg: torch.Tensor) -> torch.Tensor:
+    """The max's backward in one kernel for CUDA tensors (counted in
+    ``bwd_launches``), ``run_bcast_max_bwd_plain`` for CPU tensors.  g, vals
+    (the forward's input) and out (its output): (B, N, C) in one dtype;
+    returns dvals in that dtype."""
+    if vals.device.type == "cpu":
+        return run_bcast_max_bwd_plain(g, vals, out, seg)
+    return _launch("max_bwd", seg, vals, "bwd_launches", g, out)
 
 
 class _RunBcast(torch.autograd.Function):
@@ -94,17 +142,12 @@ class _RunBcast(torch.autograd.Function):
     def backward(ctx, g):
         seg = ctx.saved_tensors[0]
         g = g.contiguous()
-        gsum = _k1(g, seg, "sum", "bwd_launches")
         if ctx.op == "sum":
-            dvals = gsum
-        else:
-            _, vals, out = ctx.saved_tensors
-            # split the run's gradient evenly over tied maxima (under bf16
-            # several points of a pillar often round to the same max)
-            tied = (vals == out).to(gsum.dtype)
-            nties = _k1(tied.contiguous(), seg, "sum", "bwd_launches")
-            dvals = tied * gsum / torch.clamp(nties, min=1.0)
-        return dvals, None, None
+            return _k1(g, seg, "sum", "bwd_launches"), None, None
+        # split the run's gradient evenly over tied maxima (under bf16
+        # several points of a pillar often round to the same max)
+        _, vals, out = ctx.saved_tensors
+        return run_bcast_max_bwd(g, vals, out, seg), None, None
 
 
 def run_bcast(vals: torch.Tensor, seg: torch.Tensor, op: str = "sum") -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Tile sweep of the tensor-core K2 and K2w on the card.
+"""Tile sweep of the tensor-core K2 and K2w, and of K1, on the card.
 
     python -m com_tpu_torch.tools.perf.conv_tiles [VARIANT ...]
 
@@ -15,8 +15,18 @@ with an optional diagnostic:
                                the loads
   ...,nomma                    each mma.sync replaced by one add: the time
                                without the products
+  k1:FWD,BWD,THREADS,MINB      kFwdRows, kBwdRows, kThreads, kMinBlocks of
+  ...,noload | ,noscan         seg_scan.cu (diagnostics: k1_main without its
+  | ,mainonly                  loads, without the scans across its threads,
+                               or alone, without k1_carries and k1_fixup:
+                               what any one-launch design doing k1_main's
+                               reads would cost), timed on K1's path shapes (sum
+                               f32 (2,163840,8), max bf16 (2,163840,32) and
+                               its backward) over Waymo-like pillar ids: two
+                               scenes, and sample 1 one whole-sample run
 
-Without arguments it runs the shipped tiles and the two diagnostics of each.
+Without arguments it runs the shipped tiles and the two diagnostics of each,
+and K1's shipped constants, its three diagnostics and four other sets.
 Each line: mean ms a call (CUDA events over ``ITERS`` calls after two
 warm-up calls), TFLOP/s, and whether the output is within the tolerance of
 ``chip_smoke.py`` (diagnostics are wrong by design).  Builds go to
@@ -40,21 +50,31 @@ from com_tpu_torch.utils.device import resolve_device
 SHAPES = ((2, 468, 468, 64, 64), (2, 234, 234, 128, 128), (2, 117, 117, 256, 256))
 ITERS = 20
 CONSTANTS = {"k2": ("conv3x3", ("kTR", "kKc", "kStages")),
-             "k2w": ("conv3x3_wgrad", ("kDY", "kCi", "kCo", "kWarpsM", "kStages"))}
+             "k2w": ("conv3x3_wgrad", ("kDY", "kCi", "kCo", "kWarpsM", "kStages")),
+             "k1": ("seg_scan", ("kFwdRows", "kBwdRows", "kThreads", "kMinBlocks"))}
 DEFAULT = ("k2:8,32,2", "k2:8,32,2,noload", "k2:8,32,2,nomma",
            "k2w:1,64,64,4,4", "k2w:1,64,64,4,4,noload", "k2w:1,64,64,4,4,nomma")
+K1_DEFAULT = ("k1:8,4,256,2", "k1:8,4,256,2,noload", "k1:8,4,256,2,noscan",
+              "k1:8,4,256,2,mainonly", "k1:8,4,256,1", "k1:16,8,256,1", "k1:4,4,256,3",
+              "k1:8,4,128,4")
+K1_POINTS = 163840
 _MMA = re.compile(r"hopper::mma_bf16\(acc\[i\]\[j\], af\[i\], bfr\[j >> 1\]\[\(j & 1\) \* 2\],"
                   r"\s*bfr\[j >> 1\]\[\(j & 1\) \* 2 \+ 1\]\);")
 _FETCH = "    fetch(t + kStages - 1);\n"
+_K1_FETCH = "    if (g.active && r < g.nv) task.fetch(row0 + r, g.c0, C, vec, raw[k]);\n"
+_K1_SCAN = re.compile(r"  block_scans<Op, VEC, kWarps>\(g, [^;]*;\n")
+_K1_LAUNCHES = "  if (err != cudaSuccess) return (int)err;\n  // k1_carries and k1_fixup start"
 
 
 def parse(variant: str):
     """``"k2:8,32,2,noload"`` -> ("k2", (8, 32, 2), "noload")."""
     kernel, _, rest = variant.partition(":")
     parts = rest.split(",")
-    diag = parts[-1] if parts[-1] in ("noload", "nomma") else None
+    diag = parts[-1] if parts[-1] in ("noload", "nomma", "noscan", "mainonly") else None
     values = tuple(int(p) for p in (parts[:-1] if diag else parts))
-    if kernel not in CONSTANTS or len(values) != len(CONSTANTS[kernel][1]):
+    diags = ("noload", "noscan", "mainonly") if kernel == "k1" else ("noload", "nomma")
+    if (kernel not in CONSTANTS or len(values) != len(CONSTANTS[kernel][1])
+            or diag not in (None, *diags)):
         raise ValueError(f"bad variant {variant!r}")
     return kernel, values, diag
 
@@ -68,7 +88,20 @@ def variant_source(kernel: str, values, diag=None) -> str:
         text, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};", text)
         if n != 1:
             raise ValueError(f"{src}.cu: constant {name} not found once")
-    if diag == "noload":
+    if kernel == "k1" and diag == "noload":
+        if text.count(_K1_FETCH) != 1:
+            raise ValueError(f"{src}.cu: k1_main's fetch not found once")
+        text = text.replace(_K1_FETCH, "")
+    elif diag == "noscan":
+        text, n = _K1_SCAN.subn("  eid = rid = INT_MIN;\n  for (int i = 0; i < VEC; ++i) "
+                                "ev[i] = rv[i] = Op::ident();\n", text)
+        if n != 1:
+            raise ValueError(f"{src}.cu: k1_main's block_scans not found once")
+    elif diag == "mainonly":
+        if text.count(_K1_LAUNCHES) != 1:
+            raise ValueError(f"{src}.cu: the launches after k1_main not found once")
+        text = text.replace(_K1_LAUNCHES, "  return (int)err;\n  // k1_carries and k1_fixup start")
+    elif diag == "noload":
         if text.count(_FETCH) != 1:
             raise ValueError(f"{src}.cu: the main loop's fetch() not found once")
         text = text.replace(_FETCH, "")
@@ -93,16 +126,23 @@ def _build(variant: str) -> Path:
     return so
 
 
-def _ms(fn):
+def call_ms(fn, iters=ITERS, queued=False):
+    """Mean ms a call over ``iters`` calls after two warm-up calls (CUDA
+    events); ``queued``: the calls wait behind a spin kernel, so that the
+    card never waits for the host's launches (the device time of a call
+    shorter than its launch)."""
     for _ in range(2):
         fn()
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(iters * 200_000)  # ~0.1 ms a call at the SM clock
     start.record()
-    for _ in range(ITERS):
+    for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / ITERS
+    return start.elapsed_time(end) / iters
 
 
 def run(variants=DEFAULT, device=None):
@@ -159,19 +199,95 @@ def run(variants=DEFAULT, device=None):
             torch.cuda.synchronize()
             want, tol = refs[kernel]
             ok = bool(((out.float() - want).abs() <= tol).all())
-            ms = _ms(call)
+            ms = call_ms(call)
             rows.append(dict(variant=variant, shape=(b, h, w, cin, cout), ms=ms,
                              tflops=2 * 9 * cin * cout * b * h * w / ms / 1e9, ok=ok))
         del refs
     return rows
 
 
+def _scene_ids(gen, b, n, dev):
+    """Pillar ids of Waymo-like scenes, sorted: three quarters of the points
+    with a 1/r falloff over the 149.76 m square, a quarter in 32 blobs of
+    1.2 m; 0.32 m pillars on the 468 x 468 grid."""
+    half, size = 74.88, 468
+    r = half * torch.rand((b, n), device=dev, generator=gen) ** 0.75
+    th = (torch.rand((b, n), device=dev, generator=gen) * 2 - 1) * math.pi
+    xy = torch.stack([r * torch.cos(th), r * torch.sin(th)], -1)
+    nb = n // 4
+    centers = (torch.rand((b, 32, 2), device=dev, generator=gen) * 2 - 1) * half * 0.8
+    pick = torch.randint(0, 32, (b, nb), device=dev, generator=gen)
+    xy[:, :nb] = (torch.gather(centers, 1, pick[..., None].expand(-1, -1, 2))
+                  + 1.2 * torch.randn((b, nb, 2), device=dev, generator=gen))
+    cell = ((xy + half) / 0.32).floor().clamp(0, size - 1).to(torch.int32)
+    return torch.sort(cell[..., 1] * size + cell[..., 0], dim=1).values.contiguous()
+
+
+def run_k1(variants=K1_DEFAULT, device=None):
+    """One dict a (variant, input, function): variant, input, fn, ms (calls
+    as the host issues them), device_ms (queued behind a spin kernel), ok."""
+    from com_tpu_torch.ops import seg_scan
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("conv_tiles times kernels: it needs a CUDA device")
+    with ThreadPoolExecutor(len(variants)) as ex:
+        libs = dict(zip(variants, ex.map(_build, variants)))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scenes = _scene_ids(gen, 2, K1_POINTS, dev)
+    padded = scenes.clone()
+    padded[1] = 468 * 468
+    x8 = torch.randn((2, K1_POINTS, 8), device=dev, generator=gen)
+    x32 = torch.randn((2, K1_POINTS, 32), device=dev, generator=gen).to(torch.bfloat16)
+    x32 = (x32.float() * 2).round().to(torch.bfloat16) / 2  # coarse: tied maxima
+    g32 = torch.randn((2, K1_POINTS, 32), device=dev, generator=gen).to(torch.bfloat16)
+    rows = []
+    for where, seg in (("two scenes", scenes), ("whole-sample run", padded)):
+        out32 = seg_scan.run_bcast_plain(x32, seg, "max")
+        cases = {"sum f32 (2,163840,8)": (0, x8, seg_scan.run_bcast_plain(x8, seg, "sum")),
+                 "max bf16 (2,163840,32)": (1, x32, out32),
+                 "max backward bf16 (2,163840,32)":
+                     (2, x32, seg_scan.run_bcast_max_bwd_plain(g32, x32, out32, seg))}
+        sum_tol = 1e-5 * seg_scan.run_bcast_plain(x8.abs(), seg, "sum") + 1e-6
+        bwd_tol = (1e-5 * seg_scan.run_bcast_plain(g32.float().abs(), seg, "sum")
+                   + 2.0 ** -7 * cases["max backward bf16 (2,163840,32)"][2].float().abs() + 1e-6)
+        for variant, so in libs.items():
+            lib = ctypes.CDLL(str(so))
+            for fn, (res, args) in _kernels.SIGNATURES["seg_scan"].items():
+                getattr(lib, fn).restype, getattr(lib, fn).argtypes = res, list(args)
+            for name, (op, x, want) in cases.items():
+                b, n, c = x.shape
+                scratch = seg_scan._scratch(lib, x, op)
+                y = torch.empty_like(x)
+                dt = int(x.dtype == torch.bfloat16)
+                gp, fp = (g32.data_ptr(), out32.data_ptr()) if op == 2 else (None, None)
+
+                def call():
+                    return lib.k1_call(gp, x.data_ptr(), fp, seg.data_ptr(), y.data_ptr(),
+                                       scratch.data_ptr(), b, n, c, op, dt, stream)
+
+                _kernels.check(call(), variant)
+                torch.cuda.synchronize()
+                err = (y.float() - want.float()).abs()
+                ok = (torch.equal(y, want) if op == 1 else
+                      bool((err <= (sum_tol if op == 0 else bwd_tol)).all()))
+                rows.append(dict(variant=variant, input=where, fn=name, ms=call_ms(call),
+                                 device_ms=call_ms(call, queued=True), ok=ok))
+    return rows
+
+
 def main(argv=None):
-    rows = run(tuple(argv) if argv else DEFAULT)
+    variants = tuple(argv) if argv else DEFAULT + K1_DEFAULT
+    conv = tuple(v for v in variants if not v.startswith("k1:"))
+    k1 = tuple(v for v in variants if v.startswith("k1:"))
     print(f"card: {torch.cuda.get_device_name(0)}")
-    for r in rows:
+    for r in run(conv) if conv else ():
         print(f"{r['variant']:<28} {r['shape']}: {r['ms']:.4f} ms {r['tflops']:.1f} TFLOP/s "
               f"{'ok' if r['ok'] else 'WRONG'}")
+    for r in run_k1(k1) if k1 else ():
+        print(f"{r['variant']:<16} {r['fn']:<32} {r['input']:<17}: {r['ms']:.4f} ms, queued "
+              f"{r['device_ms']:.4f} ms {'ok' if r['ok'] else 'WRONG'}")
 
 
 if __name__ == "__main__":

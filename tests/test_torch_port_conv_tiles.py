@@ -115,3 +115,24 @@ def test_tile_sweep_sources(variant):
         assert text == (_kernels.CSRC / f"{src}.cu").read_text()
     with pytest.raises(ValueError):
         conv_tiles.parse(variant.replace(":", ":1,"))
+
+
+@pytest.mark.parametrize("variant", conv_tiles.K1_DEFAULT + ("k1:4,2,128,1,noload",
+                                                            "k1:16,8,512,1,noscan"))
+def test_k1_tile_sweep_sources(variant):
+    """K1's copies in the tile sweep: each constant of seg_scan.cu set once,
+    each diagnostic's pattern found; the first variant is the shipped
+    source; the conv kernels' diagnostic is refused."""
+    kernel, values, diag = conv_tiles.parse(variant)
+    assert kernel == "k1"
+    text = conv_tiles.variant_source(kernel, values, diag)
+    for name, value in zip(conv_tiles.CONSTANTS["k1"][1], values):
+        assert f"constexpr int {name} = {value};" in text
+    assert ("task.fetch(row0 + r, g.c0, C, vec, raw[k]);" in text.split("k1_main(")[1]
+            .split("k1_carries(")[0]) == (diag != "noload")
+    assert ("block_scans<Op, VEC, kWarps>(" in text) == (diag != "noscan")
+    assert ("  return (int)err;\n  // k1_carries and k1_fixup" in text) == (diag == "mainonly")
+    if variant == conv_tiles.K1_DEFAULT[0]:
+        assert text == (_kernels.CSRC / "seg_scan.cu").read_text()
+    with pytest.raises(ValueError):
+        conv_tiles.parse(variant.split(",no")[0].split(",main")[0] + ",nomma")

@@ -6,7 +6,11 @@ fixture).  On the card:
     python -m pytest tests/test_torch_port_gpu.py -m gpu -q
 
 Shapes are small but ragged (tiles cut, runs crossing tile edges, whole-
-sample runs, objects past the map's edge).  Max, keep masks, last-wins
+sample runs, objects past the map's edge).  K1's cases are cut at its own
+tile size (``k1_tile_rows``): runs of T - 1, T, T + 1 and 2T + 1 rows, a
+whole-sample run, fewer rows than a tile, 8, 11, 32 and 64 channels and
+vals off a 16-byte boundary (its 16-byte and element loads), an all -inf
+run, and the fused max backward on tied maxima.  Max, keep masks, last-wins
 stamps and launch counts are exact; gaussian stamps within 2e-6 (analytic
 exp against the f64-built table); f32 sums and convs are held to f32
 rounding, bf16 ones to one or two bf16 roundings.  The backward passes (K1
@@ -22,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from com_tpu_torch.ops import conv2d, nms, seg_scan, stamp, wgrad_variants
+from com_tpu_torch.ops import _kernels, conv2d, nms, seg_scan, stamp, wgrad_variants
 
 pytestmark = pytest.mark.gpu
 
@@ -56,6 +60,90 @@ def test_run_bcast_kernel(dev, dtype, op, b, n, nseg, c):
         rnd = 0.0 if dtype == torch.float32 else 2.0 ** -8
         err = (got.float() - want.float()).abs()
         assert bool((err <= 1e-5 * scale + rnd * want.float().abs() + 1e-6).all())
+
+
+def _k1_case(dev, rng, op, dtype, c, layout, offset):
+    """Ids and values at K1's own tile size for (c, dtype, op): sample 0 with
+    runs of T - 1, T, T + 1 and 2T + 1 rows between short ones (so they
+    straddle tile edges), or fewer rows than one tile; sample 1 one run over
+    the whole sample.  vals starts `offset` elements past an allocation."""
+    lib = _kernels.library("seg_scan")
+    t = lib.k1_tile_rows(c, int(dtype == torch.bfloat16), {"sum": 0, "max": 1, "bwd": 2}[op])
+    if layout == "edges":
+        lengths = []
+        for length in (t - 1, t, t + 1, 2 * t + 1):
+            lengths += list(rng.randint(1, 6, rng.randint(1, 8))) + [length]
+        lengths += list(rng.randint(1, 6, 20))
+    else:
+        lengths = list(rng.randint(1, 6, t // 8))
+    ids = np.repeat(np.arange(len(lengths)), lengths)
+    ids = ids[:t // 3] if layout == "short" else ids
+    n = len(ids)
+    seg = torch.from_numpy(np.stack([ids, np.full(n, 3)]).astype(np.int32)).to(dev)
+    vals = rng.randn(2, n, c).astype(np.float32)
+    if op == "bwd":
+        vals = np.round(vals * 2) / 2  # coarse values: tied maxima
+    flat = torch.zeros(2 * n * c + offset, device=dev, dtype=dtype)
+    flat[offset:] = torch.from_numpy(vals.reshape(-1)).to(dev).to(dtype)
+    return seg, flat[offset:].view(2, n, c), ids
+
+
+@pytest.mark.parametrize("offset", [0, 1])  # 1: vals off a 16-byte boundary, element loads
+@pytest.mark.parametrize("layout", ["edges", "short"])
+@pytest.mark.parametrize("c", [8, 11, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["sum", "max"])
+def test_run_bcast_kernel_tile_edges(dev, op, dtype, c, layout, offset):
+    rng = np.random.RandomState(c * 10 + offset + (layout == "short") * 100)
+    seg, vals, ids = _k1_case(dev, rng, op, dtype, c, layout, offset)
+    if op == "max":  # a run all -inf: its max is non-finite and becomes 0
+        vals[0, torch.from_numpy(ids == 1).to(dev)] = -math.inf
+    before = seg_scan.launches
+    got = seg_scan.run_bcast(vals, seg, op)
+    torch.cuda.synchronize()
+    assert seg_scan.launches == before + 1 and got.dtype == dtype
+    want = seg_scan.run_bcast_plain(vals, seg, op)
+    if op == "max":
+        assert torch.equal(got, want)
+        assert bool((got[0, torch.from_numpy(ids == 1).to(dev)] == 0).all())
+    else:
+        scale = seg_scan.run_bcast_plain(vals.float().abs(), seg, "sum")
+        rnd = 0.0 if dtype == torch.float32 else 2.0 ** -8
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= 1e-5 * scale + rnd * want.float().abs() + 1e-6).all())
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("layout", ["edges", "short"])
+@pytest.mark.parametrize("c", [8, 11, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_run_bcast_max_backward_fused_kernel(dev, dtype, c, layout, offset):
+    """The fused max backward (one launch) on tied maxima, runs across tile
+    edges and a whole-sample run: through autograd against
+    run_bcast_plain's autograd, and called directly against its plain
+    version."""
+    rng = np.random.RandomState(c * 10 + offset + (layout == "short") * 100 + 7)
+    seg, vals, _ = _k1_case(dev, rng, "bwd", dtype, c, layout, offset)
+    gy = torch.from_numpy(rng.randn(*vals.shape).astype(np.float32)).to(dev).to(dtype)
+    grads = []
+    for fn in (seg_scan.run_bcast, seg_scan.run_bcast_plain):
+        v = vals.clone().requires_grad_()
+        before = seg_scan.bwd_launches
+        fn(v, seg, "max").backward(gy)
+        torch.cuda.synchronize()
+        if fn is seg_scan.run_bcast:
+            assert seg_scan.bwd_launches == before + 1
+        grads.append(v.grad.float())
+    got, want = grads
+    scale = seg_scan.run_bcast_plain(gy.float().abs(), seg, "sum")
+    rnd = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    assert bool(((got - want).abs() <= 1e-5 * scale + rnd * want.abs() + 1e-6).all())
+    out = seg_scan.run_bcast_plain(vals, seg, "max")
+    got = seg_scan.run_bcast_max_bwd(gy, vals, out, seg).float()
+    want = seg_scan.run_bcast_max_bwd_plain(gy, vals, out, seg).float()
+    assert bool(((got - want).abs() <= 1e-5 * scale + rnd * want.abs() + 1e-6).all())
+    ties = seg_scan.run_bcast_plain((vals == out).float(), seg, "sum")
+    assert bool(((ties > 1) & (vals == out)).any())  # the case holds tied maxima
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -233,7 +321,7 @@ def test_run_bcast_backward_kernel(dev, dtype, op):
         fn(v, seg, op).backward(gy)
         torch.cuda.synchronize()
         if fn is seg_scan.run_bcast:
-            assert seg_scan.bwd_launches == before + (1 if op == "sum" else 2)
+            assert seg_scan.bwd_launches == before + 1  # one K1 sum, or the fused max backward
         grads.append(v.grad.float())
     got, want = grads
     scale = seg_scan.run_bcast_plain(gy.float().abs(), seg, "sum")
@@ -277,6 +365,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         seg_scan.run_bcast(torch.zeros((1, 4, 2), device=dev),
                            torch.zeros((1, 4), device=dev, dtype=torch.int64))
+    with pytest.raises(TypeError):
+        seg_scan.run_bcast_max_bwd(torch.zeros((1, 4, 2), device=dev, dtype=torch.bfloat16),
+                                   torch.zeros((1, 4, 2), device=dev),
+                                   torch.zeros((1, 4, 2), device=dev),
+                                   torch.zeros((1, 4), device=dev, dtype=torch.int32))
     with pytest.raises(TypeError):
         nms.greedy_suppress(torch.zeros((1, 3, 3), device=dev), torch.ones((1, 3), device=dev,
                                                                           dtype=torch.bool))
@@ -330,6 +423,20 @@ def test_train_step_matches_cpu(dev):
     statistics start at 0, so after one forward they are (1 - 0.99) times
     the batch statistics, which are compared per channel against the
     second moment E[x^2] that both are summed from."""
+    _train_step_card_against_cpu(dev, bias_shift=0.0)
+
+
+def test_train_step_matches_cpu_biases_moved(dev):
+    """The same step with every norm's bias moved up by 3 first, as in the
+    CPU slice tests and chip_smoke's small train reference: with almost no
+    ReLU input near the kink, the comparison does not hang on rounding.
+    With the biases at 0 (above), the outcome on the card turns on the
+    rounding of K1's f32 sums and of the library's kernels
+    (``com_tpu_torch.tools.perf.k1_path parity``, PERF.md)."""
+    _train_step_card_against_cpu(dev, bias_shift=3.0)
+
+
+def _train_step_card_against_cpu(dev, bias_shift):
     from com_tpu_torch.models.detectors import DatasetMeta, build_network
     from com_tpu_torch.models.layers import BatchNorm
     from com_tpu_torch.train.optim import build_optimizer
@@ -357,6 +464,10 @@ def test_train_step_matches_cpu(dev):
     runs = []
     for d in (dev, "cpu"):
         net = build_network(cfg.MODEL, meta, device=d, seed=3)
+        with torch.no_grad():
+            for mod in net.modules():
+                if isinstance(mod, BatchNorm):
+                    mod.bias.add_(bias_shift)
         opt, _ = build_optimizer(net, cfg.OPTIMIZATION, 100, 10)
         state = TrainState.create(net, opt, 1, conf_shape_for(cfg.MODEL, names), device=d)
         step = make_train_step(net, cfg.MODEL, names, meta, opt, (32, 32), device=d)

@@ -153,6 +153,33 @@ def test_run_bcast_grad_matches_jax(op, dtype):
         assert (np.abs(got - want) <= 2.0 ** -7 * scale + 1e-6).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["pillars", "whole_sample"])
+def test_run_bcast_max_bwd_plain_matches_jax(dtype, layout):
+    """The fused max backward's plain version (what ``k1_call`` op 2 computes)
+    against ``jax.grad`` of the JAX ``run_bcast`` (Pallas, interpret mode),
+    on runs with tied maxima and on one run over a whole sample."""
+    rng = _rng("mbwd", layout, str(dtype))
+    b, n, c = 2, 600, 8
+    seg = np.sort(rng.randint(0, 50, (b, n)), axis=1).astype(np.int32)
+    if layout == "whole_sample":
+        seg[1] = 7
+    vals = (np.round(rng.randn(b, n, c) * 2) / 2).astype(np.float32)
+    g = rng.randn(b, n, c).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jv, jg = jnp.asarray(vals).astype(jdt), jnp.asarray(g).astype(jdt)
+    want = np.asarray(jax.vjp(lambda v: jax_run_bcast(v, jnp.asarray(seg), "max", "interpret"),
+                              jv)[1](jg)[0].astype(jnp.float32))
+    tv, tg = torch.from_numpy(vals).to(dtype), torch.from_numpy(g).to(dtype)
+    ts = torch.from_numpy(seg)
+    out = seg_scan.run_bcast_plain(tv, ts, "max")
+    got = seg_scan.run_bcast_max_bwd_plain(tg, tv, out, ts)
+    assert got.dtype == dtype and got.shape == (b, n, c)
+    assert (want != 0).sum() < want.size // 2  # the gradient goes to the maxima only
+    scale = seg_scan.run_bcast_plain(tg.float().abs(), ts, "sum").numpy()
+    assert (np.abs(got.float().numpy() - want) <= 2.0 ** -7 * scale + 1e-6).all()
+
+
 def test_run_bcast_max_grad_splits_ties_evenly():
     vals = torch.tensor([[[1.0], [3.0], [3.0], [2.0], [3.0], [5.0]]], requires_grad=True)
     seg = torch.tensor([[0, 0, 0, 0, 0, 1]], dtype=torch.int32)
