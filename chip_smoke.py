@@ -17,7 +17,7 @@ Phases (any failure raises, and the script exits non-zero):
    forward and dgrad (through
    the autograd.Function against conv3x3_plain's autograd), K2w, T1-T4 at
    (2,468,468,64->64) and (2,468,468,128->64) with th 8 and 16, K3 in both
-   modes; then CUDA-event times of the kernel (``ms``: calls as the host
+   modes with its callers' dtypes; then CUDA-event times of the kernel (``ms``: calls as the host
    issues them; ``device_ms``: the calls queued behind a spin kernel, the
    device time of a call even where it is shorter than its launch), the
    plain version and, where one exists, a single library call computing the
@@ -33,8 +33,11 @@ Phases (any failure raises, and the script exits non-zero):
    grid, 163,840 points a scene, batch 2, K = 500) with seeded random
    weights behind the port's BatchServer; three single-scene requests (one
    full batch, one padded), responses checked.  Then the device time of
-   each stage of one eval step (CUDA events), and K4 on the boxes the model
-   decodes.
+   each stage of one eval step (CUDA events), with ``decode_nms`` split into
+   the decode, the score sort and gathers, the rotated IoU, K4,
+   ``_kept_slots`` and the rest; and K4 on the boxes the model decodes (its
+   valid and kept counts) and on two synthetic (2,500,500) cases, every
+   candidate valid: none suppressed, and all suppressed by the first.
 6. Training path A, the flagship config at full width: ``train_model`` for
    2 mini-epochs of 3 steps over synthetic Waymo-like batches (2 scenes of
    163,840 presorted points, 500 object slots of which ~100 are real),
@@ -48,13 +51,17 @@ Phases (any failure raises, and the script exits non-zero):
    K3 in last_wins mode for the COM loss mask.
 8. Launch counts: every counter is zeroed just before each path (the
    sweep, serving, A, B) and read just after, against the calls the sweep
-   reports and the expected counts per forward or per step.  Then the
+   reports and the expected counts per forward or per step.  The device
+   kernels one K3 call issues (1) and one K4 call (2, the pack and the
+   sweep), counted by torch.profiler after every timed phase.  Then the
    ``kernels`` line, the card's name and power limit, and the device line
    as the last line.
 
 ``python3 chip_smoke.py --profile`` also runs torch.profiler over one sweep
 pass over T1-T4, three eval steps and three train steps and prints the
-kernel table of each (and the device busy share of the steps).  It needs no
+kernel table of each (and the device busy share of the steps); the device
+kernels of K3 and K4 are then counted before those sessions, after K4's
+check.  It needs no
 network and builds into ``build/kernels`` inside the checkout.
 """
 from __future__ import annotations
@@ -137,6 +144,31 @@ def device_ms(fn, iters):
     from com_tpu_torch.tools.perf.conv_tiles import call_ms
 
     return call_ms(fn, iters, queued=True)
+
+
+def check_device_kernels(calls):
+    """For each (label, count, fn) the device kernels one call of fn issues
+    (torch.profiler over one call after a warm-up call) must number
+    ``count``.  Run after every timed phase (a profiling session left the
+    host's launches after it slower) and before any other profiling session
+    (after those of ``--profile``, one saw no device kernel at all)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for label, count, fn in calls:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ok = len(names) == count
+        print(f"{label}: one call issues {len(names)} device kernel(s) "
+              f"{[n.replace('(anonymous namespace)::', '').split('(')[0] for n in names]} "
+              f"({count}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label} issues {len(names)} device kernels, not {count}")
 
 
 def bound_ms(nbytes, ops, dtype):
@@ -572,10 +604,14 @@ def profile_wgrad_sweep(dev):
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
 
 
-def check_stamp(dev, entries):
+def check_stamp(dev, entries, calls):
     """K3 in both modes on the training path's canvas (2, 3, 468, 468) with
     500 object slots: ~100 real objects a sample, some invalid slots among
-    them, radii past the clip, overlapping windows, centers on the edges."""
+    them, radii past the clip, overlapping windows, centers on the edges.
+    The inputs have the dtypes the path's callers pass (int32 ids, no values
+    for the heatmap targets; int64 classes and f32 weights for the COM loss
+    mask).  Each mode's call goes into ``calls`` with the one device kernel
+    it must issue (counted by ``check_device_kernels`` at the end)."""
     from com_tpu_torch.ops import stamp
 
     rng = np.random.RandomState(14)
@@ -589,12 +625,12 @@ def check_stamp(dev, entries):
     values = rng.uniform(0.5, 1.5, (b, n)).astype(np.float32)
     valid = np.zeros((b, n), bool)
     valid[:, :REAL_OBJS] = rng.rand(b, REAL_OBJS) > 0.05
-    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
-            (centers.astype(np.int32), radii.astype(np.int32), cls.astype(np.int32), values,
-             valid)]
+    cen, rad, cl32, val, vld = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        centers.astype(np.int32), radii.astype(np.int32), cls.astype(np.int32), values, valid))
     r = np.clip(radii, 0, 16)
     cells = int(((2 * r + 1) ** 2 * valid).sum())
-    for mode, fill in (("gauss", 0.0), ("last_wins", 1.0)):
+    for mode, fill, args in (("gauss", 0.0, (cen, rad, cl32, None, vld)),
+                             ("last_wins", 1.0, (cen, rad, cl32.long(), val, vld))):
         got = stamp.stamp_windows(*args, c, h, w, mode, fill=fill)
         want = stamp.stamp_windows_plain(*args, c, h, w, mode, fill=fill)
         torch.cuda.synchronize()
@@ -611,13 +647,17 @@ def check_stamp(dev, entries):
               f"{b * n} slots: max_abs_err={err:.3e} ({tol}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K3 {mode} disagrees with its plain version")
+        calls.append((f"K3 stamp_windows {mode}", 1, lambda a=args, m=mode, f=fill:
+                      stamp.stamp_windows(*a, c, h, w, m, fill=f)))
         ms = cuda_ms(lambda: stamp.stamp_windows(*args, c, h, w, mode, fill=fill), 50)
         dev_ms = device_ms(lambda: stamp.stamp_windows(*args, c, h, w, mode, fill=fill), 50)
         plain_ms = cuda_ms(lambda: stamp.stamp_windows_plain(*args, c, h, w, mode, fill=fill), 10)
+        print(f"K3 {mode}: {ms:.4f} ms a call as the host issues them, {dev_ms:.4f} ms queued on "
+              f"the card")
         # the canvas written once, the objects read once; an exp and a max
         # (gauss) or one index max (last_wins) per window cell of a valid object
-        bms, by = bound_ms(nbytes(got, *args), cells * (2 if mode == "gauss" else 1),
-                           torch.float32)
+        bms, by = bound_ms(nbytes(got, *(a for a in args if a is not None)),
+                           cells * (2 if mode == "gauss" else 1), torch.float32)
         entries.append(dict(name=f"stamp.stamp_windows {mode} (2,3,468,468) 500 slots",
                             route="cuda", source="com_tpu_torch/csrc/stamp.cu",
                             replaces="com_tpu/ops/pallas/stamp.py:137", max_abs_err=err, ms=ms,
@@ -640,8 +680,12 @@ def load_config(grid=None, config=CONFIG):
     return cfg, DatasetMeta(cfg.CLASS_NAMES, pc_range, vsize, grid, FEATS)
 
 
-def check_nms(dev, entries, net, cfg, meta):
-    """K4 on the (2, 500, 500) overlap matrix of boxes the model decodes."""
+def check_nms(dev, entries, calls, net, cfg, meta):
+    """K4 on the (2, 500, 500) overlap matrix of boxes the model decodes, and
+    on two synthetic ones with every candidate valid: nothing suppressed
+    (each box overlaps only itself, the longest run of kept candidates) and
+    everything suppressed by the first.  Each case's call goes into
+    ``calls`` with the two device kernels it must issue."""
     from com_tpu_torch.models.dense_heads.center_head import decode_center_boxes
     from com_tpu_torch.ops import nms
     from com_tpu_torch.ops.iou import boxes_iou_bev
@@ -660,24 +704,36 @@ def check_nms(dev, entries, net, cfg, meta):
         sb = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 7))
         sv = torch.gather(valid, 1, order).contiguous()
         over = (boxes_iou_bev(sb, sb) > float(post.NMS_CONFIG.NMS_THRESH)).contiguous()
-    got = nms.greedy_suppress(over, sv)
-    want = nms.greedy_suppress_plain(over, sv)
-    torch.cuda.synchronize()
-    err = (got != want).sum().item()
-    print(f"K4 greedy_suppress (2,500,500): {int(sv.sum())} valid, {int(got.sum())} kept, "
-          f"{err} mismatches (exact) {'ok' if err == 0 else 'FAIL'}")
-    if err:
-        raise AssertionError("K4 disagrees with its plain version")
-    ms = cuda_ms(lambda: nms.greedy_suppress(over, sv), 50)
-    dev_ms = device_ms(lambda: nms.greedy_suppress(over, sv), 50)
-    plain_ms = cuda_ms(lambda: nms.greedy_suppress_plain(over, sv), 3, warmup=1)
-    bms, by = bound_ms(nbytes(over, sv, got), over.numel(), torch.float32)
-    entries.append(dict(name="nms.greedy_suppress (2,500,500)", route="cuda",
-                        source="com_tpu_torch/csrc/nms.cu",
-                        replaces="com_tpu/ops/pallas/nms_kernel.py:56",
-                        max_abs_err=float(err), ms=ms,
-                        device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms,
-                        bound_by=by, library_ms=None, kernel="nms"))
+    k = over.shape[-1]
+    eye = torch.eye(k, dtype=torch.bool, device=dev).repeat(BATCH, 1, 1)
+    first = eye.clone()
+    first[:, 0] = True
+    every = torch.ones_like(sv)
+    cases = (("decoded boxes", over, sv, ""), ("all valid, none suppressed", eye, every, ", none"),
+             ("all valid, all suppressed by the first", first, every, ", first"))
+    for label, ov, vd, tag in cases:
+        got = nms.greedy_suppress(ov, vd)
+        want = nms.greedy_suppress_plain(ov, vd)
+        torch.cuda.synchronize()
+        err = (got != want).sum().item()
+        ms = cuda_ms(lambda: nms.greedy_suppress(ov, vd), 50)
+        dev_ms = device_ms(lambda: nms.greedy_suppress(ov, vd), 50)
+        print(f"K4 greedy_suppress (2,{k},{k}) {label}: {int(vd.sum())} valid, {int(got.sum())} "
+              f"kept, {err} mismatches (exact); {ms:.4f} ms a call as the host issues them, "
+              f"{dev_ms:.4f} ms queued on the card {'ok' if err == 0 else 'FAIL'}")
+        if err:
+            raise AssertionError(f"K4 on {label} disagrees with its plain version")
+        # the pack and the sweep
+        calls.append((f"K4 greedy_suppress {label}", 2,
+                      lambda a=ov, v=vd: nms.greedy_suppress(a, v)))
+        plain_ms = cuda_ms(lambda: nms.greedy_suppress_plain(ov, vd), 3, warmup=1)
+        bms, by = bound_ms(nbytes(ov, vd, got), ov.numel(), torch.float32)
+        entries.append(dict(name=f"nms.greedy_suppress (2,{k},{k}){tag}", route="cuda",
+                            source="com_tpu_torch/csrc/nms.cu",
+                            replaces="com_tpu/ops/pallas/nms_kernel.py:56",
+                            max_abs_err=float(err), ms=ms,
+                            device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms,
+                            bound_by=by, library_ms=None, kernel="nms"))
 
 
 def check_small_reference(dev):
@@ -764,12 +820,45 @@ def serve(dev):
     return counts, net, step, cfg, meta, scenes
 
 
+NMS_PARTS = ("decode", "sort_gathers", "iou", "k4", "kept_slots", "rest")
+
+
+def _mark_nms_steps(mark):
+    """Wrap the steps of ``nms_bev`` so that each records a CUDA event by
+    ``mark(label)``: "sort" before the score sort (the gathers follow it),
+    "iou" before the rotated IoU over (B, K, K, 24, 2), "k4" and "k4_end"
+    around K4, "rest" after ``_kept_slots``.  Returns the function that
+    undoes the wrapping."""
+    from com_tpu_torch.ops import nms
+
+    orig = {n: getattr(nms, n) for n in ("_score_order", "boxes_iou_bev", "greedy_suppress",
+                                         "_kept_slots")}
+
+    def wrap(name, before=None, after=None):
+        def fn(*args, **kw):
+            if before:
+                mark(before)
+            out = orig[name](*args, **kw)
+            if after:
+                mark(after)
+            return out
+        return fn
+
+    nms._score_order = wrap("_score_order", before="sort")
+    nms.boxes_iou_bev = wrap("boxes_iou_bev", before="iou")
+    nms.greedy_suppress = wrap("greedy_suppress", before="k4", after="k4_end")
+    nms._kept_slots = wrap("_kept_slots", after="rest")
+    return lambda: [setattr(nms, n, f) for n, f in orig.items()]
+
+
 def stage_breakdown(net, step, scenes, iters=5):
     """Where one full-size eval step spends its time on the card: CUDA
     events recorded by forward hooks at each slot's start and end, mean over
     ``iters`` steps.  "upload" is the host-to-card copy of the batch,
-    "decode_nms" the top-K decode and NMS after the head."""
-    marks = []
+    "decode_nms" the top-K decode and NMS after the head, itself split into
+    the decode, the score sort and gathers, the rotated IoU, K4,
+    ``_kept_slots`` and the rest (the final gathers)."""
+    marks, sub = [], []
     slots = ("vfe", "backbone_2d", "dense_head")
 
     def mark(*_):
@@ -777,27 +866,44 @@ def stage_breakdown(net, step, scenes, iters=5):
         ev.record()
         marks.append(ev)
 
+    def sub_mark(label):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        sub.append((label, ev))
+
     hooks = [h for s in slots for h in (getattr(net, s).register_forward_pre_hook(mark),
                                         getattr(net, s).register_forward_hook(mark))]
+    undo = _mark_nms_steps(sub_mark)
     batch = {"points": scenes[:2], "points_mask": np.ones((2, POINTS), bool)}
     names = ("upload", "vfe", "map", "backbone_2d", "map", "dense_head", "decode_nms")
     sums = dict.fromkeys(names, 0.0)
+    parts = dict.fromkeys(NMS_PARTS, 0.0)
     try:
         for _ in range(iters):
             marks.clear()
+            sub.clear()
             mark()
             step(batch)
             mark()
             torch.cuda.synchronize()
             for name, a, b in zip(names, marks, marks[1:]):
                 sums[name] += a.elapsed_time(b) / iters
+            labels = [label for label, _ in sub]
+            if labels != ["sort", "iou", "k4", "k4_end", "rest"]:
+                raise AssertionError(f"decode_nms ran its steps as {labels}")
+            seq = [marks[-2], *(ev for _, ev in sub), marks[-1]]
+            for name, a, b in zip(NMS_PARTS, seq, seq[1:]):
+                parts[name] += a.elapsed_time(b) / iters
     finally:
+        undo()
         for h in hooks:
             h.remove()
     sums.pop("map")  # the gaps between slots
     total = sum(sums.values())
     print(f"stage ms (one eval step, batch {BATCH}, mean of {iters}): "
           f"{json.dumps({k: round(v, 3) for k, v in sums.items()})} total {total:.3f}")
+    print(f"decode_nms ms (mean of {iters}): "
+          f"{json.dumps({k: round(v, 4) for k, v in parts.items()})}")
 
 
 def profile_step(step, scenes):
@@ -1075,16 +1181,17 @@ def main():
     check_conv3x3_backward(dev, entries)
     check_wgrad_variants(dev, entries)
     sweep_counts = wgrad_sweep(dev)
-    if profile:
-        profile_wgrad_sweep(dev)
-    check_stamp(dev, entries)
+    calls = []  # (label, device kernels a call, call) for check_device_kernels
+    check_stamp(dev, entries, calls)
     check_small_reference(dev)
     check_small_train_reference(dev)
     serve_counts, net, step, cfg, meta, scenes = serve(dev)
     stage_breakdown(net, step, scenes)
-    if profile:
+    check_nms(dev, entries, calls, net, cfg, meta)
+    if profile:  # counted in the first profiling session, as without --profile
+        check_device_kernels(calls)
+        profile_wgrad_sweep(dev)
         profile_step(step, scenes)
-    check_nms(dev, entries, net, cfg, meta)
     del net, step
     torch.cuda.empty_cache()
     a_counts, trainer = train_path(dev, CONFIG, "A (flagship)", 2, 3, (3, 96), EXPECT_TRAIN)
@@ -1100,6 +1207,8 @@ def main():
     counts = {**a_counts, "nms": serve_counts["nms"],
               "stamp_last_wins": b_counts["stamp_last_wins"],
               **{f"wgrad_{v}": sweep_counts[f"wgrad_{v}"] for v in WGRAD_VARIANTS}}
+    if not profile:
+        check_device_kernels(calls)
     for e in entries:
         e["launches"] = counts[e.pop("kernel")]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "device_ms",

@@ -6,113 +6,196 @@
 // and no earlier KEPT candidate suppresses it.  Suppressed starts as "not
 // valid", and a box suppresses later boxes only when it is kept.
 //
-// What bounds it on an H100: latency.  The bytes are tiny (250 KB of 0/1 a
-// sample at K = 500) and the operations few; the greedy pass is sequential
-// in i by definition, so the time is K dependent steps.
+// What bounds it on an H100: latency.  The bytes are few (250 KB of 0/1 a
+// sample at K = 500) and the operations fewer; the greedy pass is a chain of
+// dependent decisions.  The TPU kernel walks all K candidates, one vector
+// row-max a step, over the f32 matrix in VMEM.
 //
-// Design, in the style of pcdet's nms_gpu, in two launches:
-//   1. k4_pack: many blocks pack the rows of `over` into ceil(K / 64)
-//      64-bit words each (one warp a word, two ballots), into a (B, K,
-//      words) scratch the wrapper allocates.  Every warp issues its own
-//      loads, so the 0/1 bytes stream in parallel across the card.
-//   2. k4_sweep: one block per sample copies its packed rows into shared
-//      memory and builds the "suppressed" mask from `valid`; then warp 0
-//      sweeps i = 0 .. K-1: every lane reads bit i (one shared word, a
-//      broadcast); if it is clear, i is kept and the lanes OR row i into
-//      the mask, one word a lane.  No step of the sweep touches device
-//      memory, so each of the K dependent steps costs a few shared-memory
-//      accesses.
-// The TPU kernel instead kept the f32 (K, K) matrix in VMEM and did a
-// vector row-max per step.
+// Design: a sweep whose dependent chain is as long as the conflicting
+// candidates, not K, behind a pack spread over the card.
+//   1. Pack (k4_pack): one warp a (row, 64-column word) of every sample, two
+//      ballots, into a (B, K, stride) scratch of bit rows: row i holds
+//      ceil(K / 64) words at an odd stride, so that the lanes of a warp
+//      reading one word of 32 rows hit distinct banks.
+//   2. Sweep (k4_sweep, one block a sample, launched as the pack's
+//      programmatic dependent with griddepcontrol): the block builds its
+//      valid words, waits for the pack, copies the rows into shared memory
+//      with 16-byte loads; then warp 0 takes one 64-candidate word w at a
+//      time.  Lane l holds word l of the "removed" mask (invalid or
+//      suppressed) in a register.
+//      a. Resolve word w.  Each lane takes the diagonal-block rows of
+//         candidates l and l + 32 and marks the alive ones whose row hits an
+//         alive later candidate of the word; two ballots give that
+//         "conflict" set.  Only its members run the sequential chain (bit
+//         scan, one shared read, clear what it suppresses); every other
+//         alive candidate is kept and suppresses nothing in the word.  Dead,
+//         invalid and conflict-free candidates cost bit operations.
+//      b. Every lane l > w ORs the rows of the word's kept candidates into
+//         its own word with 64 predicated loads, none waiting on another.
+// The pack is its own kernel because a pack inside the sweep's block streams
+// a sample's 250 KB through one SM: about three times slower on an H100.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;      // threads of the sweep's block (they copy the rows in)
+constexpr int kPackThreads = 512;  // threads of a pack block, one warp a (row, word)
+constexpr int kSmemLimit = 227 * 1024;
 
-__global__ void __launch_bounds__(kThreads)
-k4_pack(const uint8_t* __restrict__ over, unsigned long long* __restrict__ rows, int K,
-        int nwords) {
-  const int lane = threadIdx.x & 31;
-  const int q = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);  // (row, word) of sample
-  if (q >= K * nwords) return;  // whole warps leave together
-  const int b = blockIdx.y, i = q / nwords, j0 = (q % nwords) * 64 + lane, j1 = j0 + 32;
+typedef unsigned long long u64;
+
+__host__ __device__ __forceinline__ int row_words(int K) { return (K + 63) / 64; }
+// Row stride in words: odd, so that 32 rows' words at one column fall in distinct banks.
+__host__ __device__ __forceinline__ int row_stride(int K) { return row_words(K) | 1; }
+
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Valid bits of the sample, one word a 64 candidates, by the block's warps.
+__device__ void valid_words(const uint8_t* vd, int K, u64* vbits) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  for (int wd = warp; wd < row_words(K); wd += nwarps) {
+    const int j0 = wd * 64 + lane, j1 = j0 + 32;
+    const unsigned lo = __ballot_sync(0xffffffffu, j0 < K && vd[j0] != 0);
+    const unsigned hi = __ballot_sync(0xffffffffu, j1 < K && vd[j1] != 0);
+    if (lane == 0) vbits[wd] = ((u64)hi << 32) | lo;
+  }
+}
+
+// Warp 0's sweep over the packed rows; writes keep[0, K).
+__device__ void sweep(const u64* rows, const u64* vbits, uint8_t* kp, int K, int ns) {
+  const int lane = threadIdx.x & 31, nw = row_words(K);
+  u64 removed = lane < nw ? ~vbits[lane] : ~0ull;
+  for (int w = 0; w < nw; ++w) {
+    const u64 alive0 = ~__shfl_sync(0xffffffffu, removed, w);
+    // a. conflicts: alive candidates whose row hits a later alive one of the
+    //    word (the rows past K are padding, and no alive bit reads them)
+    const u64* diag = rows + (size_t)(w * 64) * ns + w;
+    const int hi = lane + 32;
+    const u64 lo_row = diag[(size_t)lane * ns], hi_row = diag[(size_t)hi * ns];
+    const bool c_lo = (alive0 >> lane & 1ull) && (lo_row & (~0ull << (lane + 1)) & alive0);
+    const bool c_hi = (alive0 >> hi & 1ull) && hi < 63 && (hi_row & (~0ull << (hi + 1)) & alive0);
+    u64 conflict = ((u64)__ballot_sync(0xffffffffu, c_hi) << 32) | __ballot_sync(0xffffffffu, c_lo);
+    u64 alive = alive0;
+    while (conflict) {  // uniform across the warp
+      const int e = __ffsll(conflict) - 1;
+      conflict &= conflict - 1;
+      if (alive >> e & 1ull) {
+        const u64 later = e == 63 ? 0ull : ~0ull << (e + 1);
+        alive &= ~(diag[(size_t)e * ns] & later);
+      }
+    }
+    const u64 kept = alive;  // every candidate still alive is kept
+    for (int e = lane; e < 64; e += 32)
+      if (w * 64 + e < K) kp[w * 64 + e] = (uint8_t)(kept >> e & 1ull);
+    // b. the kept rows into the later words: all 64 rows loaded and masked
+    //    by their kept bit, no load waiting on another (a load under a
+    //    branch, or a bit-scan loop, waits for each in turn: ~37 cycles a
+    //    kept row on an H100)
+    if (kept && lane > w && lane < nw) {
+      const u64* col = rows + (size_t)(w * 64) * ns + lane;
+      u64 acc[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[e & 3] |= col[(size_t)e * ns] & (0ull - (kept >> e & 1ull));
+      removed |= acc[0] | acc[1] | acc[2] | acc[3];
+    }
+  }
+}
+
+// One warp a (row, word) of every sample, two ballots.
+__global__ void __launch_bounds__(kPackThreads)
+k4_pack(const uint8_t* __restrict__ over, u64* __restrict__ packed, int K) {
+  griddep_launch_dependents();
+  const int lane = threadIdx.x & 31, nw = row_words(K), ns = row_stride(K);
+  const int q = blockIdx.x * (kPackThreads / 32) + (threadIdx.x >> 5);
+  if (q >= K * nw) return;  // whole warps leave together
+  const int b = blockIdx.y, i = q / nw, wd = q % nw, j0 = wd * 64 + lane, j1 = j0 + 32;
   const uint8_t* ov = over + ((size_t)b * K + i) * K;
   const unsigned lo = __ballot_sync(0xffffffffu, j0 < K && ov[j0] != 0);
   const unsigned hi = __ballot_sync(0xffffffffu, j1 < K && ov[j1] != 0);
-  if (lane == 0) rows[(size_t)b * K * nwords + q] = ((unsigned long long)hi << 32) | lo;
+  if (lane == 0) packed[((size_t)b * K + i) * ns + wd] = ((u64)hi << 32) | lo;
 }
 
 __global__ void __launch_bounds__(kThreads)
-k4_sweep(const unsigned long long* __restrict__ packed, const uint8_t* __restrict__ valid,
-         uint8_t* __restrict__ keep, int K, int nwords) {
-  extern __shared__ unsigned long long smem[];
-  unsigned long long* rows = smem;                       // K * nwords
-  unsigned long long* supp = smem + (size_t)K * nwords;  // nwords
-  const int b = blockIdx.x;
-  const unsigned long long* pk = packed + (size_t)b * K * nwords;
-  const uint8_t* vd = valid + (size_t)b * K;
-  uint8_t* kp = keep + (size_t)b * K;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-
-  for (int q = threadIdx.x; q < K * nwords; q += blockDim.x) rows[q] = pk[q];
-  // suppressed starts as "not valid"
-  for (int wd = warp; wd < nwords; wd += nwarps) {
-    const int j0 = wd * 64 + lane, j1 = j0 + 32;
-    const unsigned lo = __ballot_sync(0xffffffffu, j0 < K && vd[j0] == 0);
-    const unsigned hi = __ballot_sync(0xffffffffu, j1 < K && vd[j1] == 0);
-    if (lane == 0) supp[wd] = ((unsigned long long)hi << 32) | lo;
+k4_sweep(const u64* __restrict__ packed, const uint8_t* __restrict__ valid,
+         uint8_t* __restrict__ keep, int K) {
+  extern __shared__ u64 smem[];
+  const int ns = row_stride(K), b = blockIdx.x;
+  u64* rows = smem;
+  u64* vbits = smem + (size_t)row_words(K) * 64 * ns;
+  valid_words(valid + (size_t)b * K, K, vbits);
+  griddep_wait();  // the rows come from k4_pack
+  // L2-only loads (the scratch is rewritten every call: no L1 line of an
+  // earlier call may be read); 16-byte ones where aligned, which odd K
+  // leaves the odd samples not
+  const u64* pk = packed + (size_t)b * K * ns;
+  const int n = K * ns;
+  if ((reinterpret_cast<uintptr_t>(pk) & 15) == 0) {
+    for (int q = threadIdx.x; q < n / 2; q += blockDim.x)
+      reinterpret_cast<ulonglong2*>(rows)[q] = __ldcg(reinterpret_cast<const ulonglong2*>(pk) + q);
+    if (threadIdx.x == 0 && (n & 1)) rows[n - 1] = __ldcg(pk + n - 1);
+  } else {
+    for (int q = threadIdx.x; q < n; q += blockDim.x) rows[q] = __ldcg(pk + q);
   }
-  for (int j = threadIdx.x; j < K; j += blockDim.x) kp[j] = 0;
   __syncthreads();
+  if (threadIdx.x < 32) sweep(rows, vbits, keep + (size_t)b * K, K, ns);
+}
 
-  if (warp != 0) return;
-  for (int i = 0; i < K; ++i) {
-    const int wi = i >> 6;
-    const bool alive = ((supp[wi] >> (i & 63)) & 1ull) == 0;
-    __syncwarp();  // every lane has read bit i before any lane ORs into word wi
-    if (alive) {
-      const unsigned long long* row = rows + (size_t)i * nwords;
-      for (int wd = wi + lane; wd < nwords; wd += 32) supp[wd] |= row[wd];
-      if (lane == 0) kp[i] = 1;
-    }
-    __syncwarp();
-  }
+// The rows padded to whole words of candidates (the sweep reads 64 rows a
+// word), then the valid words.
+size_t smem_bytes(int K) {
+  return ((size_t)row_words(K) * 64 * row_stride(K) + row_words(K)) * sizeof(u64);
+}
+
+// The dynamic shared memory above 48 KB is allowed once a device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel) {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
 }
 
 }  // namespace
 
-// Bytes of shared memory the kernel needs for K candidates.
-extern "C" long long k4_smem_bytes(int K) {
-  const long long nwords = (K + 63) / 64;
-  return (K * nwords + nwords) * 8;
-}
-
-// 64-bit words of the packed (B, K, words) scratch for K candidates.
-extern "C" long long k4_packed_words(int K) { return (long long)K * ((K + 63) / 64); }
-
 // over: (B, K, K) uint8 0/1, valid: (B, K) uint8, keep: (B, K) uint8, all
-// contiguous; packed: B * k4_packed_words(K) uint64 scratch.  Returns a
-// cudaError_t.
+// contiguous.  Shared memory: (64 W * (W | 1) + W) * 8 bytes for W =
+// ceil(K / 64), at most 227 KB (the wrapper checks it first).  packed: a (B, K,
+// ceil(K / 64) | 1) uint64 scratch.  Returns a cudaError_t.
 extern "C" int k4_greedy_suppress(const void* over, const void* valid, void* keep, void* packed,
                                   int B, int K, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nwords = (K + 63) / 64;
-  const size_t smem = (size_t)k4_smem_bytes(K);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(k4_sweep, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int warps = kThreads / 32;
-  dim3 grid((K * nwords + warps - 1) / warps, B);
-  k4_pack<<<grid, kThreads, 0, st>>>(static_cast<const uint8_t*>(over),
-                                     static_cast<unsigned long long*>(packed), K, nwords);
-  cudaError_t err = cudaGetLastError();
+  const size_t smem = smem_bytes(K);
+  if (smem > (size_t)kSmemLimit || row_words(K) > 32) return (int)cudaErrorInvalidValue;
+  const uint8_t* ov = static_cast<const uint8_t*>(over);
+  const uint8_t* vd = static_cast<const uint8_t*>(valid);
+  uint8_t* kp = static_cast<uint8_t*>(keep);
+  cudaError_t err = allow_smem(k4_sweep);
   if (err != cudaSuccess) return (int)err;
-  k4_sweep<<<B, kThreads, smem, st>>>(static_cast<const unsigned long long*>(packed),
-                                      static_cast<const uint8_t*>(valid),
-                                      static_cast<uint8_t*>(keep), K, nwords);
+  u64* pk = static_cast<u64*>(packed);
+  const int warps = kPackThreads / 32;
+  k4_pack<<<dim3((K * row_words(K) + warps - 1) / warps, B), kPackThreads, 0, st>>>(ov, pk, K);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, k4_sweep, (const u64*)pk, vd, kp, K);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

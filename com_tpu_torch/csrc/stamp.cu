@@ -3,113 +3,171 @@
 // Replaces com_tpu/ops/pallas/stamp.py `_stamp_pallas` (`_stamp_kernel`):
 // every valid object stamps a (2r+1) x (2r+1) window around its integer
 // center in its class plane, r <= R (16).  Two modes:
-//   gauss      the canvas starts at `fill` (0 for heatmap targets) and each
-//              cell takes the max of itself and exp(-(dx^2+dy^2)/(2 s^2)),
-//              s = (2r+1)/6, the analytic form the TPU kernel evaluates;
-//   last_wins  the canvas starts at `fill` and the window is overwritten
-//              with a per-object constant; where windows overlap, the
-//              highest object index wins (the reference's sequential loop).
-// Objects arrive preprocessed by the wrapper: centers and classes clamped
-// into the canvas, radius clamped to [0, R], -1 for an invalid object.
+//   gauss      each cell is the max of `fill` and exp(-(dx^2+dy^2)/(2 s^2)),
+//              s = (2r+1)/6, over the windows covering it (the analytic form
+//              the TPU kernel evaluates; 0 fill for heatmap targets);
+//   last_wins  each cell takes the value of the highest-index object whose
+//              window covers it, `fill` where none does (the reference's
+//              sequential loop).
+// The kernel does `_stamp_pallas`'s preprocessing itself (stamp.py:130-133):
+// centers clamped into the map, the radius clamped to [0, R] or -1 for an
+// invalid object, the class clamped; ids arrive as int32 or int64, as the
+// callers hold them.
 //
 // What bounds it on an H100: bytes.  The canvas (2 x 3 x 468 x 468 f32,
-// 5.3 MB) is written once; the window cells (~100 objects a sample, most
-// with r of 2-6) are a small fraction of it, so the bound is the canvas
-// write, a few microseconds.
+// 5.3 MB) is written once; the objects (500 slots a sample, ~10 KB) are read
+// by every tile from L2.
 //
-// Design.  The TPU kernel walks the objects in order (`fori_loop`) over a
-// canvas held in VMEM, which is what makes "last wins" and max-combining
-// trivial there.  Hopper blocks run in no order, so the order is rebuilt
-// with atomics: one block per (object slot, sample), threads over the
-// window cells, invalid slots exit at once.
-//   gauss: stamped values are > 0, and for floats >= 0 the order of their
-//   int bit patterns is their numeric order (and any value >= 0 is above
-//   every negative fill), so atomicMax on the bits is an exact max.
-//   last_wins: a first pass takes atomicMax of (object index + 1) into an
-//   int32 winner canvas; a second, elementwise pass writes values[winner-1]
-//   where winner > 0 and `fill` elsewhere.  Both are deterministic.
+// The gaussian is exp2f(d^2 * c) with c = -log2(e) / (2 s^2) taken once an
+// object: a multiply and the hardware's base-2 exponential a covered cell
+// (within 2e-6 of the f64-built table; exactly 1 at the center).  The most
+// crowded tile, not the canvas write, sets the time, and expf with a
+// division cost several times as many instructions a cell.
+//
+// Design: owner computes, one launch.  A block owns one (sample, class,
+// kTileH x kTileW tile) of the canvas.  Its threads load the sample's
+// object slots (kObjs a thread in flight), clamp them, and compact, in
+// index order, those of the block's class whose window meets the tile into
+// shared memory (ballots and a scan over the warps' counts).  Then each
+// thread computes its 4 consecutive cells of kTileH / 8 rows over that list
+// in registers (gauss: fmaxf; last_wins: the last covering object) and
+// writes every cell of the canvas exactly once, with 16-byte stores where
+// the width and the canvas allow.  No atomics, no winner canvas, no fill
+// pass: the result does not depend on the order the blocks run in.  Slots
+// past one chunk of kThreads * kObjs objects are taken chunk after chunk.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kTileW = 128;    // columns of a tile: 32 lanes x 4 cells
+constexpr int kTileH = 16;     // rows of a tile: kTileH / 8 a warp
+constexpr int kObjs = 2;       // object slots a thread loads at once
+constexpr int kChunk = kThreads * kObjs;
+constexpr int kRows = kTileH / (kThreads / 32);
 
-__global__ void fill_kernel(float* __restrict__ out, long long n, float fill) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = fill;
+struct Obj {
+  int cx, cy, r;
+  float v;  // gauss: -log2(e) / (2 s^2); last_wins: the value
+};
+
+__device__ __forceinline__ int ld_int(const void* p, long long i, bool is64) {
+  return is64 ? (int)static_cast<const long long*>(p)[i] : static_cast<const int*>(p)[i];
 }
 
-// mode 0 (gauss): atomicMax of the gaussian's bits into `canvas` (float);
-// mode 1 (last_wins): atomicMax of index + 1 into `canvas` (int32 winner).
 __global__ void __launch_bounds__(kThreads)
-window_kernel(const int* __restrict__ cx, const int* __restrict__ cy,
-              const int* __restrict__ rr, const int* __restrict__ cls, int* __restrict__ canvas,
-              int N, int C, int H, int W, int mode) {
-  const int i = blockIdx.x, b = blockIdx.y;
-  const int o = b * N + i;
-  const int r = rr[o];
-  if (r < 0) return;
-  const int x0 = cx[o], y0 = cy[o];
-  const int k = 2 * r + 1;
-  const float sig = (float)k / 6.0f;
-  const float denom = 2.0f * sig * sig;
-  int* plane = canvas + ((size_t)b * C + cls[o]) * H * W;
-  for (int e = threadIdx.x; e < k * k; e += blockDim.x) {
-    const int dy = e / k - r, dx = e % k - r;
-    const int y = y0 + dy, x = x0 + dx;
-    if (y < 0 || y >= H || x < 0 || x >= W) continue;
-    int v;
-    if (mode == 0) {
-      const float d2 = (float)(dx * dx + dy * dy);
-      v = __float_as_int(expf(-d2 / denom));
-    } else {
-      v = i + 1;
-    }
-    atomicMax(plane + (size_t)y * W + x, v);
-  }
-}
+k3_stamp_kernel(const void* __restrict__ centers, const void* __restrict__ radii,
+                const void* __restrict__ cls, const float* __restrict__ vals,
+                const uint8_t* __restrict__ valid, float* __restrict__ out, int N, int C, int H,
+                int W, int R, int mode, int i64, float fill, int tiles_x, int vec) {
+  __shared__ Obj objs[kChunk];
+  __shared__ int warp_count[kThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = blockIdx.y, b = blockIdx.z;
+  const int x0 = (blockIdx.x % tiles_x) * kTileW, y0 = (blockIdx.x / tiles_x) * kTileH;
+  const int x1 = min(x0 + kTileW, W) - 1, y1 = min(y0 + kTileH, H) - 1;
+  const bool c64 = i64 & 1, r64 = i64 & 2, k64 = i64 & 4;
+  const int xc = x0 + lane * 4;  // this thread's first column
+  float acc[kRows][4];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = fill;
 
-__global__ void resolve_kernel(const int* __restrict__ winner, const float* __restrict__ vals,
-                               float* __restrict__ out, long long n, long long chw, int N,
-                               float fill) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int w = winner[i];
-  out[i] = w > 0 ? vals[(i / chw) * N + (w - 1)] : fill;
+  for (int base = 0; base < N; base += kChunk) {
+    // load and clamp this thread's slots, in flight together
+    Obj o[kObjs];
+    bool hit[kObjs];
+#pragma unroll
+    for (int u = 0; u < kObjs; ++u) {
+      const int i = base + u * kThreads + tid;
+      hit[u] = false;
+      if (i >= N) continue;
+      const long long at = (long long)b * N + i;
+      const bool ok = valid[at] != 0;
+      const int rx = ld_int(centers, 2 * at, c64), ry = ld_int(centers, 2 * at + 1, c64);
+      const int rr = ld_int(radii, at, r64), k = ld_int(cls, at, k64);
+      o[u].cx = min(max(rx, 0), W - 1);
+      o[u].cy = min(max(ry, 0), H - 1);
+      o[u].r = min(max(rr, 0), R);
+      const float sig = (2 * o[u].r + 1) / 6.0f;
+      o[u].v = mode == 0 ? -1.44269504f / (2.0f * sig * sig) : vals[at];
+      hit[u] = ok && min(max(k, 0), C - 1) == c && o[u].cx - o[u].r <= x1 &&
+               o[u].cx + o[u].r >= x0 && o[u].cy - o[u].r <= y1 && o[u].cy + o[u].r >= y0;
+    }
+    // compact the hits in index order: slot u * kThreads + tid
+    int count = 0;
+#pragma unroll
+    for (int u = 0; u < kObjs; ++u) {
+      const unsigned ballot = __ballot_sync(0xffffffffu, hit[u]);
+      if (lane == 0) warp_count[warp] = __popc(ballot);
+      __syncthreads();
+      int before = count, total = count;
+#pragma unroll
+      for (int w = 0; w < kThreads / 32; ++w) {
+        const int n = warp_count[w];
+        before += w < warp ? n : 0;
+        total += n;
+      }
+      if (hit[u]) objs[before + __popc(ballot & ((1u << lane) - 1))] = o[u];
+      count = total;
+      __syncthreads();
+    }
+    // this thread's cells over the compacted objects
+    for (int q = 0; q < count; ++q) {
+      const Obj ob = objs[q];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int dy = y0 + warp * kRows + i - ob.cy;
+        if (dy < -ob.r || dy > ob.r) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int dx = xc + j - ob.cx;
+          if (dx < -ob.r || dx > ob.r) continue;
+          acc[i][j] = mode == 0 ? fmaxf(acc[i][j], exp2f((float)(dx * dx + dy * dy) * ob.v))
+                                : ob.v;
+        }
+      }
+    }
+    // the list is rewritten by the next chunk
+    if (base + kChunk < N) __syncthreads();
+  }
+
+  float* plane = out + ((size_t)b * C + c) * H * W;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int y = y0 + warp * kRows + i;
+    if (y >= H || xc >= W) continue;
+    float* row = plane + (size_t)y * W;
+    if (vec && xc + 3 < W) {
+      *reinterpret_cast<float4*>(row + xc) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (xc + j < W) row[xc + j] = acc[i][j];
+    }
+  }
 }
 
 }  // namespace
 
-// cx, cy, rr, cls: (B, N) int32; vals: (B, N) f32 (read in last_wins mode);
-// out: (B, C, H, W) f32; winner: (B, C, H, W) int32 scratch (last_wins
-// mode only, may be null for gauss).  mode 0 = gauss, 1 = last_wins.
-// Returns a cudaError_t.
-extern "C" int k3_stamp(const void* cx, const void* cy, const void* rr, const void* cls,
-                        const void* vals, void* out, void* winner, int B, int N, int C, int H,
-                        int W, int mode, float fill, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long n = (long long)B * C * H * W;
-  const unsigned fill_blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  const dim3 grid(N, B);
-  const int* icx = static_cast<const int*>(cx);
-  const int* icy = static_cast<const int*>(cy);
-  const int* irr = static_cast<const int*>(rr);
-  const int* icls = static_cast<const int*>(cls);
-  float* fout = static_cast<float*>(out);
-  if (mode == 0) {
-    fill_kernel<<<fill_blocks, kThreads, 0, st>>>(fout, n, fill);
-    if (N > 0)
-      window_kernel<<<grid, kThreads, 0, st>>>(icx, icy, irr, icls, reinterpret_cast<int*>(fout),
-                                               N, C, H, W, 0);
-  } else {
-    int* win = static_cast<int*>(winner);
-    cudaError_t err = cudaMemsetAsync(win, 0, (size_t)n * sizeof(int), st);
-    if (err != cudaSuccess) return (int)err;
-    if (N > 0)
-      window_kernel<<<grid, kThreads, 0, st>>>(icx, icy, irr, icls, win, N, C, H, W, 1);
-    resolve_kernel<<<fill_blocks, kThreads, 0, st>>>(win, static_cast<const float*>(vals), fout,
-                                                     n, (long long)C * H * W, N, fill);
-  }
+// The tile a block owns: rows (dim 0) or columns (dim 1).
+extern "C" int k3_tile(int dim) { return dim == 0 ? kTileH : kTileW; }
+
+// centers: (B, N, 2), radii and cls: (B, N), each int32 or int64 (bits 0, 1
+// and 2 of `int64_mask` set for int64); vals: (B, N) f32 (read in last_wins
+// mode only, may be null in gauss mode); valid: (B, N) uint8; out: (B, C, H,
+// W) f32, all contiguous.  R: the largest radius.  mode 0 = gauss, 1 =
+// last_wins.  Returns a cudaError_t.
+extern "C" int k3_stamp(const void* centers, const void* radii, const void* cls, const void* vals,
+                        const void* valid, void* out, int B, int N, int C, int H, int W, int R,
+                        int mode, int int64_mask, float fill, void* stream) {
+  const int tiles_x = (W + kTileW - 1) / kTileW, tiles_y = (H + kTileH - 1) / kTileH;
+  const int vec = (W % 4 == 0) && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  k3_stamp_kernel<<<dim3(tiles_x * tiles_y, C, B), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      centers, radii, cls, static_cast<const float*>(vals), static_cast<const uint8_t*>(valid),
+      static_cast<float*>(out), N, C, H, W, R, mode, int64_mask, fill, tiles_x, vec);
   return (int)cudaGetLastError();
 }

@@ -25,7 +25,7 @@ KERNELS = ("seg_scan", "conv3x3", "conv3x3_wgrad", "stamp", "nms", "wgrad_varian
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: name -> (restype, argtypes).  Pointers and the stream are
 # c_void_p: ctypes would pass a bare Python int as a 32-bit int.
 SIGNATURES = {
@@ -44,11 +44,10 @@ SIGNATURES = {
         "k2w_conv3x3_wgrad_bf16": (I, (P, P, P, P, I, I, I, I, I, I, I, P)),
     },
     "stamp": {
-        "k3_stamp": (I, (P, P, P, P, P, P, P, I, I, I, I, I, I, F, P)),
+        "k3_tile": (I, (I,)),
+        "k3_stamp": (I, (P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P)),
     },
     "nms": {
-        "k4_smem_bytes": (LL, (I,)),
-        "k4_packed_words": (LL, (I,)),
         "k4_greedy_suppress": (I, (P, P, P, P, I, I, P)),
     },
     "wgrad_variants": {
@@ -113,6 +112,9 @@ def build_all(names=KERNELS) -> dict[str, Path]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built first if needed."""
+    lib = _libs.get(name)  # loaded libraries are never replaced: no lock to read one
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -130,8 +132,18 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def stream_of(t) -> int:
-    """The raw handle of PyTorch's current stream on ``t``'s device."""
+def launch(name: str, fn: str, what: str, index: int, *args) -> None:
+    """Call the C entry ``fn`` of csrc/<name>.cu as ``fn(*args, stream)`` on
+    the current stream of CUDA device ``index`` (``tensor.get_device()``),
+    and raise if it reports an error.  The device is made current for the
+    call only where it is not already; the stream's raw handle is read
+    without building a Stream object."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    entry = getattr(library(name), fn)
+    if torch.cuda.current_device() == index:
+        err = entry(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = entry(*args, torch._C._cuda_getCurrentRawStream(index))
+    check(err, what)

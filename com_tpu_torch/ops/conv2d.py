@@ -103,12 +103,8 @@ def _k2(x: torch.Tensor, w: torch.Tensor, counter: str) -> torch.Tensor:
     y = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    lib = _kernels.library("conv3x3")
-    with torch.cuda.device(x.device):
-        fn = getattr(lib, f"k2_conv3x3_{_SUFFIX[x.dtype]}")
-        err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, cin, cout,
-                 _kernels.stream_of(x))
-    _kernels.check(err, "conv3x3 (K2)")
+    _kernels.launch("conv3x3", f"k2_conv3x3_{_SUFFIX[x.dtype]}", "conv3x3 (K2)", x.get_device(),
+                    x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, cin, cout)
     globals()[counter] += 1
     return y
 
@@ -135,28 +131,26 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         return dw
     if x.numel() == 0 or g.numel() == 0:
         return dw.zero_()
-    lib = _kernels.library("conv3x3_wgrad")
     sfx = _SUFFIX[x.dtype]
-    with torch.cuda.device(x.device):
-        key = (x.device.index, x.dtype)
-        if key not in _resident_blocks:
-            cap = getattr(lib, f"k2w_resident_blocks_{sfx}")()
-            if cap <= 0:
-                raise RuntimeError("conv3x3_wgrad (K2w): occupancy query failed")
-            _resident_blocks[key] = cap
-        if x.dtype == torch.bfloat16:
-            chunks, per = wgrad_plan(b, h, wd, cin, cout, _resident_blocks[key])
-            args = (chunks, per)
-        else:
-            groups = 9 * -(-cin // 64) * -(-cout // 64)
-            chunks = max(1, min(_WGRAD_WAVES[x.dtype] * _resident_blocks[key] // groups,
-                                -(-(b * h * wd) // 256)))
-            args = (chunks,)
-        part = torch.empty((chunks, 3, 3, cin, cout), dtype=torch.float32, device=x.device)
-        err = getattr(lib, f"k2w_conv3x3_wgrad_{sfx}")(
-            x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(), b, h, wd, cin, cout,
-            *args, _kernels.stream_of(x))
-    _kernels.check(err, "conv3x3_wgrad (K2w)")
+    key = (x.device.index, x.dtype)
+    if key not in _resident_blocks:
+        with torch.cuda.device(x.device):
+            cap = getattr(_kernels.library("conv3x3_wgrad"), f"k2w_resident_blocks_{sfx}")()
+        if cap <= 0:
+            raise RuntimeError("conv3x3_wgrad (K2w): occupancy query failed")
+        _resident_blocks[key] = cap
+    if x.dtype == torch.bfloat16:
+        chunks, per = wgrad_plan(b, h, wd, cin, cout, _resident_blocks[key])
+        args = (chunks, per)
+    else:
+        groups = 9 * -(-cin // 64) * -(-cout // 64)
+        chunks = max(1, min(_WGRAD_WAVES[x.dtype] * _resident_blocks[key] // groups,
+                            -(-(b * h * wd) // 256)))
+        args = (chunks,)
+    part = torch.empty((chunks, 3, 3, cin, cout), dtype=torch.float32, device=x.device)
+    _kernels.launch("conv3x3_wgrad", f"k2w_conv3x3_wgrad_{sfx}", "conv3x3_wgrad (K2w)",
+                    x.get_device(), x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(),
+                    b, h, wd, cin, cout, *args)
     global wgrad_launches
     wgrad_launches += 1
     return dw

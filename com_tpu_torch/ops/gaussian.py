@@ -81,12 +81,18 @@ def _scatter_max(idx, vals, size, fill):
 def draw_gaussians(centers_int, radii, class_ids, valid, num_classes, fmap_h, fmap_w,
                    max_radius=MAX_STAMP_RADIUS, fill=0.0):
     """Plain version of gauss stamping: (B, C, H, W) = max over objects of
-    table gaussians (over ``fill``), batched over the leading axis."""
+    table gaussians (over ``fill``), batched over the leading axis.  Only
+    the (2r+1)^2 window of each object is stamped, as in ``_stamp_pallas``
+    (the table's zeros around it would lift a negative fill)."""
     table = torch.from_numpy(_gaussian_table(max_radius)).to(centers_int.device)
-    vals = table[torch.clamp(radii.long(), 0, max_radius)]
+    r = torch.clamp(radii.long(), 0, max_radius)
+    vals = table[r]
     size = num_classes * fmap_h * fmap_w
     idx = _window_indices(centers_int, class_ids, num_classes, fmap_h, fmap_w, max_radius)
-    idx = torch.where(valid[..., None, None], idx, torch.full_like(idx, size))
+    offs = torch.arange(-max_radius, max_radius + 1, device=radii.device).abs()
+    inside = ((offs[:, None] <= r[..., None, None]) & (offs[None, :] <= r[..., None, None])
+              & valid[..., None, None])
+    idx = torch.where(inside, idx, torch.full_like(idx, size))
     canvas = _scatter_max(idx, vals, size, fill)
     return canvas.reshape(-1, num_classes, fmap_h, fmap_w)
 
@@ -122,9 +128,8 @@ def draw_gaussians_batched(centers_int, radii, class_ids, valid, num_classes, fm
     gaussians, 0 elsewhere (K3 in gauss mode)."""
     from .stamp import stamp_windows
 
-    return stamp_windows(centers_int, radii, class_ids, torch.zeros_like(radii, dtype=torch.float32),
-                         valid, num_classes, fmap_h, fmap_w, "gauss", fill=0.0,
-                         max_radius=max_radius)
+    return stamp_windows(centers_int, radii, class_ids, None, valid, num_classes, fmap_h, fmap_w,
+                         "gauss", fill=0.0, max_radius=max_radius)
 
 
 def stamp_squares_batched(centers_int, radii, class_ids, values, valid, num_classes, fmap_h,

@@ -22,6 +22,29 @@ launches = 0  # K4 launches by greedy_suppress since the last reset
 _SMEM_LIMIT = 227 * 1024  # shared memory one block can hold on Hopper
 
 
+_packed: dict[tuple[int, int, int], torch.Tensor] = {}  # (stream, B, K) -> K4's bit rows
+
+
+def smem_bytes(k: int) -> int:
+    """Shared memory of K4's sweep for k candidates (``csrc/nms.cu``
+    ``smem_bytes``): the bit rows, padded to a whole number of 64-candidate
+    words, of ceil(k / 64) words at an odd stride, and the valid words."""
+    words = -(-k // 64)
+    return (64 * words * (words | 1) + words) * 8
+
+
+def _scratch(b: int, k: int, index: int) -> torch.Tensor:
+    """The (B, K, ceil(K / 64) | 1) int64 bit rows the pack writes and the
+    sweep reads, allocated once for each (stream, B, K) on CUDA device
+    ``index``: the calls of one stream run in order, so they can share it."""
+    key = (torch._C._cuda_getCurrentRawStream(index), b, k)
+    rows = _packed.get(key)
+    if rows is None:
+        rows = _packed[key] = torch.empty((b, k, -(-k // 64) | 1), dtype=torch.int64,
+                                          device=torch.device("cuda", index))
+    return rows
+
+
 def greedy_suppress_plain(over: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: the greedy loop of ``ops/nms.py`` over the
     batch at once."""
@@ -47,28 +70,26 @@ def greedy_suppress(over: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         (B, K) bool: candidate i is valid and no earlier kept candidate
         suppresses it.
     """
-    if over.device.type == "cpu":
-        return greedy_suppress_plain(over, valid)
-    if over.device.type != "cuda":
+    if not over.is_cuda:
+        if over.device.type == "cpu":
+            return greedy_suppress_plain(over, valid)
         raise ValueError(f"greedy_suppress: unsupported device {over.device}")
-    if over.dim() != 3 or over.shape[1] != over.shape[2] or valid.shape != over.shape[:2]:
-        raise ValueError(f"greedy_suppress: over {tuple(over.shape)}, valid {tuple(valid.shape)}")
+    shape = over.shape
+    if len(shape) != 3 or shape[1] != shape[2] or valid.shape != shape[:2]:
+        raise ValueError(f"greedy_suppress: over {tuple(shape)}, valid {tuple(valid.shape)}")
     if over.dtype != torch.bool or valid.dtype != torch.bool:
         raise TypeError("greedy_suppress: over and valid must be bool")
-    if valid.device != over.device or not (over.is_contiguous() and valid.is_contiguous()):
+    index = over.get_device()
+    if valid.get_device() != index or not (over.is_contiguous() and valid.is_contiguous()):
         raise ValueError("greedy_suppress: over and valid must be contiguous on one device")
-    b, k = valid.shape
+    b, k = shape[:2]
+    if smem_bytes(k) > _SMEM_LIMIT:
+        raise ValueError(f"greedy_suppress: K={k} candidates exceed one block's shared memory")
     keep = torch.empty_like(valid)
     if keep.numel() == 0:
         return keep
-    lib = _kernels.library("nms")
-    if lib.k4_smem_bytes(k) > _SMEM_LIMIT:
-        raise ValueError(f"greedy_suppress: K={k} candidates exceed one block's shared memory")
-    packed = torch.empty((b, lib.k4_packed_words(k)), dtype=torch.int64, device=over.device)
-    with torch.cuda.device(over.device):
-        err = lib.k4_greedy_suppress(over.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-                                     packed.data_ptr(), b, k, _kernels.stream_of(over))
-    _kernels.check(err, "greedy_suppress (K4)")
+    _kernels.launch("nms", "k4_greedy_suppress", "greedy_suppress (K4)", index, over.data_ptr(),
+                    valid.data_ptr(), keep.data_ptr(), _scratch(b, k, index).data_ptr(), b, k)
     global launches
     launches += 1
     return keep

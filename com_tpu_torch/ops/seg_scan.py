@@ -27,6 +27,7 @@ bwd_launches = 0  # K1 sum or max-backward launches by run_bcast's backward sinc
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _OPS = {"sum": 0, "max": 1, "max_bwd": 2}
+_WHAT = {op: f"run_bcast {op} (K1)" for op in _OPS}
 
 
 def run_bcast_plain(vals: torch.Tensor, seg: torch.Tensor, op: str = "sum") -> torch.Tensor:
@@ -76,13 +77,15 @@ def _check(what: str, seg: torch.Tensor, *ts: torch.Tensor) -> None:
         raise ValueError(f"{what}: tensors must be contiguous on one device")
 
 
-def _scratch(lib, vals: torch.Tensor, op: int) -> torch.Tensor:
-    """One call's f32 scratch: the head and tail partials of the tiles and
-    their carries, (4, B, tiles, C) values of one f32 (op 0, 1) or a pair
-    (op 2, the max backward)."""
+_tile_rows: dict[tuple[int, int, int], int] = {}  # (C, dtype code, op) -> k1_tile_rows
+
+
+def _scratch(vals: torch.Tensor, op: int, rows: int) -> torch.Tensor:
+    """One call's f32 scratch for tiles of ``rows`` rows (``k1_tile_rows``):
+    the head and tail partials of the tiles and their carries, (4, B, tiles,
+    C) values of one f32 (op 0, 1) or a pair (op 2, the max backward)."""
     b, n, c = vals.shape
-    nt = -(-n // lib.k1_tile_rows(c, _DTYPES[vals.dtype], op))
-    return torch.empty((4, b, nt, c, 2 if op == 2 else 1), dtype=torch.float32,
+    return torch.empty((4, b, -(-n // rows), c, 2 if op == 2 else 1), dtype=torch.float32,
                        device=vals.device)
 
 
@@ -97,13 +100,15 @@ def _launch(op: str, seg: torch.Tensor, vals: torch.Tensor, counter: str,
     y = torch.empty_like(vals)
     if y.numel() == 0:
         return y
-    lib = _kernels.library("seg_scan")
     code = _OPS[op]
-    scratch = _scratch(lib, vals, code)
+    key = (c, _DTYPES[vals.dtype], code)
+    rows = _tile_rows.get(key)
+    if rows is None:  # the library is asked once for each (C, dtype, op)
+        rows = _tile_rows[key] = _kernels.library("seg_scan").k1_tile_rows(*key)
+    scratch = _scratch(vals, code, rows)
     ptrs = (None if t is None else t.data_ptr() for t in (g, vals, out, seg, y, scratch))
-    with torch.cuda.device(vals.device):
-        err = lib.k1_call(*ptrs, b, n, c, code, _DTYPES[vals.dtype], _kernels.stream_of(vals))
-    _kernels.check(err, f"run_bcast {op} (K1)")
+    _kernels.launch("seg_scan", "k1_call", _WHAT[op], vals.get_device(), *ptrs, b, n, c, code,
+                    _DTYPES[vals.dtype])
     globals()[counter] += 1
     return y
 

@@ -6,7 +6,8 @@ mode) and the COM loss mask (last_wins mode) of the training step.
 tensor and runs the plain versions of ``ops.gaussian`` for a CPU tensor.
 Both routes see the objects after the TPU kernel's preprocessing: centers
 clamped into the map, radius clamped to [0, R], -1 for an invalid object,
-class clamped.
+class clamped (``_preprocess`` on the plain route, the kernel itself on the
+card).
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ gauss_launches = 0      # K3 launches in gauss mode since the last reset
 last_wins_launches = 0  # K3 launches in last_wins mode since the last reset
 
 _MODES = {"gauss": 0, "last_wins": 1}
+_INT64_BIT = {torch.int32: 0, torch.int64: 1}  # the id dtypes the kernel reads
+_WHAT = {mode: f"stamp_windows {mode} (K3)" for mode in _MODES}
 
 
 def _preprocess(centers, radii, class_ids, valid, num_classes, fmap_h, fmap_w, max_radius):
@@ -51,51 +54,55 @@ def stamp_windows(centers, radii, class_ids, values, valid, num_classes, fmap_h,
 
     Args:
         centers: (B, N, 2) integer [x, y] cells.
-        radii, class_ids: (B, N) integers; values: (B, N) float (last_wins);
+        radii, class_ids: (B, N) integers; values: (B, N) float (last_wins;
+            may be None in gauss mode, which does not read it);
         valid: (B, N) bool.
         mode: "gauss" (max of gaussians over ``fill``; stamped values are
             > 0) or "last_wins" (per-object constant squares over ``fill``).
 
     Returns:
         (B, num_classes, fmap_h, fmap_w) float32.
+
+    On a CUDA tensor the call allocates the output and makes one C call: the
+    kernel clamps the objects itself and reads int32 or int64 ids and
+    float32 values as the callers hold them; other dtypes raise TypeError.
     """
     if mode not in _MODES:
         raise ValueError(f"stamp_windows: mode must be 'gauss' or 'last_wins', got {mode!r}")
     if not 0 <= int(max_radius) <= _gaussian.MAX_STAMP_RADIUS:
         raise ValueError(f"stamp_windows: max_radius {max_radius} outside [0, 16]")
-    if radii.device.type == "cpu":
-        return stamp_windows_plain(centers, radii, class_ids, values, valid, num_classes, fmap_h,
-                                   fmap_w, mode, fill, max_radius)
-    if radii.device.type != "cuda":
+    if values is None and mode != "gauss":
+        raise ValueError("stamp_windows: last_wins needs values")
+    if not radii.is_cuda:
+        if radii.device.type == "cpu":
+            return stamp_windows_plain(centers, radii, class_ids, values, valid, num_classes,
+                                       fmap_h, fmap_w, mode, fill, max_radius)
         raise ValueError(f"stamp_windows: unsupported device {radii.device}")
     b, n = radii.shape
-    if (tuple(centers.shape) != (b, n, 2) or class_ids.shape != radii.shape
-            or values.shape != radii.shape or valid.shape != radii.shape):
-        raise ValueError(f"stamp_windows: centers {tuple(centers.shape)}, radii {tuple(radii.shape)}, "
-                         f"class_ids {tuple(class_ids.shape)}, values {tuple(values.shape)}, "
-                         f"valid {tuple(valid.shape)}")
-    if (valid.dtype != torch.bool or not values.dtype.is_floating_point
-            or any(t.dtype.is_floating_point for t in (centers, radii, class_ids))):
-        raise TypeError("stamp_windows: centers, radii and class_ids integer, values float, "
-                        "valid bool")
-    if any(t.device != radii.device for t in (centers, class_ids, values, valid)):
-        raise ValueError("stamp_windows: all inputs on one device")
-    cx, cy, rr, cls = (t.contiguous() for t in _preprocess(
-        centers, radii, class_ids, valid, num_classes, fmap_h, fmap_w, int(max_radius)))
-    vals = values.to(torch.float32).contiguous()
+    index = radii.get_device()
+    ins = [centers, radii, class_ids, valid] + ([] if values is None else [values])
+    int64_mask = 0
+    for i, t in enumerate(ins):
+        if t.shape != ((b, n, 2) if i == 0 else (b, n)):
+            raise ValueError(f"stamp_windows: centers {tuple(centers.shape)} and radii, "
+                             f"class_ids, valid, values {[tuple(u.shape) for u in ins[1:]]}: "
+                             f"want (B, N, 2) and (B, N)")
+        want = (_INT64_BIT if i < 3 else (torch.bool,) if i == 3 else (torch.float32,))
+        if t.dtype not in want:
+            raise TypeError("stamp_windows: centers, radii and class_ids int32 or int64, "
+                            "values float32, valid bool")
+        if t.get_device() != index or not t.is_contiguous():
+            raise ValueError("stamp_windows: inputs must be contiguous on one device")
+        if i < 3:
+            int64_mask |= _INT64_BIT[t.dtype] << i
     out = torch.empty((b, num_classes, fmap_h, fmap_w), dtype=torch.float32, device=radii.device)
     if out.numel() == 0:
         return out
-    winner = (torch.empty(out.shape, dtype=torch.int32, device=out.device)
-              if mode == "last_wins" else None)
-    lib = _kernels.library("stamp")
-    with torch.cuda.device(out.device):
-        err = lib.k3_stamp(cx.data_ptr(), cy.data_ptr(), rr.data_ptr(), cls.data_ptr(),
-                           vals.data_ptr(), out.data_ptr(),
-                           None if winner is None else winner.data_ptr(),
-                           b, n, num_classes, fmap_h, fmap_w, _MODES[mode], float(fill),
-                           _kernels.stream_of(out))
-    _kernels.check(err, f"stamp_windows {mode} (K3)")
+    _kernels.launch("stamp", "k3_stamp", _WHAT[mode], index, centers.data_ptr(),
+                    radii.data_ptr(), class_ids.data_ptr(),
+                    None if values is None else values.data_ptr(), valid.data_ptr(),
+                    out.data_ptr(), b, n, num_classes, fmap_h, fmap_w, int(max_radius),
+                    _MODES[mode], int64_mask, float(fill))
     global gauss_launches, last_wins_launches
     if mode == "gauss":
         gauss_launches += 1

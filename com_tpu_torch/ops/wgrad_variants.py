@@ -127,11 +127,8 @@ def _launch(name: str, entry: str, plain, x: torch.Tensor, g: torch.Tensor, th: 
     if x.numel() == 0:
         return dw.zero_()
     part = torch.empty((b * -(-h // th), 9 * cin * cout), dtype=torch.float32, device=x.device)
-    lib = _kernels.library("wgrad_variants")
-    with torch.cuda.device(x.device):
-        err = getattr(lib, entry)(x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(),
-                                  b, h, wd, cin, cout, th, _kernels.stream_of(x))
-    _kernels.check(err, f"{what} ({entry})")
+    _kernels.launch("wgrad_variants", entry, f"{what} ({entry})", x.get_device(), x.data_ptr(),
+                    g.data_ptr(), part.data_ptr(), dw.data_ptr(), b, h, wd, cin, cout, th)
     globals()[f"{name}_launches"] += 1
     return dw
 

@@ -24,9 +24,19 @@ with an optional diagnostic:
                                f32 (2,163840,8), max bf16 (2,163840,32) and
                                its backward) over Waymo-like pillar ids: two
                                scenes, and sample 1 one whole-sample run
+  k4:THREADS,PACK_THREADS      kThreads, kPackThreads of nms.cu (the sweep's
+                               block, a pack block), timed on NMS-like,
+                               none-suppressed and all-suppressed-by-the-first
+                               (2, K, K) at K = 500 and 1024
+  k3:TILEH,OBJS                kTileH, kObjs of stamp.cu, timed in both modes
+  ...,noexp | ,nocells         on the training path's (2,3,468,468) canvas
+                               (diagnostics: the gaussian's exp replaced by a
+                               constant; no cell computed, leaving the object
+                               loads, the compaction and the canvas write)
 
 Without arguments it runs the shipped tiles and the two diagnostics of each,
-and K1's shipped constants, its three diagnostics and four other sets.
+K1's shipped constants, its three diagnostics and four other sets, and four
+sets each of K4 and K3 (the first of each the shipped one).
 Each line: mean ms a call (CUDA events over ``ITERS`` calls after two
 warm-up calls), TFLOP/s, and whether the output is within the tolerance of
 ``chip_smoke.py`` (diagnostics are wrong by design).  Builds go to
@@ -51,13 +61,21 @@ SHAPES = ((2, 468, 468, 64, 64), (2, 234, 234, 128, 128), (2, 117, 117, 256, 256
 ITERS = 20
 CONSTANTS = {"k2": ("conv3x3", ("kTR", "kKc", "kStages")),
              "k2w": ("conv3x3_wgrad", ("kDY", "kCi", "kCo", "kWarpsM", "kStages")),
-             "k1": ("seg_scan", ("kFwdRows", "kBwdRows", "kThreads", "kMinBlocks"))}
+             "k1": ("seg_scan", ("kFwdRows", "kBwdRows", "kThreads", "kMinBlocks")),
+             "k4": ("nms", ("kThreads", "kPackThreads")),
+             "k3": ("stamp", ("kTileH", "kObjs"))}
 DEFAULT = ("k2:8,32,2", "k2:8,32,2,noload", "k2:8,32,2,nomma",
            "k2w:1,64,64,4,4", "k2w:1,64,64,4,4,noload", "k2w:1,64,64,4,4,nomma")
 K1_DEFAULT = ("k1:8,4,256,2", "k1:8,4,256,2,noload", "k1:8,4,256,2,noscan",
               "k1:8,4,256,2,mainonly", "k1:8,4,256,1", "k1:16,8,256,1", "k1:4,4,256,3",
               "k1:8,4,128,4")
 K1_POINTS = 163840
+K4_DEFAULT = ("k4:512,512", "k4:1024,256", "k4:256,256", "k4:1024,128")
+K3_DEFAULT = ("k3:16,2", "k3:16,2,noexp", "k3:16,2,nocells", "k3:32,2", "k3:16,1")
+DIAGS = {"k1": ("noload", "noscan", "mainonly"), "k2": ("noload", "nomma"),
+         "k2w": ("noload", "nomma"), "k3": ("noexp", "nocells"), "k4": ()}
+_K3_EXP = "exp2f((float)(dx * dx + dy * dy) * ob.v)"
+_K3_CELLS = "    for (int q = 0; q < count; ++q) {\n"
 _MMA = re.compile(r"hopper::mma_bf16\(acc\[i\]\[j\], af\[i\], bfr\[j >> 1\]\[\(j & 1\) \* 2\],"
                   r"\s*bfr\[j >> 1\]\[\(j & 1\) \* 2 \+ 1\]\);")
 _FETCH = "    fetch(t + kStages - 1);\n"
@@ -70,11 +88,10 @@ def parse(variant: str):
     """``"k2:8,32,2,noload"`` -> ("k2", (8, 32, 2), "noload")."""
     kernel, _, rest = variant.partition(":")
     parts = rest.split(",")
-    diag = parts[-1] if parts[-1] in ("noload", "nomma", "noscan", "mainonly") else None
+    diag = parts[-1] if parts[-1] in {d for ds in DIAGS.values() for d in ds} else None
     values = tuple(int(p) for p in (parts[:-1] if diag else parts))
-    diags = ("noload", "noscan", "mainonly") if kernel == "k1" else ("noload", "nomma")
     if (kernel not in CONSTANTS or len(values) != len(CONSTANTS[kernel][1])
-            or diag not in (None, *diags)):
+            or diag not in (None, *DIAGS[kernel])):
         raise ValueError(f"bad variant {variant!r}")
     return kernel, values, diag
 
@@ -101,6 +118,12 @@ def variant_source(kernel: str, values, diag=None) -> str:
         if text.count(_K1_LAUNCHES) != 1:
             raise ValueError(f"{src}.cu: the launches after k1_main not found once")
         text = text.replace(_K1_LAUNCHES, "  return (int)err;\n  // k1_carries and k1_fixup start")
+    elif diag in ("noexp", "nocells"):  # K3 without the gaussian's exp, or without the cells' loop
+        old, new = ((_K3_EXP, "ob.v") if diag == "noexp"
+                    else (_K3_CELLS, _K3_CELLS.replace("q < count", "q < 0")))
+        if text.count(old) != 1:
+            raise ValueError(f"{src}.cu: {old.strip()!r} not found once")
+        text = text.replace(old, new)
     elif diag == "noload":
         if text.count(_FETCH) != 1:
             raise ValueError(f"{src}.cu: the main loop's fetch() not found once")
@@ -231,8 +254,7 @@ def run_k1(variants=K1_DEFAULT, device=None):
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError("conv_tiles times kernels: it needs a CUDA device")
-    with ThreadPoolExecutor(len(variants)) as ex:
-        libs = dict(zip(variants, ex.map(_build, variants)))
+    libs = _load(variants, "seg_scan")
     gen = torch.Generator(device=dev).manual_seed(5)
     stream = torch.cuda.current_stream(dev).cuda_stream
     scenes = _scene_ids(gen, 2, K1_POINTS, dev)
@@ -252,15 +274,12 @@ def run_k1(variants=K1_DEFAULT, device=None):
         sum_tol = 1e-5 * seg_scan.run_bcast_plain(x8.abs(), seg, "sum") + 1e-6
         bwd_tol = (1e-5 * seg_scan.run_bcast_plain(g32.float().abs(), seg, "sum")
                    + 2.0 ** -7 * cases["max backward bf16 (2,163840,32)"][2].float().abs() + 1e-6)
-        for variant, so in libs.items():
-            lib = ctypes.CDLL(str(so))
-            for fn, (res, args) in _kernels.SIGNATURES["seg_scan"].items():
-                getattr(lib, fn).restype, getattr(lib, fn).argtypes = res, list(args)
+        for variant, lib in libs.items():
             for name, (op, x, want) in cases.items():
                 b, n, c = x.shape
-                scratch = seg_scan._scratch(lib, x, op)
-                y = torch.empty_like(x)
                 dt = int(x.dtype == torch.bfloat16)
+                scratch = seg_scan._scratch(x, op, lib.k1_tile_rows(c, dt, op))
+                y = torch.empty_like(x)
                 gp, fp = (g32.data_ptr(), out32.data_ptr()) if op == 2 else (None, None)
 
                 def call():
@@ -277,17 +296,133 @@ def run_k1(variants=K1_DEFAULT, device=None):
     return rows
 
 
+def _load(variants, name):
+    """Each variant built and loaded with csrc/<name>.cu's C signatures."""
+    with ThreadPoolExecutor(len(variants)) as ex:
+        paths = dict(zip(variants, ex.map(_build, variants)))
+    libs = {}
+    for variant, so in paths.items():
+        lib = ctypes.CDLL(str(so))
+        for fn, (res, args) in _kernels.SIGNATURES[name].items():
+            getattr(lib, fn).restype, getattr(lib, fn).argtypes = res, list(args)
+        libs[variant] = lib
+    return libs
+
+
+def k4_cases(dev, gen, b=2, k=500):
+    """K4's inputs, (b, k, k) over with its diagonal set (a box overlaps
+    itself): NMS-like, ~60 % valid, a candidate overlapping those within 1.5
+    m among 500 spread over 40 m; all valid with nothing suppressed; all
+    valid with everything suppressed by the first."""
+    eye = torch.eye(k, dtype=torch.bool, device=dev).expand(b, k, k)
+    xy = torch.rand((b, k, 2), device=dev, generator=gen) * 40
+    near = (xy[:, :, None] - xy[:, None]).pow(2).sum(-1) < 1.5 ** 2
+    ones = torch.ones((b, k), dtype=torch.bool, device=dev)
+    first = eye.clone()
+    first[:, 0] = True
+    return {f"NMS-like ({b},{k},{k})": (near.contiguous(),
+                                        torch.rand((b, k), device=dev, generator=gen) < 0.6),
+            f"none suppressed ({b},{k},{k})": (eye.contiguous(), ones),
+            f"all suppressed by the first ({b},{k},{k})": (first, ones)}
+
+
+def run_k4(variants=K4_DEFAULT, device=None):
+    """One dict a (variant, case): variant, case, ms, device_ms, ok (keep
+    masks equal to greedy_suppress_plain's)."""
+    from com_tpu_torch.ops import nms
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("conv_tiles times kernels: it needs a CUDA device")
+    libs = _load(variants, "nms")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cases = {**k4_cases(dev, gen), **k4_cases(dev, gen, k=1024)}
+    rows = []
+    for case, (over, valid) in cases.items():
+        want = nms.greedy_suppress_plain(over, valid)
+        b, k = valid.shape
+        packed = torch.empty((b, k, -(-k // 64) | 1), dtype=torch.int64, device=dev)
+        for variant, lib in libs.items():
+            keep = torch.empty_like(valid)
+
+            def call():
+                return lib.k4_greedy_suppress(over.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+                                              packed.data_ptr(), b, k, stream)
+
+            _kernels.check(call(), variant)
+            torch.cuda.synchronize()
+            rows.append(dict(variant=variant, case=case, ms=call_ms(call),
+                             device_ms=call_ms(call, queued=True),
+                             ok=torch.equal(keep, want)))
+    return rows
+
+
+def k3_case(dev, gen, b=2, n=500, c=3, h=468, w=468, real=100):
+    """K3's inputs on the training path's canvas: ``real`` valid objects of
+    radii 2-23 a sample among ``n`` slots, 20 of them on the centers of 20
+    others, class ids int64 (as the COM loss holds them)."""
+    centers = torch.stack([torch.randint(0, w, (b, n), device=dev, generator=gen),
+                           torch.randint(0, h, (b, n), device=dev, generator=gen)], -1)
+    centers[:, :20] = centers[:, 20:40]
+    radii = torch.randint(2, 24, (b, n), device=dev, generator=gen, dtype=torch.int32)
+    cls = torch.randint(0, c, (b, n), device=dev, generator=gen)
+    values = torch.rand((b, n), device=dev, generator=gen) + 0.5
+    valid = torch.zeros((b, n), dtype=torch.bool, device=dev)
+    valid[:, :real] = True
+    return centers.to(torch.int32).contiguous(), radii, cls, values, valid, (c, h, w)
+
+
+def run_k3(variants=K3_DEFAULT, device=None):
+    """One dict a (variant, mode): variant, mode, ms, device_ms, ok (gauss
+    within 2e-6 of stamp_windows_plain, last_wins exact)."""
+    from com_tpu_torch.ops import stamp
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("conv_tiles times kernels: it needs a CUDA device")
+    libs = _load(variants, "stamp")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    centers, radii, cls, values, valid, (c, h, w) = k3_case(dev, gen)
+    b, n = radii.shape
+    rows = []
+    for mode, code, fill in (("gauss", 0, 0.0), ("last_wins", 1, 1.0)):
+        want = stamp.stamp_windows_plain(centers, radii, cls, values, valid, c, h, w, mode, fill)
+        for variant, lib in libs.items():
+            out = torch.empty((b, c, h, w), device=dev)
+
+            def call():
+                return lib.k3_stamp(centers.data_ptr(), radii.data_ptr(), cls.data_ptr(),
+                                    values.data_ptr(), valid.data_ptr(), out.data_ptr(), b, n, c,
+                                    h, w, 16, code, 4, fill, stream)
+
+            _kernels.check(call(), variant)
+            torch.cuda.synchronize()
+            err = float((out - want).abs().max())
+            rows.append(dict(variant=variant, mode=mode, ms=call_ms(call),
+                             device_ms=call_ms(call, queued=True),
+                             ok=err <= 2e-6 if mode == "gauss" else err == 0.0))
+    return rows
+
+
 def main(argv=None):
-    variants = tuple(argv) if argv else DEFAULT + K1_DEFAULT
-    conv = tuple(v for v in variants if not v.startswith("k1:"))
-    k1 = tuple(v for v in variants if v.startswith("k1:"))
+    variants = tuple(argv) if argv else DEFAULT + K1_DEFAULT + K4_DEFAULT + K3_DEFAULT
+    by = {k: tuple(v for v in variants if v.split(":")[0] == k) for k in ("k1", "k3", "k4")}
+    conv = tuple(v for v in variants if v.split(":")[0] in ("k2", "k2w"))
     print(f"card: {torch.cuda.get_device_name(0)}")
     for r in run(conv) if conv else ():
         print(f"{r['variant']:<28} {r['shape']}: {r['ms']:.4f} ms {r['tflops']:.1f} TFLOP/s "
               f"{'ok' if r['ok'] else 'WRONG'}")
-    for r in run_k1(k1) if k1 else ():
+    for r in run_k1(by["k1"]) if by["k1"] else ():
         print(f"{r['variant']:<16} {r['fn']:<32} {r['input']:<17}: {r['ms']:.4f} ms, queued "
               f"{r['device_ms']:.4f} ms {'ok' if r['ok'] else 'WRONG'}")
+    for r in run_k4(by["k4"]) if by["k4"] else ():
+        print(f"{r['variant']:<14} {r['case']:<44}: {r['ms']:.4f} ms, queued "
+              f"{r['device_ms']:.4f} ms {'ok' if r['ok'] else 'WRONG'}")
+    for r in run_k3(by["k3"]) if by["k3"] else ():
+        print(f"{r['variant']:<10} stamp {r['mode']:<10} (2,3,468,468) 500 slots: {r['ms']:.4f} "
+              f"ms, queued {r['device_ms']:.4f} ms {'ok' if r['ok'] else 'WRONG'}")
 
 
 if __name__ == "__main__":

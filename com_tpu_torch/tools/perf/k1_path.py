@@ -14,13 +14,26 @@ sums and the max backward: the largest difference over ``1e-5 * run
 sum|x| + 1e-6``; all: the rows whose value differs from the row before in
 the same run).
 
+``kinks``: what decides that comparison.  The CPU step records its
+decisions at the net's kinks: the sign of every ReLU's input, and the set of
+tied maxima of every K1 max (its backward) and of the last PFN layer's
+canvas max (a library scatter-max).  The card step (K1's kernels) is then
+run with nothing imposed, counting, layer by layer, the units whose ReLU
+input has the other sign on the card (with the largest |input| among them
+beside the largest card-against-CPU difference of the layer's inputs and
+their RMS) and the (run, channel) pairs whose set of tied
+maxima differs; then once more for each of ``relu``, ``max`` and
+``relu,max`` with the CPU's decisions imposed (a ReLU passes x where the
+CPU's input was positive; a max splits its gradient over the CPU's tied
+set), printing the test's worst ratios each time.
+
 ``vfe``: the flagship VFE in one full-width eval step (batch 2, 163,840
 Waymo-like points a scene, 468x468): the host's time from the VFE's start
 to its return (it queues the work and does not wait for the card), the
 card's time between the same two points (CUDA events), and the host time
 spent inside the K1 wrappers, means over the steps.
 
-    python -m com_tpu_torch.tools.perf.k1_path [parity] [vfe] [--repeat N] [--shift]
+    python -m com_tpu_torch.tools.perf.k1_path [parity] [kinks] [vfe] [--repeat N] [--shift]
         [--routes kernel,plain,noise0,...] [--deterministic]
 
 Run it from a checkout's root (it reads the configs and ``chip_smoke.py``'s
@@ -128,9 +141,10 @@ def _step_batch():
             "facade_type": rng.randint(0, 4, (2, 16)).astype(np.float32)}
 
 
-def step_grads(device, shift: bool):
+def step_grads(device, shift: bool, on_net=None):
     """Loss, gradients and batch statistics of one f32 train step from the
-    test's weights (seed 3) on ``device``."""
+    test's weights (seed 3) on ``device``; ``on_net(net)`` is called once the
+    net is built."""
     from com_tpu_torch.models.detectors import DatasetMeta, build_network
     from com_tpu_torch.models.layers import BatchNorm
     from com_tpu_torch.train.optim import build_optimizer
@@ -150,6 +164,8 @@ def step_grads(device, shift: bool):
             for mod in net.modules():
                 if isinstance(mod, BatchNorm):
                     mod.bias.add_(3.0)
+    if on_net is not None:
+        on_net(net)
     opt, _ = build_optimizer(net, cfg.OPTIMIZATION, 100, 10)
     state = TrainState.create(net, opt, 1, conf_shape_for(cfg.MODEL, names), device=device)
     step = make_train_step(net, cfg.MODEL, names, meta, opt, (32, 32), device=device)
@@ -195,15 +211,21 @@ def _fingerprint(step) -> str:
     return h.hexdigest()[:10]
 
 
-def parity(dev, repeat: int, shift: bool, routes, deterministic=False):
+def _library_modes(deterministic: bool):
+    """TF32 off, as in the test; with ``deterministic`` the library's ops in
+    their deterministic versions, and a warning at each op that has none."""
     import warnings
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if deterministic:  # library ops in their deterministic versions; the others named
+    if deterministic:
         torch.backends.cudnn.deterministic = True
         torch.use_deterministic_algorithms(True, warn_only=True)
         warnings.simplefilter("always")
+
+
+def parity(dev, repeat: int, shift: bool, routes, deterministic=False):
+    _library_modes(deterministic)
     cpu = step_grads("cpu", shift)
     for route in routes:
         noise = int(route[5:]) if route.startswith("noise") else None
@@ -220,6 +242,156 @@ def parity(dev, repeat: int, shift: bool, routes, deterministic=False):
                   + ", ".join(f"{k} {v:.3f}" for k, v in worst), flush=True)
             for what, (v, n) in sorted(router.worst.items()):
                 print(f"    K1 {what}: worst {v:.3g} over {n} calls", flush=True)
+
+
+def _run_pairs(diff, seg):
+    """(run, channel) pairs and runs in which ``diff`` (B, N, C) holds a
+    true row."""
+    hit = seg_scan.run_bcast_plain(diff.float(), seg, "sum") > 0
+    first = torch.ones(seg.shape, dtype=torch.bool, device=seg.device)
+    first[:, 1:] = seg[:, 1:] != seg[:, :-1]
+    return int((hit & first[..., None]).sum()), int((hit.any(-1) & first).sum())
+
+
+class _ImposedAmax(torch.autograd.Function):
+    """A scatter-max whose gradient goes to a given tied set: each source
+    element in ``tied`` takes its slot's gradient over the slot's count."""
+
+    @staticmethod
+    def forward(ctx, out, dim, index, src, tied):
+        ctx.save_for_backward(index, tied)
+        ctx.dim = dim
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        index, tied = ctx.saved_tensors
+        cnt = torch.zeros_like(g).scatter_add_(ctx.dim, index, tied.to(g.dtype))
+        share = (g / cnt.clamp_min(1.0)).gather(ctx.dim, index)
+        return None, None, None, share * tied.to(g.dtype), None
+
+
+class KinkRecorder:
+    """The step's decisions at its kinks, in call order: the sign of each
+    ReLU's input (``torch.relu`` in the PFN layers, ``nn.ReLU`` elsewhere)
+    and the tied maxima of each K1 max's backward and of each scatter-max
+    that carries a gradient (the last PFN layer's canvas).  Without ``ref``
+    it records them; given a recording (the CPU step's), it counts where
+    this step decides otherwise, and takes the recording's decision at the
+    kinds named in ``impose`` ("relu", "max")."""
+
+    def __init__(self, ref=None, impose=()):
+        self.ref, self.impose = ref, set(impose)
+        self.relu, self.ties = [], []   # ReLU inputs and tied-max masks (CPU), in call order
+        self.report = []                # lines: where this step decides otherwise
+        self.current = "?"
+        self._hooks = []
+
+    def on_net(self, net):
+        """Name each ReLU call by the module it runs in."""
+        from torch import nn
+
+        from com_tpu_torch.models.vfe import PFNLayer
+
+        for name, mod in net.named_modules():
+            if isinstance(mod, (nn.ReLU, PFNLayer)):
+                label = f"{name}.relu" if isinstance(mod, PFNLayer) else name
+                self._hooks.append(mod.register_forward_pre_hook(
+                    lambda *_, label=label: setattr(self, "current", label)))
+
+    def _relu(self, x, inplace=False):
+        i = len(self.relu)
+        self.relu.append(x.detach().cpu())
+        if self.ref is None:
+            return self._orig_relu(x)
+        ref_x = self.ref.relu[i].to(x.device)
+        want = ref_x > 0
+        flip = (x > 0) != want
+        n = int(flip.sum())
+        xd = x.detach()
+        rms = float(xd.float().pow(2).mean().sqrt())
+        worst = float(xd.abs()[flip].max()) if n else 0.0
+        apart = float((xd - ref_x).abs().max())
+        self.report.append(f"relu {self.current} {tuple(x.shape)}: {n} of {x.numel()} units "
+                           f"flipped, largest |input| among them {worst:.3g}; inputs apart "
+                           f"by at most {apart:.3g} (layer rms {rms:.3g})")
+        if "relu" in self.impose:
+            return x * want.to(x.dtype)
+        return self._orig_relu(x)
+
+    def _tied(self, what, tied, seg=None):
+        i = len(self.ties)
+        self.ties.append(tied.cpu())
+        if self.ref is None:
+            return tied
+        want = self.ref.ties[i].to(tied.device)
+        diff = tied != want
+        if seg is not None:
+            pairs, runs = _run_pairs(diff, seg)
+            self.report.append(f"{what} {tuple(tied.shape)}: tied set differs in {pairs} "
+                               f"(run, channel) pairs of {runs} runs")
+        else:
+            self.report.append(f"{what} {tuple(tied.shape)}: {int(diff.sum())} source "
+                               f"elements tied on one side only")
+        return want if "max" in self.impose else tied
+
+    def _max_bwd(self, g, vals, out, seg):
+        tied = self._tied("K1 max backward", vals == out, seg)
+        if self.ref is None or "max" not in self.impose:
+            return self._orig_max_bwd(g, vals, out, seg)
+        tied = tied.float()
+        gsum = seg_scan.run_bcast_plain(g.float(), seg, "sum")
+        nties = seg_scan.run_bcast_plain(tied, seg, "sum")
+        return (tied * gsum / torch.clamp(nties, min=1.0)).to(vals.dtype)
+
+    def _scatter_reduce_(self, canvas, dim, index, src, reduce, *, include_self=True):
+        if reduce != "amax" or not src.requires_grad:
+            return self._orig_scatter(canvas, dim, index, src, reduce, include_self=include_self)
+        with torch.no_grad():
+            out = self._orig_scatter(canvas.clone(), dim, index, src, reduce,
+                                     include_self=include_self)
+        tied = self._tied("canvas max", src.detach() == out.gather(dim, index))
+        return canvas.copy_(_ImposedAmax.apply(out, dim, index, src, tied))
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        self._orig_relu, self._orig_F_relu = torch.relu, F.relu
+        self._orig_max_bwd = seg_scan.run_bcast_max_bwd
+        self._orig_scatter = torch.Tensor.scatter_reduce_
+        torch.relu = F.relu = self._relu
+        seg_scan.run_bcast_max_bwd = self._max_bwd
+        torch.Tensor.scatter_reduce_ = lambda t, *a, **kw: self._scatter_reduce_(t, *a, **kw)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.nn.functional as F
+
+        torch.relu = self._orig_relu
+        F.relu = self._orig_F_relu
+        seg_scan.run_bcast_max_bwd = self._orig_max_bwd
+        torch.Tensor.scatter_reduce_ = self._orig_scatter
+        for h in self._hooks:
+            h.remove()
+
+
+def kinks(dev, shift: bool, deterministic=False):
+    _library_modes(deterministic)
+    with KinkRecorder() as ref:
+        cpu = step_grads("cpu", shift, ref.on_net)
+    for impose in ((), ("relu",), ("max",), ("relu", "max")):
+        with KinkRecorder(ref, impose) as rec:
+            card = step_grads(dev, shift, rec.on_net)
+        torch.cuda.synchronize()
+        r = ratios(card, cpu)
+        worst = sorted(r.items(), key=lambda kv: -kv[1])[:3]
+        verdict = "passes" if worst[0][1] <= 1 else "FAILS"
+        print(f"kinks shift={int(shift)} imposed={','.join(impose) or 'none'}: {verdict}; "
+              f"card step {_fingerprint(card)}; worst "
+              + ", ".join(f"{k} {v:.3f}" for k, v in worst), flush=True)
+        if not impose:
+            for line in rec.report:
+                print(f"    {line}", flush=True)
 
 
 def vfe_times(dev, iters: int = 20):
@@ -280,11 +452,13 @@ def main(argv=None):
         raise SystemExit("k1_path: no CUDA device")
     dev = torch.device("cuda", 0)
     repeat = int(argv[argv.index("--repeat") + 1]) if "--repeat" in argv else 2
-    what = [a for a in argv if a in ("parity", "vfe")] or ["parity", "vfe"]
+    what = [a for a in argv if a in ("parity", "kinks", "vfe")] or ["parity", "vfe"]
     routes = (argv[argv.index("--routes") + 1].split(",") if "--routes" in argv
               else list(ROUTES))
     if "parity" in what:
         parity(dev, repeat, "--shift" in argv, routes, "--deterministic" in argv)
+    if "kinks" in what:
+        kinks(dev, "--shift" in argv, "--deterministic" in argv)
     if "vfe" in what:
         vfe_times(dev)
 

@@ -136,3 +136,30 @@ def test_k1_tile_sweep_sources(variant):
         assert text == (_kernels.CSRC / "seg_scan.cu").read_text()
     with pytest.raises(ValueError):
         conv_tiles.parse(variant.split(",no")[0].split(",main")[0] + ",nomma")
+
+
+@pytest.mark.parametrize("variant", conv_tiles.K4_DEFAULT + conv_tiles.K3_DEFAULT)
+def test_k4_k3_tile_sweep_sources(variant):
+    """K4's and K3's copies in the tile sweep: each constant set once, the
+    first variant of each the shipped source, K3's diagnostics applied, the
+    conv kernels' diagnostics refused."""
+    kernel, values, diag = conv_tiles.parse(variant)
+    text = conv_tiles.variant_source(kernel, values, diag)
+    src, names = conv_tiles.CONSTANTS[kernel]
+    for name, value in zip(names, values):
+        assert f"constexpr int {name} = {value};" in text
+    shipped = (_kernels.CSRC / f"{src}.cu").read_text()
+    assert (text == shipped) == (variant in (conv_tiles.K4_DEFAULT[0], conv_tiles.K3_DEFAULT[0]))
+    assert (conv_tiles._K3_EXP in text) == (kernel == "k3" and diag != "noexp")
+    assert (conv_tiles._K3_CELLS in text) == (kernel == "k3" and diag != "nocells")
+    with pytest.raises(ValueError):
+        conv_tiles.parse(variant.split(",no")[0] + ",noload")
+
+
+def test_host_cost_needs_a_card():
+    """The wrappers' host-cost tool times CUDA launches only: it refuses the
+    CPU before it builds or allocates anything."""
+    from com_tpu_torch.tools.perf import host_cost
+
+    with pytest.raises(RuntimeError):
+        host_cost.run(device="cpu")

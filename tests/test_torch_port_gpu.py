@@ -10,8 +10,12 @@ sample runs, objects past the map's edge).  K1's cases are cut at its own
 tile size (``k1_tile_rows``): runs of T - 1, T, T + 1 and 2T + 1 rows, a
 whole-sample run, fewer rows than a tile, 8, 11, 32 and 64 channels and
 vals off a 16-byte boundary (its 16-byte and element loads), an all -inf
-run, and the fused max backward on tied maxima.  Max, keep masks, last-wins
-stamps and launch counts are exact; gaussian stamps within 2e-6 (analytic
+run, and the fused max backward on tied maxima.  K4 runs ragged words, K =
+1024 with every candidate kept or all suppressed by the first, and the
+largest K it takes; K3 windows across its tile edges (its tile read from the
+library), 500 slots on one center, negative and positive gauss fills and the
+callers' own dtypes.  Max, keep masks, last-wins stamps and launch counts
+are exact; gaussian stamps within 2e-6 (analytic
 exp against the f64-built table); f32 sums and convs are held to f32
 rounding, bf16 ones to one or two bf16 roundings.  The backward passes (K1
 max and sum, K2 dgrad, K2w) are held against the plain versions' autograd.
@@ -164,7 +168,7 @@ def test_conv3x3_kernel(dev, dtype, b, h, w, cin, cout):
     assert bool((err <= 1e-5 * absref + rnd * want.float().abs()).all())
 
 
-@pytest.mark.parametrize("k", [1, 64, 500, 700])
+@pytest.mark.parametrize("k", [1, 64, 65, 129, 500, 700, 1344])
 def test_greedy_suppress_kernel(dev, k):
     rng = np.random.RandomState(k)
     over = torch.from_numpy(rng.rand(2, k, k) < 0.02).to(dev)
@@ -174,6 +178,40 @@ def test_greedy_suppress_kernel(dev, k):
     torch.cuda.synchronize()
     assert nms.launches == before + 1
     assert torch.equal(got, nms.greedy_suppress_plain(over, valid))
+
+
+@pytest.mark.parametrize("case", ["none_suppressed", "first_suppresses_all", "sparse"])
+@pytest.mark.parametrize("k", [500, 1024])
+def test_greedy_suppress_kernel_extremes(dev, case, k):
+    """Every candidate valid: each kept (its own row only), all suppressed by
+    the first, or NMS-like sparse overlap (chains of hundreds kept); the
+    largest K the block's shared memory holds runs and one more raises."""
+    over = torch.eye(k, dtype=torch.bool, device=dev).repeat(2, 1, 1)
+    if case == "first_suppresses_all":
+        over[:, 0] = True
+    elif case == "sparse":
+        gen = torch.Generator(device=dev).manual_seed(k)
+        over |= torch.rand((2, k, k), device=dev, generator=gen) < 2.0 / k
+    valid = torch.ones((2, k), dtype=torch.bool, device=dev)
+    got = nms.greedy_suppress(over, valid)
+    assert torch.equal(got, nms.greedy_suppress_plain(over, valid))
+    kept = {"none_suppressed": k, "first_suppresses_all": 1}.get(case)
+    assert kept is None or got.sum(1).tolist() == [kept] * 2
+    with pytest.raises(ValueError):
+        nms.greedy_suppress(torch.zeros((1, 1345, 1345), dtype=torch.bool, device=dev),
+                            torch.ones((1, 1345), dtype=torch.bool, device=dev))
+
+
+def _stamp_check(got, want, mode, args, c, h, w, max_radius=16):
+    """Gauss within 2e-6 of the plain version with every valid center
+    exactly 1.0 (for a fill of at most 1); last_wins exact."""
+    if mode == "last_wins":
+        assert torch.equal(got, want)
+        return
+    assert float((got - want).abs().max()) <= 2e-6
+    cx, cy, rr, cl = stamp._preprocess(args[0], args[1], args[2], args[4], c, h, w, max_radius)
+    bi, oi = torch.nonzero(rr >= 0, as_tuple=True)
+    assert bool((got[bi, cl[bi, oi].long(), cy[bi, oi].long(), cx[bi, oi].long()] == 1.0).all())
 
 
 @pytest.mark.parametrize("mode", ["gauss", "last_wins"])
@@ -201,6 +239,92 @@ def test_stamp_kernel(dev, mode, b, n, c, h, w):
         assert bool((got[bi, cl[bi, oi].long(), cy[bi, oi].long(), cx[bi, oi].long()] == 1.0).all())
     else:
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["gauss", "last_wins"])
+@pytest.mark.parametrize("w", [300, 301])  # 301: no 16-byte stores
+def test_stamp_kernel_tile_edges(dev, mode, w):
+    """Windows on both sides of the kernel's tile edges (the tile read from
+    the library), and crossing them by every radius up to the clip; 1200
+    slots, more than one chunk of the kernel's object list."""
+    lib = _kernels.library("stamp")
+    th, tw = lib.k3_tile(0), lib.k3_tile(1)
+    rng = np.random.RandomState(th * 1000 + tw + w)
+    b, n, c, h = 2, 1200, 2, 3 * th + 5
+    xs = np.concatenate([np.arange(tw, w, tw)[:, None] + np.array([[-1, 0, 1]])]).ravel()
+    ys = np.concatenate([np.arange(th, h, th)[:, None] + np.array([[-1, 0, 1]])]).ravel()
+    centers = np.stack([rng.choice(xs, (b, n)), rng.choice(ys, (b, n))], -1)
+    centers[:, ::3, 0] = rng.randint(0, w, (b, (n + 2) // 3))
+    radii = rng.randint(0, 17, (b, n))
+    cls = rng.randint(0, c, (b, n))
+    values = rng.uniform(0.5, 1.5, (b, n)).astype(np.float32)
+    valid = rng.rand(b, n) > 0.5
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+            (centers.astype(np.int32), radii.astype(np.int32), cls.astype(np.int32), values, valid)]
+    fill = 0.0 if mode == "gauss" else 1.0
+    got = stamp.stamp_windows(*args, c, h, w, mode, fill=fill)
+    want = stamp.stamp_windows_plain(*args, c, h, w, mode, fill=fill)
+    _stamp_check(got, want, mode, args, c, h, w)
+
+
+def test_stamp_kernel_last_wins_ties_by_index(dev):
+    """500 valid slots of radius 16 on one center: every cell of the window
+    takes the value of the last slot, and the gaussian its one window."""
+    b, n, c, h, w = 2, 500, 3, 60, 70
+    centers = torch.tensor([30, 25], dtype=torch.int32, device=dev).repeat(b, n, 1)
+    radii = torch.full((b, n), 16, dtype=torch.int32, device=dev)
+    cls = torch.ones((b, n), dtype=torch.int32, device=dev)
+    values = torch.arange(b * n, dtype=torch.float32, device=dev).reshape(b, n) + 1
+    valid = torch.ones((b, n), dtype=torch.bool, device=dev)
+    args = (centers, radii, cls, values, valid)
+    got = stamp.stamp_windows(*args, c, h, w, "last_wins", fill=-1.0)
+    assert torch.equal(got, stamp.stamp_windows_plain(*args, c, h, w, "last_wins", fill=-1.0))
+    assert bool((got[:, 1, 9:42, 14:47] == values[:, -1, None, None]).all())
+    assert int((got != -1.0).sum()) == b * 33 * 33
+    gauss = stamp.stamp_windows(*args, c, h, w, "gauss")
+    _stamp_check(gauss, stamp.stamp_windows_plain(*args, c, h, w, "gauss"), "gauss", args, c, h,
+                 w)
+
+
+@pytest.mark.parametrize("fill", [-0.5, 0.25])
+def test_stamp_kernel_gauss_fill(dev, fill):
+    """Gauss over a negative fill (every stamped value above it) and over a
+    positive one (the window's tails below it keep the fill)."""
+    rng = np.random.RandomState(7 if fill < 0 else 8)
+    b, n, c, h, w = 2, 60, 3, 50, 64
+    args = [torch.from_numpy(a).to(dev) for a in (
+        np.stack([rng.randint(0, w, (b, n)), rng.randint(0, h, (b, n))], -1).astype(np.int32),
+        rng.randint(0, 17, (b, n)).astype(np.int32), rng.randint(0, c, (b, n)).astype(np.int32),
+        rng.uniform(0.5, 1.5, (b, n)).astype(np.float32), rng.rand(b, n) > 0.3)]
+    got = stamp.stamp_windows(*args, c, h, w, "gauss", fill=fill)
+    want = stamp.stamp_windows_plain(*args, c, h, w, "gauss", fill=fill)
+    _stamp_check(got, want, "gauss", args, c, h, w)
+    assert float(got.min()) == fill
+
+
+def test_stamp_kernel_takes_the_callers_dtypes(dev):
+    """The two callers' own tensors, launched as they are: the heatmap
+    targets (int32 ids, no values, gauss) and the COM loss mask (int32
+    centers and radii, int64 classes, f32 weights, last_wins); one launch
+    each, against the plain version."""
+    from com_tpu_torch.ops import gaussian
+
+    rng = np.random.RandomState(21)
+    b, n, c, h, w = 2, 500, 3, 117, 117
+    centers = torch.from_numpy(np.stack([rng.randint(0, w, (b, n)), rng.randint(0, h, (b, n))],
+                                        -1).astype(np.int32)).to(dev)
+    radii = torch.from_numpy(rng.randint(2, 20, (b, n)).astype(np.int32)).to(dev)
+    cls = torch.from_numpy(rng.randint(0, c, (b, n)).astype(np.int32)).to(dev)
+    weight = torch.from_numpy(rng.uniform(0.5, 1.5, (b, n)).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.rand(b, n) < 0.2).to(dev)
+    before = (stamp.gauss_launches, stamp.last_wins_launches)
+    hm = gaussian.draw_gaussians_batched(centers, radii, cls, valid, c, h, w)
+    mask = gaussian.stamp_squares_batched(centers, radii, cls.long(), weight, valid, c, h, w,
+                                          fill=1.0)
+    assert (stamp.gauss_launches, stamp.last_wins_launches) == (before[0] + 1, before[1] + 1)
+    args = (centers, radii, cls, weight, valid)
+    _stamp_check(hm, stamp.stamp_windows_plain(*args, c, h, w, "gauss"), "gauss", args, c, h, w)
+    assert torch.equal(mask, stamp.stamp_windows_plain(*args, c, h, w, "last_wins", fill=1.0))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -386,6 +510,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         stamp.stamp_windows(torch.zeros((1, 2, 2), device=dev), torch.zeros((1, 2), device=dev),
                             torch.zeros((1, 2), device=dev), torch.zeros((1, 2), device=dev),
                             torch.ones((1, 2), device=dev, dtype=torch.bool), 1, 4, 4, "gauss")
+    ids = torch.zeros((1, 2), device=dev, dtype=torch.int32)
+    for radii, values in ((ids.short(), ids.float()), (ids, ids.double())):  # no conversion
+        with pytest.raises(TypeError):
+            stamp.stamp_windows(torch.zeros((1, 2, 2), device=dev, dtype=torch.int32), radii, ids,
+                                values, torch.ones((1, 2), device=dev, dtype=torch.bool), 1, 4,
+                                4, "last_wins")
 
 
 def test_serving_step_matches_cpu(dev):

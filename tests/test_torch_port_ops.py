@@ -93,7 +93,8 @@ def test_conv3x3_bf16_keeps_dtype():
     torch.testing.assert_close(y.float(), ref.to(torch.bfloat16).float(), atol=0.05, rtol=0.02)
 
 
-@pytest.mark.parametrize("k,density", [(300, 0.05), (128, 0.3), (500, 0.01)])
+@pytest.mark.parametrize("k,density", [(300, 0.05), (128, 0.3), (500, 0.01), (65, 0.05),
+                                       (129, 0.05), (1024, 0.001)])
 def test_greedy_suppress_matches_jax(k, density):
     rng = _rng("gs", k, density)
     over = rng.rand(2, k, k) < density
@@ -103,6 +104,30 @@ def test_greedy_suppress_matches_jax(k, density):
         want = np.asarray(greedy_suppress_pallas(jnp.asarray(over[i]), jnp.asarray(valid[i]),
                                                  interpret=True))
         np.testing.assert_array_equal(got[i], want)
+
+
+@pytest.mark.parametrize("case", ["first_suppresses_all", "none_valid", "all_valid_chain"])
+def test_greedy_suppress_structured_cases_match_jax(case):
+    """Every candidate suppressed by the first; no candidate valid; every
+    candidate valid with each suppressing only the next (a chain: every
+    other one kept), at K = 129 (a ragged last 64-bit word)."""
+    k = 129
+    over = np.eye(k, dtype=bool)[None].repeat(2, 0)
+    valid = np.ones((2, k), bool)
+    if case == "first_suppresses_all":
+        over[:, 0] = True
+    elif case == "none_valid":
+        over[:] = _rng("gs0").rand(2, k, k) < 0.3
+        valid[:] = False
+    else:
+        over[:, np.arange(k - 1), np.arange(1, k)] = True
+    got = nms.greedy_suppress(torch.from_numpy(over), torch.from_numpy(valid)).numpy()
+    for i in range(2):
+        want = np.asarray(greedy_suppress_pallas(jnp.asarray(over[i]), jnp.asarray(valid[i]),
+                                                 interpret=True))
+        np.testing.assert_array_equal(got[i], want)
+    expect = {"first_suppresses_all": 1, "none_valid": 0, "all_valid_chain": (k + 1) // 2}
+    assert got.sum(1).tolist() == [expect[case]] * 2
 
 
 def _boxes(rng, b, k, spread=20.0):
@@ -173,6 +198,38 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(call):
     with pytest.raises(ValueError, match="unsupported device meta"):
         call("meta")
     assert (seg_scan.launches, conv2d.launches, nms.launches) == before
+
+
+def test_launch_makes_the_device_current_only_when_it_is_not(monkeypatch):
+    """``_kernels.launch`` calls the C entry with the current stream's raw
+    handle appended, enters the device's context only for a device that is
+    not current, and raises on the error the entry returns."""
+    calls, entered = [], []
+
+    class Lib:
+        def k(self, *args):
+            calls.append(args)
+            return args[0]
+
+    class DeviceContext:
+        def __init__(self, index):
+            self.index = index
+
+        def __enter__(self):
+            entered.append(self.index)
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setitem(_kernels._libs, "fake", Lib())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device", DeviceContext)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 1000 + i, raising=False)
+    _kernels.launch("fake", "k", "fake kernel", 0, 0, 7)
+    _kernels.launch("fake", "k", "fake kernel", 1, 0, 8)
+    assert calls == [(0, 7, 1000), (0, 8, 1001)] and entered == [1]
+    with pytest.raises(RuntimeError, match="fake kernel: CUDA error 3"):
+        _kernels.launch("fake", "k", "fake kernel", 0, 3)
 
 
 _C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong}

@@ -114,6 +114,52 @@ def test_stamp_windows_preprocessing_matches_pallas(mode):
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("mode", ["gauss", "last_wins"])
+def test_stamp_windows_crowded_and_edges_match_pallas(mode):
+    """Many windows on one cell (twelve objects on one center, radii 0 to
+    the clip) and windows across each canvas edge and corner: the plain
+    route against the Pallas kernel in interpret mode."""
+    rng = _rng("crowd", mode)
+    b, n, c, h, w, rmax = 2, 40, 2, 20, 28, 6
+    centers, radii, cls, values, valid = _objects(rng, b, n, c, h, w, rmax)
+    centers[:, :12] = [9, 7]
+    cls[:, :12] = 1
+    radii[:, :12] = np.arange(12) % (rmax + 2)
+    valid[:, :12] = True
+    centers[:, 12:20] = [[0, 0], [w - 1, 0], [0, h - 1], [w - 1, h - 1], [1, 10], [w - 2, 10],
+                         [14, 1], [14, h - 2]]
+    radii[:, 12:20] = rmax
+    valid[:, 12:20] = True
+    fill = 0.0 if mode == "gauss" else 1.0
+    want = np.asarray(jax_stamp.stamp_windows(
+        *(jnp.asarray(a) for a in (centers, radii, cls, values, valid)), c, h, w, mode,
+        fill=fill, max_radius=rmax, interpret=True))
+    got = stamp.stamp_windows(*_t(centers, radii, cls, values, valid), c, h, w, mode,
+                              fill=fill, max_radius=rmax).numpy()
+    if mode == "gauss":
+        np.testing.assert_allclose(got, want, atol=2e-6, rtol=0)
+        assert got[0, 1, 7, 9] == 1.0
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("fill", [-0.5, 0.25])
+def test_stamp_windows_gauss_fill_matches_pallas(fill):
+    """Gauss over a negative and a positive fill: only each object's
+    (2r+1)^2 window is stamped, as in the Pallas kernel (interpret mode),
+    so a negative fill stays outside the windows."""
+    rng = _rng("gfill", fill)
+    b, n, c, h, w, rmax = 2, 10, 2, 20, 24, 6
+    centers, radii, cls, values, valid = _objects(rng, b, n, c, h, w, rmax)
+    want = np.asarray(jax_stamp.stamp_windows(
+        *(jnp.asarray(a) for a in (centers, radii, cls, values, valid)), c, h, w, "gauss",
+        fill=fill, max_radius=rmax, interpret=True))
+    got = stamp.stamp_windows(*_t(centers, radii, cls, values, valid), c, h, w, "gauss",
+                              fill=fill, max_radius=rmax).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-6, rtol=0)
+    assert got.min() == fill
+
+
 def _run_bcast_case(op, dtype, key):
     rng = _rng("rbg", op, key)
     b, n, c = 2, 700, 16
