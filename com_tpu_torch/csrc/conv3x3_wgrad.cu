@@ -229,35 +229,6 @@ struct TcArgs {
   int H, W, Cin, Cout, segs, ci_tiles, co_tiles, steps, steps_per_chunk;
 };
 
-// Channels c0 .. c0+8*groups-1 of `npix` pixels of image row `row` (sample
-// base src), starting at column col0, into rows of `stride` bf16; zero off
-// the map and past C.
-template <bool kVec>
-__device__ __forceinline__ void stage_row(bf16* __restrict__ dst, int stride, int groups,
-                                          const bf16* __restrict__ src, const bf16* any, int row,
-                                          int col0, int npix, int c0, int C, int H, int W) {
-  const bool row_in = row >= 0 && row < H;
-  for (int i = threadIdx.x; i < npix * groups; i += kTcThreads) {
-    const int grp = i % groups, p = i / groups;
-    const int col = col0 + p, c = c0 + grp * 8;
-    const bool in = row_in && col >= 0 && col < W && c < C;
-    const bf16* s = src + ((size_t)row * W + col) * C + c;
-    bf16* d = dst + p * stride + grp * 8;
-    if (kVec) {  // C is a multiple of 8: the group is all in or all out
-      hopper::cp_async16(d, in ? s : any, in);
-    } else {
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      bf16* e = reinterpret_cast<bf16*>(&v);
-      if (in) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          if (c + j < C) e[j] = s[j];
-      }
-      *reinterpret_cast<uint4*>(d) = v;
-    }
-  }
-}
-
 template <bool kVec>
 __global__ void __launch_bounds__(kTcThreads) wgrad_tc_kernel(TcArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -279,10 +250,12 @@ __global__ void __launch_bounds__(kTcThreads) wgrad_tc_kernel(TcArgs a) {
       const bf16* xb = a.x + (size_t)b * a.H * a.W * a.Cin;
 #pragma unroll
       for (int r = 0; r < kDY; ++r)  // x's row h + dy - 1 for the block's kernel rows dy
-        stage_row<kVec>(xs + r * kXRowElems, kXStride, kCi / 8, xb, a.x, h + dy0 + r - 1,
-                        seg * kSeg - 1, kHaloPix, ci0, a.Cin, a.H, a.W);
-      stage_row<kVec>(xs + kXElems, kGStride, kCo / 8, a.g + (size_t)b * a.H * a.W * a.Cout,
-                      a.g, h, seg * kSeg, kSeg, co0, a.Cout, a.H, a.W);
+        hopper::stage_row<kTcThreads, kVec>(xs + r * kXRowElems, kXStride, kCi / 8, xb, a.x,
+                                            h + dy0 + r - 1, seg * kSeg - 1, kHaloPix, ci0,
+                                            a.Cin, a.H, a.W);
+      hopper::stage_row<kTcThreads, kVec>(xs + kXElems, kGStride, kCo / 8,
+                                          a.g + (size_t)b * a.H * a.W * a.Cout, a.g, h,
+                                          seg * kSeg, kSeg, co0, a.Cout, a.H, a.W);
     }
     hopper::cp_async_commit();  // one group a stage, empty past the end
   };

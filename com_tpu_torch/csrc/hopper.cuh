@@ -1,7 +1,7 @@
 // Building blocks shared by the tensor-core convolution kernels (conv3x3.cu,
-// conv3x3_wgrad.cu): asynchronous 16-byte copies into shared memory,
-// `ldmatrix` fragment loads and the bf16 `mma.sync.m16n8k16` with f32
-// accumulators.
+// conv3x3_wgrad.cu, wgrad_xcol_gtcol.cu): asynchronous 16-byte copies into
+// shared memory, the staging of image row segments with them, `ldmatrix`
+// fragment loads and the bf16 `mma.sync.m16n8k16` with f32 accumulators.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,6 +33,41 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Channels c0 .. c0+8*groups-1 of `npix` pixels of image row `row` (sample
+// base src, (H, W, C) bf16), starting at column col0, into shared rows of
+// `stride` bf16, by a block of kThreads threads; zero off the map and past
+// C.  kVec (C a multiple of 8, src 16-byte aligned): 16-byte `cp.async`
+// copies, in flight until `cp_async_wait` (`any` is a mapped address for
+// the zero-filled ones); else element loads through registers.  kSwizzle:
+// rows of 64 channels (stride 64, groups 8) in the 128-byte swizzled layout
+// of `wgmma`'s shared-memory operands (dst 1024-byte aligned): group j of
+// pixel p goes to 16-byte slot j ^ (p % 8) of its row.
+template <int kThreads, bool kVec, bool kSwizzle = false>
+__device__ __forceinline__ void stage_row(bf16* __restrict__ dst, int stride, int groups,
+                                          const bf16* __restrict__ src, const bf16* any, int row,
+                                          int col0, int npix, int c0, int C, int H, int W) {
+  const bool row_in = row >= 0 && row < H;
+  for (int i = threadIdx.x; i < npix * groups; i += kThreads) {
+    const int grp = i % groups, p = i / groups;
+    const int col = col0 + p, c = c0 + grp * 8;
+    const bool in = row_in && col >= 0 && col < W && c < C;
+    const bf16* s = src + ((size_t)row * W + col) * C + c;
+    bf16* d = dst + p * stride + (kSwizzle ? grp ^ (p & 7) : grp) * 8;
+    if (kVec) {  // C is a multiple of 8: the group is all in or all out
+      cp_async16(d, in ? s : any, in);
+    } else {
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      bf16* e = reinterpret_cast<bf16*>(&v);
+      if (in) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (c + j < C) e[j] = s[j];
+      }
+      *reinterpret_cast<uint4*>(d) = v;
+    }
+  }
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {

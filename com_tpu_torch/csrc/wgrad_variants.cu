@@ -1,37 +1,35 @@
-// T1-T4: four tensor-core formulations of the 3x3 conv weight gradient,
+// T1 and T3: two tensor-core formulations of the 3x3 conv weight gradient,
 //
 //   dw[dy, dx, ci, co] = sum_{b,h,w} xpad[b, h+dy, w+dx, ci] * g[b, h, w, co]
 //
-// (xpad: x zero-padded by one pixel), the function of K2w.  They replace the
-// four kernels of the wgrad-formulation sweep,
+// (xpad: x zero-padded by one pixel), the function of K2w.  They replace two
+// kernels of the wgrad-formulation sweep,
 // tools/perf/microbench_wgrad_kernels.py:
 //   T1 `wgrad_gcol`  (:84)  g shifted per tap into a column buffer; one
 //                           product x^T (cin, K) . g_col (K, 9 cout)
-//   T2 `wgrad_xcol`  (:128) x shifted per tap into a column buffer; one
-//                           product x_col^T (9 cin, K) . g (K, cout)
 //   T3 `wgrad_gt9`   (:175) g^T (cout, K) once, nine products against views
 //                           of one x halo tile, at the taps' column offsets
-//   T4 `wgrad_gtcol` (:220) g^T once, one product against an x column
-//                           buffer (K, 9 cin)
-// Inputs bfloat16 NHWC, output float32 (3, 3, Cin, Cout).
+// Inputs bfloat16 NHWC, output float32 (3, 3, Cin, Cout).  T2 and T4, the
+// sweep's other two, are in wgrad_xcol_gtcol.cu.
 //
 // What bounds them on an H100: operations and bytes about equally.  At the
 // sweep's shapes (2, 468, 468, 64->64) and (2, 468, 468, 128->64) a call is
 // 32.3 and 64.6 GFLOP against 112 and 168 MB read: 0.033 and 0.065 ms at
 // the bf16 tensor-core peak, 0.034 and 0.050 ms at 3.35 TB/s.
 //
-// Design.  Every variant runs on the tensor cores with warp-level
-// `mma.sync.m16n8k16` (bf16 in, f32 accumulators).  NHWC stores both
+// Design (the sweep's first, once shared by all four formulations).  Both
+// run on the tensor cores with warp-level `mma.sync.m16n8k16` (bf16 in, f32
+// accumulators).  NHWC stores both
 // operands channel-contiguous, while the contraction runs over pixels, the
 // slow axis of both: the operands are staged in shared memory as
 // [pixel][channel] rows, as they lie in memory, and `ldmatrix.trans` turns
 // them into fragments that contract over pixels.  Rows are padded to 8 mod
 // 64 bf16 so that the 8 rows an `ldmatrix` reads fall on distinct banks.
 //
-// Each variant's output is the TPU's: (cin, 9 cout) for T1, (9 cin, cout)
-// for T2, (cout, 9 cin) for T3 and T4, with the nine taps along the wide
-// dimension.  A block owns one tile of it, 64 channels of the operand read
-// in place (the narrow dimension) by 192 columns of the nine taps of the
+// Each variant's output is the TPU's: (cin, 9 cout) for T1, (cout, 9 cin)
+// for T3, with the nine taps along the wide dimension.  A block owns one
+// tile of it, 64 channels of the operand read in place (the narrow
+// dimension) by 192 columns of the nine taps of the
 // shifted one (the wide dimension; each tap's channels padded to a multiple
 // of 8, so that no 8-wide fragment straddles two taps), and one (sample, row
 // tile) of th rows x W pixels, the TPU's grid step.  The TPU carried its sum
@@ -48,8 +46,8 @@
 // row tile, each step loads one new halo row and the step's row of the
 // other operand.  Pixels off the map, past W and past h (the TPU's pad
 // rows) are zero in shared memory; nothing padded is stored in device
-// memory.  T1, T2 and T4 then copy the block's 192 columns of the nine
-// shifted views into a column buffer (64 x 192) and multiply it; T3 points
+// memory.  T1 then copies the block's 192 columns of the nine shifted
+// views into a column buffer (64 x 192) and multiplies it; T3 points
 // `ldmatrix` at the shifted views of the halo rows directly.  Loads are
 // 16 bytes where channel counts and pointers allow, else element by
 // element.  Correct first: no cp.async, TMA or wgmma yet.
@@ -70,16 +68,15 @@ constexpr int kPlainStride = kNarrow + 8;
 constexpr int kColStride = kWide + 8;
 constexpr int kMaxChannels = 256;
 
-enum { kGcol = 1, kXcol = 2, kGt9 = 3, kGtcol = 4 };
+enum { kGcol = 1, kGt9 = 3 };
 
 template <int V>
 struct Form {
-  static constexpr bool kShiftG = V == kGcol;  // g shifted (T1); x shifted otherwise
-  static constexpr bool kWideM = V == kXcol;   // the taps along M (T2); along N otherwise
-  static constexpr bool kViews = V == kGt9;    // halo views (T3); a column buffer otherwise
-  static constexpr int kBM = kWideM ? kWide : kNarrow;
-  static constexpr int kBN = kWideM ? kNarrow : kWide;
-  static constexpr int kWarpsM = kWideM ? 4 : 2;
+  static constexpr bool kShiftG = V == kGcol;  // g shifted (T1); x shifted (T3)
+  static constexpr bool kViews = V == kGt9;    // halo views (T3); a column buffer (T1)
+  static constexpr int kBM = kNarrow;          // the taps along N
+  static constexpr int kBN = kWide;
+  static constexpr int kWarpsM = 2;
   static constexpr int kWarpsN = kThreads / 32 / kWarpsM;
   static constexpr int kWM = kBM / kWarpsM, kWN = kBN / kWarpsN;  // a warp's tile
   static constexpr int kMT = kWM / 16, kNT = kWN / 8;             // its m16 and n8 tiles
@@ -89,7 +86,7 @@ struct Form {
 struct Args {
   const bf16* plain;  // operand read in place (x for T1, g otherwise), (B, H, W, Cn)
   const bf16* shift;  // operand shifted per tap (g for T1, x otherwise), (B, H, W, Cs)
-  float* part;        // (B * row_tiles, 9 * Cn * Cs), each in the variant's orientation
+  float* part;        // (B * row_tiles, Cn * 9 * Cs), in the variants' orientation
   int H, W, Cn, Cs, Cs8, th, row_tiles, narrow_tiles, halo_stride;
 };
 
@@ -146,7 +143,7 @@ __global__ void __launch_bounds__(kThreads, 2) wgrad_partial_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* halo = reinterpret_cast<bf16*>(smem_raw);  // [3 slots][kHalo pixels][halo_stride]
   bf16* plain_s = halo + 3 * kHalo * a.halo_stride;  // [kPix][kPlainStride]
-  bf16* col_s = plain_s + kPix * kPlainStride;       // [kPix][kColStride] (not T3)
+  bf16* col_s = plain_s + kPix * kPlainStride;       // [kPix][kColStride] (T1)
 
   const int ntile = blockIdx.x % a.narrow_tiles, wtile = blockIdx.x / a.narrow_tiles;
   const int n0 = ntile * kNarrow, w0 = wtile * kWide;  // first narrow channel, first wide column
@@ -227,8 +224,7 @@ __global__ void __launch_bounds__(kThreads, 2) wgrad_partial_kernel(Args a) {
 #pragma unroll
         for (int i = 0; i < F::kMT; ++i) {
           const int k = kk + lrow + (lmat >> 1) * 8, m = wm + i * 16 + (lmat & 1) * 8;
-          ldmatrix_x4_trans(af[i], F::kWideM ? col_s + k * kColStride + m
-                                             : plain_s + k * kPlainStride + m);
+          ldmatrix_x4_trans(af[i], plain_s + k * kPlainStride + m);
         }
         // B (k16 x two n8) from [k][n] storage: matrices (k, n), (k+8, n), (k, n+8), (k+8, n+8)
         uint32_t bfr[F::kNT / 2][4];
@@ -236,9 +232,7 @@ __global__ void __launch_bounds__(kThreads, 2) wgrad_partial_kernel(Args a) {
         for (int j = 0; j < F::kNT / 2; ++j) {
           const int k = kk + lrow + (lmat & 1) * 8, n = wn + j * 16 + (lmat >> 1) * 8;
           const bf16* p;
-          if (F::kWideM)
-            p = plain_s + k * kPlainStride + n;
-          else if (F::kViews)  // the tap's shifted view of the halo rows
+          if (F::kViews)  // the tap's shifted view of the halo rows
             p = (view_hr[j] == 0 ? rows[0] : view_hr[j] == 1 ? rows[1] : rows[2]) +
                 k * a.halo_stride + view_off[j];
           else
@@ -256,7 +250,6 @@ __global__ void __launch_bounds__(kThreads, 2) wgrad_partial_kernel(Args a) {
   }
 
   // this row tile's partial, in the variant's orientation: (narrow, 9 wide)
-  // for T1, T3, T4 and (9 wide, narrow) for T2
   float* out = a.part + (size_t)s * 9 * a.Cn * a.Cs;
   const int gid = lane >> 2, tid4 = lane & 3;
 #pragma unroll
@@ -266,12 +259,10 @@ __global__ void __launch_bounds__(kThreads, 2) wgrad_partial_kernel(Args a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int m = wm + i * 16 + gid + (e >> 1) * 8, n = wn + j * 8 + tid4 * 2 + (e & 1);
-        const int nc = n0 + (F::kWideM ? n : m), w = w0 + (F::kWideM ? m : n);
+        const int nc = n0 + m, w = w0 + n;
         const int tap = w / a.Cs8, ch = w - tap * a.Cs8;
         if (tap > 8 || ch >= a.Cs || nc >= a.Cn) continue;
-        const size_t idx = F::kWideM ? (size_t)(tap * a.Cs + ch) * a.Cn + nc
-                                     : (size_t)nc * 9 * a.Cs + tap * a.Cs + ch;
-        out[idx] = acc[i][j][e];
+        out[(size_t)nc * 9 * a.Cs + tap * a.Cs + ch] = acc[i][j][e];
       }
 }
 
@@ -286,17 +277,9 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ part, float* __res
   if (i >= n) return;
   float sum = 0.f;
   for (int t = 0; t < tiles; ++t) sum += part[(size_t)t * n + i];
-  int nc, tap, ch;
-  if (F::kWideM) {
-    nc = (int)(i % Cn);
-    const int w = (int)(i / Cn);
-    tap = w / Cs, ch = w % Cs;
-  } else {
-    nc = (int)(i / (9LL * Cs));
-    const int w = (int)(i % (9LL * Cs));
-    tap = w / Cs, ch = w % Cs;
-  }
-  // T1 reads x in place (narrow = Cin); the others g (narrow = Cout)
+  const int nc = (int)(i / (9LL * Cs)), w = (int)(i % (9LL * Cs));
+  const int tap = w / Cs, ch = w % Cs;
+  // T1 reads x in place (narrow = Cin); T3 g (narrow = Cout)
   const int ci = F::kShiftG ? nc : ch, co = F::kShiftG ? ch : nc;
   const int Cin = F::kShiftG ? Cn : Cs, Cout = F::kShiftG ? Cs : Cn;
   dw[((size_t)tap * Cin + ci) * Cout + co] = sum;
@@ -357,17 +340,7 @@ extern "C" int t1_wgrad_gcol(const void* x, const void* g, void* part, void* dw,
   return wgrad<kGcol>(x, g, part, dw, B, H, W, Cin, Cout, th, stream);
 }
 
-extern "C" int t2_wgrad_xcol(const void* x, const void* g, void* part, void* dw, int B, int H,
-                             int W, int Cin, int Cout, int th, void* stream) {
-  return wgrad<kXcol>(x, g, part, dw, B, H, W, Cin, Cout, th, stream);
-}
-
 extern "C" int t3_wgrad_gt9(const void* x, const void* g, void* part, void* dw, int B, int H,
                             int W, int Cin, int Cout, int th, void* stream) {
   return wgrad<kGt9>(x, g, part, dw, B, H, W, Cin, Cout, th, stream);
-}
-
-extern "C" int t4_wgrad_gtcol(const void* x, const void* g, void* part, void* dw, int B, int H,
-                              int W, int Cin, int Cout, int th, void* stream) {
-  return wgrad<kGtcol>(x, g, part, dw, B, H, W, Cin, Cout, th, stream);
 }

@@ -18,8 +18,10 @@ to a multiple of ``th``) and sums the tiles' f32 products:
   (K, 9 cin) -> (cout, 9 cin).
 
 Each returns (3, 3, Cin, Cout) f32.  For a CUDA tensor the wrapper launches
-its tensor-core kernel (``csrc/wgrad_variants.cu``, bf16 only); for a CPU
-tensor it runs its plain version (``*_plain``), which follows the same
+its tensor-core kernel (bf16 only: T1 and T3 in ``csrc/wgrad_variants.cu``,
+one f32 partial a row tile; T2 and T4 in ``csrc/wgrad_xcol_gtcol.cu``, one
+partial a chunk of row tiles sized to the card by ``xcol_gtcol_plan``); for
+a CPU tensor it runs its plain version (``*_plain``), which follows the same
 formulation in f32 and takes any float dtype.
 """
 from __future__ import annotations
@@ -35,8 +37,13 @@ xcol_launches = 0
 gt9_launches = 0
 gtcol_launches = 0
 
-MAX_CHANNELS = 256  # the kernels' halo rows hold every channel of the shifted operand
+# T1's and T3's halo rows hold every channel of the shifted operand; T2 and
+# T4 keep the sweep's limit
+MAX_CHANNELS = 256
+SEGMENT = 64  # pixels of a row segment, the step of T2 and T4
 _TAPS = [(dy, dx) for dy in range(3) for dx in range(3)]
+_PLANNED = {"xcol": "t2", "gtcol": "t4"}  # variants with a card-sized grid -> C prefix
+_resident_blocks: dict[tuple[int, str], int] = {}  # (device, variant) -> blocks at once
 
 
 def _shifted(t: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -103,6 +110,79 @@ def oracle(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                                      for dx in range(3)]) for dy in range(3)])
 
 
+def xcol_gtcol_plan(b: int, h: int, wd: int, cin: int, cout: int, th: int,
+                    resident: int) -> tuple[int, int, int]:
+    """(chunks, row tiles a chunk, row segments a chunk) of T2 and T4.
+
+    Their pixels are B * ceil(H / th) row tiles of th image rows (the TPU
+    kernels' grid steps; the last of a sample may be shorter), each
+    ceil(W / 64) row segments wide.  A chunk is a run of whole row tiles by a
+    run of segments, with one f32 partial; the grid has 3 * ceil(Cin / 64) *
+    ceil(Cout / 64) blocks a chunk.  Of the splits whose grid is at most one
+    wave of the ``resident`` blocks the card holds at once, the plan takes
+    the one with the fewest steps (rows x segments) in a chunk, then the
+    fewest chunks: a row tile is split along W only where that shortens the
+    chunks.  No chunk is empty."""
+    segs = -(-wd // SEGMENT)
+    row_tiles = b * -(-h // th)
+    want = max(1, min(resident // (3 * -(-cin // 64) * -(-cout // 64)), 65535))
+    best = None
+    for pieces in range(1, min(segs, want) + 1):
+        per = -(-segs // pieces)
+        if -(-segs // per) != pieces:
+            continue  # the same split as fewer pieces
+        tiles = -(-row_tiles // (want // pieces))
+        chunks = -(-row_tiles // tiles) * pieces
+        key = (tiles * min(th, h) * per, chunks)
+        if best is None or key < best[0]:
+            best = key, (chunks, tiles, per)
+    return best[1]
+
+
+def chunk_extents(b: int, h: int, wd: int, th: int, tiles: int, segs: int):
+    """Each chunk's pixels as T2's and T4's blocks walk them, chunk by chunk:
+    (first image row of the B * H, one past its last; first row segment,
+    one past its last)."""
+    sample_tiles = -(-h // th)
+    row_tiles = b * sample_tiles
+    nseg = -(-wd // SEGMENT)
+    pieces = -(-nseg // segs)
+
+    def row(rt):
+        return rt // sample_tiles * h + rt % sample_tiles * th
+
+    out = []
+    for c in range(-(-row_tiles // tiles) * pieces):
+        rt0, s0 = c // pieces * tiles, c % pieces * segs
+        out.append((row(rt0), row(min(rt0 + tiles, row_tiles)), s0, min(s0 + segs, nseg)))
+    return out
+
+
+def launch_plan(name: str, b: int, h: int, wd: int, cin: int, cout: int, th: int,
+                resident: int | None = None):
+    """The f32 scratch a call of variant ``name`` allocates, (partials,
+    9 * Cin * Cout), and the arguments its C entry takes after th: T1 and T3
+    one partial a row tile, none; T2 and T4 one a chunk of
+    ``xcol_gtcol_plan``, (row tiles, segments) a chunk."""
+    if name not in _PLANNED:
+        return (b * -(-h // th), 9 * cin * cout), ()
+    chunks, tiles, segs = xcol_gtcol_plan(b, h, wd, cin, cout, th, resident)
+    return (chunks, 9 * cin * cout), (tiles, segs)
+
+
+def _resident(name: str, x: torch.Tensor) -> int:
+    """Blocks of T2's or T4's kernel that x's card holds at once, asked once."""
+    key = (x.device.index, name)
+    if key not in _resident_blocks:
+        with torch.cuda.device(x.device):
+            cap = getattr(_kernels.library("wgrad_xcol_gtcol"),
+                          f"{_PLANNED[name]}_resident_blocks")()
+        if cap <= 0:
+            raise RuntimeError(f"wgrad_{name}: occupancy query failed")
+        _resident_blocks[key] = cap
+    return _resident_blocks[key]
+
+
 def _launch(name: str, entry: str, plain, x: torch.Tensor, g: torch.Tensor, th: int):
     if x.device.type == "cpu":
         return plain(x, g, th)
@@ -126,9 +206,13 @@ def _launch(name: str, entry: str, plain, x: torch.Tensor, g: torch.Tensor, th: 
         return dw
     if x.numel() == 0:
         return dw.zero_()
-    part = torch.empty((b * -(-h // th), 9 * cin * cout), dtype=torch.float32, device=x.device)
-    _kernels.launch("wgrad_variants", entry, f"{what} ({entry})", x.get_device(), x.data_ptr(),
-                    g.data_ptr(), part.data_ptr(), dw.data_ptr(), b, h, wd, cin, cout, th)
+    planned = name in _PLANNED
+    shape, plan = launch_plan(name, b, h, wd, cin, cout, th,
+                              _resident(name, x) if planned else None)
+    part = torch.empty(shape, dtype=torch.float32, device=x.device)
+    _kernels.launch("wgrad_xcol_gtcol" if planned else "wgrad_variants", entry,
+                    f"{what} ({entry})", x.get_device(), x.data_ptr(), g.data_ptr(),
+                    part.data_ptr(), dw.data_ptr(), b, h, wd, cin, cout, th, *plan)
     globals()[f"{name}_launches"] += 1
     return dw
 

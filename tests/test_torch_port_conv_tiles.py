@@ -2,7 +2,8 @@
 kernel's re-layout (``rotate_kernel``, run by ``conv3x3_dgrad``), the bf16
 K2w's split of the pixels into chunks of row segments (``wgrad_plan``), the
 build's hash over the shared headers, and the sources that the tile sweep
-(``tools/perf/conv_tiles.py``) derives from the kernels.
+(``tools/perf/conv_tiles.py``) derives from the kernels (K2, K2w, T2, T4,
+K1, K3, K4).
 
 The re-layout and the chunked sum are held against ``conv3x3_plain`` /
 ``conv3x3_wgrad_plain`` and against the JAX package's Pallas kernels in
@@ -154,6 +155,31 @@ def test_k4_k3_tile_sweep_sources(variant):
     assert (conv_tiles._K3_CELLS in text) == (kernel == "k3" and diag != "nocells")
     with pytest.raises(ValueError):
         conv_tiles.parse(variant.split(",no")[0] + ",noload")
+
+
+@pytest.mark.parametrize("variant", conv_tiles.T24_DEFAULT)
+def test_t2_t4_tile_sweep_sources(variant):
+    """T2's and T4's copies in the tile sweep: each constant of
+    wgrad_xcol_gtcol.cu set once, each diagnostic's line of its own kernel
+    found (the loads, the products, the column buffer) and only that one
+    changed; the first of each the shipped source; other kernels'
+    diagnostics refused."""
+    kernel, values, diag = conv_tiles.parse(variant)
+    assert kernel in ("t2", "t4")
+    text = conv_tiles.variant_source(kernel, values, diag)
+    for name, value in zip(conv_tiles.CONSTANTS[kernel][1], values):
+        assert f"constexpr int {name} = {value};" in text
+    lines = {d: line for d, (line, _) in conv_tiles._T24_DIAGS[kernel].items()}
+    lines.setdefault("nomma", "hopper::mma_bf16(")  # T2's products: K2's and K2w's pattern
+    for d, line in lines.items():
+        assert (line in text) == (diag != d), d
+    for other in conv_tiles._T24_DIAGS["t4" if kernel == "t2" else "t2"].values():
+        assert other[0] in text  # the other kernel's lines stay
+    shipped = (_kernels.CSRC / "wgrad_xcol_gtcol.cu").read_text()
+    assert (text == shipped) == (variant in ("t2:4,3", "t4:3"))
+    for bad in (",noexp", ",mainonly", ",1"):
+        with pytest.raises(ValueError):
+            conv_tiles.parse(variant.split(",no")[0] + bad)
 
 
 def test_host_cost_needs_a_card():

@@ -20,7 +20,7 @@ exp against the f64-built table); f32 sums and convs are held to f32
 rounding, bf16 ones to one or two bf16 roundings.  The backward passes (K1
 max and sum, K2 dgrad, K2w) are held against the plain versions' autograd.
 The wgrad formulations T1-T4 are held to 1e-5 * sum |x||g| (bf16 products
-are exact in f32).  The tensor-core K2 (forward and dgrad) and K2w get
+are exact in f32), also at the edges of T2's and T4's tiles and chunks.  The tensor-core K2 (forward and dgrad) and K2w get
 cases that reach their tiles' edges: Cout 256, W no multiple of 64, H = 1,
 ragged channels and x off a 16-byte boundary.
 """
@@ -456,7 +456,12 @@ def test_run_bcast_backward_kernel(dev, dtype, op):
 @pytest.mark.parametrize("th", [8, 16])
 @pytest.mark.parametrize("b,h,w,cin,cout,offset", [
     (2, 21, 37, 13, 24, 0), (1, 19, 65, 40, 8, 0), (2, 9, 131, 64, 72, 0), (1, 35, 23, 136, 16, 0),
-    (2, 17, 29, 16, 32, 1)])  # x off a 16-byte boundary takes the element-wise loads
+    (2, 17, 29, 16, 32, 1),  # x off a 16-byte boundary takes the element-wise loads
+    # T2's and T4's tiles and chunks: Cin at the limit and three 64-channel
+    # slices, W a multiple of 64 and one past it, H = 1 and th past H, and
+    # the sweep's shapes cut to 24 rows
+    (1, 6, 40, 256, 16, 0), (1, 5, 50, 192, 72, 0), (2, 7, 128, 64, 64, 0), (1, 9, 65, 32, 64, 0),
+    (2, 1, 100, 64, 32, 0), (2, 24, 468, 64, 64, 0), (2, 24, 468, 128, 64, 0)])
 @pytest.mark.parametrize("variant", ["gcol", "xcol", "gt9", "gtcol"])
 def test_wgrad_variant_kernel(dev, variant, b, h, w, cin, cout, offset, th):
     g = torch.Generator(device=dev).manual_seed(h * w + cin + cout)

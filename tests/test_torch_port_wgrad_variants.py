@@ -69,6 +69,66 @@ def test_wgrad_variant_matches_jax(interpret, variant, th, b, h, w, cin, cout):
     assert not (np.abs(got[::-1, ::-1] - ref) <= tol).all()
 
 
+@pytest.mark.parametrize("b,h,w,cin,cout,th,resident", [
+    (2, 468, 468, 64, 64, 8, 264), (2, 468, 468, 64, 64, 16, 264),
+    (2, 468, 468, 128, 64, 8, 264), (2, 468, 468, 128, 64, 16, 132),
+    (2, 24, 468, 128, 64, 16, 264), (1, 1, 65, 256, 256, 8, 264), (2, 5, 128, 192, 64, 16, 264),
+    (1, 7, 64, 8, 8, 4, 1), (3, 9, 700, 8, 8, 4, 10_000)])
+def test_xcol_gtcol_plan_covers_every_segment_once(b, h, w, cin, cout, th, resident):
+    """T2's and T4's chunks: none empty, every row segment in exactly one,
+    boundaries on multiples of th rows of a sample, at most one wave of the
+    resident blocks, and the wrapper's scratch one partial a chunk."""
+    chunks, tiles, segs = wgrad_variants.xcol_gtcol_plan(b, h, w, cin, cout, th, resident)
+    extents = wgrad_variants.chunk_extents(b, h, w, th, tiles, segs)
+    assert len(extents) == chunks >= 1
+    seen = np.zeros((b * h, -(-w // wgrad_variants.SEGMENT)), int)
+    for r0, r1, s0, s1 in extents:
+        assert r0 < r1 and s0 < s1
+        assert r0 % h % th == 0 and r1 % h % th == 0
+        seen[r0:r1, s0:s1] += 1
+    assert (seen == 1).all()
+    blocks = 3 * -(-cin // 64) * -(-cout // 64)
+    assert chunks * blocks <= max(resident, blocks)
+    for variant in ("xcol", "gtcol"):
+        assert wgrad_variants.launch_plan(variant, b, h, w, cin, cout, th, resident) == (
+            (chunks, 9 * cin * cout), (tiles, segs))
+    for variant in ("gcol", "gt9"):  # one partial a row tile
+        assert wgrad_variants.launch_plan(variant, b, h, w, cin, cout, th) == (
+            (b * -(-h // th), 9 * cin * cout), ())
+
+
+def test_xcol_gtcol_plan_splits_row_tiles_along_w():
+    """Too few row tiles for a wave: the plan splits them along W, and at
+    the sweep's shapes no th takes more than a tenth more steps a chunk than
+    the other."""
+    chunks, tiles, segs = wgrad_variants.xcol_gtcol_plan(1, 8, 468, 64, 64, 8, 264)
+    assert (tiles, segs) == (1, 1) and chunks == 8
+    for cin in (64, 128):
+        steps = [tiles * th * segs for th in (8, 16) for _, tiles, segs in
+                 [wgrad_variants.xcol_gtcol_plan(2, 468, 468, cin, 64, th, 264)]]
+        assert max(steps) <= 1.1 * min(steps)
+
+
+@pytest.mark.parametrize("variant", ["xcol", "gtcol"])
+def test_xcol_gtcol_chunked_sum_matches_jax(interpret, variant):
+    """T2's and T4's arithmetic in plain PyTorch: one f32 partial for each
+    chunk of the plan (its output pixels; row tiles split along W here), the
+    partials added in chunk order; against the JAX kernel."""
+    b, h, w, cin, cout, th = 2, 11, 70, 8, 16, 4
+    xj, gj, xt, gt = _inputs(7, b, h, w, cin, cout)
+    chunks, tiles, segs = wgrad_variants.xcol_gtcol_plan(b, h, w, cin, cout, th, 36)
+    assert segs < -(-w // wgrad_variants.SEGMENT) and chunks > 2
+    plain = wgrad_variants.VARIANTS[variant][1]
+    dw = torch.zeros((3, 3, cin, cout))
+    for r0, r1, s0, s1 in wgrad_variants.chunk_extents(b, h, w, th, tiles, segs):
+        mask = torch.zeros((b * h, w))
+        mask[r0:r1, s0 * 64:s1 * 64] = 1
+        dw = dw + plain(xt, gt * mask.reshape(b, h, w, 1).to(gt.dtype), th)
+    want = np.asarray(getattr(mb, f"wgrad_{variant}")(xj, gj, th))
+    tol = 1e-5 * wgrad_variants.oracle(xt.float().abs(), gt.float().abs()).numpy()
+    assert (np.abs(dw.numpy() - want) <= tol).all()
+
+
 def test_plain_versions_take_any_float_dtype():
     _, _, xt, gt = _inputs(3, 1, 11, 7, 5, 3)
     ref = wgrad_variants.oracle(xt, gt)
