@@ -8,9 +8,10 @@ Phases (any failure raises, and the script exits non-zero):
 1. Device and build: the card's name and power limit, TF32 switches set and
    printed, every CUDA kernel built from ``com_tpu_torch/csrc`` at once (one
    ``nvcc`` per source, all started together), the tensor-core
-   instructions (HGMMA, HMMA) in the SASS of K2, K2w, T1 and T3
-   (``wgrad_variants.cu``) and T2 and T4 (``wgrad_xcol_gtcol.cu``) counted
-   (a source with none fails).
+   instructions (HGMMA, HMMA) in the SASS of K2 and K2w counted (a source
+   with none fails), and in each kernel function of T1-T4
+   (``wgrad_variants.cu``: T1, T3 and T4 on ``wgmma``, T2 on ``mma.sync``;
+   a function without its instructions fails).
 2. Each kernel against its plain PyTorch version on the card, at the shapes
    its path gives it, with the stated tolerance: K1 forward (on a batch
    whose sample 1 is one whole-sample run, and on two real scenes) and its
@@ -93,10 +94,14 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor /
 STATS_RTOL = 1e-5  # small train reference: batch statistics, card against CPU
 WGRAD_SHAPES = ((2, 468, 468, 64, 64), (2, 468, 468, 128, 64))  # the sweep's (B, H, W, Cin, Cout)
 WGRAD_THS = (8, 16)
-# variant -> (TPU kernel, line of its pallas_call in tools/perf/microbench_wgrad_kernels.py,
-# the port's source under com_tpu_torch/csrc)
-WGRAD_VARIANTS = {"gcol": ("T1", 84, "wgrad_variants"), "xcol": ("T2", 128, "wgrad_xcol_gtcol"),
-                  "gt9": ("T3", 175, "wgrad_variants"), "gtcol": ("T4", 220, "wgrad_xcol_gtcol")}
+# variant -> (TPU kernel, line of its pallas_call in tools/perf/microbench_wgrad_kernels.py)
+WGRAD_VARIANTS = {"gcol": ("T1", 84), "xcol": ("T2", 128), "gt9": ("T3", 175),
+                  "gtcol": ("T4", 220)}
+WGRAD_SOURCE = "com_tpu_torch/csrc/wgrad_variants.cu"
+# T1-T4's partial kernels in the SASS of wgrad_variants.cu: TPU kernel -> (a
+# piece of the mangled name of each of its instances, the tensor-core instruction)
+WGRAD_SASS = {"T1": ("gtcol_kernelILi1E", "HGMMA"), "T2": ("xcol_kernelI", "HMMA"),
+              "T3": ("gt9_kernelI", "HGMMA"), "T4": ("gtcol_kernelILi4E", "HGMMA")}
 
 
 def waymo_like_points(rng, b, n, pc_range):
@@ -289,16 +294,37 @@ def phase_device_and_build():
     # the bf16 K2 and K2w and T1-T4 must run on the tensor cores: their SASS
     # holds HGMMA (wgmma) or HMMA (mma.sync) instructions
     cuobjdump = str(Path(_kernels._nvcc()).with_name("cuobjdump"))
-    for name in ("conv3x3", "conv3x3_wgrad", "wgrad_variants", "wgrad_xcol_gtcol"):
+    for name in ("conv3x3", "conv3x3_wgrad", "wgrad_variants"):
         sass = subprocess.run([cuobjdump, "-sass", str(paths[name])], capture_output=True,
-                              text=True, timeout=120, check=True).stdout.splitlines()
-        counts = {op: sum(f" {op}." in line for line in sass) for op in ("HGMMA", "HMMA")}
+                              text=True, timeout=120, check=True).stdout
+        counts = {op: sass.count(f" {op}.") for op in ("HGMMA", "HMMA")}
         ok = any(counts.values())
         print(f"sass: {name} holds {counts['HGMMA']} HGMMA and {counts['HMMA']} HMMA "
               f"instructions {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"csrc/{name}.cu holds no tensor-core instruction")
+        if name == "wgrad_variants":
+            check_wgrad_sass(sass)
     return smi
+
+
+def sass_functions(sass):
+    """cuobjdump's SASS split by kernel function: mangled name -> its code."""
+    parts = sass.split("Function : ")[1:]
+    return {p.split(None, 1)[0]: p for p in parts}
+
+
+def check_wgrad_sass(sass):
+    """Each of T1-T4's partial kernels, in both its load branches, holds its
+    tensor-core instruction: no variant drifts off the tensor cores unseen."""
+    funcs = sass_functions(sass)
+    for tn, (piece, op) in WGRAD_SASS.items():
+        found = {f: code.count(f" {op}.") for f, code in funcs.items() if piece in f}
+        ok = len(found) == 2 and all(found.values())
+        print(f"sass: {tn}'s kernels hold {sorted(found.values())} {op} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tn}: {op} in its kernel functions {found}")
 
 
 def check_seg_scan(dev, entries):
@@ -538,7 +564,7 @@ def check_wgrad_variants(dev, entries):
         flops = 2 * 9 * cin * cout * b * h * w
         label = f"bf16 ({b},{h},{w},{cin}->{cout})"
         for th in WGRAD_THS:
-            for v, (tn, line, src) in WGRAD_VARIANTS.items():
+            for v, (tn, line) in WGRAD_VARIANTS.items():
                 fn, plain = wv.VARIANTS[v]
                 got = fn(x, g, th)
                 want = plain(x, g, th)
@@ -554,8 +580,7 @@ def check_wgrad_variants(dev, entries):
                 dev_ms = device_ms(lambda: fn(x, g, th), 20)
                 plain_ms = cuda_ms(lambda: plain(x, g, th), 3, warmup=1)
                 bms, by = bound_ms(nbytes(x, g, got), flops, torch.bfloat16)
-                entries.append(dict(name=name, route="cuda",
-                                    source=f"com_tpu_torch/csrc/{src}.cu",
+                entries.append(dict(name=name, route="cuda", source=WGRAD_SOURCE,
                                     replaces=f"tools/perf/microbench_wgrad_kernels.py:{line}",
                                     max_abs_err=err.max().item(), ms=ms,
                                     device_ms=dev_ms, plain_ms=plain_ms,

@@ -21,8 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("seg_scan", "conv3x3", "conv3x3_wgrad", "stamp", "nms", "wgrad_variants",
-           "wgrad_xcol_gtcol")
+KERNELS = ("seg_scan", "conv3x3", "conv3x3_wgrad", "stamp", "nms", "wgrad_variants")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -52,13 +51,13 @@ SIGNATURES = {
         "k4_greedy_suppress": (I, (P, P, P, P, I, I, P)),
     },
     "wgrad_variants": {
-        "t1_wgrad_gcol": (I, (P, P, P, P, I, I, I, I, I, I, P)),
-        "t3_wgrad_gt9": (I, (P, P, P, P, I, I, I, I, I, I, P)),
-    },
-    "wgrad_xcol_gtcol": {
+        "t1_resident_blocks": (I, ()),
         "t2_resident_blocks": (I, ()),
+        "t3_resident_blocks": (I, ()),
         "t4_resident_blocks": (I, ()),
+        "t1_wgrad_gcol": (I, (P, P, P, P, I, I, I, I, I, I, I, I, P)),
         "t2_wgrad_xcol": (I, (P, P, P, P, I, I, I, I, I, I, I, I, P)),
+        "t3_wgrad_gt9": (I, (P, P, P, P, I, I, I, I, I, I, I, I, P)),
         "t4_wgrad_gtcol": (I, (P, P, P, P, I, I, I, I, I, I, I, I, P)),
     },
 }

@@ -18,11 +18,11 @@ to a multiple of ``th``) and sums the tiles' f32 products:
   (K, 9 cin) -> (cout, 9 cin).
 
 Each returns (3, 3, Cin, Cout) f32.  For a CUDA tensor the wrapper launches
-its tensor-core kernel (bf16 only: T1 and T3 in ``csrc/wgrad_variants.cu``,
-one f32 partial a row tile; T2 and T4 in ``csrc/wgrad_xcol_gtcol.cu``, one
-partial a chunk of row tiles sized to the card by ``xcol_gtcol_plan``); for
-a CPU tensor it runs its plain version (``*_plain``), which follows the same
-formulation in f32 and takes any float dtype.
+its tensor-core kernel (bf16 only, ``csrc/wgrad_variants.cu``: one f32
+partial a chunk of row tiles sized to the card by ``xcol_gtcol_plan``, then
+a fixed-order sum of the partials); for a CPU tensor it runs its plain
+version (``*_plain``), which follows the same formulation in f32 and takes
+any float dtype.
 """
 from __future__ import annotations
 
@@ -37,12 +37,12 @@ xcol_launches = 0
 gt9_launches = 0
 gtcol_launches = 0
 
-# T1's and T3's halo rows hold every channel of the shifted operand; T2 and
-# T4 keep the sweep's limit
-MAX_CHANNELS = 256
-SEGMENT = 64  # pixels of a row segment, the step of T2 and T4
+MAX_CHANNELS = 256  # the sweep's limit
+SEGMENT = 64  # pixels of a row segment, the kernels' step
 _TAPS = [(dy, dx) for dy in range(3) for dx in range(3)]
-_PLANNED = {"xcol": "t2", "gtcol": "t4"}  # variants with a card-sized grid -> C prefix
+# variant -> the prefix of its C entries, <prefix>_wgrad_<variant> and
+# <prefix>_resident_blocks
+PREFIX = {"gcol": "t1", "xcol": "t2", "gt9": "t3", "gtcol": "t4"}
 _resident_blocks: dict[tuple[int, str], int] = {}  # (device, variant) -> blocks at once
 
 
@@ -112,9 +112,10 @@ def oracle(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 def xcol_gtcol_plan(b: int, h: int, wd: int, cin: int, cout: int, th: int,
                     resident: int) -> tuple[int, int, int]:
-    """(chunks, row tiles a chunk, row segments a chunk) of T2 and T4.
+    """(chunks, row tiles a chunk, row segments a chunk) of T1-T4.
 
-    Their pixels are B * ceil(H / th) row tiles of th image rows (the TPU
+    The pixels of the operand a kernel reads in place (x for T1, g for the
+    others) are B * ceil(H / th) row tiles of th image rows (the TPU
     kernels' grid steps; the last of a sample may be shorter), each
     ceil(W / 64) row segments wide.  A chunk is a run of whole row tiles by a
     run of segments, with one f32 partial; the grid has 3 * ceil(Cin / 64) *
@@ -140,7 +141,7 @@ def xcol_gtcol_plan(b: int, h: int, wd: int, cin: int, cout: int, th: int,
 
 
 def chunk_extents(b: int, h: int, wd: int, th: int, tiles: int, segs: int):
-    """Each chunk's pixels as T2's and T4's blocks walk them, chunk by chunk:
+    """Each chunk's pixels as the kernels' blocks walk them, chunk by chunk:
     (first image row of the B * H, one past its last; first row segment,
     one past its last)."""
     sample_tiles = -(-h // th)
@@ -158,32 +159,29 @@ def chunk_extents(b: int, h: int, wd: int, th: int, tiles: int, segs: int):
     return out
 
 
-def launch_plan(name: str, b: int, h: int, wd: int, cin: int, cout: int, th: int,
-                resident: int | None = None):
-    """The f32 scratch a call of variant ``name`` allocates, (partials,
-    9 * Cin * Cout), and the arguments its C entry takes after th: T1 and T3
-    one partial a row tile, none; T2 and T4 one a chunk of
-    ``xcol_gtcol_plan``, (row tiles, segments) a chunk."""
-    if name not in _PLANNED:
-        return (b * -(-h // th), 9 * cin * cout), ()
+def launch_plan(b: int, h: int, wd: int, cin: int, cout: int, th: int, resident: int):
+    """The f32 scratch a call allocates, (partials, 9 * Cin * Cout), one
+    partial a chunk of ``xcol_gtcol_plan``, and the arguments its C entry
+    takes after th: (row tiles, segments) a chunk."""
     chunks, tiles, segs = xcol_gtcol_plan(b, h, wd, cin, cout, th, resident)
     return (chunks, 9 * cin * cout), (tiles, segs)
 
 
 def _resident(name: str, x: torch.Tensor) -> int:
-    """Blocks of T2's or T4's kernel that x's card holds at once, asked once."""
+    """Blocks of variant ``name``'s kernel that x's card holds at once,
+    asked once."""
     key = (x.device.index, name)
     if key not in _resident_blocks:
         with torch.cuda.device(x.device):
-            cap = getattr(_kernels.library("wgrad_xcol_gtcol"),
-                          f"{_PLANNED[name]}_resident_blocks")()
+            cap = getattr(_kernels.library("wgrad_variants"),
+                          f"{PREFIX[name]}_resident_blocks")()
         if cap <= 0:
             raise RuntimeError(f"wgrad_{name}: occupancy query failed")
         _resident_blocks[key] = cap
     return _resident_blocks[key]
 
 
-def _launch(name: str, entry: str, plain, x: torch.Tensor, g: torch.Tensor, th: int):
+def _launch(name: str, plain, x: torch.Tensor, g: torch.Tensor, th: int):
     if x.device.type == "cpu":
         return plain(x, g, th)
     what = f"wgrad_{name}"
@@ -206,35 +204,33 @@ def _launch(name: str, entry: str, plain, x: torch.Tensor, g: torch.Tensor, th: 
         return dw
     if x.numel() == 0:
         return dw.zero_()
-    planned = name in _PLANNED
-    shape, plan = launch_plan(name, b, h, wd, cin, cout, th,
-                              _resident(name, x) if planned else None)
+    shape, plan = launch_plan(b, h, wd, cin, cout, th, _resident(name, x))
     part = torch.empty(shape, dtype=torch.float32, device=x.device)
-    _kernels.launch("wgrad_xcol_gtcol" if planned else "wgrad_variants", entry,
-                    f"{what} ({entry})", x.get_device(), x.data_ptr(), g.data_ptr(),
-                    part.data_ptr(), dw.data_ptr(), b, h, wd, cin, cout, th, *plan)
+    entry = f"{PREFIX[name]}_{what}"
+    _kernels.launch("wgrad_variants", entry, f"{what} ({entry})", x.get_device(), x.data_ptr(),
+                    g.data_ptr(), part.data_ptr(), dw.data_ptr(), b, h, wd, cin, cout, th, *plan)
     globals()[f"{name}_launches"] += 1
     return dw
 
 
 def wgrad_gcol(x: torch.Tensor, g: torch.Tensor, th: int) -> torch.Tensor:
     """T1: (3, 3, Cin, Cout) f32 from x (B, H, W, Cin) and g (B, H, W, Cout)."""
-    return _launch("gcol", "t1_wgrad_gcol", wgrad_gcol_plain, x, g, th)
+    return _launch("gcol", wgrad_gcol_plain, x, g, th)
 
 
 def wgrad_xcol(x: torch.Tensor, g: torch.Tensor, th: int) -> torch.Tensor:
     """T2: (3, 3, Cin, Cout) f32 from x (B, H, W, Cin) and g (B, H, W, Cout)."""
-    return _launch("xcol", "t2_wgrad_xcol", wgrad_xcol_plain, x, g, th)
+    return _launch("xcol", wgrad_xcol_plain, x, g, th)
 
 
 def wgrad_gt9(x: torch.Tensor, g: torch.Tensor, th: int) -> torch.Tensor:
     """T3: (3, 3, Cin, Cout) f32 from x (B, H, W, Cin) and g (B, H, W, Cout)."""
-    return _launch("gt9", "t3_wgrad_gt9", wgrad_gt9_plain, x, g, th)
+    return _launch("gt9", wgrad_gt9_plain, x, g, th)
 
 
 def wgrad_gtcol(x: torch.Tensor, g: torch.Tensor, th: int) -> torch.Tensor:
     """T4: (3, 3, Cin, Cout) f32 from x (B, H, W, Cin) and g (B, H, W, Cout)."""
-    return _launch("gtcol", "t4_wgrad_gtcol", wgrad_gtcol_plain, x, g, th)
+    return _launch("gtcol", wgrad_gtcol_plain, x, g, th)
 
 
 VARIANTS = {  # name -> (wrapper, plain version)

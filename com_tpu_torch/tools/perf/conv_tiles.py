@@ -1,5 +1,5 @@
-"""Tile sweep of the tensor-core K2 and K2w, of T2 and T4, and of K1, K3 and
-K4, on the card.
+"""Tile sweep of the tensor-core K2 and K2w, of T1-T4, and of K1, K3 and K4,
+on the card.
 
     python -m com_tpu_torch.tools.perf.conv_tiles [VARIANT ...]
 
@@ -16,14 +16,20 @@ with an optional diagnostic:
                                the loads
   ...,nomma                    each mma.sync replaced by one add: the time
                                without the products
-  t2:WARPS_M,STAGES            kXcolWarpsM (T2's warps along M), kStages, and
-  t4:STAGES                    kStages of wgrad_xcol_gtcol.cu (its 64-channel
-  ...,noload | ,nomma          tiles are fixed by T4's 128-byte swizzled rows),
-  | ,nocol                     timed at the wgrad sweep's shapes
-                               (2,468,468,64->64) and (2,468,468,128->64), th 8
-                               and 16 (diagnostics as above, T4's nomma
-                               dropping its wgmma; ,nocol: no column buffer
-                               copied, the products read a stale one)
+  t1:STAGES                    kStages (T1's, T2's and T4's ring),
+  t2:WARPS_M,STAGES            kXcolWarpsM (T2's warps along M), and
+  t3:STAGES                    kGt9Stages (T3's ring) of wgrad_variants.cu
+  t4:STAGES                    (its 64-channel tiles are fixed by the
+  ...,noload | ,nomma          128-byte swizzled rows of wgmma), timed at the
+  | ,nocol (not T3)            wgrad sweep's shapes (2,468,468,64->64) and
+  | ,viewbase (T3)             (2,468,468,128->64), th 8 and 16 (diagnostics as
+                               above, T1's, T3's and T4's nomma dropping their
+                               wgmma; ,nocol: no column buffer copied, the
+                               products read a stale one; ,viewbase: T3's view
+                               descriptors with the base-offset field taken
+                               from the view's start address instead of the
+                               swizzle pattern's, the other reading of the
+                               PTX ISA's rule, which the ok column judges)
   k1:FWD,BWD,THREADS,MINB      kFwdRows, kBwdRows, kThreads, kMinBlocks of
   ...,noload | ,noscan         seg_scan.cu (diagnostics: k1_main without its
   | ,mainonly                  loads, without the scans across its threads,
@@ -44,8 +50,8 @@ with an optional diagnostic:
                                loads, the compaction and the canvas write)
 
 Without arguments it runs the shipped tiles and the two diagnostics of each,
-T2's and T4's shipped constants, their three diagnostics and two other sets
-of T2 and one of T4, K1's shipped constants, its three diagnostics and four other sets, and
+T1-T4's shipped constants, their diagnostics, T3's other base offset and
+other stage counts of each, K1's shipped constants, its three diagnostics and four other sets, and
 four sets each of K4 and K3 (the first of each the shipped one).
 Each line: mean ms a call (CUDA events over ``ITERS`` calls after two
 warm-up calls), TFLOP/s, and whether the output is within the tolerance of
@@ -75,8 +81,10 @@ CONSTANTS = {"k2": ("conv3x3", ("kTR", "kKc", "kStages")),
              "k1": ("seg_scan", ("kFwdRows", "kBwdRows", "kThreads", "kMinBlocks")),
              "k4": ("nms", ("kThreads", "kPackThreads")),
              "k3": ("stamp", ("kTileH", "kObjs")),
-             "t2": ("wgrad_xcol_gtcol", ("kXcolWarpsM", "kStages")),
-             "t4": ("wgrad_xcol_gtcol", ("kStages",))}
+             "t1": ("wgrad_variants", ("kStages",)),
+             "t2": ("wgrad_variants", ("kXcolWarpsM", "kStages")),
+             "t3": ("wgrad_variants", ("kGt9Stages",)),
+             "t4": ("wgrad_variants", ("kStages",))}
 DEFAULT = ("k2:8,32,2", "k2:8,32,2,noload", "k2:8,32,2,nomma",
            "k2w:1,64,64,4,4", "k2w:1,64,64,4,4,noload", "k2w:1,64,64,4,4,nomma")
 K1_DEFAULT = ("k1:8,4,256,2", "k1:8,4,256,2,noload", "k1:8,4,256,2,noscan",
@@ -85,24 +93,38 @@ K1_DEFAULT = ("k1:8,4,256,2", "k1:8,4,256,2,noload", "k1:8,4,256,2,noscan",
 K1_POINTS = 163840
 K4_DEFAULT = ("k4:512,512", "k4:1024,256", "k4:256,256", "k4:1024,128")
 K3_DEFAULT = ("k3:16,2", "k3:16,2,noexp", "k3:16,2,nocells", "k3:32,2", "k3:16,1")
-T24_DEFAULT = ("t2:4,3", "t2:4,3,noload", "t2:4,3,nomma", "t2:4,3,nocol", "t2:2,3", "t2:4,4",
-               "t4:3", "t4:3,noload", "t4:3,nomma", "t4:3,nocol", "t4:4")
+T_DEFAULT = ("t1:3", "t1:3,noload", "t1:3,nomma", "t1:3,nocol", "t1:4",
+             "t2:4,3", "t2:4,3,noload", "t2:4,3,nomma", "t2:4,3,nocol", "t2:2,3", "t2:4,4",
+             "t3:3", "t3:3,noload", "t3:3,nomma", "t3:3,viewbase", "t3:2", "t3:4", "t3:6",
+             "t4:3", "t4:3,noload", "t4:3,nomma", "t4:3,nocol", "t4:4")
+T_SHIPPED = ("t1:3", "t2:4,3", "t3:3", "t4:3")
 DIAGS = {"k1": ("noload", "noscan", "mainonly"), "k2": ("noload", "nomma"),
          "k2w": ("noload", "nomma"), "k3": ("noexp", "nocells"), "k4": (),
-         "t2": ("noload", "nomma", "nocol"), "t4": ("noload", "nomma", "nocol")}
+         "t1": ("noload", "nomma", "nocol"), "t2": ("noload", "nomma", "nocol"),
+         "t3": ("noload", "nomma", "viewbase"), "t4": ("noload", "nomma", "nocol")}
 _K3_EXP = "exp2f((float)(dx * dx + dy * dy) * ob.v)"
 _K3_CELLS = "    for (int q = 0; q < count; ++q) {\n"
 _MMA = re.compile(r"hopper::mma_bf16\(acc\[i\]\[j\], af\[i\], bfr\[j >> 1\]\[\(j & 1\) \* 2\],"
                   r"\s*bfr\[j >> 1\]\[\(j & 1\) \* 2 \+ 1\]\);")
 _FETCH = "    fetch(t + kStages - 1);\n"
-# T2's and T4's diagnostics: (line of the main loop, its replacement)
-_T24_DIAGS = {
+# T1-T4's diagnostics: (line of the kernel, its replacement); T1 and T4
+# share one templated kernel, so their lines are the same
+_GTCOL_DIAGS = {
+    "noload": ("    load(t + kStages - 1);\n", ""),
+    "nocol": ("    build_cols(t + 1);\n", ""),
+    "nomma": ("wgmma_m64n64k16(acc, wg_desc(ps + kk * 64), wg_desc(cs + kk * 64));",
+              "acc[0] += __uint_as_float((uint32_t)(wg_desc(ps + kk * 64) ^ "
+              "wg_desc(cs + kk * 64)));")}
+_T_DIAGS = {
+    "t1": _GTCOL_DIAGS,
     "t2": {"noload": (_FETCH, ""), "nocol": ("    build_col(t + 1);\n", "")},
-    "t4": {"noload": ("    load(t + kStages - 1);\n", ""),
-           "nocol": ("    build_cols(t + 1);\n", ""),
-           "nomma": ("wgmma_m64n64k16(acc, wg_desc(gs + kk * 64), wg_desc(cs + kk * 64));",
-                     "acc[0] += __uint_as_float((uint32_t)(wg_desc(gs + kk * 64) ^ "
-                     "wg_desc(cs + kk * 64)));")}}
+    "t3": {"noload": ("    load(t + kGt9Stages - 1);\n", ""),
+           "nomma": ("wgmma_m64n64k16(acc, wg_desc(ps + kk * 64), wg_desc_rows(hs, wg + kk));",
+                     "acc[0] += __uint_as_float((uint32_t)(wg_desc(ps + kk * 64) ^ "
+                     "wg_desc_rows(hs, wg + kk)));"),
+           "viewbase": ("(uint64_t)((hopper::smem_addr(block) >> 7) & 7) << 49",
+                        "(uint64_t)((hopper::smem_addr(block + row * 64) >> 7) & 7) << 49")},
+    "t4": _GTCOL_DIAGS}
 _K1_FETCH = "    if (g.active && r < g.nv) task.fetch(row0 + r, g.c0, C, vec, raw[k]);\n"
 _K1_SCAN = re.compile(r"  block_scans<Op, VEC, kWarps>\(g, [^;]*;\n")
 _K1_LAUNCHES = "  if (err != cudaSuccess) return (int)err;\n  // k1_carries and k1_fixup start"
@@ -129,8 +151,8 @@ def variant_source(kernel: str, values, diag=None) -> str:
         text, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};", text)
         if n != 1:
             raise ValueError(f"{src}.cu: constant {name} not found once")
-    if diag in _T24_DIAGS.get(kernel, {}):
-        old, new = _T24_DIAGS[kernel][diag]
+    if diag in _T_DIAGS.get(kernel, {}):
+        old, new = _T_DIAGS[kernel][diag]
         if text.count(old) != 1:
             raise ValueError(f"{src}.cu: {old.strip()!r} not found once")
         text = text.replace(old, new)
@@ -258,7 +280,7 @@ def run(variants=DEFAULT, device=None):
     return rows
 
 
-def run_t24(variants=T24_DEFAULT, device=None):
+def run_t(variants=T_DEFAULT, device=None):
     """One dict a (variant, shape, th): variant, shape, th, chunks (of the
     plan for the variant's own resident blocks), ms (calls as the host
     issues them), device_ms (queued behind a spin kernel), tflops (of
@@ -269,7 +291,8 @@ def run_t24(variants=T24_DEFAULT, device=None):
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError("conv_tiles times kernels: it needs a CUDA device")
-    libs = _load(variants, "wgrad_xcol_gtcol")
+    libs = _load(variants, "wgrad_variants")
+    names = {prefix: name for name, prefix in wv.PREFIX.items()}  # "t1" -> "gcol"
     gen = torch.Generator(device=dev).manual_seed(11)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rows = []
@@ -279,10 +302,11 @@ def run_t24(variants=T24_DEFAULT, device=None):
         tol = wgrad_sweep.TOL * wv.oracle(x.abs(), g.abs())
         flops = 2 * 9 * cin * cout * b * h * w
         for th in wgrad_sweep.THS:
-            want = {k: wv.VARIANTS[v][1](x, g, th) for k, v in (("t2", "xcol"), ("t4", "gtcol"))}
+            kernels = {v.split(":")[0] for v in libs}
+            want = {k: wv.VARIANTS[names[k]][1](x, g, th) for k in kernels}
             for variant, lib in libs.items():
                 kernel = variant.split(":")[0]
-                entry = getattr(lib, {"t2": "t2_wgrad_xcol", "t4": "t4_wgrad_gtcol"}[kernel])
+                entry = getattr(lib, f"{kernel}_wgrad_{names[kernel]}")
                 resident = getattr(lib, f"{kernel}_resident_blocks")()
                 chunks, tiles, segs = wv.xcol_gtcol_plan(b, h, w, cin, cout, th, resident)
                 part = torch.empty((chunks, 9 * cin * cout), device=dev)
@@ -482,15 +506,15 @@ def run_k3(variants=K3_DEFAULT, device=None):
 
 def main(argv=None):
     variants = (tuple(argv) if argv
-                else DEFAULT + T24_DEFAULT + K1_DEFAULT + K4_DEFAULT + K3_DEFAULT)
+                else DEFAULT + T_DEFAULT + K1_DEFAULT + K4_DEFAULT + K3_DEFAULT)
     by = {k: tuple(v for v in variants if v.split(":")[0] == k) for k in ("k1", "k3", "k4")}
-    t24 = tuple(v for v in variants if v.split(":")[0] in ("t2", "t4"))
+    tvs = tuple(v for v in variants if v.split(":")[0] in _T_DIAGS)
     conv = tuple(v for v in variants if v.split(":")[0] in ("k2", "k2w"))
     print(f"card: {torch.cuda.get_device_name(0)}")
     for r in run(conv) if conv else ():
         print(f"{r['variant']:<28} {r['shape']}: {r['ms']:.4f} ms {r['tflops']:.1f} TFLOP/s "
               f"{'ok' if r['ok'] else 'WRONG'}")
-    for r in run_t24(t24) if t24 else ():
+    for r in run_t(tvs) if tvs else ():
         print(f"{r['variant']:<22} {r['shape']} th={r['th']:<2} {r['chunks']:>4} chunks: "
               f"{r['ms']:.4f} ms, queued {r['device_ms']:.4f} ms {r['tflops']:.1f} TFLOP/s "
               f"{'ok' if r['ok'] else 'WRONG'}")

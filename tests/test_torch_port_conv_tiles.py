@@ -2,7 +2,7 @@
 kernel's re-layout (``rotate_kernel``, run by ``conv3x3_dgrad``), the bf16
 K2w's split of the pixels into chunks of row segments (``wgrad_plan``), the
 build's hash over the shared headers, and the sources that the tile sweep
-(``tools/perf/conv_tiles.py``) derives from the kernels (K2, K2w, T2, T4,
+(``tools/perf/conv_tiles.py``) derives from the kernels (K2, K2w, T1-T4,
 K1, K3, K4).
 
 The re-layout and the chunked sum are held against ``conv3x3_plain`` /
@@ -157,29 +157,57 @@ def test_k4_k3_tile_sweep_sources(variant):
         conv_tiles.parse(variant.split(",no")[0] + ",noload")
 
 
-@pytest.mark.parametrize("variant", conv_tiles.T24_DEFAULT)
-def test_t2_t4_tile_sweep_sources(variant):
-    """T2's and T4's copies in the tile sweep: each constant of
-    wgrad_xcol_gtcol.cu set once, each diagnostic's line of its own kernel
-    found (the loads, the products, the column buffer) and only that one
-    changed; the first of each the shipped source; other kernels'
-    diagnostics refused."""
+# the kernel function each T variant's diagnostics edit (T1 and T4 share one)
+_T_FUNCTION = {"t1": "gtcol", "t2": "xcol", "t3": "gt9", "t4": "gtcol"}
+
+
+def _check_t_variant_source(variant):
     kernel, values, diag = conv_tiles.parse(variant)
-    assert kernel in ("t2", "t4")
     text = conv_tiles.variant_source(kernel, values, diag)
     for name, value in zip(conv_tiles.CONSTANTS[kernel][1], values):
         assert f"constexpr int {name} = {value};" in text
-    lines = {d: line for d, (line, _) in conv_tiles._T24_DIAGS[kernel].items()}
+    lines = {d: line for d, (line, _) in conv_tiles._T_DIAGS[kernel].items()}
     lines.setdefault("nomma", "hopper::mma_bf16(")  # T2's products: K2's and K2w's pattern
     for d, line in lines.items():
         assert (line in text) == (diag != d), d
-    for other in conv_tiles._T24_DIAGS["t4" if kernel == "t2" else "t2"].values():
-        assert other[0] in text  # the other kernel's lines stay
-    shipped = (_kernels.CSRC / "wgrad_xcol_gtcol.cu").read_text()
-    assert (text == shipped) == (variant in ("t2:4,3", "t4:3"))
+    for other, fn in _T_FUNCTION.items():
+        if fn != _T_FUNCTION[kernel]:  # the other kernels' lines stay
+            for line, _ in conv_tiles._T_DIAGS[other].values():
+                assert line in text, (other, line)
+    shipped = (_kernels.CSRC / "wgrad_variants.cu").read_text()
+    assert (text == shipped) == (variant in conv_tiles.T_SHIPPED)
     for bad in (",noexp", ",mainonly", ",1"):
         with pytest.raises(ValueError):
             conv_tiles.parse(variant.split(",no")[0] + bad)
+    return kernel, text
+
+
+@pytest.mark.parametrize("variant", [v for v in conv_tiles.T_DEFAULT if v[:2] in ("t2", "t4")])
+def test_t2_t4_tile_sweep_sources(variant):
+    """T2's and T4's copies in the tile sweep: each constant of
+    wgrad_variants.cu set once, each diagnostic's line of its own kernel
+    found (the loads, the products, the column buffer) and only that one
+    changed; the first of each the shipped source; other kernels'
+    diagnostics refused."""
+    kernel, _ = _check_t_variant_source(variant)
+    assert kernel in ("t2", "t4")
+
+
+@pytest.mark.parametrize("variant", [v for v in conv_tiles.T_DEFAULT if v[:2] in ("t1", "t3")])
+def test_t1_t3_tile_sweep_sources(variant):
+    """T1's and T3's copies in the tile sweep, as T2's and T4's: each
+    diagnostic replaces a line of its own kernel (T1's the templated kernel
+    it shares with T4), T3 has no column buffer to drop, and ``viewbase``
+    takes T3's base-offset field from the view's start address."""
+    kernel, text = _check_t_variant_source(variant)
+    assert kernel in ("t1", "t3")
+    shipped = (_kernels.CSRC / "wgrad_variants.cu").read_text()
+    own = shipped.split(f"{_T_FUNCTION[kernel]}_kernel(Args a) {{")[1].split("\n}\n")[0]
+    for d, (line, _) in conv_tiles._T_DIAGS[kernel].items():
+        assert (line in own) == (d != "viewbase"), d  # viewbase edits the descriptor helper
+    assert ("smem_addr(block + row * 64) >> 7" in text) == variant.endswith(",viewbase")
+    with pytest.raises(ValueError):
+        conv_tiles.parse(f"{kernel}:4,{'viewbase' if kernel == 't1' else 'nocol'}")
 
 
 def test_host_cost_needs_a_card():

@@ -461,7 +461,12 @@ def test_run_bcast_backward_kernel(dev, dtype, op):
     # slices, W a multiple of 64 and one past it, H = 1 and th past H, and
     # the sweep's shapes cut to 24 rows
     (1, 6, 40, 256, 16, 0), (1, 5, 50, 192, 72, 0), (2, 7, 128, 64, 64, 0), (1, 9, 65, 32, 64, 0),
-    (2, 1, 100, 64, 32, 0), (2, 24, 468, 64, 64, 0), (2, 24, 468, 128, 64, 0)])
+    (2, 1, 100, 64, 32, 0), (2, 24, 468, 64, 64, 0), (2, 24, 468, 128, 64, 0),
+    # channel counts no multiple of 8 (the element loads) on both operands,
+    # and last row segments 1-2 pixels wide, whose dx = 2 view (T3) or
+    # column block (T1: dx = 0) reads the halo row's last pixel
+    (1, 11, 70, 20, 36, 0), (2, 6, 66, 12, 72, 0), (1, 5, 130, 72, 40, 0),
+    (2, 4, 129, 100, 9, 0)])
 @pytest.mark.parametrize("variant", ["gcol", "xcol", "gt9", "gtcol"])
 def test_wgrad_variant_kernel(dev, variant, b, h, w, cin, cout, offset, th):
     g = torch.Generator(device=dev).manual_seed(h * w + cin + cout)

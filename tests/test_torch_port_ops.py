@@ -255,6 +255,27 @@ def test_ctypes_signatures_match_the_sources(name):
             assert t is want, (fn, p)
 
 
+def test_wgrad_variants_library_holds_t1_to_t4():
+    """One source, csrc/wgrad_variants.cu, holds all four wgrad variants:
+    each wrapper's C entry and occupancy query are declared there with one
+    signature (the chunk plan's arguments after th), and no other library
+    lists them."""
+    from com_tpu_torch.ops import wgrad_variants
+
+    sigs = _kernels.SIGNATURES["wgrad_variants"]
+    assert set(wgrad_variants.PREFIX) == set(wgrad_variants.VARIANTS)
+    assert sorted(wgrad_variants.PREFIX.values()) == ["t1", "t2", "t3", "t4"]
+    want = set()
+    for name, prefix in wgrad_variants.PREFIX.items():
+        entry, query = f"{prefix}_wgrad_{name}", f"{prefix}_resident_blocks"
+        assert sigs[entry] == sigs["t2_wgrad_xcol"] and len(sigs[entry][1]) == 13
+        assert sigs[query] == (ctypes.c_int, ())
+        want |= {entry, query}
+    assert set(sigs) == want
+    assert set(_kernels.SIGNATURES) == set(_kernels.KERNELS)
+    assert sorted(p.stem for p in _kernels.CSRC.glob("*.cu")) == sorted(_kernels.KERNELS)
+
+
 def test_build_all_waits_for_every_nvcc(monkeypatch, tmp_path):
     """One compiler process per source, all started before any is waited
     on; a failure is raised after every process has ended, and only the

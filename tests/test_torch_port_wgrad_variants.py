@@ -75,7 +75,7 @@ def test_wgrad_variant_matches_jax(interpret, variant, th, b, h, w, cin, cout):
     (2, 24, 468, 128, 64, 16, 264), (1, 1, 65, 256, 256, 8, 264), (2, 5, 128, 192, 64, 16, 264),
     (1, 7, 64, 8, 8, 4, 1), (3, 9, 700, 8, 8, 4, 10_000)])
 def test_xcol_gtcol_plan_covers_every_segment_once(b, h, w, cin, cout, th, resident):
-    """T2's and T4's chunks: none empty, every row segment in exactly one,
+    """The kernels' chunks: none empty, every row segment in exactly one,
     boundaries on multiples of th rows of a sample, at most one wave of the
     resident blocks, and the wrapper's scratch one partial a chunk."""
     chunks, tiles, segs = wgrad_variants.xcol_gtcol_plan(b, h, w, cin, cout, th, resident)
@@ -89,12 +89,25 @@ def test_xcol_gtcol_plan_covers_every_segment_once(b, h, w, cin, cout, th, resid
     assert (seen == 1).all()
     blocks = 3 * -(-cin // 64) * -(-cout // 64)
     assert chunks * blocks <= max(resident, blocks)
-    for variant in ("xcol", "gtcol"):
-        assert wgrad_variants.launch_plan(variant, b, h, w, cin, cout, th, resident) == (
-            (chunks, 9 * cin * cout), (tiles, segs))
-    for variant in ("gcol", "gt9"):  # one partial a row tile
-        assert wgrad_variants.launch_plan(variant, b, h, w, cin, cout, th) == (
-            (b * -(-h // th), 9 * cin * cout), ())
+    assert wgrad_variants.launch_plan(b, h, w, cin, cout, th, resident) == (
+        (chunks, 9 * cin * cout), (tiles, segs))
+
+
+@pytest.mark.parametrize("th", [8, 16])
+@pytest.mark.parametrize("cin", [64, 128])
+def test_launch_plan_gives_t1_t3_chunked_scratch(cin, th):
+    """T1 and T3 take the chunked plan of T2 and T4: at the sweep's shapes
+    their scratch is one partial a chunk, the chunks' blocks more than half
+    of one wave of 264 resident blocks (two blocks an SM) and at most all of
+    it, where their first kernels had one partial a row tile (B * ceil(H /
+    th)) and 1.3-2.7 waves; the C entry gets (row tiles, segments) a
+    chunk."""
+    b, h, w, cout, resident = 2, 468, 468, 64, 264
+    (parts, n), plan = wgrad_variants.launch_plan(b, h, w, cin, cout, th, resident)
+    chunks, tiles, segs = wgrad_variants.xcol_gtcol_plan(b, h, w, cin, cout, th, resident)
+    assert (parts, n) == (chunks, 9 * cin * cout) and plan == (tiles, segs)
+    assert resident // 2 < parts * 3 * (cin // 64) <= resident
+    assert len(wgrad_variants.chunk_extents(b, h, w, th, tiles, segs)) == parts
 
 
 def test_xcol_gtcol_plan_splits_row_tiles_along_w():
@@ -109,10 +122,11 @@ def test_xcol_gtcol_plan_splits_row_tiles_along_w():
         assert max(steps) <= 1.1 * min(steps)
 
 
-@pytest.mark.parametrize("variant", ["xcol", "gtcol"])
+@pytest.mark.parametrize("variant", VARIANTS)
 def test_xcol_gtcol_chunked_sum_matches_jax(interpret, variant):
-    """T2's and T4's arithmetic in plain PyTorch: one f32 partial for each
-    chunk of the plan (its output pixels; row tiles split along W here), the
+    """The kernels' arithmetic in plain PyTorch: one f32 partial for each
+    chunk of the plan (the pixels of the operand the kernel reads in place,
+    x for T1 and g for the others; row tiles split along W here), the
     partials added in chunk order; against the JAX kernel."""
     b, h, w, cin, cout, th = 2, 11, 70, 8, 16, 4
     xj, gj, xt, gt = _inputs(7, b, h, w, cin, cout)
@@ -123,7 +137,11 @@ def test_xcol_gtcol_chunked_sum_matches_jax(interpret, variant):
     for r0, r1, s0, s1 in wgrad_variants.chunk_extents(b, h, w, th, tiles, segs):
         mask = torch.zeros((b * h, w))
         mask[r0:r1, s0 * 64:s1 * 64] = 1
-        dw = dw + plain(xt, gt * mask.reshape(b, h, w, 1).to(gt.dtype), th)
+        mask = mask.reshape(b, h, w, 1).to(gt.dtype)
+        if variant == "gcol":
+            dw = dw + plain(xt * mask, gt, th)
+        else:
+            dw = dw + plain(xt, gt * mask, th)
     want = np.asarray(getattr(mb, f"wgrad_{variant}")(xj, gj, th))
     tol = 1e-5 * wgrad_variants.oracle(xt.float().abs(), gt.float().abs()).numpy()
     assert (np.abs(dw.numpy() - want) <= tol).all()
