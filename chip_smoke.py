@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving and training paths and its wgrad
-sweep on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths (the last one
+over its own data pipeline) and its wgrad sweep on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -51,8 +51,22 @@ Phases (any failure raises, and the script exits non-zero):
 7. Training path B, ``centerpoint_pillar_car_com1.yaml`` (single-class
    Vehicle, ``UCL: True``, ``MERGE_SCORES: True``): 2 steps, which launch
    K3 in last_wins mode for the COM loss mask.
-8. Launch counts: every counter is zeroed just before each path (the
-   sweep, serving, A, B) and read just after, against the calls the sweep
+8. Training path C, the flagship at full width over the port's own data
+   pipeline with the curriculum loop closed (``train_path_c``): 8
+   synthetic scenes (120,000 ground points, up to 48 objects, the in-memory
+   GT database), COM2 GT-paste, world augmentations, range mask, shuffle,
+   pillar presort and collate on 2 loader threads, ``DevicePrefetcher``
+   with the model's batch keys, 3 epochs of 4 steps.  Gates: fixed shapes;
+   each sample's pasted objects as the sampler pasted them less those the
+   range mask drops, within the LIMIT_WHOLE_SCENE quota, some in the run;
+   every sample pillar-sorted on the card; the sampler holding each epoch's
+   card-computed confidences bitwise; COM2's group probabilities off the
+   size shares at epochs 1 and 2 (pacing index and centre printed);
+   finite losses, gradients and parameters; path A's launch counts a step.
+   Prints the host pipeline's own rate, the step time, the main thread's
+   wait for a batch and peak memory.
+9. Launch counts: every counter is zeroed just before each path (the
+   sweep, serving, A, B, C) and read just after, against the calls the sweep
    reports and the expected counts per forward or per step.  The device
    kernels one K3 call issues (1) and one K4 call (2, the pack and the
    sweep), counted by torch.profiler after every timed phase.  Then the
@@ -93,6 +107,10 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 non-tensor
 STATS_RTOL = 1e-5  # small train reference: batch statistics, card against CPU
 WGRAD_SHAPES = ((2, 468, 468, 64, 64), (2, 468, 468, 128, 64))  # the sweep's (B, H, W, Cin, Cout)
+PROFILE_SESSIONS = 3  # tries for a profiling session that sees the device
+# path C: epochs, steps an epoch (of BATCH scenes: the dataset holds one
+# epoch's scenes), loader threads, seed
+C_EPOCHS, C_STEPS, C_WORKERS, C_SEED = 3, 4, 2, 9
 WGRAD_THS = (8, 16)
 # variant -> (TPU kernel, line of its pallas_call in tools/perf/microbench_wgrad_kernels.py)
 WGRAD_VARIANTS = {"gcol": ("T1", 84), "xcol": ("T2", 128), "gt9": ("T3", 175),
@@ -156,19 +174,31 @@ def device_ms(fn, iters):
 def check_device_kernels(calls):
     """For each (label, count, fn) the device kernels one call of fn issues
     (torch.profiler over one call after a warm-up call) must number
-    ``count``.  Run after every timed phase (a profiling session left the
-    host's launches after it slower) and before any other profiling session
-    (after those of ``--profile``, one saw no device kernel at all)."""
+    ``count``.  Each session first runs ``torch.cuda._sleep`` as a marker
+    (one ``spin_kernel``): a session whose trace lacks the marker saw no
+    device activity at all, which happens now and then after earlier
+    profiling sessions or long runs of threads on the card, and is run
+    again, up to ``PROFILE_SESSIONS`` times.  Run after every timed phase (a
+    profiling session left the host's launches after it slower)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for label, count, fn in calls:
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        for attempt in range(1, PROFILE_SESSIONS + 1):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.cuda._sleep(1000)
+                fn()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+            if any("spin_kernel" in n for n in names):
+                break
+            print(f"{label}: profiling session {attempt} saw no device activity (no marker)")
+        else:
+            raise AssertionError(f"{label}: {PROFILE_SESSIONS} profiling sessions saw no device "
+                                 "activity")
+        names = [n for n in names if "spin_kernel" not in n]
         ok = len(names) == count
         print(f"{label}: one call issues {len(names)} device kernel(s) "
               f"{[n.replace('(anonymous namespace)::', '').split('(')[0] for n in names]} "
@@ -1068,20 +1098,20 @@ class SyntheticLoader:
         return (self.batches[i % len(self.batches)] for i in range(self.steps))
 
 
-def train_path(dev, config, label, epochs, steps, expect_conf, expect_launches, grid=None,
-               points=POINTS):
-    """``train_model`` over synthetic batches, at full width unless a
-    smaller ``grid`` is given (for rehearsals); returns the launch counts
-    and what the later phases need."""
+def run_training(dev, label, cfg, meta, loader, epochs, steps, expect_launches,
+                 step_wrap=None, epoch_hook=None):
+    """``train_model`` over ``loader`` with the device batch keys of the
+    model, from a fresh trainer; finite losses, gradients (at each epoch's
+    last step, outside the timed intervals) and parameters, and the launch
+    counts per step.  ``step_wrap(step)`` may wrap the train step;
+    ``epoch_hook(epoch, state)`` runs at each epoch's first step.  Returns
+    the counts, the trainer and the step times (CUDA events between steps,
+    the first of each epoch left out)."""
     from com_tpu_torch.train.loop import train_model
+    from com_tpu_torch.train.step import device_batch_keys
 
-    cfg, meta = load_config(grid, config)
-    cfg.MODEL.VFE.ASSUME_SORTED_POINTS = True  # the batches come presorted
-    rng = np.random.RandomState(16)
-    batches = [waymo_like_batch(rng, BATCH, points, meta.point_cloud_range, meta.voxel_size,
-                                len(cfg.CLASS_NAMES)) for _ in range(2)]
     net, opt, state, step = build_trainer(dev, cfg, meta, steps)
-    loader = SyntheticLoader(batches, steps)
+    run_step = step_wrap(step) if step_wrap else step
     params = [p for p in net.parameters()]
     marks, losses, finite = [], [], []
 
@@ -1093,6 +1123,8 @@ def train_path(dev, config, label, epochs, steps, expect_conf, expect_launches, 
         ev.record()
         marks.append((epoch, ev))
         losses.append(metrics["loss"])
+        if it == 0 and epoch_hook is not None:
+            epoch_hook(epoch, state)
         if it == steps - 1:  # the interval after an epoch's last step is not timed
             finite.append(all_finite(p.grad for p in params))
 
@@ -1100,8 +1132,8 @@ def train_path(dev, config, label, epochs, steps, expect_conf, expect_launches, 
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counters()
     t0 = time.perf_counter()
-    state, iters = train_model(step, state, loader, num_epochs=epochs, metric_hook=hook,
-                               device=dev)
+    state, iters = train_model(run_step, state, loader, num_epochs=epochs, metric_hook=hook,
+                               device=dev, batch_keys=device_batch_keys(cfg.MODEL))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counters()
@@ -1111,17 +1143,12 @@ def train_path(dev, config, label, epochs, steps, expect_conf, expect_launches, 
     finite.append(all_finite(params))
     losses = torch.stack(losses).float().cpu().numpy()
     step_ms = [a.elapsed_time(b) for (ea, a), (eb, b) in zip(marks, marks[1:]) if ea == eb]
-    conf = loader.dataset.confidence_groups
     ok = (iters == epochs * steps and np.isfinite(losses).all()
-          and bool(torch.stack(finite).all()) and float(state.conf_cnt.sum()) > 0
-          and len(conf) == epochs
-          and all(c.shape == expect_conf and np.isfinite(c).all() for c in conf))
+          and bool(torch.stack(finite).all()) and float(state.conf_cnt.sum()) > 0)
     print(f"training path {label}: {iters} steps in {epochs} mini-epochs, {wall:.2f} s wall; "
           f"losses {[round(float(x), 4) for x in losses]}; gradients (last step of each "
-          f"epoch) and parameters finite: "
-          f"{bool(torch.stack(finite).all())}; conf_cnt of the last epoch "
-          f"{int(state.conf_cnt.sum())}; feedback {[c.shape for c in conf]} finite "
-          f"{all(np.isfinite(c).all() for c in conf)} {'ok' if ok else 'FAIL'}")
+          f"epoch) and parameters finite: {bool(torch.stack(finite).all())}; conf_cnt of the "
+          f"last epoch {int(state.conf_cnt.sum())} {'ok' if ok else 'FAIL'}")
     if step_ms:
         print(f"  step time (CUDA events between steps, the first of each epoch left out): "
               f"mean {np.mean(step_ms):.3f} ms over {len(step_ms)} "
@@ -1129,7 +1156,256 @@ def train_path(dev, config, label, epochs, steps, expect_conf, expect_launches, 
     if not ok:
         raise AssertionError(f"training path {label} failed its checks")
     check_launches(f"{label} step", counts, expect_launches, iters)
+    return counts, (net, opt, state, step), step_ms
+
+
+def train_path(dev, config, label, epochs, steps, expect_conf, expect_launches, grid=None,
+               points=POINTS):
+    """``train_model`` over synthetic batches, at full width unless a
+    smaller ``grid`` is given (for rehearsals); the epoch-end feedback
+    reaches the recording loader.  Returns the launch counts and what the
+    later phases need."""
+    cfg, meta = load_config(grid, config)
+    cfg.MODEL.VFE.ASSUME_SORTED_POINTS = True  # the batches come presorted
+    rng = np.random.RandomState(16)
+    batches = [waymo_like_batch(rng, BATCH, points, meta.point_cloud_range, meta.voxel_size,
+                                len(cfg.CLASS_NAMES)) for _ in range(2)]
+    loader = SyntheticLoader(batches, steps)
+    counts, (net, opt, state, step), _ = run_training(dev, label, cfg, meta, loader, epochs,
+                                                       steps, expect_launches)
+    conf = loader.dataset.confidence_groups
+    ok = len(conf) == epochs and all(c.shape == expect_conf and np.isfinite(c).all()
+                                     for c in conf)
+    print(f"  feedback {[c.shape for c in conf]} finite {ok} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"training path {label}: the epoch-end feedback is wrong")
     return counts, (net, opt, state, step, batches[0], cfg, meta)
+
+
+def path_c_dataset_cfg(cfg, bg_points=120000, max_points=POINTS):
+    """The synthetic dataset of path C (the JAX package's end-to-end bench
+    loader, ``bench.py`` ``_make_loader``): one epoch's scenes of
+    ``bg_points`` ground points and up to 48 objects, the in-memory GT
+    database, the flagship's DATA_AUGMENTOR (COM2 GT-paste, world flip,
+    rotation, scaling) and DATA_PROCESSOR (range mask, shuffle, pillar
+    presort at 0.32 m), 500 object slots."""
+    import copy
+
+    from com_tpu_torch.utils.config import CfgNode
+
+    d = cfg.DATA_CONFIG
+    return CfgNode({"DATASET": "SyntheticDataset", "NUM_SCENES": BATCH * C_STEPS,
+                    "NUM_OBJECTS": 48,
+                    "NUM_BG_POINTS": bg_points, "POINT_CLOUD_RANGE": list(d.POINT_CLOUD_RANGE),
+                    "MAX_POINTS_PER_SCENE": max_points, "MAX_GT_OBJECTS": NUM_MAX_OBJS,
+                    "POINT_FEATURE_ENCODING": copy.deepcopy(d.POINT_FEATURE_ENCODING),
+                    "DATA_AUGMENTOR": copy.deepcopy(d.DATA_AUGMENTOR),
+                    "DATA_PROCESSOR": copy.deepcopy(d.DATA_PROCESSOR)})
+
+
+def host_pipeline_rate(ds_cfg, names):
+    """Scenes a second that path C's host pipeline alone delivers (no
+    device), as the JAX package's bench measures it: the loader's first
+    batch warms the workers and is not timed, then every batch of path C's
+    epochs."""
+    from com_tpu_torch.data.dataset import build_dataloader
+
+    _, loader = build_dataloader(ds_cfg, names, BATCH, training=True, seed=C_SEED,
+                                 workers=C_WORKERS)
+    n, t0 = 0, None
+    for epoch in range(C_EPOCHS):
+        loader.set_epoch(epoch)
+        for _ in loader:
+            if t0 is None:
+                t0 = time.perf_counter()
+            else:
+                n += 1
+    return BATCH * n / (time.perf_counter() - t0), n
+
+
+class CheckedLoader:
+    """The port's PrefetchLoader as ``train_model`` reads it, checking each
+    host batch on its way to the device.  The fixed shapes.  The pasted
+    objects (``true_object == 2``) of each sample: as many as the sampler
+    pasted into the scene reach the range mask, as many of those as have
+    their centre in the range reach the batch (both counted where it
+    happens, by wrapping the sampler's paste and the mask step of this
+    dataset), and no class past its LIMIT_WHOLE_SCENE quota (SAMPLE_GROUPS
+    less the scene's own objects of the class)."""
+
+    def __init__(self, loader, names, max_points, sample_groups):
+        self.loader, self.dataset = loader, loader.dataset
+        self.names, self.max_points = names, max_points
+        self.quota_of = {c: int(n) for c, n in (g.split(":") for g in sample_groups)}
+        self.samples = []  # (epoch, frame, quota by class, pasted by class)
+        self.errors = []
+        self.pasted, self.masked = {}, {}  # (epoch, frame) -> count
+        ds = self.dataset
+        sampler = ds.data_augmentor.gt_sampler
+        paste = sampler.add_sampled_boxes_to_scene
+
+        def counted_paste(data_dict, sampled_boxes, sampled_infos):
+            self.pasted[(ds.epoch, data_dict["frame_id"])] = len(sampled_infos)
+            return paste(data_dict, sampled_boxes, sampled_infos)
+
+        sampler.add_sampled_boxes_to_scene = counted_paste
+        queue = ds.data_processor.queue
+        k = next(i for i, (fn, _) in enumerate(queue)
+                 if fn.__name__ == "mask_points_and_boxes_outside_range")
+        mask, mask_cfg = queue[k]
+        pr = ds.point_cloud_range
+
+        def counted_mask(data_dict, cfg):
+            pasted = np.asarray(data_dict["true_object"]) == 2
+            ctr = np.asarray(data_dict["gt_boxes"])[:, :3]
+            inside = ((ctr >= pr[:3]) & (ctr <= pr[3:])).all(axis=1)
+            self.masked[(ds.epoch, data_dict["frame_id"])] = (int(pasted.sum()),
+                                                             int((pasted & inside).sum()))
+            return mask(data_dict, cfg)
+
+        queue[k] = (counted_mask, mask_cfg)
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+        self.loader.set_epoch(epoch)
+
+    def check(self, b):
+        want = {"points": (BATCH, self.max_points, FEATS), "points_mask": (BATCH, self.max_points),
+                "gt_boxes": (BATCH, NUM_MAX_OBJS, 8)}
+        for k in ("points", "points_mask", "gt_boxes", "true_object", "num_points_in_gt",
+                  "occupancy_ratio", "facade_type"):
+            if b[k].shape != want.get(k, (BATCH, NUM_MAX_OBJS)):
+                self.errors.append(f"{k} has shape {b[k].shape}")
+        for i, frame in enumerate(b["frame_id"]):
+            gt_names = self.dataset._scenes[frame]["gt_names"]
+            quota = {c: self.quota_of[c] - int((gt_names == c).sum()) for c in self.names}
+            rows = b["true_object"][i] == 2
+            pasted = {c: int((rows & (b["gt_boxes"][i, :, 7] == k + 1)).sum())
+                      for k, c in enumerate(self.names)}
+            n_paste = self.pasted.get((self.epoch, frame), 0)
+            n_in, n_out = self.masked[(self.epoch, frame)]
+            if (n_in != n_paste or sum(pasted.values()) != n_out
+                    or any(pasted[c] > max(quota[c], 0) for c in self.names)):
+                self.errors.append(f"frame {frame}: quota {quota}, sampler pasted {n_paste}, "
+                                   f"{n_in} tagged at the range mask, {n_out} of them inside, "
+                                   f"batch {pasted}")
+            self.samples.append((self.epoch, frame, quota, pasted))
+
+    def __iter__(self):
+        for b in self.loader:
+            self.check(b)
+            yield b
+
+
+def train_path_c(dev, grid=None, bg_points=120000, max_points=POINTS):
+    """Training path C: the flagship's model and optimizer at full width
+    (unless a smaller ``grid`` is given, for rehearsals) over the port's own
+    data pipeline, ``build_dataloader`` -> ``PrefetchLoader`` (COM2 GT-paste,
+    world augmentations, presort, collate) -> ``DevicePrefetcher`` ->
+    ``make_train_step``, with the curriculum loop closed: each epoch's
+    card-computed confidences reach the COM2 sampler, which draws the next
+    epoch's pastes by them.  Gates: fixed shapes and pasted objects
+    (``CheckedLoader``); every sample's valid points sorted by pillar on the
+    card (``point_voxel_ids``); the sampler holding each epoch's confidences
+    bitwise; COM2's group probabilities away from the size-proportional ones
+    at epochs 1 and 2; finite losses, gradients and parameters; path A's
+    launch counts a step.  Prints the step time, the host pipeline's own
+    rate, the main thread's wait for a batch and peak memory."""
+    from com_tpu_torch.data.dataset import build_dataloader
+    from com_tpu_torch.data.processor import pipeline_presorts_points
+    from com_tpu_torch.ops.voxelize import point_voxel_ids
+
+    cfg, meta = load_config(grid)
+    names = list(cfg.CLASS_NAMES)
+    ds_cfg = path_c_dataset_cfg(cfg, bg_points=bg_points, max_points=max_points)
+    ds_cfg.POINT_CLOUD_RANGE = list(meta.point_cloud_range)
+    presorted = pipeline_presorts_points(ds_cfg, meta.voxel_size)
+    if "ASSUME_SORTED_POINTS" not in cfg.MODEL.VFE and presorted:
+        cfg.MODEL.VFE.ASSUME_SORTED_POINTS = True
+    print(f"path C: pipeline_presorts_points {presorted}, ASSUME_SORTED_POINTS "
+          f"{cfg.MODEL.VFE.get('ASSUME_SORTED_POINTS', False)}")
+    if not presorted:
+        raise AssertionError("path C: the flagship's DATA_PROCESSOR no longer presorts")
+
+    rate, n_host = host_pipeline_rate(ds_cfg, names)
+    print(f"path C host pipeline alone: {rate:.2f} scenes/s with {C_WORKERS} workers "
+          f"({n_host} batches timed after a warm-up batch)")
+
+    ds, loader = build_dataloader(ds_cfg, names, BATCH, training=True, seed=C_SEED,
+                                  workers=C_WORKERS)
+    sampler = ds.data_augmentor.gt_sampler
+    aug = next(c for c in ds_cfg.DATA_AUGMENTOR.AUG_CONFIG_LIST if c.NAME == "gt_sampling")
+    checked = CheckedLoader(loader, names, max_points, aug.SAMPLE_GROUPS)
+    conf_shape = (len(names), 96)
+    acc = {}  # epoch -> (sum, count) of the steps' confidence statistics, on the card
+    sorted_ok, waits, shares = [], [], []
+    seen = {}  # epoch -> the sampler's confidences at its first step
+    last = {"t": None}
+
+    def step_wrap(step):
+        def wrapped(state, batch, epoch):
+            t = time.perf_counter()
+            if last["t"] is not None and epoch == last["epoch"]:
+                waits.append(t - last["t"])
+            # every sample's valid points non-decreasing in pillar id
+            ids, _ = point_voxel_ids(batch["points"][..., :3], meta.point_cloud_range,
+                                     meta.voxel_size, meta.grid_size)
+            pair = batch["points_mask"][:, 1:] & batch["points_mask"][:, :-1]
+            sorted_ok.append(((ids[:, 1:] >= ids[:, :-1]) | ~pair).all(dim=1))
+            state, metrics = step(state, batch, epoch)
+            s, c = acc.get(epoch, (torch.zeros(conf_shape, device=dev),
+                                   torch.zeros(conf_shape, device=dev)))
+            acc[epoch] = (s.add_(metrics["confidence_sum"]), c.add_(metrics["confidence_cnt"]))
+            last.update(t=time.perf_counter(), epoch=epoch)
+            return state, metrics
+        return wrapped
+
+    def epoch_hook(epoch, state):
+        """At each epoch's first step: what the sampler holds and COM2's
+        group probabilities (host arrays only: no sync with the card)."""
+        if epoch == 0:
+            return
+        seen[epoch] = np.array(sampler.confidence_groups)
+        for c in names:
+            group = sampler.sample_groups[c]
+            sizes = np.array([len(g) for g in group["indices"]], np.float64)
+            prob = sampler.group_probability(c, group)
+            k, u, _ = sampler.pacing(c, len(sizes))
+            shares.append((epoch, c, k, u, float(np.abs(prob - sizes / sizes.sum()).max()),
+                           len(sizes)))
+
+    counts, trainer, step_ms = run_training(dev, "C (flagship, own pipeline)", cfg, meta,
+                                            checked, C_EPOCHS, C_STEPS, EXPECT_TRAIN,
+                                            step_wrap=step_wrap, epoch_hook=epoch_hook)
+    state = trainer[2]
+    seen[C_EPOCHS] = np.array(sampler.confidence_groups)
+    held = []
+    for epoch in range(1, C_EPOCHS + 1):  # the feedback of epoch - 1 against the card's
+        s_, c_ = acc[epoch - 1]
+        want = (s_ / (c_ + 0.01)).cpu().numpy()
+        got = seen[epoch]
+        held.append(got.shape == want.shape and got.dtype == want.dtype
+                    and got.tobytes() == want.tobytes())
+    for epoch, c, k, u, diff, n in shares:
+        print(f"  epoch {epoch} {c}: pacing index k = {k}, centre u = {u:.6f}, "
+              f"max |p - size share| = {diff:.3e} over {n} groups")
+    moved = [diff > 1e-6 for *_, diff, _n in shares]
+    ok_sorted = bool(torch.stack(sorted_ok).all())
+    room = sum(1 for *_, q, _p in checked.samples if sum(max(v, 0) for v in q.values()))
+    with_paste = sum(1 for *_, p in checked.samples if sum(p.values()))
+    pasted = sum(sum(p.values()) for *_, p in checked.samples)
+    print(f"path C checks: {len(checked.samples)} samples, fixed shapes and pasted objects "
+          f"{'ok' if not checked.errors else checked.errors}; {room} with room under "
+          f"LIMIT_WHOLE_SCENE, {with_paste} carry pasted objects, {pasted} in all; valid points "
+          f"pillar-sorted on the card {ok_sorted}; sampler holds each epoch's confidences "
+          f"bitwise {held}; COM2 leaves the size shares {moved}")
+    print(f"  main thread's wait for a batch (host clock between steps, the first of each "
+          f"epoch left out): mean {1e3 * np.mean(waits):.3f} ms over {len(waits)}")
+    if (checked.errors or not pasted or not ok_sorted or not all(held)
+            or len(moved) != (C_EPOCHS - 1) * len(names) or not all(moved)
+            or tuple(state.conf_sum.shape) != conf_shape):
+        raise AssertionError("training path C failed its checks")
+    return counts, step_ms
 
 
 def stage_and_overfit(dev, trainer, steps=10):
@@ -1229,6 +1505,8 @@ def main():
     torch.cuda.empty_cache()
     b_counts, _ = train_path(dev, CAR_CONFIG, "B (car_com1, UCL)", 1, 2, (1, 96),
                              EXPECT_TRAIN_UCL)
+    torch.cuda.empty_cache()
+    train_path_c(dev)
     # each kernel's launches on the path that runs it: training path A,
     # serving for K4, path B for K3's last_wins mode, the sweep for T1-T4
     counts = {**a_counts, "nms": serve_counts["nms"],

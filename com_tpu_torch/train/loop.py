@@ -24,9 +24,10 @@ class DevicePrefetcher:
     """Copies the next host batch to the device while the current step runs:
     a worker thread pins each array and copies it on a stream of its own;
     the consumer's stream waits for that copy before it reads the batch.
-    Two batches may be in flight."""
+    Two batches may be in flight.  Only the numpy arrays under
+    ``batch_keys`` are copied (every numpy array when it is None)."""
 
-    def __init__(self, host_iter, device: torch.device):
+    def __init__(self, host_iter, device: torch.device, batch_keys=None):
         self.q = queue.Queue(maxsize=2)
         self._stop = object()
         self._error = None
@@ -35,7 +36,8 @@ class DevicePrefetcher:
         stream = torch.cuda.Stream(device) if on_card else None
 
         def to_device(batch):
-            arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+            arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)
+                      and (batch_keys is None or k in batch_keys)}
             if not on_card:
                 return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}, None
             with torch.cuda.stream(stream):
@@ -77,10 +79,12 @@ class DevicePrefetcher:
 
 
 def train_model(step_fn, state, loader, num_epochs: int, ckpt_dir=None, metric_hook=None,
-                device=None):
+                device=None, batch_keys=None):
     """Run ``step_fn(state, batch, epoch)`` over ``loader`` for epochs
     ``0 .. num_epochs - 1``; returns (state, steps taken).
     ``metric_hook(epoch, it, metrics)`` sees each step's device metrics.
+    ``batch_keys`` (``train.step.device_batch_keys``) are the arrays copied
+    to the device; None copies every numpy array of a batch.
 
     ``device`` follows the entry-point rule (CUDA unless the caller passes
     another) and must hold ``state``'s model."""
@@ -91,7 +95,7 @@ def train_model(step_fn, state, loader, num_epochs: int, ckpt_dir=None, metric_h
     for epoch in range(num_epochs):
         loader.set_epoch(epoch)
         state.reset_epoch_stats()
-        for it, batch in enumerate(DevicePrefetcher(iter(loader), dev)):
+        for it, batch in enumerate(DevicePrefetcher(iter(loader), dev, batch_keys)):
             state, metrics = step_fn(state, batch, epoch)
             steps += 1
             if metric_hook is not None:

@@ -20,6 +20,28 @@ BATCH_KEYS = ("points", "points_mask", "gt_boxes", "num_points_in_gt", "true_obj
               "occupancy_ratio", "facade_type")
 
 
+def device_batch_keys(model_cfg) -> set:
+    """The batch keys the model and loss read (counterpart of
+    ``com_tpu/train/step.py`` ``device_batch_keys``): ``DevicePrefetcher``
+    copies only these to the device, and the rest of a collated batch
+    (voxels, frame ids, the augmentations' parameters) stays on the host."""
+    keys = {"gt_boxes", "num_points_in_gt", "true_object", "occupancy_ratio", "facade_type"}
+    vfe = model_cfg.get("VFE", {}).get("NAME", "")
+    if vfe.startswith("Dynamic") or model_cfg.get("VFE", {}).get("VOXELIZE_ON_DEVICE"):
+        keys |= {"points", "points_mask"}
+    elif vfe == "ImageVFE":
+        keys |= {"images", "depth_maps", "trans_lidar_to_cam", "trans_cam_to_img", "gt_boxes2d",
+                 "image_shape"}
+    else:
+        keys |= {"voxels", "voxel_coords", "voxel_num_points"}
+    if model_cfg.get("PFE") is not None:  # keypoint abstraction reads raw points
+        keys |= {"points", "points_mask"}
+    if model_cfg.get("BACKBONE_3D", {}).get("USE_IMG"):
+        keys |= {"images", "image_shape", "trans_lidar_to_cam", "trans_cam_to_img", "noise_rot",
+                 "noise_scale", "flip_x", "flip_y"}
+    return keys
+
+
 def _head_groups(model_cfg, class_names):
     return [tuple(class_names.index(n) + 1 for n in names if n in class_names)
             for names in model_cfg["DENSE_HEAD"]["CLASS_NAMES_EACH_HEAD"]]

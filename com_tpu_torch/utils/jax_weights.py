@@ -16,7 +16,8 @@ so it takes the transposed-conv layout too.  Covers the CenterPoint-Pillar
 slots: DynamicPillarVFE, BaseBEVBackbone, CenterHead.  For comparing a train
 step, ``params_from_jax`` maps any tree shaped like flax "params" (its
 gradients, its updated parameters) into the same pcdet names, and
-``curriculum_state_from_jax`` carries the COMLoss EMA state across.
+``curriculum_state_from_jax`` carries the COMLoss EMA state across and
+``sampler_state_from_jax`` the COMAug sampler's confidences.
 """
 from __future__ import annotations
 
@@ -154,6 +155,18 @@ def curriculum_state_from_jax(states, device=None) -> tuple:
     return tuple(CurriculumState(t(s.avg_confidence, torch.float32), t(s.mean, torch.float32),
                                  t(s.std, torch.float32), t(s.initialized, torch.bool))
                  for s in states)
+
+
+def sampler_state_from_jax(payload, dataset) -> np.ndarray:
+    """Carry the COMAug sampler state of a JAX checkpoint,
+    ``{"confidence_groups": (C, G) array}`` (``com_tpu/train/loop.py``
+    ``sampler_state``), into the port's ``dataset`` through
+    ``set_confidence_groups``; returns the confidences as numpy."""
+    conf = np.array(payload["confidence_groups"], np.float32)
+    if conf.ndim != 2:
+        raise ValueError(f"confidence_groups is (classes, groups), got {conf.shape}")
+    dataset.set_confidence_groups(conf)
+    return conf
 
 
 def load_jax_variables(net: torch.nn.Module, variables, model_cfg, class_names):

@@ -3,7 +3,7 @@
 The reference looks components up by NAME in per-module ``__all__`` dicts
 (pcdet/datasets/__init__.py:16-24, pcdet/models/detectors/__init__.py:15-29).
 We centralize that pattern in a tiny Registry class so every subsystem
-(detectors, VFEs, backbones, heads) registers
+(datasets, detectors, VFEs, backbones, heads) registers
 itself with a decorator.
 """
 from __future__ import annotations
@@ -41,6 +41,7 @@ class Registry:
         return sorted(self._entries)
 
 
+DATASETS = Registry("datasets")
 DETECTORS = Registry("detectors")
 VFES = Registry("vfe")
 BACKBONES_2D = Registry("backbones_2d")

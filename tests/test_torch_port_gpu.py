@@ -639,3 +639,58 @@ def _train_step_card_against_cpu(dev, bias_shift):
             assert float(((s0[f"{norm}.running_var"] - var).abs() / second).max()) <= 1e-5, k
     assert torch.equal(cc0, cc1)
     assert float((cs0 - cs1).abs().max()) <= 1e-4
+
+
+def test_loader_batch_sorted_on_card_and_one_train_step(dev):
+    """A batch of the port's own pipeline (synthetic scenes, the flagship's
+    COM2 GT-paste, world augmentations and pillar presort, collated) through
+    ``DevicePrefetcher`` with the model's batch keys: every sample's valid
+    points non-decreasing in the card's pillar id (``point_voxel_ids``),
+    then one flagship train step (bf16, a 128x128 grid) with the path's
+    launch counts: K1 2 + 1 backward, K2 14 + 14 dgrad, K2w 14, K3 1."""
+    from com_tpu_torch.data.dataset import build_dataloader
+    from com_tpu_torch.data.processor import pipeline_presorts_points
+    from com_tpu_torch.models.detectors import DatasetMeta, build_network
+    from com_tpu_torch.ops.voxelize import point_voxel_ids
+    from com_tpu_torch.train.loop import DevicePrefetcher
+    from com_tpu_torch.train.optim import build_optimizer
+    from com_tpu_torch.train.state import TrainState
+    from com_tpu_torch.train.step import conf_shape_for, device_batch_keys, make_train_step
+    from com_tpu_torch.utils.config import CfgNode, cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file("configs/waymo_models/com/centerpoint_pillar_3cls_com.yaml")
+    names, vsize, grid = list(cfg.CLASS_NAMES), (0.32, 0.32, 6.0), (128, 128, 1)
+    pc_range = (-20.48, -20.48, -2.0, 20.48, 20.48, 4.0)
+    d = cfg.DATA_CONFIG
+    ds_cfg = CfgNode({"DATASET": "SyntheticDataset", "NUM_SCENES": 2, "NUM_OBJECTS": 12,
+                      "NUM_BG_POINTS": 6000, "POINT_CLOUD_RANGE": list(pc_range),
+                      "MAX_POINTS_PER_SCENE": 16384, "MAX_GT_OBJECTS": 500,
+                      "POINT_FEATURE_ENCODING": d.POINT_FEATURE_ENCODING,
+                      "DATA_AUGMENTOR": d.DATA_AUGMENTOR, "DATA_PROCESSOR": d.DATA_PROCESSOR})
+    assert pipeline_presorts_points(ds_cfg, vsize)
+    cfg.MODEL.VFE.ASSUME_SORTED_POINTS = True
+    _, loader = build_dataloader(ds_cfg, names, 2, seed=5, workers=1)
+    loader.set_epoch(0)
+    keys = device_batch_keys(cfg.MODEL)
+    batch = next(iter(DevicePrefetcher(iter(loader), dev, keys)))
+    assert set(batch) == keys and batch["points"].device.type == dev.type
+    ids, _ = point_voxel_ids(batch["points"][..., :3], pc_range, vsize, grid)
+    pair = batch["points_mask"][:, 1:] & batch["points_mask"][:, :-1]
+    assert bool(((ids[:, 1:] >= ids[:, :-1]) | ~pair).all())
+    assert int(batch["points_mask"].sum()) > 1000
+
+    meta = DatasetMeta(names, pc_range, vsize, grid, 5)
+    net = build_network(cfg.MODEL, meta, device=dev, seed=3)
+    opt, _ = build_optimizer(net, cfg.OPTIMIZATION, 10, 1)
+    state = TrainState.create(net, opt, 1, conf_shape_for(cfg.MODEL, names), device=dev)
+    step = make_train_step(net, cfg.MODEL, names, meta, opt, grid[1::-1], device=dev)
+    counters = [(seg_scan, "launches", 2), (seg_scan, "bwd_launches", 1),
+                (conv2d, "launches", 14), (conv2d, "dgrad_launches", 14),
+                (conv2d, "wgrad_launches", 14), (stamp, "gauss_launches", 1),
+                (stamp, "last_wins_launches", 0)]
+    before = [getattr(m, a) for m, a, _ in counters]
+    state, metrics = step(state, batch, 0)
+    torch.cuda.synchronize()
+    assert [getattr(m, a) - b for (m, a, _), b in zip(counters, before)] == \
+        [n for *_, n in counters]
+    assert np.isfinite(float(metrics["loss"])) and float(state.conf_cnt.sum()) > 0
