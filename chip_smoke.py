@@ -1,5 +1,6 @@
-"""Drive the PyTorch/CUDA port's serving and training paths (the last one
-over its own data pipeline) and its wgrad sweep on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths (over its own
+data pipeline, and through its train, test and demo CLIs) and its wgrad
+sweep on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -65,9 +66,19 @@ Phases (any failure raises, and the script exits non-zero):
    finite losses, gradients and parameters; path A's launch counts a step.
    Prints the host pipeline's own rate, the step time, the main thread's
    wait for a batch and peak memory.
-9. Launch counts: every counter is zeroed just before each path (the
-   sweep, serving, A, B, C) and read just after, against the calls the sweep
-   reports and the expected counts per forward or per step.  The device
+9. Path D, the flagship through the port's own entry points
+   (``com_tpu_torch.tools``, in-process) over path C's data: train 2
+   epochs with one checkpoint kept; resume to 3, checked before its first
+   step against the file (epoch 2, iteration 8, the optimizer's count and
+   moments, the curriculum, the sampler's confidences, the model, all
+   bitwise); the checkpoint's size and save / load times; the test CLI on
+   the val split (every frame, scores sorted, labels in range, at most
+   NMS_POST_MAXSIZE a head, result.pkl, recall, s a frame and
+   ``--infer_time``'s ms a frame); the demo over two ``.npy`` scenes.
+   Path A's launch counts a train step, serving's an eval forward.
+10. Launch counts: every counter is zeroed just before each path (the
+   sweep, serving, A, B, C, D's phases) and read just after, against the
+   calls the sweep reports and the expected counts per forward or per step.  The device
    kernels one K3 call issues (1) and one K4 call (2, the pack and the
    sweep), counted by torch.profiler after every timed phase.  Then the
    ``kernels`` line, the card's name and power limit, and the device line
@@ -111,6 +122,8 @@ PROFILE_SESSIONS = 3  # tries for a profiling session that sees the device
 # path C: epochs, steps an epoch (of BATCH scenes: the dataset holds one
 # epoch's scenes), loader threads, seed
 C_EPOCHS, C_STEPS, C_WORKERS, C_SEED = 3, 4, 2, 9
+# path D: loader threads, seed (its scenes are path C's), the evaluation's score threshold
+D_WORKERS, D_SEED, D_SCORE_THRESH = 2, 11, 0.0
 WGRAD_THS = (8, 16)
 # variant -> (TPU kernel, line of its pallas_call in tools/perf/microbench_wgrad_kernels.py)
 WGRAD_VARIANTS = {"gcol": ("T1", 84), "xcol": ("T2", 128), "gt9": ("T3", 175),
@@ -1408,6 +1421,236 @@ def train_path_c(dev, grid=None, bg_points=120000, max_points=POINTS):
     return counts, step_ms
 
 
+def _plain(node):
+    """A config tree as plain dicts and lists, for ``yaml.safe_dump``."""
+    if isinstance(node, dict):
+        return {k: _plain(v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_plain(v) for v in node]
+    return node
+
+
+def _quiet_cli_logger():
+    """The CLIs log every config key at INFO to the console: keep the
+    console to warnings (their log files still get everything)."""
+    import logging
+
+    logger = logging.getLogger("com_tpu_torch.r0")
+    if not logger.handlers:
+        console = logging.StreamHandler()
+        console.setLevel(logging.WARNING)
+        logger.addHandler(console)
+
+
+def _same_tensors(a, b):
+    """Bitwise equality of two nests of tensors (dicts, lists, tuples)."""
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(_same_tensors(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_tensors(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    return a == b
+
+
+def path_d(dev, smi, pc_range=None, bg_points=120000):
+    """Path D: the flagship through the port's own entry points, as a user
+    runs it (``com_tpu_torch.tools``: train, resume, test, demo), in-process,
+    over a YAML holding the flagship's MODEL and OPTIMIZATION unchanged (but
+    the evaluation's SCORE_THRESH, ``D_SCORE_THRESH``) and path C's
+    DATA_CONFIG (8 scenes, batch 2, 2 loader threads).  Train 2
+    epochs with one checkpoint kept; resume to 3, checked before its first
+    step (epoch 2, iteration 8, the optimizer's count 8 and moments, the
+    curriculum states, the sampler's confidences and the model bitwise as
+    in the file); test the epoch-3 checkpoint on the val split with
+    ``--infer_time`` and ``--save_to_file``; the demo over two ``.npy``
+    scenes.  Launch counts: path A's a train step, serving's an eval
+    forward.  Prints the step time through the CLI, the checkpoint's size
+    and save / load times, the test CLI's s a frame and ms a frame, recall
+    and peak memory, each beside the card.  ``pc_range`` (a smaller scene,
+    hence grid) and ``bg_points`` are for rehearsals."""
+    import shutil
+
+    import yaml
+
+    from com_tpu_torch.data.synthetic import make_scene
+    from com_tpu_torch.tools import demo, test, train
+    from com_tpu_torch.utils import checkpoint as ckpt
+    from com_tpu_torch.utils.config import cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file(str(REPO / CONFIG))
+    names = list(cfg.CLASS_NAMES)
+    root = REPO / "build" / "path_d"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        data_cfg = _plain(path_c_dataset_cfg(cfg, bg_points=bg_points))
+        if pc_range is not None:
+            data_cfg["POINT_CLOUD_RANGE"] = list(pc_range)
+        # 12 steps from random weights leave every score under the flagship's
+        # 0.1: the evaluation keeps every decoded candidate instead, so that
+        # NMS, the trim and the sort see real work (training never reads it)
+        model_cfg = _plain(cfg.MODEL)
+        model_cfg["DENSE_HEAD"]["POST_PROCESSING"]["SCORE_THRESH"] = D_SCORE_THRESH
+        yaml_path = root / "flagship_path_d.yaml"
+        yaml_path.write_text(yaml.safe_dump({
+            "CLASS_NAMES": names, "DATA_CONFIG": data_cfg, "MODEL": model_cfg,
+            "OPTIMIZATION": _plain(cfg.OPTIMIZATION)}))
+        _quiet_cli_logger()
+        base = ["--cfg_file", str(yaml_path), "--output_dir", str(root / "out"),
+                "--workers", str(D_WORKERS), "--device", str(dev)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        # 1. train 2 epochs, one checkpoint kept
+        marks, losses = [], []
+
+        def hook(epoch, it, metrics):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((epoch, ev))
+            losses.append(metrics["loss"])
+
+        reset_counters()
+        t0 = time.perf_counter()
+        first = train.main(base + ["--seed", str(D_SEED), "--epochs", "2",
+                                   "--ckpt_save_interval", "1", "--max_ckpt_save_num", "1"],
+                           metric_hook=hook)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = first["iterations"]
+        check_launches("D train step (CLI)", read_counters(), EXPECT_TRAIN, steps)
+        ckpt_dir = first["ckpt_dir"]
+        kept = sorted(p.name for p in ckpt_dir.iterdir())
+        logged = [json.loads(x) for x in
+                  (first["out_dir"] / "metrics" / "metrics.jsonl").read_text().splitlines()]
+        loss_host = [float(x) for x in losses]
+        step_ms = [a.elapsed_time(b) for (ea, a), (eb, b) in zip(marks, marks[1:]) if ea == eb]
+        ok = (steps == 2 * C_STEPS and kept == ["checkpoint_epoch_2.pth"] and logged
+              and all(math.isfinite(x["loss"]) for x in logged) and np.isfinite(loss_host).all())
+        print(f"path D train CLI: {steps} steps in 2 epochs, {wall:.2f} s wall (dataset, model and "
+              f"loader included); kept {kept}; metrics.jsonl {len(logged)} lines, losses "
+              f"{[round(x, 4) for x in loss_host]} {'ok' if ok else 'FAIL'}")
+        print(f"  step time through the CLI (CUDA events between steps, the first of each epoch "
+              f"left out): mean {np.mean(step_ms):.3f} ms over {len(step_ms)} "
+              f"{[round(x, 3) for x in step_ms]} ({smi})")
+        if not ok:
+            raise AssertionError("path D: the train CLI failed its checks")
+
+        # 2. resume to 3 epochs, checked against the file before the first step
+        saved = ckpt_dir / "checkpoint_epoch_2.pth"
+        checks = {}
+
+        def on_start(info):
+            state, ds = info["state"], info["dataset"]
+            want = torch.load(saved, map_location=dev, weights_only=True)
+            opt = state.optimizer.state_dict()
+            conf = ds.data_augmentor.gt_sampler.confidence_groups
+            checks.update(
+                epoch=info["start_epoch"] == 2, it=info["start_iter"] == 2 * C_STEPS,
+                count=state.optimizer.count == 2 * C_STEPS == want["optimizer_state"]["count"],
+                moments=_same_tensors(opt["state"], want["optimizer_state"]["state"]),
+                model=_same_tensors(state.net.state_dict(), want["model_state"]),
+                curriculum=_same_tensors(
+                    [dict(c._asdict()) for c in state.curriculum], want["curriculum"]),
+                sampler=(conf is not None and conf.dtype == np.float32 and conf.tobytes()
+                         == want["sampler"]["confidence_groups"].cpu().numpy().tobytes()))
+
+        marks.clear()
+        losses.clear()
+        reset_counters()
+        second = train.main(base + ["--seed", str(D_SEED), "--epochs", "3"], on_start=on_start,
+                            metric_hook=hook)
+        torch.cuda.synchronize()
+        resumed = second["iterations"] - second["start_iter"]
+        check_launches("D resumed train step (CLI)", read_counters(), EXPECT_TRAIN, resumed)
+        resumed_ms = [a.elapsed_time(b) for (ea, a), (eb, b) in zip(marks, marks[1:])
+                      if ea == eb]
+        last = ckpt_dir / "checkpoint_epoch_3.pth"
+        ok = (all(checks.values()) and len(checks) == 7 and resumed == C_STEPS
+              and last.exists() and np.isfinite([float(x) for x in losses]).all())
+        print(f"path D resume: started at epoch {second['start_epoch']} it "
+              f"{second['start_iter']}; equal to the file before the first step: "
+              f"{json.dumps(checks)}; {resumed} steps (ms after the first "
+              f"{[round(x, 3) for x in resumed_ms]}), {last.name} written "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("path D: the resume is not the run that was saved")
+
+        # the checkpoint's size, save and load times
+        state = second["state"]
+        size_mb = last.stat().st_size / 1e6
+        save_ms, load_ms = [], []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt.save_checkpoint(state, root / "timing", 3, 12, max_ckpt_save_num=1)
+            save_ms.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt.load_checkpoint(last, state)
+            torch.cuda.synchronize()
+            load_ms.append(1e3 * (time.perf_counter() - t0))
+        print(f"path D checkpoint: {size_mb:.3f} MB; save {[round(x, 2) for x in save_ms]} ms, "
+              f"load into the state {[round(x, 2) for x in load_ms]} ms (host clock, synced; "
+              f"{smi})")
+        del state, second, first
+        torch.cuda.empty_cache()
+
+        # 3. test the epoch-3 checkpoint
+        reset_counters()
+        (res,) = test.main(base + ["--ckpt", str(last), "--infer_time", "--save_to_file"])
+        torch.cuda.synchronize()
+        annos = res["det_annos"]
+        n_batches = -(-len(annos) // BATCH)
+        check_launches("D eval forward (test CLI)", read_counters(), EXPECT_SERVING,
+                       res["infer_batches"] + 1 + n_batches)
+        cap = int(cfg.MODEL.DENSE_HEAD.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+        heads = [[names.index(n) + 1 for n in h]
+                 for h in cfg.MODEL.DENSE_HEAD.CLASS_NAMES_EACH_HEAD]
+        ok = (sorted(a["frame_id"] for a in annos) == list(range(BATCH * C_STEPS))
+              and res["result_pkl"].exists() and "recall@0.5" in res["result_str"]
+              and all(len(a["score"]) and np.isfinite(a["boxes_lidar"]).all()
+                      and (np.diff(a["score"]) <= 0).all()
+                      and set(a["pred_labels"].tolist()) <= set(range(1, len(names) + 1))
+                      and all(np.isin(a["pred_labels"], h).sum() <= cap for h in heads)
+                      for a in annos))
+        rec = res["recalls"]
+        print(f"path D test CLI: {len(annos)} frames, detections a frame "
+              f"{[len(a['score']) for a in annos]}, {res['sec_per_frame']:.4f} s a frame "
+              f"(eval_model, host clock), --infer_time {res['infer_ms_per_frame']:.3f} ms a frame "
+              f"(median of {res['infer_batches']} batches, synced) ({smi}); recall "
+              + " ".join(f"@{t}={rec[f'recall_{t}'] / max(rec['gt'], 1):.4f}"
+                         for t in (0.3, 0.5, 0.7))
+              + f" of {rec['gt']} GT; {res['result_str']}; result.pkl written "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("path D: the test CLI failed its checks")
+
+        # 4. the demo over two point files
+        rng = np.random.RandomState(D_SEED)
+        scenes = root / "scenes"
+        scenes.mkdir()
+        for i in range(2):
+            scene = make_scene(rng, names, num_objects=48, num_bg_points=bg_points,
+                               pc_range=data_cfg["POINT_CLOUD_RANGE"])
+            np.save(scenes / f"scene_{i}.npy", scene["points"])
+        reset_counters()
+        annos = demo.main(["--cfg_file", str(yaml_path), "--data_path", str(scenes), "--ext",
+                           ".npy", "--ckpt", str(last), "--device", str(dev)])
+        torch.cuda.synchronize()
+        check_launches("D demo scene", read_counters(), EXPECT_SERVING, 2)
+        ok = len(annos) == 2 and all(len(a["score"]) and np.isfinite(a["boxes_lidar"]).all()
+                                     and np.isfinite(a["score"]).all() for a in annos)
+        print(f"path D demo: {len(annos)} scenes, {[len(a['score']) for a in annos]} detections, "
+              f"finite {'ok' if ok else 'FAIL'}; peak memory of path D "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB ({smi})")
+        if not ok:
+            raise AssertionError("path D: the demo failed its checks")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def stage_and_overfit(dev, trainer, steps=10):
     """The flagship step's stages by CUDA events (forward, loss, backward,
     optimizer; mean over the steps after the first), and the overfit check:
@@ -1507,6 +1750,8 @@ def main():
                              EXPECT_TRAIN_UCL)
     torch.cuda.empty_cache()
     train_path_c(dev)
+    torch.cuda.empty_cache()
+    path_d(dev, smi)
     # each kernel's launches on the path that runs it: training path A,
     # serving for K4, path B for K3's last_wins mode, the sweep for T1-T4
     counts = {**a_counts, "nms": serve_counts["nms"],

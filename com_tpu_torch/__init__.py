@@ -10,8 +10,10 @@ with COMLoss and the epoch-end COMAug feedback (``train.optim``,
 ``train.state``, ``train.step.make_train_step``, ``train.loop.train_model``),
 fed by the host data pipeline (``data``: ``build_dataloader``, the COMAug
 samplers, augmentation, processing, collate; native host ops in
-``ops.host_native``) whose sampler reads that feedback,
-on kernels K1 (``ops.seg_scan``, forward and backward), K2 and K2w
+``ops.host_native``) whose sampler reads that feedback, checkpointed
+(``utils.checkpoint``) and evaluated (``train.eval.eval_model``, the
+datasets' ``evaluation``) through the train, test and demo CLIs
+(``tools.train``, ``tools.test``, ``tools.demo``), on kernels K1 (``ops.seg_scan``, forward and backward), K2 and K2w
 (``ops.conv2d``, forward, dgrad and wgrad), K3 (``ops.stamp``) and K4
 (``ops.nms``).  ``tools.perf.microbench_wgrad_kernels`` sweeps four
 tensor-core formulations of the conv weight gradient, T1-T4

@@ -270,10 +270,13 @@ class PrefetchLoader:
         q: _queue.Queue = _queue.Queue(maxsize=workers * 2)
         stop = object()
         errors: list = []
+        closing = threading.Event()
 
         def worker(batch_indices_list):
             try:
                 for idxs in batch_indices_list:
+                    if closing.is_set():
+                        break
                     q.put(self.dataset.collate_batch([self.dataset[int(i)] for i in idxs]))
             except BaseException as e:  # raised in the consumer
                 errors.append(e)
@@ -285,12 +288,20 @@ class PrefetchLoader:
         for t in threads:
             t.start()
         done = 0
-        while done < len(threads):
-            item = q.get()
-            if item is stop:
-                done += 1
-                continue
-            yield item
+        try:
+            while done < len(threads):
+                item = q.get()
+                if item is stop:
+                    done += 1
+                    continue
+                yield item
+        finally:
+            # a consumer that stops early: the workers end after their batch
+            # in hand, and the queue is drained so that none blocks on it
+            closing.set()
+            while done < len(threads):
+                if q.get() is stop:
+                    done += 1
         if errors:
             raise RuntimeError("dataloader worker failed") from errors[0]
 

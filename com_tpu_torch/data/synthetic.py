@@ -4,13 +4,15 @@ port's copy of ``com_tpu/data/synthetic.py``).
 For tests, benchmarks and training runs without Waymo data.  Scenes hold a
 ground plane of clutter and boxes with points inside them, and the dataset
 builds an in-memory GT database, so the whole COMAug path (clustering,
-curriculum sampling, paste) runs without files.  Both packages make the same
-scenes and database from the same seed.
+curriculum sampling, paste) runs without files, and ``evaluation`` scores
+detections against the scenes' GT.  Both packages make the same scenes and
+database from the same seed.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from ..ops.host_boxes import boxes_iou_bev
 from ..utils.registry import DATASETS
 from .dataset import DatasetTemplate
 
@@ -137,3 +139,25 @@ class SyntheticDataset(DatasetTemplate):
         data = {k: np.copy(v) for k, v in scene.items()}
         data["frame_id"] = index
         return self.prepare_data(data)
+
+    def evaluation(self, det_annos, class_names, **kwargs):
+        """Recall and precision at BEV IoU 0.5 against each frame's scene GT
+        (the smoke-eval oracle of ``com_tpu``)."""
+        tp = fp = fn = 0
+        for annos in det_annos:
+            gt = self._scenes[annos["frame_id"]]["gt_boxes"]
+            pred = annos["boxes_lidar"]
+            if len(pred) == 0:
+                fn += len(gt)
+                continue
+            if len(gt) == 0:
+                fp += len(pred)
+                continue
+            iou = boxes_iou_bev(pred[:, :7], gt[:, :7])
+            matched = iou.max(axis=1) > 0.5
+            tp += int(matched.sum())
+            fp += int((~matched).sum())
+            fn += int((iou.max(axis=0) <= 0.5).sum())
+        rec = tp / max(tp + fn, 1)
+        prec = tp / max(tp + fp, 1)
+        return f"recall@0.5={rec:.3f} precision@0.5={prec:.3f}", {"recall": rec, "precision": prec}

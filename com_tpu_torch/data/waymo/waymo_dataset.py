@@ -7,9 +7,10 @@ info files listing frames, ``%04d.npy`` lidar arrays [x y z intensity
 elongation NLZ], GT boxes with speed, optional COM side annotations
 (occupancy_ratio / facade_type) in the annos.  Frames are read with the
 intensity squashed by tanh and the no-label-zone points dropped; multi-frame
-configs fuse past sweeps by pose.  Evaluation and the GT-database builder
-are not ported yet, nor the tfrecord conversion (``waymo_utils.py``, which
-needs the waymo-open-dataset package).
+configs fuse past sweeps by pose.  ``evaluation`` gives Waymo AP/APH
+(``waymo_eval``, ``waymo_ap``).  ``create_groundtruth_database`` is not ported yet,
+nor the tfrecord conversion (``waymo_utils.py``, which needs the
+waymo-open-dataset package).
 """
 from __future__ import annotations
 
@@ -161,3 +162,20 @@ class WaymoDataset(DatasetTemplate):
                         if k in data:
                             data[k] = data[k][ne]
         return self.prepare_data(data)
+
+    def evaluation(self, det_annos, class_names, **kwargs):
+        """Official Waymo AP/APH when tensorflow and waymo-open-dataset import;
+        otherwise the TF-free numpy AP/APH of ``waymo_ap`` (the same
+        Hungarian matching and 101 score cutoffs), so ``EVAL_METRIC: waymo``
+        always gives AP/APH (waymo_dataset.py:451-502).  This dispatches on
+        an optional package, as ``com_tpu`` does; it is not a device choice."""
+        try:
+            from .waymo_eval import waymo_evaluation  # needs tensorflow
+
+            return waymo_evaluation(det_annos, self.infos, class_names)
+        except ImportError:
+            from .waymo_ap import compute_waymo_ap
+
+            result_str, result = compute_waymo_ap(det_annos, self.infos, class_names)
+            return ("TF-free numpy AP/APH (waymo-open-dataset unavailable)\n" + result_str,
+                    result)

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ...ops.nms import circle_nms, nms_bev
+from ...ops.nms import circle_nms, fast_nms_bev, nms_bev
 from ...utils.registry import DENSE_HEADS
 from ..layers import Conv2d, ConvBNReLU
 
@@ -139,7 +139,7 @@ def post_process_nms(boxes, scores, labels, valid, nms_cfg, num_out: int):
         sel, sel_valid = circle_nms(boxes[..., :2], scores, valid,
                                     float(nms_cfg.get("MIN_RADIUS", 4)), post)
     elif nms_type == "fast_nms":
-        raise NotImplementedError("NMS_TYPE fast_nms is not ported yet")
+        sel, sel_valid = fast_nms_bev(boxes, scores, valid, float(nms_cfg["NMS_THRESH"]), post)
     else:
         sel, sel_valid = nms_bev(boxes, scores, valid, float(nms_cfg["NMS_THRESH"]), post)
     take = torch.gather

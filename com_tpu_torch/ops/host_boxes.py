@@ -1,9 +1,10 @@
 """Box geometry of the host input pipeline, in numpy (the port's copy of the
-numpy side of ``com_tpu/ops/boxes.py`` and of ``boxes_iou_bev`` in
-``com_tpu/ops/iou.py``).
+numpy side of ``com_tpu/ops/boxes.py`` and of ``boxes_iou_bev``,
+``boxes_overlap_bev`` and ``boxes_iou3d`` in ``com_tpu/ops/iou.py``).
 
 Corner extraction, point-in-rotated-box tests, box enlarging, the range
-filter for boxes, the point carve-out of GT-paste and the rotated BEV IoU.
+filter for boxes, the point carve-out of GT-paste, the rotated BEV IoU and
+the rotated 3D IoU of the host evaluation (recall, Waymo AP).
 ``remove_points_in_boxes3d`` runs on the native library
 (``ops.host_native``); ``points_in_rbbox`` and ``boxes_iou_bev`` here are the
 numpy versions the tests hold that library against.  The port's
@@ -143,12 +144,38 @@ def _pairwise_intersection_area(corners_a, corners_b):
     return np.where(cnt >= 3, area, 0.0)
 
 
-def boxes_iou_bev(boxes_a, boxes_b):
-    """Rotated BEV IoU (N,7) x (M,7) -> (N,M), the intersection clamped to
-    the smaller box's area (a zero-size box passes every half-plane test)."""
+def _clamped_inter(boxes_a, boxes_b):
+    """BEV intersections clamped to the smaller box's area (a zero-size box
+    passes every half-plane test), and the two areas."""
     inter = _pairwise_intersection_area(boxes_to_corners_bev(boxes_a[:, :7]),
                                         boxes_to_corners_bev(boxes_b[:, :7]))
     area_a = (boxes_a[:, 3] * boxes_a[:, 4])[:, None]
     area_b = (boxes_b[:, 3] * boxes_b[:, 4])[None, :]
-    inter = np.minimum(inter, np.minimum(area_a, area_b))
+    return np.minimum(inter, np.minimum(area_a, area_b)), area_a, area_b
+
+
+def boxes_iou_bev(boxes_a, boxes_b):
+    """Rotated BEV IoU (N,7) x (M,7) -> (N,M)."""
+    inter, area_a, area_b = _clamped_inter(boxes_a, boxes_b)
     return inter / np.clip(area_a + area_b - inter, 1e-6, None)
+
+
+def boxes_overlap_bev(boxes_a, boxes_b):
+    """Raw BEV intersection areas (N,7) x (M,7) -> (N,M)."""
+    return _clamped_inter(boxes_a, boxes_b)[0]
+
+
+def boxes_iou3d(boxes_a, boxes_b):
+    """Rotated 3D IoU (N,7) x (M,7) -> (N,M): the BEV intersection times the
+    z overlap (iou3d_nms_utils)."""
+    inter_bev = boxes_overlap_bev(boxes_a, boxes_b)
+    za1 = boxes_a[:, 2] - boxes_a[:, 5] / 2
+    za2 = boxes_a[:, 2] + boxes_a[:, 5] / 2
+    zb1 = boxes_b[:, 2] - boxes_b[:, 5] / 2
+    zb2 = boxes_b[:, 2] + boxes_b[:, 5] / 2
+    z_overlap = np.clip(np.minimum(za2[:, None], zb2[None, :])
+                        - np.maximum(za1[:, None], zb1[None, :]), 0.0, None)
+    inter = inter_bev * z_overlap
+    vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
+    vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
+    return inter / np.clip(vol_a + vol_b - inter, 1e-6, None)

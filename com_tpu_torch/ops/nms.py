@@ -1,4 +1,5 @@
-"""Rotated-BEV NMS and circle NMS with fixed shapes, batched (kernel K4).
+"""Rotated-BEV NMS, fast NMS and circle NMS with fixed shapes, batched
+(kernel K4 for the greedy ones).
 
 Counterpart of ``com_tpu/ops/nms.py`` and ``com_tpu/ops/pallas/
 nms_kernel.py``.  The pairwise IoU (or distance) matrix is built in one shot
@@ -133,6 +134,22 @@ def nms_bev(boxes, scores, valid, thresh: float, post_max_size: int,
     over = iou_fn(sb, sb) > thresh
     keep = greedy_suppress(over.contiguous(), sv.contiguous())
     return _kept_slots(keep, order, post_max_size)
+
+
+def fast_nms_bev(boxes, scores, valid, thresh: float, post_max_size: int):
+    """One-shot NMS (YOLACT's "fast NMS", ``NMS_TYPE: fast_nms``): a box is
+    kept iff no higher-scoring valid box overlaps it by BEV IoU > thresh,
+    whether or not that box is kept itself; no sequential pass, so no K4.
+    boxes (B, K, 7+), scores (B, K), valid (B, K) bool.  Returns
+    (selected, sel_valid) as ``nms_bev``; kept ranks past post_max_size,
+    and the slots past the kept count when post_max_size > K, are invalid."""
+    order = _score_order(scores, valid)
+    sb = torch.gather(boxes, 1, order[..., None].expand(-1, -1, boxes.shape[-1]))
+    sv = torch.gather(valid, 1, order)
+    k = sb.shape[1]
+    higher = torch.ones((k, k), dtype=torch.bool, device=sb.device).triu(1)  # [i, j]: i before j
+    suppressed = ((boxes_iou_bev(sb, sb) > thresh) & higher & sv[:, :, None]).any(dim=1)
+    return _kept_slots(sv & ~suppressed, order, post_max_size)
 
 
 def circle_nms(centers_xy, scores, valid, dist_thresh: float, post_max_size: int):

@@ -1,11 +1,22 @@
-"""Batched inference step (counterpart of ``com_tpu/train/eval.py``
-``make_eval_step``, CenterPoint branch): forward -> per-head top-K decode ->
-NMS, all on the device, fixed shapes with validity masks."""
+"""Evaluation (counterpart of ``com_tpu/train/eval.py``; reference
+tools/eval_utils/eval_utils.py:12-136).
+
+``make_eval_step`` (CenterPoint branch): forward -> per-head top-K decode ->
+NMS, all on the device, fixed shapes with validity masks.  ``eval_model``
+runs it over a loader, copies each batch's outputs to the host at once,
+trims every frame to its valid detections sorted by score into
+``det_annos``, and counts recall against the GT by the rotated 3D IoU
+(``recall_stats``, detector3d_template.py:286-328).
+"""
 from __future__ import annotations
 
+import time
+
+import numpy as np
 import torch
 
 from ..models.dense_heads.center_head import decode_center_boxes, post_process_nms
+from ..ops.host_boxes import boxes_iou3d
 from ..utils.device import resolve_device
 
 
@@ -51,3 +62,73 @@ def make_eval_step(net, model_cfg, class_names, meta, device=None):
         return tuple(torch.cat(p, dim=1) for p in zip(*parts))
 
     return eval_step
+
+
+def recall_stats(pred_boxes, gt_boxes, thresh_list=(0.3, 0.5, 0.7)):
+    """Per-frame recall counts against the GT rows with a class (rotated 3D
+    IoU): ``{"recall_{t}": GT boxes whose best IoU exceeds t, "gt": count}``."""
+    gt = gt_boxes[gt_boxes[:, -1] > 0]
+    out = {f"recall_{t}": 0 for t in thresh_list}
+    out["gt"] = len(gt)
+    if len(gt) == 0 or len(pred_boxes) == 0:
+        return out
+    best = boxes_iou3d(pred_boxes[:, :7], gt[:, :7]).max(axis=0)
+    for t in thresh_list:
+        out[f"recall_{t}"] = int((best > t).sum())
+    return out
+
+
+def _to_host(boxes, scores, labels, valid):
+    """The four outputs of a batch in one device -> host copy (labels and the
+    mask ride as f32, exact for them)."""
+    packed = torch.cat([boxes.float(), scores.float()[..., None], labels.float()[..., None],
+                        valid.float()[..., None]], dim=-1).cpu().numpy()
+    n = boxes.shape[-1]
+    return (packed[..., :n], packed[..., n], packed[..., n + 1].astype(np.int32),
+            packed[..., n + 2] > 0)
+
+
+def eval_model(eval_step, loader, class_names, logger=None, recall_thresh_list=(0.3, 0.5, 0.7),
+               mesh=None):
+    """Run ``eval_step(batch)`` (``make_eval_step``: the weights live in its
+    model) over ``loader``.  Returns (det_annos, recall counts, seconds a
+    frame): one anno a frame with its valid detections in descending score
+    order (``np.argsort(-scores)`` on the host, as ``com_tpu``), "frame_id",
+    "boxes_lidar", "score", "pred_labels", "name" and the batch's
+    "metadata" where it has one; recall over the batches that carry
+    "gt_boxes".  ``mesh`` (data-parallel eval) waits for the multi-device
+    port."""
+    if mesh is not None:
+        raise NotImplementedError("eval over a device mesh is not ported yet")
+    det_annos = []
+    recalls = {f"recall_{t}": 0 for t in recall_thresh_list}
+    recalls["gt"] = 0
+    t0 = time.time()
+    n_frames = 0
+    for batch in loader:
+        boxes, scores, labels, valid = _to_host(*eval_step(batch))
+        bs = boxes.shape[0]
+        n_frames += bs
+        frame_ids = batch.get("frame_id", [None] * bs)
+        md = batch.get("metadata")
+        for i in range(bs):
+            v = valid[i]
+            order = np.argsort(-scores[i][v])
+            frame_boxes = boxes[i][v][order]
+            frame_labels = labels[i][v][order]
+            anno = {"frame_id": frame_ids[i], "boxes_lidar": frame_boxes,
+                    "score": scores[i][v][order], "pred_labels": frame_labels,
+                    "name": np.array([class_names[int(l) - 1] for l in frame_labels])}
+            if md is not None and md[i] is not None:
+                anno["metadata"] = md[i]
+            det_annos.append(anno)
+            if "gt_boxes" in batch:
+                r = recall_stats(frame_boxes, batch["gt_boxes"][i], recall_thresh_list)
+                for k in recalls:
+                    recalls[k] += r[k]
+    sec_per_example = (time.time() - t0) / max(n_frames, 1)
+    if logger:
+        gt = max(recalls["gt"], 1)
+        logger.info("eval: %d frames, %.4f s/frame, " % (n_frames, sec_per_example)
+                    + " ".join(f"{k}={recalls[k] / gt:.3f}" for k in recalls if k != "gt"))
+    return det_annos, recalls, sec_per_example

@@ -7,16 +7,22 @@ previous step runs, then take the epoch's (num_class, num_groups) mean
 confidences, ``conf_sum / (conf_cnt + 0.01)``, to the host once and hand them
 to ``loader.dataset.set_confidence_groups``, the COMAug sampler.  The loader
 is duck-typed: ``set_epoch(epoch)``, iteration over dicts of numpy arrays,
-and ``dataset.set_confidence_groups``.  Checkpoints are not ported yet.
+and ``dataset.set_confidence_groups``.  With ``ckpt_dir``, every
+``ckpt_save_interval`` epochs end with a checkpoint (``utils/checkpoint.py``)
+that holds the sampler's confidences, and a rolling ``latest_model.pth`` is
+written every ``ckpt_save_time_interval`` seconds inside an epoch.
 """
 from __future__ import annotations
 
 import queue
 import threading
+import time
 
 import numpy as np
 import torch
 
+from ..utils.checkpoint import save_checkpoint, save_latest
+from ..utils.common import AverageMeter
 from .state import check_same_device
 
 
@@ -78,30 +84,68 @@ class DevicePrefetcher:
             yield batch
 
 
-def train_model(step_fn, state, loader, num_epochs: int, ckpt_dir=None, metric_hook=None,
-                device=None, batch_keys=None):
+def _sampler_state(loader):
+    """``{"confidence_groups": ...}`` of the loader's COMAug sampler, or None
+    (com_tpu/train/loop.py:133-141)."""
+    aug = getattr(loader.dataset, "data_augmentor", None)
+    sampler = aug.gt_sampler if aug is not None else None
+    if sampler is None or sampler.confidence_groups is None:
+        return None
+    return {"confidence_groups": np.asarray(sampler.confidence_groups)}
+
+
+def train_model(step_fn, state, loader, num_epochs: int, ckpt_dir=None, logger=None,
+                start_epoch: int = 0, ckpt_save_interval: int = 1, max_ckpt_save_num: int = 50,
+                log_interval: int = 50, metric_hook=None, device=None, batch_keys=None,
+                ckpt_save_time_interval: float = 300.0, start_iter: int = 0):
     """Run ``step_fn(state, batch, epoch)`` over ``loader`` for epochs
-    ``0 .. num_epochs - 1``; returns (state, steps taken).
-    ``metric_hook(epoch, it, metrics)`` sees each step's device metrics.
-    ``batch_keys`` (``train.step.device_batch_keys``) are the arrays copied
-    to the device; None copies every numpy array of a batch.
+    ``start_epoch .. num_epochs - 1``; returns (state, iterations), the
+    iterations counted on from ``start_iter`` (a resume continues the
+    reference's monotone ``it``, train_utils.py:354-370).
+    ``metric_hook(epoch, it, metrics)`` sees each step's device metrics;
+    ``logger`` gets the loss and the mean data and step times (host clock)
+    every ``log_interval`` steps.  ``batch_keys``
+    (``train.step.device_batch_keys``) are the arrays copied to the device;
+    None copies every numpy array of a batch.
 
     ``device`` follows the entry-point rule (CUDA unless the caller passes
     another) and must hold ``state``'s model."""
-    if ckpt_dir is not None:
-        raise NotImplementedError("checkpoints are not ported yet")
     dev = check_same_device(state.net, device)
-    steps = 0
-    for epoch in range(num_epochs):
+    accumulated_iter = start_iter
+    last_timed_save = time.time()
+    for epoch in range(start_epoch, num_epochs):
         loader.set_epoch(epoch)
         state.reset_epoch_stats()
+        data_meter, step_meter = AverageMeter(), AverageMeter()
+        end = time.time()
         for it, batch in enumerate(DevicePrefetcher(iter(loader), dev, batch_keys)):
+            data_meter.update(time.time() - end)
             state, metrics = step_fn(state, batch, epoch)
-            steps += 1
+            step_meter.update(time.time() - end - data_meter.val)
+            end = time.time()
+            accumulated_iter += 1
+            if logger and it % log_interval == 0:
+                logger.info("epoch %d it %d loss %.4f d_time %.3f s_time %.3f", epoch, it,
+                            float(metrics["loss"]), data_meter.avg, step_meter.avg)
             if metric_hook is not None:
                 metric_hook(epoch, it, metrics)
+            if (ckpt_dir is not None and ckpt_save_time_interval > 0
+                    and time.time() - last_timed_save > ckpt_save_time_interval):
+                save_latest(state, ckpt_dir, epoch, accumulated_iter)
+                last_timed_save = time.time()
+                if logger:
+                    logger.info("saved latest_model at epoch %d it %d", epoch, it)
         # epoch-end feedback: one small device -> host copy
         if state.conf_sum is not None:
-            loader.dataset.set_confidence_groups(
-                (state.conf_sum / (state.conf_cnt + 0.01)).cpu().numpy())
-    return state, steps
+            conf = (state.conf_sum / (state.conf_cnt + 0.01)).cpu().numpy()
+            loader.dataset.set_confidence_groups(conf)
+            if logger:
+                logger.info("epoch %d confidence groups updated (mean %.4f)", epoch,
+                            float(conf.mean()))
+        if ckpt_dir is not None and (epoch + 1) % ckpt_save_interval == 0:
+            save_checkpoint(state, ckpt_dir, epoch + 1, accumulated_iter,
+                            sampler_state=_sampler_state(loader),
+                            max_ckpt_save_num=max_ckpt_save_num)
+            if logger:
+                logger.info("saved checkpoint epoch %d", epoch + 1)
+    return state, accumulated_iter

@@ -53,7 +53,7 @@ def one_cycle_schedule(lr_max: float, total_steps: int, moms=(0.95, 0.85),
 class AdamOneCycle(torch.optim.Optimizer):
     """The ``adam_onecycle`` chain over a module's parameters.  Moments are
     f32 tensors beside each parameter; ``count`` (the number of updates
-    taken) drives the schedules."""
+    taken) drives the schedules and goes with them into ``state_dict``."""
 
     def __init__(self, params, lr_fn, mom_fn, b2=0.999, eps=1e-8, weight_decay=0.0,
                  max_grad_norm=0.0, decay_mask=None):
@@ -109,6 +109,21 @@ class AdamOneCycle(torch.optim.Optimizer):
         torch._foreach_add_(params, upd, alpha=-self.lr_fn(self.count))
         self.count += 1
         return None
+
+    def state_dict(self):
+        """``torch.optim.Optimizer.state_dict`` and ``count``: without it a
+        resumed run would restart the schedules and the bias correction."""
+        sd = super().state_dict()
+        sd["count"] = self.count
+        return sd
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        if "count" not in state_dict:
+            raise KeyError("AdamOneCycle.load_state_dict: the state has no 'count'")
+        count = int(state_dict.pop("count"))
+        super().load_state_dict(state_dict)
+        self.count = count
 
 
 def build_optimizer(net: torch.nn.Module, optim_cfg, total_steps: int, steps_per_epoch: int):

@@ -130,3 +130,12 @@ def cfg_from_list(cfg_list, config: CfgNode) -> None:
             assert type(value) == type(d[subkey]), f"type mismatch for {k}: {value}"
         d[subkey] = value
 
+
+
+def log_config_to_file(cfg: CfgNode, pre="cfg", logger=None):
+    for key, val in cfg.items():
+        if isinstance(val, CfgNode):
+            logger.info("----------- %s.%s -----------", pre, key)
+            log_config_to_file(val, pre=f"{pre}.{key}", logger=logger)
+        else:
+            logger.info("%s.%s: %s", pre, key, val)

@@ -17,13 +17,17 @@ slots: DynamicPillarVFE, BaseBEVBackbone, CenterHead.  For comparing a train
 step, ``params_from_jax`` maps any tree shaped like flax "params" (its
 gradients, its updated parameters) into the same pcdet names, and
 ``curriculum_state_from_jax`` carries the COMLoss EMA state across and
-``sampler_state_from_jax`` the COMAug sampler's confidences.
+``sampler_state_from_jax`` the COMAug sampler's confidences;
+``train_state_from_jax`` carries a whole JAX checkpoint (weights, Adam's
+moments and count, curriculum, sampler) into a port ``TrainState``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+# Each layout change only moves entries (transposes and flips, no scale), so
+# it maps Adam's second moment nu as it maps the parameter.
 _TRANSFORMS = {
     "copy": lambda a: a,
     "linear": lambda a: a.T,
@@ -184,3 +188,67 @@ def load_jax_variables(net: torch.nn.Module, variables, model_cfg, class_names):
                 raise ValueError(f"weight bridge: {k} is {tuple(own[k].shape)}, got {v.shape}")
             own[k].copy_(torch.from_numpy(v))
     return net
+
+
+def _field(obj, name):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def _optax_leaves(node, adam, counts):
+    """Walk an optax state (NamedTuples, or the dicts and lists a raw restore
+    gives): the states with ``mu`` and ``nu`` into ``adam``, every ``count``
+    into ``counts``."""
+    if hasattr(node, "_asdict"):
+        items = node._asdict()
+    elif isinstance(node, dict):
+        items = node
+    elif isinstance(node, (list, tuple)):
+        items = dict(enumerate(node))
+    else:
+        return
+    if "mu" in items and "nu" in items:
+        adam.append(items)
+    if "count" in items:
+        counts.append(int(np.asarray(items["count"])))
+    for k, v in items.items():
+        if k not in ("mu", "nu", "count"):
+            _optax_leaves(v, adam, counts)
+
+
+def train_state_from_jax(payload, state, model_cfg, class_names, dataset=None):
+    """Carry a ``com_tpu`` checkpoint payload (``{"state": TrainState,
+    "meta", "sampler"}`` as ``com_tpu.utils.checkpoint.load_checkpoint``
+    reads it) into the port's ``state`` in place: parameters and batch
+    statistics, Adam's ``mu``/``nu`` of the ``adam_onecycle`` chain
+    (``clip_by_global_norm``, ``inject_hyperparams(scale_by_adam)``,
+    ``add_decayed_weights``, ``scale_by_schedule``) under the parameters'
+    layout rules, the step count (every optax ``count`` must equal the
+    state's step), the curriculum states and the epoch accumulators; with
+    ``dataset``, the sampler's confidences too.  Returns ``state``."""
+    js = payload["state"]
+    load_jax_variables(state.net, {"params": _field(js, "params"),
+                                   "batch_stats": _field(js, "batch_stats")},
+                       model_cfg, class_names)
+    adam, counts = [], []
+    _optax_leaves(_field(js, "opt_state"), adam, counts)
+    step = int(np.asarray(_field(js, "step")))
+    if len(adam) != 1 or not counts or set(counts) != {step}:
+        raise ValueError(f"optax state: {len(adam)} Adam states, counts {counts}, step {step}")
+    mu = params_from_jax(adam[0]["mu"], model_cfg, class_names)
+    nu = params_from_jax(adam[0]["nu"], model_cfg, class_names)
+    params = dict(state.net.named_parameters())
+    if set(mu) != set(params):
+        raise KeyError(f"Adam moments: {sorted(set(params) ^ set(mu))} differ")
+    opt = state.optimizer
+    for k, p in params.items():
+        opt.state[p] = {"mu": torch.from_numpy(mu[k]).to(device=p.device, dtype=p.dtype),
+                        "nu": torch.from_numpy(nu[k]).to(device=p.device, dtype=p.dtype)}
+    opt.count = state.step = step
+    state.curriculum = curriculum_state_from_jax(_field(js, "curriculum"), device=state.device)
+    conf_sum = _field(js, "conf_sum")
+    if state.conf_sum is not None and conf_sum is not None:
+        state.conf_sum.copy_(torch.from_numpy(np.array(conf_sum, np.float32)))
+        state.conf_cnt.copy_(torch.from_numpy(np.array(_field(js, "conf_cnt"), np.float32)))
+    if dataset is not None and payload.get("sampler") is not None:
+        sampler_state_from_jax(payload["sampler"], dataset)
+    return state

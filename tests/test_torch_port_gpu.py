@@ -694,3 +694,64 @@ def test_loader_batch_sorted_on_card_and_one_train_step(dev):
     assert [getattr(m, a) - b for (m, a, _), b in zip(counters, before)] == \
         [n for *_, n in counters]
     assert np.isfinite(float(metrics["loss"])) and float(state.conf_cnt.sum()) > 0
+
+
+def test_checkpoint_on_card_resumes_bitwise(dev, tmp_path):
+    """A train state saved on the card and loaded into a fresh one there
+    (``map_location`` the card) holds every tensor bitwise, and the next
+    step of both is bitwise the same (deterministic algorithms on: the
+    library's scatter-adds then sum in a fixed order)."""
+    from com_tpu_torch.models.detectors import DatasetMeta, build_network
+    from com_tpu_torch.train.optim import build_optimizer
+    from com_tpu_torch.train.state import TrainState
+    from com_tpu_torch.train.step import conf_shape_for, make_train_step
+    from com_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from com_tpu_torch.utils.config import cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file("configs/waymo_models/com/centerpoint_pillar_3cls_com.yaml")
+    cfg.MODEL.MIXED_PRECISION = False
+    names = list(cfg.CLASS_NAMES)
+    meta = DatasetMeta(names, (-5.12, -5.12, -2.0, 5.12, 5.12, 4.0), (0.32, 0.32, 6.0),
+                       (32, 32, 1), 5)
+    rng = np.random.RandomState(1)
+    pts = rng.uniform(-5, 5, (2, 2048, 5)).astype(np.float32)
+    pts[..., 2] = rng.uniform(-1.5, 3.5, (2, 2048))
+    gt = np.zeros((2, 16, 8), np.float32)
+    gt[:, :6, 0:2] = rng.uniform(-4, 4, (2, 6, 2))
+    gt[:, :6, 3:6] = rng.uniform(1.0, 3.0, (2, 6, 3))
+    gt[:, :6, 7] = rng.randint(1, 4, (2, 6))
+    batch = {"points": pts, "points_mask": np.ones((2, 2048), bool), "gt_boxes": gt}
+
+    def trainer(seed):
+        net = build_network(cfg.MODEL, meta, device=dev, seed=seed)
+        opt, _ = build_optimizer(net, cfg.OPTIMIZATION, 100, 10)
+        state = TrainState.create(net, opt, 1, conf_shape_for(cfg.MODEL, names), device=dev)
+        return state, make_train_step(net, cfg.MODEL, names, meta, opt, (32, 32), device=dev)
+
+    def tensors(state):
+        opt = state.optimizer
+        return ([*state.net.state_dict().values()]
+                + [t for g in opt.param_groups for p in g["params"] for t in opt.state[p].values()]
+                + [t for c in state.curriculum for t in c] + [state.conf_sum, state.conf_cnt])
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        state, step = trainer(3)
+        state, _ = step(state, batch, 0)
+        path = save_checkpoint(state, tmp_path, 1, 1,
+                               sampler_state={"confidence_groups": np.ones((3, 96), np.float32)})
+        fresh, fresh_step = trainer(7)
+        payload = load_checkpoint(path, fresh)
+        assert payload["sampler"]["confidence_groups"].device == dev
+        assert fresh.optimizer.count == state.optimizer.count == fresh.step == 1
+        for a, b in zip(tensors(fresh), tensors(state)):
+            assert a.device == b.device and torch.equal(a, b)
+        state, m = step(state, batch, 0)
+        fresh, fm = fresh_step(fresh, batch, 0)
+        torch.cuda.synchronize()
+        assert torch.equal(m["loss"], fm["loss"])
+        for a, b in zip(tensors(fresh), tensors(state)):
+            assert torch.equal(a, b)
+    finally:
+        torch.use_deterministic_algorithms(was)

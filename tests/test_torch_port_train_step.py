@@ -100,14 +100,16 @@ def test_train_model_feeds_confidences_back_each_epoch():
                                (state.conf_sum / (state.conf_cnt + 0.01)).numpy(), rtol=1e-6)
 
 
-def test_train_model_fails_when_the_loader_fails():
+def test_train_model_fails_when_the_loader_fails(tmp_path):
     cfg, meta, net, opt, state, step = _tiny_setup()
     loader = _Loader([common.tiny_batch(np.random.RandomState(0))] * 3, fail_at=1)
     with pytest.raises(RuntimeError, match="prefetch worker failed"):
         train_model(step, state, loader, num_epochs=1, device="cpu")
     assert loader.dataset.received == []  # no feedback from a truncated epoch
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        train_model(step, state, loader, num_epochs=1, ckpt_dir="x", device="cpu")
+    # nor a checkpoint of it
+    with pytest.raises(RuntimeError, match="prefetch worker failed"):
+        train_model(step, state, loader, num_epochs=1, ckpt_dir=tmp_path, device="cpu")
+    assert loader.dataset.received == [] and list(tmp_path.iterdir()) == []
 
 
 def test_training_entry_points_need_a_device(monkeypatch):
