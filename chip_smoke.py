@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's serving and training paths (over its own
-data pipeline, and through its train, test and demo CLIs) and its wgrad
-sweep on one NVIDIA GPU.
+data pipeline, through its train, test and demo CLIs, and for the
+PointPillars anchor head) and its wgrad sweep on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -76,8 +76,25 @@ Phases (any failure raises, and the script exits non-zero):
    NMS_POST_MAXSIZE a head, result.pkl, recall, s a frame and
    ``--infer_time``'s ms a frame); the demo over two ``.npy`` scenes.
    Path A's launch counts a train step, serving's an eval forward.
-10. Launch counts: every counter is zeroed just before each path (the
-   sweep, serving, A, B, C, D's phases) and read just after, against the
+10. Path E, KITTI PointPillars (``configs/kitti_models/pointpillar.yaml``,
+   the anchor head) at full width (432 x 496 pillars of 0.16 m, batch 4,
+   32,768 point slots with ~20,000 presorted KITTI-like points a scene,
+   128 object slots with ~40 real, NMS_PRE_MAXSIZE 4,096), seeded random
+   weights with the class bias raised off its prior (``spread_anchor_
+   scores``): the 64x64 f32 eval and train steps (anchor curriculum on),
+   card against CPU; serving behind BatchServer (three requests, one
+   forward with a padded scene) and its stages, the post-processing split
+   into decode, top-k, sort and gathers, the row-blocked self-IoU, K4,
+   ``_kept_slots`` and the rest; K1's sum and K4 at the path's shapes (K4
+   on the decoded (4, 4096) candidates and on two synthetic cases), K2,
+   its dgrad and K2w at (4,248,216,64), (4,124,108,128), (4,62,54,256);
+   ``train_model`` 2 mini-epochs of 3 steps (the all-zero (3, 96)
+   feedback reaches the loop), the step's stages and the overfit check;
+   two steps with ``LOSS_CURRICULUM`` on (the AnchorCurriculumState moves,
+   the (3, 96) counts only in the real objects' groups, the feedback
+   bitwise); the demo CLI over two ``.bin`` scenes.
+11. Launch counts: every counter is zeroed just before each path (the
+   sweep, serving, A, B, C, D's and E's phases) and read just after, against the
    calls the sweep reports and the expected counts per forward or per step.  The device
    kernels one K3 call issues (1) and one K4 call (2, the pack and the
    sweep), counted by torch.profiler after every timed phase.  Then the
@@ -108,6 +125,20 @@ CONFIG = "configs/waymo_models/com/centerpoint_pillar_3cls_com.yaml"
 BATCH, POINTS, FEATS = 2, 163840, 5
 CAR_CONFIG = "configs/waymo_models/com/centerpoint_pillar_car_com1.yaml"
 NUM_MAX_OBJS, REAL_OBJS = 500, 100
+# path E: KITTI PointPillars (anchor head); batch, point slots (~20,000 real
+# points a scene), features, object slots (~40 real objects a scene)
+KITTI_CONFIG = "configs/kitti_models/pointpillar.yaml"
+E_BATCH, E_POINTS, E_REAL_POINTS, E_FEATS, E_SLOTS, E_REAL_OBJS = 4, 32768, 20000, 4, 128, 40
+E_CONV = ((4, 248, 216, 64), (4, 124, 108, 128), (4, 62, 54, 256))  # its K2's (B, H, W, C)
+KITTI_SIZES = np.array([[3.9, 1.6, 1.56], [0.8, 0.6, 1.73], [1.76, 0.6, 1.73]], np.float32)
+# the anchor curriculum as tests/test_anchor_path.py sets it (no shipped YAML turns it on)
+E_CURRICULUM = {"UCL": True, "HEIGHT": 1, "ELONGATION": -10, "OFFSET": 0, "FIXED": True,
+                "ALPHA": 0.01}
+# path E's launches per serving forward and per train step: K1's sum only
+# (one PFN layer pools by a scatter), 13 stride-1 3x3 convs (the first of
+# each block has stride 2), no K3 (the anchor loss stamps no heatmap)
+EXPECT_E_SERVING = {"seg_scan": 1, "conv3x3": 13, "nms": 1}
+EXPECT_E_TRAIN = {"seg_scan": 1, "conv3x3": 13, "conv3x3_dgrad": 13, "conv3x3_wgrad": 13}
 # kernel launches per serving forward and per train step (K1 forward +
 # backward, K2 forward + dgrad, K2w, K3 by mode, K4)
 EXPECT_SERVING = {"seg_scan": 2, "conv3x3": 14, "nms": 1}
@@ -118,6 +149,7 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 non-tensor
 STATS_RTOL = 1e-5  # small train reference: batch statistics, card against CPU
 WGRAD_SHAPES = ((2, 468, 468, 64, 64), (2, 468, 468, 128, 64))  # the sweep's (B, H, W, Cin, Cout)
+FLAGSHIP_CONV = ((2, 468, 468, 64), (2, 234, 234, 128), (2, 117, 117, 256))  # K2's (B, H, W, C)
 PROFILE_SESSIONS = 3  # tries for a profiling session that sees the device
 # path C: epochs, steps an epoch (of BATCH scenes: the dataset holds one
 # epoch's scenes), loader threads, seed
@@ -423,15 +455,18 @@ def check_seg_scan(dev, entries):
                                 kernel="seg_scan"))
 
 
-def check_conv3x3(dev, entries):
+def check_conv3x3(dev, entries, shapes=FLAGSHIP_CONV, dtypes=(torch.float32, torch.bfloat16),
+                  path=""):
+    """K2 at each (B, H, W, C) of ``shapes`` (C -> C) in each dtype;
+    ``path`` prefixes the counter whose launches the entries report."""
     import torch.nn.functional as F
 
     from com_tpu_torch.ops import conv2d
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    for h, c in ((468, 64), (234, 128), (117, 256)):
-        for dt in (torch.float32, torch.bfloat16):
-            x = torch.randn((BATCH, h, h, c), device=dev, generator=gen).to(dt)
+    for b, h, wd, c in shapes:
+        for dt in dtypes:
+            x = torch.randn((b, h, wd, c), device=dev, generator=gen).to(dt)
             w = (torch.randn((3, 3, c, c), device=dev, generator=gen) / math.sqrt(9 * c)).to(dt)
             got = conv2d.conv3x3(x, w)
             want = conv2d.conv3x3_plain(x, w)
@@ -441,7 +476,7 @@ def check_conv3x3(dev, entries):
             # f32: summation order only; bf16: that, then one rounding to bf16
             rnd = 0.0 if dt == torch.float32 else 2.0 ** -7
             ok = bool((err <= 1e-5 * absref + rnd * want.float().abs()).all())
-            label = f"{str(dt).split('.')[-1]} (2,{h},{h},{c}->{c})"
+            label = f"{str(dt).split('.')[-1]} ({b},{h},{wd},{c}->{c})"
             print(f"K2 conv3x3 {label}: max_abs_err={err.max().item():.3e} "
                   f"(|err| <= 1e-5 * conv(|x|,|w|) + {rnd:g} * |plain|) {'ok' if ok else 'FAIL'}")
             if not ok:
@@ -452,14 +487,15 @@ def check_conv3x3(dev, entries):
             xc = x.permute(0, 3, 1, 2)  # NHWC storage = channels_last NCHW view
             wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             lib_ms = cuda_ms(lambda: F.conv2d(xc, wc, padding=1), 10)
-            flops = 2 * 9 * c * c * BATCH * h * h  # the serving path runs the bf16 case
+            flops = 2 * 9 * c * c * b * h * wd  # the serving path runs the bf16 case
             bms, by = bound_ms(nbytes(x, w, got), flops, dt)
             entries.append(dict(name=f"conv2d.conv3x3 {label}", route="cuda",
                                 source="com_tpu_torch/csrc/conv3x3.cu",
                                 replaces="com_tpu/ops/pallas/conv2d.py:208",
                                 max_abs_err=err.max().item(), ms=ms,
                                 device_ms=dev_ms, plain_ms=plain_ms,
-                                bound_ms=bms, bound_by=by, library_ms=lib_ms, kernel="conv3x3"))
+                                bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                                kernel=path + "conv3x3"))
 
 
 def check_seg_scan_bwd(dev, entries):
@@ -515,19 +551,21 @@ def check_seg_scan_bwd(dev, entries):
                         bound_by=by, library_ms=None, kernel="seg_scan_bwd"))
 
 
-def check_conv3x3_backward(dev, entries):
+def check_conv3x3_backward(dev, entries, shapes=FLAGSHIP_CONV,
+                           wgrad_dtypes=(torch.float32, torch.bfloat16), path=""):
     """K2 dgrad (K2 on the output gradient with the rotated kernel) checked
     through the autograd.Function and timed as the call its backward makes
-    (``conv3x3_dgrad``), and K2w, at the backbone's three shapes."""
+    (``conv3x3_dgrad``), and K2w, at the backbone's shapes ``shapes``;
+    ``path`` prefixes the counters whose launches the entries report."""
     from com_tpu_torch.ops import conv2d
 
     gen = torch.Generator(device=dev).manual_seed(13)
-    for h, c in ((468, 64), (234, 128), (117, 256)):
-        flops = 2 * 9 * c * c * BATCH * h * h
-        x0 = torch.randn((BATCH, h, h, c), device=dev, generator=gen).to(torch.bfloat16)
+    for b, h, wd, c in shapes:
+        flops = 2 * 9 * c * c * b * h * wd
+        x0 = torch.randn((b, h, wd, c), device=dev, generator=gen).to(torch.bfloat16)
         w = (torch.randn((3, 3, c, c), device=dev, generator=gen) / math.sqrt(9 * c))
         w = w.to(torch.bfloat16)
-        g = torch.randn((BATCH, h, h, c), device=dev, generator=gen).to(torch.bfloat16)
+        g = torch.randn((b, h, wd, c), device=dev, generator=gen).to(torch.bfloat16)
         runs = []
         for fn in (conv2d.conv3x3, conv2d.conv3x3_plain):
             x = x0.clone().requires_grad_()
@@ -538,7 +576,7 @@ def check_conv3x3_backward(dev, entries):
         absref = conv2d.conv3x3_plain(g.float().abs(), conv2d.rotate_kernel(w.float().abs()))
         err = (got.float() - want.float()).abs()
         ok = bool((err <= 1e-5 * absref + 2.0 ** -7 * want.float().abs()).all())
-        label = f"bf16 (2,{h},{h},{c}->{c})"
+        label = f"bf16 ({b},{h},{wd},{c}->{c})"
         print(f"K2 conv3x3 dgrad {label}: max_abs_err={err.max().item():.3e} "
               f"(|err| <= 1e-5 * conv(|g|,|w_rot|) + 2^-7 * |plain|) {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -549,7 +587,7 @@ def check_conv3x3_backward(dev, entries):
         plain_ms = cuda_ms(lambda: conv2d.conv3x3_plain(g, conv2d.rotate_kernel(w)), 5)
         gc = g.permute(0, 3, 1, 2)  # NHWC storage = channels_last NCHW view
         wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        lib_ms = cuda_ms(lambda: torch.nn.grad.conv2d_input((BATCH, c, h, h), wc, gc,
+        lib_ms = cuda_ms(lambda: torch.nn.grad.conv2d_input((b, c, h, wd), wc, gc,
                                                             padding=1), 10)
         bms, by = bound_ms(nbytes(g, w, got), flops, torch.bfloat16)
         entries.append(dict(name=f"conv2d.conv3x3 dgrad {label}", route="cuda",
@@ -557,10 +595,10 @@ def check_conv3x3_backward(dev, entries):
                             replaces="com_tpu/ops/pallas/conv2d.py:544",
                             max_abs_err=err.max().item(), ms=ms,
                             device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms,
-                            bound_by=by, library_ms=lib_ms, kernel="conv3x3_dgrad"))
+                            bound_by=by, library_ms=lib_ms, kernel=path + "conv3x3_dgrad"))
         del runs, x, y, px, py, got, want, absref, err
 
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in wgrad_dtypes:
             xd, gd = x0.to(dt), g.to(dt)
             got = conv2d.conv3x3_wgrad(xd, gd)
             want = conv2d.conv3x3_wgrad_plain(xd, gd)
@@ -569,7 +607,7 @@ def check_conv3x3_backward(dev, entries):
             err = (got - want).abs()
             rnd = 0.0 if dt == torch.float32 else 2.0 ** -8
             ok = bool((err <= 1e-5 * absref + rnd * want.abs()).all())
-            label = f"{str(dt).split('.')[-1]} (2,{h},{h},{c}->{c})"
+            label = f"{str(dt).split('.')[-1]} ({b},{h},{wd},{c}->{c})"
             print(f"K2w conv3x3_wgrad {label}: max_abs_err={err.max().item():.3e} "
                   f"(|err| <= 1e-5 * sum|x||g| + {rnd:g} * |plain|) {'ok' if ok else 'FAIL'}")
             if not ok:
@@ -587,7 +625,7 @@ def check_conv3x3_backward(dev, entries):
                                 max_abs_err=err.max().item(), ms=ms,
                                 device_ms=dev_ms, plain_ms=plain_ms,
                                 bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                                kernel="conv3x3_wgrad"))
+                                kernel=path + "conv3x3_wgrad"))
             del got, want, absref, err
 
 
@@ -750,12 +788,9 @@ def load_config(grid=None, config=CONFIG):
     return cfg, DatasetMeta(cfg.CLASS_NAMES, pc_range, vsize, grid, FEATS)
 
 
-def check_nms(dev, entries, calls, net, cfg, meta):
-    """K4 on the (2, 500, 500) overlap matrix of boxes the model decodes, and
-    on two synthetic ones with every candidate valid: nothing suppressed
-    (each box overlaps only itself, the longest run of kept candidates) and
-    everything suppressed by the first.  Each case's call goes into
-    ``calls`` with the two device kernels it must issue."""
+def check_nms(dev, entries, calls, net, cfg, meta, smi):
+    """K4 at serving's (2, 500): ``check_k4_cases`` on the overlap matrix of
+    boxes the flagship decodes."""
     from com_tpu_torch.models.dense_heads.center_head import decode_center_boxes
     from com_tpu_torch.ops import nms
     from com_tpu_torch.ops.iou import boxes_iou_bev
@@ -774,8 +809,21 @@ def check_nms(dev, entries, calls, net, cfg, meta):
         sb = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 7))
         sv = torch.gather(valid, 1, order).contiguous()
         over = (boxes_iou_bev(sb, sb) > float(post.NMS_CONFIG.NMS_THRESH)).contiguous()
-    k = over.shape[-1]
-    eye = torch.eye(k, dtype=torch.bool, device=dev).repeat(BATCH, 1, 1)
+    check_k4_cases(dev, entries, calls, over, sv, smi, "", "nms", iters=50)
+
+
+def check_k4_cases(dev, entries, calls, over, sv, smi, where, kernel, iters):
+    """K4 on (over, sv), the candidates a model decodes, and on two
+    synthetic cases of that shape with every candidate valid: nothing
+    suppressed (each box overlaps only itself, the longest run of kept
+    candidates) and everything suppressed by the first; bitwise against
+    greedy_suppress_plain, timed over ``iters`` calls.  Each case's call
+    goes into ``calls`` with the two device kernels it must issue; its
+    entry reports the launches of counter ``kernel``."""
+    from com_tpu_torch.ops import nms
+
+    b, k = sv.shape
+    eye = torch.eye(k, dtype=torch.bool, device=dev).repeat(b, 1, 1)
     first = eye.clone()
     first[:, 0] = True
     every = torch.ones_like(sv)
@@ -786,24 +834,24 @@ def check_nms(dev, entries, calls, net, cfg, meta):
         want = nms.greedy_suppress_plain(ov, vd)
         torch.cuda.synchronize()
         err = (got != want).sum().item()
-        ms = cuda_ms(lambda: nms.greedy_suppress(ov, vd), 50)
-        dev_ms = device_ms(lambda: nms.greedy_suppress(ov, vd), 50)
-        print(f"K4 greedy_suppress (2,{k},{k}) {label}: {int(vd.sum())} valid, {int(got.sum())} "
+        ms = cuda_ms(lambda: nms.greedy_suppress(ov, vd), iters)
+        dev_ms = device_ms(lambda: nms.greedy_suppress(ov, vd), iters)
+        print(f"K4 greedy_suppress ({b},{k},{k}) {label}: {int(vd.sum())} valid, {int(got.sum())} "
               f"kept, {err} mismatches (exact); {ms:.4f} ms a call as the host issues them, "
-              f"{dev_ms:.4f} ms queued on the card {'ok' if err == 0 else 'FAIL'}")
+              f"{dev_ms:.4f} ms queued on the card ({smi}) {'ok' if err == 0 else 'FAIL'}")
         if err:
-            raise AssertionError(f"K4 on {label} disagrees with its plain version")
+            raise AssertionError(f"K4 at ({b},{k}) on {label} disagrees with its plain version")
         # the pack and the sweep
-        calls.append((f"K4 greedy_suppress {label}", 2,
+        calls.append((f"K4 greedy_suppress ({b},{k}) {label}", 2,
                       lambda a=ov, v=vd: nms.greedy_suppress(a, v)))
-        plain_ms = cuda_ms(lambda: nms.greedy_suppress_plain(ov, vd), 3, warmup=1)
+        plain_ms = cuda_ms(lambda: nms.greedy_suppress_plain(ov, vd), 2 if k > 1024 else 3,
+                           warmup=1)
         bms, by = bound_ms(nbytes(ov, vd, got), ov.numel(), torch.float32)
-        entries.append(dict(name=f"nms.greedy_suppress (2,{k},{k}){tag}", route="cuda",
+        entries.append(dict(name=f"nms.greedy_suppress ({b},{k},{k}){tag}{where}", route="cuda",
                             source="com_tpu_torch/csrc/nms.cu",
                             replaces="com_tpu/ops/pallas/nms_kernel.py:56",
-                            max_abs_err=float(err), ms=ms,
-                            device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms,
-                            bound_by=by, library_ms=None, kernel="nms"))
+                            max_abs_err=float(err), ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                            bound_ms=bms, bound_by=by, library_ms=None, kernel=kernel))
 
 
 def check_small_reference(dev):
@@ -891,17 +939,19 @@ def serve(dev):
 
 
 NMS_PARTS = ("decode", "sort_gathers", "iou", "k4", "kept_slots", "rest")
+E_NMS_PARTS = ("decode", "topk", "sort_gathers", "iou", "k4", "kept_slots", "rest")
+NMS_MARKS = ["sort", "iou", "k4", "k4_end", "rest"]  # the marks _mark_nms_steps records
 
 
 def _mark_nms_steps(mark):
     """Wrap the steps of ``nms_bev`` so that each records a CUDA event by
     ``mark(label)``: "sort" before the score sort (the gathers follow it),
-    "iou" before the rotated IoU over (B, K, K, 24, 2), "k4" and "k4_end"
+    "iou" before the self-IoU (``_self_iou``), "k4" and "k4_end"
     around K4, "rest" after ``_kept_slots``.  Returns the function that
     undoes the wrapping."""
     from com_tpu_torch.ops import nms
 
-    orig = {n: getattr(nms, n) for n in ("_score_order", "boxes_iou_bev", "greedy_suppress",
+    orig = {n: getattr(nms, n) for n in ("_score_order", "_self_iou", "greedy_suppress",
                                          "_kept_slots")}
 
     def wrap(name, before=None, after=None):
@@ -915,19 +965,22 @@ def _mark_nms_steps(mark):
         return fn
 
     nms._score_order = wrap("_score_order", before="sort")
-    nms.boxes_iou_bev = wrap("boxes_iou_bev", before="iou")
+    nms._self_iou = wrap("_self_iou", before="iou")
     nms.greedy_suppress = wrap("greedy_suppress", before="k4", after="k4_end")
     nms._kept_slots = wrap("_kept_slots", after="rest")
     return lambda: [setattr(nms, n, f) for n, f in orig.items()]
 
 
-def stage_breakdown(net, step, scenes, iters=5):
+def stage_breakdown(net, step, batch, label, iters=5, smi=""):
     """Where one full-size eval step spends its time on the card: CUDA
     events recorded by forward hooks at each slot's start and end, mean over
     ``iters`` steps.  "upload" is the host-to-card copy of the batch,
-    "decode_nms" the top-K decode and NMS after the head, itself split into
-    the decode, the score sort and gathers, the rotated IoU, K4,
-    ``_kept_slots`` and the rest (the final gathers)."""
+    "decode_nms" the decode and NMS after the head, itself split into the
+    decode, for an anchor head the top NMS_PRE_MAXSIZE ("topk"), the score
+    sort and gathers, the self-IoU, K4, ``_kept_slots`` and the rest (the
+    final gathers)."""
+    from com_tpu_torch.models.dense_heads import anchor_head
+
     marks, sub = [], []
     slots = ("vfe", "backbone_2d", "dense_head")
 
@@ -936,18 +989,24 @@ def stage_breakdown(net, step, scenes, iters=5):
         ev.record()
         marks.append(ev)
 
-    def sub_mark(label):
+    def sub_mark(name):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
-        sub.append((label, ev))
+        sub.append((name, ev))
 
     hooks = [h for s in slots for h in (getattr(net, s).register_forward_pre_hook(mark),
                                         getattr(net, s).register_forward_hook(mark))]
     undo = _mark_nms_steps(sub_mark)
-    batch = {"points": scenes[:2], "points_mask": np.ones((2, POINTS), bool)}
+    orig_top = anchor_head.top_candidates
+
+    def top(*args, **kw):
+        sub_mark("topk")
+        return orig_top(*args, **kw)
+
+    anchor_head.top_candidates = top
     names = ("upload", "vfe", "map", "backbone_2d", "map", "dense_head", "decode_nms")
     sums = dict.fromkeys(names, 0.0)
-    parts = dict.fromkeys(NMS_PARTS, 0.0)
+    parts = {}
     try:
         for _ in range(iters):
             marks.clear()
@@ -958,22 +1017,24 @@ def stage_breakdown(net, step, scenes, iters=5):
             torch.cuda.synchronize()
             for name, a, b in zip(names, marks, marks[1:]):
                 sums[name] += a.elapsed_time(b) / iters
-            labels = [label for label, _ in sub]
-            if labels != ["sort", "iou", "k4", "k4_end", "rest"]:
+            labels = [name for name, _ in sub]
+            if labels not in (NMS_MARKS, ["topk", *NMS_MARKS]):
                 raise AssertionError(f"decode_nms ran its steps as {labels}")
             seq = [marks[-2], *(ev for _, ev in sub), marks[-1]]
-            for name, a, b in zip(NMS_PARTS, seq, seq[1:]):
-                parts[name] += a.elapsed_time(b) / iters
+            for name, a, b in zip(NMS_PARTS if labels == NMS_MARKS else E_NMS_PARTS, seq, seq[1:]):
+                parts[name] = parts.get(name, 0.0) + a.elapsed_time(b) / iters
     finally:
+        anchor_head.top_candidates = orig_top
         undo()
         for h in hooks:
             h.remove()
     sums.pop("map")  # the gaps between slots
     total = sum(sums.values())
-    print(f"stage ms (one eval step, batch {BATCH}, mean of {iters}): "
-          f"{json.dumps({k: round(v, 3) for k, v in sums.items()})} total {total:.3f}")
-    print(f"decode_nms ms (mean of {iters}): "
-          f"{json.dumps({k: round(v, 4) for k, v in parts.items()})}")
+    card = f" ({smi})" if smi else ""
+    print(f"{label}stage ms (one eval step, batch {batch['points'].shape[0]}, mean of {iters}): "
+          f"{json.dumps({k: round(v, 3) for k, v in sums.items()})} total {total:.3f}{card}")
+    print(f"{label}decode_nms ms (mean of {iters}): "
+          f"{json.dumps({k: round(v, 4) for k, v in parts.items()})}{card}")
 
 
 def profile_step(step, scenes):
@@ -1019,14 +1080,14 @@ def build_trainer(dev, cfg, meta, steps_per_epoch, seed=0, **step_kw):
     from com_tpu_torch.models.detectors import build_network
     from com_tpu_torch.train.optim import build_optimizer
     from com_tpu_torch.train.state import TrainState
-    from com_tpu_torch.train.step import conf_shape_for, make_train_step
+    from com_tpu_torch.train.step import conf_shape_for, curriculum_kwargs, make_train_step
 
     names = list(cfg.CLASS_NAMES)
     net = build_network(cfg.MODEL, meta, device=dev, seed=seed)
     opt, _ = build_optimizer(net, cfg.OPTIMIZATION,
                              int(cfg.OPTIMIZATION.NUM_EPOCHS) * steps_per_epoch, steps_per_epoch)
-    state = TrainState.create(net, opt, len(cfg.MODEL.DENSE_HEAD.CLASS_NAMES_EACH_HEAD),
-                              conf_shape_for(cfg.MODEL, names), device=dev)
+    state = TrainState.create(net, opt, conf_shape=conf_shape_for(cfg.MODEL, names), device=dev,
+                              **curriculum_kwargs(cfg.MODEL, names))
     step = make_train_step(net, cfg.MODEL, names, meta, opt, meta.grid_size[1::-1], device=dev,
                            **step_kw)
     return net, opt, state, step
@@ -1112,12 +1173,14 @@ class SyntheticLoader:
 
 
 def run_training(dev, label, cfg, meta, loader, epochs, steps, expect_launches,
-                 step_wrap=None, epoch_hook=None):
+                 step_wrap=None, epoch_hook=None, counts_confidences=True, smi=""):
     """``train_model`` over ``loader`` with the device batch keys of the
     model, from a fresh trainer; finite losses, gradients (at each epoch's
-    last step, outside the timed intervals) and parameters, and the launch
-    counts per step.  ``step_wrap(step)`` may wrap the train step;
-    ``epoch_hook(epoch, state)`` runs at each epoch's first step.  Returns
+    last step, outside the timed intervals) and parameters, the last
+    epoch's confidence counts (non-zero, or zero where the path has no COM
+    groups: ``counts_confidences`` False), and the launch counts per step.
+    ``step_wrap(step)`` may wrap the train step; ``epoch_hook(epoch,
+    state)`` runs at each epoch's first step.  Returns
     the counts, the trainer and the step times (CUDA events between steps,
     the first of each epoch left out)."""
     from com_tpu_torch.train.loop import train_model
@@ -1157,7 +1220,8 @@ def run_training(dev, label, cfg, meta, loader, epochs, steps, expect_launches,
     losses = torch.stack(losses).float().cpu().numpy()
     step_ms = [a.elapsed_time(b) for (ea, a), (eb, b) in zip(marks, marks[1:]) if ea == eb]
     ok = (iters == epochs * steps and np.isfinite(losses).all()
-          and bool(torch.stack(finite).all()) and float(state.conf_cnt.sum()) > 0)
+          and bool(torch.stack(finite).all())
+          and (float(state.conf_cnt.sum()) > 0) == counts_confidences)
     print(f"training path {label}: {iters} steps in {epochs} mini-epochs, {wall:.2f} s wall; "
           f"losses {[round(float(x), 4) for x in losses]}; gradients (last step of each "
           f"epoch) and parameters finite: {bool(torch.stack(finite).all())}; conf_cnt of the "
@@ -1165,7 +1229,8 @@ def run_training(dev, label, cfg, meta, loader, epochs, steps, expect_launches,
     if step_ms:
         print(f"  step time (CUDA events between steps, the first of each epoch left out): "
               f"mean {np.mean(step_ms):.3f} ms over {len(step_ms)} "
-              f"{[round(x, 3) for x in step_ms]}; max_memory_allocated {peak / 2**30:.2f} GiB")
+              f"{[round(x, 3) for x in step_ms]}; max_memory_allocated {peak / 2**30:.2f} GiB"
+              + (f" ({smi})" if smi else ""))
     if not ok:
         raise AssertionError(f"training path {label} failed its checks")
     check_launches(f"{label} step", counts, expect_launches, iters)
@@ -1552,7 +1617,8 @@ def path_d(dev, smi, pc_range=None, bg_points=120000):
                 moments=_same_tensors(opt["state"], want["optimizer_state"]["state"]),
                 model=_same_tensors(state.net.state_dict(), want["model_state"]),
                 curriculum=_same_tensors(
-                    [dict(c._asdict()) for c in state.curriculum], want["curriculum"]),
+                    [{"kind": type(c).__name__, **c._asdict()} for c in state.curriculum],
+                    want["curriculum"]),
                 sampler=(conf is not None and conf.dtype == np.float32 and conf.tobytes()
                          == want["sampler"]["confidence_groups"].cpu().numpy().tobytes()))
 
@@ -1651,10 +1717,426 @@ def path_d(dev, smi, pc_range=None, bg_points=120000):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def stage_and_overfit(dev, trainer, steps=10):
-    """The flagship step's stages by CUDA events (forward, loss, backward,
+def kitti_like_points(rng, b, n, pc_range):
+    """KITTI-like front-camera crops: ~70 % ground at z ~ -1.7 m (the
+    sensor 1.73 m up), density falling with range, within +-45 degrees,
+    a quarter of the points in 24 object-sized blobs; (b, n, 4) f32
+    [x, y, z, intensity], every point inside ``pc_range``."""
+    r = 2.0 + (pc_range[3] - 2.0) * rng.rand(b, n) ** 1.5
+    th = rng.uniform(-np.pi / 4, np.pi / 4, (b, n))
+    x, y = r * np.cos(th), r * np.sin(th)
+    z = np.where(rng.rand(b, n) < 0.7, rng.normal(-1.7, 0.05, (b, n)),
+                 rng.uniform(-1.7, 0.5, (b, n)))
+    n_blob = n // 4
+    centers = np.stack([rng.uniform(5, 60, (b, 24)), rng.uniform(-25, 25, (b, 24))], -1)
+    blob = rng.randint(0, 24, (b, n_blob))
+    off = rng.normal(0.0, 0.8, (b, n_blob, 2))
+    x[:, :n_blob] = np.take_along_axis(centers[..., 0], blob, axis=1) + off[..., 0]
+    y[:, :n_blob] = np.take_along_axis(centers[..., 1], blob, axis=1) + off[..., 1]
+    z[:, :n_blob] = rng.uniform(-1.7, 0.0, (b, n_blob))
+    np.clip(x, pc_range[0], pc_range[3] - 1e-3, out=x)
+    np.clip(y, pc_range[1], pc_range[4] - 1e-3, out=y)
+    np.clip(z, pc_range[2], pc_range[5] - 1e-3, out=z)
+    return np.stack([x, y, z, rng.rand(b, n)], -1).astype(np.float32)
+
+
+def kitti_like_batch(rng, b, pc_range, vsize, n=E_POINTS, real_points=E_REAL_POINTS,
+                     m=E_SLOTS, real=E_REAL_OBJS):
+    """One path E batch: scenes of about ``real_points`` points each,
+    presorted by pillar and padded to ``n`` slots (the padding masked off,
+    last); ``m`` object slots with about ``real`` KITTI-sized Cars,
+    Pedestrians and Cyclists a scene; the COM side arrays."""
+    pts = np.zeros((b, n, E_FEATS), np.float32)
+    mask = np.zeros((b, n), bool)
+    gt = np.zeros((b, m, 8), np.float32)
+    for i in range(b):
+        k = int(rng.randint(real_points - 1000, real_points + 1001))
+        pts[i, :k] = presort_by_pillar(kitti_like_points(rng, 1, k, pc_range), pc_range,
+                                       vsize)[0]
+        mask[i, :k] = True
+        j = int(rng.randint(real - 3, real + 4))
+        cls = rng.randint(1, 4, j)
+        gt[i, :j, 0] = rng.uniform(pc_range[0] + 3, pc_range[3] - 3, j)
+        gt[i, :j, 1] = rng.uniform(pc_range[1] + 3, pc_range[4] - 3, j)
+        gt[i, :j, 2] = rng.uniform(-1.1, -0.7, j)
+        gt[i, :j, 3:6] = KITTI_SIZES[cls - 1] * rng.uniform(0.9, 1.1, (j, 3))
+        gt[i, :j, 6] = rng.uniform(-np.pi, np.pi, j)
+        gt[i, :j, 7] = cls
+    real_mask = gt[..., 7] > 0
+    return {"points": pts, "points_mask": mask, "gt_boxes": gt,
+            "num_points_in_gt": real_mask.astype(np.float32) * 10,
+            "true_object": real_mask.astype(np.float32),
+            "occupancy_ratio": rng.rand(b, m).astype(np.float32),
+            "facade_type": rng.randint(0, 4, (b, m)).astype(np.float32)}
+
+
+def load_kitti(grid=None):
+    """The KITTI PointPillars YAML and its meta: the full 432 x 496 grid of
+    0.16 m pillars, or a small ``grid`` over a range cut to it."""
+    from com_tpu_torch.models.detectors import DatasetMeta
+    from com_tpu_torch.utils.config import cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file(str(REPO / KITTI_CONFIG))
+    vsize = [0.16, 0.16, 4.0]
+    pc_range = list(cfg.DATA_CONFIG.POINT_CLOUD_RANGE)
+    if grid is None:
+        grid = (432, 496, 1)
+    else:
+        pc_range = [0.0, -grid[1] * 0.08, -3.0, grid[0] * 0.16, grid[1] * 0.08, 1.0]
+    return cfg, DatasetMeta(cfg.CLASS_NAMES, pc_range, vsize, grid, E_FEATS)
+
+
+def spread_anchor_scores(net):
+    """Seeded random weights leave every class logit at conv_cls's prior
+    bias, scores ~0.01 under SCORE_THRESH 0.1, so NMS and K4 would see no
+    valid candidate: the bias moves up by 4 (scores spread over (0, 1)), and
+    conv_box's weights shrink 50-fold (residuals as small as pcdet's init,
+    std 0.001, makes them: boxes near their anchors)."""
+    with torch.no_grad():
+        net.dense_head.conv_cls.bias.add_(4.0)
+        net.dense_head.conv_box.weight.mul_(0.02)
+    return net
+
+
+def check_e_seg_scan(dev, entries, batch, meta, smi):
+    """K1's sum at path E's VFE input, (4, 32768, 8) f32: the cluster sums
+    over the presorted pillar runs (padding in the trash run)."""
+    from com_tpu_torch.ops import seg_scan
+    from com_tpu_torch.ops.voxelize import point_voxel_ids
+
+    pts = torch.as_tensor(batch["points"], device=dev)
+    mask = torch.as_tensor(batch["points_mask"], device=dev)
+    flat, in_range = point_voxel_ids(pts[..., :3], meta.point_cloud_range, meta.voxel_size,
+                                     meta.grid_size)
+    valid = mask & in_range
+    hw = meta.grid_size[0] * meta.grid_size[1]
+    seg = torch.where(valid, flat, torch.full_like(flat, hw)).contiguous()
+    if not bool((seg[:, 1:] >= seg[:, :-1]).all()):
+        raise AssertionError("path E: the batch is not presorted by pillar")
+    ones = valid.to(torch.float32)[..., None]
+    vals = torch.cat([pts[..., :3] * ones, ones, torch.zeros_like(pts)], -1).contiguous()
+    got = seg_scan.run_bcast(vals, seg, "sum")
+    want = seg_scan.run_bcast_plain(vals, seg, "sum")
+    scale = seg_scan.run_bcast_plain(vals.abs(), seg, "sum")
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    ok = bool((err <= 1e-5 * scale + 1e-6).all())
+    label = f"f32 ({tuple(vals.shape)[0]},{vals.shape[1]},{vals.shape[2]}), path E"
+    ms = cuda_ms(lambda: seg_scan.run_bcast(vals, seg, "sum"), 50)
+    dev_ms = device_ms(lambda: seg_scan.run_bcast(vals, seg, "sum"), 50)
+    plain_ms = cuda_ms(lambda: seg_scan.run_bcast_plain(vals, seg, "sum"), 10)
+    bms, by = bound_ms(nbytes(vals, seg, got), vals.numel(), torch.float32)
+    print(f"K1 run_bcast sum {label}: {int(valid.sum())} valid points, max_abs_err="
+          f"{err.max().item():.3e} (|err| <= 1e-5 * run sum|x| + 1e-6); {ms:.4f} ms a call as "
+          f"the host issues them, {dev_ms:.4f} ms queued on the card, bound {bms:.5f} ms ({smi}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("K1 sum at path E's input disagrees with its plain version")
+    entries.append(dict(name=f"seg_scan.run_bcast sum {label}", route="cuda",
+                        source="com_tpu_torch/csrc/seg_scan.cu",
+                        replaces="com_tpu/ops/pallas/seg_scan.py:122",
+                        max_abs_err=err.max().item(), ms=ms, device_ms=dev_ms,
+                        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+                        kernel="E:seg_scan"))
+
+
+def e_decoded_candidates(net, cfg, meta, batch, dev):
+    """What the eval step hands K4 for ``batch``: the boxes the model
+    decodes, the top NMS_PRE_MAXSIZE by score (stable), in the NMS's score
+    order, as (over, valid), (B, K, K) and (B, K)."""
+    from com_tpu_torch.models.dense_heads.anchor_head import (box_coder_for, build_anchors,
+                                                              decode_anchor_boxes,
+                                                              top_candidates)
+    from com_tpu_torch.ops import nms
+
+    post = cfg.MODEL.POST_PROCESSING
+    head = cfg.MODEL.DENSE_HEAD
+    anchors = torch.as_tensor(build_anchors(head, list(cfg.CLASS_NAMES), meta.grid_size,
+                                            meta.point_cloud_range)[0], device=dev)
+    with torch.no_grad():
+        out = net({k: torch.as_tensor(batch[k], device=dev) for k in ("points", "points_mask")})
+        boxes, scores, _ = decode_anchor_boxes(out, anchors, len(cfg.CLASS_NAMES),
+                                               box_coder_for(head), head)
+        top, idx = top_candidates(scores, int(post.NMS_CONFIG.NMS_PRE_MAXSIZE))
+        top_bx = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, boxes.shape[-1]))
+        _, sb, sv = nms._sorted(top_bx, top, top > float(post.SCORE_THRESH))
+        over = (nms._self_iou(sb) > float(post.NMS_CONFIG.NMS_THRESH)).contiguous()
+    return over, sv.contiguous()
+
+
+def path_e_serve(dev, smi, entries, calls):
+    """Path E serving: KITTI PointPillars at full width (432 x 496 pillars,
+    batch 4, NMS_PRE_MAXSIZE 4096) with seeded random weights
+    (``spread_anchor_scores``) behind BatchServer: three single-scene
+    requests in one forward with one padded scene, responses checked; the
+    eval step's stages; K1 and K4 at the path's shapes."""
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.serving.server import BatchServer
+    from com_tpu_torch.train.eval import make_eval_step
+
+    cfg, meta = load_kitti()
+    cfg.MODEL.VFE.ASSUME_SORTED_POINTS = True  # the scenes come presorted
+    thresh = float(cfg.MODEL.POST_PROCESSING.SCORE_THRESH)
+    names = list(cfg.CLASS_NAMES)
+    net = spread_anchor_scores(build_network(cfg.MODEL, meta, device=dev, seed=0))
+    step = make_eval_step(net, cfg.MODEL, names, meta, device=dev)
+    batch = kitti_like_batch(np.random.RandomState(21), E_BATCH, meta.point_cloud_range,
+                             meta.voxel_size)
+    step(batch)  # warm-up
+    torch.cuda.synchronize()
+    latencies = []
+
+    def timed_step(b):
+        t0 = time.perf_counter()
+        out = step(b)
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    server = BatchServer(timed_step, {"points": ((E_BATCH, E_POINTS, E_FEATS), "float32")},
+                         max_wait_ms=500.0, score_thresh=thresh, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    try:
+        futures = [server.submit(batch["points"][i][batch["points_mask"][i]]) for i in range(3)]
+        results = [f.result(timeout=600) for f in futures]
+    finally:
+        server.close()
+    counts = read_counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    forwards = server.stats.batches
+    print(f"path E serving: {len(results)} requests in {forwards} batch(es) "
+          f"({server.stats.scenes_padded} padded scene), latency ms a batch "
+          f"{[round(x, 2) for x in latencies]}, max_memory_allocated {peak / 2**30:.2f} GiB "
+          f"({smi})")
+    for i, r in enumerate(results):
+        n = len(r["scores"])
+        ok = (n > 0 and np.isfinite(r["boxes"]).all() and r["boxes"].shape == (n, 7)
+              and (r["scores"] >= thresh).all() and np.isin(r["labels"], [1, 2, 3]).all())
+        print(f"  request {i}: {n} detections, finite boxes and scores >= {thresh}: "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"path E request {i} returned a malformed response")
+    if forwards != 1 or server.stats.scenes_padded != 1:
+        raise AssertionError(f"path E serving ran {forwards} forwards, expected 1 with one "
+                             "padded scene")
+    check_launches("path E serving forward", counts, EXPECT_E_SERVING, forwards)
+    stage_breakdown(net, step, batch, "path E ", iters=3, smi=smi)
+    check_e_seg_scan(dev, entries, batch, meta, smi)
+    over, sv = e_decoded_candidates(net, cfg, meta, batch, dev)
+    check_k4_cases(dev, entries, calls, over, sv, smi, ", path E", "E:nms", iters=20)
+    return counts
+
+
+def e_curriculum_steps(dev, cfg, meta, batches, smi):
+    """Two steps of the anchor curriculum (``E_CURRICULUM`` on the shipped
+    YAML, as ``tests/test_anchor_path.py`` sets it) through ``train_model``,
+    the COM side arrays in the batches: the AnchorCurriculumState moves from
+    zero and stays finite; the (3, 96) counts are non-zero only in the
+    groups of the real objects, and the epoch-end feedback is the state's
+    sums over its counts, bitwise."""
+    import copy
+
+    from com_tpu_torch.train.step import com_groups_for
+
+    ccfg = copy.deepcopy(cfg)
+    ccfg.MODEL.DENSE_HEAD.LOSS_CURRICULUM = dict(E_CURRICULUM)
+    names = list(ccfg.CLASS_NAMES)
+    loader = SyntheticLoader(batches, 2)
+    counts, (net, opt, state, step), _ = run_training(
+        dev, "E curriculum (KITTI PointPillars, LOSS_CURRICULUM)", ccfg, meta, loader, 1, 2,
+        EXPECT_E_TRAIN, smi=smi)
+    (cur,) = state.curriculum
+    cells = set()
+    for b in batches:
+        gt = torch.as_tensor(b["gt_boxes"], device=dev)
+        groups = com_groups_for({k: torch.as_tensor(v, device=dev) for k, v in b.items()},
+                                gt, True, names).cpu().numpy()
+        cls = b["gt_boxes"][..., 7].astype(int)
+        cells |= {(c - 1, g - 1) for c, g in zip(cls.ravel(), groups.ravel()) if c > 0 and g > 0}
+    cnt = state.conf_cnt.cpu().numpy()
+    hit = {tuple(x) for x in np.argwhere(cnt > 0)}
+    feedback = loader.dataset.confidence_groups
+    want = (state.conf_sum / (state.conf_cnt + 0.01)).cpu().numpy()
+    ok = (type(cur).__name__ == "AnchorCurriculumState"
+          and bool(torch.isfinite(cur.means).all() and torch.isfinite(cur.stds).all())
+          and bool((cur.means > 0).all() and (cur.stds > 0).all() and cur.initialized.all())
+          and hit and hit <= cells and bool((state.conf_sum.cpu().numpy()[cnt > 0] > 0).all())
+          and len(feedback) == 1 and feedback[0].tobytes() == want.tobytes())
+    print(f"path E curriculum: means {[round(float(x), 5) for x in cur.means]} stds "
+          f"{[round(float(x), 5) for x in cur.stds]}; (3, 96) counts {int(cnt.sum())} in "
+          f"{len(hit)} cells, all among the {len(cells)} cells of the real objects' groups; "
+          f"feedback bitwise {feedback[0].tobytes() == want.tobytes() if feedback else False} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("path E: the anchor curriculum failed its checks")
+    return counts
+
+
+def path_e_train(dev, smi):
+    """Path E training: ``train_model`` on the shipped KITTI PointPillars
+    YAML at full width, 2 mini-epochs of 3 steps over path E's batches;
+    the epoch-end (3, 96) feedback reaches the loop, all zeros (no COM
+    groups without the curriculum: ``com_groups_for``); the step's stages
+    and the overfit check; then the anchor curriculum's two steps."""
+    cfg, meta = load_kitti()
+    cfg.MODEL.VFE.ASSUME_SORTED_POINTS = True  # the batches come presorted
+    rng = np.random.RandomState(22)
+    batches = [kitti_like_batch(rng, E_BATCH, meta.point_cloud_range, meta.voxel_size)
+               for _ in range(2)]
+    loader = SyntheticLoader(batches, 3)
+    counts, (net, opt, state, step), _ = run_training(
+        dev, "E (KITTI PointPillars)", cfg, meta, loader, 2, 3, EXPECT_E_TRAIN,
+        counts_confidences=False, smi=smi)
+    conf = loader.dataset.confidence_groups
+    ok = len(conf) == 2 and all(c.shape == (3, 96) and not c.any() for c in conf)
+    print(f"  path E feedback {[c.shape for c in conf]}, all zero (no COM groups) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("path E: the epoch-end feedback is wrong")
+    _, _, metrics = stage_and_overfit(dev, (net, opt, state, None, batches[0], cfg, meta),
+                                      label="path E (KITTI PointPillars)", smi=smi)
+    tb = {k: float(metrics[k]) for k in ("rpn_loss_cls", "rpn_loss_loc", "rpn_loss_dir")}
+    if not all(math.isfinite(v) for v in tb.values()):
+        raise AssertionError(f"path E: a loss term is not finite: {tb}")
+    print(f"  path E last loss terms {json.dumps({k: round(v, 5) for k, v in tb.items()})}")
+    del net, opt, state, step
+    torch.cuda.empty_cache()
+    e_curriculum_steps(dev, cfg, meta, batches, smi)
+    return counts
+
+
+def path_e_demo(dev, smi):
+    """The demo CLI on the shipped KITTI PointPillars YAML over two ``.bin``
+    scenes (float32 x 4) with a checkpoint of seeded random weights
+    (``spread_anchor_scores``): finite detections, K4 once a scene."""
+    import shutil
+
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.tools import demo
+
+    cfg, meta = load_kitti()
+    root = REPO / "build" / "path_e"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "scenes").mkdir(parents=True)
+    try:
+        rng = np.random.RandomState(23)
+        for i in range(2):
+            kitti_like_points(rng, 1, E_REAL_POINTS, meta.point_cloud_range)[0].tofile(
+                root / "scenes" / f"{i:06d}.bin")
+        net = spread_anchor_scores(build_network(cfg.MODEL, meta, device=dev, seed=5))
+        torch.save({"model_state": net.state_dict()}, root / "random_weights.pth")
+        del net
+        _quiet_cli_logger()
+        reset_counters()
+        annos = demo.main(["--cfg_file", str(REPO / KITTI_CONFIG), "--data_path",
+                           str(root / "scenes"), "--ext", ".bin", "--ckpt",
+                           str(root / "random_weights.pth"), "--device", str(dev)])
+        torch.cuda.synchronize()
+        check_launches("path E demo scene", read_counters(), EXPECT_E_SERVING, 2)
+        ok = len(annos) == 2 and all(len(a["score"]) and np.isfinite(a["boxes_lidar"]).all()
+                                     and np.isfinite(a["score"]).all() for a in annos)
+        print(f"path E demo: {len(annos)} .bin scenes, {[len(a['score']) for a in annos]} "
+              f"detections, finite {'ok' if ok else 'FAIL'} ({smi})")
+        if not ok:
+            raise AssertionError("path E: the demo failed its checks")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def check_small_anchor_reference(dev):
+    """KITTI PointPillars at a 64x64 grid in f32, the card (kernels) against
+    the CPU (plain versions), same weights: the eval step (NMS_PRE_MAXSIZE
+    2048, past K4's shared-memory layout), and one train step with the
+    anchor curriculum on (loss, every gradient, batch statistics, the new
+    AnchorCurriculumState, the confidence accumulators)."""
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.models.layers import BatchNorm
+    from com_tpu_torch.train.eval import make_eval_step
+
+    cfg, meta = load_kitti(grid=(64, 64, 1))
+    cfg.MODEL.MIXED_PRECISION = False
+    cfg.MODEL.VFE.ASSUME_SORTED_POINTS = True
+    cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_PRE_MAXSIZE = 2048
+    cfg.MODEL.DENSE_HEAD.LOSS_CURRICULUM = dict(E_CURRICULUM)
+    names = list(cfg.CLASS_NAMES)
+    batch = kitti_like_batch(np.random.RandomState(24), BATCH, meta.point_cloud_range,
+                             meta.voxel_size, n=4096, real_points=3000, m=16, real=6)
+    outs = []
+    for d in (dev, "cpu"):
+        net = spread_anchor_scores(build_network(cfg.MODEL, meta, device=d, seed=7))
+        outs.append([t.cpu().numpy() for t in make_eval_step(net, cfg.MODEL, names, meta,
+                                                             device=d)(batch)])
+    (gb, gs, _, gv), (cb, cs, _, cv) = outs
+    worst = 0.0
+    for i in range(BATCH):
+        a = np.concatenate([gb[i][gv[i]], gs[i][gv[i]][:, None]], -1)
+        b = np.concatenate([cb[i][cv[i]], cs[i][cv[i]][:, None]], -1)
+        if len(a) != len(b) or not len(a):
+            raise AssertionError(f"small anchor reference: {len(a)} vs {len(b)} detections")
+        worst = max(worst, float(np.abs(a[:, None] - b[None]).max(-1).min(1).max()))
+    ok = worst <= 1e-3 and bool((gv == cv).all())
+    print(f"small anchor reference (64x64 f32, card vs CPU): eval {int(gv.sum())} detections, "
+          f"worst box/score diff {worst:.2e} (<= 1e-3) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the card's anchor eval step disagrees with the CPU reference")
+
+    runs = []
+    for d in (dev, "cpu"):
+        net, _, state, step = build_trainer(d, cfg, meta, 1, seed=7)
+        shift_norm_biases(spread_anchor_scores(net))
+        running = {k: v for k, v in net.state_dict().items() if "running" in k}
+        for v in running.values():
+            v.zero_()
+        loss, new_cur, aux, _ = step.loss_fn(state, batch, 0)
+        loss.backward()
+        grads = {k: p.grad.float().cpu().clone() for k, p in net.named_parameters()}
+        stats = {k: v.cpu() / (1 - BatchNorm.MOMENTUM) for k, v in running.items()}
+        runs.append((float(loss.detach()), grads, stats, [t.cpu() for t in new_cur[0]],
+                     aux[0].confidence_sum.cpu(), aux[0].confidence_cnt.cpu()))
+    (l0, g0, s0, c0, cs0, cc0), (l1, g1, s1, c1, cs1, cc1) = runs
+    gmax = max(float(g.abs().max()) for g in g1.values())
+    gerr = max(float(((g0[k] - g1[k]).abs() / (1e-3 * g1[k].abs().max() + 1e-5 * gmax)).max())
+               for k in g1)
+    serr = max(float(stat_err(s0, s1, k.rsplit(".", 1)[0]).max())
+               for k in s1 if k.endswith("running_mean"))
+    cerr = max(float((a.float() - b.float()).abs().max()) for a, b in zip(c0, c1))
+    ok = (abs(l0 - l1) <= 1e-4 * abs(l1) and gerr <= 1.0 and serr <= STATS_RTOL
+          and cerr <= 1e-5 and torch.equal(cc0, cc1)
+          and float((cs0 - cs1).abs().max()) <= 1e-4 and float(cc1.sum()) > 0)
+    print(f"small anchor train reference (64x64 f32, card vs CPU, LOSS_CURRICULUM): loss "
+          f"{l0:.6f} vs {l1:.6f}; {len(g1)} gradients within 1e-3 of their max + 1e-5 of the "
+          f"net's max (worst at {gerr:.3f} of that); batch statistics rel {serr:.2e} "
+          f"(<= {STATS_RTOL:g}); curriculum state within {cerr:.2e} (<= 1e-5); confidence "
+          f"counts {int(cc1.sum())} equal {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the card's anchor train step disagrees with the CPU reference")
+
+
+def path_e(dev, smi, entries, calls):
+    """Path E, KITTI PointPillars (anchor head, COMLoss's anchor half, K4
+    at 4,096 candidates): the small reference, serving, the kernels at the
+    path's shapes, training, the curriculum steps and the demo.  Returns
+    the launch counts of its serving forward and of its train steps."""
+    check_small_anchor_reference(dev)
+    torch.cuda.empty_cache()
+    serve_counts = path_e_serve(dev, smi, entries, calls)
+    torch.cuda.empty_cache()
+    check_conv3x3(dev, entries, shapes=E_CONV, dtypes=(torch.bfloat16,), path="E:")
+    check_conv3x3_backward(dev, entries, shapes=E_CONV, wgrad_dtypes=(torch.bfloat16,),
+                           path="E:")
+    torch.cuda.empty_cache()
+    train_counts = path_e_train(dev, smi)
+    torch.cuda.empty_cache()
+    path_e_demo(dev, smi)
+    return serve_counts, train_counts
+
+
+def stage_and_overfit(dev, trainer, steps=10, label="flagship", smi=""):
+    """A train step's stages by CUDA events (forward, loss, backward,
     optimizer; mean over the steps after the first), and the overfit check:
-    the loss falls over ``steps`` steps on one repeated batch."""
+    the loss falls over ``steps`` steps on one repeated batch.  Returns the
+    step, the batch on the card and the last step's metrics."""
     from com_tpu_torch.train.step import make_train_step
 
     net, opt, state, _, batch, cfg, meta = trainer
@@ -1668,7 +2150,7 @@ def stage_and_overfit(dev, trainer, steps=10):
     step = make_train_step(net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, opt,
                            meta.grid_size[1::-1], device=dev, stage_hook=mark)
     dev_batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-    losses, sums = [], {}
+    losses, sums, metrics = [], {}, None
     for i in range(steps):
         marks.clear()
         state, metrics = step(state, dev_batch, 0)
@@ -1679,14 +2161,16 @@ def stage_and_overfit(dev, trainer, steps=10):
                 sums[name] = sums.get(name, 0.0) + a.elapsed_time(b) / (steps - 1)
     losses = [float(x) for x in losses]
     total = sum(sums.values())
-    print(f"stage ms (one flagship train step, batch {BATCH}, mean of {steps - 1}): "
-          f"{json.dumps({k: round(v, 3) for k, v in sums.items()})} total {total:.3f}")
+    batch_size = dev_batch["points"].shape[0]
+    print(f"stage ms (one {label} train step, batch {batch_size}, mean of {steps - 1}): "
+          f"{json.dumps({k: round(v, 3) for k, v in sums.items()})} total {total:.3f}"
+          + (f" ({smi})" if smi else ""))
     ok = np.isfinite(losses).all() and losses[-1] < losses[0]
     print(f"overfit: loss over {steps} steps on one batch {[round(x, 4) for x in losses]} "
           f"falls {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the loss does not fall on a repeated batch")
-    return step, dev_batch
+    return step, dev_batch, metrics
 
 
 def profile_train(state, step, dev_batch):
@@ -1732,8 +2216,9 @@ def main():
     check_small_reference(dev)
     check_small_train_reference(dev)
     serve_counts, net, step, cfg, meta, scenes = serve(dev)
-    stage_breakdown(net, step, scenes)
-    check_nms(dev, entries, calls, net, cfg, meta)
+    stage_breakdown(net, step, {"points": scenes[:2], "points_mask": np.ones((2, POINTS), bool)},
+                    "")
+    check_nms(dev, entries, calls, net, cfg, meta, smi)
     if profile:  # counted in the first profiling session, as without --profile
         check_device_kernels(calls)
         profile_wgrad_sweep(dev)
@@ -1741,7 +2226,7 @@ def main():
     del net, step
     torch.cuda.empty_cache()
     a_counts, trainer = train_path(dev, CONFIG, "A (flagship)", 2, 3, (3, 96), EXPECT_TRAIN)
-    step, dev_batch = stage_and_overfit(dev, trainer)
+    step, dev_batch, _ = stage_and_overfit(dev, trainer)
     if profile:
         profile_train(trainer[2], step, dev_batch)
     del trainer, step, dev_batch
@@ -1752,11 +2237,16 @@ def main():
     train_path_c(dev)
     torch.cuda.empty_cache()
     path_d(dev, smi)
+    torch.cuda.empty_cache()
+    e_serve_counts, e_train_counts = path_e(dev, smi, entries, calls)
     # each kernel's launches on the path that runs it: training path A,
-    # serving for K4, path B for K3's last_wins mode, the sweep for T1-T4
+    # serving for K4, path B for K3's last_wins mode, the sweep for T1-T4;
+    # path E's shapes: its training, and its serving for K4
     counts = {**a_counts, "nms": serve_counts["nms"],
               "stamp_last_wins": b_counts["stamp_last_wins"],
-              **{f"wgrad_{v}": sweep_counts[f"wgrad_{v}"] for v in WGRAD_VARIANTS}}
+              **{f"wgrad_{v}": sweep_counts[f"wgrad_{v}"] for v in WGRAD_VARIANTS},
+              **{f"E:{k}": v for k, v in e_train_counts.items()},
+              "E:nms": e_serve_counts["nms"]}
     if not profile:
         check_device_kernels(calls)
     for e in entries:

@@ -4,10 +4,10 @@ A detector is the slot chain vfe -> map_to_bev (skipped when the VFE wrote
 ``spatial_features``) -> backbone_2d -> dense_head over a batch dict.  The
 slots are attributes named as in pcdet, so ``state_dict()`` keys read
 ``vfe.pfn_layers.0.linear.weight``, ``backbone_2d.blocks.0.1.weight``,
-``dense_head.shared_conv.0.weight``...  CenterPoint is ported, for
-inference and training (``net.train()`` puts the norms in batch-statistics
-mode; the head returns raw predictions in both modes); the other slots and
-detectors come later.
+``dense_head.shared_conv.0.weight``...  CenterPoint and PointPillar are
+ported, for inference and training (``net.train()`` puts the norms in
+batch-statistics mode; the head returns raw predictions in both modes); the
+other slots and detectors come later.
 """
 from __future__ import annotations
 
@@ -83,11 +83,19 @@ class CenterPoint(Detector3D):
     """CenterPoint (detectors/centerpoint.py) — COM's primary detector."""
 
 
+@DETECTORS.register
+class PointPillar(Detector3D):
+    """PointPillars (detectors/pointpillar.py): its PointPillarScatter is the
+    VFE's own scatter into the canvas, as for CenterPoint-Pillar."""
+
+
 def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every weight from ``generator`` (on the CPU, then copied to the
     net's device): convs and linears uniform in +-1/sqrt(fan_in) (PyTorch's
     default bound), conv biases the same, norms at identity, and the
-    heatmap's final bias at its init value."""
+    heatmap's final bias and the anchor head's class bias at their init
+    values (the latter the prior -log((1 - 0.01) / 0.01), as flax's)."""
+    from .dense_heads.anchor_head import CLS_BIAS_INIT, AnchorHeadSingle
     from .dense_heads.center_head import SeparateHead
 
     def draw(t, bound):
@@ -109,6 +117,8 @@ def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
         for mod in net.modules():
             if isinstance(mod, SeparateHead) and "hm" in mod.names:
                 mod.hm[-1].bias.fill_(mod.init_bias)
+            elif isinstance(mod, AnchorHeadSingle):
+                mod.conv_cls.bias.fill_(CLS_BIAS_INIT)
     return net
 
 

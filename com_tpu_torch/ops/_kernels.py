@@ -48,6 +48,7 @@ SIGNATURES = {
         "k3_stamp": (I, (P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P)),
     },
     "nms": {
+        "k4_max_candidates": (I, ()),
         "k4_greedy_suppress": (I, (P, P, P, P, I, I, P)),
     },
     "wgrad_variants": {

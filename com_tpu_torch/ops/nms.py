@@ -1,9 +1,10 @@
-"""Rotated-BEV NMS, fast NMS and circle NMS with fixed shapes, batched
-(kernel K4 for the greedy ones).
+"""Rotated-BEV NMS, per-class NMS, fast NMS and circle NMS with fixed
+shapes, batched (kernel K4 for the greedy ones).
 
 Counterpart of ``com_tpu/ops/nms.py`` and ``com_tpu/ops/pallas/
-nms_kernel.py``.  The pairwise IoU (or distance) matrix is built in one shot
-with library ops; the sequential greedy pass is ``greedy_suppress``, which
+nms_kernel.py``.  The pairwise IoU (or distance) matrix is built with
+library ops, in blocks of 512 rows of one sample past 1,024 candidates
+(``_self_iou``); the sequential greedy pass is ``greedy_suppress``, which
 launches the CUDA kernel (``csrc/nms.cu``) for CUDA tensors and runs
 ``greedy_suppress_plain`` for CPU tensors.  Outputs are padded to a fixed
 size with validity masks.  The JAX package vmaps its per-sample functions;
@@ -11,6 +12,7 @@ here the batch axis is written out: boxes are (B, K, 7).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -20,18 +22,13 @@ from .iou import boxes_iou_aligned_bev, boxes_iou_bev
 
 launches = 0  # K4 launches by greedy_suppress since the last reset
 
-_SMEM_LIMIT = 227 * 1024  # shared memory one block can hold on Hopper
-
-
 _packed: dict[tuple[int, int, int], torch.Tensor] = {}  # (stream, B, K) -> K4's bit rows
 
 
-def smem_bytes(k: int) -> int:
-    """Shared memory of K4's sweep for k candidates (``csrc/nms.cu``
-    ``smem_bytes``): the bit rows, padded to a whole number of 64-candidate
-    words, of ceil(k / 64) words at an odd stride, and the valid words."""
-    words = -(-k // 64)
-    return (64 * words * (words | 1) + words) * 8
+@functools.cache
+def max_candidates() -> int:
+    """The most candidates K4 takes (``csrc/nms.cu`` ``k4_max_candidates``)."""
+    return int(_kernels.library("nms").k4_max_candidates())
 
 
 def _scratch(b: int, k: int, index: int) -> torch.Tensor:
@@ -84,8 +81,9 @@ def greedy_suppress(over: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     if valid.get_device() != index or not (over.is_contiguous() and valid.is_contiguous()):
         raise ValueError("greedy_suppress: over and valid must be contiguous on one device")
     b, k = shape[:2]
-    if smem_bytes(k) > _SMEM_LIMIT:
-        raise ValueError(f"greedy_suppress: K={k} candidates exceed one block's shared memory")
+    if k > max_candidates():
+        raise ValueError(f"greedy_suppress: K={k} candidates, K4 takes at most "
+                         f"{max_candidates()}")
     keep = torch.empty_like(valid)
     if keep.numel() == 0:
         return keep
@@ -122,18 +120,62 @@ def _kept_slots(keep, order, post_max_size):
     return selected, sel_valid & (torch.arange(post_max_size, device=keep.device) < count)
 
 
+def _self_iou(sb, use_rotated_iou: bool = True, row_block: int = 512):
+    """(B, K, K) IoU of each sample's boxes with themselves.  Past 1,024
+    candidates, when ``row_block`` divides K, it is built ``row_block`` rows
+    of one sample at a time (``com_tpu/ops/nms.py`` ``_self_iou``): the
+    rotated clip's (rows, K, 24, 2) intermediates of a whole (4, 4096)
+    batch would take gigabytes each."""
+    k = sb.shape[1]
+    f = boxes_iou_bev if use_rotated_iou else boxes_iou_aligned_bev
+    if k <= 1024 or k % row_block != 0:
+        return f(sb, sb)
+    out = torch.empty((sb.shape[0], k, k), dtype=sb.dtype, device=sb.device)
+    for b in range(sb.shape[0]):
+        for r in range(0, k, row_block):
+            out[b, r:r + row_block] = f(sb[b, r:r + row_block], sb[b])
+    return out
+
+
+def _sorted(boxes, scores, valid):
+    """The score order and the boxes and validity in it."""
+    order = _score_order(scores, valid)
+    sb = torch.gather(boxes, 1, order[..., None].expand(-1, -1, boxes.shape[-1]))
+    return order, sb, torch.gather(valid, 1, order)
+
+
 def nms_bev(boxes, scores, valid, thresh: float, post_max_size: int,
             use_rotated_iou: bool = True):
     """Rotated-BEV NMS (nms_gpu semantics: sort by score, suppress by BEV IoU
     > thresh).  boxes (B, K, 7+), scores (B, K), valid (B, K) bool.
     Returns (selected (B, post_max_size), sel_valid (B, post_max_size))."""
-    order = _score_order(scores, valid)
-    sb = torch.gather(boxes, 1, order[..., None].expand(-1, -1, boxes.shape[-1]))
-    sv = torch.gather(valid, 1, order)
-    iou_fn = boxes_iou_bev if use_rotated_iou else boxes_iou_aligned_bev
-    over = iou_fn(sb, sb) > thresh
+    order, sb, sv = _sorted(boxes, scores, valid)
+    over = _self_iou(sb, use_rotated_iou) > thresh
     keep = greedy_suppress(over.contiguous(), sv.contiguous())
     return _kept_slots(keep, order, post_max_size)
+
+
+def multi_class_nms_bev(boxes, scores, labels, valid, num_classes: int, thresh: float,
+                        post_max_size: int):
+    """Per-class rotated NMS (model_nms_utils.multi_classes_nms): one score
+    sort and one IoU matrix, cross-class pairs masked out of it, one greedy
+    pass (K4) over candidates with a class; then the top ``post_max_size``
+    kept by score overall (ties to the lower index, as ``lax.top_k``).
+    ``num_classes`` is the JAX signature's; the labels carry the classes.
+    Returns (selected (B, P) indices into the candidates, sel_valid)."""
+    order, sb, sv = _sorted(boxes, scores, valid)
+    sl = torch.gather(labels, 1, order)
+    iou = _self_iou(sb)
+    iou_cls = torch.where(sl[:, :, None] == sl[:, None, :], iou, torch.zeros_like(iou))
+    keep_sorted = greedy_suppress((iou_cls > thresh).contiguous(), (sv & (sl > 0)).contiguous())
+    kept = torch.zeros_like(keep_sorted).scatter_(1, order, keep_sorted)
+    keep_scores = torch.where(kept, scores, torch.full_like(scores, -math.inf))
+    k = scores.shape[1]
+    if k < post_max_size:  # pad with -inf to post_max_size candidates
+        keep_scores = torch.cat([keep_scores, keep_scores.new_full(
+            (scores.shape[0], post_max_size - k), -math.inf)], dim=1)
+    top, idx = torch.sort(keep_scores, dim=-1, descending=True, stable=True)
+    return torch.clamp(idx[:, :post_max_size], 0, k - 1), torch.isfinite(top[:, :post_max_size])
 
 
 def fast_nms_bev(boxes, scores, valid, thresh: float, post_max_size: int):
@@ -143,12 +185,10 @@ def fast_nms_bev(boxes, scores, valid, thresh: float, post_max_size: int):
     boxes (B, K, 7+), scores (B, K), valid (B, K) bool.  Returns
     (selected, sel_valid) as ``nms_bev``; kept ranks past post_max_size,
     and the slots past the kept count when post_max_size > K, are invalid."""
-    order = _score_order(scores, valid)
-    sb = torch.gather(boxes, 1, order[..., None].expand(-1, -1, boxes.shape[-1]))
-    sv = torch.gather(valid, 1, order)
+    order, sb, sv = _sorted(boxes, scores, valid)
     k = sb.shape[1]
     higher = torch.ones((k, k), dtype=torch.bool, device=sb.device).triu(1)  # [i, j]: i before j
-    suppressed = ((boxes_iou_bev(sb, sb) > thresh) & higher & sv[:, :, None]).any(dim=1)
+    suppressed = ((_self_iou(sb) > thresh) & higher & sv[:, :, None]).any(dim=1)
     return _kept_slots(sv & ~suppressed, order, post_max_size)
 
 

@@ -42,7 +42,8 @@ with an optional diagnostic:
   k4:THREADS,PACK_THREADS      kThreads, kPackThreads of nms.cu (the sweep's
                                block, a pack block), timed on NMS-like,
                                none-suppressed and all-suppressed-by-the-first
-                               (2, K, K) at K = 500 and 1024
+                               (2, K, K) at K = 500 and 1024, and (4, 4096,
+                               4096), the sweep's rows read from L2
   k3:TILEH,OBJS                kTileH, kObjs of stamp.cu, timed in both modes
   ...,noexp | ,nocells         on the training path's (2,3,468,468) canvas
                                (diagnostics: the gaussian's exp replaced by a
@@ -435,7 +436,8 @@ def run_k4(variants=K4_DEFAULT, device=None):
     libs = _load(variants, "nms")
     gen = torch.Generator(device=dev).manual_seed(7)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    cases = {**k4_cases(dev, gen), **k4_cases(dev, gen, k=1024)}
+    cases = {**k4_cases(dev, gen), **k4_cases(dev, gen, k=1024),
+             **k4_cases(dev, gen, b=4, k=4096)}
     rows = []
     for case, (over, valid) in cases.items():
         want = nms.greedy_suppress_plain(over, valid)

@@ -96,7 +96,7 @@ def main(argv=None, on_start=None, metric_hook=None):
     from ..train.loop import train_model
     from ..train.optim import build_optimizer
     from ..train.state import TrainState
-    from ..train.step import conf_shape_for, device_batch_keys, make_train_step
+    from ..train.step import conf_shape_for, curriculum_kwargs, device_batch_keys, make_train_step
     from ..utils.checkpoint import (load_checkpoint, load_params_only, resume_latest,
                                     sampler_confidences)
     from ..utils.common import create_logger, set_random_seed
@@ -131,8 +131,8 @@ def main(argv=None, on_start=None, metric_hook=None):
     steps_per_epoch = len(loader)
     opt, lr_fn = build_optimizer(net, cfg.OPTIMIZATION, total_steps=steps_per_epoch * epochs,
                                  steps_per_epoch=steps_per_epoch)
-    state = TrainState.create(net, opt, len(cfg.MODEL.DENSE_HEAD.CLASS_NAMES_EACH_HEAD),
-                              conf_shape_for(cfg.MODEL, names), device=dev)
+    state = TrainState.create(net, opt, conf_shape=conf_shape_for(cfg.MODEL, names), device=dev,
+                              **curriculum_kwargs(cfg.MODEL, names))
     if args.pretrained_model:
         load_params_only(args.pretrained_model, net, logger=logger)
     if args.ckpt:  # an explicit checkpoint comes before the newest one

@@ -1,7 +1,8 @@
 """Evaluation (counterpart of ``com_tpu/train/eval.py``; reference
 tools/eval_utils/eval_utils.py:12-136).
 
-``make_eval_step`` (CenterPoint branch): forward -> per-head top-K decode ->
+``make_eval_step`` (CenterPoint and anchor branches): forward -> per-head
+top-K decode -> NMS, or every anchor decoded -> top ``NMS_PRE_MAXSIZE`` ->
 NMS, all on the device, fixed shapes with validity masks.  ``eval_model``
 runs it over a loader, copies each batch's outputs to the host at once,
 trims every frame to its valid detections sorted by score into
@@ -15,6 +16,8 @@ import time
 import numpy as np
 import torch
 
+from ..models.dense_heads.anchor_head import (anchor_post_process, box_coder_for,
+                                              build_anchors, decode_anchor_boxes)
 from ..models.dense_heads.center_head import decode_center_boxes, post_process_nms
 from ..ops.host_boxes import boxes_iou3d
 from ..utils.device import resolve_device
@@ -32,14 +35,15 @@ def make_eval_step(net, model_cfg, class_names, meta, device=None):
     arrays or tensors; they move to ``device`` (CUDA unless the caller passes
     another).  Outputs are tensors on that device: boxes (B, P, 7), scores
     and labels (B, P), valid (B, P), P = NMS_POST_MAXSIZE per head, heads
-    concatenated.  Unlike the JAX step, the weights live in ``net``.
+    concatenated (one "head" for an anchor head).  Unlike the JAX step, the
+    weights live in ``net``.
     """
     if model_cfg.get("ROI_HEAD") is not None:
         raise NotImplementedError("two-stage eval is not ported yet")
     head_cfg = model_cfg["DENSE_HEAD"]
-    if "ANCHOR_GENERATOR_CONFIG" in head_cfg:
-        raise NotImplementedError("anchor-head eval is not ported yet")
     dev = resolve_device(device)
+    if "ANCHOR_GENERATOR_CONFIG" in head_cfg:
+        return _make_anchor_eval_step(net, model_cfg, class_names, meta, dev)
     post = head_cfg["POST_PROCESSING"]
     stride = int(head_cfg["TARGET_ASSIGNER_CONFIG"].get("FEATURE_MAP_STRIDE", 1))
     groups = _head_groups(model_cfg, list(class_names))
@@ -60,6 +64,33 @@ def make_eval_step(net, model_cfg, class_names, meta, device=None):
             parts.append(post_process_nms(*decoded, nms_cfg,
                                           int(nms_cfg.get("NMS_POST_MAXSIZE", 500))))
         return tuple(torch.cat(p, dim=1) for p in zip(*parts))
+
+    return eval_step
+
+
+def _make_anchor_eval_step(net, model_cfg, class_names, meta, dev):
+    """Anchor-head inference (anchor_head_template.generate_predicted_boxes
+    and the model's post-processing): every anchor decoded, the top
+    ``NMS_PRE_MAXSIZE`` by score, score filter, rotated NMS.  Reads
+    ``MODEL.POST_PROCESSING``, with the JAX package's defaults."""
+    head_cfg = model_cfg["DENSE_HEAD"]
+    post = model_cfg.get("POST_PROCESSING", {})
+    nms_cfg = post.get("NMS_CONFIG", {"NMS_TYPE": "nms_gpu", "NMS_THRESH": 0.7,
+                                      "NMS_PRE_MAXSIZE": 4096, "NMS_POST_MAXSIZE": 500})
+    score_thresh = float(post.get("SCORE_THRESH", 0.1))
+    anchors = torch.as_tensor(build_anchors(head_cfg, list(class_names), meta.grid_size,
+                                            meta.point_cloud_range)[0], device=dev)
+    coder = box_coder_for(head_cfg)
+    dir_cfg = head_cfg if head_cfg.get("USE_DIRECTION_CLASSIFIER") else None
+    num_class = len(class_names)
+
+    @torch.no_grad()
+    def eval_step(batch):
+        inputs = {k: torch.as_tensor(batch[k], device=dev) for k in ("points", "points_mask")}
+        out = net(inputs)
+        boxes, scores, labels = decode_anchor_boxes(out, anchors, num_class, coder, dir_cfg)
+        return anchor_post_process(boxes, scores, labels, nms_cfg, score_thresh,
+                                   num_classes=num_class)
 
     return eval_step
 

@@ -2,8 +2,9 @@
 
 The JAX package's pytree becomes a small mutable holder: the model (its
 parameters and batch-norm buffers), the optimizer (its moments), one
-``CurriculumState`` per head group and the per-epoch (num_class,
-num_groups) confidence accumulators.  Every tensor lives on the model's
+curriculum state per head group (``CurriculumState`` for CenterPoint heads,
+``AnchorCurriculumState`` for anchor heads with a ``LOSS_CURRICULUM``) and
+the per-epoch (num_class, num_groups) confidence accumulators.  Every tensor lives on the model's
 device, so a step never syncs with the host; ``step`` is the host-side
 count of steps taken.
 """
@@ -51,11 +52,20 @@ class TrainState:
         return self
 
     @classmethod
-    def create(cls, net, optimizer, num_head_groups: int = 0, conf_shape=None, device=None):
+    def create(cls, net, optimizer, num_head_groups: int = 0, conf_shape=None, device=None,
+               anchor_num_class: int | None = None):
         """A fresh state over ``net`` on its device; ``device`` follows the
-        entry-point rule of ``check_same_device``."""
+        entry-point rule of ``check_same_device``.  With ``anchor_num_class``
+        the curriculum is ``max(num_head_groups, 1)`` (C,) anchor states, as
+        ``com_tpu/train/state.py``."""
+        from ..losses.anchor_losses import AnchorCurriculumState
+
         dev = check_same_device(net, device)
         conf = [torch.zeros(conf_shape, dtype=torch.float32, device=dev) if conf_shape else None
                 for _ in range(2)]
-        return cls(net, optimizer,
-                   tuple(CurriculumState.create(dev) for _ in range(num_head_groups)), *conf)
+        if anchor_num_class is not None:
+            cur = tuple(AnchorCurriculumState.create(anchor_num_class, dev)
+                        for _ in range(max(num_head_groups, 1)))
+        else:
+            cur = tuple(CurriculumState.create(dev) for _ in range(num_head_groups))
+        return cls(net, optimizer, cur, *conf)

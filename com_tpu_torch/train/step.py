@@ -1,17 +1,25 @@
-"""The train step for CenterPoint detectors (counterpart of
-``com_tpu/train/step.py``, CenterPoint branch).
+"""The train step for CenterPoint and anchor-head detectors (counterpart of
+``com_tpu/train/step.py``, its CenterPoint and anchor branches).
 
-One call runs forward, target assignment, the CenterNet or COM losses,
-backward, the optimizer update and the on-device accumulation of the
-per-(class, group) confidence statistics, with no sync with the host.  The
-anchor-head, RoI-head and point-head branches are not ported yet.
+One call runs forward, target assignment, the CenterNet, anchor or COM
+losses, backward, the optimizer update and the on-device accumulation of
+the per-(class, group) confidence statistics, with no sync with the host.
+The RoI-head and point-head branches are not ported yet.
 """
 from __future__ import annotations
 
-import torch
+import math
 
+import torch
+import torch.nn.functional as F
+
+from ..losses.anchor_losses import (AnchorCurriculumState, anchor_group_confidences,
+                                    curriculum_sigmoid_focal_loss, sigmoid_focal_loss,
+                                    weighted_cross_entropy, weighted_smooth_l1)
 from ..losses.centernet import focal_loss_centernet, reg_loss_centernet, sigmoid_clamped
 from ..losses.curriculum import CurriculumAux, focal_loss_center_curriculum, group_confidences
+from ..models.dense_heads.anchor_assign import assign_anchor_targets, atss_assign_targets
+from ..models.dense_heads.anchor_head import box_coder_for, build_anchors, reshape_anchor_preds
 from ..models.dense_heads.target_assign import assign_centerpoint_targets, cluster_com_groups
 from .state import check_same_device
 
@@ -124,12 +132,127 @@ def compute_centerpoint_loss(batch, model_cfg, class_names, meta, curriculum_sta
     return total, tuple(new_states), aux_list, tb
 
 
+def is_anchor_head(model_cfg) -> bool:
+    return "ANCHOR_GENERATOR_CONFIG" in model_cfg.get("DENSE_HEAD", {})
+
+
+def curriculum_kwargs(model_cfg, class_names) -> dict:
+    """``TrainState.create``'s curriculum arguments, as ``tools/train.py``
+    chooses them: one state a head group for CenterPoint heads; for anchor
+    heads one, of the anchor kind when the head has a ``LOSS_CURRICULUM``."""
+    if is_anchor_head(model_cfg):
+        return {"num_head_groups": 1,
+                "anchor_num_class": (len(class_names) if "LOSS_CURRICULUM" in
+                                     model_cfg["DENSE_HEAD"] else None)}
+    return {"num_head_groups": len(model_cfg["DENSE_HEAD"]["CLASS_NAMES_EACH_HEAD"])}
+
+
+class AnchorSet:
+    """A model's static anchors (``build_anchors``) as tensors on a device:
+    ``anchors`` (A, 7), ``per_class_index`` [(A_c,) int64], the thresholds
+    and class ids, and the box coder of its axis-aligned assigner (the ATSS
+    assigner is not ported: it raises by name)."""
+
+    def __init__(self, model_cfg, class_names, meta, device):
+        head_cfg = model_cfg["DENSE_HEAD"]
+        if head_cfg.get("TARGET_ASSIGNER_CONFIG", {}).get("NAME") == "ATSSTargetAssigner":
+            atss_assign_targets()
+        anchors, index, self.matched, self.unmatched, self.class_ids = build_anchors(
+            head_cfg, list(class_names), meta.grid_size, meta.point_cloud_range)
+        self.anchors = torch.as_tensor(anchors, device=device)
+        self.per_class_index = [torch.as_tensor(i, dtype=torch.int64, device=device)
+                                for i in index]
+        self.coder = box_coder_for(head_cfg)
+
+
+def compute_anchor_loss(batch, model_cfg, class_names, meta, curriculum_states, epoch,
+                        anchor_set: AnchorSet):
+    """Anchor-head loss (anchor_head_template get_loss and the curriculum
+    variants): (curriculum) sigmoid focal over the (B, A, C) one-hot
+    classes, smooth-L1 on the sin-difference box encoding and direction
+    cross-entropy, both weighted by each anchor's curriculum weight.
+    Returns (loss, new_states, aux_list, tb) as the CenterPoint loss."""
+    head_cfg = model_cfg["DENSE_HEAD"]
+    lw = head_cfg["LOSS_CONFIG"]["LOSS_WEIGHTS"]
+    curriculum_cfg = head_cfg.get("LOSS_CURRICULUM", None)
+    is_cur = curriculum_cfg is not None
+    num_class = len(class_names)
+    _, num_groups = conf_shape_for(model_cfg, class_names)
+    gt_boxes = batch["gt_boxes"]
+    coder = anchor_set.coder
+    group = com_groups_for(batch, gt_boxes, is_cur, class_names)
+    targets = assign_anchor_targets(anchor_set.anchors, anchor_set.per_class_index, gt_boxes,
+                                    group, anchor_set.class_ids, anchor_set.matched,
+                                    anchor_set.unmatched, coder)
+    cls_flat, box_flat, dir_flat = reshape_anchor_preds(batch, num_class,
+                                                        code_size=coder.code_size)
+    b = cls_flat.shape[0]
+
+    labels = targets.box_cls_labels
+    cared, positives, negatives = labels >= 0, labels > 0, labels == 0
+    pos_norm = torch.clamp(positives.sum(dim=1, keepdim=True).to(torch.float32), min=1.0)
+    cls_w = (negatives.to(torch.float32) + positives.to(torch.float32)) / pos_norm \
+        * cared.to(torch.float32)
+    one_hot = F.one_hot(torch.where(cared, labels, torch.zeros_like(labels)).long(),
+                        num_class + 1)[..., 1:].to(torch.float32)
+    groups_oh = one_hot.to(torch.int32) * targets.groups[..., None]  # groups in the class slot
+
+    aux_states = []
+    if is_cur:
+        state0 = (curriculum_states[0] if curriculum_states
+                  else AnchorCurriculumState.create(num_class, cls_flat.device))
+        cls_src, cw, new_state, (conf_sum, conf_cnt) = curriculum_sigmoid_focal_loss(
+            cls_flat, one_hot, cls_w, groups_oh, state0, curriculum_cfg, epoch,
+            num_groups=num_groups)
+        cw_anchor = cw.max(dim=-1).values  # one weight an anchor: the max over classes
+        aux_states.append(new_state)
+    else:
+        cls_src = sigmoid_focal_loss(cls_flat, one_hot, cls_w)
+        conf_sum, conf_cnt = anchor_group_confidences(torch.sigmoid(cls_flat), groups_oh,
+                                                      num_class, num_groups)
+        cw_anchor = torch.ones_like(cls_w)
+        if curriculum_states:
+            aux_states.append(curriculum_states[0])
+    cls_loss = cls_src.sum() / b * float(lw.get("cls_weight", 1.0))
+
+    # the sin-difference heading encoding (add_sin_difference)
+    reg_t = targets.box_reg_targets
+    p6, t6 = box_flat[..., 6:7], reg_t[..., 6:7]
+    box_p = torch.cat([box_flat[..., :6], torch.sin(p6) * torch.cos(t6), box_flat[..., 7:]], -1)
+    box_t = torch.cat([reg_t[..., :6], torch.cos(p6) * torch.sin(t6), reg_t[..., 7:]], -1)
+    loc_src = weighted_smooth_l1(box_p, box_t, targets.reg_weights * cw_anchor,
+                                 code_weights=lw.get("code_weights"))
+    loc_loss = loc_src.sum() / b * float(lw.get("loc_weight", 2.0))
+    total = cls_loss + loc_loss
+    tb = {"rpn_loss_cls": cls_loss, "rpn_loss_loc": loc_loss}
+    if dir_flat is not None:
+        dir_offset = float(head_cfg.get("DIR_OFFSET", 0.78539))
+        nbins = int(head_cfg.get("NUM_DIR_BINS", 2))
+        off = reg_t[..., 6] + anchor_set.anchors[None, :, 6] - dir_offset
+        off = off - torch.floor(off / (2 * math.pi)) * (2 * math.pi)
+        dir_t = torch.clamp((off / (2 * math.pi / nbins)).to(torch.int32), 0, nbins - 1)
+        dw = positives.to(torch.float32)
+        dw = dw / torch.clamp(dw.sum(dim=-1, keepdim=True), min=1.0)
+        dir_loss = weighted_cross_entropy(dir_flat, F.one_hot(dir_t.long(), nbins).to(
+            torch.float32), dw * cw_anchor)
+        dir_loss = dir_loss.sum() / b * float(lw.get("dir_weight", 0.2))
+        total = total + dir_loss
+        tb["rpn_loss_dir"] = dir_loss
+
+    aux = CurriculumAux(conf_sum, conf_cnt, torch.zeros((), device=cls_flat.device),
+                        targets.reg_weights)
+    return total, tuple(aux_states), [aux], tb
+
+
 def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, device=None,
                     stage_hook=None):
     """A ``train_step(state, batch, epoch) -> (state, metrics)`` over ``net``.
 
-    ``batch`` holds the ``BATCH_KEYS`` arrays (numpy or tensors); they move
-    to the model's device.  The step updates ``state`` in place (model,
+    The loss is ``compute_anchor_loss`` for a head with an
+    ``ANCHOR_GENERATOR_CONFIG`` (its anchors built once, on the device), else
+    ``compute_centerpoint_loss`` (which alone reads ``fmap_hw``).  ``batch``
+    holds the ``BATCH_KEYS`` arrays (numpy or tensors); they move to the
+    model's device.  The step updates ``state`` in place (model,
     optimizer, curriculum EMA, confidence accumulators) and returns it with
     device-side metrics.  ``device`` follows the entry-point rule: CUDA
     unless the caller passes another, and it must hold the model.
@@ -141,14 +264,22 @@ def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, devic
     head_cfg = model_cfg.get("DENSE_HEAD")
     if head_cfg is None:
         raise NotImplementedError("point-proposal detectors are not ported yet")
-    if "ANCHOR_GENERATOR_CONFIG" in head_cfg:
-        raise NotImplementedError("the anchor-head loss is not ported yet")
     for slot in ("ROI_HEAD", "POINT_HEAD"):
         if model_cfg.get(slot) is not None:
             raise NotImplementedError(f"the {slot} loss is not ported yet")
     dev = check_same_device(net, device)
     class_names = list(class_names)
     hook = stage_hook or (lambda name: None)
+    if is_anchor_head(model_cfg):
+        anchor_set = AnchorSet(model_cfg, class_names, meta, dev)
+
+        def compute_loss(out, curriculum, epoch):
+            return compute_anchor_loss(out, model_cfg, class_names, meta, curriculum, epoch,
+                                       anchor_set)
+    else:
+        def compute_loss(out, curriculum, epoch):
+            return compute_centerpoint_loss(out, model_cfg, class_names, meta, curriculum,
+                                            epoch, fmap_hw)
 
     def forward(batch):
         inputs = {k: torch.as_tensor(batch[k], device=dev) for k in BATCH_KEYS if k in batch}
@@ -156,16 +287,13 @@ def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, devic
         return net(inputs)
 
     def loss_fn(state, batch, epoch):
-        out = forward(batch)
-        return compute_centerpoint_loss(out, model_cfg, class_names, meta, state.curriculum,
-                                        epoch, fmap_hw)
+        return compute_loss(forward(batch), state.curriculum, epoch)
 
     def train_step(state, batch, epoch):
         hook("forward")
         out = forward(batch)
         hook("loss")
-        loss, new_cur, aux_list, tb = compute_centerpoint_loss(
-            out, model_cfg, class_names, meta, state.curriculum, epoch, fmap_hw)
+        loss, new_cur, aux_list, tb = compute_loss(out, state.curriculum, epoch)
         hook("backward")
         optimizer.zero_grad(set_to_none=True)
         loss.backward()

@@ -5,7 +5,9 @@ detector3d_template.py:330-415, tools/train.py:150-162).
 One file an epoch, ``checkpoint_epoch_{N}.pth``, in the reference's layout,
 ``{"model_state", "optimizer_state", "epoch", "it", "version"}``, so a
 reference ``.pth`` loads through ``load_params_only`` as it is.  Beside
-those: ``"step"``, ``"curriculum"`` (each head group's ``CurriculumState``),
+those: ``"step"``, ``"curriculum"`` (each head group's curriculum state,
+its fields and a ``"kind"`` tag: ``CurriculumState`` or
+``AnchorCurriculumState``),
 ``"conf"`` (the epoch's confidence accumulators) and ``"sampler"``
 (``{"confidence_groups": (C, G) tensor}``): the curriculum EMA and the
 sampler's confidences survive a resume, which the reference loses.  The
@@ -27,7 +29,27 @@ import torch
 
 VERSION = "com_tpu_torch-0.1"
 LATEST = "latest_model.pth"
-_CURRICULUM_FIELDS = ("avg_confidence", "mean", "std", "initialized")
+
+def _curriculum_kinds() -> dict:
+    """kind tag -> the curriculum state's NamedTuple."""
+    from ..losses.anchor_losses import AnchorCurriculumState
+    from ..losses.curriculum import CurriculumState
+
+    return {"CurriculumState": CurriculumState, "AnchorCurriculumState": AnchorCurriculumState}
+
+
+def _curriculum_payload(c) -> dict:
+    return {"kind": type(c).__name__, **c._asdict()}
+
+
+def _curriculum_from_payload(c: dict, want: str, dev):
+    """A payload entry as the NamedTuple of kind ``want`` (the state's own);
+    an entry without a tag is a ``CurriculumState``."""
+    kind = c.get("kind", "CurriculumState")
+    if kind != want:
+        raise ValueError(f"checkpoint holds a {kind}, the model a {want}")
+    cls = _curriculum_kinds()[kind]
+    return cls(*(c[f].to(dev) for f in cls._fields))
 
 
 def _ckpt_files(ckpt_dir):
@@ -47,7 +69,7 @@ def state_payload(state, epoch: int, it: int, sampler_state: dict | None = None)
         "model_state": state.net.state_dict(),
         "optimizer_state": state.optimizer.state_dict(),
         "epoch": int(epoch), "it": int(it), "version": VERSION, "step": int(state.step),
-        "curriculum": [{f: getattr(c, f) for f in _CURRICULUM_FIELDS} for c in state.curriculum],
+        "curriculum": [_curriculum_payload(c) for c in state.curriculum],
         "conf": ({} if state.conf_sum is None
                  else {"conf_sum": state.conf_sum, "conf_cnt": state.conf_cnt}),
     }
@@ -89,8 +111,6 @@ def restore_state(state, payload: dict):
     """Load a payload into ``state`` in place: the model's parameters and
     buffers, the optimizer (moments and count), the curriculum states, the
     confidence accumulators and the step."""
-    from ..losses.curriculum import CurriculumState
-
     dev = state.device
     state.net.load_state_dict(payload["model_state"])
     state.optimizer.load_state_dict(payload["optimizer_state"])
@@ -98,8 +118,8 @@ def restore_state(state, payload: dict):
     if len(cur) != len(state.curriculum):
         raise ValueError(f"checkpoint has {len(cur)} curriculum states, the model "
                          f"{len(state.curriculum)}")
-    state.curriculum = tuple(CurriculumState(*(c[f].to(dev) for f in _CURRICULUM_FIELDS))
-                             for c in cur)
+    state.curriculum = tuple(_curriculum_from_payload(c, type(own).__name__, dev)
+                             for c, own in zip(cur, state.curriculum))
     conf = payload["conf"]
     if state.conf_sum is not None and conf:
         state.conf_sum.copy_(conf["conf_sum"])

@@ -13,10 +13,12 @@ leaf it came from and the layout change back to PyTorch.
 
 The 1x1 stride-1 deblock is a plain flax Conv but a pcdet ConvTranspose2d,
 so it takes the transposed-conv layout too.  Covers the CenterPoint-Pillar
-slots: DynamicPillarVFE, BaseBEVBackbone, CenterHead.  For comparing a train
+and PointPillar slots: DynamicPillarVFE, BaseBEVBackbone, CenterHead and
+AnchorHeadSingle (its 1x1 convs, plain conv layout).  For comparing a train
 step, ``params_from_jax`` maps any tree shaped like flax "params" (its
 gradients, its updated parameters) into the same pcdet names, and
-``curriculum_state_from_jax`` carries the COMLoss EMA state across and
+``curriculum_state_from_jax`` carries the COMLoss EMA state (either kind)
+across and
 ``sampler_state_from_jax`` the COMAug sampler's confidences;
 ``train_state_from_jax`` carries a whole JAX checkpoint (weights, Adam's
 moments and count, curriculum, sampler) into a port ``TrainState``.
@@ -111,6 +113,16 @@ def _center_head_rules(cfg, top, class_names):
     return rules
 
 
+def _anchor_head_rules(cfg, top):
+    """conv_cls / conv_box / conv_dir_cls: 1x1 convs with bias."""
+    names = ["conv_cls", "conv_box"]
+    if cfg.get("USE_DIRECTION_CLASSIFIER", False):
+        names.append("conv_dir_cls")
+    return [rule for name in names
+            for rule in ((f"dense_head.{name}.weight", "params", (top, name, "kernel"), "conv2d"),
+                         (f"dense_head.{name}.bias", "params", (top, name, "bias"), "copy"))]
+
+
 def bridge_rules(model_cfg, class_names, params) -> list:
     """Every (pcdet key, collection, flax path, transform) of the model.
     ``params`` (the flax "params" tree) gives the top-level scope names."""
@@ -123,7 +135,11 @@ def bridge_rules(model_cfg, class_names, params) -> list:
     rules = _pfn_rules(model_cfg["VFE"], top(model_cfg["VFE"]["NAME"]))
     if model_cfg.get("BACKBONE_2D") is not None:
         rules += _backbone_rules(model_cfg["BACKBONE_2D"], top("BaseBEVBackbone"))
-    rules += _center_head_rules(model_cfg["DENSE_HEAD"], top("CenterHead"), list(class_names))
+    head = model_cfg["DENSE_HEAD"]
+    if "ANCHOR_GENERATOR_CONFIG" in head:
+        rules += _anchor_head_rules(head, top("AnchorHeadSingle"))  # every alias's flax scope
+    else:
+        rules += _center_head_rules(head, top("CenterHead"), list(class_names))
     return rules
 
 
@@ -150,15 +166,21 @@ def params_from_jax(params, model_cfg, class_names) -> dict:
 
 
 def curriculum_state_from_jax(states, device=None) -> tuple:
-    """The JAX package's per-head ``CurriculumState`` tuple as the port's."""
+    """The JAX package's per-head curriculum states as the port's: each a
+    ``CurriculumState`` or an ``AnchorCurriculumState`` (fields ``means``,
+    ``stds``, ``initialized``), as a NamedTuple or the dict a raw restore
+    gives."""
+    from ..losses.anchor_losses import AnchorCurriculumState
     from ..losses.curriculum import CurriculumState
 
-    def t(v, dtype):
-        return torch.as_tensor(np.array(v), dtype=dtype, device=device)
-
-    return tuple(CurriculumState(t(s.avg_confidence, torch.float32), t(s.mean, torch.float32),
-                                 t(s.std, torch.float32), t(s.initialized, torch.bool))
-                 for s in states)
+    out = []
+    for s in states:
+        fields = s._asdict() if hasattr(s, "_asdict") else dict(s)
+        cls = AnchorCurriculumState if "means" in fields else CurriculumState
+        out.append(cls(*(torch.as_tensor(np.array(fields[f]), device=device,
+                                         dtype=torch.bool if f == "initialized" else torch.float32)
+                         for f in cls._fields)))
+    return tuple(out)
 
 
 def sampler_state_from_jax(payload, dataset) -> np.ndarray:

@@ -11,10 +11,11 @@ tile size (``k1_tile_rows``): runs of T - 1, T, T + 1 and 2T + 1 rows, a
 whole-sample run, fewer rows than a tile, 8, 11, 32 and 64 channels and
 vals off a 16-byte boundary (its 16-byte and element loads), an all -inf
 run, and the fused max backward on tied maxima.  K4 runs ragged words, K =
-1024 with every candidate kept or all suppressed by the first, and the
-largest K it takes; K3 windows across its tile edges (its tile read from the
-library), 500 slots on one center, negative and positive gauss fills and the
-callers' own dtypes.  Max, keep masks, last-wins stamps and launch counts
+1024 with every candidate kept or all suppressed by the first, both sides
+of its shared-memory layout's limit (1,344) and up to the 4,096 it takes;
+K3 windows across its tile edges (its tile read from the library), 500
+slots on one center, negative and positive gauss fills and the callers' own
+dtypes.  Max, keep masks, last-wins stamps and launch counts
 are exact; gaussian stamps within 2e-6 (analytic
 exp against the f64-built table); f32 sums and convs are held to f32
 rounding, bf16 ones to one or two bf16 roundings.  The backward passes (K1
@@ -184,8 +185,8 @@ def test_greedy_suppress_kernel(dev, k):
 @pytest.mark.parametrize("k", [500, 1024])
 def test_greedy_suppress_kernel_extremes(dev, case, k):
     """Every candidate valid: each kept (its own row only), all suppressed by
-    the first, or NMS-like sparse overlap (chains of hundreds kept); the
-    largest K the block's shared memory holds runs and one more raises."""
+    the first, or NMS-like sparse overlap (chains of hundreds kept); one
+    candidate past the most K4 takes raises."""
     over = torch.eye(k, dtype=torch.bool, device=dev).repeat(2, 1, 1)
     if case == "first_suppresses_all":
         over[:, 0] = True
@@ -197,9 +198,36 @@ def test_greedy_suppress_kernel_extremes(dev, case, k):
     assert torch.equal(got, nms.greedy_suppress_plain(over, valid))
     kept = {"none_suppressed": k, "first_suppresses_all": 1}.get(case)
     assert kept is None or got.sum(1).tolist() == [kept] * 2
-    with pytest.raises(ValueError):
-        nms.greedy_suppress(torch.zeros((1, 1345, 1345), dtype=torch.bool, device=dev),
-                            torch.ones((1, 1345), dtype=torch.bool, device=dev))
+    k_over = nms.max_candidates() + 1
+    with pytest.raises(ValueError, match="K4 takes at most"):
+        nms.greedy_suppress(torch.zeros((1, k_over, k_over), dtype=torch.bool, device=dev),
+                            torch.ones((1, k_over), dtype=torch.bool, device=dev))
+
+
+@pytest.mark.parametrize("case", ["sparse", "none_suppressed", "first_suppresses_all"])
+@pytest.mark.parametrize("b,k", [(2, 500), (2, 1344), (2, 1345), (4, 4095), (4, 4096)])
+def test_greedy_suppress_kernel_either_layout(dev, case, b, k):
+    """K4 bitwise against greedy_suppress_plain on both sides of the
+    shared-memory layout's limit (1,344) and up to the most it takes: 4,096
+    at the anchor configs' batch of 4, and 4,095 (no multiple of 64).  Each
+    sample sparse and NMS-like, with invalid candidates; or every candidate
+    valid, each kept or all suppressed by the first."""
+    assert nms.max_candidates() >= 4096
+    gen = torch.Generator(device=dev).manual_seed(b * k)
+    over = torch.eye(k, dtype=torch.bool, device=dev).repeat(b, 1, 1)
+    valid = torch.ones((b, k), dtype=torch.bool, device=dev)
+    if case == "sparse":
+        over |= torch.rand((b, k, k), device=dev, generator=gen) < 4.0 / k
+        valid = torch.rand((b, k), device=dev, generator=gen) < 0.9
+    elif case == "first_suppresses_all":
+        over[:, 0] = True
+    before = nms.launches
+    got = nms.greedy_suppress(over, valid)
+    torch.cuda.synchronize()
+    assert nms.launches == before + 1
+    assert torch.equal(got, nms.greedy_suppress_plain(over, valid))
+    kept = {"none_suppressed": k, "first_suppresses_all": 1}.get(case)
+    assert kept is None or got.sum(1).tolist() == [kept] * b
 
 
 def _stamp_check(got, want, mode, args, c, h, w, max_radius=16):
@@ -755,3 +783,41 @@ def test_checkpoint_on_card_resumes_bitwise(dev, tmp_path):
             assert torch.equal(a, b)
     finally:
         torch.use_deterministic_algorithms(was)
+
+
+def test_anchor_eval_step_matches_cpu(dev):
+    """KITTI PointPillars' eval step at a 64x64 grid in f32: card (kernels,
+    K4 at NMS_PRE_MAXSIZE 2,048 past the shared-memory layout) vs CPU
+    (plain versions), same weights."""
+    from com_tpu_torch.models.detectors import DatasetMeta, build_network
+    from com_tpu_torch.train.eval import make_eval_step
+    from com_tpu_torch.utils.config import cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file("configs/kitti_models/pointpillar.yaml")
+    cfg.MODEL.MIXED_PRECISION = False
+    cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_PRE_MAXSIZE = 2048
+    pr = (0.0, -5.12, -3.0, 10.24, 5.12, 1.0)
+    meta = DatasetMeta(cfg.CLASS_NAMES, pr, (0.16, 0.16, 4.0), (64, 64, 1), 4)
+    rng = np.random.RandomState(0)
+    pts = np.concatenate([rng.uniform(0, 10.24, (2, 8192, 1)),
+                          rng.uniform(-5.12, 5.12, (2, 8192, 1)),
+                          rng.uniform(-2.8, 0.8, (2, 8192, 1)), rng.rand(2, 8192, 1)],
+                         -1).astype(np.float32)
+    batch = {"points": pts, "points_mask": np.ones((2, 8192), bool)}
+    outs = []
+    for d in (dev, "cpu"):
+        net = build_network(cfg.MODEL, meta, device=d, seed=3)
+        with torch.no_grad():  # scores spread over (0, 1); box residuals small, as
+            net.dense_head.conv_cls.bias.add_(4.0)  # pcdet's conv_box init makes them
+            net.dense_head.conv_box.weight.mul_(0.02)
+        before = nms.launches
+        outs.append([t.cpu().numpy() for t in make_eval_step(
+            net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=d)(batch)])
+        assert nms.launches == before + (d == dev)
+    (gb, gs, _, gv), (cb, cs, _, cv) = outs
+    np.testing.assert_array_equal(gv, cv)
+    assert gv.sum() > 20
+    for i in range(2):
+        a = np.concatenate([gb[i][gv[i]], gs[i][gv[i]][:, None]], -1)
+        c = np.concatenate([cb[i][cv[i]], cs[i][cv[i]][:, None]], -1)
+        assert np.abs(a[:, None] - c[None]).max(-1).min(1).max() <= 1e-3

@@ -130,8 +130,9 @@ def test_training_entry_points_need_a_device(monkeypatch):
 def test_unported_loss_branches_raise(slot):
     cfg, meta, net, opt, state, step = _tiny_setup()
     model_cfg = CfgNode(dict(cfg.MODEL))
-    if slot == "ANCHOR_GENERATOR_CONFIG":
-        model_cfg.DENSE_HEAD = CfgNode(dict(model_cfg.DENSE_HEAD, ANCHOR_GENERATOR_CONFIG=[]))
+    if slot == "ANCHOR_GENERATOR_CONFIG":  # the anchor loss is ported; its ATSS assigner is not
+        model_cfg.DENSE_HEAD = CfgNode(dict(model_cfg.DENSE_HEAD, ANCHOR_GENERATOR_CONFIG=[],
+                                            TARGET_ASSIGNER_CONFIG={"NAME": "ATSSTargetAssigner"}))
     else:
         model_cfg[slot] = {"NAME": "x"}
     with pytest.raises(NotImplementedError):
