@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's serving and training paths (over its own
-data pipeline, through its train, test and demo CLIs, and for the
-PointPillars anchor head) and its wgrad sweep on one NVIDIA GPU.
+data pipeline, through its train, test and demo CLIs, for the PointPillars
+anchor head and for the sparse-voxel detectors) and its wgrad sweep on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -93,9 +94,35 @@ Phases (any failure raises, and the script exits non-zero):
    two steps with ``LOSS_CURRICULUM`` on (the AnchorCurriculumState moves,
    the (3, 96) counts only in the real objects' groups, the feedback
    bitwise); the demo CLI over two ``.bin`` scenes.
-11. Launch counts: every counter is zeroed just before each path (the
-   sweep, serving, A, B, C, D's and E's phases) and read just after, against the
-   calls the sweep reports and the expected counts per forward or per step.  The device
+11. Path F, CenterPoint-voxel with COMLoss (``configs/waymo_models/com/
+   centerpoint_voxel_comloss.yaml``: MeanVFE, the sparse 3D backbone,
+   HeightCompression, UCL on) at full width: batch 2 of Waymo-like scenes
+   (163,840 points) voxelized by the port's native host voxelizer into
+   80,000 (train) / 90,000 (test) slots of 5 points, the 1498 x 1498 x 40
+   grid, VOXEL_CAPS [80000, 60000, 30000, 16000], a 188 x 188 BEV, 500
+   object slots ~100 real, bf16 BEV and head. The 64 x 64 x 40 f32 eval and
+   train steps, card against CPU; three serving batches through
+   ``make_eval_step`` (latency, peak memory), the eval step's stages, the
+   3D backbone's split into rulebooks, gathers and GEMMs, norms and the
+   dense scatter (``com_tpu_torch/tools/perf/sparse_stages.py``) and each
+   stage's active sites against its cap with those dropped past it; K3 at
+   (2,3,188,188) and K2, its dgrad and K2w at (2,188,188,256->128),
+   (2,188,188,128->128) and (2,94,94,256->256); ``train_model`` 2
+   mini-epochs of 3 steps (the (3, 96) feedback, the curriculum state
+   moved), the step's stages and the overfit check; the train CLI (1 epoch
+   of 2 steps over path C's synthetic scenes voxelized) and the test CLI on
+   its checkpoint.
+12. Path G, SECOND (``configs/kitti_models/second.yaml``) at full width:
+   batch 4 of ~20,000 KITTI-like points a scene voxelized into 40,000 /
+   16,000 slots, the 1408 x 1600 x 40 grid, scores spread as path E's: one
+   serving batch, its stages, the 3D backbone's split and sites; K4 on its
+   decoded (4, 4096) candidates and two synthetic cases; K2, dgrad and K2w
+   at (4,200,176,256->128), (4,200,176,128->128), (4,100,88,256->256); 2
+   train steps through ``train_model``.
+13. Launch counts: every counter is zeroed just before each path (the
+   sweep, serving, A, B, C, D's, E's, F's and G's phases) and read just
+   after, against the calls the sweep reports and the expected counts per
+   forward or per step.  The device
    kernels one K3 call issues (1) and one K4 call (2, the pack and the
    sweep), counted by torch.profiler after every timed phase.  Then the
    ``kernels`` line, the card's name and power limit, and the device line
@@ -156,6 +183,21 @@ PROFILE_SESSIONS = 3  # tries for a profiling session that sees the device
 C_EPOCHS, C_STEPS, C_WORKERS, C_SEED = 3, 4, 2, 9
 # path D: loader threads, seed (its scenes are path C's), the evaluation's score threshold
 D_WORKERS, D_SEED, D_SCORE_THRESH = 2, 11, 0.0
+# paths F and G: the sparse-voxel detectors, CenterPoint-voxel with COMLoss
+# (Waymo) and SECOND (KITTI); their model inputs
+VOXEL_CONFIG = "configs/waymo_models/com/centerpoint_voxel_comloss.yaml"
+SECOND_CONFIG = "configs/kitti_models/second.yaml"
+VOXEL_KEYS = ("voxels", "voxel_coords", "voxel_num_points")
+# their K2's (B, H, W, Cin, Cout): block 0's first conv (stride 1, 256 ->
+# 128) and the five after it, then block 1's five at half the size (its
+# first conv has stride 2, a library conv)
+F_CONV = ((2, 188, 188, 256, 128), (2, 188, 188, 128, 128), (2, 94, 94, 256, 256))
+G_CONV = ((4, 200, 176, 256, 128), (4, 200, 176, 128, 128), (4, 100, 88, 256, 256))
+# launches per serving forward and per train step: 6 + 5 stride-1 3x3 convs,
+# K4 once; K3 in both modes for COMLoss with UCL; the anchor loss stamps none
+EXPECT_F_SERVING = EXPECT_G_SERVING = {"conv3x3": 11, "nms": 1}
+EXPECT_G_TRAIN = {"conv3x3": 11, "conv3x3_dgrad": 11, "conv3x3_wgrad": 11}
+EXPECT_F_TRAIN = {**EXPECT_G_TRAIN, "stamp_gauss": 1, "stamp_last_wins": 1}
 WGRAD_THS = (8, 16)
 # variant -> (TPU kernel, line of its pallas_call in tools/perf/microbench_wgrad_kernels.py)
 WGRAD_VARIANTS = {"gcol": ("T1", 84), "xcol": ("T2", 128), "gt9": ("T3", 175),
@@ -455,19 +497,25 @@ def check_seg_scan(dev, entries):
                                 kernel="seg_scan"))
 
 
+def conv_shape(shape):
+    """(B, H, W, C) -> (B, H, W, C, C); (B, H, W, Cin, Cout) as it is."""
+    return tuple(shape) if len(shape) == 5 else (*shape, shape[-1])
+
+
 def check_conv3x3(dev, entries, shapes=FLAGSHIP_CONV, dtypes=(torch.float32, torch.bfloat16),
                   path=""):
-    """K2 at each (B, H, W, C) of ``shapes`` (C -> C) in each dtype;
-    ``path`` prefixes the counter whose launches the entries report."""
+    """K2 at each (B, H, W, C) (C -> C) or (B, H, W, Cin, Cout) of ``shapes``
+    in each dtype; ``path`` prefixes the counter whose launches the entries
+    report."""
     import torch.nn.functional as F
 
     from com_tpu_torch.ops import conv2d
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    for b, h, wd, c in shapes:
+    for b, h, wd, c, co in map(conv_shape, shapes):
         for dt in dtypes:
             x = torch.randn((b, h, wd, c), device=dev, generator=gen).to(dt)
-            w = (torch.randn((3, 3, c, c), device=dev, generator=gen) / math.sqrt(9 * c)).to(dt)
+            w = (torch.randn((3, 3, c, co), device=dev, generator=gen) / math.sqrt(9 * c)).to(dt)
             got = conv2d.conv3x3(x, w)
             want = conv2d.conv3x3_plain(x, w)
             absref = conv2d.conv3x3_plain(x.float().abs(), w.float().abs())
@@ -476,7 +524,7 @@ def check_conv3x3(dev, entries, shapes=FLAGSHIP_CONV, dtypes=(torch.float32, tor
             # f32: summation order only; bf16: that, then one rounding to bf16
             rnd = 0.0 if dt == torch.float32 else 2.0 ** -7
             ok = bool((err <= 1e-5 * absref + rnd * want.float().abs()).all())
-            label = f"{str(dt).split('.')[-1]} ({b},{h},{wd},{c}->{c})"
+            label = f"{str(dt).split('.')[-1]} ({b},{h},{wd},{c}->{co})"
             print(f"K2 conv3x3 {label}: max_abs_err={err.max().item():.3e} "
                   f"(|err| <= 1e-5 * conv(|x|,|w|) + {rnd:g} * |plain|) {'ok' if ok else 'FAIL'}")
             if not ok:
@@ -487,7 +535,7 @@ def check_conv3x3(dev, entries, shapes=FLAGSHIP_CONV, dtypes=(torch.float32, tor
             xc = x.permute(0, 3, 1, 2)  # NHWC storage = channels_last NCHW view
             wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             lib_ms = cuda_ms(lambda: F.conv2d(xc, wc, padding=1), 10)
-            flops = 2 * 9 * c * c * b * h * wd  # the serving path runs the bf16 case
+            flops = 2 * 9 * c * co * b * h * wd  # the serving path runs the bf16 case
             bms, by = bound_ms(nbytes(x, w, got), flops, dt)
             entries.append(dict(name=f"conv2d.conv3x3 {label}", route="cuda",
                                 source="com_tpu_torch/csrc/conv3x3.cu",
@@ -560,12 +608,12 @@ def check_conv3x3_backward(dev, entries, shapes=FLAGSHIP_CONV,
     from com_tpu_torch.ops import conv2d
 
     gen = torch.Generator(device=dev).manual_seed(13)
-    for b, h, wd, c in shapes:
-        flops = 2 * 9 * c * c * b * h * wd
+    for b, h, wd, c, co in map(conv_shape, shapes):
+        flops = 2 * 9 * c * co * b * h * wd
         x0 = torch.randn((b, h, wd, c), device=dev, generator=gen).to(torch.bfloat16)
-        w = (torch.randn((3, 3, c, c), device=dev, generator=gen) / math.sqrt(9 * c))
+        w = (torch.randn((3, 3, c, co), device=dev, generator=gen) / math.sqrt(9 * c))
         w = w.to(torch.bfloat16)
-        g = torch.randn((b, h, wd, c), device=dev, generator=gen).to(torch.bfloat16)
+        g = torch.randn((b, h, wd, co), device=dev, generator=gen).to(torch.bfloat16)
         runs = []
         for fn in (conv2d.conv3x3, conv2d.conv3x3_plain):
             x = x0.clone().requires_grad_()
@@ -576,7 +624,7 @@ def check_conv3x3_backward(dev, entries, shapes=FLAGSHIP_CONV,
         absref = conv2d.conv3x3_plain(g.float().abs(), conv2d.rotate_kernel(w.float().abs()))
         err = (got.float() - want.float()).abs()
         ok = bool((err <= 1e-5 * absref + 2.0 ** -7 * want.float().abs()).all())
-        label = f"bf16 ({b},{h},{wd},{c}->{c})"
+        label = f"bf16 ({b},{h},{wd},{c}->{co})"
         print(f"K2 conv3x3 dgrad {label}: max_abs_err={err.max().item():.3e} "
               f"(|err| <= 1e-5 * conv(|g|,|w_rot|) + 2^-7 * |plain|) {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -607,7 +655,7 @@ def check_conv3x3_backward(dev, entries, shapes=FLAGSHIP_CONV,
             err = (got - want).abs()
             rnd = 0.0 if dt == torch.float32 else 2.0 ** -8
             ok = bool((err <= 1e-5 * absref + rnd * want.abs()).all())
-            label = f"{str(dt).split('.')[-1]} ({b},{h},{wd},{c}->{c})"
+            label = f"{str(dt).split('.')[-1]} ({b},{h},{wd},{c}->{co})"
             print(f"K2w conv3x3_wgrad {label}: max_abs_err={err.max().item():.3e} "
                   f"(|err| <= 1e-5 * sum|x||g| + {rnd:g} * |plain|) {'ok' if ok else 'FAIL'}")
             if not ok:
@@ -616,7 +664,7 @@ def check_conv3x3_backward(dev, entries, shapes=FLAGSHIP_CONV,
             dev_ms = device_ms(lambda: conv2d.conv3x3_wgrad(xd, gd), 10)
             plain_ms = cuda_ms(lambda: conv2d.conv3x3_wgrad_plain(xd, gd), 5)
             xc, gc = xd.permute(0, 3, 1, 2), gd.permute(0, 3, 1, 2)
-            lib_ms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(xc, (c, c, 3, 3), gc,
+            lib_ms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(xc, (co, c, 3, 3), gc,
                                                                  padding=1), 10)
             bms, by = bound_ms(nbytes(xd, gd, got), flops, dt)
             entries.append(dict(name=f"conv2d.conv3x3_wgrad {label}", route="cuda",
@@ -712,18 +760,19 @@ def profile_wgrad_sweep(dev):
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
 
 
-def check_stamp(dev, entries, calls):
-    """K3 in both modes on the training path's canvas (2, 3, 468, 468) with
-    500 object slots: ~100 real objects a sample, some invalid slots among
+def check_stamp(dev, entries, calls, hw=(468, 468), path=""):
+    """K3 in both modes on the training path's canvas (2, 3, 468, 468), or
+    (2, 3, *hw), with 500 object slots: ~100 real objects a sample, some invalid slots among
     them, radii past the clip, overlapping windows, centers on the edges.
     The inputs have the dtypes the path's callers pass (int32 ids, no values
     for the heatmap targets; int64 classes and f32 weights for the COM loss
     mask).  Each mode's call goes into ``calls`` with the one device kernel
-    it must issue (counted by ``check_device_kernels`` at the end)."""
+    it must issue (counted by ``check_device_kernels`` at the end).
+    ``path`` prefixes the counters whose launches the entries report."""
     from com_tpu_torch.ops import stamp
 
     rng = np.random.RandomState(14)
-    b, n, c, h, w = BATCH, NUM_MAX_OBJS, 3, 468, 468
+    b, n, c, (h, w) = BATCH, NUM_MAX_OBJS, 3, hw
     centers = np.stack([rng.randint(0, w, (b, n)), rng.randint(0, h, (b, n))], -1)
     centers[:, :20] = centers[:, 20:40]  # overlapping windows, same centers
     centers[:, 40, 0] = 0
@@ -751,11 +800,11 @@ def check_stamp(dev, entries, calls):
             tol = "<= 2e-6 (analytic f32 exp against the f64-built table), centers exactly 1.0"
         else:
             ok, tol = err == 0.0, "exact"
-        print(f"K3 stamp_windows {mode} (2,3,468,468) {int(valid.sum())} objects in "
+        print(f"K3 stamp_windows {mode} (2,3,{h},{w}) {int(valid.sum())} objects in "
               f"{b * n} slots: max_abs_err={err:.3e} ({tol}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K3 {mode} disagrees with its plain version")
-        calls.append((f"K3 stamp_windows {mode}", 1, lambda a=args, m=mode, f=fill:
+        calls.append((f"K3 stamp_windows {mode} ({h},{w})", 1, lambda a=args, m=mode, f=fill:
                       stamp.stamp_windows(*a, c, h, w, m, fill=f)))
         ms = cuda_ms(lambda: stamp.stamp_windows(*args, c, h, w, mode, fill=fill), 50)
         dev_ms = device_ms(lambda: stamp.stamp_windows(*args, c, h, w, mode, fill=fill), 50)
@@ -766,11 +815,11 @@ def check_stamp(dev, entries, calls):
         # (gauss) or one index max (last_wins) per window cell of a valid object
         bms, by = bound_ms(nbytes(got, *(a for a in args if a is not None)),
                            cells * (2 if mode == "gauss" else 1), torch.float32)
-        entries.append(dict(name=f"stamp.stamp_windows {mode} (2,3,468,468) 500 slots",
+        entries.append(dict(name=f"stamp.stamp_windows {mode} (2,3,{h},{w}) 500 slots",
                             route="cuda", source="com_tpu_torch/csrc/stamp.cu",
                             replaces="com_tpu/ops/pallas/stamp.py:137", max_abs_err=err, ms=ms,
                             device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                            library_ms=None, kernel=f"stamp_{mode}"))
+                            library_ms=None, kernel=f"{path}stamp_{mode}"))
 
 
 def load_config(grid=None, config=CONFIG):
@@ -857,33 +906,43 @@ def check_k4_cases(dev, entries, calls, over, sv, smi, where, kernel, iters):
 def check_small_reference(dev):
     """The eval step at a 64x64 grid in f32 on the card (kernels) against the
     same weights on the CPU (plain versions)."""
-    from com_tpu_torch.models.detectors import build_network
-    from com_tpu_torch.train.eval import make_eval_step
-
     cfg, meta = load_config(grid=(64, 64, 1))
     cfg.MODEL.MIXED_PRECISION = False
     pts = waymo_like_points(np.random.RandomState(5), BATCH, 4096, meta.point_cloud_range)
     batch = {"points": pts, "points_mask": np.ones((BATCH, 4096), bool)}
+    compare_eval_step(dev, cfg, meta, batch, "small reference (64x64 f32, card vs CPU)")
+
+
+def compare_eval_step(dev, cfg, meta, batch, label, prepare=None):
+    """The eval step of ``cfg`` on ``batch`` on the card (kernels) against
+    the same weights on the CPU (plain versions): the same valid slots,
+    each detection within 1e-3 of one of the other's.  ``prepare(net)``
+    may adjust the seeded weights first."""
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.train.eval import make_eval_step
+
     outs = []
     for d in (dev, "cpu"):
         net = build_network(cfg.MODEL, meta, device=d, seed=7)
+        if prepare is not None:
+            prepare(net)
         step = make_eval_step(net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=d)
         outs.append([t.cpu().numpy() for t in step(batch)])
     (gb, gs, _, gv), (cb, cs, _, cv) = outs
     worst = 0.0
-    for i in range(BATCH):
+    for i in range(len(gb)):
         a = np.concatenate([gb[i][gv[i]], gs[i][gv[i]][:, None]], -1)
         b = np.concatenate([cb[i][cv[i]], cs[i][cv[i]][:, None]], -1)
         if len(a) != len(b):
-            raise AssertionError(f"small reference: {len(a)} vs {len(b)} detections")
+            raise AssertionError(f"{label}: {len(a)} vs {len(b)} detections")
         if len(a):
             d = np.abs(a[:, None] - b[None]).max(-1)
             worst = max(worst, float(d.min(1).max()))
     ok = worst <= 1e-3 and bool((gv == cv).all())
-    print(f"small reference (64x64 f32, card vs CPU): {int(gv.sum())} detections, "
-          f"worst box/score diff {worst:.2e} (<= 1e-3) {'ok' if ok else 'FAIL'}")
+    print(f"{label}: {int(gv.sum())} detections, worst box/score diff {worst:.2e} (<= 1e-3) "
+          f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("the card's eval step disagrees with the CPU reference")
+        raise AssertionError(f"{label}: the card's eval step disagrees with the CPU")
 
 
 def serve(dev):
@@ -982,7 +1041,8 @@ def stage_breakdown(net, step, batch, label, iters=5, smi=""):
     from com_tpu_torch.models.dense_heads import anchor_head
 
     marks, sub = [], []
-    slots = ("vfe", "backbone_2d", "dense_head")
+    slots = [s for s in ("vfe", "backbone_3d", "map_to_bev", "backbone_2d", "dense_head")
+             if getattr(net, s, None) is not None]
 
     def mark(*_):
         ev = torch.cuda.Event(enable_timing=True)
@@ -1004,7 +1064,7 @@ def stage_breakdown(net, step, batch, label, iters=5, smi=""):
         return orig_top(*args, **kw)
 
     anchor_head.top_candidates = top
-    names = ("upload", "vfe", "map", "backbone_2d", "map", "dense_head", "decode_nms")
+    names = ["upload"] + [n for s in slots for n in (s, "gap")][:-1] + ["decode_nms"]
     sums = dict.fromkeys(names, 0.0)
     parts = {}
     try:
@@ -1028,10 +1088,11 @@ def stage_breakdown(net, step, batch, label, iters=5, smi=""):
         undo()
         for h in hooks:
             h.remove()
-    sums.pop("map")  # the gaps between slots
+    sums.pop("gap", None)  # the gaps between slots
     total = sum(sums.values())
     card = f" ({smi})" if smi else ""
-    print(f"{label}stage ms (one eval step, batch {batch['points'].shape[0]}, mean of {iters}): "
+    print(f"{label}stage ms (one eval step, batch {len(next(iter(batch.values())))}, mean of "
+          f"{iters}): "
           f"{json.dumps({k: round(v, 3) for k, v in sums.items()})} total {total:.3f}{card}")
     print(f"{label}decode_nms ms (mean of {iters}): "
           f"{json.dumps({k: round(v, 4) for k, v in parts.items()})}{card}")
@@ -1108,8 +1169,6 @@ def check_small_train_reference(dev):
     on the card (kernels) against the same weights on the CPU (plain
     versions): loss, every gradient, the updated batch statistics and the
     confidence accumulators."""
-    from com_tpu_torch.models.layers import BatchNorm
-
     cfg, meta = load_config(grid=(64, 64, 1))
     cfg.MODEL.MIXED_PRECISION = False
     cfg.MODEL.VFE.ASSUME_SORTED_POINTS = True
@@ -1117,6 +1176,16 @@ def check_small_train_reference(dev):
     cfg.MODEL.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.NUM_MAX_OBJS = 64
     batch = waymo_like_batch(np.random.RandomState(15), BATCH, 4096, meta.point_cloud_range,
                              meta.voxel_size, 3, m=64, real=20)
+    compare_train_step(dev, cfg, meta, batch, "small train reference (64x64 f32, card vs CPU)")
+
+
+def compare_train_step(dev, cfg, meta, batch, label):
+    """One train step of ``cfg`` on ``batch`` on the card (kernels) against
+    the same weights on the CPU (plain versions), every norm's bias moved
+    by 3 and the running statistics started at 0: loss, every gradient, the
+    batch statistics and the confidence accumulators."""
+    from com_tpu_torch.models.layers import BatchNorm
+
     runs = []
     for d in (dev, "cpu"):
         net, _, state, step = build_trainer(d, cfg, meta, 1, seed=7)
@@ -1141,13 +1210,13 @@ def check_small_train_reference(dev):
     ok = (abs(l0 - l1) <= 1e-4 * abs(l1) and gerr <= 1.0 and serr <= STATS_RTOL
           and torch.equal(cc0, cc1) and float((cs0 - cs1).abs().max()) <= 1e-4
           and float(cc1.sum()) > 0)
-    print(f"small train reference (64x64 f32, card vs CPU): loss {l0:.6f} vs {l1:.6f}; "
+    print(f"{label}: loss {l0:.6f} vs {l1:.6f}; "
           f"{len(g1)} gradients within 1e-3 of their max + 1e-5 of the net's max "
           f"(worst at {gerr:.3f} of that); batch statistics rel {serr:.2e} "
           f"(<= {STATS_RTOL:g}); "
           f"confidence counts {int(cc1.sum())} equal {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("the card's train step disagrees with the CPU reference")
+        raise AssertionError(f"{label}: the card's train step disagrees with the CPU")
 
 
 class SyntheticLoader:
@@ -1848,13 +1917,15 @@ def e_decoded_candidates(net, cfg, meta, batch, dev):
                                                               decode_anchor_boxes,
                                                               top_candidates)
     from com_tpu_torch.ops import nms
+    from com_tpu_torch.train.step import model_input_keys
 
     post = cfg.MODEL.POST_PROCESSING
     head = cfg.MODEL.DENSE_HEAD
     anchors = torch.as_tensor(build_anchors(head, list(cfg.CLASS_NAMES), meta.grid_size,
                                             meta.point_cloud_range)[0], device=dev)
+    keys = model_input_keys(cfg.MODEL)
     with torch.no_grad():
-        out = net({k: torch.as_tensor(batch[k], device=dev) for k in ("points", "points_mask")})
+        out = net({k: torch.as_tensor(batch[k], device=dev) for k in keys})
         boxes, scores, _ = decode_anchor_boxes(out, anchors, len(cfg.CLASS_NAMES),
                                                box_coder_for(head), head)
         top, idx = top_candidates(scores, int(post.NMS_CONFIG.NMS_PRE_MAXSIZE))
@@ -2132,6 +2203,293 @@ def path_e(dev, smi, entries, calls):
     return serve_counts, train_counts
 
 
+def load_voxel(config, pc_range=None):
+    """A sparse-voxel YAML, its meta (the grid of its
+    ``transform_points_to_voxels`` over its range, or over ``pc_range`` for
+    a rehearsal) and that processor's config."""
+    from com_tpu_torch.models.detectors import DatasetMeta
+    from com_tpu_torch.ops.voxelize import grid_size_from_range
+    from com_tpu_torch.utils.config import cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file(str(REPO / config))
+    proc = next(p for p in cfg.DATA_CONFIG.DATA_PROCESSOR
+                if p.NAME == "transform_points_to_voxels")
+    pr = list(pc_range or cfg.DATA_CONFIG.POINT_CLOUD_RANGE)
+    grid = tuple(int(g) for g in grid_size_from_range(pr, proc.VOXEL_SIZE))
+    feats = len(cfg.DATA_CONFIG.POINT_FEATURE_ENCODING.used_feature_list)
+    return cfg, DatasetMeta(cfg.CLASS_NAMES, pr, list(proc.VOXEL_SIZE), grid, feats), proc
+
+
+def voxelize_batch(batch, meta, proc, mode):
+    """``batch`` with each scene's valid points hard-voxelized by the port's
+    native host voxelizer (``voxelize_native``, the data processor's) and
+    padded to the processor's MAX_NUMBER_OF_VOXELS[mode] as the collate
+    pads: voxels (B, V, T, F), coords (B, V, 3) (-1 rows padding), counts."""
+    from com_tpu_torch.ops.host_native import voxelize_native
+
+    pts, mask = batch["points"], batch["points_mask"]
+    b, f = pts.shape[0], pts.shape[2]
+    v, t = int(proc.MAX_NUMBER_OF_VOXELS[mode]), int(proc.MAX_POINTS_PER_VOXEL)
+    vox = np.zeros((b, v, t, f), np.float32)
+    coords = np.full((b, v, 3), -1, np.int32)
+    num = np.zeros((b, v), np.int32)
+    for i in range(b):
+        a, c, n = voxelize_native(pts[i][mask[i]], meta.point_cloud_range, meta.voxel_size, t, v)
+        vox[i, :len(a)], coords[i, :len(a)], num[i, :len(a)] = a, c, n
+    return dict(batch, voxels=vox, voxel_coords=coords, voxel_num_points=num)
+
+
+def f_batches(rng, meta, proc, mode, count, points=POINTS):
+    """``count`` path F batches: Waymo-like scenes (``waymo_like_batch``:
+    ~100 objects in 500 slots, the COM side arrays) voxelized."""
+    return [voxelize_batch(waymo_like_batch(rng, BATCH, points, meta.point_cloud_range,
+                                            (0.32, 0.32, 6.0), len(meta.class_names)),
+                           meta, proc, mode) for _ in range(count)]
+
+
+def check_small_voxel_reference(dev):
+    """CenterPoint-voxel (COMLoss, UCL on) at a 64 x 64 x 40 grid (0.5 x 0.5
+    x 0.1 m over +-16 m) at full width in f32, 2,048 voxels a scene: the
+    eval step and one train step, the card against the CPU."""
+    from com_tpu_torch.models.detectors import DatasetMeta
+
+    cfg, _, proc = load_voxel(VOXEL_CONFIG)
+    meta = DatasetMeta(cfg.CLASS_NAMES, (-16.0, -16.0, -2.0, 16.0, 16.0, 2.0), (0.5, 0.5, 0.1),
+                       (64, 64, 40), FEATS)
+    proc.MAX_NUMBER_OF_VOXELS = {"train": 2048, "test": 2048}
+    cfg.MODEL.MIXED_PRECISION = False
+    cfg.MODEL.BACKBONE_3D.VOXEL_CAPS = [2048, 1024, 512, 256]
+    cfg.MODEL.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.NUM_MAX_OBJS = 64
+    rng = np.random.RandomState(34)
+    batch = voxelize_batch(waymo_like_batch(rng, BATCH, 4096, meta.point_cloud_range,
+                                            (0.32, 0.32, 6.0), 3, m=64, real=20),
+                           meta, proc, "train")
+    compare_eval_step(dev, cfg, meta, batch, "path F small reference (64x64x40 f32, card vs CPU)")
+    compare_train_step(dev, cfg, meta, batch,
+                       "path F small train reference (64x64x40 f32, COMLoss, card vs CPU)")
+
+
+def path_f_serve(dev, smi, pc_range=None, points=POINTS):
+    """Path F serving: CenterPoint-voxel at full width (1498 x 1498 x 40
+    grid, bf16 BEV and head) with seeded random weights through
+    ``make_eval_step``, three batches of two Waymo-like scenes voxelized to
+    90,000 slots: outputs checked, latency, peak memory and launches; the
+    eval step's stages; the 3D backbone's split (``sparse_stages``) and its
+    active sites against the caps."""
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.tools.perf import sparse_stages
+    from com_tpu_torch.train.eval import make_eval_step
+
+    cfg, meta, proc = load_voxel(VOXEL_CONFIG, pc_range)
+    post = cfg.MODEL.DENSE_HEAD.POST_PROCESSING
+    thresh = float(post.SCORE_THRESH)
+    net = build_network(cfg.MODEL, meta, device=dev, seed=0)
+    step = make_eval_step(net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=dev)
+    batches = f_batches(np.random.RandomState(32), meta, proc, "test", 3, points)
+    step(batches[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    latencies, outs = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        outs.append([t.cpu().numpy() for t in step(b)])
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    voxels = [int((b["voxel_num_points"] > 0).sum(1).min()) for b in batches]
+    print(f"path F serving (CenterPoint-voxel, batch {BATCH}, {voxels} voxels at least a scene "
+          f"of {proc.MAX_NUMBER_OF_VOXELS['test']} slots): latency ms a batch (host clock, "
+          f"outputs copied back) {[round(x, 2) for x in latencies]}, max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB ({smi})")
+    for i, (boxes, scores, labels, valid) in enumerate(outs):
+        ok = (boxes.shape == (BATCH, int(post.NMS_CONFIG.NMS_POST_MAXSIZE), 7)
+              and np.isfinite(boxes[valid]).all() and (scores[valid] >= thresh).all()
+              and np.isin(labels[valid], [1, 2, 3]).all())
+        print(f"  batch {i}: {valid.sum(1).tolist()} detections, finite boxes and scores >= "
+              f"{thresh}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"path F batch {i} returned malformed detections")
+    check_launches("path F serving forward", counts, EXPECT_F_SERVING, len(batches))
+    stage_breakdown(net, step, batches[0], "path F ", iters=3, smi=smi)
+    inputs = {k: torch.as_tensor(batches[0][k], device=dev) for k in VOXEL_KEYS}
+    split = sparse_stages.backbone_split(net, inputs, iters=3)
+    print(f"path F backbone_3d ms (one forward, batch {BATCH}, mean of 3): "
+          f"{json.dumps({k: round(v, 3) for k, v in split.items()})} ({smi})")
+    for row in sparse_stages.site_counts(net, inputs):
+        print(f"  sites {row['stage']}: active {row['active']} of cap {row['cap']}, "
+              f"{row['dropped']} dropped past the cap")
+    return counts
+
+
+def path_f_train(dev, smi, pc_range=None, points=POINTS):
+    """Path F training: ``train_model`` on the shipped CenterPoint-voxel
+    COMLoss YAML (UCL on) at full width, 2 mini-epochs of 3 steps over two
+    batches voxelized to 80,000 slots: the (3, 96) feedback each epoch, the
+    curriculum state moved off its start, the step's stages and the
+    overfit check."""
+    cfg, meta, proc = load_voxel(VOXEL_CONFIG, pc_range)
+    batches = f_batches(np.random.RandomState(33), meta, proc, "train", 2, points)
+    loader = SyntheticLoader(batches, 3)
+    counts, (net, opt, state, step), _ = run_training(
+        dev, "F (CenterPoint-voxel, COMLoss)", cfg, meta, loader, 2, 3, EXPECT_F_TRAIN, smi=smi)
+    conf = loader.dataset.confidence_groups
+    (cur,) = state.curriculum
+    ok = (len(conf) == 2 and all(c.shape == (3, 96) and np.isfinite(c).all() for c in conf)
+          and bool(cur.initialized) and 0.0 < float(cur.avg_confidence) < 1.0
+          and bool(torch.isfinite(torch.stack([cur.mean, cur.std])).all()))
+    print(f"  path F feedback {[c.shape for c in conf]}; curriculum avg_confidence "
+          f"{float(cur.avg_confidence):.5f} mean {float(cur.mean):.5f} std {float(cur.std):.5f} "
+          f"initialized {bool(cur.initialized)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("path F: the feedback or the curriculum state is wrong")
+    stage_and_overfit(dev, (net, opt, state, None, batches[0], cfg, meta),
+                      label="path F (CenterPoint-voxel)", smi=smi)
+    return counts
+
+
+def path_f_cli(dev, smi, pc_range=None, bg_points=120000):
+    """The voxel YAML through the train CLI (1 epoch of 2 steps) and the test
+    CLI on its checkpoint, over path C's synthetic dataset (4 scenes, the
+    flagship's augmentor) with the voxel YAML's own DATA_PROCESSOR (the
+    native voxelizer, 80,000 / 90,000 slots); SCORE_THRESH 0 for the
+    evaluation, as path D.  Launches: path F's a train step."""
+    import shutil
+
+    import yaml
+
+    from com_tpu_torch.tools import test, train
+
+    cfg, meta, _ = load_voxel(VOXEL_CONFIG, pc_range)
+    flagship, _ = load_config()
+    root = REPO / "build" / "path_f"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        data_cfg = _plain(path_c_dataset_cfg(flagship, bg_points=bg_points))
+        data_cfg.update(NUM_SCENES=2 * BATCH, POINT_CLOUD_RANGE=list(meta.point_cloud_range),
+                        DATA_PROCESSOR=_plain(cfg.DATA_CONFIG.DATA_PROCESSOR))
+        model_cfg = _plain(cfg.MODEL)
+        model_cfg["DENSE_HEAD"]["POST_PROCESSING"]["SCORE_THRESH"] = D_SCORE_THRESH
+        yaml_path = root / "voxel_path_f.yaml"
+        yaml_path.write_text(yaml.safe_dump({
+            "CLASS_NAMES": list(cfg.CLASS_NAMES), "DATA_CONFIG": data_cfg, "MODEL": model_cfg,
+            "OPTIMIZATION": _plain(cfg.OPTIMIZATION)}))
+        _quiet_cli_logger()
+        base = ["--cfg_file", str(yaml_path), "--output_dir", str(root / "out"),
+                "--workers", str(D_WORKERS), "--device", str(dev)]
+        reset_counters()
+        t0 = time.perf_counter()
+        first = train.main(base + ["--seed", str(D_SEED), "--epochs", "1"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_launches("F train step (CLI)", read_counters(), EXPECT_F_TRAIN,
+                       first["iterations"])
+        ckpt = first["ckpt_dir"] / "checkpoint_epoch_1.pth"
+        t0 = time.perf_counter()
+        (res,) = test.main(base + ["--ckpt", str(ckpt)])
+        test_wall = time.perf_counter() - t0
+        annos = res["det_annos"]
+        post = cfg.MODEL.DENSE_HEAD.POST_PROCESSING
+        ok = (first["iterations"] == 2 and ckpt.exists() and len(annos) > 0
+              and all(np.isfinite(a["boxes_lidar"]).all() and (np.diff(a["score"]) <= 0).all()
+                      and len(a["score"]) <= int(post.NMS_CONFIG.NMS_POST_MAXSIZE)
+                      and set(a["pred_labels"]) <= {1, 2, 3} for a in annos))
+        print(f"path F CLIs: train {first['iterations']} steps in {wall:.2f} s wall (dataset, "
+              f"model and loader included); test {len(annos)} frames in {test_wall:.2f} s, "
+              f"{[len(a['score']) for a in annos]} detections, {res['sec_per_frame']:.4f} s a "
+              f"frame ({smi}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("path F: the train / test CLIs failed their checks")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def path_f(dev, smi, entries, calls):
+    """Path F, CenterPoint-voxel with COMLoss (``centerpoint_voxel_comloss
+    .yaml``) at full width: the small references, serving, K3 and K2 at the
+    path's shapes, training and the CLIs.  Returns the launch counts of its
+    serving forward and of its train steps."""
+    check_small_voxel_reference(dev)
+    torch.cuda.empty_cache()
+    serve_counts = path_f_serve(dev, smi)
+    torch.cuda.empty_cache()
+    check_stamp(dev, entries, calls, hw=(188, 188), path="F:")
+    check_conv3x3(dev, entries, shapes=F_CONV, dtypes=(torch.bfloat16,), path="F:")
+    check_conv3x3_backward(dev, entries, shapes=F_CONV, wgrad_dtypes=(torch.bfloat16,),
+                           path="F:")
+    torch.cuda.empty_cache()
+    train_counts = path_f_train(dev, smi)
+    torch.cuda.empty_cache()
+    path_f_cli(dev, smi)
+    return serve_counts, train_counts
+
+
+def path_g(dev, smi, entries, calls, pc_range=None, points=E_POINTS, real_points=E_REAL_POINTS):
+    """Path G, SECOND (``configs/kitti_models/second.yaml``: MeanVFE, the
+    sparse backbone, HeightCompression, the anchor head) at full width
+    (1408 x 1600 x 40 grid, batch 4, ~20,000 KITTI-like points a scene,
+    16,000 / 40,000 voxel slots), seeded random weights with the class bias
+    raised (``spread_anchor_scores``): one serving batch and its stages, K4
+    on its decoded (4, 4096) candidates, K2 at its shapes, two train steps.
+    Returns the launch counts of the serving forward and of the steps."""
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.tools.perf import sparse_stages
+    from com_tpu_torch.train.eval import make_eval_step
+
+    cfg, meta, proc = load_voxel(SECOND_CONFIG, pc_range)
+    thresh = float(cfg.MODEL.POST_PROCESSING.SCORE_THRESH)
+    rng = np.random.RandomState(35)
+    batch = voxelize_batch(kitti_like_batch(rng, E_BATCH, meta.point_cloud_range,
+                                            (0.16, 0.16, 4.0), n=points, real_points=real_points),
+                           meta, proc, "test")
+    net = spread_anchor_scores(build_network(cfg.MODEL, meta, device=dev, seed=0))
+    step = make_eval_step(net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=dev)
+    step(batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    t0 = time.perf_counter()
+    boxes, scores, labels, valid = (t.cpu().numpy() for t in step(batch))
+    torch.cuda.synchronize()
+    latency = (time.perf_counter() - t0) * 1e3
+    counts = read_counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    ok = (bool(valid.any(1).all()) and np.isfinite(boxes[valid]).all()
+          and (scores[valid] >= thresh).all() and np.isin(labels[valid], [1, 2, 3]).all())
+    print(f"path G serving (SECOND, KITTI, batch {E_BATCH}): latency {latency:.2f} ms (host "
+          f"clock, outputs copied back), {valid.sum(1).tolist()} detections, "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB ({smi}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("path G returned malformed detections")
+    check_launches("path G serving forward", counts, EXPECT_G_SERVING, 1)
+    stage_breakdown(net, step, batch, "path G ", iters=3, smi=smi)
+    inputs = {k: torch.as_tensor(batch[k], device=dev) for k in VOXEL_KEYS}
+    split = sparse_stages.backbone_split(net, inputs, iters=3)
+    print(f"path G backbone_3d ms (one forward, batch {E_BATCH}, mean of 3): "
+          f"{json.dumps({k: round(v, 3) for k, v in split.items()})} ({smi})")
+    for row in sparse_stages.site_counts(net, inputs):
+        print(f"  sites {row['stage']}: active {row['active']} of cap {row['cap']}, "
+              f"{row['dropped']} dropped past the cap")
+    over, sv = e_decoded_candidates(net, cfg, meta, batch, dev)
+    check_k4_cases(dev, entries, calls, over, sv, smi, ", path G", "G:nms", iters=20)
+    del net, step
+    torch.cuda.empty_cache()
+    check_conv3x3(dev, entries, shapes=G_CONV, dtypes=(torch.bfloat16,), path="G:")
+    check_conv3x3_backward(dev, entries, shapes=G_CONV, wgrad_dtypes=(torch.bfloat16,),
+                           path="G:")
+    torch.cuda.empty_cache()
+    batches = [voxelize_batch(kitti_like_batch(rng, E_BATCH, meta.point_cloud_range,
+                                               (0.16, 0.16, 4.0), n=points,
+                                               real_points=real_points), meta, proc, "train")
+               for _ in range(2)]
+    train_counts, _, _ = run_training(dev, "G (SECOND, KITTI)", cfg, meta,
+                                      SyntheticLoader(batches, 2), 1, 2, EXPECT_G_TRAIN,
+                                      counts_confidences=False, smi=smi)
+    return counts, train_counts
+
+
 def stage_and_overfit(dev, trainer, steps=10, label="flagship", smi=""):
     """A train step's stages by CUDA events (forward, loss, backward,
     optimizer; mean over the steps after the first), and the overfit check:
@@ -2161,7 +2519,7 @@ def stage_and_overfit(dev, trainer, steps=10, label="flagship", smi=""):
                 sums[name] = sums.get(name, 0.0) + a.elapsed_time(b) / (steps - 1)
     losses = [float(x) for x in losses]
     total = sum(sums.values())
-    batch_size = dev_batch["points"].shape[0]
+    batch_size = dev_batch["gt_boxes"].shape[0]
     print(f"stage ms (one {label} train step, batch {batch_size}, mean of {steps - 1}): "
           f"{json.dumps({k: round(v, 3) for k, v in sums.items()})} total {total:.3f}"
           + (f" ({smi})" if smi else ""))
@@ -2239,14 +2597,19 @@ def main():
     path_d(dev, smi)
     torch.cuda.empty_cache()
     e_serve_counts, e_train_counts = path_e(dev, smi, entries, calls)
+    torch.cuda.empty_cache()
+    _, f_train_counts = path_f(dev, smi, entries, calls)
+    torch.cuda.empty_cache()
+    g_serve_counts, g_train_counts = path_g(dev, smi, entries, calls)
     # each kernel's launches on the path that runs it: training path A,
     # serving for K4, path B for K3's last_wins mode, the sweep for T1-T4;
-    # path E's shapes: its training, and its serving for K4
+    # paths E, F and G's shapes: their training, and their serving for K4
     counts = {**a_counts, "nms": serve_counts["nms"],
               "stamp_last_wins": b_counts["stamp_last_wins"],
               **{f"wgrad_{v}": sweep_counts[f"wgrad_{v}"] for v in WGRAD_VARIANTS},
-              **{f"E:{k}": v for k, v in e_train_counts.items()},
-              "E:nms": e_serve_counts["nms"]}
+              **{f"{p}:{k}": v for p, c in (("E", e_train_counts), ("F", f_train_counts),
+                                            ("G", g_train_counts)) for k, v in c.items()},
+              "E:nms": e_serve_counts["nms"], "G:nms": g_serve_counts["nms"]}
     if not profile:
         check_device_kernels(calls)
     for e in entries:

@@ -1,0 +1,31 @@
+"""Dense 3D -> BEV (counterpart of ``com_tpu/models/map_to_bev.py``)."""
+from __future__ import annotations
+
+from torch import nn
+
+from ..utils.registry import MAP_TO_BEV
+
+
+@MAP_TO_BEV.register
+class HeightCompression(nn.Module):
+    """The sparse backbone's dense (B, D, H, W, C) output with z folded into
+    channels (height_compression.py:10-26): (B, H, W, D*C), channel
+    ``d*C + c``, as the JAX package folds it.  pcdet's ``view(N, C*D, H,
+    W)`` orders them ``c*D + d``; both packages keep their own order, so a
+    pcdet checkpoint's first BEV conv sees its input channels permuted
+    (ROADMAP Queue 3)."""
+
+    def __init__(self, model_cfg=None):
+        super().__init__()
+        self.model_cfg = model_cfg
+
+    def forward(self, batch):
+        dense = batch["encoded_spconv_tensor"]
+        b, d, h, w, c = dense.shape
+        batch["spatial_features"] = dense.permute(0, 2, 3, 1, 4).reshape(b, h, w, d * c)
+        batch["spatial_features_stride"] = batch.get("encoded_spconv_tensor_stride", 8)
+        return batch
+
+
+MAP_TO_BEV.register_unported("PointPillarScatter", "hard-voxel pillar scatter")
+MAP_TO_BEV.register_unported("Conv2DCollapse", "1x1-conv height collapse")

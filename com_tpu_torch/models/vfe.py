@@ -1,5 +1,7 @@
-"""Dynamic pillar feature encoder, sorted-scan path (counterpart of
-``com_tpu/models/vfe.py`` ``DynamicPillarVFE._sorted_scan``).
+"""Voxel feature encoders (counterpart of ``com_tpu/models/vfe.py``): the
+dynamic pillar encoder's sorted-scan path and MeanVFE.
+
+DynamicPillarVFE (``DynamicPillarVFE._sorted_scan``):
 
 Raw padded points (B, N, F) go straight to the BEV canvas: each point gets a
 flat pillar id, points are sorted by it (unless the host already did), the
@@ -18,6 +20,32 @@ from ..ops.seg_scan import run_bcast
 from ..ops.voxelize import point_voxel_ids
 from ..utils.registry import VFES
 from .layers import MaskedBatchNorm
+
+
+@VFES.register
+class MeanVFE(nn.Module):
+    """Mean of each hard voxel's points (mean_vfe.py): (B, V, T, F) voxels
+    and (B, V) counts -> ``batch["pillar_features"]`` (B, V, F), the sum
+    over the count clamped at 1.  The host voxelizer made the voxels;
+    ``VOXELIZE_ON_DEVICE`` is not ported."""
+
+    def __init__(self, model_cfg, num_point_features, voxel_size=None, point_cloud_range=None,
+                 grid_size=None):
+        super().__init__()
+        if model_cfg.get("VOXELIZE_ON_DEVICE"):
+            raise NotImplementedError("VOXELIZE_ON_DEVICE (device_hard_voxelize) is not "
+                                      "ported yet")
+        self.num_point_features = int(num_point_features)
+
+    def forward(self, batch):
+        voxels = batch["voxels"]
+        denom = torch.clamp(batch["voxel_num_points"][..., None].to(voxels.dtype), min=1.0)
+        batch["pillar_features"] = voxels.sum(dim=2) / denom
+        return batch
+
+
+VFES.register_unported("PillarVFE", "hard-voxel pillar encoder")
+VFES.register_unported("DynamicMeanVFE", "dynamic voxel mean")
 
 
 def decorate_points(xyz, feats, pillar_xy_center, cluster_mean, use_absolute_xyz=True):

@@ -21,6 +21,7 @@ from ..models.dense_heads.anchor_head import (anchor_post_process, box_coder_for
 from ..models.dense_heads.center_head import decode_center_boxes, post_process_nms
 from ..ops.host_boxes import boxes_iou3d
 from ..utils.device import resolve_device
+from .step import model_input_keys
 
 
 def _head_groups(model_cfg, class_names):
@@ -31,12 +32,14 @@ def _head_groups(model_cfg, class_names):
 def make_eval_step(net, model_cfg, class_names, meta, device=None):
     """An ``eval_step(batch) -> (boxes, scores, labels, valid)`` over ``net``.
 
-    ``batch`` holds "points" (B, N, F) and "points_mask" (B, N), as numpy
-    arrays or tensors; they move to ``device`` (CUDA unless the caller passes
-    another).  Outputs are tensors on that device: boxes (B, P, 7), scores
-    and labels (B, P), valid (B, P), P = NMS_POST_MAXSIZE per head, heads
-    concatenated (one "head" for an anchor head).  Unlike the JAX step, the
-    weights live in ``net``.
+    ``batch`` holds the model's inputs (``model_input_keys``: "points" and
+    "points_mask", or a voxel model's "voxels", "voxel_coords" and
+    "voxel_num_points"), as numpy arrays or tensors; they move to
+    ``device`` (CUDA unless the caller passes another).  Outputs are
+    tensors on that device: boxes (B, P, 7), scores and labels (B, P),
+    valid (B, P), P = NMS_POST_MAXSIZE per head, heads concatenated (one
+    "head" for an anchor head).  Unlike the JAX step, the weights live in
+    ``net``.
     """
     if model_cfg.get("ROI_HEAD") is not None:
         raise NotImplementedError("two-stage eval is not ported yet")
@@ -48,11 +51,11 @@ def make_eval_step(net, model_cfg, class_names, meta, device=None):
     stride = int(head_cfg["TARGET_ASSIGNER_CONFIG"].get("FEATURE_MAP_STRIDE", 1))
     groups = _head_groups(model_cfg, list(class_names))
     nms_cfg = post["NMS_CONFIG"]
+    keys = model_input_keys(model_cfg)
 
     @torch.no_grad()
     def eval_step(batch):
-        inputs = {k: torch.as_tensor(batch[k], device=dev) for k in ("points", "points_mask")}
-        out = net(inputs)
+        out = net({k: torch.as_tensor(batch[k], device=dev) for k in keys})
         parts = []
         for pred_dict, class_ids in zip(out["pred_dicts"], groups):
             decoded = decode_center_boxes(
@@ -83,11 +86,11 @@ def _make_anchor_eval_step(net, model_cfg, class_names, meta, dev):
     coder = box_coder_for(head_cfg)
     dir_cfg = head_cfg if head_cfg.get("USE_DIRECTION_CLASSIFIER") else None
     num_class = len(class_names)
+    keys = model_input_keys(model_cfg)
 
     @torch.no_grad()
     def eval_step(batch):
-        inputs = {k: torch.as_tensor(batch[k], device=dev) for k in ("points", "points_mask")}
-        out = net(inputs)
+        out = net({k: torch.as_tensor(batch[k], device=dev) for k in keys})
         boxes, scores, labels = decode_anchor_boxes(out, anchors, num_class, coder, dir_cfg)
         return anchor_post_process(boxes, scores, labels, nms_cfg, score_thresh,
                                    num_classes=num_class)

@@ -26,6 +26,8 @@ from .state import check_same_device
 _VEHICLE_NAMES = ("vehicle", "car", "truck", "bus", "van", "trailer", "construction_vehicle")
 BATCH_KEYS = ("points", "points_mask", "gt_boxes", "num_points_in_gt", "true_object",
               "occupancy_ratio", "facade_type")
+GT_KEYS = frozenset({"gt_boxes", "num_points_in_gt", "true_object", "occupancy_ratio",
+                     "facade_type"})
 
 
 def device_batch_keys(model_cfg) -> set:
@@ -33,7 +35,7 @@ def device_batch_keys(model_cfg) -> set:
     ``com_tpu/train/step.py`` ``device_batch_keys``): ``DevicePrefetcher``
     copies only these to the device, and the rest of a collated batch
     (voxels, frame ids, the augmentations' parameters) stays on the host."""
-    keys = {"gt_boxes", "num_points_in_gt", "true_object", "occupancy_ratio", "facade_type"}
+    keys = set(GT_KEYS)
     vfe = model_cfg.get("VFE", {}).get("NAME", "")
     if vfe.startswith("Dynamic") or model_cfg.get("VFE", {}).get("VOXELIZE_ON_DEVICE"):
         keys |= {"points", "points_mask"}
@@ -48,6 +50,12 @@ def device_batch_keys(model_cfg) -> set:
         keys |= {"images", "image_shape", "trans_lidar_to_cam", "trans_cam_to_img", "noise_rot",
                  "noise_scale", "flip_x", "flip_y"}
     return keys
+
+
+def model_input_keys(model_cfg) -> set:
+    """The batch keys the model itself reads: ``device_batch_keys`` less
+    the ground truth (the eval step's inputs)."""
+    return device_batch_keys(model_cfg) - GT_KEYS
 
 
 def _head_groups(model_cfg, class_names):
@@ -251,7 +259,7 @@ def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, devic
     The loss is ``compute_anchor_loss`` for a head with an
     ``ANCHOR_GENERATOR_CONFIG`` (its anchors built once, on the device), else
     ``compute_centerpoint_loss`` (which alone reads ``fmap_hw``).  ``batch``
-    holds the ``BATCH_KEYS`` arrays (numpy or tensors); they move to the
+    holds the ``device_batch_keys`` arrays (numpy or tensors); they move to the
     model's device.  The step updates ``state`` in place (model,
     optimizer, curriculum EMA, confidence accumulators) and returns it with
     device-side metrics.  ``device`` follows the entry-point rule: CUDA
@@ -281,8 +289,10 @@ def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, devic
             return compute_centerpoint_loss(out, model_cfg, class_names, meta, curriculum,
                                             epoch, fmap_hw)
 
+    batch_keys = device_batch_keys(model_cfg)
+
     def forward(batch):
-        inputs = {k: torch.as_tensor(batch[k], device=dev) for k in BATCH_KEYS if k in batch}
+        inputs = {k: torch.as_tensor(batch[k], device=dev) for k in batch_keys if k in batch}
         net.train()
         return net(inputs)
 

@@ -155,7 +155,16 @@ def load_params_only(path, net: torch.nn.Module, logger=None):
     reference file can hold pickled objects beside its tensors, which
     ``weights_only=True`` refuses; such a file is read again with
     ``weights_only=False`` and the logger says so: load only files you
-    trust.  Returns (loaded, skipped) counts."""
+    trust.  A sparse conv weight loads from either spconv layout: 2.x's
+    (Cout, kz, ky, kx, Cin), the port's own, or 1.x's (kz, ky, kx, Cin,
+    Cout), transposed on the way in (as the JAX package's ``t_spconv``
+    accepts both).
+
+    A pcdet voxel checkpoint's first BEV conv (``backbone_2d.blocks.0.1``)
+    loads unpermuted, as the JAX package's importer leaves it: pcdet's
+    HeightCompression orders its channels ``c*D + d``, both packages
+    ``d*C + c`` (ROADMAP Queue 3), so such a file's BEV input channels
+    arrive mixed in both.  Returns (loaded, skipped) counts."""
     try:
         payload = torch.load(Path(path), map_location="cpu", weights_only=True)
     except pickle.UnpicklingError:
@@ -171,6 +180,8 @@ def load_params_only(path, net: torch.nn.Module, logger=None):
             if s is None:
                 continue
             s = torch.as_tensor(s)
+            if s.dim() == 5 and tuple(s.shape) != tuple(v.shape):
+                s = s.permute(4, 0, 1, 2, 3)  # spconv 1.x -> 2.x
             if tuple(s.shape) != tuple(v.shape):
                 skipped += 1
                 continue

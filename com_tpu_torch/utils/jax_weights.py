@@ -11,9 +11,12 @@ leaf it came from and the layout change back to PyTorch.
                                          spatially flipped
     BN scale/bias, mean/var           -> weight/bias, running_mean/var
 
+    sparse conv (K3, I, O)            -> spconv 2.x (O, kz, ky, kx, I)
+
 The 1x1 stride-1 deblock is a plain flax Conv but a pcdet ConvTranspose2d,
-so it takes the transposed-conv layout too.  Covers the CenterPoint-Pillar
-and PointPillar slots: DynamicPillarVFE, BaseBEVBackbone, CenterHead and
+so it takes the transposed-conv layout too.  Covers the CenterPoint-Pillar,
+PointPillar, CenterPoint-voxel and SECOND slots: DynamicPillarVFE,
+VoxelBackBone8x and VoxelResBackBone8x, BaseBEVBackbone, CenterHead and
 AnchorHeadSingle (its 1x1 convs, plain conv layout).  For comparing a train
 step, ``params_from_jax`` maps any tree shaped like flax "params" (its
 gradients, its updated parameters) into the same pcdet names, and
@@ -35,6 +38,8 @@ _TRANSFORMS = {
     "linear": lambda a: a.T,
     "conv2d": lambda a: a.transpose(3, 2, 0, 1),
     "deconv2d": lambda a: a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1],
+    "spconv27": lambda a: a.reshape(3, 3, 3, *a.shape[1:]).transpose(4, 0, 1, 2, 3),
+    "spconv3": lambda a: a.reshape(3, 1, 1, *a.shape[1:]).transpose(4, 0, 1, 2, 3),
 }
 
 
@@ -53,6 +58,38 @@ def _pfn_rules(vfe_cfg, top):
         rules.append((f"vfe.pfn_layers.{i}.linear.weight", "params", (*p, "Dense_0", "kernel"),
                       "linear"))
         rules += _bn(f"vfe.pfn_layers.{i}.norm", (*p, "MaskedBatchNorm_0"))
+    return rules
+
+
+def _voxel_backbone_rules(top, residual):
+    """pcdet's VoxelBackBone8x names <- the JAX package's stage scopes (the
+    inverse of its ``map_voxel_backbone``): conv_input <- subm0_0, conv1.{j}
+    <- subm0_{j+1}, conv{s}.0 <- down{s-1} (strided), conv{s}.{1,2} <-
+    subm{s-1}_{0,1}, conv_out <- conv_out ((3, 1, 1) kernel).  A plain
+    block is ``.0`` conv / ``.1`` norm; a residual block ``.conv{1,2}``
+    (with bias) / ``.bn{1,2}``."""
+    rules = []
+
+    def block(tkey, scope, transform="spconv27"):
+        rules.append((f"{tkey}.0.weight", "params", (top, scope, "kernel"), transform))
+        rules.extend(_bn(f"{tkey}.1", (top, scope, "MaskedBatchNorm_0")))
+
+    def resblock(tkey, scope):
+        for j in (1, 2):
+            p = (top, scope, f"conv{j}")
+            rules.append((f"{tkey}.conv{j}.weight", "params", (*p, "kernel"), "spconv27"))
+            rules.append((f"{tkey}.conv{j}.bias", "params", (*p, "bias"), "copy"))
+            rules.extend(_bn(f"{tkey}.bn{j}", (*p, "MaskedBatchNorm_0")))
+
+    body = resblock if residual else block
+    block("backbone_3d.conv_input", "subm0_0")
+    for j in range(2 if residual else 1):
+        body(f"backbone_3d.conv1.{j}", f"subm0_{j + 1}")
+    for s in (2, 3, 4):
+        block(f"backbone_3d.conv{s}.0", f"down{s - 1}")
+        for j in (1, 2):
+            body(f"backbone_3d.conv{s}.{j}", f"subm{s - 1}_{j - 1}")
+    block("backbone_3d.conv_out", "conv_out", "spconv3")
     return rules
 
 
@@ -132,7 +169,13 @@ def bridge_rules(model_cfg, class_names, params) -> list:
                 return name
         raise KeyError(f"no flax scope starting with {prefix!r} in {sorted(params)}")
 
-    rules = _pfn_rules(model_cfg["VFE"], top(model_cfg["VFE"]["NAME"]))
+    rules = []
+    if model_cfg["VFE"].get("NUM_FILTERS"):
+        rules += _pfn_rules(model_cfg["VFE"], top(model_cfg["VFE"]["NAME"]))
+    b3 = model_cfg.get("BACKBONE_3D")
+    if b3 is not None:
+        rules += _voxel_backbone_rules(top(b3["NAME"]),
+                                       residual=b3["NAME"] == "VoxelResBackBone8x")
     if model_cfg.get("BACKBONE_2D") is not None:
         rules += _backbone_rules(model_cfg["BACKBONE_2D"], top("BaseBEVBackbone"))
     head = model_cfg["DENSE_HEAD"]

@@ -26,6 +26,14 @@ class Registry:
             return deco
         return deco(obj)
 
+    def register_unported(self, key: str, what: str):
+        """A name of the JAX package's registry that this port has not
+        reached yet: building it raises ``NotImplementedError`` naming it."""
+        def unported(*args, **kwargs):
+            raise NotImplementedError(f"{key} ({what}) is not ported yet")
+
+        self._entries[key] = unported
+
     def get(self, key: str):
         if key not in self._entries:
             raise KeyError(
@@ -44,5 +52,7 @@ class Registry:
 DATASETS = Registry("datasets")
 DETECTORS = Registry("detectors")
 VFES = Registry("vfe")
+BACKBONES_3D = Registry("backbones_3d")
+MAP_TO_BEV = Registry("map_to_bev")
 BACKBONES_2D = Registry("backbones_2d")
 DENSE_HEADS = Registry("dense_heads")

@@ -92,8 +92,11 @@ def test_layout_rules_move_entries_only():
     """Every weight-bridge layout rule is a permutation of the entries (no
     scale), so Adam's second moment maps as its parameter does."""
     a = np.arange(2 * 3 * 4 * 5, dtype=np.float32).reshape(2, 3, 4, 5)
+    shaped = {"conv2d": a, "deconv2d": a, "copy": a,  # sparse convs: (taps, Cin, Cout)
+              "spconv27": np.arange(27 * 2 * 3, dtype=np.float32).reshape(27, 2, 3),
+              "spconv3": a.reshape(3, 8, 5)}
     for name, fn in _TRANSFORMS.items():
-        x = a if name in ("conv2d", "deconv2d", "copy") else a.reshape(6, 20)
+        x = shaped.get(name, a.reshape(6, 20))
         np.testing.assert_array_equal(np.sort(np.asarray(fn(x)).ravel()), x.ravel(),
                                       err_msg=name)
 

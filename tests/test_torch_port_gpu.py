@@ -605,19 +605,14 @@ def test_train_step_matches_cpu_biases_moved(dev):
 
 
 def _train_step_card_against_cpu(dev, bias_shift):
-    from com_tpu_torch.models.detectors import DatasetMeta, build_network
-    from com_tpu_torch.models.layers import BatchNorm
-    from com_tpu_torch.train.optim import build_optimizer
-    from com_tpu_torch.train.state import TrainState
-    from com_tpu_torch.train.step import conf_shape_for, make_train_step
+    from com_tpu_torch.models.detectors import DatasetMeta
     from com_tpu_torch.utils.config import cfg_from_yaml_file
 
     cfg = cfg_from_yaml_file("configs/waymo_models/com/centerpoint_pillar_3cls_com.yaml")
     cfg.MODEL.MIXED_PRECISION = False
     cfg.MODEL.DENSE_HEAD.LOSS_CURRICULUM.UCL = True
-    names = list(cfg.CLASS_NAMES)
-    meta = DatasetMeta(names, (-5.12, -5.12, -2.0, 5.12, 5.12, 4.0), (0.32, 0.32, 6.0),
-                       (32, 32, 1), 5)
+    meta = DatasetMeta(cfg.CLASS_NAMES, (-5.12, -5.12, -2.0, 5.12, 5.12, 4.0),
+                       (0.32, 0.32, 6.0), (32, 32, 1), 5)
     rng = np.random.RandomState(0)
     pts = rng.uniform(-5, 5, (2, 2048, 5)).astype(np.float32)
     pts[..., 2] = rng.uniform(-1.5, 3.5, (2, 2048))
@@ -629,6 +624,19 @@ def _train_step_card_against_cpu(dev, bias_shift):
              "true_object": (gt[..., 7] > 0).astype(np.float32),
              "occupancy_ratio": rng.rand(2, 16).astype(np.float32),
              "facade_type": rng.randint(0, 4, (2, 16)).astype(np.float32)}
+    _step_card_against_cpu(dev, cfg, meta, batch, bias_shift)
+
+
+def _step_card_against_cpu(dev, cfg, meta, batch, bias_shift):
+    """One train step of ``cfg`` on ``batch`` from the same weights (norm
+    biases moved by ``bias_shift``), card against CPU."""
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.models.layers import BatchNorm
+    from com_tpu_torch.train.optim import build_optimizer
+    from com_tpu_torch.train.state import TrainState
+    from com_tpu_torch.train.step import conf_shape_for, make_train_step
+
+    names = list(cfg.CLASS_NAMES)
     runs = []
     for d in (dev, "cpu"):
         net = build_network(cfg.MODEL, meta, device=d, seed=3)
@@ -821,3 +829,131 @@ def test_anchor_eval_step_matches_cpu(dev):
         a = np.concatenate([gb[i][gv[i]], gs[i][gv[i]][:, None]], -1)
         c = np.concatenate([cb[i][cv[i]], cs[i][cv[i]][:, None]], -1)
         assert np.abs(a[:, None] - c[None]).max(-1).min(1).max() <= 1e-3
+
+
+# the sparse-voxel path: the engine and the voxel detectors, card against CPU
+
+def _sparse_scene(seed, grid=(7, 10, 10), n=60, cin=6, v=72):
+    """Random distinct sites in ``grid`` then invalid rows to ``v``."""
+    rng = np.random.RandomState(seed)
+    nz, ny, nx = grid
+    flat = rng.choice(nz * ny * nx, size=n, replace=False)
+    coords = np.full((v, 3), -1, np.int32)
+    coords[:n] = np.stack([flat // (ny * nx), (flat // nx) % ny, flat % nx], 1)
+    return rng.randn(v, cin).astype(np.float32), coords, np.arange(v) < n
+
+
+@pytest.mark.parametrize("dense", [True, False])
+def test_sparse_engine_matches_cpu(dev, monkeypatch, dense):
+    """Rulebooks and downsampled sites equal exactly, submanifold and strided
+    convs (conv_out's anisotropic one too) forward and backward to 1e-4,
+    through the dense table and through the sorted search."""
+    from com_tpu_torch.ops import sparse as sp
+
+    monkeypatch.setattr(sp, "DENSE_CELL_CAP", 10**12 if dense else 0)
+    grid = (7, 10, 10)
+    f, c, v = _sparse_scene(1, grid)
+    w27 = np.random.RandomState(2).randn(27, 6, 8).astype(np.float32) * 0.3
+    w3 = np.random.RandomState(3).randn(3, 6, 8).astype(np.float32) * 0.3
+    convs = [
+        ("subm", w27, lambda f_, c_, v_, w_: (sp.submanifold_conv3d(f_, c_, v_, w_, grid),)),
+        ("strided", w27, lambda f_, c_, v_, w_: sp.strided_conv3d(f_, c_, v_, w_, grid, 40, 2)),
+        ("conv_out", w3, lambda f_, c_, v_, w_: sp.strided_conv3d(
+            f_, c_, v_, w_, grid, 60, (2, 1, 1), (3, 1, 1), 0))]
+    for name, w, fn in convs:
+        runs = []
+        for d in (dev, "cpu"):
+            ft = torch.from_numpy(f).to(d).requires_grad_()
+            wt = torch.from_numpy(w).to(d).requires_grad_()
+            out = fn(ft, torch.from_numpy(c).to(d), torch.from_numpy(v).to(d), wt)
+            (out[0] * out[0]).sum().backward()
+            runs.append([t.detach().cpu() if torch.is_tensor(t) else t
+                         for t in (*out, ft.grad, wt.grad)])
+        for a, b in zip(*runs):
+            if not torch.is_tensor(a):
+                assert a == b, name
+            elif a.is_floating_point():
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
+            else:
+                assert torch.equal(a, b), name
+    cd, vd = torch.from_numpy(c).to(dev), torch.from_numpy(v).to(dev)
+    assert torch.equal(sp.subm_rulebook(cd, vd, grid).cpu(),
+                       sp.subm_rulebook(torch.from_numpy(c), torch.from_numpy(v), grid))
+    assert torch.equal(sp.strided_rulebook(cd, vd, grid, 20, 2)[0].cpu(),
+                       sp.strided_rulebook(torch.from_numpy(c), torch.from_numpy(v), grid, 20,
+                                           2)[0])
+
+
+def _voxel_case(path, seed=0):
+    """A YAML of the voxel path at a 64 x 64 x 40 grid (0.5 x 0.5 x 0.1 m
+    over +-16 m), full widths, f32; two scenes of 4,000 points voxelized
+    into 2,048 slots of 5 points, 6 objects in 16 slots with the COM side
+    arrays."""
+    from com_tpu_torch.models.detectors import DatasetMeta
+    from com_tpu_torch.ops.voxelize import voxelize_points
+    from com_tpu_torch.utils.config import cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file(path)
+    cfg.MODEL.MIXED_PRECISION = False
+    cfg.MODEL.BACKBONE_3D.VOXEL_CAPS = [2048, 1024, 512, 256]
+    if "TARGET_ASSIGNER_CONFIG" in cfg.MODEL.DENSE_HEAD:
+        cfg.MODEL.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.NUM_MAX_OBJS = 16
+    pc_range, vsize = (-16.0, -16.0, -2.0, 16.0, 16.0, 2.0), (0.5, 0.5, 0.1)
+    meta = DatasetMeta(cfg.CLASS_NAMES, pc_range, vsize, (64, 64, 40), 5)
+    rng = np.random.RandomState(seed)
+    vox = np.zeros((2, 2048, 5, 5), np.float32)
+    coords = np.full((2, 2048, 3), -1, np.int32)
+    num = np.zeros((2, 2048), np.int32)
+    for i in range(2):
+        pts = np.concatenate([rng.uniform(-15, 15, (4000, 2)), rng.uniform(-1.4, 1.4, (4000, 1)),
+                              rng.rand(4000, 2)], 1).astype(np.float32)
+        a, b, c = voxelize_points(pts, pc_range, vsize, 5, 2048)
+        vox[i, :len(a)], coords[i, :len(a)], num[i, :len(a)] = a, b, c
+    gt = np.zeros((2, 16, 8), np.float32)
+    gt[:, :6, 0:2] = rng.uniform(-12, 12, (2, 6, 2))
+    gt[:, :6, 3:6] = rng.uniform(1.0, 4.0, (2, 6, 3))
+    gt[:, :6, 6] = rng.uniform(-np.pi, np.pi, (2, 6))
+    gt[:, :6, 7] = rng.randint(1, 4, (2, 6))
+    batch = {"voxels": vox, "voxel_coords": coords, "voxel_num_points": num, "gt_boxes": gt,
+             "num_points_in_gt": (gt[..., 7] > 0).astype(np.float32) * 10,
+             "true_object": (gt[..., 7] > 0).astype(np.float32),
+             "occupancy_ratio": rng.rand(2, 16).astype(np.float32),
+             "facade_type": rng.randint(0, 4, (2, 16)).astype(np.float32)}
+    return cfg, meta, batch
+
+
+@pytest.mark.parametrize("path", ["configs/waymo_models/com/centerpoint_voxel_comloss.yaml",
+                                  "configs/kitti_models/second.yaml"])
+def test_voxel_eval_step_matches_cpu(dev, path):
+    """CenterPoint-voxel's and SECOND's eval steps at 64 x 64 x 40 in f32:
+    card (K2 in the BEV backbone, K4) vs CPU, same weights."""
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.train.eval import make_eval_step
+
+    cfg, meta, batch = _voxel_case(path)
+    outs = []
+    for d in (dev, "cpu"):
+        net = build_network(cfg.MODEL, meta, device=d, seed=3)
+        if hasattr(net.dense_head, "conv_cls"):
+            with torch.no_grad():  # scores spread, box residuals small
+                net.dense_head.conv_cls.bias.add_(4.0)
+                net.dense_head.conv_box.weight.mul_(0.02)
+        before = conv2d.launches
+        outs.append([t.cpu().numpy() for t in make_eval_step(
+            net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=d)(batch)])
+        assert conv2d.launches == before + 11 * (d == dev)
+    (gb, gs, _, gv), (cb, cs, _, cv) = outs
+    np.testing.assert_array_equal(gv, cv)
+    for i in range(2):
+        a = np.concatenate([gb[i][gv[i]], gs[i][gv[i]][:, None]], -1)
+        c = np.concatenate([cb[i][cv[i]], cs[i][cv[i]][:, None]], -1)
+        if len(a):
+            assert np.abs(a[:, None] - c[None]).max(-1).min(1).max() <= 1e-3
+
+
+def test_voxel_train_step_matches_cpu(dev):
+    """One CenterPoint-voxel COMLoss step (UCL on) at 64 x 64 x 40 in f32,
+    norm biases moved by 3: card vs CPU, as the pillar step above."""
+    cfg, meta, batch = _voxel_case("configs/waymo_models/com/centerpoint_voxel_comloss.yaml")
+    assert cfg.MODEL.DENSE_HEAD.LOSS_CURRICULUM.UCL
+    _step_card_against_cpu(dev, cfg, meta, batch, bias_shift=3.0)

@@ -101,12 +101,20 @@ def run_slice(ucl: bool, epoch: int = 0):
                                        num_max_objs=16)
     cfg.MODEL.MIXED_PRECISION = False
     cfg.MODEL.DENSE_HEAD.LOSS_CURRICULUM.UCL = ucl
-    names = list(cfg.CLASS_NAMES)
     host = {k: np.array(v) for k, v in batch.items()}
+    return run_step_pair(cfg, meta, host, ("points", "points_mask"), epoch)
+
+
+def run_step_pair(cfg, meta, host, input_keys, epoch=0, seed=2):
+    """The JAX loss, gradients and optax update against the port's
+    ``loss_fn`` + backward and a whole ``train_step``, from the same
+    perturbed start (``perturb(seed)``, the curriculum EMA away from zero);
+    ``input_keys`` are the model's inputs in ``host`` (for the JAX init)."""
+    names = list(cfg.CLASS_NAMES)
     jnet = jax_build_network(cfg.MODEL, meta)
     variables = jax.jit(jnet.init, static_argnames=("train",))(
-        jax.random.PRNGKey(0), {k: host[k] for k in ("points", "points_mask")}, train=False)
-    variables = perturb(jax.tree_util.tree_map(np.asarray, dict(variables)), seed=2)
+        jax.random.PRNGKey(0), {k: host[k] for k in input_keys}, train=False)
+    variables = perturb(jax.tree_util.tree_map(np.asarray, dict(variables)), seed=seed)
     cur = (JaxCurriculumState(avg_confidence=jnp.float32(0.12), mean=jnp.float32(0.2),
                               std=jnp.float32(0.05), initialized=jnp.asarray(True)),)
 
@@ -143,7 +151,7 @@ def run_slice(ucl: bool, epoch: int = 0):
     state, metrics = step(state, host, epoch)
 
     return dict(
-        cfg=cfg, names=names,
+        cfg=cfg, names=names, variables=variables, tx=tx, jgrads=jgrads,
         jax_loss=float(jloss), jax_tb={k: float(v) for k, v in jtb.items()},
         jax_grads=params_from_jax(jgrads, cfg.MODEL, names),
         jax_stats={k: v for k, v in state_dict_from_jax(
