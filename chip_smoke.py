@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port's serving and training paths (over its own
 data pipeline, through its train, test and demo CLIs, for the PointPillars
-anchor head and for the sparse-voxel detectors) and its wgrad sweep on one
-NVIDIA GPU.
+anchor head and for the sparse-voxel detectors), its serving artifact
+(export, load and the HTTP server) and its wgrad sweep on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -19,7 +19,7 @@ Phases (any failure raises, and the script exits non-zero):
    whose sample 1 is one whole-sample run, and on two real scenes) and its
    fused max backward (the run's gradient split over tied maxima), K2
    forward and dgrad (through
-   the autograd.Function against conv3x3_plain's autograd), K2w, T1-T4 at
+   the registered op's autograd against conv3x3_plain's autograd), K2w, T1-T4 at
    (2,468,468,64->64) and (2,468,468,128->64) with th 8 and 16, K3 in both
    modes with its callers' dtypes; then CUDA-event times of the kernel (``ms``: calls as the host
    issues them; ``device_ms``: the calls queued behind a spin kernel, the
@@ -119,8 +119,25 @@ Phases (any failure raises, and the script exits non-zero):
    decoded (4, 4096) candidates and two synthetic cases; K2, dgrad and K2w
    at (4,200,176,256->128), (4,200,176,128->128), (4,100,88,256->256); 2
    train steps through ``train_model``.
-13. Launch counts: every counter is zeroed just before each path (the
-   sweep, serving, A, B, C, D's, E's, F's and G's phases) and read just
+13. Path H, the serving artifact (``com_tpu_torch/utils/serving.py``, the
+   export and serve CLIs): the flagship at full width exported on the card
+   through ``com_tpu_torch.tools.export.main`` (its seconds and MB); the
+   serve CLI started in a fresh process (``python -X importtime -m
+   com_tpu_torch.tools.serve``, on a free port) until /health is ready,
+   then 6 single-scene POST /infer from 3 client threads, each response
+   equal, as float32, to the artifact called here on that scene in a batch
+   padded as BatchServer pads it; the latencies, /stats and the modules the
+   server imported (no ``com_tpu_torch.models`` or ``.train``, no JAX).  In
+   process: ``load_artifact``, the artifact against the eager step on a
+   full-width batch (within the eager step's own run-to-run difference)
+   with one forward's launches (K1 2, K2 14, K4 1), and both timed, 20
+   batches each after 3 warm-up, alternating.  A CPU-exported artifact of
+   the synthetic config run on the card (``move_to_device_pass``) against
+   the CPU, with the eager step's launches; the anchor branch exported on
+   path E's configuration and held to its eager step with path E's
+   launches.
+14. Launch counts: every counter is zeroed just before each path (the
+   sweep, serving, A, B, C, D's, E's, F's, G's and H's phases) and read just
    after, against the calls the sweep reports and the expected counts per
    forward or per step.  The device
    kernels one K3 call issues (1) and one K4 call (2, the pack and the
@@ -137,6 +154,7 @@ network and builds into ``build/kernels`` inside the checkout.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -195,6 +213,12 @@ F_CONV = ((2, 188, 188, 256, 128), (2, 188, 188, 128, 128), (2, 94, 94, 256, 256
 G_CONV = ((4, 200, 176, 256, 128), (4, 200, 176, 128, 128), (4, 100, 88, 256, 256))
 # launches per serving forward and per train step: 6 + 5 stride-1 3x3 convs,
 # K4 once; K3 in both modes for COMLoss with UCL; the anchor loss stamps none
+H_DIR = REPO / "build" / "path_h"  # path H's artifacts, removed after the path
+H_REQUESTS, H_CLIENTS, H_WARMUP, H_TIMED = 6, 3, 3, 20
+H_SMALL_POINTS = 2048
+SYNTH_CONFIG = "configs/synthetic_models/centerpoint_synth_com.yaml"
+# TF32 as a fresh process has it, read before phase 1 turns it off
+LIBRARY_TF32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
 EXPECT_F_SERVING = EXPECT_G_SERVING = {"conv3x3": 11, "nms": 1}
 EXPECT_G_TRAIN = {"conv3x3": 11, "conv3x3_dgrad": 11, "conv3x3_wgrad": 11}
 EXPECT_F_TRAIN = {**EXPECT_G_TRAIN, "stamp_gauss": 1, "stamp_last_wins": 1}
@@ -928,7 +952,13 @@ def compare_eval_step(dev, cfg, meta, batch, label, prepare=None):
             prepare(net)
         step = make_eval_step(net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=d)
         outs.append([t.cpu().numpy() for t in step(batch)])
-    (gb, gs, _, gv), (cb, cs, _, cv) = outs
+    check_detections(label, *outs)
+
+
+def check_detections(label, card, cpu):
+    """The card's (boxes, scores, labels, valid) against the CPU's: the same
+    valid slots, each detection within 1e-3 of one of the other's."""
+    (gb, gs, _, gv), (cb, cs, _, cv) = card, cpu
     worst = 0.0
     for i in range(len(gb)):
         a = np.concatenate([gb[i][gv[i]], gs[i][gv[i]][:, None]], -1)
@@ -2490,6 +2520,316 @@ def path_g(dev, smi, entries, calls, pc_range=None, points=E_POINTS, real_points
     return counts, train_counts
 
 
+@contextlib.contextmanager
+def library_defaults():
+    """TF32 switched as a fresh process has it (phase 1 turns it off here):
+    the serve CLI runs with the library's defaults, so the calls held
+    against its responses run with them too."""
+    was = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = LIBRARY_TF32
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = was
+
+
+def _host(out):
+    return [t.cpu().numpy() for t in out]
+
+
+def detection_diff(a, b):
+    """max |a - b| over the boxes and scores of two eval outputs (boxes,
+    scores, labels, valid), or inf where their valid slots or labels
+    differ."""
+    (ab, asc, al, av), (bb, bsc, bl, bv) = a, b
+    if not (np.array_equal(av, bv) and np.array_equal(al[av], bl[bv])):
+        return math.inf
+    if not av.any():
+        return 0.0
+    return float(max(np.abs(ab[av] - bb[bv]).max(), np.abs(asc[av] - bsc[bv]).max()))
+
+
+def held_to_eager(label, run, step, batch, expect, smi):
+    """The artifact's ``run`` against the eager ``step`` on ``batch``:
+    within the eager step's own run-to-run difference (two calls), with
+    one forward's launch counts as ``expect``."""
+    e1, e2 = _host(step(batch)), _host(step(batch))
+    torch.cuda.synchronize()
+    reset_counters()
+    got = _host(run(batch))
+    counts = read_counters()
+    eager, art = detection_diff(e1, e2), detection_diff(got, e1)
+    ok = art <= eager
+    print(f"{label}: {int(got[3].sum())} detections; against the eager step max |diff| {art:.3e}, "
+          f"the eager step against itself {eager:.3e} {'ok' if ok else 'FAIL'} ({smi})")
+    if not ok:
+        raise AssertionError(f"{label}: the artifact disagrees with the eager step")
+    check_launches(f"{label} forward", counts, expect, 1)
+
+
+def _serve_address(proc, timeout):
+    """host:port from the first line the serve CLI prints."""
+    import select
+
+    ready, _, _ = select.select([proc.stdout], [], [], timeout)
+    line = proc.stdout.readline() if ready else ""
+    if "http://" not in line:
+        raise AssertionError(f"path H: the serve CLI printed {line!r} (exit {proc.poll()})")
+    return line.split("http://", 1)[1].split()[0]
+
+
+def h_http(stem, scenes, thresh, dev):
+    """``python -X importtime -m com_tpu_torch.tools.serve`` on a free port
+    (its stderr lists every module the process imports): /health until
+    ready, one POST /infer a scene from ``H_CLIENTS`` client threads, then
+    /stats.  Returns the responses, their latencies (ms), the stats, the
+    seconds to ready and the modules imported."""
+    import urllib.error
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    log = H_DIR / "serve_imports.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-X", "importtime", "-m", "com_tpu_torch.tools.serve", "--artifact",
+             str(stem), "--port", "0", "--score_thresh", str(thresh), "--max_wait_ms", "50",
+             "--device", str(dev)],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=err, text=True)
+    try:
+        base = "http://" + _serve_address(proc, 300)
+        deadline = time.perf_counter() + 300
+        while True:
+            try:
+                with urllib.request.urlopen(base + "/health", timeout=10) as r:
+                    if json.load(r)["ready"]:
+                        break
+            except (urllib.error.URLError, ConnectionError):
+                pass
+            if proc.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError(f"path H: the server never became ready (exit "
+                                     f"{proc.poll()}): {log.read_text()[-2000:]}")
+            time.sleep(0.2)
+        ready_s = time.perf_counter() - t0
+        with urllib.request.urlopen(base + "/stats", timeout=30) as r:
+            warm = json.load(r)  # the warm-up scene's batch
+
+        def request(pts):
+            req = urllib.request.Request(base + "/infer", data=pts.tobytes(), method="POST",
+                                         headers={"X-Num-Feats": str(pts.shape[1])})
+            t = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as r:
+                body = json.load(r)
+            return body, (time.perf_counter() - t) * 1e3
+
+        with ThreadPoolExecutor(H_CLIENTS) as pool:
+            answered = list(pool.map(request, scenes))
+        with urllib.request.urlopen(base + "/stats", timeout=30) as r:
+            stats = json.load(r)
+        stats["requests_batches_ms"] = stats["infer_ms_total"] - warm["infer_ms_total"]
+        stats["requests_batches"] = stats["batches"] - warm["batches"]
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+    imported = [line.rsplit("|", 1)[-1].strip() for line in log.read_text().splitlines()
+                if line.startswith("import time:")]
+    return [a[0] for a in answered], [a[1] for a in answered], stats, ready_s, imported
+
+
+def path_h(dev, smi, pc_range=None, points=POINTS, kitti_grid=None):
+    """Path H, the serving artifact: the flagship exported on the card
+    through the export CLI and served over HTTP by the serve CLI in a fresh
+    process; in process, the artifact against the eager step, its launches
+    a forward and both timed; a CPU-exported artifact run on the card; the
+    anchor branch on path E's configuration.  ``pc_range``, ``points`` and
+    ``kitti_grid`` cut it for a rehearsal."""
+    import shutil
+
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.tools import export
+    from com_tpu_torch.train.eval import make_eval_step
+    from com_tpu_torch.utils.serving import load_artifact
+
+    shutil.rmtree(H_DIR, ignore_errors=True)
+    cfg, meta = load_config()
+    args = ["--cfg_file", str(REPO / CONFIG), "--output", str(H_DIR / "flagship"),
+            "--batch_size", str(BATCH), "--max_points", str(points), "--device", str(dev)]
+    if pc_range is not None:
+        args += ["--set", "DATA_CONFIG.POINT_CLOUD_RANGE", str(list(pc_range))]
+        cfg.DATA_CONFIG.POINT_CLOUD_RANGE = list(pc_range)
+        meta = export.export_meta(cfg)
+    t0 = time.perf_counter()
+    stem, manifest = export.main(args)
+    export_s = time.perf_counter() - t0
+    mb = stem.with_suffix(".pt2").stat().st_size / 1e6
+    print(f"path H export (flagship, batch {BATCH}, {points} points, grid "
+          f"{manifest['grid_size']}, on the card): {export_s:.2f} s, artifact {mb:.2f} MB ({smi})")
+
+    # the HTTP server in a fresh process
+    thresh = float(cfg.MODEL.DENSE_HEAD.POST_PROCESSING.SCORE_THRESH)
+    rng = np.random.RandomState(31)
+    sizes = [points - points // 40 * i for i in range(H_REQUESTS)]
+    scenes = [waymo_like_points(rng, 1, n, meta.point_cloud_range)[0] for n in sizes]
+    responses, latencies, stats, ready_s, imported = h_http(stem, scenes, thresh, dev)
+    forbidden = [m for m in imported if m.split(".")[0] in ("jax", "com_tpu")
+                 or m.startswith(("com_tpu_torch.models", "com_tpu_torch.train"))]
+    batches = stats.pop("requests_batches")
+    infer_ms = stats.pop("requests_batches_ms") / max(batches, 1)
+    print(f"path H serve CLI: ready {ready_s:.2f} s after its start (interpreter, imports, "
+          f"load, one warm-up scene); {len(scenes)} POST /infer from {H_CLIENTS} threads, "
+          f"latency ms {[round(x, 2) for x in latencies]} (p50 {np.median(latencies):.2f}, max "
+          f"{max(latencies):.2f}); /stats {json.dumps(stats)} (the warm-up scene's batch "
+          f"included), the requests' {batches} batches {infer_ms:.2f} ms each ({smi})")
+    loaded = "com_tpu_torch.utils.serving" in imported  # the log was read
+    print(f"path H serve CLI imported {len(imported)} modules, com_tpu_torch.utils.serving "
+          f"{'among them' if loaded else 'NOT among them'}; com_tpu_torch.models, "
+          f"com_tpu_torch.train, jax or com_tpu: {forbidden or 'none'} "
+          f"{'ok' if loaded and not forbidden else 'FAIL'}")
+    if forbidden or not loaded:
+        raise AssertionError("path H: the serve CLI imported model code")
+    if stats["requests"] != H_REQUESTS + 1:  # and the warm-up scene
+        raise AssertionError(f"path H: /stats counts {stats['requests']} requests")
+
+    # each response against the artifact called here on its scene alone,
+    # padded as BatchServer pads
+    t0 = time.perf_counter()
+    run, _ = load_artifact(stem, device=dev)
+    load_s = time.perf_counter() - t0
+    worst = 0.0
+    with library_defaults():
+        for i, (scene, resp) in enumerate(zip(scenes, responses)):
+            pts = np.zeros((BATCH, points, FEATS), np.float32)
+            mask = np.zeros((BATCH, points), bool)
+            pts[0, :len(scene)], mask[0, :len(scene)] = scene, True
+            boxes, scores, labels, valid = _host(run({"points": pts, "points_mask": mask}))
+            keep = valid[0] & (scores[0] >= thresh)
+            got = [np.asarray(resp[k], np.float32).reshape(-1, *shape)
+                   for k, shape in (("boxes", (7,)), ("scores", ()))]
+            same = (np.array_equal(np.asarray(resp["labels"]), labels[0][keep])
+                    and got[0].shape == boxes[0][keep].shape)
+            if same:
+                worst = max(worst, float(np.abs(got[0] - boxes[0][keep]).max(initial=0)),
+                            float(np.abs(got[1] - scores[0][keep]).max(initial=0)))
+            print(f"  request {i}: {len(scene)} points, {len(resp['scores'])} detections; labels "
+                  f"{'equal' if same else 'DIFFER'} to the artifact called directly")
+            if not same:
+                raise AssertionError(f"path H request {i}: the response is not the artifact's")
+    ok = worst == 0.0
+    print(f"path H responses against the direct call: boxes and scores max |diff| {worst:.3e} "
+          f"(equal as float32) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("path H: a response differs from the artifact's direct call")
+
+    # in process: against the eager step, launches, times
+    net = build_network(cfg.MODEL, meta, device=dev, seed=0)  # the export CLI's weights
+    step = make_eval_step(net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=dev)
+    full = waymo_like_points(np.random.RandomState(6), BATCH, points, meta.point_cloud_range)
+    batch = {"points": torch.as_tensor(full, device=dev),
+             "points_mask": torch.ones((BATCH, points), dtype=torch.bool, device=dev)}
+    t0 = time.perf_counter()
+    run(batch)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    print(f"path H load_artifact in process: {load_s:.2f} s (the kernels built already), first "
+          f"batch {first_ms:.2f} ms ({smi})")
+    held_to_eager("path H artifact (flagship, full width)", run, step, batch, EXPECT_SERVING, smi)
+    times = {"artifact": [], "eager": []}
+    for i in range(H_WARMUP + H_TIMED):
+        for name, fn in (("artifact", run), ("eager", step)):
+            t0 = time.perf_counter()
+            fn(batch)
+            torch.cuda.synchronize()
+            if i >= H_WARMUP:
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    print("path H batch ms (host clock, synced, on the card; alternating, "
+          f"{H_WARMUP} warm-up each): " + "; ".join(
+              f"{k} median {np.median(v):.3f} (min {min(v):.3f}, max {max(v):.3f}) over {len(v)}"
+              for k, v in times.items()) + f" ({smi})")
+    del net, step, run, batch
+    torch.cuda.empty_cache()
+    h_cpu_artifact(dev, smi)
+    h_anchor(dev, smi, kitti_grid)
+    shutil.rmtree(H_DIR, ignore_errors=True)
+
+
+def h_cpu_artifact(dev, smi, points=H_SMALL_POINTS):
+    """The synthetic config exported on the CPU, loaded for the card (the
+    program moved by ``move_to_device_pass``) and for the CPU: the same
+    detections as the CPU (``check_detections``), and the eager step's
+    launches on the card."""
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.tools import export
+    from com_tpu_torch.train.eval import make_eval_step
+    from com_tpu_torch.utils.config import cfg_from_yaml_file
+    from com_tpu_torch.utils.serving import load_artifact
+
+    stem, manifest = export.main(["--cfg_file", str(REPO / SYNTH_CONFIG), "--output",
+                                  str(H_DIR / "synth_cpu"), "--batch_size", str(BATCH),
+                                  "--max_points", str(points), "--device", "cpu"])
+    run_cpu, _ = load_artifact(stem, device="cpu")
+    t0 = time.perf_counter()
+    run_card, _ = load_artifact(stem, device=dev)
+    move_s = time.perf_counter() - t0
+    pts = waymo_like_points(np.random.RandomState(32), BATCH, points,
+                            manifest["point_cloud_range"])
+    batch = {"points": pts, "points_mask": np.ones((BATCH, points), bool)}
+    cfg = cfg_from_yaml_file(str(REPO / SYNTH_CONFIG))
+    meta = export.export_meta(cfg)
+    step = make_eval_step(build_network(cfg.MODEL, meta, device=dev), cfg.MODEL,
+                          list(cfg.CLASS_NAMES), meta, device=dev)
+    reset_counters()
+    step(batch)
+    eager = read_counters()
+    reset_counters()
+    card = _host(run_card(batch))
+    counts = read_counters()
+    print(f"path H CPU-exported artifact (synthetic config, batch {BATCH}, {points} points): "
+          f"loaded for the card in {move_s:.2f} s ({smi})")
+    check_detections("path H CPU-exported artifact on the card against it on the CPU", card,
+                     _host(run_cpu(batch)))
+    check_launches("path H CPU-exported artifact forward on the card", counts,
+                   {k: v for k, v in eager.items() if v}, 1)
+    if not all(eager[k] for k in ("seg_scan", "conv3x3", "nms")):
+        raise AssertionError(f"path H: the synthetic eval step launched {eager}")
+
+
+def h_anchor(dev, smi, grid=None):
+    """The anchor branch exported on path E's configuration (KITTI
+    PointPillars, batch 4, K4 at NMS_PRE_MAXSIZE 4,096, scores spread) and
+    held to its eager step on one batch."""
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.train.eval import make_eval_step
+    from com_tpu_torch.utils.serving import (export_eval_step, load_artifact, make_manifest,
+                                             write_artifact)
+
+    cfg, meta = load_kitti(grid)
+    cfg.MODEL.VFE.ASSUME_SORTED_POINTS = True  # the scenes come presorted
+    names = list(cfg.CLASS_NAMES)
+    net = spread_anchor_scores(build_network(cfg.MODEL, meta, device=dev, seed=0))
+    spec = {"points": ((E_BATCH, E_POINTS, E_FEATS), torch.float32),
+            "points_mask": ((E_BATCH, E_POINTS), torch.bool)}
+    stem = H_DIR / "kitti_pointpillar"
+    t0 = time.perf_counter()
+    program = export_eval_step(net, cfg.MODEL, names, meta, spec, device=dev)
+    write_artifact(stem, program, make_manifest(cfg, meta, spec, [dev.type]))
+    export_s = time.perf_counter() - t0
+    run, _ = load_artifact(stem, device=dev)
+    print(f"path H anchor export (KITTI PointPillars, batch {E_BATCH}, grid "
+          f"{list(meta.grid_size)}): {export_s:.2f} s, artifact "
+          f"{stem.with_suffix('.pt2').stat().st_size / 1e6:.2f} MB ({smi})")
+    batch = kitti_like_batch(np.random.RandomState(21), E_BATCH, meta.point_cloud_range,
+                             meta.voxel_size, n=E_POINTS, real_points=E_REAL_POINTS)
+    batch = {k: batch[k] for k in ("points", "points_mask")}
+    step = make_eval_step(net, cfg.MODEL, names, meta, device=dev)
+    held_to_eager("path H anchor artifact (KITTI PointPillars)", run, step, batch,
+                  EXPECT_E_SERVING, smi)
+
+
 def stage_and_overfit(dev, trainer, steps=10, label="flagship", smi=""):
     """A train step's stages by CUDA events (forward, loss, backward,
     optimizer; mean over the steps after the first), and the overfit check:
@@ -2601,6 +2941,8 @@ def main():
     _, f_train_counts = path_f(dev, smi, entries, calls)
     torch.cuda.empty_cache()
     g_serve_counts, g_train_counts = path_g(dev, smi, entries, calls)
+    torch.cuda.empty_cache()
+    path_h(dev, smi)
     # each kernel's launches on the path that runs it: training path A,
     # serving for K4, path B for K3's last_wins mode, the sweep for T1-T4;
     # paths E, F and G's shapes: their training, and their serving for K4

@@ -134,6 +134,14 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+def check_device(what: str, t) -> None:
+    """The registered ops take CPU tensors (the plain version) and CUDA
+    tensors (the kernel).  A tensor on another device, a meta tensor among
+    them, raises here rather than reaching an op's fake implementation."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {t.device}")
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")

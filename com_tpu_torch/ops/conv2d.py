@@ -6,16 +6,21 @@ Counterpart of ``com_tpu/ops/pallas/conv2d.py``: every stride-1, bias-free
 (B, H, W, Cin), w is HWIO (3, 3, Cin, Cout); accumulation is f32 and the
 output has x's dtype.
 
-``conv3x3`` is a ``torch.autograd.Function`` after ``_conv3x3_bwd``
-(``conv2d.py:537-555``): the input gradient (dgrad) is K2 again on the
-output gradient with the kernel rotated 180 degrees and its channel axes
-swapped (``rotate_kernel``); the weight gradient is K2w (``conv3x3_wgrad``),
-f32 (3, 3, Cin, Cout) cast to w's dtype.  Each launches its CUDA kernel
-(``csrc/conv3x3.cu``, ``csrc/conv3x3_wgrad.cu``) for a CUDA tensor: bf16 on
-the tensor cores, f32 on the CUDA cores.  For a CPU tensor each runs its
-plain version (``conv3x3_plain``, ``conv3x3_wgrad_plain``).  The TPU
-kernel's split of wide inputs into <=128-channel slices existed only for the
-TPU's VMEM and is not carried over.
+``conv3x3`` and its gradients are reached through two registered ops
+(``torch.library.custom_op``), so that ``torch.export`` traces a step
+through them and a loaded program calls them: ``com_tpu_torch::conv3x3``
+(K2: the forward, or with ``dgrad`` the input gradient) and
+``com_tpu_torch::conv3x3_wgrad`` (K2w).  The forward's gradient, registered
+with ``register_autograd``, follows ``_conv3x3_bwd`` (``conv2d.py:537-555``):
+the input gradient (dgrad) is K2 again on the output gradient with the
+kernel rotated 180 degrees and its channel axes swapped
+(``rotate_kernel``); the weight gradient is K2w, f32 (3, 3, Cin, Cout) cast
+to w's dtype.  Each op launches its CUDA kernel (``csrc/conv3x3.cu``,
+``csrc/conv3x3_wgrad.cu``) for a CUDA tensor: bf16 on the tensor cores, f32
+on the CUDA cores.  For a CPU tensor each runs its plain version
+(``conv3x3_plain``, ``conv3x3_wgrad_plain``); a fake implementation gives
+shapes only.  The TPU kernel's split of wide inputs into <=128-channel
+slices existed only for the TPU's VMEM and is not carried over.
 """
 from __future__ import annotations
 
@@ -39,10 +44,12 @@ _resident_blocks: dict[tuple[int, torch.dtype], int] = {}  # (device, dtype) -> 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: nine shifted (B*H*W, Cin) @ (Cin, Cout)
-    products summed in f32 over the zero-padded input."""
+    products summed in f32 (f64 for f64 input, which only the gradient
+    checks use) over the zero-padded input."""
     b, h, wd, _ = x.shape
-    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
-    wf = w.float()
+    acc_dtype = torch.promote_types(x.dtype, torch.float32)
+    xp = F.pad(x.to(acc_dtype), (0, 0, 1, 1, 1, 1))
+    wf = w.to(acc_dtype)
     acc = None
     for dy in range(3):
         for dx in range(3):
@@ -53,10 +60,12 @@ def conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def conv3x3_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the weight gradient: nine shifted
-    (B*H*W, Cin)^T @ (B*H*W, Cout) products in f32 (``conv2d.py:350-361``)."""
+    (B*H*W, Cin)^T @ (B*H*W, Cout) products in f32 (``conv2d.py:350-361``;
+    f64 for f64 input)."""
     b, h, wd, cin = x.shape
-    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
-    gf = g.float().reshape(b * h * wd, -1)
+    acc_dtype = torch.promote_types(x.dtype, torch.float32)
+    xp = F.pad(x.to(acc_dtype), (0, 0, 1, 1, 1, 1))
+    gf = g.to(acc_dtype).reshape(b * h * wd, -1)
     taps = [xp[:, dy:dy + h, dx:dx + wd, :].reshape(b * h * wd, cin).t() @ gf
             for dy in range(3) for dx in range(3)]
     return torch.stack(taps).reshape(3, 3, cin, gf.shape[-1])
@@ -109,16 +118,11 @@ def _k2(x: torch.Tensor, w: torch.Tensor, counter: str) -> torch.Tensor:
     return y
 
 
-def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Input gradient of ``conv3x3`` (K2 dgrad): the output gradient g
-    (B, H, W, Cout) correlated with the spatially rotated, in/out-swapped
-    kernel, again a 3x3 SAME conv, (B, H, W, Cin) in g's dtype."""
-    return _k2(g, rotate_kernel(w.to(g.dtype)), "dgrad_launches")
-
-
-def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Weight gradient of ``conv3x3`` (kernel K2w): (3, 3, Cin, Cout) f32
-    from x (B, H, W, Cin) and the output gradient g (B, H, W, Cout)."""
+@torch.library.custom_op("com_tpu_torch::conv3x3_wgrad", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _conv3x3_wgrad_op(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K2w as a registered op: the kernel for CUDA tensors (counted in
+    ``wgrad_launches``), the plain version for CPU tensors."""
     if x.device.type == "cpu":
         return conv3x3_wgrad_plain(x, g)
     if x.dim() != 4 or g.dim() != 4 or x.shape[:3] != g.shape[:3]:
@@ -156,26 +160,68 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dw
 
 
-class _Conv3x3(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w):
-        y = _k2(x, w, "launches")
-        ctx.save_for_backward(x, w)
-        return y
+@_conv3x3_wgrad_op.register_fake
+def _(x, g):
+    return x.new_empty((3, 3, x.shape[-1], g.shape[-1]),
+                       dtype=torch.promote_types(x.dtype, torch.float32))
 
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        g = g.contiguous()
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = conv3x3_dgrad(g, w).to(x.dtype)
-        if ctx.needs_input_grad[1]:
-            dw = conv3x3_wgrad(x, g).to(w.dtype)
-        return dx, dw
+
+@torch.library.custom_op("com_tpu_torch::conv3x3", mutates_args=(), device_types=("cpu", "cuda"))
+def _conv3x3_op(x: torch.Tensor, w: torch.Tensor, dgrad: bool) -> torch.Tensor:
+    """K2 as a registered op: the kernel for CUDA tensors, the plain version
+    for CPU tensors.  With ``dgrad`` it is the forward conv's input gradient:
+    x is the output gradient and w the forward's kernel, rotated here
+    (``rotate_kernel``); its launches count in ``dgrad_launches``, the
+    forward's in ``launches``."""
+    if dgrad:
+        return _k2(x, rotate_kernel(w), "dgrad_launches")
+    return _k2(x, w, "launches")
+
+
+@_conv3x3_op.register_fake
+def _(x, w, dgrad):
+    return x.new_empty((*x.shape[:3], w.shape[2] if dgrad else w.shape[3]))
+
+
+def _setup_context(ctx, inputs, output):
+    x, w, dgrad = inputs
+    ctx.dgrad = dgrad
+    ctx.save_for_backward(x, w)
+
+
+def _backward(ctx, grad):
+    if ctx.dgrad:
+        raise NotImplementedError("conv3x3: the input gradient has no gradient of its own")
+    x, w = ctx.saved_tensors
+    g = grad.contiguous()
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+        dx = conv3x3_dgrad(g, w).to(x.dtype)
+    if ctx.needs_input_grad[1]:
+        dw = conv3x3_wgrad(x, g).to(w.dtype)
+    return dx, dw, None
+
+
+_conv3x3_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """3x3 stride-1 SAME conv, NHWC (B, H, W, Cin) x HWIO (3, 3, Cin, Cout),
     differentiable in x and w."""
-    return _Conv3x3.apply(x, w)
+    _kernels.check_device("conv3x3", x)
+    return _conv3x3_op(x, w, False)
+
+
+def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Input gradient of ``conv3x3`` (K2 dgrad): the output gradient g
+    (B, H, W, Cout) correlated with the spatially rotated, in/out-swapped
+    kernel, again a 3x3 SAME conv, (B, H, W, Cin) in g's dtype."""
+    _kernels.check_device("conv3x3_dgrad", g)
+    return _conv3x3_op(g, w.to(g.dtype), True)
+
+
+def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Weight gradient of ``conv3x3`` (kernel K2w): (3, 3, Cin, Cout) f32
+    from x (B, H, W, Cin) and the output gradient g (B, H, W, Cout)."""
+    _kernels.check_device("conv3x3_wgrad", x)
+    return _conv3x3_wgrad_op(x, g)

@@ -4,11 +4,13 @@ shapes, batched (kernel K4 for the greedy ones).
 Counterpart of ``com_tpu/ops/nms.py`` and ``com_tpu/ops/pallas/
 nms_kernel.py``.  The pairwise IoU (or distance) matrix is built with
 library ops, in blocks of 512 rows of one sample past 1,024 candidates
-(``_self_iou``); the sequential greedy pass is ``greedy_suppress``, which
-launches the CUDA kernel (``csrc/nms.cu``) for CUDA tensors and runs
-``greedy_suppress_plain`` for CPU tensors.  Outputs are padded to a fixed
-size with validity masks.  The JAX package vmaps its per-sample functions;
-here the batch axis is written out: boxes are (B, K, 7).
+(``_self_iou``); the sequential greedy pass is ``greedy_suppress``, the
+registered op ``com_tpu_torch::greedy_suppress`` (so that ``torch.export``
+traces the eval step through it), which launches the CUDA kernel
+(``csrc/nms.cu``) for CUDA tensors and runs ``greedy_suppress_plain`` for
+CPU tensors.  Outputs are padded to a fixed size with validity masks.  The
+JAX package vmaps its per-sample functions; here the batch axis is written
+out: boxes are (B, K, 7).
 """
 from __future__ import annotations
 
@@ -57,21 +59,13 @@ def greedy_suppress_plain(over: torch.Tensor, valid: torch.Tensor) -> torch.Tens
     return keep
 
 
-def greedy_suppress(over: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Greedy keep mask over score-sorted candidates.
-
-    Args:
-        over: (B, K, K) bool, over[b, i, j]: candidate i suppresses j.
-        valid: (B, K) bool.
-
-    Returns:
-        (B, K) bool: candidate i is valid and no earlier kept candidate
-        suppresses it.
-    """
-    if not over.is_cuda:
-        if over.device.type == "cpu":
-            return greedy_suppress_plain(over, valid)
-        raise ValueError(f"greedy_suppress: unsupported device {over.device}")
+@torch.library.custom_op("com_tpu_torch::greedy_suppress", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _greedy_suppress_op(over: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """K4 as a registered op: the kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if over.device.type == "cpu":
+        return greedy_suppress_plain(over, valid)
     shape = over.shape
     if len(shape) != 3 or shape[1] != shape[2] or valid.shape != shape[:2]:
         raise ValueError(f"greedy_suppress: over {tuple(shape)}, valid {tuple(valid.shape)}")
@@ -92,6 +86,26 @@ def greedy_suppress(over: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     global launches
     launches += 1
     return keep
+
+
+@_greedy_suppress_op.register_fake
+def _(over, valid):
+    return torch.empty_like(valid)
+
+
+def greedy_suppress(over: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Greedy keep mask over score-sorted candidates.
+
+    Args:
+        over: (B, K, K) bool, over[b, i, j]: candidate i suppresses j.
+        valid: (B, K) bool.
+
+    Returns:
+        (B, K) bool: candidate i is valid and no earlier kept candidate
+        suppresses it.
+    """
+    _kernels.check_device("greedy_suppress", over)
+    return _greedy_suppress_op(over, valid)
 
 
 def _score_order(scores, valid):

@@ -5,18 +5,24 @@ reduces over the points of each pillar and broadcasts the result back to
 every point, for the cluster mean (sum) and the PFN max feedback (max).  With
 points sorted by pillar id each pillar is a contiguous run.
 
-``run_bcast`` is a ``torch.autograd.Function`` whose backward is the JAX
-package's VJP (``seg_scan.py:277-299``): for sum, the run sum of g (one K1
-sum); for max, ``tied * gsum / max(nties, 1)``, the run's gradient split
-evenly over its tied maxima, in one fused kernel call that sums g and
-counts the ties in f32 and rounds once.  Every call, forward or backward,
-launches the CUDA kernels (``csrc/seg_scan.cu``, entry ``k1_call``) for a
-CUDA tensor and runs the plain version (``run_bcast_plain``,
-``run_bcast_max_bwd_plain``) for a CPU tensor; there is no other route.
+K1 is reached through two registered ops (``torch.library.custom_op``),
+so that ``torch.export`` traces a step through them and a loaded program
+calls them: ``com_tpu_torch::run_bcast`` (the forward, sum or max) and
+``com_tpu_torch::run_bcast_bwd`` (the backward).  The forward's gradient,
+registered with ``register_autograd``, is the JAX package's VJP
+(``seg_scan.py:277-299``): for sum, the run sum of g (one K1 sum); for max,
+``tied * gsum / max(nties, 1)``, the run's gradient split evenly over its
+tied maxima, in one fused kernel call that sums g and counts the ties in
+f32 and rounds once.  Each op launches the CUDA kernels
+(``csrc/seg_scan.cu``, entry ``k1_call``) for a CUDA tensor and runs the
+plain version (``run_bcast_plain``, ``run_bcast_max_bwd_plain``) for a CPU
+tensor; its fake implementation gives shapes only.  There is no other
+route.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -32,19 +38,21 @@ _WHAT = {op: f"run_bcast {op} (K1)" for op in _OPS}
 
 def run_bcast_plain(vals: torch.Tensor, seg: torch.Tensor, op: str = "sum") -> torch.Tensor:
     """Plain PyTorch version: per-sample segment table over compact run ranks
-    (``_run_bcast_ref`` semantics), reduced in f32, cast back to the input
-    dtype.  A run is a maximal stretch of equal consecutive ids."""
+    (``_run_bcast_ref`` semantics), reduced in f32 (f64 for f64 input, which
+    only the gradient checks use), cast back to the input dtype.  A run is a
+    maximal stretch of equal consecutive ids."""
     b, n, c = vals.shape
     first = torch.ones((b, n), dtype=torch.bool, device=vals.device)
     first[:, 1:] = seg[:, 1:] != seg[:, :-1]
     rank = torch.cumsum(first.to(torch.int64), dim=1) - 1
     idx = (rank + torch.arange(b, device=vals.device)[:, None] * n).reshape(-1)
-    v = vals.reshape(b * n, c).float()
+    acc = torch.promote_types(vals.dtype, torch.float32)
+    v = vals.reshape(b * n, c).to(acc)
     if op == "sum":
-        table = torch.zeros((b * n, c), dtype=torch.float32, device=vals.device)
+        table = torch.zeros((b * n, c), dtype=acc, device=vals.device)
         table = table.index_add(0, idx, v)
     else:
-        table = torch.full((b * n, c), -math.inf, dtype=torch.float32, device=vals.device)
+        table = torch.full((b * n, c), -math.inf, dtype=acc, device=vals.device)
         table = table.scatter_reduce(0, idx[:, None].expand(-1, c), v, "amax", include_self=True)
         table = torch.where(torch.isfinite(table), table, torch.zeros((), dtype=table.dtype,
                                                                       device=table.device))
@@ -55,9 +63,10 @@ def run_bcast_max_bwd_plain(g: torch.Tensor, vals: torch.Tensor, out: torch.Tens
                             seg: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the max's backward (``seg_scan.py:284-299``):
     each run's sum of g split evenly over its tied maxima (rows where vals ==
-    out), computed in f32 and cast once to vals' dtype."""
-    tied = (vals == out).float()
-    gsum = run_bcast_plain(g.float(), seg, "sum")
+    out), computed in f32 (f64 for f64 input) and cast once to vals' dtype."""
+    acc = torch.promote_types(vals.dtype, torch.float32)
+    tied = (vals == out).to(acc)
+    gsum = run_bcast_plain(g.to(acc), seg, "sum")
     nties = run_bcast_plain(tied, seg, "sum")
     return (tied * gsum / torch.clamp(nties, min=1.0)).to(vals.dtype)
 
@@ -121,38 +130,69 @@ def _k1(vals: torch.Tensor, seg: torch.Tensor, op: str, counter: str) -> torch.T
     return _launch(op, seg, vals, counter)
 
 
+@torch.library.custom_op("com_tpu_torch::run_bcast", mutates_args=(), device_types=("cpu", "cuda"))
+def _run_bcast_op(vals: torch.Tensor, seg: torch.Tensor, op: str) -> torch.Tensor:
+    """K1 forward as a registered op: the kernel for CUDA tensors (counted in
+    ``launches``), the plain version for CPU tensors."""
+    return _k1(vals, seg, op, "launches")
+
+
+@_run_bcast_op.register_fake
+def _(vals, seg, op):
+    return torch.empty_like(vals)
+
+
+@torch.library.custom_op("com_tpu_torch::run_bcast_bwd", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _run_bcast_bwd_op(g: torch.Tensor, seg: torch.Tensor, vals: Optional[torch.Tensor],
+                      out: Optional[torch.Tensor]) -> torch.Tensor:
+    """K1's backward as a registered op, counted in ``bwd_launches``: the sum's
+    (the run sum of g) when vals and out are None, else the max's from the
+    forward's input vals and output out."""
+    if vals is None:
+        return _k1(g, seg, "sum", "bwd_launches")
+    if vals.device.type == "cpu":
+        return run_bcast_max_bwd_plain(g, vals, out, seg)
+    return _launch("max_bwd", seg, vals, "bwd_launches", g, out)
+
+
+@_run_bcast_bwd_op.register_fake
+def _(g, seg, vals, out):
+    return torch.empty_like(g if vals is None else vals)
+
+
 def run_bcast_max_bwd(g: torch.Tensor, vals: torch.Tensor, out: torch.Tensor,
                       seg: torch.Tensor) -> torch.Tensor:
     """The max's backward in one kernel for CUDA tensors (counted in
     ``bwd_launches``), ``run_bcast_max_bwd_plain`` for CPU tensors.  g, vals
     (the forward's input) and out (its output): (B, N, C) in one dtype;
     returns dvals in that dtype."""
-    if vals.device.type == "cpu":
-        return run_bcast_max_bwd_plain(g, vals, out, seg)
-    return _launch("max_bwd", seg, vals, "bwd_launches", g, out)
+    _kernels.check_device("run_bcast max_bwd", vals)
+    return _run_bcast_bwd_op(g, seg, vals, out)
 
 
-class _RunBcast(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, vals, seg, op):
-        out = _k1(vals, seg, op, "launches")
-        ctx.op = op
-        if op == "max":
-            ctx.save_for_backward(seg, vals, out)
-        else:
-            ctx.save_for_backward(seg)
-        return out
+def _setup_context(ctx, inputs, output):
+    vals, seg, op = inputs
+    ctx.op = op
+    if op == "max":
+        ctx.save_for_backward(seg, vals, output)
+    else:
+        ctx.save_for_backward(seg)
 
-    @staticmethod
-    def backward(ctx, g):
-        seg = ctx.saved_tensors[0]
-        g = g.contiguous()
-        if ctx.op == "sum":
-            return _k1(g, seg, "sum", "bwd_launches"), None, None
-        # split the run's gradient evenly over tied maxima (under bf16
-        # several points of a pillar often round to the same max)
-        _, vals, out = ctx.saved_tensors
-        return run_bcast_max_bwd(g, vals, out, seg), None, None
+
+def _backward(ctx, grad):
+    seg = ctx.saved_tensors[0]
+    g = grad.contiguous()
+    if ctx.op == "sum":
+        return _run_bcast_bwd_op(g, seg, None, None), None, None
+    # split the run's gradient evenly over tied maxima (under bf16 several
+    # points of a pillar often round to the same max); looked up by name at
+    # call time, so that a diagnostic may patch it
+    _, vals, out = ctx.saved_tensors
+    return run_bcast_max_bwd(g, vals, out, seg), None, None
+
+
+_run_bcast_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def run_bcast(vals: torch.Tensor, seg: torch.Tensor, op: str = "sum") -> torch.Tensor:
@@ -170,4 +210,5 @@ def run_bcast(vals: torch.Tensor, seg: torch.Tensor, op: str = "sum") -> torch.T
     """
     if op not in ("sum", "max"):
         raise ValueError(f"op must be 'sum' or 'max', got {op!r}")
-    return _RunBcast.apply(vals, seg, op)
+    _kernels.check_device(f"run_bcast {op}", vals)
+    return _run_bcast_op(vals, seg, op)

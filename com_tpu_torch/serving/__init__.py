@@ -1,0 +1,3 @@
+from .server import BatchServer, ServerStats
+
+__all__ = ["BatchServer", "ServerStats"]

@@ -957,3 +957,85 @@ def test_voxel_train_step_matches_cpu(dev):
     cfg, meta, batch = _voxel_case("configs/waymo_models/com/centerpoint_voxel_comloss.yaml")
     assert cfg.MODEL.DENSE_HEAD.LOSS_CURRICULUM.UCL
     _step_card_against_cpu(dev, cfg, meta, batch, bias_shift=3.0)
+
+
+# the registered ops (torch.library) on the card, and an exported program
+
+def _op_cases(dev):
+    """(op, args, plain result) at small ragged shapes on the card."""
+    rng = np.random.RandomState(11)
+    seg = torch.from_numpy(np.sort(rng.randint(0, 30, (2, 700)), axis=1).astype(np.int32)).to(dev)
+    vals = torch.from_numpy(rng.randn(2, 700, 8).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.randn(2, 9, 70, 16).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.randn(3, 3, 16, 24).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.randn(2, 9, 70, 24).astype(np.float32)).to(dev)
+    over = torch.from_numpy(rng.rand(2, 130, 130) < 0.05).to(dev)
+    valid = torch.from_numpy(rng.rand(2, 130) < 0.9).to(dev)
+    out = seg_scan.run_bcast_plain(vals, seg, "max")
+    ops = torch.ops.com_tpu_torch
+    return [
+        (ops.run_bcast, (vals, seg, "sum"), seg_scan.run_bcast_plain(vals, seg, "sum")),
+        (ops.run_bcast, (vals, seg, "max"), out),
+        (ops.run_bcast_bwd, (vals, seg, None, None), seg_scan.run_bcast_plain(vals, seg, "sum")),
+        (ops.run_bcast_bwd, (vals, seg, vals, out),
+         seg_scan.run_bcast_max_bwd_plain(vals, vals, out, seg)),
+        (ops.conv3x3, (x, w, False), conv2d.conv3x3_plain(x, w)),
+        (ops.conv3x3, (g, w, True), conv2d.conv3x3_plain(g, conv2d.rotate_kernel(w))),
+        (ops.conv3x3_wgrad, (x, g), conv2d.conv3x3_wgrad_plain(x, g)),
+        (ops.greedy_suppress, (over, valid), nms.greedy_suppress_plain(over, valid)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(8), ids=["k1_sum", "k1_max", "k1_sum_bwd", "k1_max_bwd",
+                                                 "k2", "k2_dgrad", "k2w", "k4"])
+def test_registered_op_on_card_matches_plain(dev, case):
+    """Each registered op on CUDA tensors launches its kernel (one count on
+    its counter) and agrees with the plain version in f32: K1 max and K4
+    exactly; the sums, the max backward's split of a run's sum and the convs
+    to f32 rounding."""
+    op, args, want = _op_cases(dev)[case]
+    counters = [(seg_scan, "launches"), (seg_scan, "bwd_launches"), (conv2d, "launches"),
+                (conv2d, "dgrad_launches"), (conv2d, "wgrad_launches"), (nms, "launches")]
+    before = [getattr(m, a) for m, a in counters]
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert sum(getattr(m, a) for m, a in counters) == sum(before) + 1
+    if want.dtype == torch.bool or case == 1:
+        assert torch.equal(got, want)
+    else:
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * max(want.abs().max().item(), 1.0), err
+
+
+def test_exported_program_launches_the_kernels(dev, tmp_path):
+    """The flagship eval step at a 32x32 grid in f32 exported on the card,
+    written, loaded and run: its outputs equal the eager step's, and one
+    forward launches K1 twice, K2 14 times and K4 once."""
+    from com_tpu_torch.models.detectors import DatasetMeta, build_network
+    from com_tpu_torch.train.eval import make_eval_step
+    from com_tpu_torch.utils.config import cfg_from_yaml_file
+    from com_tpu_torch.utils.serving import (export_eval_step, load_artifact, make_manifest,
+                                             write_artifact)
+
+    cfg = cfg_from_yaml_file("configs/waymo_models/com/centerpoint_pillar_3cls_com.yaml")
+    cfg.MODEL.MIXED_PRECISION = False
+    meta = DatasetMeta(cfg.CLASS_NAMES, (-5.12, -5.12, -2.0, 5.12, 5.12, 4.0),
+                       (0.32, 0.32, 6.0), (32, 32, 1), 5)
+    spec = {"points": ((2, 2048, 5), torch.float32), "points_mask": ((2, 2048), torch.bool)}
+    net = build_network(cfg.MODEL, meta, device=dev, seed=3)
+    program = export_eval_step(net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, spec, device=dev)
+    write_artifact(tmp_path / "model", program, make_manifest(cfg, meta, spec, ["cuda"]))
+    run, manifest = load_artifact(tmp_path / "model", device=dev)
+    assert manifest["platforms"] == ["cuda"]
+    rng = np.random.RandomState(0)
+    pts = rng.uniform(-5, 5, (2, 2048, 5)).astype(np.float32)
+    pts[..., 2] = rng.uniform(-1.5, 3.5, (2, 2048))
+    batch = {"points": pts, "points_mask": np.ones((2, 2048), bool)}
+    want = make_eval_step(net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=dev)(batch)
+    before = (seg_scan.launches, conv2d.launches, nms.launches)
+    got = run(batch)
+    torch.cuda.synchronize()
+    after = (seg_scan.launches, conv2d.launches, nms.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (2, 14, 1)
+    for g, w in zip(got, want):
+        assert g.device == w.device and torch.equal(g, w)
