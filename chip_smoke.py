@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port's serving and training paths (over its own
 data pipeline, through its train, test and demo CLIs, for the PointPillars
 anchor head and for the sparse-voxel detectors), its serving artifact
-(export, load and the HTTP server) and its wgrad sweep on one NVIDIA GPU.
+(export, load and the HTTP server), its data-parallel training and
+evaluation, and its wgrad sweep on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -136,9 +137,28 @@ Phases (any failure raises, and the script exits non-zero):
    the CPU, with the eager step's launches; the anchor branch exported on
    path E's configuration and held to its eager step with path E's
    launches.
-14. Launch counts: every counter is zeroed just before each path (the
-   sweep, serving, A, B, C, D's, E's, F's, G's and H's phases) and read just
-   after, against the calls the sweep reports and the expected counts per
+14. Path I, the data mesh (``com_tpu_torch/parallel``): two ranks
+   spawned on the card (``parallel.launch.run_ranks``, gloo: NCCL takes one
+   rank a card) after the kernels are built.  I.1: the flagship at full
+   width, seeded weights, a scene a rank of a global batch of 2, 3 steps
+   in bf16 (as configured) and in f32 with the norm biases +3, against one
+   process on the whole batch after step 1 and step 3 (loss, confidence
+   sums and counts, running statistics, parameters where |g| is not tiny:
+   gated in f32, the bf16 run gated on the step-1 loss and the counts and
+   the rest printed), the ranks bitwise equal, each rank's launches, the
+   all-reduces a step, their bytes and time, a rank's step beside one
+   process's.  I.2: ``train_model`` over path C's pipeline with
+   ``build_dataloader(dist=True)``, 2 epochs of 3 steps a rank: both
+   samplers hold the same confidences, the all-reduce of the ranks' sums;
+   checkpoints from rank 0 alone; the epoch-end reduction's time.  I.3:
+   ``eval_model`` over 2 shards of 6 scenes against one process (in
+   order, within 1e-4), K4's launches.  I.4: the train CLI under
+   ``torchrun --nproc_per_node 1 ... --multihost`` (NCCL, world 1, 1 epoch
+   of 3 steps, a checkpoint).  With two cards I.1 again over NCCL, else a
+   line that says it did not run.
+15. Launch counts: every counter is zeroed just before each path (the
+   sweep, serving, A, B, C, D's, E's, F's, G's and H's phases, and in each
+   rank of I) and read just after, against the calls the sweep reports and the expected counts per
    forward or per step.  The device
    kernels one K3 call issues (1) and one K4 call (2, the pack and the
    sweep), counted by torch.profiler after every timed phase.  Then the
@@ -2895,6 +2915,435 @@ def profile_train(state, step, dev_batch):
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=30))
 
 
+# ----------------------------------------------------------------- path I
+I_RANKS, I_STEPS, I_EPOCHS, I_EVAL_SCENES, I_SEED = 2, 3, 2, 6, 21
+I_TIMEOUT_S = 300  # a collective of path I that waits longer fails its rank
+I_DIR = REPO / "build" / "path_i"  # the ranks' results and checkpoints, removed after the path
+# path I.1 against the single process.  In bf16 (the flagship as configured)
+# a rank's norms sum its rows and the all-reduce adds the partial sums where
+# one process sums the batch at once, so a bf16 rounding of an activation can
+# fall the other way and flip a ReLU or the sign of a small gradient (then
+# Adam moves that parameter by -lr, not +lr): there the gates are the ranks
+# bitwise equal, the counts exact and the step-1 loss (the forward alone)
+# within I_BF16_LOSS_RTOL; the rest is printed.  The f32 run (norm biases
+# +3, as every whole-model gradient comparison of the repo) is gated on all
+# of it, after 1 step and after I_STEPS:
+I_BF16_LOSS_RTOL = 2e-3
+I_LOSS_RTOL = (1e-5, 1e-4)
+I_CONF_RTOL = (1e-4, 1e-3)  # the confidence sums; the counts are exact
+I_STATS_TOL = (1e-5, 1e-3)  # ``stat_err`` of the running statistics
+# parameters where the step-1 gradient is not tiny (above I_SURE of its
+# tensor's max and I_SURE / 10 of the net's): after one Adam step the update
+# is +-lr wherever the signs agree, so 1e-6; after I_STEPS 0.1 of the lr sum
+I_SURE = 1e-2
+I_THREADS = 4  # torch's host threads a rank (8 cores, 2 ranks)
+
+
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def counted_collectives(log):
+    """Record (bytes, host seconds) of every ``torch.distributed.all_reduce``
+    in the block (the data mesh's reductions call it through the module;
+    gloo's call on a CUDA tensor returns once the result is back on the
+    card)."""
+    import torch.distributed as dist
+
+    real = dist.all_reduce
+
+    def counted(t, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(t, *args, **kwargs)
+        log.append((t.numel() * t.element_size(), time.perf_counter() - t0))
+        return out
+
+    dist.all_reduce = counted
+    try:
+        yield log
+    finally:
+        dist.all_reduce = real
+
+
+def i_config(grid=None):
+    cfg, meta = load_config(grid)
+    cfg.MODEL.VFE.ASSUME_SORTED_POINTS = True  # the batches and the pipeline presort
+    return cfg, meta
+
+
+def i_snapshot(state, net):
+    """Loss-independent state of a step for the comparisons: confidence
+    sums and counts (reduced over the ranks, the state's own left as they
+    are), running statistics, parameters; on the host."""
+    from com_tpu_torch.parallel.sharding import all_reduce_
+
+    conf = [state.conf_sum.clone(), state.conf_cnt.clone()]
+    all_reduce_(*conf)
+    return {"conf_sum": conf[0].cpu(), "conf_cnt": conf[1].cpu(),
+            "stats": {k: v.cpu().clone() for k, v in net.state_dict().items() if "running" in k},
+            "params": {k: p.detach().cpu().clone() for k, p in net.named_parameters()}}
+
+
+def i1_steps(dev, batch, grid, mesh=None, f32=False):
+    """I_STEPS train steps of the flagship (seed I_SEED) on ``batch`` (the
+    rank's shard under ``mesh``): the loss and ``i_snapshot`` after step 1
+    and the last, the step-1 gradients (single process), the launch counts,
+    the step times (host clock between syncs, steps 2..) and, under a mesh,
+    each step's all-reduce bytes.  ``f32``: MIXED_PRECISION off and every
+    norm's bias moved up by 3 (``shift_norm_biases``), the repo's setting
+    for comparing whole-model gradients element by element."""
+    cfg, meta = i_config(grid)
+    if f32:
+        cfg.MODEL.MIXED_PRECISION = False
+    net, opt, state, step = build_trainer(dev, cfg, meta, I_STEPS, seed=I_SEED)
+    if f32:
+        shift_norm_biases(net)
+    out = {"snap": [], "loss": [], "ms": [], "collectives": [],
+           "lr": [opt.lr_fn(i) for i in range(I_STEPS)]}
+    reset_counters()
+    for s in range(I_STEPS):
+        log = []
+        _sync(dev)
+        t0 = time.perf_counter()
+        with counted_collectives(log):
+            state, metrics = step(state, batch, 0)
+            _sync(dev)
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        out["collectives"].append(log)
+        out["loss"].append(float(metrics["loss"]))
+        if s == 0 and mesh is None:
+            out["grads"] = {k: p.grad.float().cpu().clone() for k, p in net.named_parameters()}
+        if s in (0, I_STEPS - 1):
+            out["snap"].append(i_snapshot(state, net))
+    out["counts"] = read_counters()
+    del net, opt, state, step
+    return out
+
+
+def i_batch(grid, points):
+    _, meta = i_config(grid)
+    return waymo_like_batch(np.random.RandomState(I_SEED), BATCH, points, meta.point_cloud_range,
+                            meta.voxel_size, 3)
+
+
+def i_dataset_cfg(cfg, meta, scenes, bg_points, max_points):
+    ds_cfg = path_c_dataset_cfg(cfg, bg_points=bg_points, max_points=max_points)
+    ds_cfg.NUM_SCENES = scenes
+    ds_cfg.POINT_CLOUD_RANGE = list(meta.point_cloud_range)
+    return ds_cfg
+
+
+def i2_loop(mesh, grid, points, bg_points, out):
+    """I_EPOCHS mini-epochs of I_STEPS steps a rank of ``train_model`` over
+    path C's pipeline (``build_dataloader(dist=True)``, a scene a rank a
+    step): each epoch's confidences as the sampler holds them, the rank's
+    own sums before the epoch-end all-reduce and its time, the launch
+    counts, the trained weights; checkpoints into ``ckpt_rank{r}``."""
+    import com_tpu_torch.train.loop as loop
+    from com_tpu_torch.data.dataset import build_dataloader
+    from com_tpu_torch.train.step import device_batch_keys
+
+    dev = mesh.device
+    cfg, meta = i_config(grid)
+    names = list(cfg.CLASS_NAMES)
+    ds_cfg = i_dataset_cfg(cfg, meta, I_RANKS * I_STEPS, bg_points, points)
+    ds, loader = build_dataloader(ds_cfg, names, 1, dist=True, training=True, seed=C_SEED,
+                                  workers=C_WORKERS)
+    net, opt, state, step = build_trainer(dev, cfg, meta, I_STEPS, seed=I_SEED)
+    held, local, reduce_ms = [], [], []
+    set_conf = ds.set_confidence_groups
+
+    def record(conf):
+        set_conf(conf)
+        held.append(np.array(ds.data_augmentor.gt_sampler.confidence_groups))
+
+    def timed_reduce(*tensors, **kw):
+        _sync(dev)
+        local.append([t.cpu().clone() for t in tensors])
+        t0 = time.perf_counter()
+        real_reduce(*tensors, **kw)
+        _sync(dev)
+        reduce_ms.append(1e3 * (time.perf_counter() - t0))
+        return tensors
+
+    real_reduce = loop.all_reduce_
+    ds.set_confidence_groups, loop.all_reduce_ = record, timed_reduce
+    reset_counters()
+    try:
+        state, iters = loop.train_model(step, state, loader, I_EPOCHS, device=dev,
+                                        ckpt_dir=Path(out) / f"ckpt_rank{mesh.rank}",
+                                        batch_keys=device_batch_keys(cfg.MODEL))
+    finally:
+        loop.all_reduce_ = real_reduce
+    return {"iters": iters, "held": held, "local": local, "reduce_ms": reduce_ms,
+            "counts": read_counters(),
+            "weights": {k: v.cpu() for k, v in net.state_dict().items()}}
+
+
+def i3_eval(dev, weights, grid, points, bg_points, mesh=None):
+    """``eval_model`` of the trained weights over I_EVAL_SCENES scenes of
+    path C's val split, a scene a batch, with every decoded candidate kept
+    (``D_SCORE_THRESH``): over the mesh's shards, or in one process."""
+    from com_tpu_torch.data.dataset import build_dataloader
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.train.eval import eval_model, make_eval_step
+
+    cfg, meta = i_config(grid)
+    cfg.MODEL.DENSE_HEAD.POST_PROCESSING.SCORE_THRESH = D_SCORE_THRESH
+    names = list(cfg.CLASS_NAMES)
+    net = build_network(cfg.MODEL, meta, device=dev)
+    net.load_state_dict(weights)
+    _, loader = build_dataloader(i_dataset_cfg(cfg, meta, I_EVAL_SCENES, bg_points, points),
+                                 names, 1,
+                                 training=False, workers=C_WORKERS, dist=mesh is not None)
+    reset_counters()
+    annos, recalls, spf = eval_model(make_eval_step(net, cfg.MODEL, names, meta, device=dev),
+                                     loader, names, mesh=mesh)
+    return {"annos": annos, "recalls": recalls, "spf": spf, "counts": read_counters()}
+
+
+def i_rank(mesh, out, grid, points, bg_points, i1_only=False):
+    """A rank of path I (spawned): I.1 on its scene of the global batch in
+    both precisions, then (unless ``i1_only``) I.2 and I.3 on the weights
+    I.2 trained; results to ``rank{r}.pt``."""
+    from com_tpu_torch.parallel.mesh import shard_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch = shard_batch(i_batch(grid, points), mesh)
+    res = {"i1": {prec: i1_steps(mesh.device, batch, grid, mesh, f32=prec == "f32")
+                  for prec in ("bf16", "f32")}}
+    if not i1_only:
+        res["i2"] = i2_loop(mesh, grid, points, bg_points, out)
+        res["i3"] = i3_eval(mesh.device, res["i2"]["weights"], grid, points, bg_points, mesh)
+        if mesh.rank != 0:
+            del res["i2"]["weights"]
+    torch.save(res, Path(out) / f"rank{mesh.rank}.pt")
+
+
+def i1_check(label, ref, ranks, smi):
+    """I.1 of each precision (``ref`` and the ranks' results keyed "bf16",
+    "f32"): the ranks' parameters, statistics and losses bitwise equal;
+    loss, confidence sums and counts, running statistics and parameters
+    against the single process after step 1 and step I_STEPS (gated as the
+    constants above say); the launch counts a step."""
+    ok = True
+    for prec in ("bf16", "f32"):
+        a, b = (r["i1"][prec] for r in ranks)
+        rf = ref[prec]
+        same = a["loss"] == b["loss"] and all(
+            _same_tensors(x["params"], y["params"]) and _same_tensors(x["stats"], y["stats"])
+            for x, y in zip(a["snap"], b["snap"]))
+        grads = rf["grads"]
+        gmax = max(float(g.abs().max()) for g in grads.values())
+        sure = {k: (g.abs() > I_SURE * g.abs().max()) & (g.abs() > I_SURE / 10 * gmax)
+                for k, g in grads.items()}
+        n_sure = sum(int(m.sum()) for m in sure.values())
+        ok &= same
+        for i, s in enumerate((0, I_STEPS - 1)):
+            got, want = a["snap"][i], rf["snap"][i]
+            loss_err = abs(a["loss"][s] - rf["loss"][s]) / abs(rf["loss"][s])
+            cnt_ok = (torch.equal(got["conf_cnt"], want["conf_cnt"])
+                      and float(want["conf_cnt"].sum()) > 0)
+            conf_err = float(((got["conf_sum"] - want["conf_sum"]).abs()
+                              / want["conf_sum"].abs().clamp_min(1e-3)).max())
+            stats_err = max(float(stat_err(got["stats"], want["stats"],
+                                           k.rsplit(".", 1)[0]).max())
+                            for k in want["stats"] if k.endswith("running_mean"))
+            param_tol = 1e-6 if i == 0 else 0.1 * sum(rf["lr"])
+            param_err = max(float((got["params"][k] - want["params"][k]).abs()[m].max())
+                            if bool(m.any()) else 0.0 for k, m in sure.items())
+            if prec == "f32":
+                good = (loss_err <= I_LOSS_RTOL[i] and cnt_ok and conf_err <= I_CONF_RTOL[i]
+                        and stats_err <= I_STATS_TOL[i] and param_err <= param_tol)
+                gates = (f"<= {I_LOSS_RTOL[i]:g}", f"<= {I_CONF_RTOL[i]:g}",
+                         f"<= {I_STATS_TOL[i]:g}", f"<= {param_tol:.2e}")
+            else:
+                good = cnt_ok and (i > 0 or loss_err <= I_BF16_LOSS_RTOL)
+                gates = (f"<= {I_BF16_LOSS_RTOL:g}" if i == 0 else "printed",
+                         "printed", "printed", "printed")
+            ok &= good
+            print(f"path I.1 {label} {prec}, after {s + 1} step(s): loss {a['loss'][s]:.6f} vs "
+                  f"one process {rf['loss'][s]:.6f} (rel {loss_err:.2e} {gates[0]}); "
+                  f"confidence counts {int(got['conf_cnt'].sum())} equal {cnt_ok}, sums rel "
+                  f"{conf_err:.2e} ({gates[1]}); running statistics {stats_err:.2e} "
+                  f"({gates[2]}); parameters at the {n_sure} entries of |g| >= {I_SURE:g} of "
+                  f"their max: {param_err:.2e} ({gates[3]}) {'ok' if good else 'FAIL'}")
+        print(f"path I.1 {label} {prec}: the {I_RANKS} ranks' losses, running statistics and "
+              f"parameters bitwise equal after 1 and {I_STEPS} steps {same} "
+              f"{'ok' if same else 'FAIL'}")
+        for r, rank in enumerate(ranks):
+            check_launches(f"I.1 {label} {prec} rank {r} step", rank["i1"][prec]["counts"],
+                           EXPECT_TRAIN, I_STEPS)
+        per_step = [(len(log), sum(n for n, _ in log)) for log in a["collectives"]]
+        inside = [round(1e3 * sum(t for _, t in log), 3) for log in a["collectives"][1:]]
+        grads = [round(1e3 * max(log)[1], 3) for log in a["collectives"][1:]]
+        print(f"path I.1 {label} {prec}: {per_step[-1][0]} all-reduces a step, "
+              f"{per_step[-1][1]} bytes (rank 0, step {I_STEPS}; each step {per_step}), "
+              f"{inside} ms of the step inside them (the gradients' {grads} ms); step "
+              f"time a rank {[round(x, 3) for x in a['ms'][1:]]} / "
+              f"{[round(x, 3) for x in b['ms'][1:]]} ms against one process at the global batch "
+              f"{[round(x, 3) for x in rf['ms'][1:]]} ms (host clock between syncs, step 1 left "
+              f"out; {'ranks sharing a card over gloo are no scaling figure; ' if 'gloo' in label else ''}"
+              f"{smi})")
+    if not ok:
+        raise AssertionError(f"path I.1 {label}: the data-parallel step disagrees")
+
+
+def i2_check(ranks, out):
+    a, b = (r["i2"] for r in ranks)
+    same = len(a["held"]) == len(b["held"]) == I_EPOCHS and all(
+        np.array_equal(x, y) for x, y in zip(a["held"], b["held"]))
+    err = 0.0
+    for e in range(I_EPOCHS):
+        s = sum(r["local"][e][0] for r in (a, b))
+        c = sum(r["local"][e][1] for r in (a, b))
+        err = max(err, float(np.abs(a["held"][e] - (s / (c + 0.01)).numpy()).max()))
+    files = sorted(p.name for p in (Path(out) / "ckpt_rank0").iterdir())
+    alone = not (Path(out) / "ckpt_rank1").exists() and files == [
+        f"checkpoint_epoch_{e + 1}.pth" for e in range(I_EPOCHS)]
+    ok = same and err <= 1e-6 and alone and a["iters"] == I_EPOCHS * I_STEPS
+    print(f"path I.2 (path C's pipeline, build_dataloader(dist=True), {I_RANKS} ranks x "
+          f"{I_EPOCHS} epochs x {I_STEPS} steps): both samplers hold the same "
+          f"{a['held'][0].shape} confidences each epoch {same}; they are the all-reduce of the "
+          f"ranks' sums (max err {err:.1e}); checkpoints by rank 0 alone {files} {alone}; "
+          f"epoch-end reduction {[round(x, 3) for x in a['reduce_ms']]} ms "
+          f"{'ok' if ok else 'FAIL'}")
+    for r, rank in enumerate(ranks):
+        check_launches(f"I.2 rank {r} step", rank["i2"]["counts"], EXPECT_TRAIN,
+                       rank["i2"]["iters"])
+    if not ok:
+        raise AssertionError("path I.2: the epoch-end feedback is not the same on every rank")
+
+
+def i3_check(dev, ranks, grid, points, bg_points, smi):
+    single = i3_eval(dev, ranks[0]["i2"]["weights"], grid, points, bg_points)
+    worst, ok = 0.0, True
+    for r, rank in enumerate(ranks):
+        got = rank["i3"]
+        ok &= (len(got["annos"]) == I_EVAL_SCENES and got["recalls"] == single["recalls"]
+               and [x["frame_id"] for x in got["annos"]] == [x["frame_id"] for x in single["annos"]])
+        for g, w in zip(got["annos"], single["annos"]):
+            ok &= len(g["score"]) == len(w["score"]) and np.array_equal(g["pred_labels"],
+                                                                         w["pred_labels"])
+            if len(g["score"]) == len(w["score"]) and len(w["score"]):
+                worst = max(worst, float(np.abs(g["boxes_lidar"] - w["boxes_lidar"]).max()),
+                            float(np.abs(g["score"] - w["score"]).max()))
+        check_launches(f"I.3 rank {r} forward", got["counts"], EXPECT_SERVING,
+                       len(got["annos"]) // I_RANKS)
+    n = sum(len(x["score"]) for x in single["annos"])
+    ok &= worst <= 1e-4 and n > 0
+    print(f"path I.3 eval_model over {I_RANKS} shards of {I_EVAL_SCENES} scenes: each rank's "
+          f"det_annos in dataset order equal the single process's ({n} detections, max err "
+          f"{worst:.1e} <= 1e-4), recall {single['recalls']}; s a frame a rank "
+          f"{[round(r['i3']['spf'], 4) for r in ranks]}, one process {single['spf']:.4f} "
+          f"({smi}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("path I.3: the data-parallel eval disagrees with one process")
+
+
+def i4_nccl(dev, smi, grid=None, points=POINTS, bg_points=120000):
+    """The train CLI under ``torchrun --standalone --nproc_per_node 1
+    ... --multihost``: a world-1 group (NCCL on the card), the sharded
+    loader, 1 epoch of I_STEPS steps at the flagship's batch 2, rank 0's
+    checkpoint.  Its own process group: every process it starts ends."""
+    import os
+    import signal
+
+    import yaml
+
+    from com_tpu_torch.utils.config import cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file(str(REPO / CONFIG))
+    data_cfg = _plain(path_c_dataset_cfg(cfg, bg_points=bg_points, max_points=points))
+    data_cfg["NUM_SCENES"] = BATCH * I_STEPS
+    data_cfg["POINT_CLOUD_RANGE"] = list(i_config(grid)[1].point_cloud_range)
+    root = I_DIR / "nccl"
+    root.mkdir(parents=True)
+    yaml_path = root / "flagship_path_i.yaml"
+    yaml_path.write_text(yaml.safe_dump({
+        "CLASS_NAMES": list(cfg.CLASS_NAMES), "DATA_CONFIG": data_cfg,
+        "MODEL": _plain(cfg.MODEL), "OPTIMIZATION": _plain(cfg.OPTIMIZATION)}))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", "-m", "com_tpu_torch.tools.train", "--cfg_file", str(yaml_path), "--output_dir",
+           str(root / "out"), "--workers", str(C_WORKERS), "--batch_size", str(BATCH),
+           "--epochs", "1", "--device", str(torch.device(dev).type), "--multihost"]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=I_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"path I.4: torchrun did not end in {I_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    ckpts = sorted(p.name for p in (root / "out").rglob("checkpoint_epoch_*.pth"))
+    train_log = "".join(p.read_text() for p in (root / "out").rglob("log_train_*.txt"))
+    backend = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+    ok = (proc.returncode == 0 and ckpts == ["checkpoint_epoch_1.pth"]
+          and f"rank 0 of 1 ({backend})" in train_log
+          and f"x {I_STEPS} steps, global batch {BATCH}" in train_log)
+    print(f"path I.4 torchrun --nproc_per_node 1 -m com_tpu_torch.tools.train --multihost: rc "
+          f"{proc.returncode}, {wall:.1f} s wall (interpreter, {backend} group, dataset, "
+          f"model, 1 epoch of {I_STEPS} steps, checkpoint), checkpoints {ckpts} "
+          f"{'ok' if ok else 'FAIL'} ({smi})")
+    if not ok:
+        print(log[-4000:])
+        raise AssertionError("path I.4: the torchrun train CLI failed")
+
+
+def path_i(dev, smi, grid=None, points=POINTS, bg_points=120000):
+    """Path I, the data mesh (``com_tpu_torch/parallel``): I.1-I.3 on
+    I_RANKS ranks spawned on ``dev`` over gloo (one card: NCCL refuses two
+    ranks on one card) against one process; I.4 through torchrun and the
+    train CLI (NCCL on the card); I.1 again over NCCL where there are two
+    cards.  ``grid``, ``points`` (a scene's point slots) and ``bg_points``
+    are for rehearsals."""
+    import shutil
+
+    from com_tpu_torch.parallel.launch import run_ranks
+
+    shutil.rmtree(I_DIR, ignore_errors=True)
+    I_DIR.mkdir(parents=True)
+    start = time.perf_counter()
+    try:
+        batch = i_batch(grid, points)
+        ref = {prec: i1_steps(dev, batch, grid, f32=prec == "f32") for prec in ("bf16", "f32")}
+        for prec, r in ref.items():
+            check_launches(f"I.1 one process {prec} step", r["counts"], EXPECT_TRAIN, I_STEPS)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        run_ranks(i_rank, I_RANKS, args=(str(I_DIR), grid, points, bg_points), backend="gloo",
+                  device=str(dev), timeout_s=I_TIMEOUT_S, init_dir=I_DIR, threads=I_THREADS)
+        print(f"path I: {I_RANKS} ranks spawned on {dev} over gloo ran I.1-I.3 in "
+              f"{time.perf_counter() - t0:.1f} s wall; two ranks sharing one card over gloo "
+              "are no scaling figure")
+        ranks = [torch.load(I_DIR / f"rank{r}.pt", weights_only=False) for r in range(I_RANKS)]
+        i1_check(f"gloo on {dev}", ref, ranks, smi)
+        i2_check(ranks, I_DIR)
+        i3_check(dev, ranks, grid, points, bg_points, smi)
+        del ranks
+        i4_nccl(dev, smi, grid, points, bg_points)
+        if torch.device(dev).type == "cuda" and torch.cuda.device_count() >= 2:
+            shutil.rmtree(I_DIR / "two", ignore_errors=True)
+            (I_DIR / "two").mkdir()
+            run_ranks(i_rank, I_RANKS, args=(str(I_DIR / "two"), grid, points, bg_points, True),
+                      backend="nccl", timeout_s=I_TIMEOUT_S, init_dir=I_DIR, threads=I_THREADS)
+            i1_check("NCCL on two cards", ref, [
+                torch.load(I_DIR / "two" / f"rank{r}.pt", weights_only=False)
+                for r in range(I_RANKS)], smi)
+        else:
+            print(f"path I.1 over NCCL on two cards: not run ({torch.cuda.device_count()} "
+                  "card(s)); multi-card scaling is not measured")
+        print(f"path I: {time.perf_counter() - start:.1f} s wall in all")
+    finally:
+        shutil.rmtree(I_DIR, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2943,6 +3392,8 @@ def main():
     g_serve_counts, g_train_counts = path_g(dev, smi, entries, calls)
     torch.cuda.empty_cache()
     path_h(dev, smi)
+    torch.cuda.empty_cache()
+    path_i(dev, smi)
     # each kernel's launches on the path that runs it: training path A,
     # serving for K4, path B for K3's last_wins mode, the sweep for T1-T4;
     # paths E, F and G's shapes: their training, and their serving for K4

@@ -222,8 +222,11 @@ class PrefetchLoader:
     """Host loader: index order, worker threads, a prefetch queue.
 
     Each worker takes a strided shard of the epoch's batches, prepares and
-    collates them, and puts them on one bounded queue.  A worker's failure
-    is raised in the consumer once every worker has stopped."""
+    collates them, and puts them on a bounded queue of its own; the
+    consumer takes them in the epoch's order whatever the workers' timing
+    (a data-parallel eval puts the ranks' frames back in dataset order by
+    it).  A worker's failure is raised in the consumer once every worker
+    has stopped."""
 
     def __init__(self, dataset: DatasetTemplate, batch_size: int, shuffle: bool,
                  seed: int = 0, num_workers: int = 2, drop_last: bool = True,
@@ -267,41 +270,45 @@ class PrefetchLoader:
             0, len(order) - (self.batch_size - 1 if self.drop_last else 0), self.batch_size)]
         # SEED_PARITY replays the global np.random stream in order: one worker
         workers = 1 if getattr(self.dataset, "seed_parity", False) else self.num_workers
-        q: _queue.Queue = _queue.Queue(maxsize=workers * 2)
+        # worker i prepares batches i, i + workers, ...: batch k waits on
+        # queue k % workers, so they come out in order, two ahead a worker
+        queues = [_queue.Queue(maxsize=2) for _ in range(workers)]
         stop = object()
         errors: list = []
         closing = threading.Event()
 
-        def worker(batch_indices_list):
+        def worker(i):
             try:
-                for idxs in batch_indices_list:
+                for idxs in batches[i::workers]:
                     if closing.is_set():
                         break
-                    q.put(self.dataset.collate_batch([self.dataset[int(i)] for i in idxs]))
+                    queues[i].put(self.dataset.collate_batch([self.dataset[int(j)]
+                                                              for j in idxs]))
             except BaseException as e:  # raised in the consumer
                 errors.append(e)
             finally:
-                q.put(stop)  # the consumer must see every worker's end
+                queues[i].put(stop)  # the consumer must see every worker's end
 
-        threads = [threading.Thread(target=worker, args=(batches[i::workers],), daemon=True)
+        threads = [threading.Thread(target=worker, args=(i,), daemon=True)
                    for i in range(workers)]
         for t in threads:
             t.start()
-        done = 0
+        ended = set()
         try:
-            while done < len(threads):
-                item = q.get()
-                if item is stop:
-                    done += 1
-                    continue
+            for k in range(len(batches)):
+                item = queues[k % workers].get()
+                if item is stop:  # that worker failed: the others are stopped below
+                    ended.add(k % workers)
+                    break
                 yield item
         finally:
             # a consumer that stops early: the workers end after their batch
-            # in hand, and the queue is drained so that none blocks on it
+            # in hand, and each queue is drained so that none blocks on it
             closing.set()
-            while done < len(threads):
-                if q.get() is stop:
-                    done += 1
+            for i in range(workers):
+                while i not in ended:
+                    if queues[i].get() is stop:
+                        ended.add(i)
         if errors:
             raise RuntimeError("dataloader worker failed") from errors[0]
 
@@ -309,12 +316,20 @@ class PrefetchLoader:
 def build_dataloader(dataset_cfg, class_names, batch_size, dist=False, root_path=None,
                      workers=2, logger=None, training=True, seed=666, db_infos=None):
     """(dataset, loader), the role of pcdet/datasets/__init__.py:50-81.
-    ``dist`` (a shard a process) waits for the multi-device port."""
+    With ``dist`` the loader feeds this rank's shard of each epoch
+    (``PrefetchLoader``'s strided shards, equal in length): the rank and
+    world of the active data mesh, else of the initialised process group,
+    else one process (``com_tpu``'s ``jax.process_index`` and
+    ``process_count``)."""
+    process_index, process_count = 0, 1
     if dist:
-        raise NotImplementedError("distributed loading is not ported yet")
+        from ..parallel.mesh import rank_and_world
+
+        process_index, process_count = rank_and_world()
     dataset = DATASETS.get(dataset_cfg["DATASET"])(
         dataset_cfg=dataset_cfg, class_names=class_names, training=training,
         root_path=root_path, logger=logger, db_infos=db_infos, seed=seed)
     loader = PrefetchLoader(dataset, batch_size, shuffle=training, seed=seed,
-                            num_workers=workers, drop_last=training)
+                            num_workers=workers, drop_last=training,
+                            process_index=process_index, process_count=process_count)
     return dataset, loader

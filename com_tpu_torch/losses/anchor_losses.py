@@ -17,6 +17,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.sharding import global_sum
+
 
 def _norm_cdf(x: float) -> float:
     return 0.5 * (1.0 + math.erf(x / math.sqrt(2.0)))
@@ -134,6 +136,7 @@ def curriculum_sigmoid_focal_loss(logits, one_hot_targets, weights, groups,
         n_pos = pos.sum(dim=(0, 1))
         s1 = (p_det * pos).sum(dim=(0, 1))
         s2 = (p_det * p_det * pos).sum(dim=(0, 1))
+        n_pos, s1, s2 = global_sum(n_pos, s1, s2)  # every rank's anchors: one EMA for all
         mean_b = s1 / torch.clamp(n_pos, min=1.0)
         var_b = torch.clamp(s2 / torch.clamp(n_pos, min=1.0) - mean_b ** 2, min=0.0)
         std_b = torch.sqrt(var_b)

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.sharding import global_sum
+
 
 def sigmoid_clamped(x, eps=1e-4):
     """clamp(sigmoid(x), 1e-4, 1 - 1e-4) (curriculum_center_head.py:311)."""
@@ -29,7 +31,8 @@ def focal_loss_centernet(pred, gt, mask=None):
         num_pos = (pos_inds * mask).sum()
     else:
         num_pos = pos_inds.sum()
-    pos_loss, neg_loss = pos_loss.sum(), neg_loss.sum()
+    # the batch's sums over every rank under a data mesh
+    pos_loss, neg_loss, num_pos = global_sum(pos_loss.sum(), neg_loss.sum(), num_pos)
     return torch.where(num_pos == 0, -neg_loss,
                        -(pos_loss + neg_loss) / torch.clamp(num_pos, min=1e-4))
 
@@ -43,7 +46,7 @@ def reg_loss_centernet(pred, inds, target, mask):
     Returns the (D,) per-dimension losses."""
     b, h, w, d = pred.shape
     gathered = torch.gather(pred.reshape(b, h * w, d), 1, inds.long()[..., None].expand(-1, -1, d))
-    num = mask.sum()
     m = mask[..., None] * torch.isfinite(target).to(pred.dtype)
     loss = torch.abs(gathered * m - target * m)
-    return loss.sum(dim=(0, 1)) / (num + 1e-4)
+    total, num = global_sum(loss.sum(dim=(0, 1)), mask.sum())  # over every rank's objects
+    return total / (num + 1e-4)

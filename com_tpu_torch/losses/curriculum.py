@@ -24,6 +24,7 @@ import torch
 
 from ..models.dense_heads.target_assign import CenterTargets
 from ..ops.gaussian import stamp_squares_batched
+from ..parallel.sharding import global_sum
 from .centernet import focal_loss_centernet
 
 
@@ -97,6 +98,8 @@ def focal_loss_center_curriculum(pred_hm, targets: CenterTargets, state: Curricu
     num_obj = pos_inds.sum()
     p_pos_sum = (pred_hm * pos_inds).sum().detach()
     p_pos_sq = (pred_hm * pred_hm * pos_inds).sum().detach()
+    # the EMA's batch statistics over every rank: one threshold for all
+    num_obj, p_pos_sum, p_pos_sq = global_sum(num_obj, p_pos_sum, p_pos_sq)
     n_clip = torch.clamp(num_obj, min=1.0)
     batch_avg_conf = p_pos_sum / n_clip
     batch_std = torch.sqrt(torch.clamp(p_pos_sq / n_clip - batch_avg_conf ** 2, min=0.0))

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv2d import conv3x3
+from ..parallel.sharding import global_sum
 
 
 class BatchNorm(nn.Module):
@@ -46,8 +47,14 @@ class BatchNorm(nn.Module):
             s, sq = xf.sum(0), (xf * xf).sum(0)
         else:
             m = mask.reshape(-1, 1).to(torch.float32)
-            cnt = torch.clamp(m.sum(), min=1.0)
+            cnt = m.sum()
             s, sq = (xf * m).sum(0), (xf * xf * m).sum(0)
+        # under a data mesh the statistics are the whole batch's, as flax's
+        # norm computes them under SPMD (SyncBatchNorm: the backward of the
+        # all-reduce reduces the sums' gradients too)
+        s, sq, cnt = global_sum(s, sq, cnt)
+        if mask is not None:
+            cnt = torch.clamp(cnt, min=1.0)
         mean = s / cnt
         return mean, torch.clamp(sq / cnt - mean * mean, min=0.0)
 

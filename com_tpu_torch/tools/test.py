@@ -10,7 +10,10 @@ TAG / ``--extra_tag`` / ``eval``: the log, the ``eval_list_{tag}.txt``
 ledger of the epochs ``--eval_all`` evaluated, and with ``--save_to_file``
 ``{checkpoint name}/result.pkl`` (the det_annos).  ``--infer_time`` reports
 the device-synced latency a frame over at most 20 batches.  ``main(argv)``
-returns each checkpoint's result.
+returns each checkpoint's result.  ``--multihost`` evaluates data-parallel,
+one process a card, each over its shard of the split (``torchrun
+--nproc_per_node N -m com_tpu_torch.tools.test ... --multihost``); every
+rank gets the whole split's detections and recall, rank 0 writes the files.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .train import check_single_device, dataset_meta, output_dir
+from ..parallel.sharding import gather_objects
+from .train import data_mesh, dataset_meta, output_dir
 
 
 def parse_config(argv=None):
@@ -49,13 +53,15 @@ def parse_config(argv=None):
     parser.add_argument("--save_to_file", action="store_true",
                         help="write the detections to result.pkl")
     parser.add_argument("--output_dir", type=str, default=None)
-    parser.add_argument("--multihost", action="store_true", help="not ported yet")
-    parser.add_argument("--tcp_port", type=int, default=None, help="not ported yet")
+    parser.add_argument("--multihost", action="store_true",
+                        help="data-parallel eval over torch.distributed, one process a card "
+                             "(torchrun, or SLURM with --tcp_port)")
+    parser.add_argument("--tcp_port", type=int, default=None,
+                        help="rendezvous port for SLURM launches")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (the default) or cpu")
     parser.add_argument("--set", dest="set_cfgs", default=None, nargs=argparse.REMAINDER)
     args = parser.parse_args(argv)
-    check_single_device(args)
     cfg = cfg_from_yaml_file(args.cfg_file, CfgNode())
     if args.set_cfgs is not None:
         cfg_from_list(args.set_cfgs, cfg)
@@ -66,18 +72,19 @@ class EvalContext:
     """What does not depend on the checkpoint, built once (``--eval_all``
     reuses it for each checkpoint): the loader, the model, the eval step."""
 
-    def __init__(self, cfg, args, logger):
+    def __init__(self, cfg, args, logger, mesh=None):
         from ..data import build_dataloader
         from ..models.detectors import build_network
         from ..train.eval import make_eval_step
         from ..utils.device import resolve_device
 
-        self.device = resolve_device(args.device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(args.device)
         names = list(cfg.CLASS_NAMES)
-        batch_size = args.batch_size or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+        batch_size = args.batch_size or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)  # a rank's
         self.dataset, self.loader = build_dataloader(cfg.DATA_CONFIG, names, batch_size,
                                                      training=False, workers=args.workers,
-                                                     logger=logger)
+                                                     logger=logger, dist=mesh is not None)
         self.meta = dataset_meta(cfg, self.dataset)
         self.net = build_network(cfg.MODEL, self.meta, device=self.device)
         self.eval_step = make_eval_step(self.net, cfg.MODEL, names, self.meta,
@@ -114,8 +121,9 @@ def infer_time(ctx: EvalContext, max_batches: int = 20):
 
 
 def evaluate_ckpt(ckpt_path, cfg, args, logger, ctx: EvalContext, eval_dir: Path):
-    """One checkpoint: load, optional latency, ``eval_model``, optional
-    ``result.pkl``, ``dataset.evaluation`` with the config's EVAL_METRIC."""
+    """One checkpoint: load, optional latency, ``eval_model`` (over the
+    mesh's shards with ``--multihost``), optional ``result.pkl`` (rank 0),
+    ``dataset.evaluation`` with the config's EVAL_METRIC."""
     from ..train.eval import eval_model
 
     ctx.load(ckpt_path)
@@ -127,9 +135,10 @@ def evaluate_ckpt(ckpt_path, cfg, args, logger, ctx: EvalContext, eval_dir: Path
     post = cfg.MODEL.get("POST_PROCESSING", {})
     det_annos, recalls, spf = eval_model(
         ctx.eval_step, ctx.loader, list(cfg.CLASS_NAMES), logger=logger,
-        recall_thresh_list=tuple(post.get("RECALL_THRESH_LIST", [0.3, 0.5, 0.7])))
+        recall_thresh_list=tuple(post.get("RECALL_THRESH_LIST", [0.3, 0.5, 0.7])),
+        mesh=ctx.mesh)
     out.update(det_annos=det_annos, recalls=recalls, sec_per_frame=spf)
-    if args.save_to_file:
+    if args.save_to_file and (ctx.mesh is None or ctx.mesh.rank == 0):
         path = eval_dir / Path(ckpt_path).stem / "result.pkl"
         path.parent.mkdir(parents=True, exist_ok=True)
         with open(path, "wb") as f:
@@ -144,20 +153,28 @@ def evaluate_ckpt(ckpt_path, cfg, args, logger, ctx: EvalContext, eval_dir: Path
 
 
 def main(argv=None):
-    """Evaluate; returns the list of each checkpoint's result dict."""
+    """Evaluate; returns the list of each checkpoint's result dict (with
+    ``--multihost``, the same on every rank)."""
+    args, cfg = parse_config(argv)
+    with data_mesh(args) as mesh:
+        return _evaluate(args, cfg, mesh)
+
+
+def _evaluate(args, cfg, mesh):
     from ..utils.checkpoint import _ckpt_files
     from ..utils.common import create_logger
 
-    args, cfg = parse_config(argv)
+    rank = mesh.rank if mesh is not None else 0
     out_dir = output_dir(args, cfg)
     eval_dir = out_dir / "eval"
     eval_dir.mkdir(parents=True, exist_ok=True)
-    logger = create_logger(eval_dir / f"log_eval_{datetime.datetime.now():%Y%m%d-%H%M%S}.txt")
+    logger = create_logger(eval_dir / f"log_eval_{datetime.datetime.now():%Y%m%d-%H%M%S}.txt"
+                           if rank == 0 else None, rank=rank)
 
     if not args.eval_all:
         if args.ckpt is None:
             raise ValueError("--ckpt is needed unless --eval_all")
-        return [evaluate_ckpt(args.ckpt, cfg, args, logger, EvalContext(cfg, args, logger),
+        return [evaluate_ckpt(args.ckpt, cfg, args, logger, EvalContext(cfg, args, logger, mesh),
                               eval_dir)]
 
     # repeat_eval_ckpt: poll the directory, evaluate new checkpoints as they appear
@@ -168,19 +185,21 @@ def main(argv=None):
     while waited < args.max_waiting_mins * 60:
         todo = [(e, p) for e, p in _ckpt_files(ckpt_dir)
                 if str(e) not in evaluated and e >= args.start_epoch]
+        todo = gather_objects(todo, mesh)[0]  # rank 0's list: every rank evaluates the same
         if not todo:
             time.sleep(30)
             waited += 30
             continue
         waited = 0.0
         if ctx is None:
-            ctx = EvalContext(cfg, args, logger)
+            ctx = EvalContext(cfg, args, logger, mesh)
         for epoch, path in todo:
             logger.info("evaluating checkpoint epoch %d", epoch)
             results.append(evaluate_ckpt(path, cfg, args, logger, ctx, eval_dir))
             evaluated.add(str(epoch))
-            with open(ledger, "a") as f:
-                f.write(f"{epoch}\n")
+            if rank == 0:
+                with open(ledger, "a") as f:
+                    f.write(f"{epoch}\n")
     return results
 
 

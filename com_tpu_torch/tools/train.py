@@ -13,14 +13,29 @@ confidences.  ``--device`` defaults to ``cuda`` and raises without a card.
 ``main(argv)`` runs in-process and returns what it did; ``on_start(info)``
 sees the state after any resume, before the first step, and
 ``metric_hook(epoch, it, metrics)`` each step's device metrics.
+
+Data-parallel on N cards of a host, one process a card (NCCL; the global
+batch is ``BATCH_SIZE_PER_GPU`` x N, and the one-cycle schedule counts its
+steps):
+
+    torchrun --nproc_per_node N -m com_tpu_torch.tools.train --cfg_file CFG --multihost
+
+Under SLURM, ``--multihost --tcp_port PORT`` rendezvous at the first host of
+the job.  ``--spatial_shard`` and ``--model_shard`` above 1 raise: the
+mesh's spatial and model axes are not ported.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import check_axes, init_multihost, make_mesh
+from ..parallel.sharding import activate, active_mesh
 
 REPO = Path(__file__).resolve().parents[2]
 
@@ -47,28 +62,45 @@ def parse_config(argv=None):
     parser.add_argument("--logger_iter_interval", type=int, default=50)
     parser.add_argument("--output_dir", type=str, default=None)
     parser.add_argument("--spatial_shard", type=int, default=1,
-                        help="shard the BEV canvas rows over this many cards (not ported yet)")
+                        help="shard the BEV canvas rows over this many cards (not ported: "
+                             "above 1 raises)")
     parser.add_argument("--model_shard", type=int, default=1,
-                        help="shard conv output channels over this many cards (not ported yet)")
-    parser.add_argument("--multihost", action="store_true", help="not ported yet")
-    parser.add_argument("--tcp_port", type=int, default=None, help="not ported yet")
+                        help="shard conv output channels over this many cards (not ported: "
+                             "above 1 raises)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="data-parallel over torch.distributed: one process a card, "
+                             "started by torchrun (or SLURM with --tcp_port)")
+    parser.add_argument("--tcp_port", type=int, default=None,
+                        help="rendezvous port for SLURM launches (the reference's --tcp_port)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (the default) or cpu")
     parser.add_argument("--set", dest="set_cfgs", default=None, nargs=argparse.REMAINDER)
     args = parser.parse_args(argv)
-    check_single_device(args)
+    check_axes(args.spatial_shard, args.model_shard)
     cfg = cfg_from_yaml_file(args.cfg_file, CfgNode())
     if args.set_cfgs is not None:
         cfg_from_list(args.set_cfgs, cfg)
     return args, cfg
 
 
-def check_single_device(args):
-    """The flags of several cards and hosts wait for the multi-device port."""
-    if (getattr(args, "spatial_shard", 1) > 1 or getattr(args, "model_shard", 1) > 1
-            or args.multihost or args.tcp_port is not None):
-        raise NotImplementedError("--spatial_shard/--model_shard > 1, --multihost and "
-                                  "--tcp_port wait for the multi-device port")
+@contextlib.contextmanager
+def data_mesh(args):
+    """With ``--multihost``: the process group (``init_multihost``; kept if
+    one is initialised already, else destroyed at the end) and its data
+    mesh, active for the block; else None."""
+    if not args.multihost:
+        yield None
+        return
+    owned, previous = not dist.is_initialized(), active_mesh()
+    init_multihost(args.tcp_port, device=args.device)
+    mesh = make_mesh(args.device)
+    activate(mesh)
+    try:
+        yield mesh
+    finally:
+        activate(previous)
+        if owned:
+            dist.destroy_process_group()
 
 
 def output_dir(args, cfg) -> Path:
@@ -87,8 +119,15 @@ def dataset_meta(cfg, dataset):
 
 def main(argv=None, on_start=None, metric_hook=None):
     """Train; returns {"state", "iterations", "start_epoch", "start_iter",
-    "epochs", "out_dir", "ckpt_dir"}."""
+    "epochs", "out_dir", "ckpt_dir", "rank", "world", "global_batch"}.
+    With ``--multihost`` each rank runs this over its loader shard; only
+    rank 0 logs to a file and writes metrics and checkpoints."""
     args, cfg = parse_config(argv)
+    with data_mesh(args) as mesh:
+        return _train(args, cfg, mesh, on_start, metric_hook)
+
+
+def _train(args, cfg, mesh, on_start, metric_hook):
 
     from ..data import build_dataloader
     from ..data.processor import pipeline_presorts_points
@@ -104,21 +143,26 @@ def main(argv=None, on_start=None, metric_hook=None):
     from ..utils.device import resolve_device
     from ..utils.metrics import MetricsLogger
 
-    dev = resolve_device(args.device)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    rank, world = (mesh.rank, mesh.world) if mesh is not None else (0, 1)
     out_dir = output_dir(args, cfg)
     ckpt_dir = out_dir / "ckpt"
     out_dir.mkdir(parents=True, exist_ok=True)
-    logger = create_logger(out_dir / f"log_train_{datetime.datetime.now():%Y%m%d-%H%M%S}.txt")
-    logger.info("device: %s", dev)
+    logger = create_logger(out_dir / f"log_train_{datetime.datetime.now():%Y%m%d-%H%M%S}.txt"
+                           if rank == 0 else None, rank=rank)
+    logger.info("device: %s, rank %d of %d (%s)", dev, rank, world,
+                mesh.backend if mesh is not None else "one process")
     log_config_to_file(cfg, logger=logger)
     if args.fix_random_seed:
         set_random_seed(args.seed)
 
-    batch_size = args.batch_size or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    batch_size = args.batch_size or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)  # a rank's
+    global_batch = batch_size * world
     epochs = args.epochs or int(cfg.OPTIMIZATION.NUM_EPOCHS)
     names = list(cfg.CLASS_NAMES)
     dataset, loader = build_dataloader(cfg.DATA_CONFIG, names, batch_size, training=True,
-                                       workers=args.workers, logger=logger, seed=args.seed)
+                                       workers=args.workers, logger=logger, seed=args.seed,
+                                       dist=mesh is not None)
     meta = dataset_meta(cfg, dataset)
     if ("VFE" in cfg.MODEL and "ASSUME_SORTED_POINTS" not in cfg.MODEL.VFE
             and pipeline_presorts_points(cfg.DATA_CONFIG, meta.voxel_size)):
@@ -128,7 +172,7 @@ def main(argv=None, on_start=None, metric_hook=None):
     logger.info("model %s: %.2fM params", cfg.MODEL.NAME,
                 sum(p.numel() for p in net.parameters()) / 1e6)
 
-    steps_per_epoch = len(loader)
+    steps_per_epoch = len(loader)  # of the global batch: every rank takes each step
     opt, lr_fn = build_optimizer(net, cfg.OPTIMIZATION, total_steps=steps_per_epoch * epochs,
                                  steps_per_epoch=steps_per_epoch)
     state = TrainState.create(net, opt, conf_shape=conf_shape_for(cfg.MODEL, names), device=dev,
@@ -149,11 +193,11 @@ def main(argv=None, on_start=None, metric_hook=None):
 
     step = make_train_step(net, cfg.MODEL, names, meta, opt, (int(meta.grid_size[1]),
                                                               int(meta.grid_size[0])), device=dev)
-    mlog = MetricsLogger(out_dir / "metrics")
+    mlog = MetricsLogger(out_dir / "metrics") if rank == 0 else None
     log_every = args.logger_iter_interval
 
     def hook(epoch, it, metrics):
-        if it % log_every == 0:
+        if mlog is not None and it % log_every == 0:
             keys = [k for k, v in metrics.items() if v.dim() == 0]
             values = torch.stack([metrics[k].float() for k in keys]).cpu().tolist()
             scalars = dict(zip(keys, values))
@@ -166,18 +210,20 @@ def main(argv=None, on_start=None, metric_hook=None):
     if on_start is not None:
         on_start({"state": state, "dataset": dataset, "loader": loader, "payload": resumed,
                   "start_epoch": start_epoch, "start_iter": start_iter, "ckpt_dir": ckpt_dir})
-    logger.info("start training: epochs %d..%d x %d steps, batch %d", start_epoch, epochs - 1,
-                steps_per_epoch, batch_size)
+    logger.info("start training: epochs %d..%d x %d steps, global batch %d (%d a rank x %d)",
+                start_epoch, epochs - 1, steps_per_epoch, global_batch, batch_size, world)
     state, iterations = train_model(
         step, state, loader, epochs, ckpt_dir=ckpt_dir, logger=logger, start_epoch=start_epoch,
         ckpt_save_interval=args.ckpt_save_interval,
         ckpt_save_time_interval=float(args.ckpt_save_time_interval),
         max_ckpt_save_num=args.max_ckpt_save_num, log_interval=log_every, metric_hook=hook,
         device=dev, batch_keys=device_batch_keys(cfg.MODEL), start_iter=start_iter)
-    mlog.close()
+    if mlog is not None:
+        mlog.close()
     logger.info("training done: %d iterations", iterations)
     return {"state": state, "iterations": iterations, "start_epoch": start_epoch,
-            "start_iter": start_iter, "epochs": epochs, "out_dir": out_dir, "ckpt_dir": ckpt_dir}
+            "start_iter": start_iter, "epochs": epochs, "out_dir": out_dir, "ckpt_dir": ckpt_dir,
+            "rank": rank, "world": world, "global_batch": global_batch}
 
 
 if __name__ == "__main__":

@@ -20,6 +20,7 @@ from ..models.dense_heads.anchor_head import (anchor_post_process, box_coder_for
                                               build_anchors, decode_anchor_boxes)
 from ..models.dense_heads.center_head import decode_center_boxes, post_process_nms
 from ..ops.host_boxes import boxes_iou3d
+from ..parallel.sharding import all_reduce_, gather_objects
 from ..utils.device import resolve_device
 from .step import model_input_keys
 
@@ -122,6 +123,14 @@ def _to_host(boxes, scores, labels, valid):
             packed[..., n + 2] > 0)
 
 
+def _merge_shards(parts, n_total):
+    """The ranks' frame lists (rank r's i-th frame is the padded order's
+    i * world + r) back in dataset order, cut to the dataset's length."""
+    if len({len(p) for p in parts}) != 1:
+        raise ValueError(f"ranks evaluated unequal shards: {[len(p) for p in parts]} frames")
+    return [frame for row in zip(*parts) for frame in row][:n_total]
+
+
 def eval_model(eval_step, loader, class_names, logger=None, recall_thresh_list=(0.3, 0.5, 0.7),
                mesh=None):
     """Run ``eval_step(batch)`` (``make_eval_step``: the weights live in its
@@ -130,10 +139,22 @@ def eval_model(eval_step, loader, class_names, logger=None, recall_thresh_list=(
     order (``np.argsort(-scores)`` on the host, as ``com_tpu``), "frame_id",
     "boxes_lidar", "score", "pred_labels", "name" and the batch's
     "metadata" where it has one; recall over the batches that carry
-    "gt_boxes".  ``mesh`` (data-parallel eval) waits for the multi-device
-    port."""
-    if mesh is not None:
-        raise NotImplementedError("eval over a device mesh is not ported yet")
+    "gt_boxes".
+
+    ``mesh`` (a ``parallel.mesh.DataMesh``) evaluates data-parallel:
+    ``loader`` is this rank's shard (``build_dataloader(dist=True)``: the
+    dataset's order dealt out in turn, padded by wrapping to equal
+    lengths).  Every rank then returns the whole dataset's det_annos in
+    its order, the padding's duplicates dropped, as pcdet's
+    ``merge_results_dist``; the recall counts are summed over the ranks,
+    the duplicates' left out; seconds a frame are the rank's."""
+    rank, world = (mesh.rank, mesh.world) if mesh is not None else (0, 1)
+    if world > 1:
+        shard = (getattr(loader, "process_index", None), getattr(loader, "process_count", None))
+        if shard != (rank, world):
+            raise ValueError(f"eval_model over a mesh of {world} needs rank {rank}'s loader "
+                             f"shard, got (index, count) {shard}")
+        n_total = len(loader.dataset)
     det_annos = []
     recalls = {f"recall_{t}": 0 for t in recall_thresh_list}
     recalls["gt"] = 0
@@ -156,11 +177,19 @@ def eval_model(eval_step, loader, class_names, logger=None, recall_thresh_list=(
             if md is not None and md[i] is not None:
                 anno["metadata"] = md[i]
             det_annos.append(anno)
-            if "gt_boxes" in batch:
+            padding = world > 1 and (len(det_annos) - 1) * world + rank >= n_total
+            if "gt_boxes" in batch and not padding:
                 r = recall_stats(frame_boxes, batch["gt_boxes"][i], recall_thresh_list)
                 for k in recalls:
                     recalls[k] += r[k]
     sec_per_example = (time.time() - t0) / max(n_frames, 1)
+    if world > 1:
+        det_annos = _merge_shards(gather_objects(det_annos, mesh), n_total)
+        counts = torch.tensor([recalls[k] for k in recalls], dtype=torch.int64,
+                              device=mesh.device)
+        all_reduce_(counts, mesh=mesh)
+        recalls = dict(zip(recalls, counts.tolist()))
+        logger = logger if rank == 0 else None
     if logger:
         gt = max(recalls["gt"], 1)
         logger.info("eval: %d frames, %.4f s/frame, " % (n_frames, sec_per_example)

@@ -11,6 +11,13 @@ and ``dataset.set_confidence_groups``.  With ``ckpt_dir``, every
 ``ckpt_save_interval`` epochs end with a checkpoint (``utils/checkpoint.py``)
 that holds the sampler's confidences, and a rolling ``latest_model.pth`` is
 written every ``ckpt_save_time_interval`` seconds inside an epoch.
+
+Under an active data mesh (``parallel.sharding``) each rank runs the loop
+over its loader shard (``build_dataloader(dist=True)``: every rank the same
+number of steps).  At the epoch's end the accumulators are summed over the
+ranks in one all-reduce before the confidences go to the host, so every
+rank's sampler gets the same (the reference's all_gather,
+train_utils.py:269-289); only rank 0 logs and writes checkpoints.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import time
 import numpy as np
 import torch
 
+from ..parallel.sharding import active_mesh, all_reduce_
 from ..utils.checkpoint import save_checkpoint, save_latest
 from ..utils.common import AverageMeter
 from .state import check_same_device
@@ -104,13 +112,17 @@ def train_model(step_fn, state, loader, num_epochs: int, ckpt_dir=None, logger=N
     reference's monotone ``it``, train_utils.py:354-370).
     ``metric_hook(epoch, it, metrics)`` sees each step's device metrics;
     ``logger`` gets the loss and the mean data and step times (host clock)
-    every ``log_interval`` steps.  ``batch_keys``
+    every ``log_interval`` steps (rank 0's only).  ``batch_keys``
     (``train.step.device_batch_keys``) are the arrays copied to the device;
     None copies every numpy array of a batch.
 
     ``device`` follows the entry-point rule (CUDA unless the caller passes
-    another) and must hold ``state``'s model."""
-    dev = check_same_device(state.net, device)
+    another; under a data mesh, the rank's device) and must hold
+    ``state``'s model."""
+    mesh = active_mesh()
+    logger = logger if mesh is None or mesh.rank == 0 else None  # the saves check it too
+    dev = check_same_device(state.net, device if device is not None or mesh is None
+                            else mesh.device)
     accumulated_iter = start_iter
     last_timed_save = time.time()
     for epoch in range(start_epoch, num_epochs):
@@ -137,6 +149,7 @@ def train_model(step_fn, state, loader, num_epochs: int, ckpt_dir=None, logger=N
                     logger.info("saved latest_model at epoch %d it %d", epoch, it)
         # epoch-end feedback: one small device -> host copy
         if state.conf_sum is not None:
+            all_reduce_(state.conf_sum, state.conf_cnt)  # the whole batch's, on every rank
             conf = (state.conf_sum / (state.conf_cnt + 0.01)).cpu().numpy()
             loader.dataset.set_confidence_groups(conf)
             if logger:

@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 
 from ..losses.curriculum import CurriculumState
+from ..parallel.mesh import replicate_state
+from ..parallel.sharding import active_mesh
 from ..utils.device import resolve_device
 
 
@@ -57,7 +59,8 @@ class TrainState:
         """A fresh state over ``net`` on its device; ``device`` follows the
         entry-point rule of ``check_same_device``.  With ``anchor_num_class``
         the curriculum is ``max(num_head_groups, 1)`` (C,) anchor states, as
-        ``com_tpu/train/state.py``."""
+        ``com_tpu/train/state.py``.  Under an active data mesh every rank's
+        state is then rank 0's (``parallel.mesh.replicate_state``)."""
         from ..losses.anchor_losses import AnchorCurriculumState
 
         dev = check_same_device(net, device)
@@ -68,4 +71,6 @@ class TrainState:
                         for _ in range(max(num_head_groups, 1)))
         else:
             cur = tuple(CurriculumState.create(dev) for _ in range(num_head_groups))
-        return cls(net, optimizer, cur, *conf)
+        state = cls(net, optimizer, cur, *conf)
+        mesh = active_mesh()
+        return state if mesh is None else replicate_state(state, mesh)

@@ -21,6 +21,7 @@ from ..losses.curriculum import CurriculumAux, focal_loss_center_curriculum, gro
 from ..models.dense_heads.anchor_assign import assign_anchor_targets, atss_assign_targets
 from ..models.dense_heads.anchor_head import box_coder_for, build_anchors, reshape_anchor_preds
 from ..models.dense_heads.target_assign import assign_centerpoint_targets, cluster_com_groups
+from ..parallel.sharding import global_sum, reduce_gradients
 from .state import check_same_device
 
 _VEHICLE_NAMES = ("vehicle", "car", "truck", "bus", "van", "trailer", "construction_vehicle")
@@ -221,7 +222,7 @@ def compute_anchor_loss(batch, model_cfg, class_names, meta, curriculum_states, 
         cw_anchor = torch.ones_like(cls_w)
         if curriculum_states:
             aux_states.append(curriculum_states[0])
-    cls_loss = cls_src.sum() / b * float(lw.get("cls_weight", 1.0))
+    sums = {"rpn_loss_cls": (cls_src.sum(), float(lw.get("cls_weight", 1.0)))}
 
     # the sin-difference heading encoding (add_sin_difference)
     reg_t = targets.box_reg_targets
@@ -230,9 +231,7 @@ def compute_anchor_loss(batch, model_cfg, class_names, meta, curriculum_states, 
     box_t = torch.cat([reg_t[..., :6], torch.cos(p6) * torch.sin(t6), reg_t[..., 7:]], -1)
     loc_src = weighted_smooth_l1(box_p, box_t, targets.reg_weights * cw_anchor,
                                  code_weights=lw.get("code_weights"))
-    loc_loss = loc_src.sum() / b * float(lw.get("loc_weight", 2.0))
-    total = cls_loss + loc_loss
-    tb = {"rpn_loss_cls": cls_loss, "rpn_loss_loc": loc_loss}
+    sums["rpn_loss_loc"] = (loc_src.sum(), float(lw.get("loc_weight", 2.0)))
     if dir_flat is not None:
         dir_offset = float(head_cfg.get("DIR_OFFSET", 0.78539))
         nbins = int(head_cfg.get("NUM_DIR_BINS", 2))
@@ -243,9 +242,14 @@ def compute_anchor_loss(batch, model_cfg, class_names, meta, curriculum_states, 
         dw = dw / torch.clamp(dw.sum(dim=-1, keepdim=True), min=1.0)
         dir_loss = weighted_cross_entropy(dir_flat, F.one_hot(dir_t.long(), nbins).to(
             torch.float32), dw * cw_anchor)
-        dir_loss = dir_loss.sum() / b * float(lw.get("dir_weight", 0.2))
-        total = total + dir_loss
-        tb["rpn_loss_dir"] = dir_loss
+        sums["rpn_loss_dir"] = (dir_loss.sum(), float(lw.get("dir_weight", 0.2)))
+    # each term is a mean over the scenes of every rank (pos_norm and the
+    # direction weights above normalise a scene and stay local)
+    *totals, b = global_sum(*(t for t, _ in sums.values()), b)
+    tb = {k: t / b * w for (k, (_, w)), t in zip(sums.items(), totals)}
+    total = tb["rpn_loss_cls"] + tb["rpn_loss_loc"]
+    if "rpn_loss_dir" in tb:
+        total = total + tb["rpn_loss_dir"]
 
     aux = CurriculumAux(conf_sum, conf_cnt, torch.zeros((), device=cls_flat.device),
                         targets.reg_weights)
@@ -268,6 +272,13 @@ def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, devic
     (it updates the norms' running statistics), for comparing gradients.
     ``stage_hook(name)``, when given, is called as each stage starts
     ("forward", "loss", "backward", "optimizer") and once at the end ("end").
+
+    Under an active data mesh (``parallel.sharding.activate``) ``batch`` is
+    the rank's shard: the norms' statistics, the loss, its terms and the
+    curriculum EMA are the global batch's on every rank, the gradients are
+    averaged over the ranks before the optimizer, and the confidence
+    accumulators (and ``metrics``' confidence sums) hold the rank's own
+    sums until ``train_model`` reduces them at the epoch's end.
     """
     head_cfg = model_cfg.get("DENSE_HEAD")
     if head_cfg is None:
@@ -308,6 +319,10 @@ def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, devic
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         hook("optimizer")
+        # under a data mesh every rank's loss is the global one, so the mean
+        # over ranks is the gradient (parallel/sharding.global_sum); it comes
+        # before the optimizer's global-norm clip, which reads it
+        reduce_gradients(net.parameters())
         optimizer.step()
         conf_sum = sum(a.confidence_sum for a in aux_list)
         conf_cnt = sum(a.confidence_cnt for a in aux_list)

@@ -27,6 +27,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..parallel.mesh import rank_and_world, replicate_state
+from ..parallel.sharding import active_mesh
+
 VERSION = "com_tpu_torch-0.1"
 LATEST = "latest_model.pth"
 
@@ -78,6 +81,12 @@ def state_payload(state, epoch: int, it: int, sampler_state: dict | None = None)
     return payload
 
 
+def _main_rank() -> bool:
+    """Rank 0 of the active data mesh, or the single process, writes
+    checkpoints; the other ranks hold the same state."""
+    return rank_and_world()[0] == 0
+
+
 def _save(payload: dict, path: Path) -> Path:
     tmp = path.with_name(path.name + ".tmp")
     torch.save(payload, tmp)
@@ -88,7 +97,10 @@ def _save(payload: dict, path: Path) -> Path:
 def save_checkpoint(state, ckpt_dir, epoch: int, it: int, sampler_state: dict | None = None,
                     max_ckpt_save_num: int = 50) -> Path:
     """Write ``checkpoint_epoch_{epoch}.pth`` and prune the oldest epoch
-    files beyond ``max_ckpt_save_num`` (train_utils.py:334-339)."""
+    files beyond ``max_ckpt_save_num`` (train_utils.py:334-339); on a rank
+    other than 0, write nothing and return None."""
+    if not _main_rank():
+        return None
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     path = _save(state_payload(state, epoch, it, sampler_state),
@@ -101,7 +113,10 @@ def save_checkpoint(state, ckpt_dir, epoch: int, it: int, sampler_state: dict | 
 
 def save_latest(state, ckpt_dir, epoch: int, it: int) -> Path:
     """The rolling in-epoch save, ``latest_model.pth`` (train_utils.py:198-206),
-    overwritten in place and never pruned."""
+    overwritten in place and never pruned; rank 0's only, as
+    ``save_checkpoint``."""
+    if not _main_rank():
+        return None
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     return _save(state_payload(state, epoch, it), ckpt_dir / LATEST)
@@ -110,7 +125,8 @@ def save_latest(state, ckpt_dir, epoch: int, it: int) -> Path:
 def restore_state(state, payload: dict):
     """Load a payload into ``state`` in place: the model's parameters and
     buffers, the optimizer (moments and count), the curriculum states, the
-    confidence accumulators and the step."""
+    confidence accumulators and the step; under an active data mesh, then
+    ``replicate_state``."""
     dev = state.device
     state.net.load_state_dict(payload["model_state"])
     state.optimizer.load_state_dict(payload["optimizer_state"])
@@ -125,7 +141,9 @@ def restore_state(state, payload: dict):
         state.conf_sum.copy_(conf["conf_sum"])
         state.conf_cnt.copy_(conf["conf_cnt"])
     state.step = int(payload["step"])
-    return state
+    mesh = active_mesh()
+    # every rank reads the same file; rank 0's copy is broadcast as a guard
+    return state if mesh is None else replicate_state(state, mesh)
 
 
 def load_checkpoint(path, state=None, map_location=None) -> dict:

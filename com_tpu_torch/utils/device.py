@@ -1,6 +1,8 @@
 """Device choice for the port's entry points."""
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -17,3 +19,19 @@ def resolve_device(device=None) -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run the port on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def local_rank() -> int:
+    """This process's card on its host: ``LOCAL_RANK`` (torchrun), else
+    ``SLURM_LOCALID``, else 0."""
+    return int(os.environ.get("LOCAL_RANK", os.environ.get("SLURM_LOCALID", 0)))
+
+
+def rank_device(device=None) -> torch.device:
+    """``resolve_device`` for one rank of several: the caller's device, but
+    ``cuda`` without an index (or no device) is ``cuda:LOCAL_RANK``.
+    Without a card, CUDA raises."""
+    if device is not None and (torch.device(device).type != "cuda"
+                               or torch.device(device).index is not None):
+        return resolve_device(device)
+    return resolve_device(torch.device("cuda", local_rank()))

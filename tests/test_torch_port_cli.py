@@ -5,9 +5,9 @@ pillars, a narrow one-block model, f32): train 2 epochs with one checkpoint
 kept, resume to 3 (it starts at epoch 2, iteration 4, with the file's
 optimizer count), test the newest checkpoint with ``--infer_time`` and
 ``--save_to_file``, poll the directory with ``--eval_all`` (its sleep
-patched out), and run the demo on two ``.npy`` scenes.  The flags of several
-cards raise, and ``--device`` defaults to ``cuda``, which raises without a
-card."""
+patched out), and run the demo on two ``.npy`` scenes.  The mesh's spatial
+and model flags raise, ``--multihost`` needs a launcher, and ``--device``
+defaults to ``cuda``, which raises without a card."""
 import json
 import pickle
 
@@ -123,13 +123,18 @@ def test_demo_runs_over_point_files(runs, tmp_path):
         demo.main(cfg_args)  # the shrunk model's checkpoint does not fit it
 
 
-def test_multi_device_flags_wait(tmp_path):
-    for flag in (["--spatial_shard", "2"], ["--model_shard", "2"], ["--multihost"],
-                 ["--tcp_port", "1234"]):
-        with pytest.raises(NotImplementedError, match="multi-device"):
+def test_multi_device_flags_wait(tmp_path, monkeypatch):
+    """The mesh's spatial and model axes still raise by name; ``--multihost``
+    needs a launcher's environment (torchrun's, or SLURM's with
+    ``--tcp_port``).  The ranks' runs: ``test_torch_port_parallel_loop.py``."""
+    for flag, name in ((["--spatial_shard", "2"], "spatial"), (["--model_shard", "2"], "model")):
+        with pytest.raises(NotImplementedError, match=f"{name} sharding"):
             train.main(_args(tmp_path, *flag))
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        test.main(_args(tmp_path, "--multihost", "--ckpt", "x"))
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "SLURM_PROCID"):
+        monkeypatch.delenv(var, raising=False)
+    for main, extra in ((train.main, ["--tcp_port", "1234"]), (test.main, ["--ckpt", "x"])):
+        with pytest.raises(RuntimeError, match="torchrun's environment"):
+            main(_args(tmp_path, "--multihost", *extra))
 
 
 def test_device_defaults_to_cuda(tmp_path, monkeypatch):

@@ -383,7 +383,7 @@ def test_collate_subsample_breaks_the_presort_in_both():
 
 def test_loader_shards_failures_and_unported_options():
     """Strided shards by process, a worker's failure raised in the consumer,
-    ``dist`` and image batches not ported."""
+    ``dist`` without a process group, image batches not ported."""
     cfg = _synth_cfg(config)
     ds, _ = build_dataloader(cfg.DATA_CONFIG, NAMES, 2, seed=4, workers=1)
     orders = []
@@ -393,8 +393,13 @@ def test_loader_shards_failures_and_unported_options():
         orders.append(loader._shard_order())
         assert len(loader) == 3
     assert sorted(np.concatenate(orders)) == list(range(6))
-    with pytest.raises(NotImplementedError, match="distributed"):
-        build_dataloader(cfg.DATA_CONFIG, NAMES, 2, dist=True)
+    # without a process group ``dist`` is one process's whole order, as
+    # ``com_tpu``'s (process 0 of 1); the ranks' shards:
+    # ``test_torch_port_parallel_loop.py``
+    _, single = build_dataloader(cfg.DATA_CONFIG, NAMES, 2, dist=True, seed=4, workers=1)
+    assert (single.process_index, single.process_count) == (0, 1)
+    np.testing.assert_array_equal(single._shard_order(), build_dataloader(
+        cfg.DATA_CONFIG, NAMES, 2, seed=4, workers=1)[1]._shard_order())
     with pytest.raises(NotImplementedError, match="image"):
         ds.collate_batch([{"images": np.zeros((4, 4, 3))}])
 
@@ -646,3 +651,18 @@ def test_train_with_speed_and_gt_sampling_fail_alike(waymo_root):
             ds[0]
         errors.append(str(info.value))
     assert errors[0] == errors[1]
+
+
+@pytest.mark.parametrize("training", [False, True])
+def test_loader_yields_in_epoch_order_with_several_workers(training):
+    """Three worker threads and a batch of one: the batches come out in the
+    epoch's order (the shuffled one in training), whatever the threads'
+    timing."""
+    cfg = _synth_cfg(config, NUM_SCENES=9)
+    _, loader = build_dataloader(cfg.DATA_CONFIG, NAMES, 1, seed=4, workers=3,
+                                 training=training)
+    for epoch in (0, 1):
+        loader.set_epoch(epoch)
+        frames = [int(f) for b in loader for f in b["frame_id"]]
+        assert frames == loader._shard_order().tolist()
+        assert sorted(frames) == list(range(9))

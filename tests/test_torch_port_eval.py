@@ -40,6 +40,7 @@ from com_tpu_torch.models.dense_heads.center_head import post_process_nms
 from com_tpu_torch.models.detectors import DatasetMeta, build_network
 from com_tpu_torch.ops import host_boxes
 from com_tpu_torch.ops.nms import fast_nms_bev
+from com_tpu_torch.parallel.mesh import DataMesh, make_mesh
 from com_tpu_torch.train.eval import eval_model, make_eval_step, recall_stats
 from com_tpu_torch.utils import config
 from com_tpu_torch.utils.jax_weights import _TRANSFORMS, load_jax_variables
@@ -282,11 +283,9 @@ def _eval_cfg(mod):
     return cfg
 
 
-@pytest.fixture(scope="module")
-def evals():
-    jcfg, pcfg = _eval_cfg(jax_config), _eval_cfg(config)
-    jds, jloader = jax_build_dataloader(jcfg.DATA_CONFIG, NAMES, 2, training=False, workers=1)
-    pds, ploader = build_dataloader(pcfg.DATA_CONFIG, NAMES, 2, training=False, workers=1)
+def eval_start(jcfg, jds):
+    """The JAX net and its perturbed variables for ``_eval_cfg``, with the
+    meta of both packages: (jnet, variables, jmeta, pmeta)."""
     grid, vsize = tuple(int(g) for g in jds.grid_size), list(jds.voxel_size)
     assert grid == (64, 64, 1)
     pc_range = list(jcfg.DATA_CONFIG.POINT_CLOUD_RANGE)
@@ -304,15 +303,24 @@ def evals():
         head[name]["kernel"] = head[name]["kernel"] * scale
         if bias is not None:
             head[name]["bias"] = np.asarray(bias, np.float32)
-    jmeta = JaxMeta(NAMES, pc_range, vsize, grid, 5)
+    return (jnet, variables, JaxMeta(NAMES, pc_range, vsize, grid, 5),
+            DatasetMeta(NAMES, pc_range, vsize, grid, 5))
+
+
+@pytest.fixture(scope="module")
+def evals():
+    jcfg, pcfg = _eval_cfg(jax_config), _eval_cfg(config)
+    jds, jloader = jax_build_dataloader(jcfg.DATA_CONFIG, NAMES, 2, training=False, workers=1)
+    pds, ploader = build_dataloader(pcfg.DATA_CONFIG, NAMES, 2, training=False, workers=1)
+    jnet, variables, jmeta, pmeta = eval_start(jcfg, jds)
     jstep = jax_eval.make_eval_step(jnet, jcfg.MODEL, NAMES, jmeta)
     want = jax_eval.eval_model(jstep, variables, jloader, NAMES)
 
-    pmeta = DatasetMeta(NAMES, pc_range, vsize, grid, 5)
     net = build_network(pcfg.MODEL, pmeta, device="cpu")
     load_jax_variables(net, variables, pcfg.MODEL, NAMES)
     got = eval_model(make_eval_step(net, pcfg.MODEL, NAMES, pmeta, device="cpu"), ploader, NAMES)
-    return dict(want=want, got=got, jds=jds, pds=pds)
+    return dict(want=want, got=got, jds=jds, pds=pds, ploader=ploader, pmeta=pmeta,
+                variables=variables)
 
 
 def test_eval_model_annos_match_jax(evals):
@@ -337,9 +345,22 @@ def test_eval_model_recall_and_evaluation_match_jax(evals):
     assert evals["pds"].evaluation(got, NAMES) == evals["jds"].evaluation(want, NAMES)
 
 
-def test_eval_model_mesh_waits():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        eval_model(lambda b: None, [], NAMES, mesh=object())
+def test_eval_model_mesh_waits(evals):
+    """A mesh of one process (no group) evaluates as without a mesh; over
+    several ranks the loader must be the rank's shard (the data-parallel
+    eval itself: ``test_torch_port_parallel_loop.py``)."""
+    net = build_network(_eval_cfg(config).MODEL, evals["pmeta"], device="cpu")
+    load_jax_variables(net, evals["variables"], _eval_cfg(config).MODEL, NAMES)
+    step = make_eval_step(net, _eval_cfg(config).MODEL, NAMES, evals["pmeta"], device="cpu")
+    got, recall, _ = eval_model(step, evals["ploader"], NAMES, mesh=make_mesh("cpu"))
+    (want, want_recall, _) = evals["got"]
+    assert [a["frame_id"] for a in got] == [a["frame_id"] for a in want]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g["boxes_lidar"], w["boxes_lidar"])
+        np.testing.assert_array_equal(g["score"], w["score"])
+    assert recall == want_recall
+    with pytest.raises(ValueError, match="loader shard"):
+        eval_model(step, evals["ploader"], NAMES, mesh=DataMesh(0, 2, torch.device("cpu")))
 
 
 def test_synthetic_evaluation_matches_jax(evals):

@@ -1039,3 +1039,45 @@ def test_exported_program_launches_the_kernels(dev, tmp_path):
     assert tuple(a - b for a, b in zip(after, before)) == (2, 14, 1)
     for g, w in zip(got, want):
         assert g.device == w.device and torch.equal(g, w)
+
+
+def test_data_parallel_step_on_card_matches_one_process(dev, tmp_path):
+    """Path I.1 small: the tiny flagship (32x32 grid, f32, norm biases +3)
+    on two gloo ranks spawned on the card, a scene each, against one process
+    on both scenes: the ranks bitwise equal; loss, batch statistics,
+    curriculum, confidence sums (counts exact) and the parameters where
+    |g| is not tiny within the CPU parity tests' tolerances; K1, K2, K2w and
+    K3 launched on each rank."""
+    import torch_port_parallel_worker as worker
+    from com_tpu_torch.parallel.launch import run_ranks
+
+    case = worker.tiny_case(device=str(dev), bias_shift=3.0)
+    one = worker.run_step(case, case["batch"])
+    torch.save(case, tmp_path / "spec.pt")
+    run_ranks(worker.card_worker, 2, args=(str(tmp_path / "spec.pt"), str(tmp_path)),
+              device=str(dev), threads=2, init_dir=tmp_path)
+    ranks = []
+    for r in range(2):
+        with np.load(tmp_path / f"rank{r}.npz") as z:
+            ranks.append({k: z[k] for k in z.files})
+    for k, v in ranks[0].items():
+        if not k.startswith("local/"):  # the ranks' own gradients, before the reduction
+            np.testing.assert_array_equal(ranks[1][k], v, err_msg=k)
+    got = ranks[0]
+    assert abs(float(got["loss"]) - float(one["loss"])) <= 1e-5 * abs(float(one["loss"]))
+    np.testing.assert_array_equal(got["conf_cnt"], one["conf_cnt"])
+    assert one["conf_cnt"].sum() > 0
+    np.testing.assert_allclose(got["conf_sum"], one["conf_sum"], rtol=1e-5, atol=1e-5)
+    for k, want in one["stats"].items():
+        np.testing.assert_allclose(got[f"stats/{k}"], want, rtol=1e-5, atol=1e-5, err_msg=k)
+    for k, want in one["cur"].items():
+        np.testing.assert_allclose(got[f"cur/{k}"], want, rtol=1e-5, atol=1e-7, err_msg=k)
+    gmax = max(np.abs(g).max() for g in one["grads"].values())
+    for k, g in one["grads"].items():
+        np.testing.assert_allclose(got[f"grads/{k}"], g, rtol=1e-4,
+                                   atol=1e-6 * np.abs(g).max() + 1e-5 * gmax, err_msg=k)
+        sure = (np.abs(g) > 1e-3 * np.abs(g).max()) & (np.abs(g) > 1e-4 * gmax)
+        np.testing.assert_allclose(got[f"params/{k}"][sure], one["params"][k][sure], rtol=0,
+                                   atol=1e-6, err_msg=k)
+    for k in ("k1", "k1_bwd", "k2", "k2_dgrad", "k2w", "k3"):
+        assert got[f"launches/{k}"] > 0 and got[f"launches/{k}"] == one["launches"][k], k

@@ -28,44 +28,12 @@ from com_tpu_torch.models.detectors import DatasetMeta, build_network
 from com_tpu_torch.train.optim import build_optimizer
 from com_tpu_torch.train.state import TrainState
 from com_tpu_torch.train.step import make_train_step
-from com_tpu_torch.utils.config import cfg_from_yaml_file
 from com_tpu_torch.utils.jax_weights import (curriculum_state_from_jax, load_jax_variables,
                                              params_from_jax, state_dict_from_jax)
+from torch_port_parallel_worker import FLAGSHIP, tiny_batch, tiny_cfg  # noqa: F401 (shared)
 
 GRID = (64, 64, 1)
 TOTAL_STEPS = 100
-FLAGSHIP = "configs/waymo_models/com/centerpoint_pillar_3cls_com.yaml"
-
-
-def tiny_cfg():
-    """The flagship config (port's loader) with a narrow one-block backbone,
-    16 object slots and f32, for loop and rule tests at a 32x32 grid."""
-    cfg = cfg_from_yaml_file(FLAGSHIP)
-    m = cfg.MODEL
-    m.MIXED_PRECISION = False
-    m.VFE.NUM_FILTERS = [16, 16]
-    m.BACKBONE_2D.update(LAYER_NUMS=[1], LAYER_STRIDES=[1], NUM_FILTERS=[16],
-                         UPSAMPLE_STRIDES=[1], NUM_UPSAMPLE_FILTERS=[16])
-    m.DENSE_HEAD.SHARED_CONV_CHANNEL = 16
-    m.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.NUM_MAX_OBJS = 16
-    return cfg
-
-
-def tiny_batch(rng, b=2, n=1024, m=16):
-    """A scene batch for ``tiny_cfg`` (range +-5.12 m): points, 6 boxes a
-    scene in 16 slots, the COM side arrays."""
-    pts = np.concatenate([rng.uniform(-5, 5, (b, n, 2)), rng.uniform(-1.5, 3.5, (b, n, 1)),
-                          rng.rand(b, n, 2)], -1).astype(np.float32)
-    gt = np.zeros((b, m, 8), np.float32)
-    gt[:, :6, 0:2] = rng.uniform(-4, 4, (b, 6, 2))
-    gt[:, :6, 3:6] = rng.uniform(1.0, 3.0, (b, 6, 3))
-    gt[:, :6, 6] = rng.uniform(-np.pi, np.pi, (b, 6))
-    gt[:, :6, 7] = rng.randint(1, 4, (b, 6))
-    return {"points": pts, "points_mask": np.ones((b, n), bool), "gt_boxes": gt,
-            "num_points_in_gt": (gt[..., 7] > 0).astype(np.float32) * 10,
-            "true_object": (gt[..., 7] > 0).astype(np.float32),
-            "occupancy_ratio": rng.rand(b, m).astype(np.float32),
-            "facade_type": rng.randint(0, 4, (b, m)).astype(np.float32)}
 
 
 def perturb(variables, seed):
@@ -110,6 +78,42 @@ def run_step_pair(cfg, meta, host, input_keys, epoch=0, seed=2):
     ``loss_fn`` + backward and a whole ``train_step``, from the same
     perturbed start (``perturb(seed)``, the curriculum EMA away from zero);
     ``input_keys`` are the model's inputs in ``host`` (for the JAX init)."""
+    j = jax_step(cfg, meta, host, input_keys, epoch, seed)
+    net, state, step = port_start(cfg, meta, j["variables"], j["jcur"])
+    start = copy.deepcopy(net.state_dict())
+    loss, new_cur, aux, tb = step.loss_fn(state, host, epoch)
+    loss.backward()
+    grads = {k: p.grad.numpy().copy() for k, p in net.named_parameters()}
+    stats = {k: v.numpy().copy() for k, v in net.state_dict().items() if "running" in k}
+    net.load_state_dict(start)
+    net.zero_grad(set_to_none=True)
+    state, metrics = step(state, host, epoch)
+    return dict(
+        j, loss=float(loss.detach()), tb={k: float(v.detach()) for k, v in tb.items()},
+        grads=grads, stats=stats, cur=new_cur[0], metrics=metrics, state=state,
+        params={k: p.detach().numpy().copy() for k, p in net.named_parameters()},
+        conf=(state.conf_sum.numpy(), state.conf_cnt.numpy()),
+    )
+
+
+def jax_value_and_grad(loss_fn, variables, host, mesh=None):
+    """``jax.value_and_grad`` of ``loss_fn(params, batch_stats, batch)``,
+    jitted, on one device or, with ``mesh``, with the batch sharded over its
+    data axis and the variables replicated (``com_tpu.parallel.mesh``)."""
+    args = (variables["params"], variables["batch_stats"], host)
+    if mesh is not None:
+        from com_tpu.parallel.mesh import replicate_state, shard_batch
+
+        args = (replicate_state(args[0], mesh), replicate_state(args[1], mesh),
+                shard_batch(host, mesh))
+    return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(*args)
+
+
+def jax_step(cfg, meta, host, input_keys, epoch=0, seed=2, mesh=None):
+    """The JAX half of ``run_step_pair`` (on ``mesh``'s data axis when
+    given): the perturbed variables, the curriculum start ``jcur``, and the
+    loss, terms, gradients, batch statistics, curriculum, confidence sums
+    and parameters after the optax update, as the port's names."""
     names = list(cfg.CLASS_NAMES)
     jnet = jax_build_network(cfg.MODEL, meta)
     variables = jax.jit(jnet.init, static_argnames=("train",))(
@@ -125,33 +129,12 @@ def run_step_pair(cfg, meta, host, input_keys, epoch=0, seed=2):
                                                   GRID[:2])
         return loss, (mut["batch_stats"], new_cur, aux, tb)
 
-    (jloss, (jbs, jcur, jaux, jtb)), jgrads = jax.jit(
-        jax.value_and_grad(loss_fn, has_aux=True))(variables["params"],
-                                                   variables["batch_stats"], host)
+    (jloss, (jbs, jcur, jaux, jtb)), jgrads = jax_value_and_grad(loss_fn, variables, host, mesh)
     tx, _ = jax_build_optimizer(variables["params"], cfg.OPTIMIZATION, TOTAL_STEPS, 10)
     updates, _ = tx.update(jgrads, tx.init(variables["params"]), variables["params"])
     jparams = jax.tree_util.tree_map(lambda p, u: np.asarray(p + u), variables["params"], updates)
-
-    pmeta = DatasetMeta(meta.class_names, meta.point_cloud_range, meta.voxel_size,
-                        meta.grid_size, meta.num_point_features)
-    net = build_network(cfg.MODEL, pmeta, device="cpu")
-    load_jax_variables(net, variables, cfg.MODEL, names)
-    start = copy.deepcopy(net.state_dict())
-    opt, _ = build_optimizer(net, cfg.OPTIMIZATION, TOTAL_STEPS, 10)
-    state = TrainState.create(net, opt, 1, conf_shape_for(cfg.MODEL, names), device="cpu")
-    state.curriculum = curriculum_state_from_jax(cur)
-    step = make_train_step(net, cfg.MODEL, names, pmeta, opt, GRID[:2], device="cpu")
-
-    loss, new_cur, aux, tb = step.loss_fn(state, host, epoch)
-    loss.backward()
-    grads = {k: p.grad.numpy().copy() for k, p in net.named_parameters()}
-    stats = {k: v.numpy().copy() for k, v in net.state_dict().items() if "running" in k}
-    net.load_state_dict(start)
-    net.zero_grad(set_to_none=True)
-    state, metrics = step(state, host, epoch)
-
     return dict(
-        cfg=cfg, names=names, variables=variables, tx=tx, jgrads=jgrads,
+        cfg=cfg, names=names, variables=variables, jcur=cur, tx=tx, jgrads=jgrads,
         jax_loss=float(jloss), jax_tb={k: float(v) for k, v in jtb.items()},
         jax_grads=params_from_jax(jgrads, cfg.MODEL, names),
         jax_stats={k: v for k, v in state_dict_from_jax(
@@ -160,11 +143,22 @@ def run_step_pair(cfg, meta, host, input_keys, epoch=0, seed=2):
         jax_cur=jcur[0], jax_conf=(np.asarray(sum(a.confidence_sum for a in jaux)),
                                    np.asarray(sum(a.confidence_cnt for a in jaux))),
         jax_params=params_from_jax(jparams, cfg.MODEL, names),
-        loss=float(loss.detach()), tb={k: float(v.detach()) for k, v in tb.items()}, grads=grads,
-        stats=stats, cur=new_cur[0], metrics=metrics, state=state,
-        params={k: p.detach().numpy().copy() for k, p in net.named_parameters()},
-        conf=(state.conf_sum.numpy(), state.conf_cnt.numpy()),
     )
+
+
+def port_start(cfg, meta, variables, jcur):
+    """The port's net (JAX ``variables`` bridged in), a fresh ``TrainState``
+    with the curriculum ``jcur`` and the flagship ``train_step``, on the CPU."""
+    names = list(cfg.CLASS_NAMES)
+    pmeta = DatasetMeta(meta.class_names, meta.point_cloud_range, meta.voxel_size,
+                        meta.grid_size, meta.num_point_features)
+    net = build_network(cfg.MODEL, pmeta, device="cpu")
+    load_jax_variables(net, variables, cfg.MODEL, names)
+    opt, _ = build_optimizer(net, cfg.OPTIMIZATION, TOTAL_STEPS, 10)
+    state = TrainState.create(net, opt, 1, conf_shape_for(cfg.MODEL, names), device="cpu")
+    state.curriculum = curriculum_state_from_jax(jcur)
+    step = make_train_step(net, cfg.MODEL, names, pmeta, opt, GRID[:2], device="cpu")
+    return net, state, step
 
 
 def check_loss_and_tb(r):
