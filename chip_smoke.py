@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's serving and training paths (over its own
 data pipeline, through its train, test and demo CLIs, for the PointPillars
-anchor head and for the sparse-voxel detectors), its serving artifact
+anchor head, the sparse-voxel detectors and the two-stage Voxel-RCNN and
+SECOND-IoU), its serving artifact
 (export, load and the HTTP server), its data-parallel training and
 evaluation, and its wgrad sweep on one NVIDIA GPU.
 
@@ -120,7 +121,28 @@ Phases (any failure raises, and the script exits non-zero):
    decoded (4, 4096) candidates and two synthetic cases; K2, dgrad and K2w
    at (4,200,176,256->128), (4,200,176,128->128), (4,100,88,256->256); 2
    train steps through ``train_model``.
-13. Path H, the serving artifact (``com_tpu_torch/utils/serving.py``, the
+13. Path J, Voxel-RCNN (``configs/kitti_models/voxel_rcnn_car.yaml``: path
+   G's first stage, the anchor head's proposals through the proposal layer,
+   ``VoxelRCNNHead``'s voxel-query pooling over x_conv2/3/4) at full width:
+   batch 2 of ~20,000 KITTI-like points a scene in 16,000 / 40,000 voxel
+   slots, the 1408 x 1600 x 40 grid, 4,096 -> 512 proposals in training
+   and 1,024 -> 100 in serving, 128 RoIs a scene, 6^3 grid points, scores
+   spread as path E's: the 64 x 64 x 40 f32 eval step, card against CPU;
+   three serving batches (latency, peak memory, launches: K2 11, K4 2 a
+   forward) and the eval step's stages (the proposal layer's decode, sort,
+   self-IoU, K4 and rest; ``voxel_query`` and the pooling a scale; the
+   FCs; the final NMS's steps); K4 on the proposal candidates the model
+   decodes at (2, 4096) and (2, 1024) and on the final NMS's (2, 100), each
+   with two synthetic cases; K2, dgrad and K2w at (2,200,176,256->128),
+   (2,200,176,128->128), (2,100,88,256->256); ``train_model`` 2 steps
+   whose GT follow the model's own top proposals, every loss term
+   finite, the foreground RoIs a step (> 0), K4 1 a step, and the step's
+   stages.
+14. Path K, SECOND-IoU (``configs/kitti_models/second_iou.yaml``:
+   ``SECONDHead``'s 7 x 7 rotated sampling of the 512-channel BEV map) at
+   full width, batch 4: the small f32 reference, one serving batch and its
+   stages, 2 train steps with ``rcnn_loss_iou`` finite and foreground RoIs.
+15. Path H, the serving artifact (``com_tpu_torch/utils/serving.py``, the
    export and serve CLIs): the flagship at full width exported on the card
    through ``com_tpu_torch.tools.export.main`` (its seconds and MB); the
    serve CLI started in a fresh process (``python -X importtime -m
@@ -137,7 +159,7 @@ Phases (any failure raises, and the script exits non-zero):
    the CPU, with the eager step's launches; the anchor branch exported on
    path E's configuration and held to its eager step with path E's
    launches.
-14. Path I, the data mesh (``com_tpu_torch/parallel``): two ranks
+16. Path I, the data mesh (``com_tpu_torch/parallel``): two ranks
    spawned on the card (``parallel.launch.run_ranks``, gloo: NCCL takes one
    rank a card) after the kernels are built.  I.1: the flagship at full
    width, seeded weights, a scene a rank of a global batch of 2, 3 steps
@@ -156,9 +178,10 @@ Phases (any failure raises, and the script exits non-zero):
    ``torchrun --nproc_per_node 1 ... --multihost`` (NCCL, world 1, 1 epoch
    of 3 steps, a checkpoint).  With two cards I.1 again over NCCL, else a
    line that says it did not run.
-15. Launch counts: every counter is zeroed just before each path (the
-   sweep, serving, A, B, C, D's, E's, F's, G's and H's phases, and in each
-   rank of I) and read just after, against the calls the sweep reports and the expected counts per
+17. Launch counts: every counter is zeroed just before each path (the
+   sweep, serving, A, B, C, D's, E's, F's, G's, J's, K's and H's phases,
+   and in each rank of I) and read just after, against the calls the sweep
+   reports and the expected counts per
    forward or per step.  The device
    kernels one K3 call issues (1) and one K4 call (2, the pack and the
    sweep), counted by torch.profiler after every timed phase.  Then the
@@ -239,6 +262,13 @@ H_SMALL_POINTS = 2048
 SYNTH_CONFIG = "configs/synthetic_models/centerpoint_synth_com.yaml"
 # TF32 as a fresh process has it, read before phase 1 turns it off
 LIBRARY_TF32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+VOXEL_RCNN_CONFIG = "configs/kitti_models/voxel_rcnn_car.yaml"
+SECOND_IOU_CONFIG = "configs/kitti_models/second_iou.yaml"
+J_BATCH, K_BATCH = 2, 4  # the YAMLs' BATCH_SIZE_PER_GPU
+J_GT = 32  # GT cars a scene in training, on the model's own top proposals
+J_CONV = ((2, 200, 176, 256, 128), (2, 200, 176, 128, 128), (2, 100, 88, 256, 256))
+EXPECT_J_SERVING = {"conv3x3": 11, "nms": 2}  # the proposal NMS and the final one
+EXPECT_J_TRAIN = {"conv3x3": 11, "conv3x3_dgrad": 11, "conv3x3_wgrad": 11, "nms": 1}
 EXPECT_F_SERVING = EXPECT_G_SERVING = {"conv3x3": 11, "nms": 1}
 EXPECT_G_TRAIN = {"conv3x3": 11, "conv3x3_dgrad": 11, "conv3x3_wgrad": 11}
 EXPECT_F_TRAIN = {**EXPECT_G_TRAIN, "stamp_gauss": 1, "stamp_last_wins": 1}
@@ -1292,23 +1322,28 @@ class SyntheticLoader:
 
 
 def run_training(dev, label, cfg, meta, loader, epochs, steps, expect_launches,
-                 step_wrap=None, epoch_hook=None, counts_confidences=True, smi=""):
+                 step_wrap=None, epoch_hook=None, counts_confidences=True, smi="",
+                 prepare=None, terms=()):
     """``train_model`` over ``loader`` with the device batch keys of the
     model, from a fresh trainer; finite losses, gradients (at each epoch's
     last step, outside the timed intervals) and parameters, the last
     epoch's confidence counts (non-zero, or zero where the path has no COM
     groups: ``counts_confidences`` False), and the launch counts per step.
     ``step_wrap(step)`` may wrap the train step; ``epoch_hook(epoch,
-    state)`` runs at each epoch's first step.  Returns
+    state)`` runs at each epoch's first step; ``prepare(net)`` adjusts the
+    seeded weights first; each of ``terms`` (metric names) is printed a
+    step and must be finite.  Returns
     the counts, the trainer and the step times (CUDA events between steps,
     the first of each epoch left out)."""
     from com_tpu_torch.train.loop import train_model
     from com_tpu_torch.train.step import device_batch_keys
 
     net, opt, state, step = build_trainer(dev, cfg, meta, steps)
+    if prepare is not None:
+        prepare(net)
     run_step = step_wrap(step) if step_wrap else step
     params = [p for p in net.parameters()]
-    marks, losses, finite = [], [], []
+    marks, losses, finite, term_rows = [], [], [], []
 
     def all_finite(tensors):
         return torch.stack([torch.isfinite(t).all() for t in tensors]).all()
@@ -1318,6 +1353,7 @@ def run_training(dev, label, cfg, meta, loader, epochs, steps, expect_launches,
         ev.record()
         marks.append((epoch, ev))
         losses.append(metrics["loss"])
+        term_rows.append(torch.stack([metrics[k].float() for k in terms]) if terms else None)
         if it == 0 and epoch_hook is not None:
             epoch_hook(epoch, state)
         if it == steps - 1:  # the interval after an epoch's last step is not timed
@@ -1341,6 +1377,11 @@ def run_training(dev, label, cfg, meta, loader, epochs, steps, expect_launches,
     ok = (iters == epochs * steps and np.isfinite(losses).all()
           and bool(torch.stack(finite).all())
           and (float(state.conf_cnt.sum()) > 0) == counts_confidences)
+    if terms:
+        rows = torch.stack(term_rows).cpu().numpy()
+        ok = ok and bool(np.isfinite(rows).all())
+        print(f"  {label} loss terms a step: " + "; ".join(
+            f"{k} {[round(float(x), 5) for x in rows[:, i]]}" for i, k in enumerate(terms)))
     print(f"training path {label}: {iters} steps in {epochs} mini-epochs, {wall:.2f} s wall; "
           f"losses {[round(float(x), 4) for x in losses]}; gradients (last step of each "
           f"epoch) and parameters finite: {bool(torch.stack(finite).all())}; conf_cnt of the "
@@ -2540,6 +2581,345 @@ def path_g(dev, smi, entries, calls, pc_range=None, points=E_POINTS, real_points
     return counts, train_counts
 
 
+def two_stage_marks(net, mark):
+    """Hooks that record a CUDA event (``mark(label)``) where each stage of a
+    two-stage forward and its post-processing starts: the first-stage slots
+    (a "gap" after each), the proposal layer ("proposal.decode", then
+    ``nms_bev``'s sort and gathers, self-IoU, K4, kept slots and rest), the
+    RoI head ("roi_head": grid points or the rotated sampling; Voxel-RCNN's
+    "voxel_query" and "pool" a scale; "fcs"), then the final NMS's steps
+    ("final.*").  Returns the function that removes them."""
+    from com_tpu_torch.models.roi_heads import voxelrcnn_head
+
+    phase = ["proposal"]
+    hooks = []
+    for s in ("vfe", "backbone_3d", "map_to_bev", "backbone_2d", "dense_head"):
+        if getattr(net, s, None) is not None:
+            hooks.append(getattr(net, s).register_forward_pre_hook(lambda *_, s=s: mark(s)))
+            hooks.append(getattr(net, s).register_forward_hook(lambda *_: mark("gap")))
+    hooks.append(net.roi_head.register_forward_pre_hook(lambda *_: mark("roi_head")))
+    # the stack runs layer by layer (fc.run_stack): its first layer opens the FCs
+    hooks.append(net.roi_head.shared_fc_layer[0].register_forward_pre_hook(
+        lambda *_: mark("fcs")))
+
+    def head_end(*_):
+        phase[0] = "final"
+        mark("final.decode")
+
+    hooks.append(net.roi_head.register_forward_hook(head_end))
+    orig_proposals = net._proposals
+    wrapped = "_proposals" in net.__dict__  # follow_proposals' wrapper, kept
+
+    def proposals(batch):
+        phase[0] = "proposal"
+        mark("proposal.decode")
+        out = orig_proposals(batch)
+        mark("stage2_rois")
+        return out
+
+    net._proposals = proposals
+    orig_query = voxelrcnn_head.batched_voxel_query
+
+    def query(*args, **kw):
+        mark("voxel_query")
+        out = orig_query(*args, **kw)
+        mark("pool")
+        return out
+
+    voxelrcnn_head.batched_voxel_query = query
+    nms_names = {"sort": "sort_gathers", "iou": "iou", "k4": "k4", "k4_end": "kept_slots",
+                 "rest": "rest"}
+    undo_nms = _mark_nms_steps(lambda n: mark(f"{phase[0]}.{nms_names[n]}"))
+
+    def undo():
+        undo_nms()
+        voxelrcnn_head.batched_voxel_query = orig_query
+        if wrapped:
+            net._proposals = orig_proposals
+        else:
+            del net._proposals
+        for h in hooks:
+            h.remove()
+
+    return undo
+
+
+def two_stage_breakdown(net, run, label, iters=3, smi="", stage_hook_marks=None):
+    """Device ms of each stage of ``run()`` (an eval step, or a train step
+    whose ``stage_hook`` records "forward", "loss", "backward", "optimizer"
+    through ``stage_hook_marks``), CUDA events by ``two_stage_marks``, summed
+    a stage over its intervals, mean over ``iters`` runs after a warm-up;
+    an interval is named by the mark that opens it."""
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    if stage_hook_marks is not None:
+        stage_hook_marks.append(mark)
+    undo = two_stage_marks(net, mark)
+    sums = {}
+    try:
+        for i in range(iters + 1):
+            marks.clear()
+            mark("upload")
+            run()
+            mark("end")
+            torch.cuda.synchronize()
+            if i:
+                for (name, a), (_, b) in zip(marks, marks[1:]):
+                    sums[name] = sums.get(name, 0.0) + a.elapsed_time(b) / iters
+    finally:
+        undo()
+        if stage_hook_marks is not None:
+            stage_hook_marks.clear()
+    total = sum(sums.values())
+    print(f"{label} stage ms (mean of {iters}): "
+          f"{json.dumps({k: round(v, 3) for k, v in sums.items()})} total {total:.3f}"
+          + (f" ({smi})" if smi else ""))
+    return sums
+
+
+def kitti_voxel_batches(rng, meta, proc, mode, count, b, points, real_points):
+    return [voxelize_batch(kitti_like_batch(rng, b, meta.point_cloud_range, (0.16, 0.16, 4.0),
+                                            n=points, real_points=real_points), meta, proc, mode)
+            for _ in range(count)]
+
+
+def follow_proposals(net, per_scene=J_GT):
+    """In training, put the first ``per_scene`` GT slots of each scene on the
+    proposals ``net`` makes at that moment (boxes, labels), before the RoI
+    targets are drawn and the anchor loss reads them.  Random weights
+    propose nothing near fixed GT, and one Adam step at the one-cycle's
+    first rate moves every proposal (each weight of conv_box moves by lr
+    with its gradient's sign: a coherent shift over its 512 inputs; with GT
+    set once from the seeded model's proposals, step 2 saw 0 foreground
+    RoIs on the card).  Adds no launch: the proposals are the step's own."""
+    orig = net._proposals
+
+    def proposals(batch):
+        out = orig(batch)
+        if net.training and "gt_boxes" in batch:
+            rois, _, labels, valid = out
+            gt = batch["gt_boxes"].clone()
+            k = min(per_scene, gt.shape[1], rois.shape[1])
+            gt[:, :k, :7] = rois[:, :k, :7] * valid[:, :k, None]
+            gt[:, :k, 7] = (labels[:, :k] * valid[:, :k]).to(gt.dtype)
+            batch["gt_boxes"] = gt
+        return out
+
+    net._proposals = proposals
+    return net
+
+
+def check_small_two_stage_reference(dev, config, label):
+    """``config`` at full width, f32, over a 64 x 64 x 40 grid (0.5 x 0.5 x
+    0.1 m over +-16 m) with 2,048 voxels a scene, scores spread: the eval
+    step on the card against the CPU."""
+    from com_tpu_torch.models.detectors import DatasetMeta
+
+    cfg, _, proc = load_voxel(config)
+    meta = DatasetMeta(cfg.CLASS_NAMES, (-16.0, -16.0, -2.0, 16.0, 16.0, 2.0), (0.5, 0.5, 0.1),
+                       (64, 64, 40), E_FEATS)
+    proc.MAX_NUMBER_OF_VOXELS = {"train": 2048, "test": 2048}
+    cfg.MODEL.MIXED_PRECISION = False
+    cfg.MODEL.BACKBONE_3D.VOXEL_CAPS = [2048, 1024, 512, 256]
+    rng = np.random.RandomState(36)
+    pts = np.concatenate([rng.uniform(-15, 15, (2, 4096, 2)), rng.uniform(-1.4, 1.4, (2, 4096, 1)),
+                          rng.rand(2, 4096, 1)], -1).astype(np.float32)
+    batch = voxelize_batch({"points": pts, "points_mask": np.ones((2, 4096), bool)}, meta, proc,
+                           "test")
+    compare_eval_step(dev, cfg, meta, batch, label, prepare=spread_anchor_scores)
+
+
+def check_two_stage_serving(dev, label, cfg, meta, batches, expect, smi):
+    """Seeded weights, scores spread, through ``make_eval_step``: each batch's
+    latency (host clock, outputs copied back), peak memory, launches;
+    finite boxes, a valid detection a scene at least, scores over the
+    threshold, labels in range.  Returns (net, step, counts)."""
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.train.eval import make_eval_step
+
+    post = cfg.MODEL.POST_PROCESSING
+    thresh = float(post.SCORE_THRESH)
+    net = spread_anchor_scores(build_network(cfg.MODEL, meta, device=dev, seed=0))
+    step = make_eval_step(net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=dev)
+    step(batches[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    latencies, outs = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        outs.append([t.cpu().numpy() for t in step(b)])
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    labels_ok = list(range(1, len(cfg.CLASS_NAMES) + 1))
+    print(f"path {label} serving (batch {len(batches[0]['voxels'])}): latency ms a batch "
+          f"{[round(x, 2) for x in latencies]}, max_memory_allocated {peak / 2**30:.2f} GiB "
+          f"({smi})")
+    for i, (boxes, scores, labels, valid) in enumerate(outs):
+        ok = (boxes.shape[1] == int(post.NMS_CONFIG.NMS_POST_MAXSIZE)
+              and bool(valid.any(1).all()) and np.isfinite(boxes[valid]).all()
+              and (scores[valid] > thresh).all() and np.isin(labels[valid], labels_ok).all())
+        print(f"  batch {i}: {valid.sum(1).tolist()} detections, finite boxes, scores > "
+              f"{thresh}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"path {label} batch {i} returned malformed detections")
+    check_launches(f"path {label} serving forward", counts, expect, len(batches))
+    return net, step, counts
+
+
+def proposal_candidates(net, cfg, batch, dev, train):
+    """What the proposal layer hands K4 for ``batch``, in ``net``'s training
+    or eval mode: the top NMS_PRE_MAXSIZE decoded boxes, in the NMS's score
+    order, as (over, valid)."""
+    import copy
+
+    from com_tpu_torch.models.dense_heads.anchor_head import decode_anchor_boxes, top_candidates
+    from com_tpu_torch.models.detectors import Detector3D
+    from com_tpu_torch.ops import nms
+    from com_tpu_torch.train.step import model_input_keys
+
+    nms_cfg = cfg.MODEL.ROI_HEAD.NMS_CONFIG["TRAIN" if train else "TEST"]
+    probe = copy.deepcopy(net).train(train)  # training mode moves the norms' statistics
+    with torch.no_grad():
+        first = Detector3D.forward(probe, {k: torch.as_tensor(batch[k], device=dev)
+                                           for k in model_input_keys(cfg.MODEL)})
+        boxes, scores, _ = decode_anchor_boxes(first, probe.anchors, len(cfg.CLASS_NAMES),
+                                               probe.box_coder, cfg.MODEL.DENSE_HEAD)
+        top, idx = top_candidates(scores, int(nms_cfg.NMS_PRE_MAXSIZE))
+        bx = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, boxes.shape[-1]))
+        _, sb, sv = nms._sorted(bx[..., :7], top, torch.isfinite(top))
+        over = (nms._self_iou(sb) > float(nms_cfg.NMS_THRESH)).contiguous()
+    return over, sv.contiguous()
+
+
+def final_candidates(net, cfg, batch, dev):
+    """What the two-stage eval step hands K4: the RCNN boxes of the RoIs
+    scored and filtered, in score order, as (over, valid)."""
+    from com_tpu_torch.models.roi_heads.roi_targets import decode_rcnn_boxes
+    from com_tpu_torch.ops import nms
+    from com_tpu_torch.train.step import model_input_keys
+
+    post = cfg.MODEL.POST_PROCESSING
+    with torch.no_grad():
+        out = net({k: torch.as_tensor(batch[k], device=dev) for k in model_input_keys(cfg.MODEL)})
+        boxes = decode_rcnn_boxes(out["rois"][..., :7], out["rcnn_reg"])
+        scores = torch.sigmoid(out["rcnn_cls"])
+        valid = (scores > float(post.SCORE_THRESH)) & out["roi_valid"]
+        _, sb, sv = nms._sorted(boxes, scores, valid)
+        over = (nms._self_iou(sb) > float(post.NMS_CONFIG.NMS_THRESH)).contiguous()
+    return over, sv.contiguous()
+
+
+def two_stage_training(dev, label, cfg, meta, batches, expect, terms, smi):
+    """``train_model`` 1 mini-epoch of 2 steps over ``batches``, seeded
+    weights with the scores spread and GT following the proposals
+    (``follow_proposals``): every term finite, the foreground RoIs a step
+    (> 0), launches; then the step's stages, mean of 2 after a warm-up.
+    Returns the counts."""
+    fg = []
+    trainer = {}
+
+    def prepare(net):
+        follow_proposals(spread_anchor_scores(net))
+        trainer["net"] = net
+        net.roi_head.register_forward_pre_hook(
+            lambda m, args: fg.append(args[0]["roi_targets"].reg_valid.sum())
+            if m.training and "roi_targets" in args[0] else None)
+
+    counts, (net, opt, state, _), _ = run_training(
+        dev, label, cfg, meta, SyntheticLoader(batches, 2), 1, 2, expect,
+        counts_confidences=False, smi=smi, prepare=prepare, terms=terms)
+    fg_counts = [int(x) for x in fg]
+    ok = len(fg_counts) == 2 and min(fg_counts) > 0
+    print(f"  path {label} foreground RoIs a step: {fg_counts} of "
+          f"{int(cfg.MODEL.ROI_HEAD.TARGET_CONFIG.ROI_PER_IMAGE) * len(batches[0]['voxels'])} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"path {label}: a train step saw no foreground RoI")
+    from com_tpu_torch.train.step import device_batch_keys, make_train_step
+
+    hook_marks = []
+    step = make_train_step(net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, opt, None, device=dev,
+                           stage_hook=lambda name: [m(name) for m in hook_marks])
+    keys = device_batch_keys(cfg.MODEL)
+    dev_batch = {k: torch.as_tensor(v, device=dev) for k, v in batches[0].items() if k in keys}
+    two_stage_breakdown(net, lambda: step(state, dev_batch, 0), f"path {label} train step",
+                        iters=2, smi=smi, stage_hook_marks=hook_marks)
+    return counts
+
+
+def path_j(dev, smi, entries, calls, pc_range=None, points=E_POINTS, real_points=E_REAL_POINTS):
+    """Path J, Voxel-RCNN (``configs/kitti_models/voxel_rcnn_car.yaml``: path
+    G's first stage, the anchor head's proposals, ``VoxelRCNNHead`` over
+    x_conv2/3/4) at full width: batch 2 of ~20,000 KITTI-like points a scene
+    in 16,000 / 40,000 voxel slots, the 1408 x 1600 x 40 grid, 4,096 -> 512
+    proposals in training and 1,024 -> 100 in serving, 128 RoIs a scene, a
+    6^3 grid; seeded weights, scores spread.  The small f32 reference; three
+    serving batches and the eval step's stages; K4 on the proposal
+    candidates at (2, 4096) and (2, 1024) and the final NMS's (2, 100); K2,
+    dgrad and K2w at its shapes; 2 train steps.  Returns the launch counts
+    of the serving forward and of the steps."""
+    check_small_two_stage_reference(dev, VOXEL_RCNN_CONFIG,
+                                    "path J small reference (Voxel-RCNN 64x64x40 f32, card vs CPU)")
+    cfg, meta, proc = load_voxel(VOXEL_RCNN_CONFIG, pc_range)
+    rng = np.random.RandomState(37)
+    batches = kitti_voxel_batches(rng, meta, proc, "test", 3, J_BATCH, points, real_points)
+    net, step, serve_counts = check_two_stage_serving(dev, "J (Voxel-RCNN, KITTI)", cfg, meta,
+                                                      batches, EXPECT_J_SERVING, smi)
+    two_stage_breakdown(net, lambda: step(batches[0]), "path J eval step", smi=smi)
+    for train, tag in ((True, ", path J train proposals"), (False, ", path J serving proposals")):
+        over, sv = proposal_candidates(net, cfg, batches[0], dev, train)
+        check_k4_cases(dev, entries, calls, over, sv, smi, tag,
+                       "J:nms_train" if train else "J:nms", iters=20)
+    over, sv = final_candidates(net, cfg, batches[0], dev)
+    check_k4_cases(dev, entries, calls, over, sv, smi, ", path J final NMS", "J:nms", iters=50)
+    del net, step
+    torch.cuda.empty_cache()
+    check_conv3x3(dev, entries, shapes=J_CONV, dtypes=(torch.bfloat16,), path="J:")
+    check_conv3x3_backward(dev, entries, shapes=J_CONV, wgrad_dtypes=(torch.bfloat16,),
+                           path="J:")
+    torch.cuda.empty_cache()
+    train_counts = two_stage_training(
+        dev, "J (Voxel-RCNN, KITTI)", cfg, meta,
+        kitti_voxel_batches(rng, meta, proc, "train", 2, J_BATCH, points, real_points),
+        EXPECT_J_TRAIN,
+        ("rpn_loss_cls", "rpn_loss_loc", "rpn_loss_dir", "rcnn_loss_cls", "rcnn_loss_reg",
+         "rcnn_loss_corner"), smi)
+    return serve_counts, train_counts
+
+
+def path_k(dev, smi, pc_range=None, points=E_POINTS, real_points=E_REAL_POINTS):
+    """Path K, SECOND-IoU (``configs/kitti_models/second_iou.yaml``: path G's
+    first stage, its proposals, ``SECONDHead``'s 7 x 7 rotated sampling of
+    the 512-channel BEV map) at full width, batch 4: the small f32
+    reference, one serving batch and its stages, 2 train steps with
+    ``rcnn_loss_iou``.  Returns the launch counts of the serving forward and
+    of the steps."""
+    check_small_two_stage_reference(dev, SECOND_IOU_CONFIG,
+                                    "path K small reference (SECOND-IoU 64x64x40 f32, card vs CPU)")
+    cfg, meta, proc = load_voxel(SECOND_IOU_CONFIG, pc_range)
+    rng = np.random.RandomState(38)
+    batches = kitti_voxel_batches(rng, meta, proc, "test", 1, K_BATCH, points, real_points)
+    net, step, serve_counts = check_two_stage_serving(dev, "K (SECOND-IoU, KITTI)", cfg, meta,
+                                                      batches, EXPECT_J_SERVING, smi)
+    two_stage_breakdown(net, lambda: step(batches[0]), "path K eval step", smi=smi)
+    del net, step
+    torch.cuda.empty_cache()
+    train_counts = two_stage_training(
+        dev, "K (SECOND-IoU, KITTI)", cfg, meta,
+        kitti_voxel_batches(rng, meta, proc, "train", 2, K_BATCH, points, real_points),
+        EXPECT_J_TRAIN,
+        ("rpn_loss_cls", "rpn_loss_loc", "rpn_loss_dir", "rcnn_loss_iou"), smi)
+    return serve_counts, train_counts
+
+
 @contextlib.contextmanager
 def library_defaults():
     """TF32 switched as a fresh process has it (phase 1 turns it off here):
@@ -3391,18 +3771,25 @@ def main():
     torch.cuda.empty_cache()
     g_serve_counts, g_train_counts = path_g(dev, smi, entries, calls)
     torch.cuda.empty_cache()
+    j_serve_counts, j_train_counts = path_j(dev, smi, entries, calls)
+    torch.cuda.empty_cache()
+    path_k(dev, smi)
+    torch.cuda.empty_cache()
     path_h(dev, smi)
     torch.cuda.empty_cache()
     path_i(dev, smi)
     # each kernel's launches on the path that runs it: training path A,
     # serving for K4, path B for K3's last_wins mode, the sweep for T1-T4;
-    # paths E, F and G's shapes: their training, and their serving for K4
+    # paths E, F, G and J's shapes: their training, and their serving for
+    # K4 (path J's train proposals: its training)
     counts = {**a_counts, "nms": serve_counts["nms"],
               "stamp_last_wins": b_counts["stamp_last_wins"],
               **{f"wgrad_{v}": sweep_counts[f"wgrad_{v}"] for v in WGRAD_VARIANTS},
               **{f"{p}:{k}": v for p, c in (("E", e_train_counts), ("F", f_train_counts),
-                                            ("G", g_train_counts)) for k, v in c.items()},
-              "E:nms": e_serve_counts["nms"], "G:nms": g_serve_counts["nms"]}
+                                            ("G", g_train_counts), ("J", j_train_counts))
+                 for k, v in c.items()},
+              "E:nms": e_serve_counts["nms"], "G:nms": g_serve_counts["nms"],
+              "J:nms": j_serve_counts["nms"], "J:nms_train": j_train_counts["nms"]}
     if not profile:
         check_device_kernels(calls)
     for e in entries:

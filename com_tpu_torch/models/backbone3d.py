@@ -130,6 +130,7 @@ class VoxelBackBone8x(nn.Module):
             grid = sp.downsampled_grid(grid, blk.stride, blk.kernel, blk.pad)
         self.out_grid = sp.downsampled_grid(grid, (2, 1, 1), (3, 1, 1), self.last_pad)
         self.num_bev_features = out_ch * self.out_grid[0]
+        self.multi_scale_channels = {f"x_conv{s + 1}": ch[s] for s in range(4)}
 
     def forward(self, batch):
         x = batch["pillar_features"]  # (B, V, C) from MeanVFE

@@ -5,9 +5,11 @@ the VFE wrote ``spatial_features``) -> backbone_2d -> dense_head over a
 batch dict.  The slots are attributes named as in pcdet, so ``state_dict()``
 keys read ``vfe.pfn_layers.0.linear.weight``, ``backbone_3d.conv2.0.0.weight``,
 ``backbone_2d.blocks.0.1.weight``, ``dense_head.shared_conv.0.weight``...
-CenterPoint, PointPillar and SECONDNet are ported, for inference and
-training (``net.train()`` puts the norms in batch-statistics mode; the head
-returns raw predictions in both modes); the point and RoI stages come later.
+CenterPoint, PointPillar, SECONDNet and the two-stage VoxelRCNN and
+SECONDNetIoU (``roi_head.*``) are ported, for inference and training
+(``net.train()`` puts the norms in batch-statistics mode; the dense head
+returns raw predictions in both modes); the point stages and the other
+two-stage detectors raise by name.
 """
 from __future__ import annotations
 
@@ -18,15 +20,21 @@ from torch import nn
 
 from ..utils.device import resolve_device
 from ..utils.registry import (BACKBONES_2D, BACKBONES_3D, DENSE_HEADS, DETECTORS, MAP_TO_BEV,
-                              VFES)
+                              ROI_HEADS, VFES)
 from . import backbone2d as _b2  # noqa: F401 (register)
 from . import backbone3d as _b3  # noqa: F401
 from . import dense_heads as _dh  # noqa: F401
 from . import map_to_bev as _mb  # noqa: F401
+from . import roi_heads as _rh  # noqa: F401
 from . import vfe as _vfe  # noqa: F401
 from .backbone2d import Deconv
 from .backbone3d import SparseConv3d
+from .dense_heads.anchor_head import (box_coder_for, build_anchors, decode_anchor_boxes,
+                                      top_candidates)
 from .layers import BatchNorm, Conv2d
+from .roi_heads.fc import Conv1x1
+from .roi_heads.proposal_layer import proposal_layer, take_rows
+from .roi_heads.roi_targets import assign_roi_targets
 
 
 class DatasetMeta:
@@ -44,10 +52,12 @@ class DatasetMeta:
 class Detector3D(nn.Module):
     """Generic slot-ordered detector."""
 
+    two_stage = False  # a subclass that builds ROI_HEAD
+
     def __init__(self, model_cfg, meta: DatasetMeta):
         super().__init__()
         self.model_cfg, self.meta = model_cfg, meta
-        for slot in ("PFE", "POINT_HEAD", "ROI_HEAD"):
+        for slot in ("PFE", "POINT_HEAD") + (() if self.two_stage else ("ROI_HEAD",)):
             if model_cfg.get(slot) is not None:
                 raise NotImplementedError(f"{slot} is not ported yet")
         mixed = bool(model_cfg.get("MIXED_PRECISION", False))
@@ -85,6 +95,7 @@ class Detector3D(nn.Module):
             dh_cfg = dict(dh_cfg, MIXED_PRECISION=True)
         self.dense_head = DENSE_HEADS.get(dh_cfg["NAME"])(
             dh_cfg, bev_ch, len(meta.class_names), meta.class_names)
+        self.bev_channels = bev_ch
 
     def forward(self, batch):
         batch = self.vfe(batch)
@@ -114,6 +125,133 @@ class SECONDNet(Detector3D):
     HeightCompression, the BEV backbone and an anchor head."""
 
 
+class TwoStageDetector(Detector3D):
+    """A detector with a second stage (the JAX package's ``PVRCNN`` base:
+    ``_build_roi_head``, ``_proposals``, ``_stage2_rois``): the first stage
+    as ``Detector3D``, then the anchor head's decoded boxes through the
+    proposal layer (``NMS_CONFIG`` TRAIN or TEST by the module's mode), RoI
+    target assignment in training when the batch has "gt_boxes" (random
+    when ``batch["rngs"]["roi_sampling"]`` holds a generator or (B, P)
+    uniforms, else deterministic), and the RoI head, mounted as
+    ``roi_head``.  ``eval_topk`` keeps the top RoIs by score in eval
+    (NMS_CONFIG.TEST_POST); Voxel-RCNN and SECOND-IoU keep none."""
+
+    two_stage = True
+    eval_topk: int | None = None
+
+    def __init__(self, model_cfg, meta: DatasetMeta):
+        head_cfg = model_cfg["DENSE_HEAD"]
+        if "ANCHOR_GENERATOR_CONFIG" not in head_cfg:
+            raise NotImplementedError("decode_center_proposals (the CenterHead RPN of the "
+                                      "*_with_centerhead_* configs) is not ported yet")
+        super().__init__(model_cfg, meta)
+        anchors = build_anchors(head_cfg, list(meta.class_names), meta.grid_size,
+                                meta.point_cloud_range)[0]
+        self.register_buffer("anchors", torch.as_tensor(anchors), persistent=False)
+        self.box_coder = box_coder_for(head_cfg)
+        roi_cfg = model_cfg["ROI_HEAD"]
+        self.roi_head = ROI_HEADS.get(roi_cfg["NAME"])(
+            roi_cfg, num_class=1, point_cloud_range=meta.point_cloud_range,
+            voxel_size=meta.voxel_size, input_channels=self._roi_input_channels())
+
+    def _roi_input_channels(self):
+        raise NotImplementedError
+
+    def _proposals(self, batch):
+        """Fixed-size proposals: (rois, roi_scores, roi_labels, roi_valid),
+        (B, P, ...), padded and suppressed slots invalid."""
+        head_cfg = self.model_cfg["DENSE_HEAD"]
+        nms_cfg = dict(self.model_cfg.get("ROI_HEAD", {}).get("NMS_CONFIG", {}))
+        nms_cfg.update(nms_cfg.get("TRAIN" if self.training else "TEST", {}))
+        with torch.no_grad():
+            boxes, scores, labels = decode_anchor_boxes(
+                batch, self.anchors, len(self.meta.class_names), self.box_coder,
+                dir_cfg=head_cfg if head_cfg.get("USE_DIRECTION_CLASSIFIER") else None)
+        if "NMS_THRESH" in nms_cfg:
+            return proposal_layer(
+                boxes, scores, labels,
+                nms_pre=min(int(nms_cfg.get("NMS_PRE_MAXSIZE", 4096)), int(boxes.shape[1])),
+                nms_post=int(nms_cfg.get("NMS_POST_MAXSIZE", 512)),
+                nms_thresh=float(nms_cfg["NMS_THRESH"]),
+                use_fast_nms=nms_cfg.get("NMS_TYPE") == "fast_nms")
+        num_p = min(int(nms_cfg.get("TRAIN_PRE" if self.training else "TEST_PRE", 512)),
+                    int(scores.shape[1]))
+        top, idx = top_candidates(scores, num_p)
+        roi_valid = torch.isfinite(top)
+        return (take_rows(boxes, idx), torch.where(roi_valid, top, torch.zeros_like(top)),
+                take_rows(labels, idx), roi_valid)
+
+    def _stage2_rois(self, batch):
+        """Sets batch["rois"] and, in training with GT, batch["roi_targets"];
+        else batch["roi_scores" / "roi_labels" / "roi_valid"]."""
+        rois, roi_scores, roi_labels, roi_valid = self._proposals(batch)
+        # suppressed slots can carry non-finite scores; validity rides in roi_valid
+        roi_scores = torch.where(roi_valid, roi_scores, torch.zeros_like(roi_scores))
+        if self.training and "gt_boxes" in batch:
+            cfg = self.model_cfg.get("ROI_HEAD", {}).get("TARGET_CONFIG", {})
+            draw = batch.get("rngs", {}).get("roi_sampling")
+            targets = assign_roi_targets(
+                rois, roi_scores, roi_labels, roi_valid, batch["gt_boxes"],
+                roi_per_image=int(cfg.get("ROI_PER_IMAGE", 128)),
+                fg_ratio=float(cfg.get("FG_RATIO", 0.5)),
+                reg_fg_thresh=float(cfg.get("REG_FG_THRESH", 0.55)),
+                cls_fg_thresh=float(cfg.get("CLS_FG_THRESH", 0.75)),
+                cls_bg_thresh=float(cfg.get("CLS_BG_THRESH", 0.25)),
+                cls_bg_thresh_lo=float(cfg.get("CLS_BG_THRESH_LO", 0.1)),
+                hard_bg_ratio=float(cfg.get("HARD_BG_RATIO", 0.8)),
+                generator=draw if isinstance(draw, torch.Generator) else None,
+                u=draw if isinstance(draw, torch.Tensor) else None)
+            batch["roi_targets"] = targets
+            batch["rois"] = targets.rois
+            return batch
+        if self.eval_topk is not None:
+            k = min(int(self.model_cfg.get("ROI_HEAD", {}).get("NMS_CONFIG", {})
+                        .get("TEST_POST", self.eval_topk)), int(roi_scores.shape[1]))
+            top, idx = top_candidates(torch.where(roi_valid, roi_scores,
+                                                  torch.full_like(roi_scores, -math.inf)), k)
+            rois, roi_labels = take_rows(rois, idx), take_rows(roi_labels, idx)
+            roi_valid = torch.isfinite(top)
+            roi_scores = torch.where(roi_valid, top, torch.zeros_like(top))
+        batch["rois"] = rois
+        batch["roi_scores"] = roi_scores
+        batch["roi_labels"] = roi_labels
+        batch["roi_valid"] = roi_valid
+        return batch
+
+    def forward(self, batch):
+        return self.roi_head(self._stage2_rois(super().forward(batch)))
+
+
+@DETECTORS.register
+class VoxelRCNN(TwoStageDetector):
+    """Voxel-RCNN (detectors/voxel_rcnn.py): SECOND's first stage, the
+    anchor head's proposals, ``VoxelRCNNHead`` over the 3D backbone's
+    multi-scale sparse volumes."""
+
+    def _roi_input_channels(self):
+        return self.backbone_3d.multi_scale_channels
+
+
+@DETECTORS.register
+class SECONDNetIoU(TwoStageDetector):
+    """SECOND with the IoU-scoring ``SECONDHead`` over the BEV backbone's map
+    (detectors/second_net_iou.py).  Eval ranks by NMS_CONFIG.SCORE_TYPE
+    (``train/eval.py``)."""
+
+    def _roi_input_channels(self):
+        return self.bev_channels
+
+
+for _name, _what in (("PVRCNN", "the keypoint encoder (PFE, pointnet2)"),
+                     ("PVRCNNPlusPlus", "the keypoint encoder (PFE, pointnet2)"),
+                     ("PartA2Net", "UNetV2 and RoI-aware pooling"),
+                     ("PointRCNN", "PointNet2MSG and point proposals"),
+                     ("MPPNet", "multi-frame proxy points"),
+                     ("MPPNetE2E", "multi-frame proxy points"),
+                     ("CaDDN", "the image depth frustum")):
+    DETECTORS.register_unported(_name, _what)
+
+
 def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every weight from ``generator`` (on the CPU, then copied to the
     net's device): convs, sparse convs and linears uniform in
@@ -129,7 +267,7 @@ def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
 
     with torch.no_grad():
         for mod in net.modules():
-            if isinstance(mod, (Conv2d, Deconv, nn.Linear)):
+            if isinstance(mod, (Conv2d, Deconv, nn.Linear, Conv1x1)):
                 w = mod.weight
                 bound = 1.0 / math.sqrt(w.shape[0] if isinstance(mod, Deconv) else w[0].numel())
                 draw(w, bound)
@@ -144,7 +282,7 @@ def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
                 mod.running_mean.zero_()
-                mod.running_var.fill_(1.0)
+                mod.running_var.fill_(1.0 + mod.VAR_SHIFT)
         for mod in net.modules():
             if isinstance(mod, SeparateHead) and "hm" in mod.names:
                 mod.hm[-1].bias.fill_(mod.init_bias)

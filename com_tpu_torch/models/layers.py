@@ -58,16 +58,21 @@ class BatchNorm(nn.Module):
         mean = s / cnt
         return mean, torch.clamp(sq / cnt - mean * mean, min=0.0)
 
+    VAR_SHIFT = 0.0  # running_var holds the running variance plus this
+
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         if self.training:
             mean, var = self._batch_stats(x, mask)
             with torch.no_grad():
                 m = self.MOMENTUM
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+                held = var + self.VAR_SHIFT if self.VAR_SHIFT else var
+                self.running_var.copy_(m * self.running_var + (1 - m) * held)
                 self.num_batches_tracked.add_(1)
         else:
             mean, var = self.running_mean, self.running_var
+            if self.VAR_SHIFT:
+                var = var - self.VAR_SHIFT
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((x.float() - mean) * mul + self.bias).to(x.dtype)
 
@@ -79,6 +84,20 @@ class MaskedBatchNorm(BatchNorm):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         return super().forward(x, mask)
+
+
+class BatchNorm1d(BatchNorm):
+    """The RoI heads' norm: the JAX package's (eps 1e-3, batch statistics
+    in training) holding its running variance as pcdet's
+    ``nn.BatchNorm1d`` (eps 1e-5) would, ``running_var`` = variance + (1e-3
+    - 1e-5), so that in eval var + 1e-3 is pcdet's running_var + 1e-5 and
+    a pcdet state_dict's statistics read as they are.  Unmasked."""
+
+    VAR_SHIFT = 1e-3 - 1e-5
+
+    def __init__(self, features: int):
+        super().__init__(features)
+        self.running_var.fill_(1.0 + self.VAR_SHIFT)
 
 
 class Conv2d(nn.Module):

@@ -2,6 +2,8 @@
 ``com_tpu/ops/boxes.py``, the parts the ported paths need)."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -16,6 +18,43 @@ def boxes_to_corners_bev(boxes: torch.Tensor) -> torch.Tensor:
     cx = tx * cos - ty * sin + x[..., None]
     cy = tx * sin + ty * cos + y[..., None]
     return torch.stack([cx, cy], dim=-1)
+
+
+def boxes_to_corners_3d(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 7) -> (..., 8, 3) corners: the BEV corners at z - dz/2, then at
+    z + dz/2."""
+    bev = boxes_to_corners_bev(boxes)
+    half = boxes[..., 5] / 2
+    lo = torch.cat([bev, (boxes[..., 2] - half)[..., None, None].expand(*bev.shape[:-1], 1)], -1)
+    hi = torch.cat([bev, (boxes[..., 2] + half)[..., None, None].expand(*bev.shape[:-1], 1)], -1)
+    return torch.cat([lo, hi], dim=-2)
+
+
+def points_in_rbbox(points: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """(..., N, 3+) points x (..., M, 7) boxes -> (..., N, M) bool: the point
+    inside the rotated box (edges included)."""
+    px = points[..., :, None, 0] - boxes[..., None, :, 0]
+    py = points[..., :, None, 1] - boxes[..., None, :, 1]
+    cos = torch.cos(-boxes[..., 6])[..., None, :]
+    sin = torch.sin(-boxes[..., 6])[..., None, :]
+    lx = px * cos - py * sin
+    ly = px * sin + py * cos
+    pz = points[..., :, None, 2] - boxes[..., None, :, 2]
+    return ((torch.abs(lx) <= boxes[..., None, :, 3] / 2)
+            & (torch.abs(ly) <= boxes[..., None, :, 4] / 2)
+            & (torch.abs(pz) <= boxes[..., None, :, 5] / 2))
+
+
+def corner_loss(pred_boxes: torch.Tensor, gt_boxes: torch.Tensor) -> torch.Tensor:
+    """Corner alignment loss (loss_utils.get_corner_loss_lidar): the mean
+    distance of the 8 corners, the smaller of the GT's and of the GT turned
+    half a turn, through a Huber of delta 1.  (..., 7) x (..., 7) -> (...)."""
+    pc = boxes_to_corners_3d(pred_boxes)
+    gc = boxes_to_corners_3d(gt_boxes)
+    gcf = boxes_to_corners_3d(torch.cat([gt_boxes[..., :6], gt_boxes[..., 6:7] + math.pi], -1))
+    d = torch.minimum(torch.sqrt(((pc - gc) ** 2).sum(-1) + 1e-8).mean(-1),
+                      torch.sqrt(((pc - gcf) ** 2).sum(-1) + 1e-8).mean(-1))
+    return torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
 
 
 class ResidualCoder:

@@ -97,6 +97,26 @@ def boxes_iou_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     return inter / torch.clamp(area_a + area_b - inter, min=1e-6)
 
 
+def boxes_overlap_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """Rotated BEV intersection areas (..., N, 7) x (..., M, 7) -> (..., N, M)."""
+    return _clamped_inter(boxes_a, boxes_b)[0]
+
+
+def boxes_iou3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """Rotated 3D IoU (..., N, 7) x (..., M, 7) -> (..., N, M): the BEV
+    intersection times the z overlap, over the union of the volumes."""
+    inter_bev = boxes_overlap_bev(boxes_a, boxes_b)
+    za1 = (boxes_a[..., 2] - boxes_a[..., 5] / 2)[..., :, None]
+    za2 = (boxes_a[..., 2] + boxes_a[..., 5] / 2)[..., :, None]
+    zb1 = (boxes_b[..., 2] - boxes_b[..., 5] / 2)[..., None, :]
+    zb2 = (boxes_b[..., 2] + boxes_b[..., 5] / 2)[..., None, :]
+    z_overlap = torch.clamp(torch.minimum(za2, zb2) - torch.maximum(za1, zb1), min=0.0)
+    inter = inter_bev * z_overlap
+    vol_a = (boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5])[..., :, None]
+    vol_b = (boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5])[..., None, :]
+    return inter / torch.clamp(vol_a + vol_b - inter, min=1e-6)
+
+
 def _nearest_aligned_dims(boxes):
     """(dx, dy), swapped where the heading is nearer to +-90 degrees."""
     rot = boxes[..., 6] - torch.floor(boxes[..., 6] / math.pi + 0.5) * math.pi

@@ -24,6 +24,9 @@ the JAX package's ``_subm_im2col_mirror``), the input-side hits the outprobe
 found for a strided one (the JAX package lets autodiff scatter-add there;
 the sum is the same, in another order).
 
+``batched_voxel_query`` (Voxel-RCNN's RoI pooling) looks its queries'
+offset cubes up through the same tables, a chunk of offsets at a time.
+
 Caps, overflow and tables are per scene, as under the JAX package's
 ``jax.vmap``.  The engine runs a whole batch at once: the scene index is
 folded into the keys (a scene's cells are ``b * cells + key``), so one
@@ -86,29 +89,45 @@ def _in_grid(nc, grid_zyx, valid):
             & (nc[..., 2] >= 0) & (nc[..., 2] < nx) & valid)
 
 
-def _lookup(coords, valid, grid_zyx, qcoords, qok):
-    """Rows (int64, -1 where empty) of the (B, V) sites for a (K, B, Q)
-    block of queries at once, each in its own scene: through the dense
-    cell -> row table (one scatter into a (B * cells + 1,) int32 buffer,
-    the last cell a drop slot) when a scene's grid is small enough, else
-    through the sorted keys."""
+def _lookup_fn(coords, valid, grid_zyx):
+    """A finder of rows (int64, -1 where empty) of the (B, V) sites for
+    (K, B, Q) blocks of queries, each in its own scene: the dense cell ->
+    row table (one scatter into a (B * cells + 1,) int32 buffer, the last
+    cell a drop slot) when a scene's grid is small enough, else the sorted
+    keys.  The table or the sort is made once, for every block asked."""
     b, v = valid.shape
-    qkeys = _scene_keys(qcoords.transpose(0, 1), grid_zyx, qok.transpose(0, 1)).transpose(0, 1)
     keys = _scene_keys(coords, grid_zyx, valid)
-    miss = qkeys == _KEY_SENTINEL
     rows = torch.arange(v, device=coords.device).expand(b, v)
     if use_dense_lookup(grid_zyx):
         nz, ny, nx = _dims(grid_zyx)
         drop = b * nz * ny * nx
         table = torch.full((drop + 1,), -1, dtype=torch.int32, device=coords.device)
         table[torch.where(valid, keys, drop)] = rows.to(torch.int32)
-        nidx = table[torch.where(miss, drop, qkeys)].to(torch.int64)
+
+        def find(qkeys, miss):
+            return table[torch.where(miss, drop, qkeys)].to(torch.int64)
     else:
         order = torch.argsort(keys.reshape(-1), stable=True)
         skeys = keys.reshape(-1)[order]
-        pos = torch.searchsorted(skeys, qkeys.reshape(-1)).clamp_(0, skeys.shape[0] - 1)
-        nidx = torch.where(skeys[pos] == qkeys.reshape(-1), order[pos] % v, -1).view(qkeys.shape)
-    return torch.where(miss, -1, nidx)
+
+        def find(qkeys, miss):
+            pos = torch.searchsorted(skeys, qkeys.reshape(-1)).clamp_(0, skeys.shape[0] - 1)
+            return torch.where(skeys[pos] == qkeys.reshape(-1), order[pos] % v,
+                               -1).view(qkeys.shape)
+
+    def lookup(qcoords, qok):
+        qkeys = _scene_keys(qcoords.transpose(0, 1), grid_zyx,
+                            qok.transpose(0, 1)).transpose(0, 1)
+        miss = qkeys == _KEY_SENTINEL
+        return torch.where(miss, -1, find(qkeys, miss))
+
+    return lookup
+
+
+def _lookup(coords, valid, grid_zyx, qcoords, qok):
+    """Rows (int64, -1 where empty) of the (B, V) sites for a (K, B, Q)
+    block of queries at once (``_lookup_fn``)."""
+    return _lookup_fn(coords, valid, grid_zyx)(qcoords, qok)
 
 
 def batched_subm_rulebook(coords, valid, grid_zyx, kernel: int = 3):
@@ -371,8 +390,85 @@ def inverse_conv3d(*args, **kwargs):
                               "ported yet")
 
 
-def voxel_query(*args, **kwargs):
-    raise NotImplementedError("voxel_query (Voxel-RCNN's RoI pooling) is not ported yet")
+def query_offsets(max_range: int, radius_vox: float = 4.0, cell_zyx=None,
+                  radius_world: float | None = None) -> np.ndarray:
+    """(K, 3) zyx offsets a voxel query walks, nearest first (a stable sort
+    by distance): with ``cell_zyx`` and ``radius_world`` those whose nearest
+    possible centre, (|off| - 1) cells an axis, lies within the radius;
+    else those within ``radius_vox`` cells."""
+    r = int(max_range)
+    offs = np.stack(np.meshgrid(*([np.arange(-r, r + 1)] * 3), indexing="ij"),
+                    axis=-1).reshape(-1, 3)
+    if cell_zyx is not None and radius_world is not None:
+        cell = np.asarray(cell_zyx, np.float64)
+        dmin2 = (((np.maximum(np.abs(offs) - 1, 0)) * cell) ** 2).sum(1)
+        keep = dmin2 <= float(radius_world) ** 2
+        d2 = ((offs * cell) ** 2).sum(1)
+    else:
+        d2 = (offs ** 2).sum(1)
+        keep = d2 <= radius_vox * radius_vox
+    return offs[keep][np.argsort(d2[keep], kind="stable")]
+
+
+def batched_voxel_query(query_vox, coords, valid, grid_zyx, max_range: int = 4,
+                        radius_vox: float = 4.0, nsample: int = 16, cell_zyx=None,
+                        radius_world: float | None = None, chunk: int = 128):
+    """Voxel neighbourhood query of a batch (pointnet2_stack
+    voxel_query_utils, Voxel-RCNN's grid pooling): for each of the (B, S, 3)
+    float zyx voxel-space queries, the first ``nsample`` occupied sites of
+    its scene, in ``query_offsets`` order around the query's base cell.
+
+    With ``cell_zyx`` (the world size of a cell, z, y, x) and
+    ``radius_world`` a site counts when its centre lies within the radius
+    of the query point in world units, from the floored base cell; else
+    within ``radius_vox`` cells of the rounded base cell.  The offsets are
+    looked up ``chunk`` at a time as a (B, S, chunk) hit mask; a running
+    count carried across chunks gives each hit its slot, as the JAX
+    package's scan over the offsets fills them.
+
+    Returns idx (B, S, nsample) int64 rows of ``coords``, the unfilled slots
+    repeating slot 0 (0 for an empty ball); empty (B, S) bool; slot_valid
+    (B, S, nsample), the slots holding real hits."""
+    b, s, _ = query_vox.shape
+    dev = query_vox.device
+    metric = cell_zyx is not None and radius_world is not None
+    offs = torch.as_tensor(query_offsets(max_range, radius_vox, cell_zyx, radius_world),
+                           device=dev)
+    base = (torch.floor(query_vox) if metric else torch.round(query_vox)).to(torch.int64)
+    if metric:
+        cell = torch.tensor(cell_zyx, dtype=query_vox.dtype, device=dev)
+        r2 = float(radius_world) ** 2
+    lookup = _lookup_fn(coords, valid, grid_zyx)
+    cnt = torch.zeros((b, s), dtype=torch.int64, device=dev)
+    buf = torch.zeros((b, s, nsample + 1), dtype=torch.int64, device=dev)  # last: dropped hits
+    for c0 in range(0, offs.shape[0], chunk):
+        nc = base[:, :, None, :] + offs[c0:c0 + chunk]  # (B, S, C, 3)
+        q = nc.permute(2, 0, 1, 3)  # (C, B, S, 3)
+        nidx = lookup(q, _in_grid(q, grid_zyx, torch.ones_like(q[..., 0], dtype=torch.bool)))
+        hit = (nidx >= 0).permute(1, 2, 0)  # (B, S, C)
+        if metric:
+            rel = (nc.to(query_vox.dtype) + 0.5 - query_vox[:, :, None, :]) * cell
+            hit &= (rel[..., 0] * rel[..., 0] + rel[..., 1] * rel[..., 1]
+                    + rel[..., 2] * rel[..., 2]) <= r2
+        slot = cnt[..., None] + torch.cumsum(hit, dim=-1) - 1
+        dst = torch.where(hit & (slot < nsample), slot, nsample)
+        buf.scatter_(2, dst, nidx.permute(1, 2, 0))
+        cnt = torch.clamp(cnt + hit.sum(-1), max=nsample)
+    buf = buf[..., :nsample]
+    lane = torch.arange(nsample, device=dev)
+    filled = lane < torch.clamp(cnt, min=1)[..., None]
+    idx = torch.where(filled, buf, buf[..., :1])
+    return idx, cnt == 0, lane < cnt[..., None]
+
+
+def voxel_query(query_vox, coords, valid, grid_zyx, max_range: int = 4, radius_vox: float = 4.0,
+                nsample: int = 16, cell_zyx=None, radius_world: float | None = None):
+    """``batched_voxel_query`` of one scene: (S, 3) queries -> (idx (S,
+    nsample), empty (S,), slot_valid (S, nsample))."""
+    idx, empty, slot = batched_voxel_query(query_vox[None], coords[None], valid[None], grid_zyx,
+                                           max_range, radius_vox, nsample, cell_zyx,
+                                           radius_world)
+    return idx[0], empty[0], slot[0]
 
 
 def focal_split_and_spawn(*args, **kwargs):

@@ -192,7 +192,8 @@ def _train(args, cfg, mesh, on_start, metric_hook):
             dataset.set_confidence_groups(conf)
 
     step = make_train_step(net, cfg.MODEL, names, meta, opt, (int(meta.grid_size[1]),
-                                                              int(meta.grid_size[0])), device=dev)
+                                                              int(meta.grid_size[0])), device=dev,
+                           seed=args.seed)
     mlog = MetricsLogger(out_dir / "metrics") if rank == 0 else None
     log_every = args.logger_iter_interval
 

@@ -1,9 +1,10 @@
 """Evaluation (counterpart of ``com_tpu/train/eval.py``; reference
 tools/eval_utils/eval_utils.py:12-136).
 
-``make_eval_step`` (CenterPoint and anchor branches): forward -> per-head
-top-K decode -> NMS, or every anchor decoded -> top ``NMS_PRE_MAXSIZE`` ->
-NMS, all on the device, fixed shapes with validity masks.  ``eval_model``
+``make_eval_step`` (CenterPoint, anchor and two-stage branches): forward
+-> per-head top-K decode -> NMS, or every anchor decoded -> top
+``NMS_PRE_MAXSIZE`` -> NMS, or the RCNN head's boxes -> NMS, all on the
+device, fixed shapes with validity masks.  ``eval_model``
 runs it over a loader, copies each batch's outputs to the host at once,
 trims every frame to its valid detections sorted by score into
 ``det_annos``, and counts recall against the GT by the rotated 3D IoU
@@ -19,7 +20,11 @@ import torch
 from ..models.dense_heads.anchor_head import (anchor_post_process, box_coder_for,
                                               build_anchors, decode_anchor_boxes)
 from ..models.dense_heads.center_head import decode_center_boxes, post_process_nms
+from ..models.roi_heads.roi_targets import decode_rcnn_boxes
+from ..models.roi_heads.second_head import fuse_scores_by_npoints
+from ..ops.boxes import points_in_rbbox
 from ..ops.host_boxes import boxes_iou3d
+from ..ops.nms import nms_bev
 from ..parallel.sharding import all_reduce_, gather_objects
 from ..utils.device import resolve_device
 from .step import model_input_keys
@@ -42,10 +47,10 @@ def make_eval_step(net, model_cfg, class_names, meta, device=None):
     "head" for an anchor head).  Unlike the JAX step, the weights live in
     ``net``.
     """
-    if model_cfg.get("ROI_HEAD") is not None:
-        raise NotImplementedError("two-stage eval is not ported yet")
     head_cfg = model_cfg["DENSE_HEAD"]
     dev = resolve_device(device)
+    if model_cfg.get("ROI_HEAD") is not None:
+        return _make_two_stage_eval_step(net, model_cfg, class_names, meta, dev)
     if "ANCHOR_GENERATOR_CONFIG" in head_cfg:
         return _make_anchor_eval_step(net, model_cfg, class_names, meta, dev)
     post = head_cfg["POST_PROCESSING"]
@@ -95,6 +100,86 @@ def _make_anchor_eval_step(net, model_cfg, class_names, meta, dev):
         boxes, scores, labels = decode_anchor_boxes(out, anchors, num_class, coder, dir_cfg)
         return anchor_post_process(boxes, scores, labels, nms_cfg, score_thresh,
                                    num_classes=num_class)
+
+    return eval_step
+
+
+def _make_two_stage_eval_step(net, model_cfg, class_names, meta, dev):
+    """Two-stage inference (detector3d_template post_processing): the RCNN
+    head's boxes, not the proposals, are scored, filtered by SCORE_THRESH
+    and the RoIs' validity, and NMS'd (``MODEL.POST_PROCESSING.NMS_CONFIG``,
+    its TEST entries over it).  A head that decodes (SECONDHead) writes
+    ``batch_box_preds`` / ``batch_cls_preds``; a refinement head's
+    ``rcnn_reg`` decodes against the RoIs.  SCORE_TYPE ranks SECOND-IoU's
+    boxes (second_net_iou.py post_processing): "iou" (the default), "cls",
+    "weighted_iou_cls", "num_pts_iou_cls" (the blend by the points of
+    ``batch["points"]`` in each box) or "score_by_class"."""
+    post = model_cfg.get("POST_PROCESSING", {})
+    nms_cfg = dict(post.get("NMS_CONFIG", {"NMS_THRESH": 0.7}))
+    nms_cfg.update(nms_cfg.get("TEST", {}))
+    score_thresh = float(post.get("SCORE_THRESH", 0.1))
+    post_max = int(nms_cfg.get("NMS_POST_MAXSIZE", 500))
+    thresh = float(nms_cfg.get("NMS_THRESH", 0.7))
+    score_type = str(nms_cfg.get("SCORE_TYPE", "iou"))
+    if score_type not in ("iou", "cls", "weighted_iou_cls", "num_pts_iou_cls", "score_by_class"):
+        raise NotImplementedError(f"SCORE_TYPE {score_type}")
+    keys = model_input_keys(model_cfg)
+
+    def fused_scores(out, batch, iou_scores, labels):
+        if score_type == "iou" or "roi_scores" not in out:
+            return iou_scores
+        cls_scores = out["roi_scores"]
+        if score_type == "cls":
+            return cls_scores
+        if score_type == "weighted_iou_cls":
+            w = nms_cfg.get("SCORE_WEIGHTS", {})
+            return float(w.get("iou", 0.5)) * iou_scores + float(w.get("cls", 0.5)) * cls_scores
+        if score_type == "num_pts_iou_cls":
+            th = nms_cfg.get("SCORE_THRESH", {})
+            pts = torch.as_tensor(batch["points"], device=dev)[..., :3]
+            msk = torch.as_tensor(batch["points_mask"], device=dev)
+            inb = points_in_rbbox(pts, out["batch_box_preds"][..., :7]) & msk[..., None]
+            return fuse_scores_by_npoints(cls_scores, iou_scores,
+                                          inb.sum(dim=1).to(iou_scores.dtype),
+                                          float(th.get("cls", 10.0)), float(th.get("iou", 100.0)))
+        by_class = dict(nms_cfg.get("SCORE_BY_CLASS", {}))
+        use_iou = torch.zeros(labels.shape, dtype=torch.bool, device=labels.device)
+        for i, name in enumerate(class_names):
+            if str(by_class.get(name, "iou")) == "iou":
+                use_iou = use_iou | (labels == i + 1)
+        return torch.where(use_iou, iou_scores, cls_scores)
+
+    @torch.no_grad()
+    def eval_step(batch):
+        out = net({k: torch.as_tensor(batch[k], device=dev) for k in keys})
+        cls_labels = None
+        if "batch_box_preds" in out:
+            boxes = out["batch_box_preds"][..., :7]
+            cls = out["batch_cls_preds"]
+            scores = cls
+            if cls.dim() == 3:  # the max over the class axis
+                scores = cls.max(dim=-1).values
+                if cls.shape[-1] > 1:
+                    cls_labels = cls.argmax(dim=-1) + 1
+            if not out.get("cls_preds_normalized", False):
+                scores = torch.sigmoid(scores)
+        else:
+            boxes = decode_rcnn_boxes(out["rois"][..., :7], out["rcnn_reg"])
+            scores = torch.sigmoid(out["rcnn_cls"])
+        labels = out.get("roi_labels_sampled", out.get("roi_labels"))
+        if labels is None:
+            labels = cls_labels if cls_labels is not None else torch.ones_like(
+                scores, dtype=torch.int32)
+        labels = labels.to(torch.int32)
+        scores = fused_scores(out, batch, scores, labels)
+        roi_valid = out.get("roi_valid")
+        if roi_valid is None:
+            roi_valid = torch.ones_like(scores, dtype=torch.bool)
+        # padded and suppressed RoI slots never surface as detections
+        sel, sel_valid = nms_bev(boxes, scores, (scores > score_thresh) & roi_valid, thresh,
+                                 min(post_max, boxes.shape[1]))
+        return (torch.gather(boxes, 1, sel[..., None].expand(-1, -1, boxes.shape[-1])),
+                torch.gather(scores, 1, sel), torch.gather(labels, 1, sel), sel_valid)
 
     return eval_step
 

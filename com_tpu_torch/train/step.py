@@ -1,10 +1,12 @@
-"""The train step for CenterPoint and anchor-head detectors (counterpart of
-``com_tpu/train/step.py``, its CenterPoint and anchor branches).
+"""The train step for CenterPoint, anchor-head and two-stage detectors
+(counterpart of ``com_tpu/train/step.py``, its CenterPoint, anchor and RoI
+branches).
 
 One call runs forward, target assignment, the CenterNet, anchor or COM
-losses, backward, the optimizer update and the on-device accumulation of
-the per-(class, group) confidence statistics, with no sync with the host.
-The RoI-head and point-head branches are not ported yet.
+losses (and the RoI losses of Voxel-RCNN's and SECOND-IoU's heads),
+backward, the optimizer update and the on-device accumulation of the
+per-(class, group) confidence statistics, with no sync with the host.
+The point-head branches are not ported yet.
 """
 from __future__ import annotations
 
@@ -13,15 +15,21 @@ import math
 import torch
 import torch.nn.functional as F
 
+import numpy as np
+
 from ..losses.anchor_losses import (AnchorCurriculumState, anchor_group_confidences,
-                                    curriculum_sigmoid_focal_loss, sigmoid_focal_loss,
-                                    weighted_cross_entropy, weighted_smooth_l1)
+                                    curriculum_sigmoid_focal_loss, sigmoid_ce_with_logits,
+                                    sigmoid_focal_loss, weighted_cross_entropy,
+                                    weighted_smooth_l1)
 from ..losses.centernet import focal_loss_centernet, reg_loss_centernet, sigmoid_clamped
 from ..losses.curriculum import CurriculumAux, focal_loss_center_curriculum, group_confidences
 from ..models.dense_heads.anchor_assign import assign_anchor_targets, atss_assign_targets
 from ..models.dense_heads.anchor_head import box_coder_for, build_anchors, reshape_anchor_preds
 from ..models.dense_heads.target_assign import assign_centerpoint_targets, cluster_com_groups
-from ..parallel.sharding import global_sum, reduce_gradients
+from ..models.roi_heads.roi_targets import decode_rcnn_boxes
+from ..models.roi_heads.second_head import second_iou_loss
+from ..ops.boxes import corner_loss
+from ..parallel.sharding import active_mesh, global_sum, reduce_gradients
 from .state import check_same_device
 
 _VEHICLE_NAMES = ("vehicle", "car", "truck", "bus", "van", "trailer", "construction_vehicle")
@@ -50,6 +58,10 @@ def device_batch_keys(model_cfg) -> set:
     if model_cfg.get("BACKBONE_3D", {}).get("USE_IMG"):
         keys |= {"images", "image_shape", "trans_lidar_to_cam", "trans_cam_to_img", "noise_rot",
                  "noise_scale", "flip_x", "flip_y"}
+    nms_cfg = dict(model_cfg.get("POST_PROCESSING", {}).get("NMS_CONFIG", {}))
+    nms_cfg.update(nms_cfg.get("TEST", {}))
+    if model_cfg.get("ROI_HEAD") is not None and nms_cfg.get("SCORE_TYPE") == "num_pts_iou_cls":
+        keys |= {"points", "points_mask"}  # the two-stage eval counts points in its boxes
     return keys
 
 
@@ -256,8 +268,54 @@ def compute_anchor_loss(batch, model_cfg, class_names, meta, curriculum_states, 
     return total, tuple(aux_states), [aux], tb
 
 
+def compute_roi_loss(batch, model_cfg):
+    """Second-stage losses (roi_head_template.py:150-261): BCE on the
+    IoU-derived soft class labels over the labelled RoIs, smooth-L1 on the
+    canonical-frame targets of the foreground RoIs, and with
+    CORNER_LOSS_REGULARIZATION the corner loss of the decoded foreground
+    boxes against their GT.  Returns (loss, tb)."""
+    loss_cfg = model_cfg.get("ROI_HEAD", {}).get("LOSS_CONFIG", {})
+    lw = loss_cfg.get("LOSS_WEIGHTS", {})
+    t = batch["roi_targets"]
+    valid = (t.cls_labels >= 0).to(torch.float32)
+    cls_loss = sigmoid_ce_with_logits(batch["rcnn_cls"], torch.clamp(t.cls_labels, 0.0, 1.0))
+    cls_loss = (cls_loss * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    cls_loss = cls_loss * float(lw.get("rcnn_cls_weight", 1.0))
+    fg = t.reg_valid.to(torch.float32)
+    fg_norm = torch.clamp(fg.sum(), min=1.0)
+    reg_loss = weighted_smooth_l1(batch["rcnn_reg"], t.reg_targets, fg).sum() / fg_norm
+    reg_loss = reg_loss * float(lw.get("rcnn_reg_weight", 1.0))
+    tb = {"rcnn_loss_cls": cls_loss, "rcnn_loss_reg": reg_loss}
+    total = cls_loss + reg_loss
+    if loss_cfg.get("CORNER_LOSS_REGULARIZATION", False):
+        rois = t.rois.reshape(-1, 7)
+        reg = batch["rcnn_reg"].reshape(-1, batch["rcnn_reg"].shape[-1])
+        per = corner_loss(decode_rcnn_boxes(rois, reg[:, :7]), t.gt_of_rois_src.reshape(-1, 7))
+        c_loss = (per * fg.reshape(-1)).sum() / fg_norm
+        c_loss = c_loss * float(lw.get("rcnn_corner_weight", 1.0))
+        total = total + c_loss
+        tb["rcnn_loss_corner"] = c_loss
+    return total, tb
+
+
+def step_generators(seed: int, step: int, device) -> dict:
+    """The step's RoI-sampling and dropout generators on ``device``, seeded
+    from (seed, step, stream) alone, as the JAX step folds the step into its
+    key: a run is a pure function of its seed."""
+    out = {}
+    for stream, name in enumerate(("roi_sampling", "dropout")):
+        g = torch.Generator(device=device)
+        g.manual_seed(int(np.random.SeedSequence([int(seed), int(step), stream])
+                          .generate_state(1, np.uint64)[0] >> np.uint64(1)))
+        out[name] = g
+    return out
+
+
+PORTED_ROI_HEADS = ("VoxelRCNNHead", "SECONDHead")
+
+
 def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, device=None,
-                    stage_hook=None):
+                    stage_hook=None, seed: int = 17):
     """A ``train_step(state, batch, epoch) -> (state, metrics)`` over ``net``.
 
     The loss is ``compute_anchor_loss`` for a head with an
@@ -273,6 +331,12 @@ def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, devic
     ``stage_hook(name)``, when given, is called as each stage starts
     ("forward", "loss", "backward", "optimizer") and once at the end ("end").
 
+    A two-stage model (``ROI_HEAD``: Voxel-RCNN's or SECOND-IoU's head)
+    adds ``compute_roi_loss`` or ``second_iou_loss`` to the first stage's;
+    each step draws its RoI sampling and dropout from ``step_generators(
+    seed, state.step)``.  ``loss_fn(state, batch, epoch, rngs=None)`` takes
+    the model's ``rngs`` (none: deterministic RoI sampling).
+
     Under an active data mesh (``parallel.sharding.activate``) ``batch`` is
     the rank's shard: the norms' statistics, the loss, its terms and the
     curriculum EMA are the global batch's on every rank, the gradients are
@@ -283,9 +347,11 @@ def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, devic
     head_cfg = model_cfg.get("DENSE_HEAD")
     if head_cfg is None:
         raise NotImplementedError("point-proposal detectors are not ported yet")
-    for slot in ("ROI_HEAD", "POINT_HEAD"):
-        if model_cfg.get(slot) is not None:
-            raise NotImplementedError(f"the {slot} loss is not ported yet")
+    if model_cfg.get("POINT_HEAD") is not None:
+        raise NotImplementedError("the POINT_HEAD loss is not ported yet")
+    roi_cfg = model_cfg.get("ROI_HEAD")
+    if roi_cfg is not None and roi_cfg.get("NAME") not in PORTED_ROI_HEADS:
+        raise NotImplementedError(f"the ROI_HEAD loss of {roi_cfg.get('NAME')} is not ported yet")
     dev = check_same_device(net, device)
     class_names = list(class_names)
     hook = stage_hook or (lambda name: None)
@@ -300,19 +366,38 @@ def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, devic
             return compute_centerpoint_loss(out, model_cfg, class_names, meta, curriculum,
                                             epoch, fmap_hw)
 
+    if roi_cfg is not None:
+        first_stage = compute_loss
+
+        def compute_loss(out, curriculum, epoch):
+            loss, new_cur, aux_list, tb = first_stage(out, curriculum, epoch)
+            if "rcnn_cls" in out:  # refinement head
+                roi_loss, roi_tb = compute_roi_loss(out, model_cfg)
+                tb.update(roi_tb)
+            else:  # IoU-scoring head
+                roi_loss = tb["rcnn_loss_iou"] = second_iou_loss(
+                    out, roi_cfg.get("LOSS_CONFIG", {}))
+            return loss + roi_loss, new_cur, aux_list, tb
+
     batch_keys = device_batch_keys(model_cfg)
 
-    def forward(batch):
+    def forward(batch, rngs=None):
+        if roi_cfg is not None and active_mesh() is not None and active_mesh().world > 1:
+            raise NotImplementedError(
+                "ROI_HEAD under a data mesh of world > 1 is not ported yet: the RoI losses' "
+                "normalisers and the RoI head's norms are not made global")
         inputs = {k: torch.as_tensor(batch[k], device=dev) for k in batch_keys if k in batch}
+        if rngs is not None:
+            inputs["rngs"] = rngs
         net.train()
         return net(inputs)
 
-    def loss_fn(state, batch, epoch):
-        return compute_loss(forward(batch), state.curriculum, epoch)
+    def loss_fn(state, batch, epoch, rngs=None):
+        return compute_loss(forward(batch, rngs), state.curriculum, epoch)
 
     def train_step(state, batch, epoch):
         hook("forward")
-        out = forward(batch)
+        out = forward(batch, step_generators(seed, state.step, dev) if roi_cfg else None)
         hook("loss")
         loss, new_cur, aux_list, tb = compute_loss(out, state.curriculum, epoch)
         hook("backward")

@@ -15,9 +15,12 @@ leaf it came from and the layout change back to PyTorch.
 
 The 1x1 stride-1 deblock is a plain flax Conv but a pcdet ConvTranspose2d,
 so it takes the transposed-conv layout too.  Covers the CenterPoint-Pillar,
-PointPillar, CenterPoint-voxel and SECOND slots: DynamicPillarVFE,
-VoxelBackBone8x and VoxelResBackBone8x, BaseBEVBackbone, CenterHead and
-AnchorHeadSingle (its 1x1 convs, plain conv layout).  For comparing a train
+PointPillar, CenterPoint-voxel, SECOND, Voxel-RCNN and SECOND-IoU slots:
+DynamicPillarVFE, VoxelBackBone8x and VoxelResBackBone8x, BaseBEVBackbone,
+CenterHead, AnchorHeadSingle (its 1x1 convs, plain conv layout),
+VoxelRCNNHead and SECONDHead (flax Dense (in, out) -> Linear, or Conv1d
+(out, in, 1) for SECONDHead; their FC norms' running_var shifted by
+1e-3 - 1e-5, ``models/layers.py`` ``BatchNorm1d``).  For comparing a train
 step, ``params_from_jax`` maps any tree shaped like flax "params" (its
 gradients, its updated parameters) into the same pcdet names, and
 ``curriculum_state_from_jax`` carries the COMLoss EMA state (either kind)
@@ -40,15 +43,19 @@ _TRANSFORMS = {
     "deconv2d": lambda a: a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1],
     "spconv27": lambda a: a.reshape(3, 3, 3, *a.shape[1:]).transpose(4, 0, 1, 2, 3),
     "spconv3": lambda a: a.reshape(3, 1, 1, *a.shape[1:]).transpose(4, 0, 1, 2, 3),
+    "conv1d": lambda a: a.T[..., None],
 }
+# A running statistic's rule, never a parameter's: the RoI heads'
+# BatchNorm1d holds var + (1e-3 - 1e-5) (models/layers.py).
+_STAT_TRANSFORMS = {"var_shift": lambda a: a + (1e-3 - 1e-5)}
 
 
-def _bn(tkey, path):
+def _bn(tkey, path, var="copy"):
     """(pcdet key, collection, flax path, transform) for one batch norm."""
     return [(f"{tkey}.weight", "params", (*path, "scale"), "copy"),
             (f"{tkey}.bias", "params", (*path, "bias"), "copy"),
             (f"{tkey}.running_mean", "batch_stats", (*path, "mean"), "copy"),
-            (f"{tkey}.running_var", "batch_stats", (*path, "var"), "copy")]
+            (f"{tkey}.running_var", "batch_stats", (*path, "var"), var)]
 
 
 def _pfn_rules(vfe_cfg, top):
@@ -160,6 +167,65 @@ def _anchor_head_rules(cfg, top):
                          (f"dense_head.{name}.bias", "params", (top, name, "bias"), "copy"))]
 
 
+def _fc_rules(tkey, top, name, fcs, transform, slot_after):
+    """A pcdet FC Sequential ``tkey.{seq}`` <- ``{name}_fc_{i}`` and
+    ``{name}_bn_{i}`` (the norm's variance shifted), seq stepping past
+    pcdet's dropout slots; returns (rules, the next seq)."""
+    rules, seq = [], 0
+    for i in range(len(fcs)):
+        rules.append((f"{tkey}.{seq}.weight", "params", (top, f"{name}_fc_{i}", "kernel"),
+                      transform))
+        rules += _bn(f"{tkey}.{seq + 1}", (top, f"{name}_bn_{i}"), var="var_shift")
+        seq += 4 if slot_after(i) else 3
+    return rules, seq
+
+
+def _roi_head_rules(cfg, top):
+    """VoxelRCNNHead: ``roi_grid_pool_layers.{i}.{pre,out,out_bn}`` <-
+    ``pre_{src}`` (biased), ``out_{src}``, ``out_bn_{src}`` (com_tpu's folded
+    pool); ``shared_fc_layer``, ``{cls,reg}_fc_layers``,
+    ``{cls,reg}_pred_layer`` <- ``shared_fc_{i}``/``shared_bn_{i}``,
+    ``{cls,reg}_fc_{i}``/``_bn_{i}``, ``{cls,reg}_out`` (the names
+    ``com_tpu/utils/torch_import.py`` ``map_voxelrcnn_roi_head`` reads).
+    SECONDHead: ``shared_fc_layer`` and ``iou_layers`` (Conv1d layout, the
+    last entry <- ``rcnn_iou``)."""
+    dp = float(cfg.get("DP_RATIO", 0.0))
+    shared = list(cfg.get("SHARED_FC", [256, 256]))
+
+    def not_last(n):
+        return lambda i: dp > 0 and i != n - 1
+
+    if cfg["NAME"] == "SECONDHead":
+        rules, _ = _fc_rules("roi_head.shared_fc_layer", top, "shared", shared, "conv1d",
+                             not_last(len(shared)))
+        iou_rules, seq = _fc_rules("roi_head.iou_layers", top, "iou",
+                                   list(cfg.get("IOU_FC", [256, 256])), "conv1d",
+                                   lambda i: i == 0)
+        return rules + iou_rules + [
+            (f"roi_head.iou_layers.{seq}.weight", "params", (top, "rcnn_iou", "kernel"),
+             "conv1d"),
+            (f"roi_head.iou_layers.{seq}.bias", "params", (top, "rcnn_iou", "bias"), "copy")]
+    pool = cfg["ROI_GRID_POOL"]
+    rules = []
+    for i, src in enumerate(pool.get("FEATURES_SOURCE", ["x_conv2", "x_conv3", "x_conv4"])):
+        t = f"roi_head.roi_grid_pool_layers.{i}"
+        rules += [(f"{t}.pre.weight", "params", (top, f"pre_{src}", "kernel"), "linear"),
+                  (f"{t}.pre.bias", "params", (top, f"pre_{src}", "bias"), "copy"),
+                  (f"{t}.out.weight", "params", (top, f"out_{src}", "kernel"), "linear")]
+        rules += _bn(f"{t}.out_bn", (top, f"out_bn_{src}"))
+    rules += _fc_rules("roi_head.shared_fc_layer", top, "shared", shared, "linear",
+                       not_last(len(shared)))[0]
+    for name in ("cls", "reg"):
+        fcs = list(cfg.get(f"{name.upper()}_FC", [256, 256]))
+        rules += _fc_rules(f"roi_head.{name}_fc_layers", top, name, fcs, "linear",
+                           not_last(len(fcs)))[0]
+        rules += [(f"roi_head.{name}_pred_layer.weight", "params", (top, f"{name}_out", "kernel"),
+                   "linear"),
+                  (f"roi_head.{name}_pred_layer.bias", "params", (top, f"{name}_out", "bias"),
+                   "copy")]
+    return rules
+
+
 def bridge_rules(model_cfg, class_names, params) -> list:
     """Every (pcdet key, collection, flax path, transform) of the model.
     ``params`` (the flax "params" tree) gives the top-level scope names."""
@@ -183,13 +249,16 @@ def bridge_rules(model_cfg, class_names, params) -> list:
         rules += _anchor_head_rules(head, top("AnchorHeadSingle"))  # every alias's flax scope
     else:
         rules += _center_head_rules(head, top("CenterHead"), list(class_names))
+    if model_cfg.get("ROI_HEAD") is not None:
+        rules += _roi_head_rules(model_cfg["ROI_HEAD"], top("roi_head"))
     return rules
 
 
 def _leaf(tree, path, transform):
     for part in path:
         tree = tree[part]
-    return np.array(_TRANSFORMS[transform](np.asarray(tree, np.float32)), order="C")
+    fn = _TRANSFORMS.get(transform) or _STAT_TRANSFORMS[transform]
+    return np.array(fn(np.asarray(tree, np.float32)), order="C")
 
 
 def state_dict_from_jax(variables, model_cfg, class_names) -> dict:

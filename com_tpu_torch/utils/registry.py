@@ -3,7 +3,7 @@
 The reference looks components up by NAME in per-module ``__all__`` dicts
 (pcdet/datasets/__init__.py:16-24, pcdet/models/detectors/__init__.py:15-29).
 We centralize that pattern in a tiny Registry class so every subsystem
-(datasets, detectors, VFEs, backbones, heads) registers
+(datasets, detectors, VFEs, backbones, dense and RoI heads) registers
 itself with a decorator.
 """
 from __future__ import annotations
@@ -56,3 +56,4 @@ BACKBONES_3D = Registry("backbones_3d")
 MAP_TO_BEV = Registry("map_to_bev")
 BACKBONES_2D = Registry("backbones_2d")
 DENSE_HEADS = Registry("dense_heads")
+ROI_HEADS = Registry("roi_heads")

@@ -951,6 +951,62 @@ def test_voxel_eval_step_matches_cpu(dev, path):
             assert np.abs(a[:, None] - c[None]).max(-1).min(1).max() <= 1e-3
 
 
+@pytest.mark.parametrize("path", ["configs/kitti_models/voxel_rcnn_car.yaml",
+                                  "configs/kitti_models/second_iou.yaml"])
+def test_two_stage_eval_step_matches_cpu(dev, path):
+    """Voxel-RCNN's and SECOND-IoU's eval steps at 64 x 64 x 40 in f32, the
+    RoI heads at full width: card (K2 in the BEV backbone, K4 for the
+    proposals and the final NMS) vs CPU, same weights, scores spread."""
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.train.eval import make_eval_step
+
+    cfg, meta, batch = _voxel_case(path, seed=4)
+    outs = []
+    for d in (dev, "cpu"):
+        net = build_network(cfg.MODEL, meta, device=d, seed=3)
+        with torch.no_grad():
+            net.dense_head.conv_cls.bias.add_(4.0)
+            net.dense_head.conv_box.weight.mul_(0.02)
+        k2, k4 = conv2d.launches, nms.launches
+        outs.append([t.cpu().numpy() for t in make_eval_step(
+            net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=d)(batch)])
+        assert (conv2d.launches - k2, nms.launches - k4) == ((11, 2) if d == dev else (0, 0))
+    (gb, gs, gl, gv), (cb, cs, cl, cv) = outs
+    np.testing.assert_array_equal(gv, cv)
+    assert gv.sum() > 0
+    for i in range(2):
+        a = np.concatenate([gb[i][gv[i]], gs[i][gv[i]][:, None], gl[i][gv[i]][:, None]], -1)
+        c = np.concatenate([cb[i][cv[i]], cs[i][cv[i]][:, None], cl[i][cv[i]][:, None]], -1)
+        assert np.abs(a[:, None] - c[None]).max(-1).min(1).max() <= 1e-3
+
+
+@pytest.mark.parametrize("k", [4096, 1024, 100])
+def test_k4_at_the_proposal_shapes(dev, k):
+    """K4 at the two-stage path's (2, 4096) train and (2, 1024) serving
+    proposals and its (2, 100) final NMS, on the overlaps of clustered
+    rotated boxes in score order (thresholds 0.8 and 0.7): the keep mask
+    exactly as the plain version's."""
+    from com_tpu_torch.ops.iou import boxes_iou_bev
+
+    rng = np.random.RandomState(k)
+    centres = rng.uniform(-40, 40, (2, k // 8 + 1, 2))
+    pick = rng.randint(0, centres.shape[1], (2, k))
+    boxes = np.zeros((2, k, 7), np.float32)
+    boxes[..., :2] = np.take_along_axis(centres, pick[..., None], 1) + rng.normal(0, 0.5, (2, k, 2))
+    boxes[..., 3:6] = [3.9, 1.6, 1.56]
+    boxes[..., 6] = rng.choice([0.0, 1.57], (2, k)) + rng.normal(0, 0.1, (2, k))
+    sb = torch.from_numpy(boxes).to(dev)
+    for thresh in (0.8, 0.7):
+        over = torch.cat([(boxes_iou_bev(sb[i:i + 1], sb[i:i + 1]) > thresh)
+                          for i in range(2)]).contiguous()
+        valid = torch.from_numpy(rng.rand(2, k) < 0.95).to(dev)
+        before = nms.launches
+        got = nms.greedy_suppress(over, valid)
+        assert nms.launches == before + 1
+        want = nms.greedy_suppress_plain(over, valid)
+        assert torch.equal(got, want) and 0 < int(got.sum()) < int(valid.sum())
+
+
 def test_voxel_train_step_matches_cpu(dev):
     """One CenterPoint-voxel COMLoss step (UCL on) at 64 x 64 x 40 in f32,
     norm biases moved by 3: card vs CPU, as the pillar step above."""

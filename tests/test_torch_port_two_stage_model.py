@@ -1,0 +1,167 @@
+"""The port's two-stage detectors against the JAX package on the CPU:
+Voxel-RCNN's and SECOND-IoU's eval steps (every SECOND-IoU SCORE_TYPE),
+the Voxel-RCNN state_dict through the JAX package's pcdet importer, and the
+two-stage names and options that raise.  Setup and narrowing:
+``tests/torch_port_two_stage_setup.py``.  Detections are held to 1e-4
+(f32), the valid slots exactly.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from com_tpu.train.eval import make_eval_step as jax_make_eval_step
+from com_tpu.utils.torch_import import import_torch_state_dict
+from com_tpu_torch.models.detectors import DatasetMeta, build_network
+from com_tpu_torch.parallel import sharding
+from com_tpu_torch.train.eval import make_eval_step
+from com_tpu_torch.train.step import make_train_step, model_input_keys
+from com_tpu_torch.utils.registry import DETECTORS
+from test_torch_port_slice import _match
+from torch_port_two_stage_setup import setup, small_cfg
+
+torch.set_num_threads(2)
+ATOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def voxel_rcnn():
+    return setup("voxel_rcnn", seed=21, dp_ratio=0.3)  # eval: dropout off
+
+
+@pytest.fixture(scope="module")
+def second_iou():
+    return setup("second_iou", seed=22)
+
+
+def check_eval(cfg, jmeta, pmeta, jnet, variables, net, host, min_valid=10):
+    names = list(cfg.CLASS_NAMES)
+    jb, js, jl, jv = (np.asarray(o) for o in jax.jit(
+        jax_make_eval_step(jnet, cfg.MODEL, names, jmeta))(variables, host))
+    boxes, scores, labels, valid = (t.numpy() for t in make_eval_step(
+        net, cfg.MODEL, names, pmeta, device="cpu")(host))
+    assert boxes.shape == jb.shape and labels.dtype == np.int32
+    np.testing.assert_array_equal(valid, jv)
+    assert valid.sum() >= min_valid
+    for i in range(2):
+        rows = lambda b, s, l, v: np.concatenate(  # noqa: E731
+            [b[i][v[i]], s[i][v[i]][:, None], l[i][v[i]][:, None].astype(np.float32)], -1)
+        worst, one_to_one = _match(rows(boxes, scores, labels, valid), rows(jb, js, jl, jv))
+        assert worst <= ATOL and one_to_one, (i, worst)
+    return valid
+
+
+def test_voxel_rcnn_eval_step_matches_jax(voxel_rcnn):
+    cfg, *_, net, _ = voxel_rcnn
+    assert type(net).__name__ == "VoxelRCNN"
+    check_eval(*voxel_rcnn)
+
+
+@pytest.mark.parametrize("score_type", ["iou", "cls", "weighted_iou_cls", "num_pts_iou_cls",
+                                        "score_by_class"])
+def test_second_iou_eval_step_matches_jax(second_iou, score_type):
+    cfg, jmeta, pmeta, jnet, variables, net, host = second_iou
+    post = cfg.MODEL.POST_PROCESSING.NMS_CONFIG
+    post.SCORE_TYPE = score_type
+    post.SCORE_WEIGHTS = {"iou": 0.3, "cls": 0.7}
+    post.SCORE_THRESH = {"cls": 2.0, "iou": 40.0}
+    post.SCORE_BY_CLASS = {"Car": "iou", "Pedestrian": "cls", "Cyclist": "cls"}
+    try:
+        assert ({"points", "points_mask"} <= model_input_keys(cfg.MODEL)) == (
+            score_type == "num_pts_iou_cls")
+        check_eval(*second_iou, min_valid=4)
+    finally:
+        for k in ("SCORE_TYPE", "SCORE_WEIGHTS", "SCORE_THRESH", "SCORE_BY_CLASS"):
+            post.pop(k)
+
+
+def test_voxel_rcnn_state_dict_round_trip_through_jax_importer(voxel_rcnn):
+    """port state_dict -> the JAX package's pcdet importer -> the flax
+    variables the bridge started from: the FC layers under pcdet's names
+    (the norms' running_var read back through the importer's eps
+    compensation), the first stage exactly.  The pool layers keep
+    ``com_tpu``'s folded form, which the importer's fold does not read
+    (it wants pcdet's mlps_in / mlps_pos pair)."""
+    cfg, _, _, _, variables, net, _ = voxel_rcnn
+    sd = {k: v.numpy() for k, v in net.state_dict().items()}
+    assert sd["roi_head.shared_fc_layer.4.weight"].shape == (32, 32)  # past the dropout slot
+    assert sd["roi_head.cls_pred_layer.weight"].shape == (1, 32)
+    new_vars, report = import_torch_state_dict(sd, variables, cfg.MODEL, list(cfg.CLASS_NAMES))
+    pool = sorted(k for k in sd if ".roi_grid_pool_layers." in k
+                  and not k.endswith("num_batches_tracked"))
+    assert not report["mismatch"], report["mismatch"]
+    assert sorted(report["unused"]) == pool
+    assert all(".roi_grid_pool_layers." in k for k in report["missing"])
+    loaded = [k for k in report["loaded"] if k.startswith("roi_head.")]
+    assert len(loaded) == len([k for k in sd if k.startswith("roi_head.")
+                               and ".roi_grid_pool_layers." not in k
+                               and not k.endswith("num_batches_tracked")])
+    flat_new = dict(jax.tree_util.tree_leaves_with_path(new_vars))
+    for path, leaf in jax.tree_util.tree_leaves_with_path(variables):
+        keys = [getattr(p, "key", None) for p in path]
+        if any(str(k).startswith(("pre_", "out_")) for k in keys):
+            continue
+        if keys[-1] == "var" and keys[1] == "roi_head":
+            np.testing.assert_allclose(np.asarray(flat_new[path]), np.asarray(leaf), rtol=0,
+                                       atol=1e-6, err_msg=str(keys))
+        else:
+            np.testing.assert_array_equal(np.asarray(flat_new[path]), np.asarray(leaf),
+                                          err_msg=str(keys))
+
+
+def test_second_iou_head_keeps_pcdet_layout(second_iou):
+    """SECONDHead's FCs as pcdet's Conv1d (O, I, 1), the dropout slot of
+    make_fc_layers after the first IoU block, the output last."""
+    *_, net, _ = second_iou
+    sd = net.state_dict()
+    assert sd["roi_head.shared_fc_layer.0.weight"].shape == (32, 9 * 64, 1)
+    assert sd["roi_head.iou_layers.4.weight"].shape == (32, 32, 1)
+    assert sd["roi_head.iou_layers.7.weight"].shape == (1, 32, 1)
+    assert sd["roi_head.iou_layers.7.bias"].shape == (1,)
+
+
+@pytest.mark.parametrize("name", ["PVRCNN", "PVRCNNPlusPlus", "PartA2Net", "PointRCNN",
+                                  "MPPNet", "MPPNetE2E"])
+def test_unported_two_stage_detectors_raise_by_name(name):
+    with pytest.raises(NotImplementedError, match=name):
+        DETECTORS.get(name)({}, None)
+
+
+def test_unported_two_stage_options_raise_by_name(voxel_rcnn):
+    cfg, _, pmeta, _, _, net, _ = voxel_rcnn
+    names = list(cfg.CLASS_NAMES)
+    centerhead = small_cfg("voxel_rcnn")
+    centerhead.MODEL.DENSE_HEAD.pop("ANCHOR_GENERATOR_CONFIG")
+    centerhead.MODEL.DENSE_HEAD.NAME = "CenterHead"
+    with pytest.raises(NotImplementedError, match="decode_center_proposals"):
+        build_network(centerhead.MODEL, pmeta, device="cpu")
+    pointnet = small_cfg("voxel_rcnn")
+    pointnet.MODEL.ROI_HEAD.ROI_GRID_POOL.PRE_MLP = False
+    with pytest.raises(NotImplementedError, match="PointNetBlock"):
+        build_network(pointnet.MODEL, pmeta, device="cpu")
+    other = small_cfg("voxel_rcnn")
+    other.MODEL.ROI_HEAD.NAME = "PVRCNNHead"
+    with pytest.raises(NotImplementedError, match="PVRCNNHead"):
+        make_train_step(net, other.MODEL, names, pmeta, None, None, device="cpu")
+    with pytest.raises(NotImplementedError, match="SCORE_TYPE"):
+        score = small_cfg("second_iou")
+        score.MODEL.POST_PROCESSING.NMS_CONFIG.SCORE_TYPE = "max"
+        make_eval_step(net, score.MODEL, names, pmeta, device="cpu")
+
+
+def test_two_stage_training_under_a_data_mesh_raises(voxel_rcnn):
+    cfg, _, pmeta, _, _, net, host = voxel_rcnn
+    opt = torch.optim.SGD(net.parameters(), lr=0.0)
+
+    class Mesh:
+        world = 2
+
+    step = make_train_step(net, cfg.MODEL, list(cfg.CLASS_NAMES), pmeta, opt, None,
+                           device="cpu")
+    sharding.activate(Mesh())
+    try:
+        with pytest.raises(NotImplementedError, match="ROI_HEAD under a data mesh"):
+            step.loss_fn(None, host, 0)
+    finally:
+        sharding.activate(None)
+    assert isinstance(pmeta, DatasetMeta)

@@ -201,7 +201,7 @@ def test_dense_and_sorted_lookups_agree(monkeypatch):
     np.testing.assert_array_equal(books[1], books[3])
 
 
-@pytest.mark.parametrize("name", ["inverse_conv3d", "voxel_query", "focal_split_and_spawn"])
+@pytest.mark.parametrize("name", ["inverse_conv3d", "focal_split_and_spawn"])
 def test_unported_engine_functions_raise_by_name(name):
     with pytest.raises(NotImplementedError, match=name):
         getattr(ps, name)()

@@ -45,6 +45,7 @@ REPO = Path(__file__).resolve().parents[1]
 VOXEL_CFG = "configs/waymo_models/com/centerpoint_voxel_comloss.yaml"
 KITTI_SECOND = "configs/kitti_models/second.yaml"
 WAYMO_SECOND = "configs/waymo_models/second.yaml"
+WAYMO_VOXEL_RCNN = "configs/waymo_models/voxel_rcnn.yaml"
 GRID = (64, 64, 40)
 VOXEL_KEYS = ("voxels", "voxel_coords", "voxel_num_points")
 ATOL = 1e-4
@@ -246,15 +247,18 @@ def test_load_params_only_spconv1x_layout(voxel_setup, tmp_path):
         torch.testing.assert_close(v, sd[k], rtol=0, atol=0, msg=k)
 
 
-def test_waymo_second_grid_fails_alike():
+@pytest.mark.parametrize("config", [WAYMO_SECOND, WAYMO_VOXEL_RCNN])
+def test_waymo_second_grid_fails_alike(config):
     """``configs/waymo_models/second.yaml``: the Waymo range at 0.1 m is 1498
     cells, the backbone's stride-2 convs round up (1498 -> 749 -> 375 ->
     188) and the anchors are 1498 // 8 = 187 a side.  At a grid with the same
     remainder mod 8 (58: 29, 15, 8 against 7) both packages fail in the
-    anchor decode; neither crops."""
+    anchor decode; neither crops.  ``waymo_models/voxel_rcnn.yaml`` has the
+    same grid and anchors; its decode feeds the proposal layer inside the
+    model, so both packages fail in the forward."""
     from com_tpu_torch.models.backbone3d import VoxelBackBone8x
 
-    cfg = cfg_from_yaml_file(str(REPO / WAYMO_SECOND))
+    cfg = cfg_from_yaml_file(str(REPO / config))
     pr = cfg.DATA_CONFIG.POINT_CLOUD_RANGE
     full = int(round((pr[3] - pr[0]) / 0.1))
     assert full == 1498 and full % 8 == 58 % 8
@@ -265,14 +269,21 @@ def test_waymo_second_grid_fails_alike():
     pc_range, vsize, grid = (-half, -half, -2.0, half, half, 2.0), (0.5, 0.5, 0.1), (58, 58, 40)
     host, _, _ = scenes(seed=9)
     jnet = jax_build_network(cfg.MODEL, JaxMeta(names, pc_range, vsize, grid, 5))
-    jvars = jax_variables(jnet, host)
+    meta = DatasetMeta(names, pc_range, vsize, grid, 5)
+    net = build_network(cfg.MODEL, meta, device="cpu")
     # 8 x 8 BEV cells x 6 anchors against 7 x 7 x 6, in the box decode of both
+    if "ROI_HEAD" in cfg.MODEL:
+        with pytest.raises(TypeError, match=r"384.*294"):
+            jax.eval_shape(lambda b: jnet.init(jax.random.PRNGKey(0), b, train=False),
+                           {k: jnp.asarray(host[k]) for k in VOXEL_KEYS})
+        with pytest.raises(RuntimeError, match=r"384.*294"):
+            make_eval_step(net, cfg.MODEL, names, meta, device="cpu")(host)
+        return
+    jvars = jax_variables(jnet, host)
     with pytest.raises(TypeError, match=r"384.*294"):
         jax.eval_shape(jax_make_eval_step(jnet, cfg.MODEL, names,
                                           JaxMeta(names, pc_range, vsize, grid, 5)),
                        jvars, {k: jnp.asarray(host[k]) for k in VOXEL_KEYS})
-    meta = DatasetMeta(names, pc_range, vsize, grid, 5)
-    net = build_network(cfg.MODEL, meta, device="cpu")
     with pytest.raises(RuntimeError, match=r"384.*294"):
         make_eval_step(net, cfg.MODEL, names, meta, device="cpu")(host)
 
