@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port's serving and training paths (over its own
 data pipeline, through its train, test and demo CLIs, for the PointPillars
 anchor head, the sparse-voxel detectors and the two-stage Voxel-RCNN and
-SECOND-IoU), its serving artifact
+SECOND-IoU; the KITTI configs from a KITTI tree on disk), its serving artifact
 (export, load and the HTTP server), its data-parallel training and
 evaluation, and its wgrad sweep on one NVIDIA GPU.
 
@@ -178,9 +178,30 @@ Phases (any failure raises, and the script exits non-zero):
    ``torchrun --nproc_per_node 1 ... --multihost`` (NCCL, world 1, 1 epoch
    of 3 steps, a checkpoint).  With two cards I.1 again over NCCL, else a
    line that says it did not run.
-17. Launch counts: every counter is zeroed just before each path (the
-   sweep, serving, A, B, C, D's, E's, F's, G's, J's, K's and H's phases,
-   and in each rank of I) and read just after, against the calls the sweep
+17. Path L, KITTI from disk (``com_tpu_torch/tools/kitti_tree.py``): a
+   KITTI tree written from a seed under ``build/path_l`` (16 train and 8
+   val frames of 120,000 points, a 360 degree sweep with its road plane,
+   10-15 labelled Cars, Pedestrians and Cyclists a frame, the GT database
+   and ``kitti_dbinfos_train.pkl``), each YAML at its own grid and batch 4
+   with ``DATA_CONFIG.DATA_PATH`` set through ``--set``.  L.1:
+   ``kitti_models/pointpillar.yaml`` through the train CLI (1 epoch of 4
+   steps; how many pasted boxes the road plane, read without calib, moved
+   out of the range's z) and the test CLI on the val split (the KITTI AP
+   table, s a frame, ``--infer_time``; the val GT as detections through
+   the same evaluation); L.2: ``second_multihead.yaml`` (AnchorHeadMulti,
+   three-class NMS): a serving batch from the tree, its stages, K4 on its
+   decoded (4, 4096) three-class candidates and two synthetic cases, the
+   batch in f32 on the card against the CPU (plain versions) at
+   NMS_PRE_MAXSIZE ``L_COMPARE_PRE``, K2 / dgrad / K2w at the heads'
+   shared conv (4,200,176,512->64), 2 train steps; L.3: the host
+   loader's rate and each augmentation's ms for ``pointpillar_newaugs`` and
+   ``pointpillar_pyramid_aug``, one train step each; L.4:
+   ``custom_models/second.yaml`` through the test CLI on a custom tree of
+   4 frames (seeded weights, class bias raised), K2 at its 188 x 188 BEV's
+   shapes.  Launch counts per step or forward: K1, K2, K2w and K4.
+18. Launch counts: every counter is zeroed just before each path (the
+   sweep, serving, A, B, C, D's, E's, F's, G's, J's, K's, H's and L's
+   phases, and in each rank of I) and read just after, against the calls the sweep
    reports and the expected counts per
    forward or per step.  The device
    kernels one K3 call issues (1) and one K4 call (2, the pack and the
@@ -272,6 +293,18 @@ EXPECT_J_TRAIN = {"conv3x3": 11, "conv3x3_dgrad": 11, "conv3x3_wgrad": 11, "nms"
 EXPECT_F_SERVING = EXPECT_G_SERVING = {"conv3x3": 11, "nms": 1}
 EXPECT_G_TRAIN = {"conv3x3": 11, "conv3x3_dgrad": 11, "conv3x3_wgrad": 11}
 EXPECT_F_TRAIN = {**EXPECT_G_TRAIN, "stamp_gauss": 1, "stamp_last_wins": 1}
+L_DIR = REPO / "build" / "path_l"  # path L's trees and CLI outputs, removed after the path
+L_SEED, L_TRAIN, L_VAL, L_POINTS, L_CUSTOM = 16, 16, 8, 120000, 4
+L_WORKERS = 4
+L_COMPARE_PRE = 512  # L.2's card-vs-CPU NMS_PRE_MAXSIZE: the CPU's (4, 4096) IoU takes minutes
+MULTIHEAD_CONFIG = "configs/kitti_models/second_multihead.yaml"
+NEWAUGS_CONFIG = "configs/kitti_models/pointpillar_newaugs.yaml"
+PYRAMID_CONFIG = "configs/kitti_models/pointpillar_pyramid_aug.yaml"
+CUSTOM_CONFIG = "configs/custom_models/second.yaml"
+EXPECT_L2_SERVING = {"conv3x3": 12, "nms": 1}  # SECOND's 11 and the shared conv of the heads
+L2_CONV = ((4, 200, 176, 512, 64),)  # the heads' shared conv; the rest are path G's shapes
+L4_CONV = ((4, 188, 188, 256, 128), (4, 188, 188, 128, 128), (4, 94, 94, 256, 256))
+EXPECT_L2_TRAIN = {"conv3x3": 12, "conv3x3_dgrad": 12, "conv3x3_wgrad": 12}
 WGRAD_THS = (8, 16)
 # variant -> (TPU kernel, line of its pallas_call in tools/perf/microbench_wgrad_kernels.py)
 WGRAD_VARIANTS = {"gcol": ("T1", 84), "xcol": ("T2", 128), "gt9": ("T3", 175),
@@ -1080,6 +1113,9 @@ def serve(dev):
 NMS_PARTS = ("decode", "sort_gathers", "iou", "k4", "kept_slots", "rest")
 E_NMS_PARTS = ("decode", "topk", "sort_gathers", "iou", "k4", "kept_slots", "rest")
 NMS_MARKS = ["sort", "iou", "k4", "k4_end", "rest"]  # the marks _mark_nms_steps records
+# multi_class_nms_bev: no _kept_slots, its own top-k after K4 ("rest")
+MULTI_NMS_MARKS = ["topk", "sort", "iou", "k4", "k4_end"]
+MULTI_NMS_PARTS = ("decode", "topk", "sort_gathers", "iou", "k4", "rest")
 
 
 def _mark_nms_steps(mark):
@@ -1158,10 +1194,12 @@ def stage_breakdown(net, step, batch, label, iters=5, smi=""):
             for name, a, b in zip(names, marks, marks[1:]):
                 sums[name] += a.elapsed_time(b) / iters
             labels = [name for name, _ in sub]
-            if labels not in (NMS_MARKS, ["topk", *NMS_MARKS]):
+            part_names = {tuple(NMS_MARKS): NMS_PARTS, ("topk", *NMS_MARKS): E_NMS_PARTS,
+                          tuple(MULTI_NMS_MARKS): MULTI_NMS_PARTS}.get(tuple(labels))
+            if part_names is None:
                 raise AssertionError(f"decode_nms ran its steps as {labels}")
             seq = [marks[-2], *(ev for _, ev in sub), marks[-1]]
-            for name, a, b in zip(NMS_PARTS if labels == NMS_MARKS else E_NMS_PARTS, seq, seq[1:]):
+            for name, a, b in zip(part_names, seq, seq[1:]):
                 parts[name] = parts.get(name, 0.0) + a.elapsed_time(b) / iters
     finally:
         anchor_head.top_candidates = orig_top
@@ -1171,7 +1209,8 @@ def stage_breakdown(net, step, batch, label, iters=5, smi=""):
     sums.pop("gap", None)  # the gaps between slots
     total = sum(sums.values())
     card = f" ({smi})" if smi else ""
-    print(f"{label}stage ms (one eval step, batch {len(next(iter(batch.values())))}, mean of "
+    bs = batch.get("batch_size") or len(next(iter(batch.values())))
+    print(f"{label}stage ms (one eval step, batch {bs}, mean of "
           f"{iters}): "
           f"{json.dumps({k: round(v, 3) for k, v in sums.items()})} total {total:.3f}{card}")
     print(f"{label}decode_nms ms (mean of {iters}): "
@@ -2003,7 +2042,8 @@ def check_e_seg_scan(dev, entries, batch, meta, smi):
 def e_decoded_candidates(net, cfg, meta, batch, dev):
     """What the eval step hands K4 for ``batch``: the boxes the model
     decodes, the top NMS_PRE_MAXSIZE by score (stable), in the NMS's score
-    order, as (over, valid), (B, K, K) and (B, K)."""
+    order, as (over, valid), (B, K, K) and (B, K); with MULTI_CLASSES_NMS
+    the overlaps of two classes masked out, as ``multi_class_nms_bev``."""
     from com_tpu_torch.models.dense_heads.anchor_head import (box_coder_for, build_anchors,
                                                               decode_anchor_boxes,
                                                               top_candidates)
@@ -2017,13 +2057,17 @@ def e_decoded_candidates(net, cfg, meta, batch, dev):
     keys = model_input_keys(cfg.MODEL)
     with torch.no_grad():
         out = net({k: torch.as_tensor(batch[k], device=dev) for k in keys})
-        boxes, scores, _ = decode_anchor_boxes(out, anchors, len(cfg.CLASS_NAMES),
-                                               box_coder_for(head), head)
+        boxes, scores, labels = decode_anchor_boxes(out, anchors, len(cfg.CLASS_NAMES),
+                                                    box_coder_for(head), head)
         top, idx = top_candidates(scores, int(post.NMS_CONFIG.NMS_PRE_MAXSIZE))
         top_bx = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, boxes.shape[-1]))
-        _, sb, sv = nms._sorted(top_bx, top, top > float(post.SCORE_THRESH))
-        over = (nms._self_iou(sb) > float(post.NMS_CONFIG.NMS_THRESH)).contiguous()
-    return over, sv.contiguous()
+        order, sb, sv = nms._sorted(top_bx, top, top > float(post.SCORE_THRESH))
+        over = nms._self_iou(sb) > float(post.NMS_CONFIG.NMS_THRESH)
+        if post.NMS_CONFIG.get("MULTI_CLASSES_NMS", False):
+            sl = torch.gather(torch.gather(labels, 1, idx), 1, order)
+            over = over & (sl[:, :, None] == sl[:, None, :])
+            sv = sv & (sl > 0)
+    return over.contiguous(), sv.contiguous()
 
 
 def path_e_serve(dev, smi, entries, calls):
@@ -3724,6 +3768,338 @@ def path_i(dev, smi, grid=None, points=POINTS, bg_points=120000):
         shutil.rmtree(I_DIR, ignore_errors=True)
 
 
+def l_cfg(config, tree, extra_set=()):
+    """A YAML with ``DATA_CONFIG.DATA_PATH`` at ``tree`` and the ``--set``
+    pairs ``extra_set`` (a rehearsal's cuts), as the CLIs read it."""
+    from com_tpu_torch.utils.config import cfg_from_list, cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file(str(REPO / config))
+    cfg_from_list(["DATA_CONFIG.DATA_PATH", str(tree), *extra_set], cfg)
+    return cfg
+
+
+@contextlib.contextmanager
+def road_plane_tally(pc_range):
+    """Count, for the duration, the pasted boxes the GT sampler lifts onto
+    the road plane: in all, with calib, and those the lift leaves below or
+    above the range's z (``com_tpu``'s lift without calib, a points-only
+    item, reads the rect-frame plane as a lidar one)."""
+    import threading
+
+    from com_tpu_torch.data.augmentor.database_sampler import DataBaseSampler
+
+    orig = DataBaseSampler.put_boxes_on_road_planes
+    tally = {"lifted": 0, "with_calib": 0, "below_range": 0, "above_range": 0}
+    lock = threading.Lock()
+
+    def lift(gt_boxes, road_plane, calib=None):
+        boxes, mv = orig(gt_boxes, road_plane, calib)
+        with lock:
+            tally["lifted"] += len(boxes)
+            tally["with_calib"] += len(boxes) if calib is not None else 0
+            tally["below_range"] += int((boxes[:, 2] < pc_range[2]).sum())
+            tally["above_range"] += int((boxes[:, 2] > pc_range[5]).sum())
+        return boxes, mv
+
+    DataBaseSampler.put_boxes_on_road_planes = staticmethod(lift)
+    try:
+        yield tally
+    finally:
+        DataBaseSampler.put_boxes_on_road_planes = staticmethod(orig)
+
+
+def spread_multihead_scores(net):
+    """``spread_anchor_scores`` for AnchorHeadMulti: each head's class bias
+    +4, its box weights x0.02."""
+    with torch.no_grad():
+        for head in net.dense_head.rpn_heads:
+            head.conv_cls.bias.add_(4.0)
+            head.conv_box.weight.mul_(0.02)
+    return net
+
+
+def l1_pointpillar(dev, smi, tree, extra_set=()):
+    """L.1: ``kitti_models/pointpillar.yaml`` through the train CLI (1 epoch
+    over the tree's train split, batch 4) and the test CLI (val split)."""
+    from com_tpu_torch.data import build_dataloader
+    from com_tpu_torch.tools import test, train
+
+    cfg = l_cfg(KITTI_CONFIG, tree, extra_set)
+    base = ["--cfg_file", str(REPO / KITTI_CONFIG), "--output_dir", str(L_DIR / "out"),
+            "--workers", str(L_WORKERS), "--device", str(dev)]
+    data = ["--set", "DATA_CONFIG.DATA_PATH", str(tree), *extra_set]
+    marks, losses = [], []
+
+    def hook(epoch, it, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        losses.append(metrics["loss"])
+
+    reset_counters()
+    t0 = time.perf_counter()
+    with road_plane_tally(cfg.DATA_CONFIG.POINT_CLOUD_RANGE) as tally:
+        first = train.main(base + ["--epochs", "1", "--seed", str(L_SEED)] + data,
+                           metric_hook=hook)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = first["iterations"]
+    check_launches("L.1 train step (CLI)", read_counters(), EXPECT_E_TRAIN, steps)
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    loss_host = [float(x) for x in losses]
+    ok = steps == L_TRAIN // 4 and np.isfinite(loss_host).all()
+    print(f"path L.1 train CLI (pointpillar.yaml, batch 4, the tree's {L_TRAIN} train frames): "
+          f"{steps} steps, {wall:.2f} s wall (dataset, model and loader included), losses "
+          f"{[round(x, 4) for x in loss_host]}; step ms after the first "
+          f"{[round(x, 3) for x in step_ms]} ({smi}) {'ok' if ok else 'FAIL'}")
+    print(f"  road plane (points-only item, no calib): {json.dumps(tally)} of the pasted boxes "
+          f"(range z {cfg.DATA_CONFIG.POINT_CLOUD_RANGE[2]} .. "
+          f"{cfg.DATA_CONFIG.POINT_CLOUD_RANGE[5]} m)")
+    if not ok or tally["lifted"] == 0:
+        raise AssertionError("path L.1: the train CLI over the KITTI tree failed its checks")
+    ckpt = first["ckpt_dir"] / "checkpoint_epoch_1.pth"
+    del first
+    torch.cuda.empty_cache()
+    reset_counters()
+    (res,) = test.main(base + ["--ckpt", str(ckpt), "--infer_time"] + data)
+    torch.cuda.synchronize()
+    annos = res["det_annos"]
+    check_launches("L.1 eval forward (test CLI)", read_counters(), EXPECT_E_SERVING,
+                   res["infer_batches"] + 1 + -(-len(annos) // 4))
+    ok = (len(annos) == L_VAL and set(res["result"]) == {
+        f"{c}_{m}" for c in cfg.CLASS_NAMES for m in ("bev", "3d")}
+        and all(np.isfinite(a["boxes_lidar"]).all() and (np.diff(a["score"]) <= 0).all()
+                for a in annos))
+    print(f"path L.1 test CLI: {len(annos)} val frames, detections a frame "
+          f"{[len(a['score']) for a in annos]}, {res['sec_per_frame']:.4f} s a frame "
+          f"(eval_model, host clock), --infer_time {res['infer_ms_per_frame']:.3f} ms a frame "
+          f"(median of {res['infer_batches']} batches, synced) ({smi}) {'ok' if ok else 'FAIL'}")
+    print("  KITTI AP (R40) of the 4-step checkpoint:\n    "
+          + res["result_str"].replace("\n", "\n    "))
+    # the same evaluation with the val GT as detections: the evaluator on the tree
+    dataset, _ = build_dataloader(cfg.DATA_CONFIG, list(cfg.CLASS_NAMES), 4, training=False,
+                                  workers=1)
+    gt_annos = []
+    for idx in dataset.sample_ids:
+        gt = dataset.frame_gt_annos(idx)
+        gt_annos.append({"frame_id": idx, "name": gt["name"], "boxes_lidar": gt["gt_boxes_lidar"],
+                         "score": np.ones(len(gt["name"]), np.float32)})
+    gt_str, gt_res = dataset.evaluation(gt_annos, list(cfg.CLASS_NAMES))
+    print("  the val GT as detections, same evaluation:\n    " + gt_str.replace("\n", "\n    "))
+    ok = ok and gt_res["Car_3d"][2] > 50.0
+    if not ok:
+        raise AssertionError("path L.1: the test CLI over the KITTI tree failed its checks")
+
+
+def l2_multihead(dev, smi, tree, entries, calls, extra_set=()):
+    """L.2: ``kitti_models/second_multihead.yaml`` (SECONDNet with
+    AnchorHeadMulti) on the tree: a serving batch (4 val frames), its
+    stages, K4 on its decoded three-class candidates, that batch in f32 on
+    the card against the CPU, K2 / dgrad / K2w at the heads' shared conv, 2
+    train steps.  Returns the launch counts of the serving forward and of
+    the steps."""
+    import copy
+
+    from com_tpu_torch.data import build_dataloader
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.tools.train import dataset_meta
+    from com_tpu_torch.train.eval import make_eval_step
+
+    cfg = l_cfg(MULTIHEAD_CONFIG, tree, extra_set)
+    names = list(cfg.CLASS_NAMES)
+    dataset, loader = build_dataloader(cfg.DATA_CONFIG, names, 4, training=False,
+                                       workers=L_WORKERS)
+    meta = dataset_meta(cfg, dataset)
+    batch = next(iter(loader))
+    net = spread_multihead_scores(build_network(cfg.MODEL, meta, device=dev, seed=0))
+    step = make_eval_step(net, cfg.MODEL, names, meta, device=dev)
+    step(batch)  # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    boxes, scores, labels, valid = (t.cpu().numpy() for t in step(batch))
+    torch.cuda.synchronize()
+    latency = (time.perf_counter() - t0) * 1e3
+    counts = read_counters()
+    thresh = float(cfg.MODEL.POST_PROCESSING.SCORE_THRESH)
+    ok = (bool(valid.any(1).all()) and np.isfinite(boxes[valid]).all()
+          and (scores[valid] >= thresh).all() and set(np.unique(labels[valid])) <= {1, 2, 3})
+    print(f"path L.2 serving (second_multihead.yaml, {meta.grid_size} grid, batch 4 val frames "
+          f"of the tree): latency {latency:.2f} ms (host clock, outputs copied back), "
+          f"detections {valid.sum(1).tolist()}, labels {sorted(set(labels[valid].tolist()))} "
+          f"({smi}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("path L.2 returned malformed detections")
+    check_launches("L.2 serving forward", counts, EXPECT_L2_SERVING, 1)
+    stage_breakdown(net, step, batch, "path L.2 ", iters=3, smi=smi)
+    over, sv = e_decoded_candidates(net, cfg, meta, batch, dev)
+    check_k4_cases(dev, entries, calls, over, sv, smi, ", path L.2 (three-class)", "L2:nms",
+                   iters=20)
+    del net, step, over, sv
+    torch.cuda.empty_cache()
+    check_conv3x3(dev, entries, shapes=L2_CONV, dtypes=(torch.bfloat16,), path="L2:")
+    check_conv3x3_backward(dev, entries, shapes=L2_CONV, wgrad_dtypes=(torch.bfloat16,),
+                           path="L2:")
+    torch.cuda.empty_cache()
+    f32 = copy.deepcopy(cfg)
+    f32.MODEL.MIXED_PRECISION = False
+    f32.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_PRE_MAXSIZE = L_COMPARE_PRE
+    t0 = time.perf_counter()
+    compare_eval_step(dev, f32, meta, batch, f"path L.2 batch in f32 at NMS_PRE_MAXSIZE "
+                      f"{L_COMPARE_PRE}, card vs CPU (plain versions)",
+                      prepare=spread_multihead_scores)
+    print(f"  (the comparison took {time.perf_counter() - t0:.1f} s wall)")
+    torch.cuda.empty_cache()
+    _, train_loader = build_dataloader(cfg.DATA_CONFIG, names, 4, training=True,
+                                       workers=L_WORKERS, seed=L_SEED)
+    batches = [b for _, b in zip(range(2), train_loader)]
+    train_counts, _, _ = run_training(dev, "L.2 (second_multihead, the KITTI tree)", cfg, meta,
+                                      SyntheticLoader(batches, 2), 1, 2, EXPECT_L2_TRAIN,
+                                      counts_confidences=False, smi=smi)
+    return counts, train_counts
+
+
+def timed_queue(augmentor, aug_cfg):
+    """Wrap each step of a DataAugmentor's queue (built from ``aug_cfg``,
+    DATA_AUGMENTOR) to add its seconds to ``times[name]``; returns ``times``."""
+    import threading
+
+    disable = set(aug_cfg.get("DISABLE_AUG_LIST", []))
+    names = [c["NAME"] for c in aug_cfg["AUG_CONFIG_LIST"] if c["NAME"] not in disable]
+    times = {n: [] for n in names}
+    lock = threading.Lock()
+
+    def wrap(name, fn):
+        def timed(data_dict):
+            t0 = time.perf_counter()
+            out = fn(data_dict)
+            with lock:
+                times[name].append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    augmentor.data_augmentor_queue = [wrap(n, f) for n, f in
+                                      zip(names, augmentor.data_augmentor_queue, strict=True)]
+    return times
+
+
+def l3_loaders(dev, smi, tree, extra_set=()):
+    """L.3: the host loader of ``pointpillar_newaugs`` and
+    ``pointpillar_pyramid_aug`` over the tree: scenes/s on one thread
+    (each augmentation's ms) and through the loader's L_WORKERS threads,
+    then one train step each on a batch it made."""
+    from com_tpu_torch.data import build_dataloader
+    from com_tpu_torch.tools.train import dataset_meta
+
+    for config in (NEWAUGS_CONFIG, PYRAMID_CONFIG):
+        cfg = l_cfg(config, tree, extra_set)
+        names = list(cfg.CLASS_NAMES)
+        label = Path(config).stem
+        dataset, loader = build_dataloader(cfg.DATA_CONFIG, names, 4, training=True,
+                                           workers=L_WORKERS, seed=L_SEED)
+        times = timed_queue(dataset.data_augmentor, cfg.DATA_CONFIG.DATA_AUGMENTOR)
+        with road_plane_tally(cfg.DATA_CONFIG.POINT_CLOUD_RANGE) as tally:
+            t0 = time.perf_counter()
+            for i in range(8):
+                dataset[i]
+            one = 8 / (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            batches = [b for _, b in zip(range(2), loader)]
+            threaded = 8 / (time.perf_counter() - t0)
+        ms = {k: round(1e3 * float(np.mean(v)), 3) for k, v in times.items() if v}
+        print(f"path L.3 host loader {label}: {one:.2f} scenes/s on one thread, "
+              f"{threaded:.2f} scenes/s through {L_WORKERS} loader threads (8 scenes, batch 4, "
+              f"host clock); ms a scene a step: {json.dumps(ms)}; road plane {json.dumps(tally)}")
+        meta = dataset_meta(cfg, dataset)
+        run_training(dev, f"L.3 ({label}, one step)", cfg, meta, SyntheticLoader(batches[:1], 1),
+                     1, 1, EXPECT_E_TRAIN, counts_confidences=False, smi=smi)
+        torch.cuda.empty_cache()
+
+
+def l4_custom(dev, smi, root, entries, extra_set=()):
+    """L.4: ``custom_models/second.yaml`` through the test CLI on a custom
+    tree of L_CUSTOM frames, seeded weights with the class bias raised
+    saved as the checkpoint; K2 at its BEV's shapes.  Returns the test
+    CLI's launch counts."""
+    from com_tpu_torch.data import build_dataloader
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.tools import test
+    from com_tpu_torch.tools.kitti_tree import write_custom_tree
+    from com_tpu_torch.tools.train import dataset_meta
+
+    write_custom_tree(root, seed=L_SEED, num_train=0, num_val=L_CUSTOM, num_points=L_POINTS)
+    cfg = l_cfg(CUSTOM_CONFIG, root, extra_set)
+    dataset, _ = build_dataloader(cfg.DATA_CONFIG, list(cfg.CLASS_NAMES), 4, training=False,
+                                  workers=1)
+    net = spread_anchor_scores(build_network(cfg.MODEL, dataset_meta(cfg, dataset), device=dev,
+                                             seed=1))
+    ckpt = L_DIR / "custom_seeded.pth"
+    torch.save({"model_state": net.state_dict()}, ckpt)
+    del net
+    reset_counters()
+    (res,) = test.main(["--cfg_file", str(REPO / CUSTOM_CONFIG), "--output_dir",
+                        str(L_DIR / "out"), "--workers", str(L_WORKERS), "--device", str(dev),
+                        "--ckpt", str(ckpt), "--infer_time", "--set", "DATA_CONFIG.DATA_PATH",
+                        str(root), *extra_set])
+    torch.cuda.synchronize()
+    annos = res["det_annos"]
+    counts = read_counters()
+    check_launches("L.4 eval forward (test CLI)", counts, EXPECT_G_SERVING,
+                   res["infer_batches"] + 1 + -(-len(annos) // 4))
+    ok = (len(annos) == L_CUSTOM and all(len(a["score"]) and np.isfinite(a["boxes_lidar"]).all()
+                                         for a in annos)
+          and "Vehicle AP_bev R40" in res["result_str"])
+    print(f"path L.4 test CLI (custom_models/second.yaml, {L_CUSTOM} frames of {L_POINTS} points): "
+          f"detections a frame {[len(a['score']) for a in annos]}, {res['sec_per_frame']:.4f} s "
+          f"a frame, --infer_time {res['infer_ms_per_frame']:.3f} ms a frame ({smi}) "
+          f"{'ok' if ok else 'FAIL'}")
+    print("  " + res["result_str"].replace("\n", "\n  "))
+    if not ok:
+        raise AssertionError("path L.4: the custom config through the test CLI failed")
+    torch.cuda.empty_cache()
+    check_conv3x3(dev, entries, shapes=L4_CONV, dtypes=(torch.bfloat16,), path="L4:")
+    return counts
+
+
+def path_l(dev, smi, entries, calls, points=L_POINTS, sets=None):
+    """Path L, KITTI from disk: the tree written from L_SEED, then L.1-L.4
+    (see the module docstring).  Returns the launch counts its kernel
+    entries report: L.2's steps (K2, dgrad, K2w) and serving forward (K4),
+    L.4's test CLI (K2).  ``points`` (a scan's size) and ``sets`` ({"L.1":
+    ``--set`` pairs, ...}: cuts of a config's range or voxels) are for
+    rehearsals."""
+    import shutil
+
+    from com_tpu_torch.tools.kitti_tree import write_kitti_tree
+
+    sets = sets or {}
+    shutil.rmtree(L_DIR, ignore_errors=True)
+    L_DIR.mkdir(parents=True)
+    start = time.perf_counter()
+    try:
+        tree = L_DIR / "kitti"
+        t0 = time.perf_counter()
+        info = write_kitti_tree(tree, seed=L_SEED, num_train=L_TRAIN, num_val=L_VAL,
+                                num_points=points)
+        print(f"path L: KITTI tree of {L_TRAIN} train and {L_VAL} val frames of {points} points "
+              f"written in {time.perf_counter() - t0:.1f} s; GT database {json.dumps(info['db'])}")
+        if min(info["db"].values()) < 40 or info["db"]["Car"] < 60:
+            raise AssertionError(f"path L: the GT database is too small: {info['db']}")
+        l1_pointpillar(dev, smi, tree, sets.get("L.1", ()))
+        torch.cuda.empty_cache()
+        serve_counts, train_counts = l2_multihead(dev, smi, tree, entries, calls,
+                                                  sets.get("L.2", ()))
+        torch.cuda.empty_cache()
+        l3_loaders(dev, smi, tree, sets.get("L.3", ()))
+        torch.cuda.empty_cache()
+        custom_counts = l4_custom(dev, smi, L_DIR / "custom", entries, sets.get("L.4", ()))
+        print(f"path L: {time.perf_counter() - start:.1f} s wall in all")
+    finally:
+        shutil.rmtree(L_DIR, ignore_errors=True)
+    return {**{f"L2:{k}": v for k, v in train_counts.items()}, "L2:nms": serve_counts["nms"],
+            "L4:conv3x3": custom_counts["conv3x3"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3778,10 +4154,13 @@ def main():
     path_h(dev, smi)
     torch.cuda.empty_cache()
     path_i(dev, smi)
+    torch.cuda.empty_cache()
+    l_counts = path_l(dev, smi, entries, calls)
     # each kernel's launches on the path that runs it: training path A,
     # serving for K4, path B for K3's last_wins mode, the sweep for T1-T4;
     # paths E, F, G and J's shapes: their training, and their serving for
-    # K4 (path J's train proposals: its training)
+    # K4 (path J's train proposals: its training); path L's shapes: L.2's
+    # steps and serving forward, L.4's test CLI
     counts = {**a_counts, "nms": serve_counts["nms"],
               "stamp_last_wins": b_counts["stamp_last_wins"],
               **{f"wgrad_{v}": sweep_counts[f"wgrad_{v}"] for v in WGRAD_VARIANTS},
@@ -3789,7 +4168,7 @@ def main():
                                             ("G", g_train_counts), ("J", j_train_counts))
                  for k, v in c.items()},
               "E:nms": e_serve_counts["nms"], "G:nms": g_serve_counts["nms"],
-              "J:nms": j_serve_counts["nms"], "J:nms_train": j_train_counts["nms"]}
+              "J:nms": j_serve_counts["nms"], "J:nms_train": j_train_counts["nms"], **l_counts}
     if not profile:
         check_device_kernels(calls)
     for e in entries:

@@ -4,4 +4,6 @@ collate and the prefetching loader, all numpy on the host."""
 from .dataset import DatasetTemplate, build_dataloader  # noqa: F401
 from . import demo_dataset  # noqa: F401  (registers DemoDataset)
 from . import synthetic  # noqa: F401  (registers SyntheticDataset)
+from .custom import custom_dataset  # noqa: F401  (registers CustomDataset)
+from .kitti import kitti_dataset  # noqa: F401  (registers KittiDataset)
 from .waymo import waymo_dataset  # noqa: F401  (registers WaymoDataset)

@@ -3,10 +3,9 @@
 parity).
 
 Builds a list of augmentation callables from the config: ``gt_sampling``
-dispatches to the COM samplers through ``build_gt_sampler``; the world
-transforms keep the COM side arrays aligned (they are per-box and unchanged
-by the geometry).  The local, frustum and pyramid augmentations are not
-ported yet and raise.
+dispatches to the COM samplers through ``build_gt_sampler``; the world,
+local, frustum and pyramid transforms (``transforms.py``) keep the COM side
+arrays aligned (they are per-box and unchanged by the geometry).
 """
 from __future__ import annotations
 
@@ -15,9 +14,7 @@ import numpy as np
 from . import transforms
 from .database_sampler import build_gt_sampler
 
-NOT_PORTED = ("random_local_rotation", "random_local_scaling", "random_local_translation",
-              "random_world_frustum_dropout", "random_local_frustum_dropout",
-              "random_local_sparsify", "random_local_pyramid_aug")
+NOT_PORTED = ()  # every augmentation of com_tpu's DataAugmentor is ported
 
 
 class DataAugmentor:
@@ -38,8 +35,6 @@ class DataAugmentor:
             name = cur_cfg["NAME"]
             if name in disable:
                 continue
-            if name in NOT_PORTED:
-                raise NotImplementedError(f"the augmentation {name} is not ported yet")
             self.data_augmentor_queue.append(getattr(self, name)(config=cur_cfg,
                                                                  db_infos=db_infos))
 
@@ -94,6 +89,83 @@ class DataAugmentor:
             gt, pts = transforms.global_translation(data_dict["gt_boxes"], data_dict["points"],
                                                     std, rng=self.rng)
             data_dict["gt_boxes"], data_dict["points"] = gt, pts
+            return data_dict
+
+        return fn
+
+    def random_local_rotation(self, config=None, **_):
+        def fn(data_dict):
+            rot_range = config["LOCAL_ROT_ANGLE"]
+            if not isinstance(rot_range, (list, tuple)):
+                rot_range = [-rot_range, rot_range]  # reference scalar form
+            data_dict["gt_boxes"], data_dict["points"] = transforms.random_local_rotation(
+                data_dict["gt_boxes"], data_dict["points"], rot_range, rng=self.rng)
+            return data_dict
+
+        return fn
+
+    def random_local_scaling(self, config=None, **_):
+        def fn(data_dict):
+            data_dict["gt_boxes"], data_dict["points"] = transforms.random_local_scaling(
+                data_dict["gt_boxes"], data_dict["points"], config["LOCAL_SCALE_RANGE"],
+                rng=self.rng)
+            return data_dict
+
+        return fn
+
+    def random_local_translation(self, config=None, **_):
+        def fn(data_dict):
+            data_dict["gt_boxes"], data_dict["points"] = transforms.random_local_translation(
+                data_dict["gt_boxes"], data_dict["points"], config["LOCAL_TRANSLATION_RANGE"],
+                config.get("ALONG_AXIS_LIST", ["x", "y"]), rng=self.rng)
+            return data_dict
+
+        return fn
+
+    def random_world_frustum_dropout(self, config=None, **_):
+        def fn(data_dict):
+            data_dict["gt_boxes"], data_dict["points"] = transforms.random_world_frustum_dropout(
+                data_dict["gt_boxes"], data_dict["points"], config["INTENSITY_RANGE"],
+                config.get("DIRECTION", ["top"]), rng=self.rng)
+            return data_dict
+
+        return fn
+
+    def random_local_frustum_dropout(self, config=None, **_):
+        def fn(data_dict):
+            for direction in config.get("DIRECTION", ["top", "bottom", "left", "right"]):
+                data_dict["gt_boxes"], data_dict["points"] = (
+                    transforms.random_local_frustum_dropout(
+                        data_dict["gt_boxes"], data_dict["points"],
+                        config.get("INTENSITY_RANGE", [0.0, 0.2]), direction, rng=self.rng))
+            return data_dict
+
+        return fn
+
+    def random_local_sparsify(self, config=None, **_):
+        def fn(data_dict):
+            data_dict["gt_boxes"], data_dict["points"] = transforms.random_local_sparsify(
+                data_dict["gt_boxes"], data_dict["points"], config.get("DROP_PROB", 0.2),
+                rng=self.rng)
+            return data_dict
+
+        return fn
+
+    def random_local_pyramid_aug(self, config=None, **_):
+        """SE-SSD's pyramid augmentations (data_augmentor.py:253-272): face
+        pyramid dropout -> sparsify -> swap between objects, the pyramid
+        chain threaded through the three (boxes dropped or sparsified leave
+        the swap pool)."""
+        def fn(data_dict):
+            gt, pts = data_dict["gt_boxes"], data_dict["points"]
+            gt, pts, pyramids = transforms.local_pyramid_dropout(
+                gt, pts, config.get("DROP_PROB", 0.25), rng=self.rng)
+            gt, pts, pyramids = transforms.local_pyramid_sparsify(
+                gt, pts, config.get("SPARSIFY_PROB", 0.05), config.get("SPARSIFY_MAX_NUM", 50),
+                pyramids, rng=self.rng)
+            data_dict["gt_boxes"], data_dict["points"] = transforms.local_pyramid_swap(
+                gt, pts, config.get("SWAP_PROB", 0.1), config.get("SWAP_MAX_NUM", 50), pyramids,
+                rng=self.rng)
             return data_dict
 
         return fn

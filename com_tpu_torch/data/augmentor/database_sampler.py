@@ -21,8 +21,9 @@ curriculum feedback: ``train.loop.train_model`` sets the confidences at each
 epoch's end through ``DatasetTemplate.set_confidence_groups``.  The round-
 robin ``pointer``/``indices`` of ``sample_groups`` are shared by every
 loader worker thread, as in ``com_tpu``, so with several workers the draws
-depend on thread timing.  The KITTI image copy-paste (``IMG_AUG_TYPE``) and
-``USE_ROAD_PLANE`` are not ported yet and raise.
+depend on thread timing.  ``USE_ROAD_PLANE`` lifts the pasted boxes and
+their points onto the frame's road plane (``put_boxes_on_road_planes``).
+The KITTI image copy-paste (``IMG_AUG_TYPE``) is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -41,8 +42,6 @@ class DataBaseSampler:
                  db_infos=None, rng=None):
         if sampler_cfg.get("IMG_AUG_TYPE") is not None:
             raise NotImplementedError("the KITTI image copy-paste is not ported yet")
-        if sampler_cfg.get("USE_ROAD_PLANE", False):
-            raise NotImplementedError("USE_ROAD_PLANE is not ported yet")
         self.root_path = Path(root_path) if root_path is not None else None
         self.sampler_cfg = sampler_cfg
         self.class_names = list(class_names)
@@ -124,15 +123,46 @@ class DataBaseSampler:
         pts[:, :3] += info["box3d_lidar"][:3].astype(np.float32)
         return pts
 
+    @staticmethod
+    def put_boxes_on_road_planes(gt_boxes, road_plane, calib=None):
+        """Drop boxes onto the road plane (database_sampler.py:161-178).
+        With a KITTI ``calib`` the plane (a, b, c, d) is in the rect camera
+        frame; without one it is read as a lidar-frame plane a x + b y + c z
+        + d = 0, as ``com_tpu`` does for an item without calib (a KITTI
+        plane read so moves a box tens of metres off the road).  Returns
+        (boxes, mv_height): the new boxes and how far each moved down."""
+        boxes = gt_boxes.copy()
+        a, b, c, d = road_plane
+        if calib is not None:
+            center_cam = calib.lidar_to_rect(boxes[:, 0:3])
+            center_cam[:, 1] = (-d - a * center_cam[:, 0] - c * center_cam[:, 2]) / b
+            road_z = calib.rect_to_lidar(center_cam)[:, 2]
+        else:
+            road_z = (-d - a * boxes[:, 0] - b * boxes[:, 1]) / c
+        mv_height = boxes[:, 2] - boxes[:, 5] / 2 - road_z
+        boxes[:, 2] -= mv_height
+        return boxes, mv_height
+
     def add_sampled_boxes_to_scene(self, data_dict, sampled_boxes, sampled_infos):
         gt_mask = data_dict["gt_boxes_mask"]
         gt_boxes = data_dict["gt_boxes"][gt_mask]
         gt_names = data_dict["gt_names"][gt_mask]
         side = {k: data_dict[k][gt_mask] for k in GT_SIDE_KEYS if k in data_dict}
 
+        mv_height = None
+        if self.sampler_cfg.get("USE_ROAD_PLANE", False) and "road_plane" in data_dict:
+            sampled_boxes, mv_height = self.put_boxes_on_road_planes(
+                sampled_boxes, data_dict["road_plane"], data_dict.get("calib"))
+
         points = data_dict["points"]
         obj_points = [info.get("points", None) if "points" in info else self._load_obj_points(info)
                       for info in sampled_infos]
+        if mv_height is not None:  # each object's points go down with its box
+            for i, p in enumerate(obj_points):
+                if p is not None:
+                    p = p.copy()
+                    p[:, 2] -= mv_height[i]
+                    obj_points[i] = p
         obj_points = [p for p in obj_points if p is not None]
         obj_points = (np.concatenate(obj_points, axis=0) if obj_points
                       else np.zeros((0, points.shape[1]), np.float32))

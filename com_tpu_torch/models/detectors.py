@@ -257,9 +257,9 @@ def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
     net's device): convs, sparse convs and linears uniform in
     +-1/sqrt(fan_in) (PyTorch's default bound; a sparse conv's fan-in is
     taps x Cin), their biases the same, norms at identity, and the
-    heatmap's final bias and the anchor head's class bias at their init
+    heatmap's final bias and the anchor heads' class biases at their init
     values (the latter the prior -log((1 - 0.01) / 0.01), as flax's)."""
-    from .dense_heads.anchor_head import CLS_BIAS_INIT, AnchorHeadSingle
+    from .dense_heads.anchor_head import CLS_BIAS_INIT, AnchorHeadSingle, SingleHead
     from .dense_heads.center_head import SeparateHead
 
     def draw(t, bound):
@@ -286,7 +286,7 @@ def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
         for mod in net.modules():
             if isinstance(mod, SeparateHead) and "hm" in mod.names:
                 mod.hm[-1].bias.fill_(mod.init_bias)
-            elif isinstance(mod, AnchorHeadSingle):
+            elif isinstance(mod, (AnchorHeadSingle, SingleHead)):
                 mod.conv_cls.bias.fill_(CLS_BIAS_INIT)
     return net
 

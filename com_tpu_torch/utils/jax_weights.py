@@ -18,6 +18,7 @@ so it takes the transposed-conv layout too.  Covers the CenterPoint-Pillar,
 PointPillar, CenterPoint-voxel, SECOND, Voxel-RCNN and SECOND-IoU slots:
 DynamicPillarVFE, VoxelBackBone8x and VoxelResBackBone8x, BaseBEVBackbone,
 CenterHead, AnchorHeadSingle (its 1x1 convs, plain conv layout),
+AnchorHeadMulti (its shared and middle ConvBNReLUs and 1x1 convs),
 VoxelRCNNHead and SECONDHead (flax Dense (in, out) -> Linear, or Conv1d
 (out, in, 1) for SECONDHead; their FC norms' running_var shifted by
 1e-3 - 1e-5, ``models/layers.py`` ``BatchNorm1d``).  For comparing a train
@@ -167,6 +168,38 @@ def _anchor_head_rules(cfg, top):
                          (f"dense_head.{name}.bias", "params", (top, name, "bias"), "copy"))]
 
 
+def _anchor_multi_rules(cfg, top):
+    """AnchorHeadMulti: ``shared_conv`` <- shared_conv; per head i
+    ``rpn_heads.{i}.conv_mid.{j}`` <- h{i}_mid{j} (ConvBNReLUs),
+    ``conv_cls`` <- h{i}_cls, ``conv_box`` <- h{i}_box or, with
+    SEPARATE_REG_CONFIG, ``conv_box.conv_{name}`` <- h{i}_reg_{name},
+    ``conv_dir_cls`` <- h{i}_dir (1x1 convs with bias)."""
+    def conv_bn(tkey, scope):
+        return ([(f"{tkey}.0.weight", "params", (top, scope, "Conv_0", "kernel"), "conv2d")]
+                + _bn(f"{tkey}.1", (top, scope, "BatchNorm_0")))
+
+    def conv(tkey, scope):
+        return [(f"{tkey}.weight", "params", (top, scope, "kernel"), "conv2d"),
+                (f"{tkey}.bias", "params", (top, scope, "bias"), "copy")]
+
+    sep = cfg.get("SEPARATE_REG_CONFIG")
+    rules = conv_bn("dense_head.shared_conv", "shared_conv")
+    for i in range(len(cfg["RPN_HEAD_CFGS"])):
+        t = f"dense_head.rpn_heads.{i}"
+        for j in range(int(sep.get("NUM_MIDDLE_CONV", 0)) if sep else 0):
+            rules += conv_bn(f"{t}.conv_mid.{j}", f"h{i}_mid{j}")
+        rules += conv(f"{t}.conv_cls", f"h{i}_cls")
+        if sep:
+            for reg in sep["REG_LIST"]:
+                name = reg.split(":")[0]
+                rules += conv(f"{t}.conv_box.conv_{name}", f"h{i}_reg_{name}")
+        else:
+            rules += conv(f"{t}.conv_box", f"h{i}_box")
+        if cfg.get("USE_DIRECTION_CLASSIFIER", False):
+            rules += conv(f"{t}.conv_dir_cls", f"h{i}_dir")
+    return rules
+
+
 def _fc_rules(tkey, top, name, fcs, transform, slot_after):
     """A pcdet FC Sequential ``tkey.{seq}`` <- ``{name}_fc_{i}`` and
     ``{name}_bn_{i}`` (the norm's variance shifted), seq stepping past
@@ -245,7 +278,9 @@ def bridge_rules(model_cfg, class_names, params) -> list:
     if model_cfg.get("BACKBONE_2D") is not None:
         rules += _backbone_rules(model_cfg["BACKBONE_2D"], top("BaseBEVBackbone"))
     head = model_cfg["DENSE_HEAD"]
-    if "ANCHOR_GENERATOR_CONFIG" in head:
+    if head.get("NAME") == "AnchorHeadMulti":
+        rules += _anchor_multi_rules(head, top("AnchorHeadMulti"))
+    elif "ANCHOR_GENERATOR_CONFIG" in head:
         rules += _anchor_head_rules(head, top("AnchorHeadSingle"))  # every alias's flax scope
     else:
         rules += _center_head_rules(head, top("CenterHead"), list(class_names))

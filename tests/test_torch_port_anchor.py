@@ -287,10 +287,15 @@ def jax_variables(cfg, meta, host, seed):
 # what raises
 
 def test_unported_anchor_pieces_raise_by_name():
-    with pytest.raises(NotImplementedError, match="AnchorHeadMulti"):
-        from com_tpu_torch.utils.registry import DENSE_HEADS
+    """ATSS raises by name; ``AnchorHeadMulti``, which raised until it was
+    ported, builds (``test_torch_port_kitti_model.py`` holds it to flax)."""
+    from com_tpu_torch.models.dense_heads.anchor_head import AnchorHeadMulti
+    from com_tpu_torch.utils.registry import DENSE_HEADS
 
-        DENSE_HEADS.get("AnchorHeadMulti")({}, 64, 3, ("a", "b", "c"))
+    cfg = load("configs/kitti_models/second_multihead.yaml").MODEL.DENSE_HEAD
+    assert isinstance(DENSE_HEADS.get("AnchorHeadMulti")(cfg, 64, 3, ("Car", "Pedestrian",
+                                                                      "Cyclist")),
+                      AnchorHeadMulti)
     with pytest.raises(NotImplementedError, match="ATSSTargetAssigner"):
         passign.atss_assign_targets(torch.zeros(4, 7), torch.zeros(1, 2, 8), topk=9,
                                     box_coder=ResidualCoder())

@@ -1,17 +1,22 @@
 """The port's two-stage detectors against the JAX package on the CPU:
 Voxel-RCNN's and SECOND-IoU's eval steps (every SECOND-IoU SCORE_TYPE),
+the top-k proposals taken without NMS (TRAIN_PRE / TEST_PRE),
 the Voxel-RCNN state_dict through the JAX package's pcdet importer, and the
 two-stage names and options that raise.  Setup and narrowing:
 ``tests/torch_port_two_stage_setup.py``.  Detections are held to 1e-4
 (f32), the valid slots exactly.
 """
+import copy
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from com_tpu.train.eval import make_eval_step as jax_make_eval_step
 from com_tpu.utils.torch_import import import_torch_state_dict
+from com_tpu_torch.models.dense_heads.anchor_head import decode_anchor_boxes
 from com_tpu_torch.models.detectors import DatasetMeta, build_network
 from com_tpu_torch.parallel import sharding
 from com_tpu_torch.train.eval import make_eval_step
@@ -73,6 +78,40 @@ def test_second_iou_eval_step_matches_jax(second_iou, score_type):
     finally:
         for k in ("SCORE_TYPE", "SCORE_WEIGHTS", "SCORE_THRESH", "SCORE_BY_CLASS"):
             post.pop(k)
+
+
+def test_top_k_proposals_without_nms_match_jax(voxel_rcnn):
+    """An RoI ``NMS_CONFIG`` without NMS_THRESH takes the top TEST_PRE /
+    TRAIN_PRE decoded anchors as proposals, no NMS
+    (``TwoStageDetector._proposals``; no shipped config selects it): the
+    eval step equals JAX's at TEST_PRE 64; in training the proposals are the
+    top TRAIN_PRE 48 scores, ties to the lower index, as ``lax.top_k``."""
+    cfg, jmeta, pmeta, jnet, variables, net, host = voxel_rcnn
+    roi = cfg.MODEL.ROI_HEAD
+    saved = roi.NMS_CONFIG
+    roi.NMS_CONFIG = {"TRAIN": {"TRAIN_PRE": 48}, "TEST": {"TEST_PRE": 64}}
+    try:
+        valid = check_eval(*voxel_rcnn)
+        assert valid.sum(1).max() <= 100
+        inputs = {k: torch.from_numpy(np.array(host[k]))
+                  for k in model_input_keys(cfg.MODEL)}
+        train_net = copy.deepcopy(net).train()  # batch statistics: the fixture's net stays
+        with torch.no_grad():
+            out = super(type(train_net), train_net).forward(dict(inputs))
+            rois, roi_scores, roi_labels, roi_valid = train_net._proposals(out)
+    finally:
+        roi.NMS_CONFIG = saved
+    assert rois.shape == (2, 48, 7) and bool(roi_valid.all())
+    head_cfg = cfg.MODEL.DENSE_HEAD
+    boxes, scores, labels = decode_anchor_boxes(
+        out, train_net.anchors, len(cfg.CLASS_NAMES), train_net.box_coder,
+        dir_cfg=head_cfg if head_cfg.get("USE_DIRECTION_CLASSIFIER") else None)
+    top, idx = jax.lax.top_k(jnp.asarray(scores.numpy()), 48)
+    np.testing.assert_array_equal(roi_scores.numpy(), np.asarray(top))
+    idx = torch.from_numpy(np.asarray(idx).astype(np.int64))
+    np.testing.assert_array_equal(rois.numpy(), torch.gather(
+        boxes, 1, idx[..., None].expand(-1, -1, 7)).numpy())
+    np.testing.assert_array_equal(roi_labels.numpy(), torch.gather(labels, 1, idx).numpy())
 
 
 def test_voxel_rcnn_state_dict_round_trip_through_jax_importer(voxel_rcnn):

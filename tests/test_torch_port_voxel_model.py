@@ -46,6 +46,7 @@ VOXEL_CFG = "configs/waymo_models/com/centerpoint_voxel_comloss.yaml"
 KITTI_SECOND = "configs/kitti_models/second.yaml"
 WAYMO_SECOND = "configs/waymo_models/second.yaml"
 WAYMO_VOXEL_RCNN = "configs/waymo_models/voxel_rcnn.yaml"
+WAYMO_SECOND_IOU = "configs/waymo_models/second_iou.yaml"
 GRID = (64, 64, 40)
 VOXEL_KEYS = ("voxels", "voxel_coords", "voxel_num_points")
 ATOL = 1e-4
@@ -247,15 +248,16 @@ def test_load_params_only_spconv1x_layout(voxel_setup, tmp_path):
         torch.testing.assert_close(v, sd[k], rtol=0, atol=0, msg=k)
 
 
-@pytest.mark.parametrize("config", [WAYMO_SECOND, WAYMO_VOXEL_RCNN])
+@pytest.mark.parametrize("config", [WAYMO_SECOND, WAYMO_VOXEL_RCNN, WAYMO_SECOND_IOU])
 def test_waymo_second_grid_fails_alike(config):
     """``configs/waymo_models/second.yaml``: the Waymo range at 0.1 m is 1498
     cells, the backbone's stride-2 convs round up (1498 -> 749 -> 375 ->
     188) and the anchors are 1498 // 8 = 187 a side.  At a grid with the same
     remainder mod 8 (58: 29, 15, 8 against 7) both packages fail in the
-    anchor decode; neither crops.  ``waymo_models/voxel_rcnn.yaml`` has the
-    same grid and anchors; its decode feeds the proposal layer inside the
-    model, so both packages fail in the forward."""
+    anchor decode; neither crops.  ``waymo_models/voxel_rcnn.yaml`` and
+    ``second_iou.yaml`` have the same grid and anchors; their decode feeds
+    the proposal layer inside the model, so both packages fail in the
+    forward."""
     from com_tpu_torch.models.backbone3d import VoxelBackBone8x
 
     cfg = cfg_from_yaml_file(str(REPO / config))
