@@ -1,9 +1,9 @@
 """Drive the PyTorch/CUDA port's serving and training paths (over its own
 data pipeline, through its train, test and demo CLIs, for the PointPillars
-anchor head, the sparse-voxel detectors and the two-stage Voxel-RCNN and
-SECOND-IoU; the KITTI configs from a KITTI tree on disk), its serving artifact
-(export, load and the HTTP server), its data-parallel training and
-evaluation, and its wgrad sweep on one NVIDIA GPU.
+anchor head, the sparse-voxel detectors, the two-stage Voxel-RCNN and
+SECOND-IoU, and PV-RCNN; the KITTI configs from a KITTI tree on disk), its
+serving artifact (export, load and the HTTP server), its data-parallel
+training and evaluation, and its wgrad sweep on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -199,8 +199,33 @@ Phases (any failure raises, and the script exits non-zero):
    ``custom_models/second.yaml`` through the test CLI on a custom tree of
    4 frames (seeded weights, class bias raised), K2 at its 188 x 188 BEV's
    shapes.  Launch counts per step or forward: K1, K2, K2w and K4.
-18. Launch counts: every counter is zeroed just before each path (the
-   sweep, serving, A, B, C, D's, E's, F's, G's, J's, K's, H's and L's
+18. Path M, PV-RCNN (``configs/kitti_models/pv_rcnn.yaml``: path G's
+   first stage, ``VoxelSetAbstraction``'s 4,096 FPS keypoints over the raw
+   points, x_conv3, x_conv4 and the BEV map, ``PointHeadSimple``, the top
+   1,024 anchors as proposals, 100 RoIs in serving and 128 sampled in
+   training, ``PVRCNNHead``'s ball query of the keypoints at each RoI's
+   6^3 grid points) at full width, batch 4 of ~20,000 KITTI-like points
+   in 32,768 slots, scores spread as path E's.  M.1: the 64 x 64 x 40 f32
+   eval step, card against CPU, with the FPS and every ball query's
+   indices equal (the first difference named); three serving batches
+   (latency, peak memory, launches: K2 11, K4 1 a forward) and the eval
+   step's stages (the PFE split into FPS, each source's query and block,
+   the BEV interpolation and the fusion; the RoI head into the grid's
+   query, its PointNet and the FCs); K4 on the final NMS's (4, 100)
+   candidates and two synthetic cases; K2, dgrad and K2w at path G's
+   shapes.  M.2: 2 train steps whose GT follow the model's own proposals
+   (every loss term finite, ``point_loss_cls`` among them; foreground
+   RoIs; K2, dgrad and K2w 11 each a step), their stages and peak memory.
+   M.3: ``pv_rcnn.yaml`` through the train CLI (1 epoch of 4 steps) and
+   the test CLI (KITTI AP, ``--infer_time``) over a KITTI tree as path
+   L's.  M.4: ``custom_models/pv_rcnn.yaml`` (1504 x 1504 x 40, 131,072
+   points a scene) through the test CLI, peak memory printed.  M.5:
+   PV-RCNN++'s modules at ``waymo_models/pv_rcnn_plusplus.yaml``'s widths
+   (SPC ``VoxelSetAbstraction`` over 6 sectors around 128 RoIs a scene,
+   ``PVRCNNPlusPlusHead``'s two vector-pool groups) on 2 Waymo-like scenes,
+   timed, scene 0 card against CPU in f32.
+19. Launch counts: every counter is zeroed just before each path (the
+   sweep, serving, A, B, C, D's, E's, F's, G's, J's, K's, H's, L's and M's
    phases, and in each rank of I) and read just after, against the calls the sweep
    reports and the expected counts per
    forward or per step.  The device
@@ -305,6 +330,19 @@ EXPECT_L2_SERVING = {"conv3x3": 12, "nms": 1}  # SECOND's 11 and the shared conv
 L2_CONV = ((4, 200, 176, 512, 64),)  # the heads' shared conv; the rest are path G's shapes
 L4_CONV = ((4, 188, 188, 256, 128), (4, 188, 188, 128, 128), (4, 94, 94, 256, 256))
 EXPECT_L2_TRAIN = {"conv3x3": 12, "conv3x3_dgrad": 12, "conv3x3_wgrad": 12}
+# path M: PV-RCNN on KITTI (its proposals are the top TEST_PRE / TRAIN_PRE
+# anchors, no NMS: K4 runs in the final NMS alone), PV-RCNN++'s modules
+PV_RCNN_CONFIG = "configs/kitti_models/pv_rcnn.yaml"
+CUSTOM_PV_RCNN_CONFIG = "configs/custom_models/pv_rcnn.yaml"
+PVRCNN_PP_CONFIG = "configs/waymo_models/pv_rcnn_plusplus.yaml"
+M_DIR = REPO / "build" / "path_m"  # path M's trees and CLI outputs, removed after the path
+M_BATCH = 4  # the YAML's BATCH_SIZE_PER_GPU
+M4_POINTS = 160000  # a custom frame's points: past the 131,072 the collate keeps
+M5_BATCH, M5_POINTS, M5_ROIS = 2, 65536, 128
+M_TERMS = ("rpn_loss_cls", "rpn_loss_loc", "rpn_loss_dir", "rcnn_loss_cls", "rcnn_loss_reg",
+           "point_loss_cls")
+EXPECT_M_SERVING = {"conv3x3": 11, "nms": 1}
+EXPECT_M_TRAIN = {"conv3x3": 11, "conv3x3_dgrad": 11, "conv3x3_wgrad": 11}
 WGRAD_THS = (8, 16)
 # variant -> (TPU kernel, line of its pallas_call in tools/perf/microbench_wgrad_kernels.py)
 WGRAD_VARIANTS = {"gcol": ("T1", 84), "xcol": ("T2", 128), "gt9": ("T3", 175),
@@ -2632,15 +2670,22 @@ def two_stage_marks(net, mark):
     ``nms_bev``'s sort and gathers, self-IoU, K4, kept slots and rest), the
     RoI head ("roi_head": grid points or the rotated sampling; Voxel-RCNN's
     "voxel_query" and "pool" a scale; "fcs"), then the final NMS's steps
-    ("final.*").  Returns the function that removes them."""
+    ("final.*"); with PV-RCNN's point stages (the "pfe" and "point_head"
+    slots) also ``_mark_point_steps``'s.  Returns the function that removes
+    them."""
     from com_tpu_torch.models.roi_heads import voxelrcnn_head
 
     phase = ["proposal"]
     hooks = []
-    for s in ("vfe", "backbone_3d", "map_to_bev", "backbone_2d", "dense_head"):
+    for s in ("vfe", "backbone_3d", "map_to_bev", "pfe", "backbone_2d", "dense_head",
+              "point_head"):
         if getattr(net, s, None) is not None:
-            hooks.append(getattr(net, s).register_forward_pre_hook(lambda *_, s=s: mark(s)))
+            # the PFE opens with its keypoint sampling
+            name = "pfe.fps" if s == "pfe" else s
+            hooks.append(getattr(net, s).register_forward_pre_hook(
+                lambda *_, name=name: mark(name)))
             hooks.append(getattr(net, s).register_forward_hook(lambda *_: mark("gap")))
+    undo_points = _mark_point_steps(net, mark) if getattr(net, "pfe", None) is not None else None
     hooks.append(net.roi_head.register_forward_pre_hook(lambda *_: mark("roi_head")))
     # the stack runs layer by layer (fc.run_stack): its first layer opens the FCs
     hooks.append(net.roi_head.shared_fc_layer[0].register_forward_pre_hook(
@@ -2677,6 +2722,8 @@ def two_stage_marks(net, mark):
 
     def undo():
         undo_nms()
+        if undo_points is not None:
+            undo_points()
         voxelrcnn_head.batched_voxel_query = orig_query
         if wrapped:
             net._proposals = orig_proposals
@@ -2780,9 +2827,10 @@ def check_small_two_stage_reference(dev, config, label):
 
 def check_two_stage_serving(dev, label, cfg, meta, batches, expect, smi):
     """Seeded weights, scores spread, through ``make_eval_step``: each batch's
-    latency (host clock, outputs copied back), peak memory, launches;
-    finite boxes, a valid detection a scene at least, scores over the
-    threshold, labels in range.  Returns (net, step, counts)."""
+    latency (host clock, outputs copied back), peak memory, launches; as
+    many slots as the final NMS gives (the lesser of NMS_POST_MAXSIZE and
+    the RoIs), finite boxes, a valid detection a scene at least, scores
+    over the threshold, labels in range.  Returns (net, step, counts)."""
     from com_tpu_torch.models.detectors import build_network
     from com_tpu_torch.train.eval import make_eval_step
 
@@ -2790,7 +2838,12 @@ def check_two_stage_serving(dev, label, cfg, meta, batches, expect, smi):
     thresh = float(post.SCORE_THRESH)
     net = spread_anchor_scores(build_network(cfg.MODEL, meta, device=dev, seed=0))
     step = make_eval_step(net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=dev)
+    rois = []
+    hook = net.roi_head.register_forward_pre_hook(lambda m, args: rois.append(
+        args[0]["rois"].shape[1]))
     step(batches[0])  # warm-up
+    hook.remove()
+    slots = min(int(post.NMS_CONFIG.NMS_POST_MAXSIZE), rois[0])  # the NMS's output slots
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counters()
@@ -2807,7 +2860,7 @@ def check_two_stage_serving(dev, label, cfg, meta, batches, expect, smi):
           f"{[round(x, 2) for x in latencies]}, max_memory_allocated {peak / 2**30:.2f} GiB "
           f"({smi})")
     for i, (boxes, scores, labels, valid) in enumerate(outs):
-        ok = (boxes.shape[1] == int(post.NMS_CONFIG.NMS_POST_MAXSIZE)
+        ok = (boxes.shape[1] == slots
               and bool(valid.any(1).all()) and np.isfinite(boxes[valid]).all()
               and (scores[valid] > thresh).all() and np.isin(labels[valid], labels_ok).all())
         print(f"  batch {i}: {valid.sum(1).tolist()} detections, finite boxes, scores > "
@@ -4100,6 +4153,395 @@ def path_l(dev, smi, entries, calls, points=L_POINTS, sets=None):
             "L4:conv3x3": custom_counts["conv3x3"]}
 
 
+def _mark_point_steps(net, mark):
+    """Marks inside PV-RCNN's point stages, for ``two_stage_marks``: the
+    PFE's BEV interpolation ("pfe.bev"), each source's ball query and
+    grouping ("pfe.<source>.query") and its PointNet block
+    ("pfe.<source>.block"), the fusion ("pfe.fusion"); PVRCNNHead's grid
+    ball query ("roi.grid_query") and grid PointNet ("roi.grid_pointnet").
+    The PFE's own pre-hook opens "pfe.fps" (the keypoint sampling).
+    Returns the function that removes them."""
+    from com_tpu_torch.ops import pointnet2
+
+    pfe, head = net.pfe, net.roi_head
+    queue, hooks = [], []
+    sources = (["raw_points"] if pfe.SA_rawpoints is not None else []) + list(pfe.conv_sources)
+    hooks.append(pfe.register_forward_pre_hook(
+        lambda *_: queue.extend(f"pfe.{s}.query" for s in sources)))
+    blocks = list(zip(sources, ([pfe.SA_rawpoints] if pfe.SA_rawpoints is not None else [])
+                      + list(pfe.SA_layers)))
+    for s, blk in blocks:
+        hooks.append(blk.register_forward_pre_hook(lambda *_, s=s: mark(f"pfe.{s}.block")))
+    hooks.append(pfe.vsa_point_feature_fusion[0].register_forward_pre_hook(
+        lambda *_: mark("pfe.fusion")))
+    if hasattr(head, "roi_grid_pool_layer"):
+        hooks.append(head.register_forward_pre_hook(lambda *_: queue.append("roi.grid_query")))
+        hooks.append(head.roi_grid_pool_layer.register_forward_pre_hook(
+            lambda *_: mark("roi.grid_pointnet")))
+    orig_interp, orig_group = pfe.interpolate_bev, pointnet2.query_and_group
+
+    def interp(*args, **kw):
+        mark("pfe.bev")
+        return orig_interp(*args, **kw)
+
+    def group(*args, **kw):
+        mark(queue.pop(0) if queue else "query")
+        return orig_group(*args, **kw)
+
+    pfe.interpolate_bev, pointnet2.query_and_group = interp, group
+
+    def undo():
+        pointnet2.query_and_group = orig_group
+        del pfe.interpolate_bev
+        for h in hooks:
+            h.remove()
+
+    return undo
+
+
+def check_small_pvrcnn_reference(dev):
+    """``kitti_models/pv_rcnn.yaml`` at full width (4,096 keypoints, the 6^3
+    grid), f32, over path J's 64 x 64 x 40 grid (2 scenes of 4,096 points),
+    scores spread: the eval step on the card against the CPU; the FPS
+    indices and every ball query's indices exactly (the first difference
+    named), the detections as path J's."""
+    from com_tpu_torch.models.detectors import DatasetMeta, build_network
+    from com_tpu_torch.ops import pointnet2
+    from com_tpu_torch.train.eval import make_eval_step
+
+    cfg, _, proc = load_voxel(PV_RCNN_CONFIG)
+    meta = DatasetMeta(cfg.CLASS_NAMES, (-16.0, -16.0, -2.0, 16.0, 16.0, 2.0), (0.5, 0.5, 0.1),
+                       (64, 64, 40), E_FEATS)
+    proc.MAX_NUMBER_OF_VOXELS = {"train": 2048, "test": 2048}
+    cfg.MODEL.MIXED_PRECISION = False
+    cfg.MODEL.BACKBONE_3D.VOXEL_CAPS = [2048, 1024, 512, 256]
+    rng = np.random.RandomState(46)
+    pts = np.concatenate([rng.uniform(-15, 15, (2, 4096, 2)), rng.uniform(-1.4, 1.4, (2, 4096, 1)),
+                          rng.rand(2, 4096, 1)], -1).astype(np.float32)
+    mask = rng.rand(2, 4096) < 0.95
+    batch = voxelize_batch({"points": pts, "points_mask": mask}, meta, proc, "test")
+    orig_fps, orig_query = pointnet2.farthest_point_sample, pointnet2.ball_query
+    record = []
+
+    def fps(*args, **kw):
+        out = orig_fps(*args, **kw)
+        record.append(("FPS", out.cpu()))
+        return out
+
+    def query(*args, **kw):
+        out = orig_query(*args, **kw)
+        record.append((f"ball query r={args[0]}", out[0].cpu()))
+        return out
+
+    outs, records = [], []
+    pointnet2.farthest_point_sample, pointnet2.ball_query = fps, query
+    try:
+        for d in (dev, "cpu"):
+            record.clear()
+            net = spread_anchor_scores(build_network(cfg.MODEL, meta, device=d, seed=7))
+            step = make_eval_step(net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=d)
+            outs.append([t.cpu().numpy() for t in step(batch)])
+            records.append(list(record))
+    finally:
+        pointnet2.farthest_point_sample, pointnet2.ball_query = orig_fps, orig_query
+    label = "path M small reference (PV-RCNN 64x64x40 f32, card vs CPU)"
+    names = [n for n, _ in records[1]]
+    if [n for n, _ in records[0]] != names:
+        raise AssertionError(f"{label}: the card ran {[n for n, _ in records[0]]}, the CPU {names}")
+    for (name, a), (_, b) in zip(*records):
+        diff = (a != b).nonzero()
+        if len(diff):
+            raise AssertionError(f"{label}: {name} indices differ first at (scene, row"
+                                 f"{', slot' if a.dim() == 3 else ''}) {diff[0].tolist()}: "
+                                 f"card {a[tuple(diff[0])].item()}, CPU {b[tuple(diff[0])].item()}")
+    print(f"{label}: indices equal in {', '.join(f'{n} {tuple(a.shape)}' for n, a in records[1])}")
+    check_detections(label, *outs)
+
+
+def m3_clis(dev, smi, tree, extra_set=()):
+    """M.3: ``kitti_models/pv_rcnn.yaml`` through the train CLI (1 epoch of
+    4 steps over the tree's train split, batch 4) and the test CLI (val
+    split, KITTI AP, ``--infer_time``)."""
+    from com_tpu_torch.tools import test, train
+
+    cfg = l_cfg(PV_RCNN_CONFIG, tree, extra_set)
+    base = ["--cfg_file", str(REPO / PV_RCNN_CONFIG), "--output_dir", str(M_DIR / "out"),
+            "--workers", str(L_WORKERS), "--device", str(dev)]
+    data = ["--set", "DATA_CONFIG.DATA_PATH", str(tree), *extra_set]
+    marks, rows = [], []
+
+    def hook(epoch, it, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        rows.append(torch.stack([metrics[k].float() for k in ("loss",) + M_TERMS]))
+
+    reset_counters()
+    t0 = time.perf_counter()
+    first = train.main(base + ["--epochs", "1", "--seed", str(L_SEED)] + data, metric_hook=hook)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = first["iterations"]
+    check_launches("M.3 train step (CLI)", read_counters(), EXPECT_M_TRAIN, steps)
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    rows = torch.stack(rows).cpu().numpy()
+    ok = steps == L_TRAIN // 4 and bool(np.isfinite(rows).all())
+    print(f"path M.3 train CLI (pv_rcnn.yaml, batch 4, the tree's {L_TRAIN} train frames): "
+          f"{steps} steps, {wall:.2f} s wall (dataset, model and loader included); step ms "
+          f"after the first {[round(x, 3) for x in step_ms]} ({smi}) {'ok' if ok else 'FAIL'}")
+    print("  loss and terms a step: " + "; ".join(
+        f"{k} {[round(float(x), 5) for x in rows[:, i]]}"
+        for i, k in enumerate(("loss",) + M_TERMS)))
+    if not ok:
+        raise AssertionError("path M.3: the train CLI over the KITTI tree failed its checks")
+    ckpt = first["ckpt_dir"] / "checkpoint_epoch_1.pth"
+    del first
+    torch.cuda.empty_cache()
+    reset_counters()
+    (res,) = test.main(base + ["--ckpt", str(ckpt), "--infer_time"] + data)
+    torch.cuda.synchronize()
+    annos = res["det_annos"]
+    check_launches("M.3 eval forward (test CLI)", read_counters(), EXPECT_M_SERVING,
+                   res["infer_batches"] + 1 + -(-len(annos) // 4))
+    post_max = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    ok = (len(annos) == L_VAL and set(res["result"]) == {
+        f"{c}_{m}" for c in cfg.CLASS_NAMES for m in ("bev", "3d")}
+        and all(np.isfinite(a["boxes_lidar"]).all() and (np.diff(a["score"]) <= 0).all()
+                and len(a["score"]) <= post_max for a in annos))
+    print(f"path M.3 test CLI: {len(annos)} val frames, detections a frame "
+          f"{[len(a['score']) for a in annos]}, {res['sec_per_frame']:.4f} s a frame "
+          f"(eval_model, host clock), --infer_time {res['infer_ms_per_frame']:.3f} ms a frame "
+          f"(median of {res['infer_batches']} batches, synced) ({smi}) {'ok' if ok else 'FAIL'}")
+    print("  KITTI AP (R40) of the 4-step checkpoint:\n    "
+          + res["result_str"].replace("\n", "\n    "))
+    if not ok:
+        raise AssertionError("path M.3: the test CLI over the KITTI tree failed its checks")
+
+
+def m4_custom(dev, smi, root, points=M4_POINTS, extra_set=()):
+    """M.4: ``custom_models/pv_rcnn.yaml`` (1504 x 1504 x 40) through the
+    test CLI on a custom tree of L_CUSTOM frames of ``points`` points (the
+    collate keeps MAX_POINTS_PER_SCENE, 131,072), seeded weights with the
+    class bias raised saved as the checkpoint: detections, s a frame,
+    ``--infer_time``, peak memory, launches."""
+    from com_tpu_torch.data import build_dataloader
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.tools import test
+    from com_tpu_torch.tools.kitti_tree import write_custom_tree
+    from com_tpu_torch.tools.train import dataset_meta
+
+    write_custom_tree(root, seed=L_SEED, num_train=0, num_val=L_CUSTOM, num_points=points)
+    cfg = l_cfg(CUSTOM_PV_RCNN_CONFIG, root, extra_set)
+    dataset, _ = build_dataloader(cfg.DATA_CONFIG, list(cfg.CLASS_NAMES), 4, training=False,
+                                  workers=1)
+    net = spread_anchor_scores(build_network(cfg.MODEL, dataset_meta(cfg, dataset), device=dev,
+                                             seed=1))
+    ckpt = M_DIR / "custom_seeded.pth"
+    torch.save({"model_state": net.state_dict()}, ckpt)
+    del net
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    (res,) = test.main(["--cfg_file", str(REPO / CUSTOM_PV_RCNN_CONFIG), "--output_dir",
+                        str(M_DIR / "out"), "--workers", str(L_WORKERS), "--device", str(dev),
+                        "--ckpt", str(ckpt), "--infer_time", "--set", "DATA_CONFIG.DATA_PATH",
+                        str(root), *extra_set])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    annos = res["det_annos"]
+    check_launches("M.4 eval forward (test CLI)", read_counters(), EXPECT_M_SERVING,
+                   res["infer_batches"] + 1 + -(-len(annos) // 4))
+    ok = (len(annos) == L_CUSTOM and all(len(a["score"]) and np.isfinite(a["boxes_lidar"]).all()
+                                         for a in annos)
+          and "Vehicle AP_bev R40" in res["result_str"])
+    print(f"path M.4 test CLI (custom_models/pv_rcnn.yaml, {L_CUSTOM} frames of {points} points, "
+          f"{cfg.DATA_CONFIG.MAX_POINTS_PER_SCENE} kept): detections a frame "
+          f"{[len(a['score']) for a in annos]}, {res['sec_per_frame']:.4f} s a frame, "
+          f"--infer_time {res['infer_ms_per_frame']:.3f} ms a frame, max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB ({smi}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("path M.4: the custom config through the test CLI failed")
+
+
+def m5_inputs(rng, meta, b, n, channels, caps, rois=M5_ROIS):
+    """PV-RCNN++'s module inputs on ``b`` Waymo-like scenes of ``n`` points:
+    the points, a seeded BEV map at stride 8 (HeightCompression's width),
+    x_conv3 / x_conv4 as the cells (stride 4 / 8) the points occupy, up to
+    their VOXEL_CAPS, with seeded features, and ``rois`` Waymo-sized boxes a
+    scene centred on points."""
+    pr, vs = meta.point_cloud_range, meta.voxel_size
+    pts = waymo_like_points(rng, b, n, pr)
+    bev_hw = (meta.grid_size[1] // 8 + (meta.grid_size[1] % 8 > 0),
+              meta.grid_size[0] // 8 + (meta.grid_size[0] % 8 > 0))
+    batch = {"points": pts, "points_mask": np.ones((b, n), bool),
+             "spatial_features": rng.randn(b, *bev_hw, channels["bev"]).astype(np.float32),
+             "spatial_features_stride": 8, "multi_scale_3d_features": {}}
+    for src, stride in (("x_conv3", 4), ("x_conv4", 8)):
+        cap = int(caps[src])
+        coords = np.full((b, cap, 3), -1, np.int32)
+        for i in range(b):
+            cell = np.floor((pts[i, :, [2, 1, 0]].T - np.array([pr[2], pr[1], pr[0]]))
+                            / (np.array([vs[2], vs[1], vs[0]]) * stride)).astype(np.int32)
+            cells = np.unique(cell, axis=0)
+            cells = cells[rng.permutation(len(cells))[:cap]]
+            coords[i, :len(cells)] = cells
+        batch["multi_scale_3d_features"][src] = (
+            rng.randn(b, cap, channels[src]).astype(np.float32), coords, coords[..., 0] >= 0)
+    centre = pts[np.arange(b)[:, None], rng.randint(0, n, (b, rois)), :3]
+    size = np.array([4.7, 2.1, 1.7], np.float32) * rng.uniform(0.8, 1.2, (b, rois, 3))
+    batch["rois"] = np.concatenate([centre, size, rng.uniform(-np.pi, np.pi, (b, rois, 1))],
+                                   -1).astype(np.float32)
+    return batch
+
+
+def m5_tensors(batch, dev, scenes=None):
+    def conv(v):
+        t = torch.as_tensor(v)
+        return (t if scenes is None else t[:scenes]).to(dev)
+
+    out = {k: conv(v) for k, v in batch.items() if k not in ("multi_scale_3d_features",
+                                                               "spatial_features_stride")}
+    out["spatial_features_stride"] = batch["spatial_features_stride"]
+    out["multi_scale_3d_features"] = {
+        src: (conv(x), conv(c), conv(m), None)
+        for src, (x, c, m) in batch["multi_scale_3d_features"].items()}
+    return out
+
+
+def m5_plusplus_modules(dev, smi, b=M5_BATCH, points=M5_POINTS):
+    """M.5: PV-RCNN++'s modules at ``waymo_models/pv_rcnn_plusplus.yaml``'s
+    widths (the whole detector fails at the Waymo grid in both packages):
+    ``VoxelSetAbstraction`` with SPC (6 sectors, ``sample_points_with_roi``
+    around 128 RoIs a scene, 4,096 keypoints) over ``m5_inputs``, then
+    ``PVRCNNPlusPlusHead`` (two vector-pool groups of 32 neighbours, local
+    interpolation) on those keypoints; seeded weights, eval, f32.  The card
+    times each module (mean of 3 after a warm-up) and its peak memory;
+    scene 0 on the CPU against the card: the keypoints exactly, the
+    features and the RCNN outputs within 1e-4 of the CPU's largest value."""
+    import copy
+
+    from com_tpu_torch.models.detectors import init_weights
+    from com_tpu_torch.models.pfe import VoxelSetAbstraction
+    from com_tpu_torch.models.roi_heads.pvrcnn_head import PVRCNNPlusPlusHead
+
+    cfg, meta, _ = load_voxel(PVRCNN_PP_CONFIG)
+    m = cfg.MODEL
+    channels = {"bev": int(m.MAP_TO_BEV.NUM_BEV_FEATURES),
+                **{f"x_conv{s + 1}": int(c) for s, c in enumerate(m.BACKBONE_3D.CHANNELS)}}
+    caps = {f"x_conv{s + 1}": c for s, c in enumerate(m.BACKBONE_3D.VOXEL_CAPS)}
+    batch = m5_inputs(np.random.RandomState(47), meta, b, points, channels, caps)
+    modules = torch.nn.ModuleDict({
+        "pfe": VoxelSetAbstraction(m.PFE, meta.num_point_features, meta.grid_size,
+                                   meta.voxel_size, meta.point_cloud_range,
+                                   bev_channels=channels["bev"], multi_scale_channels=channels),
+        "roi_head": PVRCNNPlusPlusHead(m.ROI_HEAD, 1,
+                                       input_channels=int(m.PFE.NUM_OUTPUT_FEATURES))})
+    init_weights(modules, torch.Generator().manual_seed(5))
+    cpu_modules = copy.deepcopy(modules).eval()
+    modules = modules.to(dev).eval()
+
+    @torch.no_grad()
+    def run(mods, inputs):
+        out = mods["pfe"](dict(inputs))
+        return mods["roi_head"](out)
+
+    inputs = m5_tensors(batch, dev)
+    run(modules, inputs)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = {"pfe": 0.0, "roi_head": 0.0}
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        with torch.no_grad():
+            out = modules["pfe"](dict(inputs))
+            ev[1].record()
+            out = modules["roi_head"](out)
+        ev[2].record()
+        torch.cuda.synchronize()
+        times["pfe"] += ev[0].elapsed_time(ev[1]) / 3
+        times["roi_head"] += ev[1].elapsed_time(ev[2]) / 3
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = run(cpu_modules, m5_tensors(batch, "cpu", scenes=1))
+    worst = {}
+    for k in ("point_coords", "point_valid"):
+        if not torch.equal(out[k][:1].cpu(), want[k]):
+            diff = (out[k][:1].cpu() != want[k]).nonzero()[0].tolist()
+            raise AssertionError(f"path M.5: {k} differs between card and CPU first at {diff}")
+    for k in ("point_features", "rcnn_cls", "rcnn_reg"):
+        ref = want[k].abs().max().item()
+        worst[k] = (out[k][:1].cpu() - want[k]).abs().max().item() / max(ref, 1e-12)
+    ok = max(worst.values()) <= 1e-4 and bool(want["point_valid"].any())
+    print(f"path M.5 PV-RCNN++ modules (pv_rcnn_plusplus.yaml widths, {b} Waymo-like scenes of "
+          f"{points} points, {M5_ROIS} RoIs a scene): SPC VoxelSetAbstraction "
+          f"{times['pfe']:.3f} ms ({int(out['point_valid'].sum())} valid keypoints of "
+          f"{out['point_valid'].numel()}), PVRCNNPlusPlusHead {times['roi_head']:.3f} ms, "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB ({smi}); scene 0 card vs CPU: keypoints "
+          f"equal, worst |diff| / max |CPU| "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})} "
+          f"(<= 1e-4) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("path M.5: PV-RCNN++'s modules on the card disagree with the CPU")
+
+
+def path_m(dev, smi, entries, calls, pc_range=None, points=E_POINTS, real_points=E_REAL_POINTS,
+           tree_points=L_POINTS, custom_points=M4_POINTS, pp_points=M5_POINTS, sets=None):
+    """Path M, PV-RCNN (``configs/kitti_models/pv_rcnn.yaml``: path G's first
+    stage, the keypoints of ``VoxelSetAbstraction``, ``PointHeadSimple``,
+    the top 1,024 anchors as proposals, 100 RoIs in serving and 128 sampled
+    in training, ``PVRCNNHead``'s 6^3 grid over the keypoints) at full
+    width, batch 4: M.1 the small f32 reference, three serving batches and
+    the eval step's stages, K4 on the final NMS's (4, 100) candidates and
+    two synthetic cases, K2 / dgrad / K2w at its shapes (path G's); M.2 2
+    train steps (GT on the model's own proposals), their terms and stages;
+    M.3 the train and test CLIs over a KITTI tree; M.4 the custom config
+    through the test CLI; M.5 PV-RCNN++'s modules.  Returns the launch
+    counts of the serving forward and of the steps.  ``pc_range``, the
+    point counts and ``sets`` ({"M.3": ``--set`` pairs, "M.4": ...}) are
+    for rehearsals."""
+    import shutil
+
+    from com_tpu_torch.tools.kitti_tree import write_kitti_tree
+
+    sets = sets or {}
+    start = time.perf_counter()
+    check_small_pvrcnn_reference(dev)
+    cfg, meta, proc = load_voxel(PV_RCNN_CONFIG, pc_range)
+    rng = np.random.RandomState(48)
+    batches = kitti_voxel_batches(rng, meta, proc, "test", 3, M_BATCH, points, real_points)
+    net, step, serve_counts = check_two_stage_serving(dev, "M (PV-RCNN, KITTI)", cfg, meta,
+                                                      batches, EXPECT_M_SERVING, smi)
+    two_stage_breakdown(net, lambda: step(batches[0]), "path M eval step", smi=smi)
+    over, sv = final_candidates(net, cfg, batches[0], dev)
+    check_k4_cases(dev, entries, calls, over, sv, smi, ", path M final NMS", "M:nms", iters=50)
+    del net, step
+    torch.cuda.empty_cache()
+    check_conv3x3(dev, entries, shapes=G_CONV, dtypes=(torch.bfloat16,), path="M:")
+    check_conv3x3_backward(dev, entries, shapes=G_CONV, wgrad_dtypes=(torch.bfloat16,),
+                           path="M:")
+    torch.cuda.empty_cache()
+    train_counts = two_stage_training(
+        dev, "M (PV-RCNN, KITTI)", cfg, meta,
+        kitti_voxel_batches(rng, meta, proc, "train", 2, M_BATCH, points, real_points),
+        EXPECT_M_TRAIN, M_TERMS, smi)
+    torch.cuda.empty_cache()
+    shutil.rmtree(M_DIR, ignore_errors=True)
+    M_DIR.mkdir(parents=True)
+    try:
+        tree = M_DIR / "kitti"
+        write_kitti_tree(tree, seed=L_SEED, num_train=L_TRAIN, num_val=L_VAL,
+                         num_points=tree_points)
+        m3_clis(dev, smi, tree, sets.get("M.3", ()))
+        torch.cuda.empty_cache()
+        m4_custom(dev, smi, M_DIR / "custom", custom_points, sets.get("M.4", ()))
+    finally:
+        shutil.rmtree(M_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    m5_plusplus_modules(dev, smi, points=pp_points)
+    print(f"path M: {time.perf_counter() - start:.1f} s wall in all")
+    return serve_counts, train_counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4156,19 +4598,24 @@ def main():
     path_i(dev, smi)
     torch.cuda.empty_cache()
     l_counts = path_l(dev, smi, entries, calls)
+    torch.cuda.empty_cache()
+    m_serve_counts, m_train_counts = path_m(dev, smi, entries, calls)
     # each kernel's launches on the path that runs it: training path A,
     # serving for K4, path B for K3's last_wins mode, the sweep for T1-T4;
     # paths E, F, G and J's shapes: their training, and their serving for
     # K4 (path J's train proposals: its training); path L's shapes: L.2's
-    # steps and serving forward, L.4's test CLI
+    # steps and serving forward, L.4's test CLI; path M's: its training,
+    # and its serving for K4
     counts = {**a_counts, "nms": serve_counts["nms"],
               "stamp_last_wins": b_counts["stamp_last_wins"],
               **{f"wgrad_{v}": sweep_counts[f"wgrad_{v}"] for v in WGRAD_VARIANTS},
               **{f"{p}:{k}": v for p, c in (("E", e_train_counts), ("F", f_train_counts),
-                                            ("G", g_train_counts), ("J", j_train_counts))
+                                            ("G", g_train_counts), ("J", j_train_counts),
+                                            ("M", m_train_counts))
                  for k, v in c.items()},
               "E:nms": e_serve_counts["nms"], "G:nms": g_serve_counts["nms"],
-              "J:nms": j_serve_counts["nms"], "J:nms_train": j_train_counts["nms"], **l_counts}
+              "J:nms": j_serve_counts["nms"], "J:nms_train": j_train_counts["nms"], **l_counts,
+              "M:nms": m_serve_counts["nms"]}
     if not profile:
         check_device_kernels(calls)
     for e in entries:

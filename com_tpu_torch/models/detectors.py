@@ -6,10 +6,11 @@ batch dict.  The slots are attributes named as in pcdet, so ``state_dict()``
 keys read ``vfe.pfn_layers.0.linear.weight``, ``backbone_3d.conv2.0.0.weight``,
 ``backbone_2d.blocks.0.1.weight``, ``dense_head.shared_conv.0.weight``...
 CenterPoint, PointPillar, SECONDNet and the two-stage VoxelRCNN and
-SECONDNetIoU (``roi_head.*``) are ported, for inference and training
+SECONDNetIoU (``roi_head.*``) and PV-RCNN and PV-RCNN++ (``pfe.*``,
+``point_head.*``, ``roi_head.*``) are ported, for inference and training
 (``net.train()`` puts the norms in batch-statistics mode; the dense head
-returns raw predictions in both modes); the point stages and the other
-two-stage detectors raise by name.
+returns raw predictions in both modes); the other two-stage detectors
+raise by name.
 """
 from __future__ import annotations
 
@@ -25,14 +26,14 @@ from . import backbone2d as _b2  # noqa: F401 (register)
 from . import backbone3d as _b3  # noqa: F401
 from . import dense_heads as _dh  # noqa: F401
 from . import map_to_bev as _mb  # noqa: F401
+from . import pfe as _pfe  # noqa: F401
 from . import roi_heads as _rh  # noqa: F401
 from . import vfe as _vfe  # noqa: F401
 from .backbone2d import Deconv
 from .backbone3d import SparseConv3d
 from .dense_heads.anchor_head import (box_coder_for, build_anchors, decode_anchor_boxes,
                                       top_candidates)
-from .layers import BatchNorm, Conv2d
-from .roi_heads.fc import Conv1x1
+from .layers import BatchNorm, Conv1x1, Conv2d
 from .roi_heads.proposal_layer import proposal_layer, take_rows
 from .roi_heads.roi_targets import assign_roi_targets
 
@@ -53,11 +54,13 @@ class Detector3D(nn.Module):
     """Generic slot-ordered detector."""
 
     two_stage = False  # a subclass that builds ROI_HEAD
+    point_stages = False  # a subclass that builds PFE and POINT_HEAD
 
     def __init__(self, model_cfg, meta: DatasetMeta):
         super().__init__()
         self.model_cfg, self.meta = model_cfg, meta
-        for slot in ("PFE", "POINT_HEAD") + (() if self.two_stage else ("ROI_HEAD",)):
+        for slot in ((() if self.point_stages else ("PFE", "POINT_HEAD"))
+                     + (() if self.two_stage else ("ROI_HEAD",))):
             if model_cfg.get(slot) is not None:
                 raise NotImplementedError(f"{slot} is not ported yet")
         mixed = bool(model_cfg.get("MIXED_PRECISION", False))
@@ -97,15 +100,23 @@ class Detector3D(nn.Module):
             dh_cfg, bev_ch, len(meta.class_names), meta.class_names)
         self.bev_channels = bev_ch
 
-    def forward(self, batch):
+    def voxel_stages(self, batch):
+        """vfe -> backbone_3d -> map_to_bev."""
         batch = self.vfe(batch)
         if self.backbone_3d is not None:
             batch = self.backbone_3d(batch)
         if self.map_to_bev is not None:
             batch = self.map_to_bev(batch)
+        return batch
+
+    def bev_stages(self, batch):
+        """backbone_2d -> dense_head."""
         if self.backbone_2d is not None:
             batch = self.backbone_2d(batch)
         return self.dense_head(batch)
+
+    def forward(self, batch):
+        return self.bev_stages(self.voxel_stages(batch))
 
 
 @DETECTORS.register
@@ -242,9 +253,59 @@ class SECONDNetIoU(TwoStageDetector):
         return self.bev_channels
 
 
-for _name, _what in (("PVRCNN", "the keypoint encoder (PFE, pointnet2)"),
-                     ("PVRCNNPlusPlus", "the keypoint encoder (PFE, pointnet2)"),
-                     ("PartA2Net", "UNetV2 and RoI-aware pooling"),
+class _PointStages(TwoStageDetector):
+    """A two-stage detector with PV-RCNN's point stages: the keypoint
+    encoder ``pfe`` (PFE, ``VoxelSetAbstraction``) over the raw points, the
+    BEV map and the 3D backbone's volumes, and the keypoints' foreground
+    head ``point_head`` (POINT_HEAD, optional); the RoI head pools the
+    keypoints (its input width the PFE's NUM_OUTPUT_FEATURES)."""
+
+    point_stages = True
+
+    def __init__(self, model_cfg, meta: DatasetMeta):
+        super().__init__(model_cfg, meta)
+        pfe_cfg = model_cfg["PFE"]
+        self.pfe = BACKBONES_3D.get(pfe_cfg["NAME"])(
+            pfe_cfg, meta.num_point_features, meta.grid_size, meta.voxel_size,
+            meta.point_cloud_range, bev_channels=self.backbone_3d.num_bev_features,
+            multi_scale_channels=self.backbone_3d.multi_scale_channels)
+        ph_cfg = model_cfg.get("POINT_HEAD")
+        self.point_head = None if ph_cfg is None else DENSE_HEADS.get(ph_cfg["NAME"])(
+            ph_cfg, self.pfe.num_point_features)
+
+    def _roi_input_channels(self):
+        return int(self.model_cfg["PFE"].get("NUM_OUTPUT_FEATURES", 128))
+
+    def point_head_stage(self, batch):
+        return batch if self.point_head is None else self.point_head(batch)
+
+
+@DETECTORS.register
+class PVRCNN(_PointStages):
+    """PV-RCNN (detectors/pv_rcnn.py), in the JAX package's order: the voxel
+    stages, the keypoints (``pfe``), the BEV backbone and the anchor head,
+    the point head, the proposals (the top TEST_POST RoIs in eval) and
+    ``PVRCNNHead``."""
+
+    eval_topk = 128
+
+    def forward(self, batch):
+        batch = self.bev_stages(self.pfe(self.voxel_stages(batch)))
+        return self.roi_head(self._stage2_rois(self.point_head_stage(batch)))
+
+
+@DETECTORS.register
+class PVRCNNPlusPlus(_PointStages):
+    """PV-RCNN++ (detectors/pv_rcnn_plusplus.py): the proposals come before
+    the keypoints, so that SPC sampling sees the RoIs; then the point head
+    and ``PVRCNNPlusPlusHead``."""
+
+    def forward(self, batch):
+        batch = self.pfe(self._stage2_rois(self.bev_stages(self.voxel_stages(batch))))
+        return self.roi_head(self.point_head_stage(batch))
+
+
+for _name, _what in (("PartA2Net", "UNetV2 and RoI-aware pooling"),
                      ("PointRCNN", "PointNet2MSG and point proposals"),
                      ("MPPNet", "multi-frame proxy points"),
                      ("MPPNetE2E", "multi-frame proxy points"),

@@ -87,17 +87,33 @@ class MaskedBatchNorm(BatchNorm):
 
 
 class BatchNorm1d(BatchNorm):
-    """The RoI heads' norm: the JAX package's (eps 1e-3, batch statistics
-    in training) holding its running variance as pcdet's
+    """The RoI heads' and point stages' norm: the JAX package's (eps 1e-3,
+    batch statistics in training) holding its running variance as pcdet's
     ``nn.BatchNorm1d`` (eps 1e-5) would, ``running_var`` = variance + (1e-3
     - 1e-5), so that in eval var + 1e-3 is pcdet's running_var + 1e-5 and
-    a pcdet state_dict's statistics read as they are.  Unmasked."""
+    a pcdet state_dict's statistics read as they are.  The point stages
+    (PFE, point head, PV-RCNN's grid pool) pass a mask, as
+    ``MaskedBatchNorm``."""
 
     VAR_SHIFT = 1e-3 - 1e-5
 
     def __init__(self, features: int):
         super().__init__(features)
         self.running_var.fill_(1.0 + self.VAR_SHIFT)
+
+
+class Conv1x1(nn.Module):
+    """pcdet's ``nn.Conv1d(kernel_size=1)`` (``ndim`` 1) or ``nn.Conv2d(
+    kernel_size=1)`` (``ndim`` 2, the pointnet2 shared MLPs) over the last
+    axis: weight (O, I, 1) or (O, I, 1, 1), as its state_dict holds it."""
+
+    def __init__(self, cin: int, cout: int, bias: bool = False, ndim: int = 1):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin, *([1] * ndim)))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+    def forward(self, x):
+        return F.linear(x, self.weight.reshape(self.weight.shape[:2]), self.bias)
 
 
 class Conv2d(nn.Module):

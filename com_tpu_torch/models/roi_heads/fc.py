@@ -7,23 +7,9 @@ from an explicit generator where the JAX package drops units, else an
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..layers import BatchNorm1d
-
-
-class Conv1x1(nn.Module):
-    """pcdet's ``nn.Conv1d(kernel_size=1)`` over the last axis: weight (O, I,
-    1), as its state_dict holds it."""
-
-    def __init__(self, cin: int, cout: int, bias: bool = False):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin, 1))
-        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
-
-    def forward(self, x):
-        return F.linear(x, self.weight[..., 0], self.bias)
 
 
 class Dropout(nn.Module):

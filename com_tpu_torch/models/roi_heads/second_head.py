@@ -14,7 +14,8 @@ import torch
 from torch import nn
 
 from ...utils.registry import ROI_HEADS
-from .fc import Conv1x1, fc_stack, run_stack
+from ..layers import Conv1x1
+from .fc import fc_stack, run_stack
 
 
 def bilinear_sample(fmap, px, py):

@@ -25,6 +25,7 @@ from ..losses.centernet import focal_loss_centernet, reg_loss_centernet, sigmoid
 from ..losses.curriculum import CurriculumAux, focal_loss_center_curriculum, group_confidences
 from ..models.dense_heads.anchor_assign import assign_anchor_targets, atss_assign_targets
 from ..models.dense_heads.anchor_head import box_coder_for, build_anchors, reshape_anchor_preds
+from ..models.dense_heads.point_head import point_head_loss
 from ..models.dense_heads.target_assign import assign_centerpoint_targets, cluster_com_groups
 from ..models.roi_heads.roi_targets import decode_rcnn_boxes
 from ..models.roi_heads.second_head import second_iou_loss
@@ -311,7 +312,8 @@ def step_generators(seed: int, step: int, device) -> dict:
     return out
 
 
-PORTED_ROI_HEADS = ("VoxelRCNNHead", "SECONDHead")
+PORTED_ROI_HEADS = ("VoxelRCNNHead", "SECONDHead", "PVRCNNHead", "PVRCNNPlusPlusHead")
+PORTED_POINT_HEADS = ("PointHeadSimple",)
 
 
 def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, device=None,
@@ -331,11 +333,13 @@ def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, devic
     ``stage_hook(name)``, when given, is called as each stage starts
     ("forward", "loss", "backward", "optimizer") and once at the end ("end").
 
-    A two-stage model (``ROI_HEAD``: Voxel-RCNN's or SECOND-IoU's head)
-    adds ``compute_roi_loss`` or ``second_iou_loss`` to the first stage's;
-    each step draws its RoI sampling and dropout from ``step_generators(
-    seed, state.step)``.  ``loss_fn(state, batch, epoch, rngs=None)`` takes
-    the model's ``rngs`` (none: deterministic RoI sampling).
+    A two-stage model (``ROI_HEAD``: Voxel-RCNN's, SECOND-IoU's or the
+    PV-RCNN family's head) adds ``compute_roi_loss`` or ``second_iou_loss``
+    to the first stage's, and with a ``POINT_HEAD`` (PointHeadSimple)
+    ``point_head_loss`` as "point_loss_cls"; each step draws its RoI
+    sampling and dropout from ``step_generators(seed, state.step)``.
+    ``loss_fn(state, batch, epoch, rngs=None)`` takes the model's ``rngs``
+    (none: deterministic RoI sampling).
 
     Under an active data mesh (``parallel.sharding.activate``) ``batch`` is
     the rank's shard: the norms' statistics, the loss, its terms and the
@@ -347,8 +351,9 @@ def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, devic
     head_cfg = model_cfg.get("DENSE_HEAD")
     if head_cfg is None:
         raise NotImplementedError("point-proposal detectors are not ported yet")
-    if model_cfg.get("POINT_HEAD") is not None:
-        raise NotImplementedError("the POINT_HEAD loss is not ported yet")
+    ph_cfg = model_cfg.get("POINT_HEAD")
+    if ph_cfg is not None and ph_cfg.get("NAME") not in PORTED_POINT_HEADS:
+        raise NotImplementedError(f"the POINT_HEAD loss of {ph_cfg.get('NAME')} is not ported yet")
     roi_cfg = model_cfg.get("ROI_HEAD")
     if roi_cfg is not None and roi_cfg.get("NAME") not in PORTED_ROI_HEADS:
         raise NotImplementedError(f"the ROI_HEAD loss of {roi_cfg.get('NAME')} is not ported yet")
@@ -377,7 +382,11 @@ def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, devic
             else:  # IoU-scoring head
                 roi_loss = tb["rcnn_loss_iou"] = second_iou_loss(
                     out, roi_cfg.get("LOSS_CONFIG", {}))
-            return loss + roi_loss, new_cur, aux_list, tb
+            loss = loss + roi_loss
+            if ph_cfg is not None:  # the keypoints' foreground (PointHeadSimple)
+                p_loss = tb["point_loss_cls"] = point_head_loss(out)
+                loss = loss + p_loss
+            return loss, new_cur, aux_list, tb
 
     batch_keys = device_batch_keys(model_cfg)
 

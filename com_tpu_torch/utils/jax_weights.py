@@ -21,7 +21,10 @@ CenterHead, AnchorHeadSingle (its 1x1 convs, plain conv layout),
 AnchorHeadMulti (its shared and middle ConvBNReLUs and 1x1 convs),
 VoxelRCNNHead and SECONDHead (flax Dense (in, out) -> Linear, or Conv1d
 (out, in, 1) for SECONDHead; their FC norms' running_var shifted by
-1e-3 - 1e-5, ``models/layers.py`` ``BatchNorm1d``).  For comparing a train
+1e-3 - 1e-5, ``models/layers.py`` ``BatchNorm1d``), and PV-RCNN's
+VoxelSetAbstraction (Conv2d 1x1 (out, in, 1, 1) blocks), PointHeadSimple
+and PVRCNNHead (their norms shifted as the RoI heads'), and
+PVRCNNPlusPlusHead under its flax names.  For comparing a train
 step, ``params_from_jax`` maps any tree shaped like flax "params" (its
 gradients, its updated parameters) into the same pcdet names, and
 ``curriculum_state_from_jax`` carries the COMLoss EMA state (either kind)
@@ -45,6 +48,7 @@ _TRANSFORMS = {
     "spconv27": lambda a: a.reshape(3, 3, 3, *a.shape[1:]).transpose(4, 0, 1, 2, 3),
     "spconv3": lambda a: a.reshape(3, 1, 1, *a.shape[1:]).transpose(4, 0, 1, 2, 3),
     "conv1d": lambda a: a.T[..., None],
+    "conv1x1": lambda a: a.T[..., None, None],
 }
 # A running statistic's rule, never a parameter's: the RoI heads'
 # BatchNorm1d holds var + (1e-3 - 1e-5) (models/layers.py).
@@ -259,14 +263,104 @@ def _roi_head_rules(cfg, top):
     return rules
 
 
+def _sa_rules(tkey, top, scope, n_layers):
+    """A pointnet2 block's ``{tkey}.mlps.0.{3k}`` (Conv2d 1x1) / ``.{3k + 1}``
+    <- ``{scope}/Dense_{k}`` / ``MaskedBatchNorm_{k}`` (variance shifted)."""
+    rules = []
+    for k in range(n_layers):
+        rules.append((f"{tkey}.mlps.0.{3 * k}.weight", "params",
+                      (top, scope, f"Dense_{k}", "kernel"), "conv1x1"))
+        rules += _bn(f"{tkey}.mlps.0.{3 * k + 1}", (top, scope, f"MaskedBatchNorm_{k}"),
+                     var="var_shift")
+    return rules
+
+
+def _pfe_rules(cfg, top):
+    """VoxelSetAbstraction: ``pfe.SA_rawpoints`` <- sa_raw, ``pfe.SA_layers.{k}``
+    <- sa_{src}, ``pfe.vsa_point_feature_fusion.{0,1}`` <-
+    vsa_point_feature_fusion / vsa_fusion_bn (the inverse of the JAX
+    package's ``map_vsa``)."""
+    sources = list(cfg.get("FEATURES_SOURCE", ["bev", "raw_points", "x_conv3", "x_conv4"]))
+    sa = cfg.get("SA_LAYER", {})
+    rules = []
+    if "raw_points" in sources:
+        n = len(sa.get("raw_points", {}).get("MLPS", [[16, 16]])[0])
+        rules += _sa_rules("pfe.SA_rawpoints", top, "sa_raw", n)
+    for k, src in enumerate(s for s in sources if s.startswith("x_conv")):
+        n = len(sa.get(src, {}).get("MLPS", [[32, 32]])[0])
+        rules += _sa_rules(f"pfe.SA_layers.{k}", top, f"sa_{src}", n)
+    rules.append(("pfe.vsa_point_feature_fusion.0.weight", "params",
+                  (top, "vsa_point_feature_fusion", "kernel"), "linear"))
+    return rules + _bn("pfe.vsa_point_feature_fusion.1", (top, "vsa_fusion_bn"), var="var_shift")
+
+
+def _point_head_rules(cfg, top):
+    """PointHeadSimple: ``point_head.cls_layers`` <- cls_fc_{i} / cls_bn_{i},
+    the output <- cls_out."""
+    rules, seq = _fc_rules("point_head.cls_layers", top, "cls", list(cfg.get("CLS_FC", [256, 256])),
+                           "linear", lambda i: False)
+    return rules + [(f"point_head.cls_layers.{seq}.weight", "params", (top, "cls_out", "kernel"),
+                     "linear"),
+                    (f"point_head.cls_layers.{seq}.bias", "params", (top, "cls_out", "bias"),
+                     "copy")]
+
+
+def _pvrcnn_head_rules(cfg, top):
+    """PVRCNNHead: ``roi_grid_pool_layer`` <- roi_grid_pointnet,
+    ``shared_fc_layer`` <- shared_fc_{i} / shared_bn_{i}, ``{cls,reg}_layers``
+    <- {cls,reg}_fc_{i} / _bn_{i} and rcnn_{cls,reg} (Conv1d layout; the
+    inverse of the JAX package's ``map_pvrcnn_roi_head``)."""
+    pool = cfg.get("ROI_GRID_POOL", {})
+    rules = _sa_rules("roi_head.roi_grid_pool_layer", top, "roi_grid_pointnet",
+                      len(pool.get("MLPS", [[64, 64]])[0]))
+    dp = float(cfg.get("DP_RATIO", 0.0))
+    shared = list(cfg.get("SHARED_FC", [256, 256]))
+    rules += _fc_rules("roi_head.shared_fc_layer", top, "shared", shared, "conv1d",
+                       lambda i: dp > 0 and i != len(shared) - 1)[0]
+    for name in ("cls", "reg"):
+        fc_rules, seq = _fc_rules(f"roi_head.{name}_layers", top, name,
+                                  list(cfg.get(f"{name.upper()}_FC", [])), "conv1d",
+                                  lambda i: i == 0)
+        rules += fc_rules + [
+            (f"roi_head.{name}_layers.{seq}.weight", "params", (top, f"rcnn_{name}", "kernel"),
+             "conv1d"),
+            (f"roi_head.{name}_layers.{seq}.bias", "params", (top, f"rcnn_{name}", "bias"), "copy")]
+    return rules
+
+
+def _pvrcnn_plusplus_head_rules(cfg, top):
+    """PVRCNNPlusPlusHead: the flax scopes' own names under ``roi_head.``
+    (pcdet has no importer rule for it), Linear layout, norms unshifted."""
+    def lin(name, bias=False):
+        out = [(f"roi_head.{name}.weight", "params", (top, name, "kernel"), "linear")]
+        return out + ([(f"roi_head.{name}.bias", "params", (top, name, "bias"), "copy")]
+                      if bias else [])
+
+    from ..models.roi_heads.pvrcnn_head import DEFAULT_GROUPS
+
+    rules = []
+    for gi, gc in enumerate(cfg.get("ROI_GRID_POOL", {}).get("GROUPS", DEFAULT_GROUPS)):
+        for li in range(len(gc.get("POST_MLPS", [64]))):
+            bn = f"g{gi}_bn_{li}"
+            rules += lin(f"g{gi}_mlp_{li}") + _bn(f"roi_head.{bn}", (top, bn))
+    for i in range(len(cfg.get("SHARED_FC", [256, 256]))):
+        rules += lin(f"shared_fc_{i}") + _bn(f"roi_head.shared_bn_{i}", (top, f"shared_bn_{i}"))
+    for name in ("cls", "reg"):
+        for i in range(len(cfg.get(f"{name.upper()}_FC", []))):
+            rules += lin(f"{name}_fc_{i}") + _bn(f"roi_head.{name}_bn_{i}", (top, f"{name}_bn_{i}"))
+        rules += lin(f"rcnn_{name}", bias=True)
+    return rules
+
+
 def bridge_rules(model_cfg, class_names, params) -> list:
     """Every (pcdet key, collection, flax path, transform) of the model.
     ``params`` (the flax "params" tree) gives the top-level scope names."""
-    def top(prefix):
-        for name in params:
-            if name.startswith(prefix):
-                return name
-        raise KeyError(f"no flax scope starting with {prefix!r} in {sorted(params)}")
+    def top(*prefixes):
+        for prefix in prefixes:
+            for name in params:
+                if name.startswith(prefix):
+                    return name
+        raise KeyError(f"no flax scope starting with {prefixes!r} in {sorted(params)}")
 
     rules = []
     if model_cfg["VFE"].get("NUM_FILTERS"):
@@ -284,8 +378,20 @@ def bridge_rules(model_cfg, class_names, params) -> list:
         rules += _anchor_head_rules(head, top("AnchorHeadSingle"))  # every alias's flax scope
     else:
         rules += _center_head_rules(head, top("CenterHead"), list(class_names))
-    if model_cfg.get("ROI_HEAD") is not None:
-        rules += _roi_head_rules(model_cfg["ROI_HEAD"], top("roi_head"))
+    if model_cfg.get("PFE") is not None:
+        rules += _pfe_rules(model_cfg["PFE"], top("VoxelSetAbstraction"))
+    if model_cfg.get("POINT_HEAD") is not None:
+        rules += _point_head_rules(model_cfg["POINT_HEAD"], top("point_head"))
+    roi = model_cfg.get("ROI_HEAD")
+    if roi is not None:
+        # PVRCNN's head is the auto-named PVRCNNHead_0; the others "roi_head"
+        roi_top = top("roi_head", roi["NAME"])
+        if roi["NAME"] == "PVRCNNHead":
+            rules += _pvrcnn_head_rules(roi, roi_top)
+        elif roi["NAME"] == "PVRCNNPlusPlusHead":
+            rules += _pvrcnn_plusplus_head_rules(roi, roi_top)
+        else:
+            rules += _roi_head_rules(roi, roi_top)
     return rules
 
 

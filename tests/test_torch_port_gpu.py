@@ -887,8 +887,8 @@ def test_sparse_engine_matches_cpu(dev, monkeypatch, dense):
 def _voxel_case(path, seed=0):
     """A YAML of the voxel path at a 64 x 64 x 40 grid (0.5 x 0.5 x 0.1 m
     over +-16 m), full widths, f32; two scenes of 4,000 points voxelized
-    into 2,048 slots of 5 points, 6 objects in 16 slots with the COM side
-    arrays."""
+    into 2,048 slots of 5 points (the points too, for a keypoint encoder),
+    6 objects in 16 slots with the COM side arrays."""
     from com_tpu_torch.models.detectors import DatasetMeta
     from com_tpu_torch.ops.voxelize import voxelize_points
     from com_tpu_torch.utils.config import cfg_from_yaml_file
@@ -904,9 +904,11 @@ def _voxel_case(path, seed=0):
     vox = np.zeros((2, 2048, 5, 5), np.float32)
     coords = np.full((2, 2048, 3), -1, np.int32)
     num = np.zeros((2, 2048), np.int32)
+    points = np.zeros((2, 4000, 5), np.float32)
     for i in range(2):
-        pts = np.concatenate([rng.uniform(-15, 15, (4000, 2)), rng.uniform(-1.4, 1.4, (4000, 1)),
-                              rng.rand(4000, 2)], 1).astype(np.float32)
+        pts = points[i] = np.concatenate([rng.uniform(-15, 15, (4000, 2)),
+                                          rng.uniform(-1.4, 1.4, (4000, 1)),
+                                          rng.rand(4000, 2)], 1).astype(np.float32)
         a, b, c = voxelize_points(pts, pc_range, vsize, 5, 2048)
         vox[i, :len(a)], coords[i, :len(a)], num[i, :len(a)] = a, b, c
     gt = np.zeros((2, 16, 8), np.float32)
@@ -918,7 +920,8 @@ def _voxel_case(path, seed=0):
              "num_points_in_gt": (gt[..., 7] > 0).astype(np.float32) * 10,
              "true_object": (gt[..., 7] > 0).astype(np.float32),
              "occupancy_ratio": rng.rand(2, 16).astype(np.float32),
-             "facade_type": rng.randint(0, 4, (2, 16)).astype(np.float32)}
+             "facade_type": rng.randint(0, 4, (2, 16)).astype(np.float32),
+             "points": points, "points_mask": np.ones((2, 4000), bool)}
     return cfg, meta, batch
 
 
@@ -971,6 +974,72 @@ def test_two_stage_eval_step_matches_cpu(dev, path):
         outs.append([t.cpu().numpy() for t in make_eval_step(
             net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=d)(batch)])
         assert (conv2d.launches - k2, nms.launches - k4) == ((11, 2) if d == dev else (0, 0))
+    (gb, gs, gl, gv), (cb, cs, cl, cv) = outs
+    np.testing.assert_array_equal(gv, cv)
+    assert gv.sum() > 0
+    for i in range(2):
+        a = np.concatenate([gb[i][gv[i]], gs[i][gv[i]][:, None], gl[i][gv[i]][:, None]], -1)
+        c = np.concatenate([cb[i][cv[i]], cs[i][cv[i]][:, None], cl[i][cv[i]][:, None]], -1)
+        assert np.abs(a[:, None] - c[None]).max(-1).min(1).max() <= 1e-3
+
+
+def test_pointnet2_on_card_matches_cpu(dev):
+    """FPS, sector FPS and ball-query indices on the card equal the CPU's
+    (the distances' terms are separate element-wise ops on both), the
+    grouped features too, at KITTI-like sizes: 2 scenes of 32,768 points, a
+    tenth masked, 4,096 keypoints, radii 0.8 and 4.8 m, blocks of query
+    rows cut small on the card."""
+    from com_tpu_torch.ops import pointnet2 as pn2
+
+    rng = np.random.RandomState(17)
+    xyz = np.concatenate([rng.uniform(0, 70, (2, 32768, 1)), rng.uniform(-40, 40, (2, 32768, 1)),
+                          rng.uniform(-3, 1, (2, 32768, 1))], -1).astype(np.float32)
+    feats = rng.rand(2, 32768, 4).astype(np.float32)
+    valid = rng.rand(2, 32768) > 0.1
+    c_xyz, c_valid = torch.from_numpy(xyz), torch.from_numpy(valid)
+    g_xyz, g_valid = c_xyz.to(dev), c_valid.to(dev)
+    idx = pn2.farthest_point_sample(g_xyz, g_valid, 4096)
+    cpu_idx = pn2.farthest_point_sample(c_xyz, c_valid, 4096)
+    mismatch = (idx.cpu() != cpu_idx).nonzero()
+    assert len(mismatch) == 0, f"FPS differs first at (scene, sample) {mismatch[0].tolist()}"
+    s_idx, s_ok = pn2.sector_fps(g_xyz, g_valid, 4096, 6)
+    c_idx, c_ok = pn2.sector_fps(c_xyz, c_valid, 4096, 6)
+    assert torch.equal(s_idx.cpu(), c_idx) and torch.equal(s_ok.cpu(), c_ok)
+    kp = pn2.gather_points(c_xyz, cpu_idx)
+    for radius, nsample in ((0.8, 16), (4.8, 16)):
+        got = pn2.query_and_group(radius, nsample, g_xyz, kp.to(dev), torch.from_numpy(feats).to(
+            dev), valid=g_valid, block=1 << 22)
+        want = pn2.query_and_group(radius, nsample, c_xyz, kp, torch.from_numpy(feats),
+                                   valid=c_valid)
+        for name, a, b in zip(("grouped", "idx", "empty", "slot_valid"), got, want):
+            assert torch.equal(a.cpu(), b), (radius, name)
+        assert bool(want[3].any())
+        if radius < 1:  # balls with fewer hits than slots
+            assert not bool(want[3].all())
+
+
+def test_pvrcnn_eval_step_matches_cpu(dev):
+    """``kitti_models/pv_rcnn.yaml`` at 64 x 64 x 40 in f32, full widths
+    (4,096 keypoints, a 6^3 RoI grid): card (K2 in the BEV backbone, K4 in
+    the final NMS; the proposals are the top TEST_PRE, no NMS) vs CPU, same
+    weights, scores spread: the keypoints exactly, the detections to 1e-3."""
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.train.eval import make_eval_step
+
+    cfg, meta, batch = _voxel_case("configs/kitti_models/pv_rcnn.yaml", seed=5)
+    outs, keypoints = [], []
+    for d in (dev, "cpu"):
+        net = build_network(cfg.MODEL, meta, device=d, seed=3)
+        with torch.no_grad():
+            net.dense_head.conv_cls.bias.add_(4.0)
+            net.dense_head.conv_box.weight.mul_(0.02)
+        net.pfe.register_forward_hook(lambda m, a, out: keypoints.append(
+            out["point_coords"].cpu()))
+        k2, k4 = conv2d.launches, nms.launches
+        outs.append([t.cpu().numpy() for t in make_eval_step(
+            net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=d)(batch)])
+        assert (conv2d.launches - k2, nms.launches - k4) == ((11, 1) if d == dev else (0, 0))
+    assert torch.equal(keypoints[0], keypoints[1])
     (gb, gs, gl, gv), (cb, cs, cl, cv) = outs
     np.testing.assert_array_equal(gv, cv)
     assert gv.sum() > 0

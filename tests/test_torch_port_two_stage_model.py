@@ -162,6 +162,16 @@ def test_second_iou_head_keeps_pcdet_layout(second_iou):
 @pytest.mark.parametrize("name", ["PVRCNN", "PVRCNNPlusPlus", "PartA2Net", "PointRCNN",
                                   "MPPNet", "MPPNetE2E"])
 def test_unported_two_stage_detectors_raise_by_name(name):
+    """The unported detectors raise by name; PV-RCNN and PV-RCNN++, ported,
+    build (``tests/torch_port_pvrcnn_setup.py``'s small configs)."""
+    if name.startswith("PVRCNN"):
+        from torch_port_pvrcnn_setup import CLASS_NAMES, GRID, small_cfg
+
+        which = "pvrcnn_plusplus" if name == "PVRCNNPlusPlus" else "pvrcnn"
+        meta = DatasetMeta(CLASS_NAMES, (-16, -16, -2, 16, 16, 2), (0.5, 0.5, 0.1), GRID, 5)
+        net = DETECTORS.get(name)(small_cfg(which), meta)
+        assert type(net).__name__ == name and net.pfe is not None
+        return
     with pytest.raises(NotImplementedError, match=name):
         DETECTORS.get(name)({}, None)
 
@@ -179,8 +189,8 @@ def test_unported_two_stage_options_raise_by_name(voxel_rcnn):
     with pytest.raises(NotImplementedError, match="PointNetBlock"):
         build_network(pointnet.MODEL, pmeta, device="cpu")
     other = small_cfg("voxel_rcnn")
-    other.MODEL.ROI_HEAD.NAME = "PVRCNNHead"
-    with pytest.raises(NotImplementedError, match="PVRCNNHead"):
+    other.MODEL.ROI_HEAD.NAME = "PartA2FCHead"
+    with pytest.raises(NotImplementedError, match="PartA2FCHead"):
         make_train_step(net, other.MODEL, names, pmeta, None, None, device="cpu")
     with pytest.raises(NotImplementedError, match="SCORE_TYPE"):
         score = small_cfg("second_iou")

@@ -47,6 +47,9 @@ KITTI_SECOND = "configs/kitti_models/second.yaml"
 WAYMO_SECOND = "configs/waymo_models/second.yaml"
 WAYMO_VOXEL_RCNN = "configs/waymo_models/voxel_rcnn.yaml"
 WAYMO_SECOND_IOU = "configs/waymo_models/second_iou.yaml"
+WAYMO_PV_RCNN = ["configs/waymo_models/pv_rcnn.yaml", "configs/waymo_models/pv_rcnn_plusplus.yaml",
+                 "configs/waymo_models/pv_rcnn_plusplus_resnet.yaml",
+                 "configs/waymo_models/pv_rcnn_plusplus_resnet_2frames.yaml"]
 GRID = (64, 64, 40)
 VOXEL_KEYS = ("voxels", "voxel_coords", "voxel_num_points")
 ATOL = 1e-4
@@ -248,7 +251,8 @@ def test_load_params_only_spconv1x_layout(voxel_setup, tmp_path):
         torch.testing.assert_close(v, sd[k], rtol=0, atol=0, msg=k)
 
 
-@pytest.mark.parametrize("config", [WAYMO_SECOND, WAYMO_VOXEL_RCNN, WAYMO_SECOND_IOU])
+@pytest.mark.parametrize("config", [WAYMO_SECOND, WAYMO_VOXEL_RCNN, WAYMO_SECOND_IOU]
+                         + WAYMO_PV_RCNN)
 def test_waymo_second_grid_fails_alike(config):
     """``configs/waymo_models/second.yaml``: the Waymo range at 0.1 m is 1498
     cells, the backbone's stride-2 convs round up (1498 -> 749 -> 375 ->
@@ -257,7 +261,9 @@ def test_waymo_second_grid_fails_alike(config):
     anchor decode; neither crops.  ``waymo_models/voxel_rcnn.yaml`` and
     ``second_iou.yaml`` have the same grid and anchors; their decode feeds
     the proposal layer inside the model, so both packages fail in the
-    forward."""
+    forward.  So do ``pv_rcnn.yaml`` and the ``pv_rcnn_plusplus*.yaml``
+    (the 2-frame one at the model: its multi-frame dataset is not read
+    here), their keypoints (cut to 256) drawn from raw points first."""
     from com_tpu_torch.models.backbone3d import VoxelBackBone8x
 
     cfg = cfg_from_yaml_file(str(REPO / config))
@@ -270,6 +276,15 @@ def test_waymo_second_grid_fails_alike(config):
     half = 58 * 0.5 / 2
     pc_range, vsize, grid = (-half, -half, -2.0, half, half, 2.0), (0.5, 0.5, 0.1), (58, 58, 40)
     host, _, _ = scenes(seed=9)
+    keys = VOXEL_KEYS
+    if "PFE" in cfg.MODEL:
+        cfg.MODEL.PFE.NUM_KEYPOINTS = 256
+        rng = np.random.RandomState(9)
+        host.update(points=np.concatenate([rng.uniform(-14, 14, (2, 2048, 2)),
+                                           rng.uniform(-1.5, 1.5, (2, 2048, 1)),
+                                           rng.rand(2, 2048, 2)], -1).astype(np.float32),
+                    points_mask=np.ones((2, 2048), bool))
+        keys = VOXEL_KEYS + ("points", "points_mask")
     jnet = jax_build_network(cfg.MODEL, JaxMeta(names, pc_range, vsize, grid, 5))
     meta = DatasetMeta(names, pc_range, vsize, grid, 5)
     net = build_network(cfg.MODEL, meta, device="cpu")
@@ -277,7 +292,7 @@ def test_waymo_second_grid_fails_alike(config):
     if "ROI_HEAD" in cfg.MODEL:
         with pytest.raises(TypeError, match=r"384.*294"):
             jax.eval_shape(lambda b: jnet.init(jax.random.PRNGKey(0), b, train=False),
-                           {k: jnp.asarray(host[k]) for k in VOXEL_KEYS})
+                           {k: jnp.asarray(host[k]) for k in keys})
         with pytest.raises(RuntimeError, match=r"384.*294"):
             make_eval_step(net, cfg.MODEL, names, meta, device="cpu")(host)
         return
