@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port's serving and training paths (over its own
 data pipeline, through its train, test and demo CLIs, for the PointPillars
 anchor head, the sparse-voxel detectors, the two-stage Voxel-RCNN and
-SECOND-IoU, and PV-RCNN; the KITTI configs from a KITTI tree on disk), its
+SECOND-IoU, PV-RCNN and PointRCNN; the KITTI configs from a KITTI tree on
+disk), its
 serving artifact (export, load and the HTTP server), its data-parallel
 training and evaluation, and its wgrad sweep on one NVIDIA GPU.
 
@@ -224,9 +225,32 @@ Phases (any failure raises, and the script exits non-zero):
    (SPC ``VoxelSetAbstraction`` over 6 sectors around 128 RoIs a scene,
    ``PVRCNNPlusPlusHead``'s two vector-pool groups) on 2 Waymo-like scenes,
    timed, scene 0 card against CPU in f32.
-19. Launch counts: every counter is zeroed just before each path (the
-   sweep, serving, A, B, C, D's, E's, F's, G's, J's, K's, H's, L's and M's
-   phases, and in each rank of I) and read just after, against the calls the sweep
+19. Path N, PointRCNN (``configs/kitti_models/pointrcnn.yaml``:
+   ``PointNet2MSG`` over the raw points, 4,096 / 1,024 / 256 / 64 FPS
+   samples at two radii each and feature propagation back to every point,
+   ``PointHeadBox``'s class and box a point, the 4,096 best point boxes
+   through the proposal layer's NMS (K4) to 100 RoIs in serving, 512 and
+   128 sampled in training, ``PointRCNNHead`` over 512 pooled points a
+   RoI) at full width, batch 2 of ~20,000 KITTI-like points in 32,768
+   slots, the point head's class bias +1 and box layer x0.02.  N.1:
+   ``tests/test_pointrcnn.py``'s small config in f32, the eval step and one
+   train step card against CPU (the step within the tolerances or twice
+   either device's own difference with the scenes swapped).  N.2: three
+   serving batches (latency, peak memory, K4 2 a forward) and the eval
+   step's stages (each set abstraction's FPS, query and block, the FPs,
+   the point head, the proposal IoU and K4, the RoI pool, the head's SAs
+   and FCs, the final NMS); K4 on the (2, 4096) proposal candidates of
+   serving and of training and on the final NMS's (2, 100), each with two
+   synthetic cases.  N.3: 2 train steps whose GT follow the model's own
+   proposals (every term finite, foreground RoIs, K4 1 a step) and their
+   stages; ``train_model`` over the train split of a KITTI tree written
+   under ``build/path_n`` through ``KittiDataset`` with the YAML's own
+   DATA_CONFIG; one step of ``pointrcnn_iou.yaml``.  N.4: the train and
+   test CLIs raise NotImplementedError, as ``com_tpu``'s cannot run
+   PointRCNN.
+20. Launch counts: every counter is zeroed just before each path (the
+   sweep, serving, A, B, C, D's, E's, F's, G's, J's, K's, H's, L's, M's and
+   N's phases, and in each rank of I) and read just after, against the calls the sweep
    reports and the expected counts per
    forward or per step.  The device
    kernels one K3 call issues (1) and one K4 call (2, the pack and the
@@ -343,6 +367,17 @@ M_TERMS = ("rpn_loss_cls", "rpn_loss_loc", "rpn_loss_dir", "rcnn_loss_cls", "rcn
            "point_loss_cls")
 EXPECT_M_SERVING = {"conv3x3": 11, "nms": 1}
 EXPECT_M_TRAIN = {"conv3x3": 11, "conv3x3_dgrad": 11, "conv3x3_wgrad": 11}
+# path N: PointRCNN on KITTI (no voxel or BEV stage: PointNet2MSG over the
+# raw points, the points' boxes as proposals through K4, then the final NMS)
+POINTRCNN_CONFIG = "configs/kitti_models/pointrcnn.yaml"
+POINTRCNN_IOU_CONFIG = "configs/kitti_models/pointrcnn_iou.yaml"
+N_DIR = REPO / "build" / "path_n"  # path N's tree and CLI outputs, removed after the path
+N_BATCH = 2  # the YAML's BATCH_SIZE_PER_GPU
+N_TRAIN = 8  # the tree's train frames: 4 steps of train_model
+N_TERMS = ("point_loss_cls", "point_loss_box", "rcnn_loss_cls", "rcnn_loss_reg",
+           "rcnn_loss_corner")
+EXPECT_N_SERVING = {"nms": 2}  # the proposal NMS over the points' boxes and the final one
+EXPECT_N_TRAIN = {"nms": 1}
 WGRAD_THS = (8, 16)
 # variant -> (TPU kernel, line of its pallas_call in tools/perf/microbench_wgrad_kernels.py)
 WGRAD_VARIANTS = {"gcol": ("T1", 84), "xcol": ("T2", 128), "gt9": ("T3", 175),
@@ -1336,41 +1371,62 @@ def check_small_train_reference(dev):
     compare_train_step(dev, cfg, meta, batch, "small train reference (64x64 f32, card vs CPU)")
 
 
-def compare_train_step(dev, cfg, meta, batch, label):
+def compare_train_step(dev, cfg, meta, batch, label, counts_confidences=True,
+                       own_noise=False):
     """One train step of ``cfg`` on ``batch`` on the card (kernels) against
     the same weights on the CPU (plain versions), every norm's bias moved
     by 3 and the running statistics started at 0: loss, every gradient, the
-    batch statistics and the confidence accumulators."""
+    batch statistics and the confidence accumulators (all zero where the
+    model has no COM groups: ``counts_confidences`` False).  With
+    ``own_noise`` each device also runs the batch with its scenes in the
+    other order (the same step in other f32 sums), and the card may differ
+    from the CPU by twice the larger of the two devices' differences from
+    themselves there (two devices' rounding against one's), where that is
+    more than the tolerances: a model whose max pools and few-row norms
+    turn rounding into more than 1e-5 of a statistic."""
     from com_tpu_torch.models.layers import BatchNorm
 
-    runs = []
-    for d in (dev, "cpu"):
+    def run(d, b):
         net, _, state, step = build_trainer(d, cfg, meta, 1, seed=7)
         shift_norm_biases(net)
         running = {k: v for k, v in net.state_dict().items() if "running" in k}
         for v in running.values():  # from 0, one update is (1 - 0.99) x the batch statistic
             v.zero_()
-        loss = step.loss_fn(state, batch, 0)[0]
+        loss = step.loss_fn(state, b, 0)[0]
         loss.backward()
         grads = {k: p.grad.float().cpu().clone() for k, p in net.named_parameters()}
         stats = {k: v.cpu() / (1 - BatchNorm.MOMENTUM) for k, v in running.items()}
-        runs.append((float(loss.detach()), grads, stats))
         net.zero_grad(set_to_none=True)
-        state, _ = step(state, batch, 0)
-        runs[-1] += (state.conf_sum.cpu(), state.conf_cnt.cpu())
-    (l0, g0, s0, cs0, cc0), (l1, g1, s1, cs1, cc1) = runs
-    gmax = max(float(g.abs().max()) for g in g1.values())
-    gerr = max(float(((g0[k] - g1[k]).abs() / (1e-3 * g1[k].abs().max() + 1e-5 * gmax)).max())
-               for k in g1)
-    serr = max(float(stat_err(s0, s1, k.rsplit(".", 1)[0]).max())
-               for k in s1 if k.endswith("running_mean"))
-    ok = (abs(l0 - l1) <= 1e-4 * abs(l1) and gerr <= 1.0 and serr <= STATS_RTOL
+        state, _ = step(state, b, 0)
+        return float(loss.detach()), grads, stats, state.conf_sum.cpu(), state.conf_cnt.cpu()
+
+    def errors(a, b):
+        (la, ga, sa), (lb, gb, sb) = a[:3], b[:3]
+        gmax = max(float(g.abs().max()) for g in gb.values())
+        gerr = max(float(((ga[k] - gb[k]).abs() / (1e-3 * gb[k].abs().max() + 1e-5 * gmax)).max())
+                   for k in gb)
+        serr = max(float(stat_err(sa, sb, k.rsplit(".", 1)[0]).max())
+                   for k in sb if k.endswith("running_mean"))
+        return abs(la - lb) / abs(lb), gerr, serr
+
+    (l0, _, _, cs0, cc0), (l1, _, _, cs1, cc1) = card, cpu = run(dev, batch), run("cpu", batch)
+    lerr, gerr, serr = errors(card, cpu)
+    ltol, gtol, stol = 1e-4, 1.0, STATS_RTOL
+    if own_noise:
+        swapped = {k: v[::-1].copy() for k, v in batch.items()}
+        own = [max(a, b) for a, b in zip(errors(run(dev, swapped), card),
+                                         errors(run("cpu", swapped), cpu))]
+        ltol, gtol, stol = max(ltol, 2 * own[0]), max(gtol, 2 * own[1]), max(stol, 2 * own[2])
+        print(f"{label}: each device against itself with the scenes swapped, the larger: loss "
+              f"rel {own[0]:.2e}, gradients at {own[1]:.3f} of the tolerance, batch statistics "
+              f"rel {own[2]:.2e}")
+    ok = (lerr <= ltol and gerr <= gtol and serr <= stol
           and torch.equal(cc0, cc1) and float((cs0 - cs1).abs().max()) <= 1e-4
-          and float(cc1.sum()) > 0)
+          and (float(cc1.sum()) > 0) == counts_confidences)
     print(f"{label}: loss {l0:.6f} vs {l1:.6f}; "
-          f"{len(g1)} gradients within 1e-3 of their max + 1e-5 of the net's max "
-          f"(worst at {gerr:.3f} of that); batch statistics rel {serr:.2e} "
-          f"(<= {STATS_RTOL:g}); "
+          f"{len(cpu[1])} gradients within 1e-3 of their max + 1e-5 of the net's max "
+          f"(worst at {gerr:.3f} of that, allowed {gtol:.3f}); batch statistics rel {serr:.2e} "
+          f"(<= {stol:.2e}); "
           f"confidence counts {int(cc1.sum())} equal {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{label}: the card's train step disagrees with the CPU")
@@ -2685,11 +2741,16 @@ def two_stage_marks(net, mark):
             hooks.append(getattr(net, s).register_forward_pre_hook(
                 lambda *_, name=name: mark(name)))
             hooks.append(getattr(net, s).register_forward_hook(lambda *_: mark("gap")))
-    undo_points = _mark_point_steps(net, mark) if getattr(net, "pfe", None) is not None else None
+    if getattr(net, "pfe", None) is not None:
+        undo_points = _mark_point_steps(net, mark)
+    elif hasattr(net.backbone_3d, "SA_modules"):
+        undo_points = _mark_pointnet2_steps(net, mark)
+    else:
+        undo_points = None
     hooks.append(net.roi_head.register_forward_pre_hook(lambda *_: mark("roi_head")))
     # the stack runs layer by layer (fc.run_stack): its first layer opens the FCs
-    hooks.append(net.roi_head.shared_fc_layer[0].register_forward_pre_hook(
-        lambda *_: mark("fcs")))
+    fcs = getattr(net.roi_head, "shared_fc_layer", None) or net.roi_head.cls_layers
+    hooks.append(fcs[0].register_forward_pre_hook(lambda *_: mark("fcs")))
 
     def head_end(*_):
         phase[0] = "final"
@@ -2825,8 +2886,10 @@ def check_small_two_stage_reference(dev, config, label):
     compare_eval_step(dev, cfg, meta, batch, label, prepare=spread_anchor_scores)
 
 
-def check_two_stage_serving(dev, label, cfg, meta, batches, expect, smi):
-    """Seeded weights, scores spread, through ``make_eval_step``: each batch's
+def check_two_stage_serving(dev, label, cfg, meta, batches, expect, smi,
+                            spread=spread_anchor_scores):
+    """Seeded weights, scores spread (``spread(net)``), through
+    ``make_eval_step``: each batch's
     latency (host clock, outputs copied back), peak memory, launches; as
     many slots as the final NMS gives (the lesser of NMS_POST_MAXSIZE and
     the RoIs), finite boxes, a valid detection a scene at least, scores
@@ -2836,7 +2899,7 @@ def check_two_stage_serving(dev, label, cfg, meta, batches, expect, smi):
 
     post = cfg.MODEL.POST_PROCESSING
     thresh = float(post.SCORE_THRESH)
-    net = spread_anchor_scores(build_network(cfg.MODEL, meta, device=dev, seed=0))
+    net = spread(build_network(cfg.MODEL, meta, device=dev, seed=0))
     step = make_eval_step(net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=dev)
     rois = []
     hook = net.roi_head.register_forward_pre_hook(lambda m, args: rois.append(
@@ -2856,7 +2919,7 @@ def check_two_stage_serving(dev, label, cfg, meta, batches, expect, smi):
     counts = read_counters()
     peak = torch.cuda.max_memory_allocated(dev)
     labels_ok = list(range(1, len(cfg.CLASS_NAMES) + 1))
-    print(f"path {label} serving (batch {len(batches[0]['voxels'])}): latency ms a batch "
+    print(f"path {label} serving (batch {len(batches[0]['points_mask'])}): latency ms a batch "
           f"{[round(x, 2) for x in latencies]}, max_memory_allocated {peak / 2**30:.2f} GiB "
           f"({smi})")
     for i, (boxes, scores, labels, valid) in enumerate(outs):
@@ -2877,9 +2940,8 @@ def proposal_candidates(net, cfg, batch, dev, train):
     order, as (over, valid)."""
     import copy
 
-    from com_tpu_torch.models.dense_heads.anchor_head import decode_anchor_boxes, top_candidates
+    from com_tpu_torch.models.dense_heads.anchor_head import decode_anchor_boxes
     from com_tpu_torch.models.detectors import Detector3D
-    from com_tpu_torch.ops import nms
     from com_tpu_torch.train.step import model_input_keys
 
     nms_cfg = cfg.MODEL.ROI_HEAD.NMS_CONFIG["TRAIN" if train else "TEST"]
@@ -2889,10 +2951,19 @@ def proposal_candidates(net, cfg, batch, dev, train):
                                            for k in model_input_keys(cfg.MODEL)})
         boxes, scores, _ = decode_anchor_boxes(first, probe.anchors, len(cfg.CLASS_NAMES),
                                                probe.box_coder, cfg.MODEL.DENSE_HEAD)
-        top, idx = top_candidates(scores, int(nms_cfg.NMS_PRE_MAXSIZE))
-        bx = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, boxes.shape[-1]))
-        _, sb, sv = nms._sorted(bx[..., :7], top, torch.isfinite(top))
-        over = (nms._self_iou(sb) > float(nms_cfg.NMS_THRESH)).contiguous()
+        return nms_overlaps(boxes, scores, nms_cfg)
+
+
+def nms_overlaps(boxes, scores, nms_cfg):
+    """The proposal layer's K4 input: the top NMS_PRE_MAXSIZE of ``boxes``
+    by ``scores``, in the NMS's score order, as (over, valid)."""
+    from com_tpu_torch.models.dense_heads.anchor_head import top_candidates
+    from com_tpu_torch.ops import nms
+
+    top, idx = top_candidates(scores, min(int(nms_cfg.NMS_PRE_MAXSIZE), scores.shape[1]))
+    bx = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, boxes.shape[-1]))
+    _, sb, sv = nms._sorted(bx[..., :7], top, torch.isfinite(top))
+    over = (nms._self_iou(sb) > float(nms_cfg.NMS_THRESH)).contiguous()
     return over, sv.contiguous()
 
 
@@ -2914,17 +2985,18 @@ def final_candidates(net, cfg, batch, dev):
     return over, sv.contiguous()
 
 
-def two_stage_training(dev, label, cfg, meta, batches, expect, terms, smi):
+def two_stage_training(dev, label, cfg, meta, batches, expect, terms, smi,
+                       spread=spread_anchor_scores):
     """``train_model`` 1 mini-epoch of 2 steps over ``batches``, seeded
-    weights with the scores spread and GT following the proposals
-    (``follow_proposals``): every term finite, the foreground RoIs a step
-    (> 0), launches; then the step's stages, mean of 2 after a warm-up.
-    Returns the counts."""
+    weights with the scores spread (``spread(net)``) and GT following the
+    proposals (``follow_proposals``): every term finite, the foreground
+    RoIs a step (> 0), launches; then the step's stages, mean of 2 after a
+    warm-up.  Returns the counts."""
     fg = []
     trainer = {}
 
     def prepare(net):
-        follow_proposals(spread_anchor_scores(net))
+        follow_proposals(spread(net))
         trainer["net"] = net
         net.roi_head.register_forward_pre_hook(
             lambda m, args: fg.append(args[0]["roi_targets"].reg_valid.sum())
@@ -2936,7 +3008,7 @@ def two_stage_training(dev, label, cfg, meta, batches, expect, terms, smi):
     fg_counts = [int(x) for x in fg]
     ok = len(fg_counts) == 2 and min(fg_counts) > 0
     print(f"  path {label} foreground RoIs a step: {fg_counts} of "
-          f"{int(cfg.MODEL.ROI_HEAD.TARGET_CONFIG.ROI_PER_IMAGE) * len(batches[0]['voxels'])} "
+          f"{int(cfg.MODEL.ROI_HEAD.TARGET_CONFIG.ROI_PER_IMAGE) * len(batches[0]['points_mask'])} "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"path {label}: a train step saw no foreground RoI")
@@ -4542,6 +4614,265 @@ def path_m(dev, smi, entries, calls, pc_range=None, points=E_POINTS, real_points
     return serve_counts, train_counts
 
 
+def pointrcnn_small_case(seed=0):
+    """``tests/test_pointrcnn.py``'s small PointRCNN (its ``pointrcnn_cfg``,
+    written out: nothing here imports the JAX package's tests), f32, with
+    ``pointrcnn.yaml``'s OPTIMIZATION, over 2 scenes of 1,024 points with 5
+    features, 95 % valid: a car and a pedestrian cluster a scene (4 GT
+    slots).  Returns (cfg, meta, batch)."""
+    from com_tpu_torch.models.detectors import DatasetMeta
+    from com_tpu_torch.utils.config import CfgNode, cfg_from_yaml_file
+
+    names = ["Vehicle", "Pedestrian", "Cyclist"]
+    nms = {"NMS_PRE_MAXSIZE": 128, "NMS_POST_MAXSIZE": 16}
+    model = {
+        "NAME": "PointRCNN",
+        "BACKBONE_3D": {"NAME": "PointNet2MSG", "SA_CONFIG": {
+            "NPOINTS": [256, 64], "RADIUS": [[0.5, 1.0], [1.0, 2.0]], "NSAMPLE": [[8, 8], [8, 8]],
+            "MLPS": [[[8, 8], [8, 8]], [[16, 16], [16, 16]]]},
+            "FP_MLPS": [[16, 16], [16, 16]]},
+        "POINT_HEAD": {
+            "NAME": "PointHeadBox", "CLS_FC": [32], "REG_FC": [32],
+            "TARGET_CONFIG": {"GT_EXTRA_WIDTH": [0.2, 0.2, 0.2], "BOX_CODER": "PointResidualCoder",
+                              "BOX_CODER_CONFIG": {"use_mean_size": True, "mean_size": [
+                                  [4.7, 2.1, 1.7], [0.91, 0.86, 1.73], [1.78, 0.84, 1.78]]}},
+            "LOSS_CONFIG": {"LOSS_WEIGHTS": {"point_cls_weight": 1.0, "point_box_weight": 1.0}}},
+        "ROI_HEAD": {
+            "NAME": "PointRCNNHead",
+            "ROI_POINT_POOL": {"POOL_EXTRA_WIDTH": [0.0, 0.0, 0.0], "NUM_SAMPLED_POINTS": 64,
+                               "DEPTH_NORMALIZER": 70.0},
+            "XYZ_UP_LAYER": [16, 16], "CLS_FC": [16], "REG_FC": [16], "USE_BN": True,
+            "SA_CONFIG": {"NPOINTS": [32, -1], "RADIUS": [0.4, 100], "NSAMPLE": [8, 8],
+                          "MLPS": [[16, 16], [16, 32]]},
+            "NMS_CONFIG": {"TRAIN": dict(nms, NMS_THRESH=0.8), "TEST": dict(nms, NMS_THRESH=0.85)},
+            "TARGET_CONFIG": {"ROI_PER_IMAGE": 16, "FG_RATIO": 0.5, "REG_FG_THRESH": 0.55,
+                              "CLS_FG_THRESH": 0.6, "CLS_BG_THRESH": 0.45},
+            "LOSS_CONFIG": {"CORNER_LOSS_REGULARIZATION": True, "LOSS_WEIGHTS": {
+                "rcnn_cls_weight": 1.0, "rcnn_reg_weight": 1.0, "rcnn_corner_weight": 1.0,
+                "code_weights": [1.0] * 7}}},
+    }
+    opt = cfg_from_yaml_file(str(REPO / POINTRCNN_CONFIG)).OPTIMIZATION
+    cfg = CfgNode({"MODEL": model, "CLASS_NAMES": names, "OPTIMIZATION": opt})
+    meta = DatasetMeta(names, (-10.0, -10.0, -2.0, 10.0, 10.0, 4.0), (0.1, 0.1, 6.0),
+                       (200, 200, 1), 5)
+    rng = np.random.RandomState(seed)
+    gt = np.zeros((2, 4, 8), np.float32)
+    pts = []
+    for s in range(2):
+        gt[s, 0] = [*rng.uniform(-6, 6, 2), 0.0, 4.2, 1.9, 1.6, rng.uniform(-3, 3), 1]
+        gt[s, 1] = [*rng.uniform(-6, 6, 2), 0.0, 0.9, 0.8, 1.7, rng.uniform(-3, 3), 2]
+        parts = [np.concatenate([rng.randn(200, 3) * 0.25 + box[None, :3], rng.rand(200, 2)], 1)
+                 for box in gt[s, :2]]
+        parts.append(np.concatenate([rng.uniform(-10, 10, (624, 2)), rng.uniform(-1, 2, (624, 1)),
+                                     rng.rand(624, 2)], 1))
+        pts.append(np.concatenate(parts))
+    real = gt[..., 7] > 0
+    batch = {"points": np.stack(pts).astype(np.float32), "points_mask": rng.rand(2, 1024) < 0.95,
+             "gt_boxes": gt, "num_points_in_gt": real.astype(np.float32) * 200,
+             "true_object": real.astype(np.float32)}
+    return cfg, meta, batch
+
+
+def spread_point_scores(net):
+    """PointRCNN's seeded weights as path E's anchor head: the point head's
+    class biases up by 1 (its scores spread over (0.5, 1)) and its box
+    output layer 50-fold smaller (boxes near their class's mean size)."""
+    with torch.no_grad():
+        net.point_head.cls_layers[-1].bias.add_(1.0)
+        net.point_head.box_layers[-1].weight.mul_(0.02)
+    return net
+
+
+def _mark_pointnet2_steps(net, mark):
+    """Marks inside PointRCNN's point stages, for ``two_stage_marks``: each
+    set abstraction of the backbone ("sa{k}.fps", "sa{k}.query",
+    "sa{k}.block") and of the RoI head ("roi.sa{k}.*"; a group-all one
+    opens with its block), each feature propagation ("fp{i}") and the RoI
+    head's shared MLPs after its pooling ("roi.mlp"; the head's own mark,
+    "roi_head", is the pooling).  Returns the function that removes
+    them."""
+    from com_tpu_torch.ops import pointnet2
+
+    where, hooks, pooled = ["sa"], [], []
+
+    def sa_marks(prefix, mods):
+        for k, m in enumerate(mods):
+            name = f"{prefix}{k}"
+
+            def opens(*_, n=name, first=f"{name}.fps" if m.npoint is not None else None):
+                where[0] = n
+                mark(first or f"{n}.block")
+
+            hooks.append(m.register_forward_pre_hook(opens))
+            orig = m.pool
+
+            def pool(*args, n=name, o=orig, **kw):
+                mark(f"{n}.block")
+                return o(*args, **kw)
+
+            m.pool = pool
+            pooled.append(m)
+
+    sa_marks("sa", net.backbone_3d.SA_modules)
+    for i, m in enumerate(net.backbone_3d.FP_modules):
+        hooks.append(m.register_forward_pre_hook(lambda *_, i=i: mark(f"fp{i}")))
+    head = net.roi_head
+    sa_marks("roi.sa", head.SA_modules)
+    hooks.append(head.xyz_up_layer.register_forward_pre_hook(lambda *_: mark("roi.mlp")))
+    orig_group = pointnet2.query_and_group
+
+    def group(*args, **kw):
+        mark(f"{where[0]}.query")
+        return orig_group(*args, **kw)
+
+    pointnet2.query_and_group = group
+
+    def undo():
+        pointnet2.query_and_group = orig_group
+        for m in pooled:
+            del m.pool
+        for h in hooks:
+            h.remove()
+
+    return undo
+
+
+def check_small_pointrcnn_reference(dev):
+    """N.1: ``pointrcnn_small_case`` on the card against the CPU, the same
+    seeded weights: the eval step's detections (scores spread), and one
+    train step (loss, gradients, batch statistics; no COM groups) within
+    the tolerances or the CPU's own difference with the scenes swapped."""
+    cfg, meta, batch = pointrcnn_small_case()
+    label = "path N small reference (tests/test_pointrcnn.py's PointRCNN f32"
+    compare_eval_step(dev, cfg, meta, batch, f"{label}, eval step, card vs CPU)",
+                      prepare=spread_point_scores)
+    compare_train_step(dev, cfg, meta, batch, f"{label}, train step, card vs CPU)",
+                       counts_confidences=False, own_noise=True)
+
+
+def point_proposal_candidates(net, cfg, batch, dev, train):
+    """What PointRCNN's proposal layer hands K4 for ``batch`` in ``net``'s
+    training or eval mode: the top NMS_PRE_MAXSIZE boxes of the valid
+    points by score, in the NMS's score order, as (over, valid)."""
+    import copy
+
+    nms_cfg = cfg.MODEL.ROI_HEAD.NMS_CONFIG["TRAIN" if train else "TEST"]
+    probe = copy.deepcopy(net).train(train)  # training mode moves the norms' statistics
+    with torch.no_grad():
+        out = probe.point_head(probe.backbone_3d({k: torch.as_tensor(batch[k], device=dev)
+                                                  for k in ("points", "points_mask")}))
+        scores = torch.where(out["point_valid"], out["point_cls_scores"],
+                             torch.full_like(out["point_cls_scores"], -math.inf))
+        return nms_overlaps(out["point_box_preds"], scores, nms_cfg)
+
+
+def n3_training(dev, smi, cfg, meta, batches, tree, extra_set=()):
+    """N.3: 2 steps with GT on the model's own proposals and the step's
+    stages (``two_stage_training``); ``train_model`` over the tree's train
+    split through the port's ``KittiDataset`` with ``pointrcnn.yaml``'s own
+    DATA_CONFIG (batch 2, 1 epoch); one step of ``pointrcnn_iou.yaml``.
+    Returns the launch counts of the 2 steps."""
+    from com_tpu_torch.data import build_dataloader
+    from com_tpu_torch.tools.train import dataset_meta
+
+    counts = two_stage_training(dev, "N (PointRCNN, KITTI)", cfg, meta, batches, EXPECT_N_TRAIN,
+                                N_TERMS, smi, spread=spread_point_scores)
+    torch.cuda.empty_cache()
+    tcfg = l_cfg(POINTRCNN_CONFIG, tree, extra_set)
+    names = list(tcfg.CLASS_NAMES)
+    dataset, loader = build_dataloader(tcfg.DATA_CONFIG, names, N_BATCH, training=True,
+                                       workers=L_WORKERS, seed=L_SEED)
+    run_training(dev, "N.3 (pointrcnn.yaml, train_model over KittiDataset)", tcfg,
+                 dataset_meta(tcfg, dataset), loader, 1, len(loader), EXPECT_N_TRAIN,
+                 counts_confidences=False, smi=smi, prepare=spread_point_scores, terms=N_TERMS)
+    torch.cuda.empty_cache()
+    icfg, imeta, _ = load_voxel(POINTRCNN_IOU_CONFIG, meta.point_cloud_range)
+    run_training(dev, "N.3 (pointrcnn_iou.yaml, one step)", icfg, imeta,
+                 SyntheticLoader(batches[:1], 1), 1, 1, EXPECT_N_TRAIN, counts_confidences=False,
+                 smi=smi, prepare=lambda net: follow_proposals(spread_point_scores(net)),
+                 terms=N_TERMS)
+    return counts
+
+
+def n4_clis(dev, tree):
+    """N.4: the train and test CLIs on ``pointrcnn.yaml`` raise
+    NotImplementedError, as ``com_tpu``'s cannot run PointRCNN either (its
+    train CLI initialises the model without points, its test CLI reads
+    MODEL.DENSE_HEAD)."""
+    from com_tpu_torch.tools import test, train
+
+    base = ["--cfg_file", str(REPO / POINTRCNN_CONFIG), "--output_dir", str(N_DIR / "out"),
+            "--device", str(dev), "--set", "DATA_CONFIG.DATA_PATH", str(tree)]
+    for name, cli, extra in (("train", train, ["--epochs", "1"]),
+                             ("test", test, ["--ckpt", str(N_DIR / "none.pth")])):
+        try:
+            cli.main(extra + base)
+        except NotImplementedError as e:
+            print(f"path N.4 {name} CLI on pointrcnn.yaml: NotImplementedError ({e}) ok")
+        else:
+            raise AssertionError(f"path N.4: the {name} CLI ran PointRCNN, com_tpu's cannot")
+
+
+def path_n(dev, smi, entries, calls, pc_range=None, points=E_POINTS, real_points=E_REAL_POINTS,
+           tree_points=L_POINTS, sets=None):
+    """Path N, PointRCNN (``configs/kitti_models/pointrcnn.yaml``:
+    ``PointNet2MSG`` over 4,096 / 1,024 / 256 / 64 FPS samples at two radii
+    each and feature propagation back to every point, ``PointHeadBox``'s
+    class and box a point, 4,096 point boxes -> 100 RoIs by K4 in serving,
+    4,096 -> 512 -> 128 sampled in training, ``PointRCNNHead`` over 512
+    pooled points a RoI) at full width, batch 2 of ~20,000 KITTI-like
+    points in 32,768 slots, scores spread (``spread_point_scores``).  N.1
+    the small f32 reference; N.2 three serving batches (latency, peak
+    memory, K4 2 a forward), the eval step's stages, K4 on the (2, 4096)
+    proposal candidates of serving and of training and on the final NMS's
+    (2, 100), each with two synthetic cases; N.3 training
+    (``n3_training``: K4 1 a step); N.4 the CLIs (``n4_clis``).  Returns
+    the launch counts of a serving forward and of the 2 steps.
+    ``pc_range``, the point counts and ``sets`` ({"N.3": ``--set`` pairs})
+    are for rehearsals."""
+    import shutil
+
+    from com_tpu_torch.tools.kitti_tree import write_kitti_tree
+
+    sets = sets or {}
+    start = time.perf_counter()
+    check_small_pointrcnn_reference(dev)
+    cfg, meta, _ = load_voxel(POINTRCNN_CONFIG, pc_range)
+    rng = np.random.RandomState(52)
+
+    def batches(count):
+        return [kitti_like_batch(rng, N_BATCH, meta.point_cloud_range, (0.16, 0.16, 4.0),
+                                 n=points, real_points=real_points) for _ in range(count)]
+
+    serve_batches, train_batches = batches(3), batches(2)
+    net, step, serve_counts = check_two_stage_serving(
+        dev, "N (PointRCNN, KITTI)", cfg, meta, serve_batches, EXPECT_N_SERVING, smi,
+        spread=spread_point_scores)
+    two_stage_breakdown(net, lambda: step(serve_batches[0]), "path N eval step", smi=smi)
+    for what, kernel, (over, sv) in (
+            ("serving proposals", "N:nms",
+             point_proposal_candidates(net, cfg, serve_batches[0], dev, train=False)),
+            ("train proposals", "N:nms_train",
+             point_proposal_candidates(net, cfg, train_batches[0], dev, train=True)),
+            ("final NMS", "N:nms", final_candidates(net, cfg, serve_batches[0], dev))):
+        check_k4_cases(dev, entries, calls, over, sv, smi, f", path N {what}", kernel,
+                       iters=20 if sv.shape[1] > 1024 else 50)
+    del net, step
+    torch.cuda.empty_cache()
+    shutil.rmtree(N_DIR, ignore_errors=True)
+    N_DIR.mkdir(parents=True)
+    try:
+        tree = N_DIR / "kitti"
+        write_kitti_tree(tree, seed=L_SEED, num_train=N_TRAIN, num_val=1, num_points=tree_points)
+        train_counts = n3_training(dev, smi, cfg, meta, train_batches, tree, sets.get("N.3", ()))
+        n4_clis(dev, tree)
+    finally:
+        shutil.rmtree(N_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"path N: {time.perf_counter() - start:.1f} s wall in all")
+    return serve_counts, train_counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4600,12 +4931,15 @@ def main():
     l_counts = path_l(dev, smi, entries, calls)
     torch.cuda.empty_cache()
     m_serve_counts, m_train_counts = path_m(dev, smi, entries, calls)
+    torch.cuda.empty_cache()
+    n_serve_counts, n_train_counts = path_n(dev, smi, entries, calls)
     # each kernel's launches on the path that runs it: training path A,
     # serving for K4, path B for K3's last_wins mode, the sweep for T1-T4;
     # paths E, F, G and J's shapes: their training, and their serving for
     # K4 (path J's train proposals: its training); path L's shapes: L.2's
     # steps and serving forward, L.4's test CLI; path M's: its training,
-    # and its serving for K4
+    # and its serving for K4; path N's: its serving (K4 twice a forward) and
+    # its 2 steps
     counts = {**a_counts, "nms": serve_counts["nms"],
               "stamp_last_wins": b_counts["stamp_last_wins"],
               **{f"wgrad_{v}": sweep_counts[f"wgrad_{v}"] for v in WGRAD_VARIANTS},
@@ -4615,7 +4949,8 @@ def main():
                  for k, v in c.items()},
               "E:nms": e_serve_counts["nms"], "G:nms": g_serve_counts["nms"],
               "J:nms": j_serve_counts["nms"], "J:nms_train": j_train_counts["nms"], **l_counts,
-              "M:nms": m_serve_counts["nms"]}
+              "M:nms": m_serve_counts["nms"], "N:nms": n_serve_counts["nms"],
+              "N:nms_train": n_train_counts["nms"]}
     if not profile:
         check_device_kernels(calls)
     for e in entries:

@@ -6,11 +6,12 @@ batch dict.  The slots are attributes named as in pcdet, so ``state_dict()``
 keys read ``vfe.pfn_layers.0.linear.weight``, ``backbone_3d.conv2.0.0.weight``,
 ``backbone_2d.blocks.0.1.weight``, ``dense_head.shared_conv.0.weight``...
 CenterPoint, PointPillar, SECONDNet and the two-stage VoxelRCNN and
-SECONDNetIoU (``roi_head.*``) and PV-RCNN and PV-RCNN++ (``pfe.*``,
-``point_head.*``, ``roi_head.*``) are ported, for inference and training
-(``net.train()`` puts the norms in batch-statistics mode; the dense head
-returns raw predictions in both modes); the other two-stage detectors
-raise by name.
+SECONDNetIoU (``roi_head.*``), PV-RCNN and PV-RCNN++ (``pfe.*``,
+``point_head.*``, ``roi_head.*``) and PointRCNN (``backbone_3d.*``,
+``point_head.*``, ``roi_head.*``, no voxel or BEV slot) are ported, for
+inference and training (``net.train()`` puts the norms in batch-statistics
+mode; the dense head returns raw predictions in both modes); the other
+two-stage detectors raise by name.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from . import backbone3d as _b3  # noqa: F401
 from . import dense_heads as _dh  # noqa: F401
 from . import map_to_bev as _mb  # noqa: F401
 from . import pfe as _pfe  # noqa: F401
+from . import pointnet2_backbone as _pn2  # noqa: F401
 from . import roi_heads as _rh  # noqa: F401
 from . import vfe as _vfe  # noqa: F401
 from .backbone2d import Deconv
@@ -136,66 +138,24 @@ class SECONDNet(Detector3D):
     HeightCompression, the BEV backbone and an anchor head."""
 
 
-class TwoStageDetector(Detector3D):
-    """A detector with a second stage (the JAX package's ``PVRCNN`` base:
-    ``_build_roi_head``, ``_proposals``, ``_stage2_rois``): the first stage
-    as ``Detector3D``, then the anchor head's decoded boxes through the
-    proposal layer (``NMS_CONFIG`` TRAIN or TEST by the module's mode), RoI
-    target assignment in training when the batch has "gt_boxes" (random
+class RoIStage:
+    """The second stage's RoI flow, shared by every two-stage detector (the
+    JAX package's ``PVRCNN._stage2_rois``): given a detector's proposals,
+    RoI target assignment in training when the batch has "gt_boxes" (random
     when ``batch["rngs"]["roi_sampling"]`` holds a generator or (B, P)
-    uniforms, else deterministic), and the RoI head, mounted as
-    ``roi_head``.  ``eval_topk`` keeps the top RoIs by score in eval
-    (NMS_CONFIG.TEST_POST); Voxel-RCNN and SECOND-IoU keep none."""
+    uniforms, else deterministic), else the RoIs as they are, or with
+    ``eval_topk`` the top RoIs by score (NMS_CONFIG.TEST_POST).  Reads
+    ``model_cfg`` and ``training``; a detector mixes it in before its
+    ``nn.Module`` base."""
 
-    two_stage = True
     eval_topk: int | None = None
 
-    def __init__(self, model_cfg, meta: DatasetMeta):
-        head_cfg = model_cfg["DENSE_HEAD"]
-        if "ANCHOR_GENERATOR_CONFIG" not in head_cfg:
-            raise NotImplementedError("decode_center_proposals (the CenterHead RPN of the "
-                                      "*_with_centerhead_* configs) is not ported yet")
-        super().__init__(model_cfg, meta)
-        anchors = build_anchors(head_cfg, list(meta.class_names), meta.grid_size,
-                                meta.point_cloud_range)[0]
-        self.register_buffer("anchors", torch.as_tensor(anchors), persistent=False)
-        self.box_coder = box_coder_for(head_cfg)
-        roi_cfg = model_cfg["ROI_HEAD"]
-        self.roi_head = ROI_HEADS.get(roi_cfg["NAME"])(
-            roi_cfg, num_class=1, point_cloud_range=meta.point_cloud_range,
-            voxel_size=meta.voxel_size, input_channels=self._roi_input_channels())
-
-    def _roi_input_channels(self):
-        raise NotImplementedError
-
-    def _proposals(self, batch):
-        """Fixed-size proposals: (rois, roi_scores, roi_labels, roi_valid),
-        (B, P, ...), padded and suppressed slots invalid."""
-        head_cfg = self.model_cfg["DENSE_HEAD"]
-        nms_cfg = dict(self.model_cfg.get("ROI_HEAD", {}).get("NMS_CONFIG", {}))
-        nms_cfg.update(nms_cfg.get("TRAIN" if self.training else "TEST", {}))
-        with torch.no_grad():
-            boxes, scores, labels = decode_anchor_boxes(
-                batch, self.anchors, len(self.meta.class_names), self.box_coder,
-                dir_cfg=head_cfg if head_cfg.get("USE_DIRECTION_CLASSIFIER") else None)
-        if "NMS_THRESH" in nms_cfg:
-            return proposal_layer(
-                boxes, scores, labels,
-                nms_pre=min(int(nms_cfg.get("NMS_PRE_MAXSIZE", 4096)), int(boxes.shape[1])),
-                nms_post=int(nms_cfg.get("NMS_POST_MAXSIZE", 512)),
-                nms_thresh=float(nms_cfg["NMS_THRESH"]),
-                use_fast_nms=nms_cfg.get("NMS_TYPE") == "fast_nms")
-        num_p = min(int(nms_cfg.get("TRAIN_PRE" if self.training else "TEST_PRE", 512)),
-                    int(scores.shape[1]))
-        top, idx = top_candidates(scores, num_p)
-        roi_valid = torch.isfinite(top)
-        return (take_rows(boxes, idx), torch.where(roi_valid, top, torch.zeros_like(top)),
-                take_rows(labels, idx), roi_valid)
-
-    def _stage2_rois(self, batch):
-        """Sets batch["rois"] and, in training with GT, batch["roi_targets"];
-        else batch["roi_scores" / "roi_labels" / "roi_valid"]."""
-        rois, roi_scores, roi_labels, roi_valid = self._proposals(batch)
+    def _stage2_rois(self, batch, proposals):
+        """``proposals`` (rois, roi_scores, roi_labels, roi_valid), (B, P,
+        ...), padded and suppressed slots invalid.  Sets batch["rois"] and,
+        in training with GT, batch["roi_targets"]; else batch["roi_scores" /
+        "roi_labels" / "roi_valid"]."""
+        rois, roi_scores, roi_labels, roi_valid = proposals
         # suppressed slots can carry non-finite scores; validity rides in roi_valid
         roi_scores = torch.where(roi_valid, roi_scores, torch.zeros_like(roi_scores))
         if self.training and "gt_boxes" in batch:
@@ -229,8 +189,67 @@ class TwoStageDetector(Detector3D):
         batch["roi_valid"] = roi_valid
         return batch
 
+    def nms_config(self) -> dict:
+        """ROI_HEAD.NMS_CONFIG with its TRAIN or TEST entries over it, by mode."""
+        nms_cfg = dict(self.model_cfg.get("ROI_HEAD", {}).get("NMS_CONFIG", {}))
+        nms_cfg.update(nms_cfg.get("TRAIN" if self.training else "TEST", {}))
+        return nms_cfg
+
+
+class TwoStageDetector(RoIStage, Detector3D):
+    """A detector with a second stage (the JAX package's ``PVRCNN`` base:
+    ``_build_roi_head``, ``_proposals``, ``_stage2_rois``): the first stage
+    as ``Detector3D``, then the anchor head's decoded boxes through the
+    proposal layer (``NMS_CONFIG`` TRAIN or TEST by the module's mode), the
+    RoI flow of ``RoIStage`` and the RoI head, mounted as ``roi_head``.
+    Voxel-RCNN and SECOND-IoU keep every RoI in eval."""
+
+    two_stage = True
+
+    def __init__(self, model_cfg, meta: DatasetMeta):
+        head_cfg = model_cfg["DENSE_HEAD"]
+        if "ANCHOR_GENERATOR_CONFIG" not in head_cfg:
+            raise NotImplementedError("decode_center_proposals (the CenterHead RPN of the "
+                                      "*_with_centerhead_* configs) is not ported yet")
+        super().__init__(model_cfg, meta)
+        anchors = build_anchors(head_cfg, list(meta.class_names), meta.grid_size,
+                                meta.point_cloud_range)[0]
+        self.register_buffer("anchors", torch.as_tensor(anchors), persistent=False)
+        self.box_coder = box_coder_for(head_cfg)
+        roi_cfg = model_cfg["ROI_HEAD"]
+        self.roi_head = ROI_HEADS.get(roi_cfg["NAME"])(
+            roi_cfg, num_class=1, point_cloud_range=meta.point_cloud_range,
+            voxel_size=meta.voxel_size, input_channels=self._roi_input_channels())
+
+    def _roi_input_channels(self):
+        raise NotImplementedError
+
+    def _proposals(self, batch):
+        """Fixed-size proposals: (rois, roi_scores, roi_labels, roi_valid),
+        (B, P, ...), padded and suppressed slots invalid."""
+        head_cfg = self.model_cfg["DENSE_HEAD"]
+        nms_cfg = self.nms_config()
+        with torch.no_grad():
+            boxes, scores, labels = decode_anchor_boxes(
+                batch, self.anchors, len(self.meta.class_names), self.box_coder,
+                dir_cfg=head_cfg if head_cfg.get("USE_DIRECTION_CLASSIFIER") else None)
+        if "NMS_THRESH" in nms_cfg:
+            return proposal_layer(
+                boxes, scores, labels,
+                nms_pre=min(int(nms_cfg.get("NMS_PRE_MAXSIZE", 4096)), int(boxes.shape[1])),
+                nms_post=int(nms_cfg.get("NMS_POST_MAXSIZE", 512)),
+                nms_thresh=float(nms_cfg["NMS_THRESH"]),
+                use_fast_nms=nms_cfg.get("NMS_TYPE") == "fast_nms")
+        num_p = min(int(nms_cfg.get("TRAIN_PRE" if self.training else "TEST_PRE", 512)),
+                    int(scores.shape[1]))
+        top, idx = top_candidates(scores, num_p)
+        roi_valid = torch.isfinite(top)
+        return (take_rows(boxes, idx), torch.where(roi_valid, top, torch.zeros_like(top)),
+                take_rows(labels, idx), roi_valid)
+
     def forward(self, batch):
-        return self.roi_head(self._stage2_rois(super().forward(batch)))
+        batch = super().forward(batch)
+        return self.roi_head(self._stage2_rois(batch, self._proposals(batch)))
 
 
 @DETECTORS.register
@@ -290,8 +309,8 @@ class PVRCNN(_PointStages):
     eval_topk = 128
 
     def forward(self, batch):
-        batch = self.bev_stages(self.pfe(self.voxel_stages(batch)))
-        return self.roi_head(self._stage2_rois(self.point_head_stage(batch)))
+        batch = self.point_head_stage(self.bev_stages(self.pfe(self.voxel_stages(batch))))
+        return self.roi_head(self._stage2_rois(batch, self._proposals(batch)))
 
 
 @DETECTORS.register
@@ -301,12 +320,59 @@ class PVRCNNPlusPlus(_PointStages):
     and ``PVRCNNPlusPlusHead``."""
 
     def forward(self, batch):
-        batch = self.pfe(self._stage2_rois(self.bev_stages(self.voxel_stages(batch))))
+        batch = self.bev_stages(self.voxel_stages(batch))
+        batch = self.pfe(self._stage2_rois(batch, self._proposals(batch)))
         return self.roi_head(self.point_head_stage(batch))
 
 
+@DETECTORS.register
+class PointRCNN(RoIStage, nn.Module):
+    """PointRCNN (detectors/point_rcnn.py): ``PointNet2MSG`` features a
+    point (``backbone_3d``), ``PointHeadBox``'s class and box a point
+    (``point_head``), the valid points' boxes as proposals (the proposal
+    layer's top-k and K4 NMS, NMS_CONFIG TRAIN or TEST by mode), the RoI
+    flow of ``RoIStage`` (every RoI kept in eval, as the JAX detector) and
+    ``PointRCNNHead`` over the points in each RoI (``roi_head``).  No VFE:
+    the PartA2-free composition (PartA2_free.yaml: MeanVFE and UNetV2 give
+    the point features) raises by name."""
+
+    def __init__(self, model_cfg, meta: DatasetMeta):
+        super().__init__()
+        if "VFE" in model_cfg:
+            raise NotImplementedError("PointRCNN over a VFE and UNetV2 (PartA2_free.yaml's "
+                                      "composition) is not ported yet")
+        self.model_cfg, self.meta = model_cfg, meta
+        b3_cfg = model_cfg["BACKBONE_3D"]
+        self.backbone_3d = BACKBONES_3D.get(b3_cfg["NAME"])(b3_cfg, meta.num_point_features)
+        ph_cfg = model_cfg["POINT_HEAD"]
+        self.point_head = DENSE_HEADS.get(ph_cfg.get("NAME", "PointHeadBox"))(
+            ph_cfg, self.backbone_3d.num_point_features, num_class=len(meta.class_names))
+        roi_cfg = model_cfg["ROI_HEAD"]
+        self.roi_head = ROI_HEADS.get(roi_cfg["NAME"])(
+            roi_cfg, num_class=1, input_channels=self.backbone_3d.num_point_features)
+
+    def _proposals(self, batch):
+        """The point head's boxes and scores, a point's -inf where it is not
+        valid, through the proposal layer (NMS_PRE_MAXSIZE candidates)."""
+        nms_cfg = self.nms_config()
+        scores = batch["point_cls_scores"].detach()
+        valid = batch.get("point_valid")
+        if valid is not None:
+            scores = torch.where(valid, scores, torch.full_like(scores, -math.inf))
+        return proposal_layer(
+            batch["point_box_preds"].detach(), scores,
+            batch["point_pred_labels"].to(torch.int32),
+            nms_pre=int(nms_cfg.get("NMS_PRE_MAXSIZE", 4096)),
+            nms_post=int(nms_cfg.get("NMS_POST_MAXSIZE", 512)),
+            nms_thresh=float(nms_cfg.get("NMS_THRESH", 0.8)),
+            use_fast_nms=nms_cfg.get("NMS_TYPE") == "fast_nms")
+
+    def forward(self, batch):
+        batch = self.point_head(self.backbone_3d(batch))
+        return self.roi_head(self._stage2_rois(batch, self._proposals(batch)))
+
+
 for _name, _what in (("PartA2Net", "UNetV2 and RoI-aware pooling"),
-                     ("PointRCNN", "PointNet2MSG and point proposals"),
                      ("MPPNet", "multi-frame proxy points"),
                      ("MPPNetE2E", "multi-frame proxy points"),
                      ("CaDDN", "the image depth frustum")):

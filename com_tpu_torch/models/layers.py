@@ -77,6 +77,13 @@ class BatchNorm(nn.Module):
         return ((x.float() - mean) * mul + self.bias).to(x.dtype)
 
 
+def run_masked(layers: nn.Sequential, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """``layers`` over x, each norm's statistics over the rows ``mask`` marks."""
+    for layer in layers:
+        x = layer(x, mask=mask) if isinstance(layer, BatchNorm) else layer(x)
+    return x
+
+
 class MaskedBatchNorm(BatchNorm):
     """The PFN's norm: in training its statistics exclude the rows where
     ``mask`` is false (padded and out-of-range points); in eval it is

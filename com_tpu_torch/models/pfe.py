@@ -25,31 +25,40 @@ from torch import nn
 
 from ..ops import pointnet2 as pn2
 from ..utils.registry import BACKBONES_3D
-from .layers import BatchNorm, BatchNorm1d, Conv1x1
+from .layers import BatchNorm1d, Conv1x1, run_masked
+
+
+def shared_mlp(cin: int, widths) -> nn.Sequential:
+    """pcdet's shared MLP over the last axis: [Conv2d 1x1 (no bias),
+    ``BatchNorm1d``, ReLU] a width."""
+    layers = []
+    for ch in widths:
+        layers += [Conv1x1(cin, ch, ndim=2), BatchNorm1d(ch), nn.ReLU()]
+        cin = ch
+    return nn.Sequential(*layers)
 
 
 class PointNetBlock(nn.Module):
-    """pcdet's StackSAModuleMSG at one scale: ``mlps.0`` = [Conv2d 1x1 (no
-    bias), norm, ReLU] per width, then the max over the neighbours (a tie's
-    gradient split evenly, as JAX's max; the padded slots repeat hit 0), an
-    empty group zeroed.  The norms' statistics count the real neighbours."""
+    """pcdet's shared MLPs of a set abstraction, one a scale (a list of
+    widths each): ``mlps.{s}`` = [Conv2d 1x1 (no bias), norm, ReLU] per
+    width; ``pool`` runs one scale, then the max over the neighbours (a
+    tie's gradient split evenly, as JAX's max; the padded slots repeat hit
+    0), an empty group zeroed.  The norms' statistics count the real
+    neighbours.  ``out_channels`` is the scales' output widths summed (the
+    width of their concatenation)."""
 
-    def __init__(self, cin: int, mlps):
+    def __init__(self, cin: int, *scales):
         super().__init__()
-        layers = []
-        for ch in mlps:
-            layers += [Conv1x1(cin, ch, ndim=2), BatchNorm1d(ch), nn.ReLU()]
-            cin = ch
-        self.mlps = nn.ModuleList([nn.Sequential(*layers)])
-        self.out_channels = cin
+        self.mlps = nn.ModuleList(shared_mlp(cin, widths) for widths in scales)
+        self.out_channels = sum(int(widths[-1]) if len(widths) else cin for widths in scales)
+
+    def pool(self, grouped, empty, slot_valid, scale: int = 0):
+        """grouped (..., K, C), empty (...), slot_valid (..., K) -> (..., C')."""
+        x = run_masked(self.mlps[scale], grouped, slot_valid).amax(dim=-2)
+        return x * (~empty).to(x.dtype)[..., None]
 
     def forward(self, grouped, empty, slot_valid):
-        """grouped (..., K, C), empty (...), slot_valid (..., K) -> (..., C')."""
-        x = grouped
-        for layer in self.mlps[0]:
-            x = layer(x, mask=slot_valid) if isinstance(layer, BatchNorm) else layer(x)
-        x = x.amax(dim=-2)
-        return x * (~empty).to(x.dtype)[..., None]
+        return self.pool(grouped, empty, slot_valid)
 
 
 @BACKBONES_3D.register
@@ -159,10 +168,8 @@ class VoxelSetAbstraction(nn.Module):
                 radius, self.nsample, centers, keypoints, x.to(torch.float32), valid=valid)
             feats.append(block(grouped, empty, slot))
         point_features = torch.cat(feats, dim=-1)
-        fused = point_features
-        for layer in self.vsa_point_feature_fusion:
-            fused = layer(fused, mask=kp_valid) if isinstance(layer, BatchNorm) else layer(fused)
         batch["point_features_before_fusion"] = point_features
-        batch["point_features"] = fused  # (B, S, C)
+        batch["point_features"] = run_masked(self.vsa_point_feature_fusion, point_features,
+                                             kp_valid)  # (B, S, C)
         batch["point_valid"] = kp_valid
         return batch

@@ -1,5 +1,6 @@
-"""Box geometry and the anchor box coder (counterpart of
-``com_tpu/ops/boxes.py``, the parts the ported paths need)."""
+"""Box geometry and the box coders (counterpart of ``com_tpu/ops/boxes.py``,
+the parts the ported paths need): the anchor coder ``ResidualCoder`` and
+PointRCNN's per-point ``PointResidualCoder``."""
 from __future__ import annotations
 
 import math
@@ -43,6 +44,13 @@ def points_in_rbbox(points: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
     return ((torch.abs(lx) <= boxes[..., None, :, 3] / 2)
             & (torch.abs(ly) <= boxes[..., None, :, 4] / 2)
             & (torch.abs(pz) <= boxes[..., None, :, 5] / 2))
+
+
+def enlarge_box3d(boxes: torch.Tensor, extra_width=(0.0, 0.0, 0.0)) -> torch.Tensor:
+    """(..., 7+) boxes with dx, dy, dz grown by ``extra_width``
+    (box_utils.enlarge_box3d)."""
+    extra = torch.as_tensor(extra_width, dtype=boxes.dtype, device=boxes.device)
+    return torch.cat([boxes[..., :3], boxes[..., 3:6] + extra, boxes[..., 6:]], dim=-1)
 
 
 def corner_loss(pred_boxes: torch.Tensor, gt_boxes: torch.Tensor) -> torch.Tensor:
@@ -98,3 +106,51 @@ class ResidualCoder:
         n_extra = encodings.shape[-1] - 6 - n_angle
         parts += [encodings[..., 6 + n_angle + i] + anchors[..., 7 + i] for i in range(n_extra)]
         return torch.stack(torch.broadcast_tensors(*parts), dim=-1)
+
+
+MEAN_SIZE = [[3.9, 1.6, 1.56], [0.8, 0.6, 1.73], [1.76, 0.6, 1.73]]  # the JAX coder's default
+
+
+class PointResidualCoder:
+    """PointRCNN's point-based box coder (box_coder_utils.PointResidualCoder):
+    a box relative to a point, 8 wide: the center offset over the class's
+    mean BEV diagonal (z over its mean height), the sizes as log ratios to
+    the class's mean size, the heading as (cos, sin).  Without
+    ``use_mean_size`` the offsets are plain and the sizes plain logs.
+    Classes are 1-based."""
+
+    def __init__(self, code_size: int = 8, use_mean_size: bool = True, mean_size=None):
+        self.code_size = code_size
+        self.use_mean_size = use_mean_size
+        self.mean_size = torch.tensor(MEAN_SIZE if mean_size is None else mean_size,
+                                      dtype=torch.float32)
+
+    def _means(self, classes):
+        m = self.mean_size.to(classes.device)[classes.long() - 1]
+        return m[..., 0], m[..., 1], m[..., 2]
+
+    def encode(self, boxes, points, gt_classes):
+        xg, yg, zg = boxes[..., 0], boxes[..., 1], boxes[..., 2]
+        dxg, dyg, dzg = (torch.clamp(boxes[..., i], min=1e-5) for i in (3, 4, 5))
+        rg = boxes[..., 6]
+        xa, ya, za = points[..., 0], points[..., 1], points[..., 2]
+        if self.use_mean_size:
+            dxa, dya, dza = self._means(gt_classes)
+            diag = torch.sqrt(dxa ** 2 + dya ** 2)
+            parts = [(xg - xa) / diag, (yg - ya) / diag, (zg - za) / dza,
+                     torch.log(dxg / dxa), torch.log(dyg / dya), torch.log(dzg / dza)]
+        else:
+            parts = [xg - xa, yg - ya, zg - za, torch.log(dxg), torch.log(dyg), torch.log(dzg)]
+        return torch.stack(parts + [torch.cos(rg), torch.sin(rg)], dim=-1)
+
+    def decode(self, encodings, points, pred_classes):
+        xt, yt, zt, dxt, dyt, dzt, cost, sint = (encodings[..., i] for i in range(8))
+        xa, ya, za = points[..., 0], points[..., 1], points[..., 2]
+        if self.use_mean_size:
+            dxa, dya, dza = self._means(pred_classes)
+            diag = torch.sqrt(dxa ** 2 + dya ** 2)
+            parts = [xt * diag + xa, yt * diag + ya, zt * dza + za, torch.exp(dxt) * dxa,
+                     torch.exp(dyt) * dya, torch.exp(dzt) * dza]
+        else:
+            parts = [xt + xa, yt + ya, zt + za, torch.exp(dxt), torch.exp(dyt), torch.exp(dzt)]
+        return torch.stack(parts + [torch.atan2(sint, cost)], dim=-1)

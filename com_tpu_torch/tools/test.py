@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..parallel.sharding import gather_objects
-from .train import data_mesh, dataset_meta, output_dir
+from .train import data_mesh, dataset_meta, output_dir, require_dense_head
 
 
 def parse_config(argv=None):
@@ -156,6 +156,7 @@ def main(argv=None):
     """Evaluate; returns the list of each checkpoint's result dict (with
     ``--multihost``, the same on every rank)."""
     args, cfg = parse_config(argv)
+    require_dense_head(cfg, "test")
     with data_mesh(args) as mesh:
         return _evaluate(args, cfg, mesh)
 

@@ -117,12 +117,25 @@ def dataset_meta(cfg, dataset):
                        dataset.point_feature_encoder.num_point_features)
 
 
+def require_dense_head(cfg, cli: str):
+    """Raise for a detector without ``MODEL.DENSE_HEAD`` (PointRCNN): the JAX
+    package's train and test CLIs read it (and its train CLI initialises the
+    model from ``device_batch_keys``, which give PointRCNN no points), so
+    they cannot run one, and neither do these."""
+    if cfg.MODEL.get("DENSE_HEAD") is None:
+        raise NotImplementedError(
+            f"the {cli} CLI for a detector without MODEL.DENSE_HEAD ({cfg.MODEL.NAME}) is not "
+            f"ported: com_tpu's tools/{cli}.py cannot run one either; use build_network, "
+            "make_train_step / train_model and make_eval_step")
+
+
 def main(argv=None, on_start=None, metric_hook=None):
     """Train; returns {"state", "iterations", "start_epoch", "start_iter",
     "epochs", "out_dir", "ckpt_dir", "rank", "world", "global_batch"}.
     With ``--multihost`` each rank runs this over its loader shard; only
     rank 0 logs to a file and writes metrics and checkpoints."""
     args, cfg = parse_config(argv)
+    require_dense_head(cfg, "train")
     with data_mesh(args) as mesh:
         return _train(args, cfg, mesh, on_start, metric_hook)
 

@@ -1,7 +1,8 @@
 """Evaluation (counterpart of ``com_tpu/train/eval.py``; reference
 tools/eval_utils/eval_utils.py:12-136).
 
-``make_eval_step`` (CenterPoint, anchor and two-stage branches): forward
+``make_eval_step`` (CenterPoint, anchor and two-stage branches, PointRCNN's
+among the last): forward
 -> per-head top-K decode -> NMS, or every anchor decoded -> top
 ``NMS_PRE_MAXSIZE`` -> NMS, or the RCNN head's boxes -> NMS, all on the
 device, fixed shapes with validity masks.  ``eval_model``
@@ -47,10 +48,10 @@ def make_eval_step(net, model_cfg, class_names, meta, device=None):
     "head" for an anchor head).  Unlike the JAX step, the weights live in
     ``net``.
     """
-    head_cfg = model_cfg["DENSE_HEAD"]
     dev = resolve_device(device)
-    if model_cfg.get("ROI_HEAD") is not None:
+    if model_cfg.get("ROI_HEAD") is not None:  # before DENSE_HEAD: PointRCNN has none
         return _make_two_stage_eval_step(net, model_cfg, class_names, meta, dev)
+    head_cfg = model_cfg["DENSE_HEAD"]
     if "ANCHOR_GENERATOR_CONFIG" in head_cfg:
         return _make_anchor_eval_step(net, model_cfg, class_names, meta, dev)
     post = head_cfg["POST_PROCESSING"]

@@ -1,12 +1,13 @@
 """The train step for CenterPoint, anchor-head and two-stage detectors
-(counterpart of ``com_tpu/train/step.py``, its CenterPoint, anchor and RoI
-branches).
+(counterpart of ``com_tpu/train/step.py``, its CenterPoint, anchor, RoI
+and point-head branches).
 
 One call runs forward, target assignment, the CenterNet, anchor or COM
-losses (and the RoI losses of Voxel-RCNN's and SECOND-IoU's heads),
-backward, the optimizer update and the on-device accumulation of the
-per-(class, group) confidence statistics, with no sync with the host.
-The point-head branches are not ported yet.
+losses (or none, for PointRCNN, which has no dense head), the RoI and
+point-head losses of the two-stage detectors, backward, the optimizer
+update and the on-device accumulation of the per-(class, group) confidence
+statistics, with no sync with the host.  PartA2's part-offset loss is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from ..losses.centernet import focal_loss_centernet, reg_loss_centernet, sigmoid
 from ..losses.curriculum import CurriculumAux, focal_loss_center_curriculum, group_confidences
 from ..models.dense_heads.anchor_assign import assign_anchor_targets, atss_assign_targets
 from ..models.dense_heads.anchor_head import box_coder_for, build_anchors, reshape_anchor_preds
-from ..models.dense_heads.point_head import point_head_loss
+from ..models.dense_heads.point_head import point_head_box_loss, point_head_loss
 from ..models.dense_heads.target_assign import assign_centerpoint_targets, cluster_com_groups
 from ..models.roi_heads.roi_targets import decode_rcnn_boxes
 from ..models.roi_heads.second_head import second_iou_loss
@@ -47,7 +48,13 @@ def device_batch_keys(model_cfg) -> set:
     (voxels, frame ids, the augmentations' parameters) stays on the host."""
     keys = set(GT_KEYS)
     vfe = model_cfg.get("VFE", {}).get("NAME", "")
-    if vfe.startswith("Dynamic") or model_cfg.get("VFE", {}).get("VOXELIZE_ON_DEVICE"):
+    if model_cfg.get("BACKBONE_3D", {}).get("NAME") == "PointNet2MSG":
+        # PointRCNN's point backbone reads the raw points.  The JAX package's
+        # function gives it the voxel keys instead (so its train CLI cannot
+        # initialise it); its step does not filter the batch, this port's
+        # does
+        keys |= {"points", "points_mask"}
+    elif vfe.startswith("Dynamic") or model_cfg.get("VFE", {}).get("VOXELIZE_ON_DEVICE"):
         keys |= {"points", "points_mask"}
     elif vfe == "ImageVFE":
         keys |= {"images", "depth_maps", "trans_lidar_to_cam", "trans_cam_to_img", "gt_boxes2d",
@@ -161,7 +168,11 @@ def is_anchor_head(model_cfg) -> bool:
 def curriculum_kwargs(model_cfg, class_names) -> dict:
     """``TrainState.create``'s curriculum arguments, as ``tools/train.py``
     chooses them: one state a head group for CenterPoint heads; for anchor
-    heads one, of the anchor kind when the head has a ``LOSS_CURRICULUM``."""
+    heads one, of the anchor kind when the head has a ``LOSS_CURRICULUM``;
+    without a dense head (PointRCNN) one center-kind state, which the step
+    carries unchanged (as ``com_tpu``'s PointRCNN test creates its state)."""
+    if model_cfg.get("DENSE_HEAD") is None:
+        return {"num_head_groups": 1}
     if is_anchor_head(model_cfg):
         return {"num_head_groups": 1,
                 "anchor_num_class": (len(class_names) if "LOSS_CURRICULUM" in
@@ -312,8 +323,9 @@ def step_generators(seed: int, step: int, device) -> dict:
     return out
 
 
-PORTED_ROI_HEADS = ("VoxelRCNNHead", "SECONDHead", "PVRCNNHead", "PVRCNNPlusPlusHead")
-PORTED_POINT_HEADS = ("PointHeadSimple",)
+PORTED_ROI_HEADS = ("VoxelRCNNHead", "SECONDHead", "PVRCNNHead", "PVRCNNPlusPlusHead",
+                    "PointRCNNHead")
+PORTED_POINT_HEADS = ("PointHeadSimple", "PointHeadBox")
 
 
 def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, device=None,
@@ -333,11 +345,16 @@ def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, devic
     ``stage_hook(name)``, when given, is called as each stage starts
     ("forward", "loss", "backward", "optimizer") and once at the end ("end").
 
-    A two-stage model (``ROI_HEAD``: Voxel-RCNN's, SECOND-IoU's or the
-    PV-RCNN family's head) adds ``compute_roi_loss`` or ``second_iou_loss``
-    to the first stage's, and with a ``POINT_HEAD`` (PointHeadSimple)
-    ``point_head_loss`` as "point_loss_cls"; each step draws its RoI
-    sampling and dropout from ``step_generators(seed, state.step)``.
+    A two-stage model (``ROI_HEAD``: Voxel-RCNN's, SECOND-IoU's, the
+    PV-RCNN family's or PointRCNN's head) adds ``compute_roi_loss`` or
+    ``second_iou_loss`` to the first stage's, and with a ``POINT_HEAD``
+    ``point_head_box_loss`` (PointHeadBox: "point_loss_cls",
+    "point_loss_box") or ``point_head_loss`` (PointHeadSimple:
+    "point_loss_cls"); each step draws its RoI sampling and dropout from
+    ``step_generators(seed, state.step)``.  Without a ``DENSE_HEAD``
+    (PointRCNN) the first stage's loss is 0, the curriculum is carried
+    unchanged and the confidence sums and counts are zeros of
+    (num_class, 1), as in the JAX step.
     ``loss_fn(state, batch, epoch, rngs=None)`` takes the model's ``rngs``
     (none: deterministic RoI sampling).
 
@@ -349,8 +366,6 @@ def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, devic
     sums until ``train_model`` reduces them at the epoch's end.
     """
     head_cfg = model_cfg.get("DENSE_HEAD")
-    if head_cfg is None:
-        raise NotImplementedError("point-proposal detectors are not ported yet")
     ph_cfg = model_cfg.get("POINT_HEAD")
     if ph_cfg is not None and ph_cfg.get("NAME") not in PORTED_POINT_HEADS:
         raise NotImplementedError(f"the POINT_HEAD loss of {ph_cfg.get('NAME')} is not ported yet")
@@ -360,7 +375,13 @@ def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, devic
     dev = check_same_device(net, device)
     class_names = list(class_names)
     hook = stage_hook or (lambda name: None)
-    if is_anchor_head(model_cfg):
+    if head_cfg is None:  # point proposals (PointRCNN): no first-stage loss
+        def compute_loss(out, curriculum, epoch):
+            zero = torch.zeros((len(class_names), 1), device=dev)
+            aux = CurriculumAux(zero, zero, torch.zeros((), device=dev),
+                                torch.zeros((1, 1), device=dev))
+            return torch.zeros((), device=dev), curriculum, [aux], {}
+    elif is_anchor_head(model_cfg):
         anchor_set = AnchorSet(model_cfg, class_names, meta, dev)
 
         def compute_loss(out, curriculum, epoch):
@@ -383,7 +404,14 @@ def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, devic
                 roi_loss = tb["rcnn_loss_iou"] = second_iou_loss(
                     out, roi_cfg.get("LOSS_CONFIG", {}))
             loss = loss + roi_loss
-            if ph_cfg is not None:  # the keypoints' foreground (PointHeadSimple)
+            if "point_box_preds_raw" in out:  # PointHeadBox
+                p_loss, p_tb = point_head_box_loss(out, ph_cfg)
+                tb.update(p_tb)
+                loss = loss + p_loss
+            # not elif, in the JAX step's order (its part-offset loss, not
+            # ported, sits between): the keypoints' foreground
+            # (PointHeadSimple), for a head whose logits no box loss trained
+            if "point_cls_scores_raw" in out and "point_box_preds_raw" not in out:
                 p_loss = tb["point_loss_cls"] = point_head_loss(out)
                 loss = loss + p_loss
             return loss, new_cur, aux_list, tb

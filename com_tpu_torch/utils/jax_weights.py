@@ -263,16 +263,62 @@ def _roi_head_rules(cfg, top):
     return rules
 
 
-def _sa_rules(tkey, top, scope, n_layers):
-    """A pointnet2 block's ``{tkey}.mlps.0.{3k}`` (Conv2d 1x1) / ``.{3k + 1}``
-    <- ``{scope}/Dense_{k}`` / ``MaskedBatchNorm_{k}`` (variance shifted)."""
+def _mlp_rules(tkey, path, n_layers, dense="Dense_{k}", bn="MaskedBatchNorm_{k}"):
+    """A pcdet shared MLP ``{tkey}.{3k}`` (Conv2d 1x1) / ``.{3k + 1}`` <-
+    ``{path}/{dense}`` / ``{bn}`` (variance shifted), k = 0, 1, ..."""
     rules = []
     for k in range(n_layers):
-        rules.append((f"{tkey}.mlps.0.{3 * k}.weight", "params",
-                      (top, scope, f"Dense_{k}", "kernel"), "conv1x1"))
-        rules += _bn(f"{tkey}.mlps.0.{3 * k + 1}", (top, scope, f"MaskedBatchNorm_{k}"),
-                     var="var_shift")
+        rules.append((f"{tkey}.{3 * k}.weight", "params",
+                      (*path, dense.format(k=k), "kernel"), "conv1x1"))
+        rules += _bn(f"{tkey}.{3 * k + 1}", (*path, bn.format(k=k)), var="var_shift")
     return rules
+
+
+def _sa_rules(tkey, top, scope, n_layers):
+    """A pointnet2 block's ``{tkey}.mlps.0`` <- ``{scope}``'s auto-named
+    Dense and MaskedBatchNorm scopes."""
+    return _mlp_rules(f"{tkey}.mlps.0", (top, scope), n_layers)
+
+
+def _pointnet2_rules(cfg, top):
+    """PointNet2MSG: ``backbone_3d.SA_modules.{k}.mlps.{r}`` <- sa_{k}/mlp_{r},
+    ``backbone_3d.FP_modules.{i}.mlp`` <- fp_{i}'s fc_{j} / bn_{j} (the
+    inverse of the JAX package's ``map_pointnet2_msg``)."""
+    rules = []
+    for k, mlps in enumerate(cfg["SA_CONFIG"]["MLPS"]):
+        for r, m in enumerate(mlps):
+            rules += _mlp_rules(f"backbone_3d.SA_modules.{k}.mlps.{r}", (top, f"sa_{k}", f"mlp_{r}"),
+                                len(m))
+    for i, m in enumerate(cfg["FP_MLPS"]):
+        rules += _mlp_rules(f"backbone_3d.FP_modules.{i}.mlp", (top, f"fp_{i}"), len(m),
+                            dense="fc_{k}", bn="bn_{k}")
+    return rules
+
+
+def _pointrcnn_head_rules(cfg, top):
+    """PointRCNNHead: ``roi_head.xyz_up_layer`` <- xyz_up_{k} / xyz_up_bn_{k},
+    ``merge_down_layer`` <- merge_down_0 / merge_down_bn_0,
+    ``SA_modules.{k}.mlps.0`` <- sa_{k}/mlp, ``{cls,reg}_layers`` <-
+    {cls,reg}_fc_{i} / _bn_{i} and {cls,reg}_out (Conv1d layout; the inverse
+    of the JAX package's ``map_pointrcnn_roi_head``)."""
+    rules = _mlp_rules("roi_head.xyz_up_layer", (top,), len(cfg.get("XYZ_UP_LAYER", [128, 128])),
+                       dense="xyz_up_{k}", bn="xyz_up_bn_{k}")
+    rules += _mlp_rules("roi_head.merge_down_layer", (top,), 1, dense="merge_down_{k}",
+                        bn="merge_down_bn_{k}")
+    for k, m in enumerate(cfg["SA_CONFIG"]["MLPS"]):
+        rules += _mlp_rules(f"roi_head.SA_modules.{k}.mlps.0", (top, f"sa_{k}", "mlp"), len(m))
+    for name in ("cls", "reg"):
+        rules += _branch_rules(f"roi_head.{name}_layers", top, name,
+                               list(cfg.get(f"{name.upper()}_FC", [256, 256])), "conv1d",
+                               lambda i: i == 0)
+    return rules
+
+
+def _branch_rules(tkey, top, name, fcs, transform, slot_after):
+    """``_fc_rules`` and the biased output layer after them <- {name}_out."""
+    rules, seq = _fc_rules(tkey, top, name, fcs, transform, slot_after)
+    return rules + [(f"{tkey}.{seq}.weight", "params", (top, f"{name}_out", "kernel"), transform),
+                    (f"{tkey}.{seq}.bias", "params", (top, f"{name}_out", "bias"), "copy")]
 
 
 def _pfe_rules(cfg, top):
@@ -296,13 +342,12 @@ def _pfe_rules(cfg, top):
 
 def _point_head_rules(cfg, top):
     """PointHeadSimple: ``point_head.cls_layers`` <- cls_fc_{i} / cls_bn_{i},
-    the output <- cls_out."""
-    rules, seq = _fc_rules("point_head.cls_layers", top, "cls", list(cfg.get("CLS_FC", [256, 256])),
-                           "linear", lambda i: False)
-    return rules + [(f"point_head.cls_layers.{seq}.weight", "params", (top, "cls_out", "kernel"),
-                     "linear"),
-                    (f"point_head.cls_layers.{seq}.bias", "params", (top, "cls_out", "bias"),
-                     "copy")]
+    the output <- cls_out; PointHeadBox also ``point_head.box_layers`` <-
+    box_fc_{i} / box_bn_{i} / box_out."""
+    branches = [("cls", "CLS_FC")] + ([("box", "REG_FC")] if cfg["NAME"] == "PointHeadBox" else [])
+    return [rule for name, key in branches
+            for rule in _branch_rules(f"point_head.{name}_layers", top, name,
+                                      list(cfg.get(key, [256, 256])), "linear", lambda i: False)]
 
 
 def _pvrcnn_head_rules(cfg, top):
@@ -363,16 +408,21 @@ def bridge_rules(model_cfg, class_names, params) -> list:
         raise KeyError(f"no flax scope starting with {prefixes!r} in {sorted(params)}")
 
     rules = []
-    if model_cfg["VFE"].get("NUM_FILTERS"):
-        rules += _pfn_rules(model_cfg["VFE"], top(model_cfg["VFE"]["NAME"]))
+    vfe = model_cfg.get("VFE") or {}
+    if vfe.get("NUM_FILTERS"):
+        rules += _pfn_rules(vfe, top(vfe["NAME"]))
     b3 = model_cfg.get("BACKBONE_3D")
-    if b3 is not None:
+    if b3 is not None and b3["NAME"] == "PointNet2MSG":  # PointRCNN's, scope "backbone_3d"
+        rules += _pointnet2_rules(b3, top("backbone_3d"))
+    elif b3 is not None:
         rules += _voxel_backbone_rules(top(b3["NAME"]),
                                        residual=b3["NAME"] == "VoxelResBackBone8x")
     if model_cfg.get("BACKBONE_2D") is not None:
         rules += _backbone_rules(model_cfg["BACKBONE_2D"], top("BaseBEVBackbone"))
-    head = model_cfg["DENSE_HEAD"]
-    if head.get("NAME") == "AnchorHeadMulti":
+    head = model_cfg.get("DENSE_HEAD")
+    if head is None:  # PointRCNN: no dense head
+        pass
+    elif head.get("NAME") == "AnchorHeadMulti":
         rules += _anchor_multi_rules(head, top("AnchorHeadMulti"))
     elif "ANCHOR_GENERATOR_CONFIG" in head:
         rules += _anchor_head_rules(head, top("AnchorHeadSingle"))  # every alias's flax scope
@@ -388,6 +438,8 @@ def bridge_rules(model_cfg, class_names, params) -> list:
         roi_top = top("roi_head", roi["NAME"])
         if roi["NAME"] == "PVRCNNHead":
             rules += _pvrcnn_head_rules(roi, roi_top)
+        elif roi["NAME"] == "PointRCNNHead":
+            rules += _pointrcnn_head_rules(roi, roi_top)
         elif roi["NAME"] == "PVRCNNPlusPlusHead":
             rules += _pvrcnn_plusplus_head_rules(roi, roi_top)
         else:

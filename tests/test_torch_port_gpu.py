@@ -1049,6 +1049,73 @@ def test_pvrcnn_eval_step_matches_cpu(dev):
         assert np.abs(a[:, None] - c[None]).max(-1).min(1).max() <= 1e-3
 
 
+def test_pointrcnn_eval_step_matches_cpu(dev):
+    """``tests/test_pointrcnn.py``'s small PointRCNN
+    (``chip_smoke.pointrcnn_small_case``) in f32: card (K4 in the proposal
+    NMS and the final one) vs CPU, the same seeded weights, scores spread:
+    the detections to 1e-3."""
+    from chip_smoke import pointrcnn_small_case, spread_point_scores
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.train.eval import make_eval_step
+
+    cfg, meta, batch = pointrcnn_small_case(seed=2)
+    outs = []
+    for d in (dev, "cpu"):
+        net = spread_point_scores(build_network(cfg.MODEL, meta, device=d, seed=3))
+        k4 = nms.launches
+        outs.append([t.cpu().numpy() for t in make_eval_step(
+            net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=d)(batch)])
+        assert nms.launches - k4 == (2 if d == dev else 0)
+    (gb, gs, gl, gv), (cb, cs, cl, cv) = outs
+    np.testing.assert_array_equal(gv, cv)
+    assert gv.sum() > 0
+    for i in range(2):
+        a = np.concatenate([gb[i][gv[i]], gs[i][gv[i]][:, None], gl[i][gv[i]][:, None]], -1)
+        c = np.concatenate([cb[i][cv[i]], cs[i][cv[i]][:, None], cl[i][cv[i]][:, None]], -1)
+        assert np.abs(a[:, None] - c[None]).max(-1).min(1).max() <= 1e-3
+
+
+def test_pointrcnn_train_step_matches_cpu(dev):
+    """One step of the small PointRCNN in f32, norm biases +3: the card (K4
+    in the proposal NMS) against the CPU, as ``chip_smoke``'s N.1 holds it
+    (``compare_train_step`` with ``own_noise``: within the flagship's
+    tolerances or twice either device's own difference with the scenes
+    swapped; its RoI head's max pools and 32-row norms turn rounding into
+    1e-5 of a batch statistic on one device alone)."""
+    from chip_smoke import compare_train_step, pointrcnn_small_case
+
+    cfg, meta, batch = pointrcnn_small_case(seed=4)
+    compare_train_step(dev, cfg, meta, batch, "PointRCNN train step, card vs CPU",
+                       counts_confidences=False, own_noise=True)
+
+
+def test_roipoint_pool3d_on_card_matches_cpu(dev):
+    """RoI point pooling at path N's serving size (2 scenes of 32,768
+    points, a tenth masked, 100 RoIs, 512 slots): the same member points in
+    the same slots (their indices ride in the first feature), the local
+    coordinates to 1e-5, the empty flags; blocks of RoIs cut small on the
+    card."""
+    from com_tpu_torch.ops.roiaware import roipoint_pool3d
+
+    rng = np.random.RandomState(23)
+    xyz = np.concatenate([rng.uniform(0, 70, (2, 32768, 1)), rng.uniform(-40, 40, (2, 32768, 1)),
+                          rng.uniform(-3, 1, (2, 32768, 1))], -1).astype(np.float32)
+    feats = np.stack([np.broadcast_to(np.arange(32768, dtype=np.float32), (2, 32768)),
+                      rng.rand(2, 32768).astype(np.float32)], -1)
+    valid = rng.rand(2, 32768) > 0.1
+    rois = np.concatenate([rng.uniform(0, 70, (2, 100, 1)), rng.uniform(-40, 40, (2, 100, 1)),
+                           rng.uniform(-2, 0, (2, 100, 1)), rng.uniform(1, 12, (2, 100, 3)),
+                           rng.uniform(-3.1, 3.1, (2, 100, 1))], -1).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (xyz, feats, valid, rois)]
+    want, want_empty = roipoint_pool3d(*args, 512)
+    got, got_empty = roipoint_pool3d(*(a.to(dev) for a in args), 512, block=1 << 21)
+    assert torch.equal(got_empty.cpu(), want_empty)
+    assert torch.equal(got[..., 3:].cpu(), want[..., 3:])
+    assert float((got[..., :3].cpu() - want[..., :3]).abs().max()) <= 1e-5
+    members = (want.abs().sum(-1) > 0).sum(-1)
+    assert bool((members == 512).any()) and bool(((members > 0) & (members < 512)).any())
+
+
 @pytest.mark.parametrize("k", [4096, 1024, 100])
 def test_k4_at_the_proposal_shapes(dev, k):
     """K4 at the two-stage path's (2, 4096) train and (2, 1024) serving

@@ -353,10 +353,19 @@ def test_canonical_transform_and_decode_round_trip():
                                   "PointRCNNHead", "MPPNetHead"])
 def test_unported_roi_heads_raise_by_name(name):
     """The unported heads raise by name; the PV-RCNN heads, ported, build
-    from their defaults (the JAX heads' own)."""
+    from their defaults (the JAX heads' own), PointRCNN's from
+    ``tests/test_pointrcnn.py``'s config (the JAX head has no default for
+    its pool and SA stack)."""
     if name.startswith("PVRCNN"):
         head = ROI_HEADS.get(name)({}, num_class=1, input_channels=16)
         assert type(head).__name__ == name and head.grid == 6
+        return
+    if name == "PointRCNNHead":
+        from test_pointrcnn import pointrcnn_cfg
+
+        head = ROI_HEADS.get(name)(dict(pointrcnn_cfg()["ROI_HEAD"]), num_class=1,
+                                   input_channels=16)
+        assert type(head).__name__ == name and head.num_points == 64
         return
     with pytest.raises(NotImplementedError, match=name):
         ROI_HEADS.get(name)({}, num_class=1)

@@ -162,8 +162,17 @@ def test_second_iou_head_keeps_pcdet_layout(second_iou):
 @pytest.mark.parametrize("name", ["PVRCNN", "PVRCNNPlusPlus", "PartA2Net", "PointRCNN",
                                   "MPPNet", "MPPNetE2E"])
 def test_unported_two_stage_detectors_raise_by_name(name):
-    """The unported detectors raise by name; PV-RCNN and PV-RCNN++, ported,
-    build (``tests/torch_port_pvrcnn_setup.py``'s small configs)."""
+    """The unported detectors raise by name; PV-RCNN, PV-RCNN++ and
+    PointRCNN, ported, build (``tests/torch_port_pvrcnn_setup.py``'s and
+    ``tests/test_pointrcnn.py``'s small configs)."""
+    if name == "PointRCNN":
+        from test_pointrcnn import CLASS_NAMES, pointrcnn_cfg
+
+        meta = DatasetMeta(CLASS_NAMES, (-10, -10, -2, 10, 10, 4), (0.1, 0.1, 6), (200, 200, 1),
+                           5)
+        net = DETECTORS.get(name)(dict(pointrcnn_cfg()), meta)
+        assert type(net).__name__ == name and net.roi_head is not None
+        return
     if name.startswith("PVRCNN"):
         from torch_port_pvrcnn_setup import CLASS_NAMES, GRID, small_cfg
 
