@@ -378,6 +378,20 @@ N_TERMS = ("point_loss_cls", "point_loss_box", "rcnn_loss_cls", "rcnn_loss_reg",
            "rcnn_loss_corner")
 EXPECT_N_SERVING = {"nms": 2}  # the proposal NMS over the points' boxes and the final one
 EXPECT_N_TRAIN = {"nms": 1}
+# path O: PartA2 on KITTI (UNetV2's encoder and decoder, the part head, the
+# anchor proposals through K4, RoI-aware pooling, PartA2FCHead), and
+# PartA2-free (PointRCNN over MeanVFE and UNetV2)
+PARTA2_CONFIG = "configs/kitti_models/PartA2.yaml"
+PARTA2_FREE_CONFIG = "configs/kitti_models/PartA2_free.yaml"
+O_DIR = REPO / "build" / "path_o"  # path O's tree and CLI outputs, removed after the path
+O_BATCH, O_FREE_BATCH = 4, 2  # the YAMLs' BATCH_SIZE_PER_GPU
+O_TRAIN, O_VAL = 8, 2  # the tree's frames: 2 steps of batch 4
+O_TERMS = ("rpn_loss_cls", "rpn_loss_loc", "rpn_loss_dir", "point_loss_cls", "point_loss_part",
+           "rcnn_loss_cls", "rcnn_loss_reg", "rcnn_loss_corner")
+O_FREE_TERMS = ("point_loss_cls", "point_loss_box", "point_loss_part", "rcnn_loss_cls",
+                "rcnn_loss_reg", "rcnn_loss_corner")
+EXPECT_O_SERVING = {"conv3x3": 11, "nms": 2}  # the proposal NMS and the final one
+EXPECT_O_TRAIN = {"conv3x3": 11, "conv3x3_dgrad": 11, "conv3x3_wgrad": 11, "nms": 1}
 WGRAD_THS = (8, 16)
 # variant -> (TPU kernel, line of its pallas_call in tools/perf/microbench_wgrad_kernels.py)
 WGRAD_VARIANTS = {"gcol": ("T1", 84), "xcol": ("T2", 128), "gt9": ("T3", 175),
@@ -1372,7 +1386,7 @@ def check_small_train_reference(dev):
 
 
 def compare_train_step(dev, cfg, meta, batch, label, counts_confidences=True,
-                       own_noise=False):
+                       own_noise=False, prepare=None):
     """One train step of ``cfg`` on ``batch`` on the card (kernels) against
     the same weights on the CPU (plain versions), every norm's bias moved
     by 3 and the running statistics started at 0: loss, every gradient, the
@@ -1383,12 +1397,15 @@ def compare_train_step(dev, cfg, meta, batch, label, counts_confidences=True,
     from the CPU by twice the larger of the two devices' differences from
     themselves there (two devices' rounding against one's), where that is
     more than the tolerances: a model whose max pools and few-row norms
-    turn rounding into more than 1e-5 of a statistic."""
+    turn rounding into more than 1e-5 of a statistic.  ``prepare(net)`` may
+    adjust the weights after the norms' shift."""
     from com_tpu_torch.models.layers import BatchNorm
 
     def run(d, b):
         net, _, state, step = build_trainer(d, cfg, meta, 1, seed=7)
         shift_norm_biases(net)
+        if prepare is not None:
+            prepare(net)
         running = {k: v for k, v in net.state_dict().items() if "running" in k}
         for v in running.values():  # from 0, one update is (1 - 0.99) x the batch statistic
             v.zero_()
@@ -1405,12 +1422,15 @@ def compare_train_step(dev, cfg, meta, batch, label, counts_confidences=True,
         gmax = max(float(g.abs().max()) for g in gb.values())
         gerr = max(float(((ga[k] - gb[k]).abs() / (1e-3 * gb[k].abs().max() + 1e-5 * gmax)).max())
                    for k in gb)
-        serr = max(float(stat_err(sa, sb, k.rsplit(".", 1)[0]).max())
-                   for k in sb if k.endswith("running_mean"))
+        norms = [k.rsplit(".", 1)[0] for k in sb if k.endswith("running_mean")]
+        serr, worst[0] = max((float(stat_err(sa, sb, n).max()), n) for n in norms)
         return abs(la - lb) / abs(lb), gerr, serr
+
+    worst = [None]  # the norm of the largest statistic error of the last ``errors``
 
     (l0, _, _, cs0, cc0), (l1, _, _, cs1, cc1) = card, cpu = run(dev, batch), run("cpu", batch)
     lerr, gerr, serr = errors(card, cpu)
+    worst_norm = worst[0]
     ltol, gtol, stol = 1e-4, 1.0, STATS_RTOL
     if own_noise:
         swapped = {k: v[::-1].copy() for k, v in batch.items()}
@@ -1426,7 +1446,7 @@ def compare_train_step(dev, cfg, meta, batch, label, counts_confidences=True,
     print(f"{label}: loss {l0:.6f} vs {l1:.6f}; "
           f"{len(cpu[1])} gradients within 1e-3 of their max + 1e-5 of the net's max "
           f"(worst at {gerr:.3f} of that, allowed {gtol:.3f}); batch statistics rel {serr:.2e} "
-          f"(<= {stol:.2e}); "
+          f"(<= {stol:.2e}; worst {worst_norm}); "
           f"confidence counts {int(cc1.sum())} equal {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{label}: the card's train step disagrees with the CPU")
@@ -2727,17 +2747,20 @@ def two_stage_marks(net, mark):
     RoI head ("roi_head": grid points or the rotated sampling; Voxel-RCNN's
     "voxel_query" and "pool" a scale; "fcs"), then the final NMS's steps
     ("final.*"); with PV-RCNN's point stages (the "pfe" and "point_head"
-    slots) also ``_mark_point_steps``'s.  Returns the function that removes
-    them."""
+    slots) also ``_mark_point_steps``'s, with PointRCNN's
+    ``_mark_pointnet2_steps``'s, with PartA2's UNet ``_mark_parta2_steps``'s
+    (the slot's mark then "unet.encoder").  Returns the function that
+    removes them."""
     from com_tpu_torch.models.roi_heads import voxelrcnn_head
 
     phase = ["proposal"]
     hooks = []
+    unet = hasattr(net.backbone_3d, "conv_up_t4")
     for s in ("vfe", "backbone_3d", "map_to_bev", "pfe", "backbone_2d", "dense_head",
               "point_head"):
         if getattr(net, s, None) is not None:
-            # the PFE opens with its keypoint sampling
-            name = "pfe.fps" if s == "pfe" else s
+            # the PFE opens with its keypoint sampling, a UNet with its encoder
+            name = {"pfe": "pfe.fps", "backbone_3d": "unet.encoder" if unet else s}.get(s, s)
             hooks.append(getattr(net, s).register_forward_pre_hook(
                 lambda *_, name=name: mark(name)))
             hooks.append(getattr(net, s).register_forward_hook(lambda *_: mark("gap")))
@@ -2745,6 +2768,8 @@ def two_stage_marks(net, mark):
         undo_points = _mark_point_steps(net, mark)
     elif hasattr(net.backbone_3d, "SA_modules"):
         undo_points = _mark_pointnet2_steps(net, mark)
+    elif unet:
+        undo_points = _mark_parta2_steps(net, mark)
     else:
         undo_points = None
     hooks.append(net.roi_head.register_forward_pre_hook(lambda *_: mark("roi_head")))
@@ -4873,6 +4898,252 @@ def path_n(dev, smi, entries, calls, pc_range=None, points=E_POINTS, real_points
     return serve_counts, train_counts
 
 
+def parta2_small_case(which="parta2", seed=0):
+    """``kitti_models/PartA2.yaml`` or ``PartA2_free.yaml`` narrowed as the
+    CPU tests narrow them (``tests/torch_port_parta2_setup.py`` ``small_cfg``:
+    UNetV2 CHANNELS [8, 16, 16, 32], a one-layer BEV backbone, heads [16],
+    PartA2FCHead at POOL_SIZE 4 with FCs [32]; written out here, as nothing
+    on the card imports the JAX package's tests), f32, over path J's 64 x 64
+    x 40 grid: 2 scenes of 16,384 points over the range (95 % valid), 8,192
+    voxel slots, 16 object slots of KITTI-like boxes.  Returns (cfg, meta,
+    batch)."""
+    from com_tpu_torch.models.detectors import DatasetMeta
+
+    cfg, _, proc = load_voxel(PARTA2_CONFIG if which == "parta2" else PARTA2_FREE_CONFIG)
+    m = cfg.MODEL
+    m.MIXED_PRECISION = False
+    if "BACKBONE_2D" in m:
+        m.BACKBONE_2D.update(LAYER_NUMS=[1, 1], LAYER_STRIDES=[1, 2], NUM_FILTERS=[32, 64],
+                             UPSAMPLE_STRIDES=[1, 2], NUM_UPSAMPLE_FILTERS=[32, 32])
+    m.BACKBONE_3D.update(CHANNELS=[8, 16, 16, 32], VOXEL_CAPS=[2048, 1024, 512, 256])
+    ph, r = m.POINT_HEAD, m.ROI_HEAD
+    ph.CLS_FC, ph.PART_FC = [16], [16]
+    if "REG_FC" in ph:
+        ph.REG_FC = [16]
+    r.DP_RATIO = 0.0
+    if which == "parta2":
+        r.ROI_AWARE_POOL.update(POOL_SIZE=4, NUM_FEATURES=16, MAX_POINTS_PER_ROI=64)
+        r.SHARED_FC, r.CLS_FC, r.REG_FC = [32], [32], [32]
+        posts = (("TRAIN", 64), ("TEST", 32))
+    else:
+        r.ROI_POINT_POOL.NUM_SAMPLED_POINTS = 64
+        r.XYZ_UP_LAYER, r.CLS_FC, r.REG_FC = [16, 16], [16], [16]
+        r.SA_CONFIG.update(NPOINTS=[32, -1], RADIUS=[0.8, 100], NSAMPLE=[8, 8],
+                           MLPS=[[16, 16], [16, 32]])
+        posts = (("TRAIN", 64), ("TEST", 16))
+    for mode, post in posts:
+        r.NMS_CONFIG[mode].update(NMS_PRE_MAXSIZE=256, NMS_POST_MAXSIZE=post)
+    r.TARGET_CONFIG.ROI_PER_IMAGE = 16
+    pr = (-16.0, -16.0, -2.0, 16.0, 16.0, 2.0)
+    meta = DatasetMeta(cfg.CLASS_NAMES, pr, (0.5, 0.5, 0.1), (64, 64, 40), E_FEATS)
+    proc.MAX_NUMBER_OF_VOXELS = {"train": 8192, "test": 8192}
+    rng = np.random.RandomState(seed)
+    batch = kitti_like_batch(rng, 2, pr, (0.5, 0.5, 4.0), n=4096, real_points=3000, m=16, real=6)
+    # points over the whole range at the boxes' heights, dense enough that a
+    # RoI sampled in training holds some (KITTI's wedge, or 2,048 voxels,
+    # leave most of them empty: constant rows in the RoI head's norms)
+    batch["points"] = np.concatenate([rng.uniform(-15, 15, (2, 16384, 2)),
+                                      rng.uniform(-1.7, 0.3, (2, 16384, 1)),
+                                      rng.rand(2, 16384, 1)], -1).astype(np.float32)
+    batch["points_mask"] = rng.rand(2, 16384) < 0.95
+    return cfg, meta, voxelize_batch(batch, meta, proc, "test")
+
+
+def _mark_parta2_steps(net, mark):
+    """Marks inside PartA2's stages, for ``two_stage_marks``: the UNet's
+    decoder ("unet.decoder"); with PartA2FCHead its two RoI-aware pools
+    ("roi.pool_part", "roi.pool_rpn") and the 3D convs over the pooled grids
+    ("roi.conv3d"; the head's own mark, "roi_head", is the part features'
+    gate).  Returns the function that removes them."""
+    from com_tpu_torch.models.roi_heads import parta2_head
+
+    hooks = [net.backbone_3d.conv_up_t4.register_forward_pre_hook(
+        lambda *_: mark("unet.decoder"))]
+    head = net.roi_head
+    orig_pool = parta2_head.roiaware_pool3d
+    if hasattr(head, "conv_part"):
+        hooks.append(head.conv_part[0].register_forward_pre_hook(lambda *_: mark("roi.conv3d")))
+
+        def pool(*args, **kw):
+            mark("roi.pool_part" if args[6] == "avg" else "roi.pool_rpn")
+            return orig_pool(*args, **kw)
+
+        parta2_head.roiaware_pool3d = pool
+
+    def undo():
+        parta2_head.roiaware_pool3d = orig_pool
+        for h in hooks:
+            h.remove()
+
+    return undo
+
+
+def check_small_parta2_reference(dev):
+    """O.1: ``parta2_small_case`` on the card against the CPU, the same
+    seeded weights: PartA2's eval step (norm biases +3: at the seeded
+    init the UNet's 13 convs leave its dense tensor at ~1e-5, so every
+    anchor scores alike and the proposals' top-k ranks ties by rounding;
+    anchor scores spread) and one train
+    step (anchor scores spread, so that the sampled RoIs are box-sized and
+    hold points; loss, gradients, batch statistics; no COM groups) within the
+    tolerances or twice either device's own difference with the scenes
+    swapped (its RoI head's norms over 32 RoIs, as PointRCNN's); PartA2-free's
+    eval step (point scores spread)."""
+    cfg, meta, batch = parta2_small_case()
+    label = "path O small reference (PartA2 narrowed, f32, 64x64x40"
+    compare_eval_step(dev, cfg, meta, batch, f"{label}, eval step, card vs CPU)",
+                      prepare=lambda net: spread_anchor_scores(shift_norm_biases(net)))
+    compare_train_step(dev, cfg, meta, batch, f"{label}, train step, card vs CPU)",
+                       counts_confidences=False, own_noise=True, prepare=spread_anchor_scores)
+    cfg, meta, batch = parta2_small_case("free")
+    compare_eval_step(dev, cfg, meta, batch, "path O small reference (PartA2-free narrowed, f32, "
+                      "64x64x40, eval step, card vs CPU)", prepare=spread_point_scores)
+
+
+def o3_kitti(dev, smi, tree, extra_set=()):
+    """O.3: ``PartA2.yaml`` with its own DATA_CONFIG over the tree: 1 epoch
+    of ``train_model`` through the port's ``KittiDataset`` (batch 4); then
+    the train CLI (1 epoch, the anchor head spread at its start) and the
+    test CLI on its checkpoint (val split, KITTI AP, ``--infer_time``), as
+    ``com_tpu``'s CLIs run PartA2."""
+    from com_tpu_torch.data import build_dataloader
+    from com_tpu_torch.tools import test, train
+    from com_tpu_torch.tools.train import dataset_meta
+
+    tcfg = l_cfg(PARTA2_CONFIG, tree, extra_set)
+    names = list(tcfg.CLASS_NAMES)
+    dataset, loader = build_dataloader(tcfg.DATA_CONFIG, names, O_BATCH, training=True,
+                                       workers=L_WORKERS, seed=L_SEED)
+    run_training(dev, "O.3 (PartA2.yaml, train_model over KittiDataset)", tcfg,
+                 dataset_meta(tcfg, dataset), loader, 1, len(loader), EXPECT_O_TRAIN,
+                 counts_confidences=False, smi=smi, prepare=spread_anchor_scores, terms=O_TERMS)
+    del loader, dataset
+    torch.cuda.empty_cache()
+    base = ["--cfg_file", str(REPO / PARTA2_CONFIG), "--output_dir", str(O_DIR / "out"),
+            "--workers", str(L_WORKERS), "--device", str(dev)]
+    data = ["--set", "DATA_CONFIG.DATA_PATH", str(tree), *extra_set]
+    reset_counters()
+    t0 = time.perf_counter()
+    # the seeded anchor head spread before the first step, as everywhere on
+    # this path: its unshrunk box codes decode to boxes of e^10 m
+    first = train.main(base + ["--epochs", "1", "--seed", str(L_SEED)] + data,
+                       on_start=lambda info: spread_anchor_scores(info["state"].net))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = first["iterations"]
+    check_launches("O.3 train step (CLI)", read_counters(), EXPECT_O_TRAIN, steps)
+    ok = steps == O_TRAIN // O_BATCH and all(bool(torch.isfinite(p).all())
+                                            for p in first["state"].net.parameters())
+    print(f"path O.3 train CLI (PartA2.yaml, batch 4, the tree's {O_TRAIN} train frames): "
+          f"{steps} steps, {wall:.2f} s wall (dataset, model, loader and checkpoint included), "
+          f"parameters finite ({smi}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("path O.3: the train CLI over the KITTI tree failed its checks")
+    ckpt = first["ckpt_dir"] / "checkpoint_epoch_1.pth"
+    del first
+    torch.cuda.empty_cache()
+    reset_counters()
+    (res,) = test.main(base + ["--ckpt", str(ckpt), "--infer_time"] + data)
+    torch.cuda.synchronize()
+    annos = res["det_annos"]
+    check_launches("O.3 eval forward (test CLI)", read_counters(), EXPECT_O_SERVING,
+                   res["infer_batches"] + 1 + -(-len(annos) // O_BATCH))
+    finite = [int(np.isfinite(a["boxes_lidar"]).all(1).sum()) for a in annos]
+    ok = (len(annos) == O_VAL and finite == [len(a["score"]) for a in annos]
+          and all((np.diff(a["score"]) <= 0).all() for a in annos))
+    print(f"path O.3 test CLI: {len(annos)} val frames, detections a frame "
+          f"{[len(a['score']) for a in annos]} (finite boxes {finite}, scores in descending "
+          f"order), {res['sec_per_frame']:.4f} s a frame, "
+          f"--infer_time {res['infer_ms_per_frame']:.3f} ms a frame ({smi}) "
+          f"{'ok' if ok else 'FAIL'}")
+    print("  KITTI AP (R40) of the checkpoint:\n    " + res["result_str"].replace("\n", "\n    "))
+    if not ok:
+        raise AssertionError("path O.3: the test CLI over the KITTI tree failed its checks")
+
+
+def o4_free(dev, smi, rng, pc_range=None, points=E_POINTS, real_points=E_REAL_POINTS):
+    """O.4: ``PartA2_free.yaml`` at full width, batch 2: one serving batch
+    (K4 in the proposal NMS over the points' boxes and in the final one)
+    and one train step with GT on its own proposals (K4 once)."""
+    cfg, meta, proc = load_voxel(PARTA2_FREE_CONFIG, pc_range)
+    serve_b, train_b = (kitti_voxel_batches(rng, meta, proc, mode, 1, O_FREE_BATCH, points,
+                                            real_points) for mode in ("test", "train"))
+    net, step, _ = check_two_stage_serving(dev, "O.4 (PartA2-free, KITTI)", cfg, meta, serve_b,
+                                           EXPECT_N_SERVING, smi, spread=spread_point_scores)
+    del net, step
+    torch.cuda.empty_cache()
+    run_training(dev, "O.4 (PartA2-free, one step)", cfg, meta, SyntheticLoader(train_b, 1), 1,
+                 1, EXPECT_N_TRAIN, counts_confidences=False, smi=smi,
+                 prepare=lambda net: follow_proposals(spread_point_scores(net)),
+                 terms=O_FREE_TERMS)
+
+
+def path_o(dev, smi, entries, calls, pc_range=None, points=E_POINTS, real_points=E_REAL_POINTS,
+           tree_points=L_POINTS, sets=None):
+    """Path O, PartA2 (``configs/kitti_models/PartA2.yaml``: MeanVFE, UNetV2
+    over the 1408 x 1600 x 40 grid, HeightCompression, the BEV backbone on
+    K2, the anchor head, the part head, 1,024 -> 100 proposals by K4 in
+    serving and 4,096 -> 512 -> 128 sampled in training, PartA2FCHead's
+    12^3 RoI-aware pools) at full width, batch 4 of ~20,000 KITTI-like
+    points in 16,000 / 40,000 voxel slots, anchor scores spread.  O.1 the
+    small f32 references; three serving batches (latency, peak memory, K2
+    11 and K4 2 a forward), the eval step's stages, K4 on the (4, 1024)
+    serving and (4, 4096) train proposal candidates and the final NMS's (4,
+    100); K2, dgrad and K2w at its BEV shapes (path G's); O.2 2 train steps
+    at DP_RATIO 0.3 with GT on the model's own proposals, their terms and
+    stages; O.3 ``train_model`` over a KITTI tree through ``KittiDataset``
+    and the train and test CLIs (``o3_kitti``); O.4 PartA2-free
+    (``o4_free``).  Returns the launch counts of a serving forward and of
+    the 2 steps.  ``pc_range``, the point counts and ``sets`` ({"O.3":
+    ``--set`` pairs}) are for rehearsals."""
+    import shutil
+
+    from com_tpu_torch.tools.kitti_tree import write_kitti_tree
+
+    sets = sets or {}
+    start = time.perf_counter()
+    check_small_parta2_reference(dev)
+    cfg, meta, proc = load_voxel(PARTA2_CONFIG, pc_range)
+    rng = np.random.RandomState(57)
+    batches = kitti_voxel_batches(rng, meta, proc, "test", 3, O_BATCH, points, real_points)
+    net, step, serve_counts = check_two_stage_serving(dev, "O (PartA2, KITTI)", cfg, meta,
+                                                      batches, EXPECT_O_SERVING, smi)
+    two_stage_breakdown(net, lambda: step(batches[0]), "path O eval step", smi=smi)
+    train_batches = kitti_voxel_batches(rng, meta, proc, "train", 2, O_BATCH, points,
+                                        real_points)
+    for what, kernel, (over, sv) in (
+            ("serving proposals", "O:nms",
+             proposal_candidates(net, cfg, batches[0], dev, train=False)),
+            ("train proposals", "O:nms_train",
+             proposal_candidates(net, cfg, train_batches[0], dev, train=True)),
+            ("final NMS", "O:nms", final_candidates(net, cfg, batches[0], dev))):
+        check_k4_cases(dev, entries, calls, over, sv, smi, f", path O {what}", kernel,
+                       iters=20 if sv.shape[1] > 1024 else 50)
+    del net, step
+    torch.cuda.empty_cache()
+    check_conv3x3(dev, entries, shapes=G_CONV, dtypes=(torch.bfloat16,), path="O:")
+    check_conv3x3_backward(dev, entries, shapes=G_CONV, wgrad_dtypes=(torch.bfloat16,),
+                           path="O:")
+    torch.cuda.empty_cache()
+    train_counts = two_stage_training(dev, "O (PartA2, KITTI)", cfg, meta, train_batches,
+                                      EXPECT_O_TRAIN, O_TERMS, smi)
+    torch.cuda.empty_cache()
+    shutil.rmtree(O_DIR, ignore_errors=True)
+    O_DIR.mkdir(parents=True)
+    try:
+        tree = O_DIR / "kitti"
+        write_kitti_tree(tree, seed=L_SEED, num_train=O_TRAIN, num_val=O_VAL,
+                         num_points=tree_points)
+        o3_kitti(dev, smi, tree, sets.get("O.3", ()))
+    finally:
+        shutil.rmtree(O_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    o4_free(dev, smi, rng, pc_range, points, real_points)
+    torch.cuda.empty_cache()
+    print(f"path O: {time.perf_counter() - start:.1f} s wall in all")
+    return serve_counts, train_counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4933,24 +5204,28 @@ def main():
     m_serve_counts, m_train_counts = path_m(dev, smi, entries, calls)
     torch.cuda.empty_cache()
     n_serve_counts, n_train_counts = path_n(dev, smi, entries, calls)
+    torch.cuda.empty_cache()
+    o_serve_counts, o_train_counts = path_o(dev, smi, entries, calls)
     # each kernel's launches on the path that runs it: training path A,
     # serving for K4, path B for K3's last_wins mode, the sweep for T1-T4;
     # paths E, F, G and J's shapes: their training, and their serving for
     # K4 (path J's train proposals: its training); path L's shapes: L.2's
     # steps and serving forward, L.4's test CLI; path M's: its training,
     # and its serving for K4; path N's: its serving (K4 twice a forward) and
-    # its 2 steps
+    # its 2 steps; path O's: its 2 steps, and its serving for K4 (its train
+    # proposals: the steps)
     counts = {**a_counts, "nms": serve_counts["nms"],
               "stamp_last_wins": b_counts["stamp_last_wins"],
               **{f"wgrad_{v}": sweep_counts[f"wgrad_{v}"] for v in WGRAD_VARIANTS},
               **{f"{p}:{k}": v for p, c in (("E", e_train_counts), ("F", f_train_counts),
                                             ("G", g_train_counts), ("J", j_train_counts),
-                                            ("M", m_train_counts))
+                                            ("M", m_train_counts), ("O", o_train_counts))
                  for k, v in c.items()},
               "E:nms": e_serve_counts["nms"], "G:nms": g_serve_counts["nms"],
               "J:nms": j_serve_counts["nms"], "J:nms_train": j_train_counts["nms"], **l_counts,
               "M:nms": m_serve_counts["nms"], "N:nms": n_serve_counts["nms"],
-              "N:nms_train": n_train_counts["nms"]}
+              "N:nms_train": n_train_counts["nms"], "O:nms": o_serve_counts["nms"],
+              "O:nms_train": o_train_counts["nms"]}
     if not profile:
         check_device_kernels(calls)
     for e in entries:

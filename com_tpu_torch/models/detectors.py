@@ -7,11 +7,13 @@ keys read ``vfe.pfn_layers.0.linear.weight``, ``backbone_3d.conv2.0.0.weight``,
 ``backbone_2d.blocks.0.1.weight``, ``dense_head.shared_conv.0.weight``...
 CenterPoint, PointPillar, SECONDNet and the two-stage VoxelRCNN and
 SECONDNetIoU (``roi_head.*``), PV-RCNN and PV-RCNN++ (``pfe.*``,
-``point_head.*``, ``roi_head.*``) and PointRCNN (``backbone_3d.*``,
-``point_head.*``, ``roi_head.*``, no voxel or BEV slot) are ported, for
-inference and training (``net.train()`` puts the norms in batch-statistics
-mode; the dense head returns raw predictions in both modes); the other
-two-stage detectors raise by name.
+``point_head.*``, ``roi_head.*``), PointRCNN (``backbone_3d.*``,
+``point_head.*``, ``roi_head.*``, no BEV slot; over PointNet2MSG, or over
+MeanVFE and UNetV2 for PartA2-free) and PartA2Net (UNetV2, the part head
+``point_head.*``, ``roi_head.*``) are ported, for inference and training
+(``net.train()`` puts the norms in batch-statistics mode; the dense head
+returns raw predictions in both modes); the MPPNet and CaDDN detectors
+raise by name.
 """
 from __future__ import annotations
 
@@ -55,15 +57,13 @@ class DatasetMeta:
 class Detector3D(nn.Module):
     """Generic slot-ordered detector."""
 
-    two_stage = False  # a subclass that builds ROI_HEAD
-    point_stages = False  # a subclass that builds PFE and POINT_HEAD
+    extra_slots = ()  # which of PFE, POINT_HEAD and ROI_HEAD a subclass builds
 
     def __init__(self, model_cfg, meta: DatasetMeta):
         super().__init__()
         self.model_cfg, self.meta = model_cfg, meta
-        for slot in ((() if self.point_stages else ("PFE", "POINT_HEAD"))
-                     + (() if self.two_stage else ("ROI_HEAD",))):
-            if model_cfg.get(slot) is not None:
+        for slot in ("PFE", "POINT_HEAD", "ROI_HEAD"):
+            if slot not in self.extra_slots and model_cfg.get(slot) is not None:
                 raise NotImplementedError(f"{slot} is not ported yet")
         mixed = bool(model_cfg.get("MIXED_PRECISION", False))
         dt = torch.bfloat16 if mixed else None
@@ -204,7 +204,7 @@ class TwoStageDetector(RoIStage, Detector3D):
     RoI flow of ``RoIStage`` and the RoI head, mounted as ``roi_head``.
     Voxel-RCNN and SECOND-IoU keep every RoI in eval."""
 
-    two_stage = True
+    extra_slots = ("ROI_HEAD",)
 
     def __init__(self, model_cfg, meta: DatasetMeta):
         head_cfg = model_cfg["DENSE_HEAD"]
@@ -279,7 +279,7 @@ class _PointStages(TwoStageDetector):
     head ``point_head`` (POINT_HEAD, optional); the RoI head pools the
     keypoints (its input width the PFE's NUM_OUTPUT_FEATURES)."""
 
-    point_stages = True
+    extra_slots = ("PFE", "POINT_HEAD", "ROI_HEAD")
 
     def __init__(self, model_cfg, meta: DatasetMeta):
         super().__init__(model_cfg, meta)
@@ -326,24 +326,53 @@ class PVRCNNPlusPlus(_PointStages):
 
 
 @DETECTORS.register
+class PartA2Net(TwoStageDetector):
+    """PartA2 (detectors/PartA2_net.py), in the JAX package's order: MeanVFE,
+    ``UNetV2`` (the dense tensor for HeightCompression, and features at
+    every voxel), the BEV backbone and the anchor head,
+    ``PointIntraPartOffsetHead`` (``point_head``: a foreground score and
+    the part location a voxel), the anchor proposals through the RoI flow
+    (every RoI kept in eval) and ``PartA2FCHead``."""
+
+    extra_slots = ("POINT_HEAD", "ROI_HEAD")
+
+    def __init__(self, model_cfg, meta: DatasetMeta):
+        super().__init__(model_cfg, meta)
+        self.point_head = DENSE_HEADS.get("PointIntraPartOffsetHead")(
+            model_cfg.get("POINT_HEAD", {}), self.backbone_3d.num_point_features, num_class=1)
+
+    def _roi_input_channels(self):
+        return self.backbone_3d.num_point_features
+
+    def forward(self, batch):
+        batch = self.point_head(Detector3D.forward(self, batch))
+        return self.roi_head(self._stage2_rois(batch, self._proposals(batch)))
+
+
+@DETECTORS.register
 class PointRCNN(RoIStage, nn.Module):
     """PointRCNN (detectors/point_rcnn.py): ``PointNet2MSG`` features a
     point (``backbone_3d``), ``PointHeadBox``'s class and box a point
     (``point_head``), the valid points' boxes as proposals (the proposal
     layer's top-k and K4 NMS, NMS_CONFIG TRAIN or TEST by mode), the RoI
     flow of ``RoIStage`` (every RoI kept in eval, as the JAX detector) and
-    ``PointRCNNHead`` over the points in each RoI (``roi_head``).  No VFE:
-    the PartA2-free composition (PartA2_free.yaml: MeanVFE and UNetV2 give
-    the point features) raises by name."""
+    ``PointRCNNHead`` over the points in each RoI (``roi_head``).  With a
+    VFE (PartA2-free, PartA2_free.yaml) the VFE and a voxel backbone
+    (UNetV2) give the point features, and its point head
+    (``PointIntraPartOffsetHead`` with REG_FC) the boxes."""
 
     def __init__(self, model_cfg, meta: DatasetMeta):
         super().__init__()
-        if "VFE" in model_cfg:
-            raise NotImplementedError("PointRCNN over a VFE and UNetV2 (PartA2_free.yaml's "
-                                      "composition) is not ported yet")
         self.model_cfg, self.meta = model_cfg, meta
         b3_cfg = model_cfg["BACKBONE_3D"]
-        self.backbone_3d = BACKBONES_3D.get(b3_cfg["NAME"])(b3_cfg, meta.num_point_features)
+        self.vfe, channels, grid = None, meta.num_point_features, ()
+        if "VFE" in model_cfg:  # a voxel backbone over the VFE's voxels
+            vfe_cfg = model_cfg["VFE"]
+            self.vfe = VFES.get(vfe_cfg["NAME"])(
+                vfe_cfg, channels, meta.voxel_size, meta.point_cloud_range, meta.grid_size)
+            channels = self.vfe.num_point_features
+            grid = (meta.grid_size, meta.voxel_size, meta.point_cloud_range)
+        self.backbone_3d = BACKBONES_3D.get(b3_cfg["NAME"])(b3_cfg, channels, *grid)
         ph_cfg = model_cfg["POINT_HEAD"]
         self.point_head = DENSE_HEADS.get(ph_cfg.get("NAME", "PointHeadBox"))(
             ph_cfg, self.backbone_3d.num_point_features, num_class=len(meta.class_names))
@@ -368,12 +397,13 @@ class PointRCNN(RoIStage, nn.Module):
             use_fast_nms=nms_cfg.get("NMS_TYPE") == "fast_nms")
 
     def forward(self, batch):
+        if self.vfe is not None:
+            batch = self.vfe(batch)
         batch = self.point_head(self.backbone_3d(batch))
         return self.roi_head(self._stage2_rois(batch, self._proposals(batch)))
 
 
-for _name, _what in (("PartA2Net", "UNetV2 and RoI-aware pooling"),
-                     ("MPPNet", "multi-frame proxy points"),
+for _name, _what in (("MPPNet", "multi-frame proxy points"),
                      ("MPPNetE2E", "multi-frame proxy points"),
                      ("CaDDN", "the image depth frustum")):
     DETECTORS.register_unported(_name, _what)

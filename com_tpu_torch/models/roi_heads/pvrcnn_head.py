@@ -163,6 +163,5 @@ class PVRCNNPlusPlusHead(nn.Module):
         return batch
 
 
-ROI_HEADS.register_unported("PartA2FCHead", "PartA2's RoI-aware pooling")
 ROI_HEADS.register_unported("MPPNetHead", "MPPNet's multi-frame proxy points")
 ROI_HEADS.register_unported("MPPNetHeadE2E", "MPPNet's multi-frame proxy points")

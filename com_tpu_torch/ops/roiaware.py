@@ -1,6 +1,7 @@
-"""RoI point pooling (counterpart of ``com_tpu/ops/roiaware.py``'s
-``points_in_roi_local`` and ``roipoint_pool3d``; pcdet's roipoint_pool3d
-CUDA op): the member points of each RoI in its canonical frame.
+"""RoI point pooling (counterpart of ``com_tpu/ops/roiaware.py``;
+pcdet's roipoint_pool3d and roiaware_pool3d CUDA ops): the member points
+of each RoI in its canonical frame (``roipoint_pool3d``, PointRCNN), or
+pooled into a grid of its box (``roiaware_pool3d``, PartA2).
 
 The JAX package takes a RoI's members with ``lax.top_k`` over a 0/1 key,
 which puts the members first in index order (ties to the lower index);
@@ -12,6 +13,8 @@ entries.  Plain PyTorch on either device: the JAX package has no Pallas
 kernel for it.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +40,22 @@ def points_in_roi_local(points: torch.Tensor, rois: torch.Tensor):
     return local, (torch.abs(local) <= rois[:, :, None, 3:6] / 2).all(dim=-1)
 
 
+def first_members(points, valid, rois, k: int, block: int = QUERY_BLOCK):
+    """(B, R, k) indices of the first ``k`` points of each RoI in index
+    order, N where a RoI has fewer: the k-th member is where the running
+    count of ``valid`` members first reaches k, found in blocks of RoIs."""
+    b, n = points.shape[:2]
+    r = rois.shape[1]
+    want = torch.arange(1, k + 1, dtype=torch.int32, device=points.device)
+    pos = torch.empty((b, r, k), dtype=torch.int64, device=points.device)
+    for sl in row_blocks(r, b * n, block):
+        _, inside = points_in_roi_local(points, rois[:, sl])
+        inside &= valid[:, None, :]
+        count = inside.cumsum(dim=-1, dtype=torch.int32)
+        pos[:, sl] = torch.searchsorted(count, want.expand(b, count.shape[1], k).contiguous())
+    return pos
+
+
 def roipoint_pool3d(points, feats, valid, rois, num_sampled_points: int = 512,
                     block: int = QUERY_BLOCK):
     """Per RoI, the first ``num_sampled_points`` valid member points in index
@@ -48,25 +67,59 @@ def roipoint_pool3d(points, feats, valid, rois, num_sampled_points: int = 512,
     missed slot gathers the first member (row 0 for an empty RoI) before
     it is zeroed, as JAX's ``top_k`` fill."""
     k = int(num_sampled_points)
-    b, n = points.shape[:2]
+    n = points.shape[1]
     if n < k:  # keep the (R, K, C) contract
         pad = k - n
         points = F.pad(points, (0, 0, 0, pad))
         feats = F.pad(feats, (0, 0, 0, pad))
         valid = F.pad(valid, (0, pad))
         n = k
-    r = rois.shape[1]
-    want = torch.arange(1, k + 1, dtype=torch.int32, device=points.device)
-    pos = torch.empty((b, r, k), dtype=torch.int64, device=points.device)
-    for sl in row_blocks(r, b * n, block):
-        _, inside = points_in_roi_local(points, rois[:, sl])
-        inside &= valid[:, None, :]
-        count = inside.cumsum(dim=-1, dtype=torch.int32)
-        # the k-th member is where the running count first reaches k (N: none)
-        pos[:, sl] = torch.searchsorted(count, want.expand(b, count.shape[1], k).contiguous())
+    pos = first_members(points, valid, rois, k, block)
     hit = pos < n
     first = torch.where(hit[..., :1], pos[..., :1], torch.zeros_like(pos[..., :1]))
     idx = torch.where(hit, pos, first)
     local = to_local(gather_rows(points.contiguous(), idx), rois)
     out = torch.cat([local, gather_rows(feats, idx)], dim=-1)
     return out * hit.to(out.dtype)[..., None], ~hit.any(dim=-1)
+
+
+def roiaware_pool3d(points, feats, valid, rois, out_size: int = 12, max_pts: int = 128,
+                    method: str = "max", block: int = QUERY_BLOCK):
+    """RoI-aware pooling (pcdet's roiaware_pool3d; the JAX package's
+    ``roiaware_pool3d``): each RoI's first ``max_pts`` valid member points
+    in index order (none for a RoI with a size <= 0), binned into an
+    out_size^3 grid of its canonical box (x, y, z cell order, clamped to
+    the grid), reduced a cell by ``max`` (a cell of negative members stays
+    negative) or ``avg`` (the sum over the cell's members).  Empty cells
+    are 0.  points (B, N, 3), feats (B, N, C), valid (B, N), rois (B, R, 7)
+    -> (B, R, S, S, S, C)."""
+    s = int(out_size)
+    s3 = s ** 3
+    b, n, c = feats.shape
+    r = rois.shape[1]
+    k = min(int(max_pts), n)
+    sized = (rois[..., 3:6] > 0).all(dim=-1)  # (B, R)
+    pos = first_members(points, valid, rois, k, block)
+    hit = (pos < n) & sized[..., None]
+    idx = torch.where(hit, pos, torch.zeros_like(pos))
+    local = to_local(gather_rows(points[..., :3].contiguous(), idx), rois)  # (B, R, K, 3)
+    pf = gather_rows(feats, idx) * hit[..., None].to(feats.dtype)
+    dims = rois[:, :, None, 3:6]
+    cell = torch.floor((local + dims / 2) / torch.clamp(dims, min=1e-6) * s).to(torch.int64)
+    cell = torch.clamp(cell, 0, s - 1)
+    flat = (cell[..., 0] * s + cell[..., 1]) * s + cell[..., 2]
+    roi_base = torch.arange(b * r, device=feats.device).view(b, r, 1) * (s3 + 1)
+    seg = (roi_base + torch.where(hit, flat, s3)).reshape(-1)  # slot s3 of a RoI: no member
+    src = pf.reshape(-1, c)
+    if method == "max":
+        pooled = feats.new_full((b * r * (s3 + 1), c), -math.inf).scatter_reduce(
+            0, seg[:, None].expand(-1, c), src, "amax", include_self=True)
+        pooled = torch.where(torch.isfinite(pooled), pooled, torch.zeros_like(pooled))
+    elif method == "avg":
+        pooled = feats.new_zeros((b * r * (s3 + 1), c)).index_add(0, seg, src)
+        cnt = feats.new_zeros((b * r * (s3 + 1),)).index_add(
+            0, seg, hit.reshape(-1).to(feats.dtype))
+        pooled = pooled / torch.clamp(cnt, min=1.0)[:, None]
+    else:
+        raise ValueError(f"roiaware_pool3d: method {method!r} is neither 'max' nor 'avg'")
+    return pooled.view(b, r, s3 + 1, c)[:, :, :s3].reshape(b, r, s, s, s, c)

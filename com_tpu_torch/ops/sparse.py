@@ -24,6 +24,9 @@ the JAX package's ``_subm_im2col_mirror``), the input-side hits the outprobe
 found for a strided one (the JAX package lets autodiff scatter-add there;
 the sum is the same, in another order).
 
+An inverse conv (``batched_inverse_conv3d``, UNetV2's decoder) looks each
+high-resolution site's (c - off) / s up in the low-resolution table; its
+backward gathers through the one-to-one inverse of that rulebook.
 ``batched_voxel_query`` (Voxel-RCNN's RoI pooling) looks its queries'
 offset cubes up through the same tables, a chunk of offsets at a time.
 
@@ -33,7 +36,8 @@ folded into the keys (a scene's cells are ``b * cells + key``), so one
 table or sort serves the batch, and each conv's gather and product run once
 over the stacked scenes.  The per-scene functions (``subm_rulebook``,
 ``downsample_sites``, ``strided_rulebook``, ``submanifold_conv3d``,
-``strided_conv3d``, ``scatter_to_dense``) are the batch of one.  Only the
+``strided_conv3d``, ``inverse_conv3d``, ``scatter_to_dense``) are the
+batch of one.  Only the
 JAX engine's default behaviour is ported (its ``COM_TPU_SPARSE*`` switches
 are not read).  Weights are (K3, Cin, Cout), taps in the row-major
 (dz, dy, dx) order of the kernel cube.
@@ -385,9 +389,67 @@ def scatter_to_dense(features, coords, valid, grid_zyx):
     return batched_scatter_to_dense(features[None], coords[None], valid[None], grid_zyx)[0]
 
 
-def inverse_conv3d(*args, **kwargs):
-    raise NotImplementedError("inverse_conv3d (SparseInverseConv3d, UNetV2's decoder) is not "
-                              "ported yet")
+def inverse_offsets(kernel=3, pad=1) -> np.ndarray:
+    """(K3, 3) per-axis offsets j - p, j in [0, k), row-major (dz, dy, dx):
+    the transpose of the strided conv's in = s * out + j - p rulebook (the
+    JAX package's ``_inv_offsets``)."""
+    ker, pd = _triple(kernel), _triple(pad)
+    return np.stack(np.meshgrid(*[np.arange(k) - p for k, p in zip(ker, pd)], indexing="ij"),
+                    axis=-1).reshape(-1, 3)
+
+
+def batched_inverse_rulebook(coords, valid, grid_lo, hi_coords, hi_valid, stride=(2, 2, 2),
+                             kernel=3, pad=1):
+    """The rulebook of a SparseInverseConv3d over a batch: output (high
+    resolution) site c reads low-resolution site (c - off) // s at the tap
+    of offset off wherever c - off is divisible by the stride (floor
+    division and remainder, as the JAX package's ``//`` and ``%``).  ``pad``
+    must be the downsampling conv's.  Returns (nidx (B, K3, H) rows of the
+    (B, V) low-resolution sites or -1; back (K3, B * V) flat rows (b * H +
+    c) * K3 + t of the patch matrix reading each low-resolution row, or -1:
+    for a tap, c -> (c - off) // s is one to one, so each row is read at
+    most once a tap)."""
+    nb, v = valid.shape
+    h = hi_valid.shape[1]
+    s = torch.as_tensor(_triple(stride), device=coords.device)
+    offs = torch.as_tensor(inverse_offsets(kernel, pad), device=coords.device)
+    k3 = offs.shape[0]
+    shifted = hi_coords.to(torch.int64)[None] - offs[:, None, None]  # (K3, B, H, 3)
+    divisible = (torch.remainder(shifted, s) == 0).all(dim=-1)
+    lo = torch.div(shifted, s, rounding_mode="floor")
+    nidx = _lookup(coords, valid, grid_lo, lo, _in_grid(lo, grid_lo, divisible & hi_valid[None]))
+    nidx = nidx.transpose(0, 1)  # (B, K3, H)
+    tap = torch.arange(k3, device=coords.device)[None, :, None]
+    scene = torch.arange(nb, device=coords.device)[:, None, None]
+    flat = (scene * h + torch.arange(h, device=coords.device)) * k3 + tap  # (B, K3, H)
+    drop = k3 * nb * v
+    dst = torch.where(nidx >= 0, tap * (nb * v) + scene * v + nidx, drop)
+    back = torch.full((drop + 1,), -1, dtype=torch.int64, device=coords.device)
+    back.scatter_(0, dst.reshape(-1), flat.reshape(-1))
+    return nidx, back[:-1].view(k3, nb * v)
+
+
+def batched_inverse_conv3d(features, coords, valid, weights, hi_coords, hi_valid, grid_lo,
+                           stride=(2, 2, 2), kernel=3, pad=1):
+    """SparseInverseConv3d of a batch (the JAX package's
+    ``_inverse_conv3d_v2``): (B, V, Cin) low-resolution features -> (B, H,
+    Cout) at the high-resolution sites, zero where ``hi_valid`` is false;
+    one gather and GEMM over the stacked scenes, a gather-only backward."""
+    b, v, cin = features.shape
+    nidx, back = batched_inverse_rulebook(coords, valid, grid_lo, hi_coords, hi_valid, stride,
+                                          kernel, pad)
+    out = Im2colGEMM.apply(features.reshape(b * v, cin), valid.reshape(b * v),
+                           _batch_rows(nidx, v), back, weights)
+    return out.reshape(b, hi_valid.shape[1], -1) * hi_valid[..., None].to(out.dtype)
+
+
+def inverse_conv3d(features, coords, valid, weights, hi_coords, hi_valid, grid_lo,
+                   stride=(2, 2, 2), kernel=3, pad=1):
+    """SparseInverseConv3d of one scene (the JAX package's
+    ``inverse_conv3d``): (V, Cin) -> (H, Cout)."""
+    return batched_inverse_conv3d(features[None], coords[None], valid[None], weights,
+                                  hi_coords[None], hi_valid[None], grid_lo, stride, kernel,
+                                  pad)[0]
 
 
 def query_offsets(max_range: int, radius_vox: float = 4.0, cell_zyx=None,

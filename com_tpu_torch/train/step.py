@@ -6,8 +6,7 @@ One call runs forward, target assignment, the CenterNet, anchor or COM
 losses (or none, for PointRCNN, which has no dense head), the RoI and
 point-head losses of the two-stage detectors, backward, the optimizer
 update and the on-device accumulation of the per-(class, group) confidence
-statistics, with no sync with the host.  PartA2's part-offset loss is not
-ported yet.
+statistics, with no sync with the host.
 """
 from __future__ import annotations
 
@@ -26,7 +25,8 @@ from ..losses.centernet import focal_loss_centernet, reg_loss_centernet, sigmoid
 from ..losses.curriculum import CurriculumAux, focal_loss_center_curriculum, group_confidences
 from ..models.dense_heads.anchor_assign import assign_anchor_targets, atss_assign_targets
 from ..models.dense_heads.anchor_head import box_coder_for, build_anchors, reshape_anchor_preds
-from ..models.dense_heads.point_head import point_head_box_loss, point_head_loss
+from ..models.dense_heads.point_head import (point_head_box_loss, point_head_loss,
+                                             point_part_loss)
 from ..models.dense_heads.target_assign import assign_centerpoint_targets, cluster_com_groups
 from ..models.roi_heads.roi_targets import decode_rcnn_boxes
 from ..models.roi_heads.second_head import second_iou_loss
@@ -324,8 +324,8 @@ def step_generators(seed: int, step: int, device) -> dict:
 
 
 PORTED_ROI_HEADS = ("VoxelRCNNHead", "SECONDHead", "PVRCNNHead", "PVRCNNPlusPlusHead",
-                    "PointRCNNHead")
-PORTED_POINT_HEADS = ("PointHeadSimple", "PointHeadBox")
+                    "PointRCNNHead", "PartA2FCHead")
+PORTED_POINT_HEADS = ("PointHeadSimple", "PointHeadBox", "PointIntraPartOffsetHead")
 
 
 def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, device=None,
@@ -346,10 +346,12 @@ def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, devic
     ("forward", "loss", "backward", "optimizer") and once at the end ("end").
 
     A two-stage model (``ROI_HEAD``: Voxel-RCNN's, SECOND-IoU's, the
-    PV-RCNN family's or PointRCNN's head) adds ``compute_roi_loss`` or
+    PV-RCNN family's, PointRCNN's or PartA2's head) adds ``compute_roi_loss`` or
     ``second_iou_loss`` to the first stage's, and with a ``POINT_HEAD``
-    ``point_head_box_loss`` (PointHeadBox: "point_loss_cls",
-    "point_loss_box") or ``point_head_loss`` (PointHeadSimple:
+    ``point_head_box_loss`` (PointHeadBox and PartA2-free's head:
+    "point_loss_cls", "point_loss_box"), then ``point_part_loss``
+    (PointIntraPartOffsetHead: "point_loss_part", and "point_loss_cls"
+    without the box branch) or ``point_head_loss`` (PointHeadSimple:
     "point_loss_cls"); each step draws its RoI sampling and dropout from
     ``step_generators(seed, state.step)``.  Without a ``DENSE_HEAD``
     (PointRCNN) the first stage's loss is 0, the curriculum is carried
@@ -408,10 +410,17 @@ def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, devic
                 p_loss, p_tb = point_head_box_loss(out, ph_cfg)
                 tb.update(p_tb)
                 loss = loss + p_loss
-            # not elif, in the JAX step's order (its part-offset loss, not
-            # ported, sits between): the keypoints' foreground
-            # (PointHeadSimple), for a head whose logits no box loss trained
-            if "point_cls_scores_raw" in out and "point_box_preds_raw" not in out:
+            # not elif, in the JAX step's order: PartA2-free's head has both
+            # a box branch and part offsets; its shared class logits take
+            # their loss once, from the box loss
+            if "point_part_logits" in out:  # PointIntraPartOffsetHead
+                p_loss, p_tb = point_part_loss(out,
+                                               include_cls="point_box_preds_raw" not in out)
+                tb.update(p_tb)
+                loss = loss + p_loss
+            # else the keypoints' foreground (PointHeadSimple), for a head
+            # whose logits no box loss trained
+            elif "point_cls_scores_raw" in out and "point_box_preds_raw" not in out:
                 p_loss = tb["point_loss_cls"] = point_head_loss(out)
                 loss = loss + p_loss
             return loss, new_cur, aux_list, tb

@@ -24,7 +24,11 @@ VoxelRCNNHead and SECONDHead (flax Dense (in, out) -> Linear, or Conv1d
 1e-3 - 1e-5, ``models/layers.py`` ``BatchNorm1d``), and PV-RCNN's
 VoxelSetAbstraction (Conv2d 1x1 (out, in, 1, 1) blocks), PointHeadSimple
 and PVRCNNHead (their norms shifted as the RoI heads'), and
-PVRCNNPlusPlusHead under its flax names.  For comparing a train
+PVRCNNPlusPlusHead under its flax names, PointRCNN's PointNet2MSG and
+head, and PartA2's UNetV2 (its inverse convs as sparse convs),
+PointIntraPartOffsetHead and PartA2FCHead (its pooled-grid convs, dense
+flax Conv (kz, ky, kx, I, O) -> spconv 2.x (O, kz, ky, kx, I)).  For
+comparing a train
 step, ``params_from_jax`` maps any tree shaped like flax "params" (its
 gradients, its updated parameters) into the same pcdet names, and
 ``curriculum_state_from_jax`` carries the COMLoss EMA state (either kind)
@@ -49,6 +53,9 @@ _TRANSFORMS = {
     "spconv3": lambda a: a.reshape(3, 1, 1, *a.shape[1:]).transpose(4, 0, 1, 2, 3),
     "conv1d": lambda a: a.T[..., None],
     "conv1x1": lambda a: a.T[..., None, None],
+    # flax Conv (kz, ky, kx, I, O) -> spconv 2.x (O, kz, ky, kx, I): PartA2's
+    # pooled-grid convs, dense in both packages, pcdet's sparse in layout
+    "spconv_dense": lambda a: a.transpose(4, 0, 1, 2, 3),
 }
 # A running statistic's rule, never a parameter's: the RoI heads'
 # BatchNorm1d holds var + (1e-3 - 1e-5) (models/layers.py).
@@ -102,6 +109,40 @@ def _voxel_backbone_rules(top, residual):
         for j in (1, 2):
             body(f"backbone_3d.conv{s}.{j}", f"subm{s - 1}_{j - 1}")
     block("backbone_3d.conv_out", "conv_out", "spconv3")
+    return rules
+
+
+def _unet_v2_rules(cfg, top):
+    """UNetV2's pcdet names <- the JAX package's scopes (the inverse of its
+    ``map_unet_v2``): the encoder's conv_input, conv1.0 <- conv1,
+    conv{s}.0 <- down{s-1}, conv{s}.{1,2} <- subm{s-1}_{0,1}, conv_out
+    (with RETURN_ENCODED_TENSOR); the decoder's conv_up_t{k} (bias-free
+    residual blocks) <- up{k}_t, conv_up_m{k} <- up{k}_m, inv_conv{k} <-
+    up{k}_inv, conv5.0 <- up1_post."""
+    rules = []
+
+    def block(tkey, scope, transform="spconv27"):
+        rules.append((f"{tkey}.0.weight", "params", (top, scope, "kernel"), transform))
+        rules.extend(_bn(f"{tkey}.1", (top, scope, "MaskedBatchNorm_0")))
+
+    block("backbone_3d.conv_input", "conv_input")
+    block("backbone_3d.conv1.0", "conv1")
+    for s in (2, 3, 4):
+        block(f"backbone_3d.conv{s}.0", f"down{s - 1}")
+        for j in (1, 2):
+            block(f"backbone_3d.conv{s}.{j}", f"subm{s - 1}_{j - 1}")
+    if cfg.get("RETURN_ENCODED_TENSOR", True):
+        block("backbone_3d.conv_out", "conv_out", "spconv3")
+    for k in (4, 3, 2, 1):
+        for j in (1, 2):
+            p = (top, f"up{k}_t", f"conv{j}")
+            rules.append((f"backbone_3d.conv_up_t{k}.conv{j}.weight", "params", (*p, "kernel"),
+                          "spconv27"))
+            rules.extend(_bn(f"backbone_3d.conv_up_t{k}.bn{j}", (*p, "MaskedBatchNorm_0")))
+        block(f"backbone_3d.conv_up_m{k}", f"up{k}_m")
+        if k > 1:
+            block(f"backbone_3d.inv_conv{k}", f"up{k}_inv")
+    block("backbone_3d.conv5.0", "up1_post")
     return rules
 
 
@@ -343,11 +384,46 @@ def _pfe_rules(cfg, top):
 def _point_head_rules(cfg, top):
     """PointHeadSimple: ``point_head.cls_layers`` <- cls_fc_{i} / cls_bn_{i},
     the output <- cls_out; PointHeadBox also ``point_head.box_layers`` <-
-    box_fc_{i} / box_bn_{i} / box_out."""
-    branches = [("cls", "CLS_FC")] + ([("box", "REG_FC")] if cfg["NAME"] == "PointHeadBox" else [])
-    return [rule for name, key in branches
-            for rule in _branch_rules(f"point_head.{name}_layers", top, name,
-                                      list(cfg.get(key, [256, 256])), "linear", lambda i: False)]
+    box_fc_{i} / box_bn_{i} / box_out; PointIntraPartOffsetHead
+    ``cls_layers``, ``part_reg_layers`` <- part_* and, with REG_FC,
+    ``box_layers`` (its widths default to [128])."""
+    if cfg.get("NAME") == "PointIntraPartOffsetHead":
+        branches = [("cls", "cls", "CLS_FC"), ("part_reg", "part", "PART_FC")]
+        branches += [("box", "box", "REG_FC")] if "REG_FC" in cfg else []
+        default = [128]
+    else:
+        branches = [("cls", "cls", "CLS_FC")]
+        branches += [("box", "box", "REG_FC")] if cfg["NAME"] == "PointHeadBox" else []
+        default = [256, 256]
+    return [rule for tname, name, key in branches
+            for rule in _branch_rules(f"point_head.{tname}_layers", top, name,
+                                      list(cfg.get(key, default)), "linear", lambda i: False)]
+
+
+def _parta2_head_rules(cfg, top):
+    """PartA2FCHead: ``roi_head.conv_{part,rpn}.{j}.0`` / ``.1`` <-
+    conv_{part,rpn}_{j}'s Conv_0 (spconv layout) and MaskedBatchNorm_0
+    (pcdet's eps 1e-3, unshifted); ``shared_fc_layer`` <- shared_fc_{i} /
+    shared_bn_{i} (a dropout slot after each but the last when DP_RATIO >
+    0), ``{cls,reg}_layers`` <- {cls,reg}_fc_{i} / _bn_{i} and {cls,reg}_out
+    (Conv1d layout; the inverse of the JAX package's
+    ``map_parta2_roi_head``)."""
+    rules = []
+    for stem in ("part", "rpn"):
+        for j in (0, 1):
+            p = (top, f"conv_{stem}_{j}")
+            rules.append((f"roi_head.conv_{stem}.{j}.0.weight", "params", (*p, "Conv_0", "kernel"),
+                          "spconv_dense"))
+            rules += _bn(f"roi_head.conv_{stem}.{j}.1", (*p, "MaskedBatchNorm_0"))
+    dp = float(cfg.get("DP_RATIO", 0.0))
+    shared = list(cfg.get("SHARED_FC", [256, 256]))
+    rules += _fc_rules("roi_head.shared_fc_layer", top, "shared", shared, "conv1d",
+                       lambda i: dp > 0 and i != len(shared) - 1)[0]
+    for name in ("cls", "reg"):
+        rules += _branch_rules(f"roi_head.{name}_layers", top, name,
+                               list(cfg.get(f"{name.upper()}_FC", [256, 256])), "conv1d",
+                               lambda i: i == 0)
+    return rules
 
 
 def _pvrcnn_head_rules(cfg, top):
@@ -414,6 +490,8 @@ def bridge_rules(model_cfg, class_names, params) -> list:
     b3 = model_cfg.get("BACKBONE_3D")
     if b3 is not None and b3["NAME"] == "PointNet2MSG":  # PointRCNN's, scope "backbone_3d"
         rules += _pointnet2_rules(b3, top("backbone_3d"))
+    elif b3 is not None and b3["NAME"] == "UNetV2":  # PartA2's
+        rules += _unet_v2_rules(b3, top("UNetV2"))
     elif b3 is not None:
         rules += _voxel_backbone_rules(top(b3["NAME"]),
                                        residual=b3["NAME"] == "VoxelResBackBone8x")
@@ -440,6 +518,8 @@ def bridge_rules(model_cfg, class_names, params) -> list:
             rules += _pvrcnn_head_rules(roi, roi_top)
         elif roi["NAME"] == "PointRCNNHead":
             rules += _pointrcnn_head_rules(roi, roi_top)
+        elif roi["NAME"] == "PartA2FCHead":
+            rules += _parta2_head_rules(roi, roi_top)
         elif roi["NAME"] == "PVRCNNPlusPlusHead":
             rules += _pvrcnn_plusplus_head_rules(roi, roi_top)
         else:

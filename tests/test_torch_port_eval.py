@@ -95,7 +95,9 @@ def test_layout_rules_move_entries_only():
     a = np.arange(2 * 3 * 4 * 5, dtype=np.float32).reshape(2, 3, 4, 5)
     shaped = {"conv2d": a, "deconv2d": a, "copy": a,  # sparse convs: (taps, Cin, Cout)
               "spconv27": np.arange(27 * 2 * 3, dtype=np.float32).reshape(27, 2, 3),
-              "spconv3": a.reshape(3, 8, 5)}
+              "spconv3": a.reshape(3, 8, 5),
+              # PartA2's pooled-grid convs: dense (kz, ky, kx, Cin, Cout)
+              "spconv_dense": np.arange(27 * 2 * 3, dtype=np.float32).reshape(3, 3, 3, 2, 3)}
     for name, fn in _TRANSFORMS.items():
         x = shaped.get(name, a.reshape(6, 20))
         np.testing.assert_array_equal(np.sort(np.asarray(fn(x)).ravel()), x.ravel(),

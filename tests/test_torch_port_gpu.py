@@ -1116,6 +1116,106 @@ def test_roipoint_pool3d_on_card_matches_cpu(dev):
     assert bool((members == 512).any()) and bool(((members > 0) & (members < 512)).any())
 
 
+def test_roiaware_pool3d_on_card_matches_cpu(dev):
+    """RoI-aware pooling at path O's serving size (4 scenes of 40,000 voxel
+    centres with 16 features, a tenth masked, 100 RoIs, POOL_SIZE 12, 512
+    points a RoI): ``max`` exactly, ``avg`` to 1e-6 of the features' size
+    (the card adds a cell's members in another order); blocks of RoIs cut
+    small on the card."""
+    from com_tpu_torch.ops.roiaware import roiaware_pool3d
+
+    rng = np.random.RandomState(29)
+    xyz = np.concatenate([rng.uniform(0, 70, (4, 40000, 1)), rng.uniform(-40, 40, (4, 40000, 1)),
+                          rng.uniform(-3, 1, (4, 40000, 1))], -1).astype(np.float32)
+    feats = rng.randn(4, 40000, 16).astype(np.float32)
+    valid = rng.rand(4, 40000) > 0.1
+    rois = np.concatenate([rng.uniform(0, 70, (4, 100, 1)), rng.uniform(-40, 40, (4, 100, 1)),
+                           rng.uniform(-2, 0, (4, 100, 1)), rng.uniform(1, 12, (4, 100, 3)),
+                           rng.uniform(-3.1, 3.1, (4, 100, 1))], -1).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (xyz, feats, valid, rois)]
+    for method in ("max", "avg"):
+        want = roiaware_pool3d(*args, 12, 512, method)
+        got = roiaware_pool3d(*(a.to(dev) for a in args), 12, 512, method, block=1 << 21).cpu()
+        if method == "max":
+            assert torch.equal(got, want)
+        else:
+            assert float((got - want).abs().max()) <= 1e-6 * float(np.abs(feats).max())
+        filled = want.abs().sum(-1) > 0
+        assert bool(filled.any()) and not bool(filled.all())
+
+
+def test_parta2_eval_step_matches_cpu(dev):
+    """PartA2 narrowed as the CPU tests narrow it (``chip_smoke.
+    parta2_small_case``) in f32: card (K2 in the BEV backbone, K4 in the
+    proposal NMS and the final one) vs CPU, the same seeded weights, norm
+    biases +3 (the UNet's dense tensor is ~1e-5 at the seeded init: every
+    anchor would score alike) and anchor scores spread: the detections to
+    1e-3."""
+    from chip_smoke import parta2_small_case, shift_norm_biases, spread_anchor_scores
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.train.eval import make_eval_step
+
+    cfg, meta, batch = parta2_small_case(seed=2)
+    b2 = cfg.MODEL.BACKBONE_2D
+    k2_expect = sum(n + (s == 1) for n, s in zip(b2.LAYER_NUMS, b2.LAYER_STRIDES))
+    outs = []
+    for d in (dev, "cpu"):
+        net = spread_anchor_scores(shift_norm_biases(build_network(cfg.MODEL, meta, device=d,
+                                                                   seed=3)))
+        k2, k4 = conv2d.launches, nms.launches
+        outs.append([t.cpu().numpy() for t in make_eval_step(
+            net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=d)(batch)])
+        assert (conv2d.launches - k2, nms.launches - k4) == ((k2_expect, 2) if d == dev
+                                                             else (0, 0))
+    (gb, gs, gl, gv), (cb, cs, cl, cv) = outs
+    np.testing.assert_array_equal(gv, cv)
+    assert gv.sum() > 0
+    for i in range(2):
+        a = np.concatenate([gb[i][gv[i]], gs[i][gv[i]][:, None], gl[i][gv[i]][:, None]], -1)
+        c = np.concatenate([cb[i][cv[i]], cs[i][cv[i]][:, None], cl[i][cv[i]][:, None]], -1)
+        assert np.abs(a[:, None] - c[None]).max(-1).min(1).max() <= 1e-3
+
+
+def test_parta2_train_step_matches_cpu(dev):
+    """One step of the narrowed PartA2 in f32, norm biases +3: the card (K2,
+    dgrad and K2w in the BEV backbone, K4 in the proposal NMS) against the
+    CPU, as ``chip_smoke``'s O.1 holds it (``compare_train_step`` with
+    ``own_noise``: its RoI head's norms over 32 RoIs)."""
+    from chip_smoke import compare_train_step, parta2_small_case, spread_anchor_scores
+
+    cfg, meta, batch = parta2_small_case(seed=4)
+    compare_train_step(dev, cfg, meta, batch, "PartA2 train step, card vs CPU",
+                       counts_confidences=False, own_noise=True, prepare=spread_anchor_scores)
+
+
+def test_k4_in_the_parta2_proposal_layer(dev):
+    """PartA2's serving proposals at full size: (4, 1024) candidates of the
+    anchor head through the proposal layer (NMS_THRESH 0.7 -> 100 RoIs):
+    K4 launched once, the RoIs as the CPU's."""
+    from com_tpu_torch.models.roi_heads.proposal_layer import proposal_layer
+
+    rng = np.random.RandomState(31)
+    centres = rng.uniform(-40, 40, (4, 200, 2))
+    pick = rng.randint(0, 200, (4, 3000))
+    boxes = np.zeros((4, 3000, 7), np.float32)
+    boxes[..., :2] = np.take_along_axis(centres, pick[..., None], 1) + rng.normal(0, 0.6,
+                                                                                  (4, 3000, 2))
+    boxes[..., 3:6] = [3.9, 1.6, 1.56]
+    boxes[..., 6] = rng.uniform(-3.1, 3.1, (4, 3000))
+    scores = rng.rand(4, 3000).astype(np.float32)
+    labels = rng.randint(1, 4, (4, 3000)).astype(np.int32)
+    outs = []
+    for d in (dev, "cpu"):
+        k4 = nms.launches
+        out = proposal_layer(*(torch.from_numpy(a).to(d) for a in (boxes, scores, labels)),
+                             nms_pre=1024, nms_post=100, nms_thresh=0.7)
+        assert nms.launches - k4 == (1 if d == dev else 0)
+        outs.append([t.cpu() for t in out])
+    (gr, gs, gl, gv), (cr, cs, cl, cv) = outs
+    assert torch.equal(gv, cv) and int(gv.sum()) > 100
+    assert torch.equal(gl, cl) and float((gr - cr).abs().max()) <= 1e-5
+
+
 @pytest.mark.parametrize("k", [4096, 1024, 100])
 def test_k4_at_the_proposal_shapes(dev, k):
     """K4 at the two-stage path's (2, 4096) train and (2, 1024) serving

@@ -269,9 +269,23 @@ def test_chip_smoke_small_case_is_the_jax_tests_config():
     assert batch["points"].shape == (2, 1024, 5) and meta.num_point_features == 5
 
 
-def test_parta2_free_raises_by_name():
+def test_parta2_free_builds_and_runs():
     """PartA2_free.yaml's PointRCNN (MeanVFE and UNetV2 give the point
-    features) is not ported."""
+    features, PointIntraPartOffsetHead with its box branch the proposals)
+    builds at its widths, and runs (``tests/torch_port_parta2_setup.py``'s
+    narrowed config over its scenes: held to the JAX package in
+    ``test_torch_port_parta2.py``)."""
+    from torch_port_parta2_setup import VOXEL_KEYS, scenes, small_cfg
+
     cfg = cfg_from_yaml_file(str(REPO / "configs/kitti_models/PartA2_free.yaml"))
-    with pytest.raises(NotImplementedError, match="UNetV2"):
-        build_network(cfg.MODEL, meta_of(cfg, DatasetMeta), device="cpu")
+    net = build_network(cfg.MODEL, meta_of(cfg, DatasetMeta), device="cpu")
+    assert type(net).__name__ == "PointRCNN" and type(net.vfe).__name__ == "MeanVFE"
+    assert type(net.backbone_3d).__name__ == "UNetV2" and net.point_head.box_layers is not None
+    host, pc_range, vsize = scenes(seed=2)
+    small = small_cfg("free")
+    meta = DatasetMeta(small.CLASS_NAMES, pc_range, vsize, (64, 64, 40), 5)
+    with torch.no_grad():
+        out = build_network(small.MODEL, meta, device="cpu")({k: torch.from_numpy(host[k])
+                                                               for k in VOXEL_KEYS})
+    assert out["rcnn_reg"].shape == (2, 16, 7) and torch.isfinite(out["rcnn_reg"]).all()
+    assert out["point_features"].shape == (2, 2048, 8) and out["roi_valid"].any()

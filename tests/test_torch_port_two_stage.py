@@ -353,9 +353,16 @@ def test_canonical_transform_and_decode_round_trip():
                                   "PointRCNNHead", "MPPNetHead"])
 def test_unported_roi_heads_raise_by_name(name):
     """The unported heads raise by name; the PV-RCNN heads, ported, build
-    from their defaults (the JAX heads' own), PointRCNN's from
-    ``tests/test_pointrcnn.py``'s config (the JAX head has no default for
-    its pool and SA stack)."""
+    from their defaults (the JAX heads' own), PointRCNN's and PartA2's from
+    ``tests/test_pointrcnn.py``'s and ``tests/test_parta2.py``'s configs
+    (the JAX heads have no default for their pools)."""
+    if name == "PartA2FCHead":
+        from test_parta2 import parta2_cfg
+
+        head = ROI_HEADS.get(name)(dict(parta2_cfg()["ROI_HEAD"]), num_class=1,
+                                   input_channels=8)
+        assert type(head).__name__ == name and head.pool_size == 4
+        return
     if name.startswith("PVRCNN"):
         head = ROI_HEADS.get(name)({}, num_class=1, input_channels=16)
         assert type(head).__name__ == name and head.grid == 6

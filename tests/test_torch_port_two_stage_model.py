@@ -162,9 +162,18 @@ def test_second_iou_head_keeps_pcdet_layout(second_iou):
 @pytest.mark.parametrize("name", ["PVRCNN", "PVRCNNPlusPlus", "PartA2Net", "PointRCNN",
                                   "MPPNet", "MPPNetE2E"])
 def test_unported_two_stage_detectors_raise_by_name(name):
-    """The unported detectors raise by name; PV-RCNN, PV-RCNN++ and
-    PointRCNN, ported, build (``tests/torch_port_pvrcnn_setup.py``'s and
-    ``tests/test_pointrcnn.py``'s small configs)."""
+    """The unported detectors raise by name; PV-RCNN, PV-RCNN++, PartA2 and
+    PointRCNN, ported, build (``tests/torch_port_pvrcnn_setup.py``'s,
+    ``tests/test_parta2.py``'s and ``tests/test_pointrcnn.py``'s small
+    configs)."""
+    if name == "PartA2Net":
+        from test_parta2 import CLASS_NAMES, parta2_cfg
+
+        meta = DatasetMeta(CLASS_NAMES, (-16, -16, -2.4, 16, 16, 2.4), (0.5, 0.5, 0.2),
+                           (64, 64, 24), 5)
+        net = DETECTORS.get(name)(parta2_cfg(), meta)
+        assert type(net).__name__ == name and net.point_head is not None
+        return
     if name == "PointRCNN":
         from test_pointrcnn import CLASS_NAMES, pointrcnn_cfg
 
@@ -198,8 +207,8 @@ def test_unported_two_stage_options_raise_by_name(voxel_rcnn):
     with pytest.raises(NotImplementedError, match="PointNetBlock"):
         build_network(pointnet.MODEL, pmeta, device="cpu")
     other = small_cfg("voxel_rcnn")
-    other.MODEL.ROI_HEAD.NAME = "PartA2FCHead"
-    with pytest.raises(NotImplementedError, match="PartA2FCHead"):
+    other.MODEL.ROI_HEAD.NAME = "MPPNetHead"
+    with pytest.raises(NotImplementedError, match="MPPNetHead"):
         make_train_step(net, other.MODEL, names, pmeta, None, None, device="cpu")
     with pytest.raises(NotImplementedError, match="SCORE_TYPE"):
         score = small_cfg("second_iou")

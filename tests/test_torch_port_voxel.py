@@ -203,5 +203,19 @@ def test_dense_and_sorted_lookups_agree(monkeypatch):
 
 @pytest.mark.parametrize("name", ["inverse_conv3d", "focal_split_and_spawn"])
 def test_unported_engine_functions_raise_by_name(name):
+    """``focal_split_and_spawn`` raises by name; ``inverse_conv3d``, ported
+    (held to the JAX engine in ``test_torch_port_parta2.py``), runs: a
+    centre-tap inverse of a stride-2 conv gives each even high-resolution
+    site its low-resolution row."""
+    if name == "inverse_conv3d":
+        c = torch.tensor([[0, 0, 0], [2, 2, 4], [3, 1, 1], [4, 6, 2]])
+        valid = torch.ones(4, dtype=torch.bool)
+        oc, ov = torch.tensor([[0, 0, 0], [1, 1, 2], [2, 3, 1]]), torch.ones(3, dtype=torch.bool)
+        w = torch.zeros(27, 2, 2)
+        w[13] = torch.eye(2)
+        feats = torch.arange(6.0).reshape(3, 2)
+        out = ps.inverse_conv3d(feats, oc, ov, w, c, valid, (4, 4, 4))
+        assert torch.equal(out, torch.stack([feats[0], feats[1], torch.zeros(2), feats[2]]))
+        return
     with pytest.raises(NotImplementedError, match=name):
         getattr(ps, name)()

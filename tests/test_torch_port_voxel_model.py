@@ -47,6 +47,7 @@ KITTI_SECOND = "configs/kitti_models/second.yaml"
 WAYMO_SECOND = "configs/waymo_models/second.yaml"
 WAYMO_VOXEL_RCNN = "configs/waymo_models/voxel_rcnn.yaml"
 WAYMO_SECOND_IOU = "configs/waymo_models/second_iou.yaml"
+WAYMO_PARTA2 = "configs/waymo_models/PartA2.yaml"
 WAYMO_PV_RCNN = ["configs/waymo_models/pv_rcnn.yaml", "configs/waymo_models/pv_rcnn_plusplus.yaml",
                  "configs/waymo_models/pv_rcnn_plusplus_resnet.yaml",
                  "configs/waymo_models/pv_rcnn_plusplus_resnet_2frames.yaml"]
@@ -252,7 +253,7 @@ def test_load_params_only_spconv1x_layout(voxel_setup, tmp_path):
 
 
 @pytest.mark.parametrize("config", [WAYMO_SECOND, WAYMO_VOXEL_RCNN, WAYMO_SECOND_IOU]
-                         + WAYMO_PV_RCNN)
+                         + WAYMO_PV_RCNN + [WAYMO_PARTA2])
 def test_waymo_second_grid_fails_alike(config):
     """``configs/waymo_models/second.yaml``: the Waymo range at 0.1 m is 1498
     cells, the backbone's stride-2 convs round up (1498 -> 749 -> 375 ->
@@ -263,7 +264,9 @@ def test_waymo_second_grid_fails_alike(config):
     the proposal layer inside the model, so both packages fail in the
     forward.  So do ``pv_rcnn.yaml`` and the ``pv_rcnn_plusplus*.yaml``
     (the 2-frame one at the model: its multi-frame dataset is not read
-    here), their keypoints (cut to 256) drawn from raw points first."""
+    here), their keypoints (cut to 256) drawn from raw points first.
+    ``PartA2.yaml`` has the same grid (its 0.15 m z keeps 40 planes), its
+    UNetV2 the same encoder; its PartA2FCHead at full width."""
     from com_tpu_torch.models.backbone3d import VoxelBackBone8x
 
     cfg = cfg_from_yaml_file(str(REPO / config))
@@ -271,7 +274,8 @@ def test_waymo_second_grid_fails_alike(config):
     full = int(round((pr[3] - pr[0]) / 0.1))
     assert full == 1498 and full % 8 == 58 % 8
     assert VoxelBackBone8x(cfg.MODEL.BACKBONE_3D, 5, (full, full, 40)).out_grid == (2, 188, 188)
-    narrow(cfg)
+    backbone = cfg.MODEL.BACKBONE_3D.NAME
+    narrow(cfg, backbone if backbone == "UNetV2" else "VoxelBackBone8x")
     names = list(cfg.CLASS_NAMES)
     half = 58 * 0.5 / 2
     pc_range, vsize, grid = (-half, -half, -2.0, half, half, 2.0), (0.5, 0.5, 0.1), (58, 58, 40)
@@ -310,6 +314,12 @@ def test_waymo_second_grid_fails_alike(config):
     (VFES, "PillarVFE"), (VFES, "DynamicMeanVFE"),
     (MAP_TO_BEV, "PointPillarScatter"), (MAP_TO_BEV, "Conv2DCollapse")])
 def test_unported_voxel_names_raise_by_name(registry, name):
+    """The unported names raise by name; UNetV2, ported, builds from its
+    defaults (the JAX backbone's own)."""
+    if name == "UNetV2":
+        unet = registry.get(name)({}, 5, (64, 64, 40), (0.5, 0.5, 0.1), (-16, -16, -2, 16, 16, 2))
+        assert unet.num_point_features == 16 and unet.num_bev_features == 256
+        return
     with pytest.raises(NotImplementedError, match=name):
         registry.get(name)({}, 5, (64, 64, 40))
 
