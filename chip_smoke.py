@@ -1,8 +1,9 @@
 """Drive the PyTorch/CUDA port's serving and training paths (over its own
 data pipeline, through its train, test and demo CLIs, for the PointPillars
 anchor head, the sparse-voxel detectors, the two-stage Voxel-RCNN and
-SECOND-IoU, PV-RCNN and PointRCNN; the KITTI configs from a KITTI tree on
-disk), its
+SECOND-IoU, PV-RCNN, PointRCNN and PartA2, the CenterHead-RPN Voxel-RCNN
+and PV-RCNN on Waymo, and MPPNetE2E's streaming; the KITTI configs from a
+KITTI tree on disk), its
 serving artifact (export, load and the HTTP server), its data-parallel
 training and evaluation, and its wgrad sweep on one NVIDIA GPU.
 
@@ -248,9 +249,28 @@ Phases (any failure raises, and the script exits non-zero):
    DATA_CONFIG; one step of ``pointrcnn_iou.yaml``.  N.4: the train and
    test CLIs raise NotImplementedError, as ``com_tpu``'s cannot run
    PointRCNN.
-20. Launch counts: every counter is zeroed just before each path (the
-   sweep, serving, A, B, C, D's, E's, F's, G's, J's, K's, H's, L's, M's and
-   N's phases, and in each rank of I) and read just after, against the calls the sweep
+20. Path O, PartA2 (``kitti_models/PartA2.yaml``, batch 4) and
+   PartA2-free (``path_o``'s docstring).
+21. Path P, the CenterHead RPN, DynamicMeanVFE and MPPNetE2E: P.1 the
+   Waymo YAMLs narrowed over a 64 x 64 x 40 grid in f32, card against CPU
+   (Voxel-RCNN's eval step and a train step, PV-RCNN's eval step,
+   MPPNetE2E's eval step and a 3-frame stream). P.2
+   ``voxel_rcnn_with_centerhead_dyn_voxel.yaml`` at full width (batch 4
+   of 163,840 points, DynamicMeanVFE into 80,000 slots, 1498 x 1498 x 40):
+   the voxels its cap drops, three serving batches and their stages
+   (``vfe.dynamic`` to ``final.*``), K4 on the (4, 512) serving and train
+   proposals and the (4, 100) final NMS, K2 / dgrad / K2w at (4, 188,
+   188) and (4, 94, 94), K3 at (4, 3, 188, 188), 2 train steps. P.3
+   ``pv_rcnn_with_centerhead_rpn.yaml`` (batch 2): two serving batches,
+   their stages (FPS of 4,096 keypoints over 163,840 points), K4 on the
+   (2, 100) final NMS, 1 train step. P.4
+   ``mppnet_e2e_memorybank_inference.yaml`` (batch 2): a 4-frame synthetic
+   sequence, frame 0 through the eval step and the 4 frames through
+   ``make_stream_step`` (the first step equal to the eval step), its
+   stages, K4 on the (2, 96) final NMS.
+22. Launch counts: every counter is zeroed just before each path (the
+   sweep, serving, A, B, C, D's, E's, F's, G's, J's, K's, H's, L's, M's,
+   N's, O's and P's phases, and in each rank of I) and read just after, against the calls the sweep
    reports and the expected counts per
    forward or per step.  The device
    kernels one K3 call issues (1) and one K4 call (2, the pack and the
@@ -954,9 +974,10 @@ def profile_wgrad_sweep(dev):
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
 
 
-def check_stamp(dev, entries, calls, hw=(468, 468), path=""):
-    """K3 in both modes on the training path's canvas (2, 3, 468, 468), or
-    (2, 3, *hw), with 500 object slots: ~100 real objects a sample, some invalid slots among
+def check_stamp(dev, entries, calls, hw=(468, 468), path="", b=BATCH,
+                modes=("gauss", "last_wins")):
+    """K3 in ``modes`` on the training path's canvas (2, 3, 468, 468), or
+    (b, 3, *hw), with 500 object slots: ~100 real objects a sample, some invalid slots among
     them, radii past the clip, overlapping windows, centers on the edges.
     The inputs have the dtypes the path's callers pass (int32 ids, no values
     for the heatmap targets; int64 classes and f32 weights for the COM loss
@@ -966,7 +987,7 @@ def check_stamp(dev, entries, calls, hw=(468, 468), path=""):
     from com_tpu_torch.ops import stamp
 
     rng = np.random.RandomState(14)
-    b, n, c, (h, w) = BATCH, NUM_MAX_OBJS, 3, hw
+    n, c, (h, w) = NUM_MAX_OBJS, 3, hw
     centers = np.stack([rng.randint(0, w, (b, n)), rng.randint(0, h, (b, n))], -1)
     centers[:, :20] = centers[:, 20:40]  # overlapping windows, same centers
     centers[:, 40, 0] = 0
@@ -982,6 +1003,8 @@ def check_stamp(dev, entries, calls, hw=(468, 468), path=""):
     cells = int(((2 * r + 1) ** 2 * valid).sum())
     for mode, fill, args in (("gauss", 0.0, (cen, rad, cl32, None, vld)),
                              ("last_wins", 1.0, (cen, rad, cl32.long(), val, vld))):
+        if mode not in modes:
+            continue
         got = stamp.stamp_windows(*args, c, h, w, mode, fill=fill)
         want = stamp.stamp_windows_plain(*args, c, h, w, mode, fill=fill)
         torch.cuda.synchronize()
@@ -994,7 +1017,7 @@ def check_stamp(dev, entries, calls, hw=(468, 468), path=""):
             tol = "<= 2e-6 (analytic f32 exp against the f64-built table), centers exactly 1.0"
         else:
             ok, tol = err == 0.0, "exact"
-        print(f"K3 stamp_windows {mode} (2,3,{h},{w}) {int(valid.sum())} objects in "
+        print(f"K3 stamp_windows {mode} ({b},3,{h},{w}) {int(valid.sum())} objects in "
               f"{b * n} slots: max_abs_err={err:.3e} ({tol}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K3 {mode} disagrees with its plain version")
@@ -1009,7 +1032,7 @@ def check_stamp(dev, entries, calls, hw=(468, 468), path=""):
         # (gauss) or one index max (last_wins) per window cell of a valid object
         bms, by = bound_ms(nbytes(got, *(a for a in args if a is not None)),
                            cells * (2 if mode == "gauss" else 1), torch.float32)
-        entries.append(dict(name=f"stamp.stamp_windows {mode} (2,3,{h},{w}) 500 slots",
+        entries.append(dict(name=f"stamp.stamp_windows {mode} ({b},3,{h},{w}) 500 slots",
                             route="cuda", source="com_tpu_torch/csrc/stamp.cu",
                             replaces="com_tpu/ops/pallas/stamp.py:137", max_abs_err=err, ms=ms,
                             device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
@@ -2598,30 +2621,34 @@ def path_f_train(dev, smi, pc_range=None, points=POINTS):
     return counts
 
 
-def path_f_cli(dev, smi, pc_range=None, bg_points=120000):
-    """The voxel YAML through the train CLI (1 epoch of 2 steps) and the test
-    CLI on its checkpoint, over path C's synthetic dataset (4 scenes, the
-    flagship's augmentor) with the voxel YAML's own DATA_PROCESSOR (the
-    native voxelizer, 80,000 / 90,000 slots); SCORE_THRESH 0 for the
-    evaluation, as path D.  Launches: path F's a train step."""
+def voxel_yaml_clis(dev, smi, config, label, expect, batch, post_max, pc_range=None,
+                    bg_points=120000, edit_model=None):
+    """A voxel YAML through the train CLI (1 epoch of 2 steps at ``batch``)
+    and the test CLI on its checkpoint, over path C's synthetic dataset
+    (2 x ``batch`` scenes, the flagship's augmentor) with the YAML's own
+    DATA_PROCESSOR (the native voxelizer); ``edit_model(model_cfg)`` may
+    change the written MODEL.  Checks the train step's launches
+    (``expect``), finite boxes, scores in descending order, at most
+    ``post_max`` a frame and labels in range."""
     import shutil
 
     import yaml
 
     from com_tpu_torch.tools import test, train
 
-    cfg, meta, _ = load_voxel(VOXEL_CONFIG, pc_range)
+    cfg, meta, _ = load_voxel(config, pc_range)
     flagship, _ = load_config()
-    root = REPO / "build" / "path_f"
+    root = REPO / "build" / f"path_{label[0].lower()}"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
     try:
         data_cfg = _plain(path_c_dataset_cfg(flagship, bg_points=bg_points))
-        data_cfg.update(NUM_SCENES=2 * BATCH, POINT_CLOUD_RANGE=list(meta.point_cloud_range),
+        data_cfg.update(NUM_SCENES=2 * batch, POINT_CLOUD_RANGE=list(meta.point_cloud_range),
                         DATA_PROCESSOR=_plain(cfg.DATA_CONFIG.DATA_PROCESSOR))
         model_cfg = _plain(cfg.MODEL)
-        model_cfg["DENSE_HEAD"]["POST_PROCESSING"]["SCORE_THRESH"] = D_SCORE_THRESH
-        yaml_path = root / "voxel_path_f.yaml"
+        if edit_model is not None:
+            edit_model(model_cfg)
+        yaml_path = root / f"{Path(config).stem}_clis.yaml"
         yaml_path.write_text(yaml.safe_dump({
             "CLASS_NAMES": list(cfg.CLASS_NAMES), "DATA_CONFIG": data_cfg, "MODEL": model_cfg,
             "OPTIMIZATION": _plain(cfg.OPTIMIZATION)}))
@@ -2633,26 +2660,39 @@ def path_f_cli(dev, smi, pc_range=None, bg_points=120000):
         first = train.main(base + ["--seed", str(D_SEED), "--epochs", "1"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        check_launches("F train step (CLI)", read_counters(), EXPECT_F_TRAIN,
+        check_launches(f"{label} train step (CLI)", read_counters(), expect,
                        first["iterations"])
         ckpt = first["ckpt_dir"] / "checkpoint_epoch_1.pth"
         t0 = time.perf_counter()
         (res,) = test.main(base + ["--ckpt", str(ckpt)])
         test_wall = time.perf_counter() - t0
         annos = res["det_annos"]
-        post = cfg.MODEL.DENSE_HEAD.POST_PROCESSING
         ok = (first["iterations"] == 2 and ckpt.exists() and len(annos) > 0
               and all(np.isfinite(a["boxes_lidar"]).all() and (np.diff(a["score"]) <= 0).all()
-                      and len(a["score"]) <= int(post.NMS_CONFIG.NMS_POST_MAXSIZE)
-                      and set(a["pred_labels"]) <= {1, 2, 3} for a in annos))
-        print(f"path F CLIs: train {first['iterations']} steps in {wall:.2f} s wall (dataset, "
-              f"model and loader included); test {len(annos)} frames in {test_wall:.2f} s, "
-              f"{[len(a['score']) for a in annos]} detections, {res['sec_per_frame']:.4f} s a "
-              f"frame ({smi}) {'ok' if ok else 'FAIL'}")
+                      and len(a["score"]) <= post_max and set(a["pred_labels"]) <= {1, 2, 3}
+                      for a in annos))
+        print(f"path {label} CLIs: train {first['iterations']} steps in {wall:.2f} s wall "
+              f"(dataset, model and loader included); test {len(annos)} frames in "
+              f"{test_wall:.2f} s, {[len(a['score']) for a in annos]} detections, "
+              f"{res['sec_per_frame']:.4f} s a frame ({smi}) {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError("path F: the train / test CLIs failed their checks")
+            raise AssertionError(f"path {label}: the train / test CLIs failed their checks")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def path_f_cli(dev, smi, pc_range=None, bg_points=120000):
+    """The voxel YAML through the train and test CLIs (``voxel_yaml_clis``,
+    batch 2); SCORE_THRESH 0 for the evaluation, as path D.  Launches: path
+    F's a train step."""
+    cfg, _, _ = load_voxel(VOXEL_CONFIG, pc_range)
+
+    def edit(model_cfg):
+        model_cfg["DENSE_HEAD"]["POST_PROCESSING"]["SCORE_THRESH"] = D_SCORE_THRESH
+
+    voxel_yaml_clis(dev, smi, VOXEL_CONFIG, "F", EXPECT_F_TRAIN, BATCH,
+                    int(cfg.MODEL.DENSE_HEAD.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE),
+                    pc_range, bg_points, edit_model=edit)
 
 
 def path_f(dev, smi, entries, calls):
@@ -2760,7 +2800,9 @@ def two_stage_marks(net, mark):
               "point_head"):
         if getattr(net, s, None) is not None:
             # the PFE opens with its keypoint sampling, a UNet with its encoder
-            name = {"pfe": "pfe.fps", "backbone_3d": "unet.encoder" if unet else s}.get(s, s)
+            name = {"pfe": "pfe.fps", "backbone_3d": "unet.encoder" if unet else s,
+                    "vfe": "vfe.dynamic" if type(net.vfe).__name__ == "DynamicMeanVFE"
+                    else s}.get(s, s)
             hooks.append(getattr(net, s).register_forward_pre_hook(
                 lambda *_, name=name: mark(name)))
             hooks.append(getattr(net, s).register_forward_hook(lambda *_: mark("gap")))
@@ -2821,10 +2863,12 @@ def two_stage_marks(net, mark):
     return undo
 
 
-def two_stage_breakdown(net, run, label, iters=3, smi="", stage_hook_marks=None):
+def two_stage_breakdown(net, run, label, iters=3, smi="", stage_hook_marks=None,
+                        marks_fn=None):
     """Device ms of each stage of ``run()`` (an eval step, or a train step
     whose ``stage_hook`` records "forward", "loss", "backward", "optimizer"
-    through ``stage_hook_marks``), CUDA events by ``two_stage_marks``, summed
+    through ``stage_hook_marks``), CUDA events by ``two_stage_marks`` (or
+    ``marks_fn``), summed
     a stage over its intervals, mean over ``iters`` runs after a warm-up;
     an interval is named by the mark that opens it."""
     marks = []
@@ -2836,7 +2880,7 @@ def two_stage_breakdown(net, run, label, iters=3, smi="", stage_hook_marks=None)
 
     if stage_hook_marks is not None:
         stage_hook_marks.append(mark)
-    undo = two_stage_marks(net, mark)
+    undo = (marks_fn or two_stage_marks)(net, mark)
     sums = {}
     try:
         for i in range(iters + 1):
@@ -2865,7 +2909,7 @@ def kitti_voxel_batches(rng, meta, proc, mode, count, b, points, real_points):
             for _ in range(count)]
 
 
-def follow_proposals(net, per_scene=J_GT):
+def follow_proposals(net, per_scene=J_GT, off=False):
     """In training, put the first ``per_scene`` GT slots of each scene on the
     proposals ``net`` makes at that moment (boxes, labels), before the RoI
     targets are drawn and the anchor loss reads them.  Random weights
@@ -2873,7 +2917,10 @@ def follow_proposals(net, per_scene=J_GT):
     first rate moves every proposal (each weight of conv_box moves by lr
     with its gradient's sign: a coherent shift over its 512 inputs; with GT
     set once from the seeded model's proposals, step 2 saw 0 foreground
-    RoIs on the card).  Adds no launch: the proposals are the step's own."""
+    RoIs on the card).  Adds no launch: the proposals are the step's own.
+    With ``off`` each GT is moved a little off its proposal (x, z, size,
+    heading): a CenterHead's L1 box loss at a GT equal to its own decode
+    sits on its kink, where the card and the CPU take the sign of rounding."""
     orig = net._proposals
 
     def proposals(batch):
@@ -2883,6 +2930,13 @@ def follow_proposals(net, per_scene=J_GT):
             gt = batch["gt_boxes"].clone()
             k = min(per_scene, gt.shape[1], rois.shape[1])
             gt[:, :k, :7] = rois[:, :k, :7] * valid[:, :k, None]
+            if off:
+                step = torch.arange(1, k + 1, dtype=gt.dtype, device=gt.device)[None]
+                gt[:, :k, 0] += 0.05 * step
+                gt[:, :k, 2] += 0.03 * step
+                gt[:, :k, 3:6] *= 1.0 + 0.04 * step[..., None]
+                gt[:, :k, 6] += 0.05 * step
+                gt[:, :k, :7] *= valid[:, :k, None]
             gt[:, :k, 7] = (labels[:, :k] * valid[:, :k]).to(gt.dtype)
             batch["gt_boxes"] = gt
         return out
@@ -2923,7 +2977,7 @@ def check_two_stage_serving(dev, label, cfg, meta, batches, expect, smi,
     from com_tpu_torch.train.eval import make_eval_step
 
     post = cfg.MODEL.POST_PROCESSING
-    thresh = float(post.SCORE_THRESH)
+    thresh = float(post.get("SCORE_THRESH", 0.1))
     net = spread(build_network(cfg.MODEL, meta, device=dev, seed=0))
     step = make_eval_step(net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=dev)
     rois = []
@@ -2931,7 +2985,8 @@ def check_two_stage_serving(dev, label, cfg, meta, batches, expect, smi,
         args[0]["rois"].shape[1]))
     step(batches[0])  # warm-up
     hook.remove()
-    slots = min(int(post.NMS_CONFIG.NMS_POST_MAXSIZE), rois[0])  # the NMS's output slots
+    slots = min(int(post.get("NMS_CONFIG", {}).get("NMS_POST_MAXSIZE", 500)),
+                rois[0])  # the NMS's output slots
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counters()
@@ -2966,6 +3021,7 @@ def proposal_candidates(net, cfg, batch, dev, train):
     import copy
 
     from com_tpu_torch.models.dense_heads.anchor_head import decode_anchor_boxes
+    from com_tpu_torch.models.dense_heads.center_head import decode_center_proposals
     from com_tpu_torch.models.detectors import Detector3D
     from com_tpu_torch.train.step import model_input_keys
 
@@ -2974,8 +3030,13 @@ def proposal_candidates(net, cfg, batch, dev, train):
     with torch.no_grad():
         first = Detector3D.forward(probe, {k: torch.as_tensor(batch[k], device=dev)
                                            for k in model_input_keys(cfg.MODEL)})
-        boxes, scores, _ = decode_anchor_boxes(first, probe.anchors, len(cfg.CLASS_NAMES),
-                                               probe.box_coder, cfg.MODEL.DENSE_HEAD)
+        if probe.anchor_rpn:
+            boxes, scores, _ = decode_anchor_boxes(first, probe.anchors, len(cfg.CLASS_NAMES),
+                                                   probe.box_coder, cfg.MODEL.DENSE_HEAD)
+        else:  # the CenterHead's top 512 a head, -inf where not valid
+            boxes, scores, _, valid = decode_center_proposals(first, cfg.MODEL.DENSE_HEAD,
+                                                              probe.meta)
+            scores = torch.where(valid, scores, torch.full_like(scores, -math.inf))
         return nms_overlaps(boxes, scores, nms_cfg)
 
 
@@ -2993,8 +3054,9 @@ def nms_overlaps(boxes, scores, nms_cfg):
 
 
 def final_candidates(net, cfg, batch, dev):
-    """What the two-stage eval step hands K4: the RCNN boxes of the RoIs
-    scored and filtered, in score order, as (over, valid)."""
+    """What the two-stage eval step hands K4: the RCNN boxes of the RoIs (or
+    the boxes a head decodes itself, MPPNet's) scored and filtered, in score
+    order, as (over, valid)."""
     from com_tpu_torch.models.roi_heads.roi_targets import decode_rcnn_boxes
     from com_tpu_torch.ops import nms
     from com_tpu_torch.train.step import model_input_keys
@@ -3002,17 +3064,22 @@ def final_candidates(net, cfg, batch, dev):
     post = cfg.MODEL.POST_PROCESSING
     with torch.no_grad():
         out = net({k: torch.as_tensor(batch[k], device=dev) for k in model_input_keys(cfg.MODEL)})
-        boxes = decode_rcnn_boxes(out["rois"][..., :7], out["rcnn_reg"])
-        scores = torch.sigmoid(out["rcnn_cls"])
-        valid = (scores > float(post.SCORE_THRESH)) & out["roi_valid"]
+        if "batch_box_preds" in out:
+            boxes = out["batch_box_preds"][..., :7]
+            scores = torch.sigmoid(out["batch_cls_preds"].max(dim=-1).values)
+        else:
+            boxes = decode_rcnn_boxes(out["rois"][..., :7], out["rcnn_reg"])
+            scores = torch.sigmoid(out["rcnn_cls"])
+        valid = (scores > float(post.get("SCORE_THRESH", 0.1))) & out["roi_valid"]
         _, sb, sv = nms._sorted(boxes, scores, valid)
-        over = (nms._self_iou(sb) > float(post.NMS_CONFIG.NMS_THRESH)).contiguous()
+        thresh = float(post.get("NMS_CONFIG", {}).get("NMS_THRESH", 0.7))
+        over = (nms._self_iou(sb) > thresh).contiguous()
     return over, sv.contiguous()
 
 
 def two_stage_training(dev, label, cfg, meta, batches, expect, terms, smi,
-                       spread=spread_anchor_scores):
-    """``train_model`` 1 mini-epoch of 2 steps over ``batches``, seeded
+                       spread=spread_anchor_scores, steps=2):
+    """``train_model`` 1 mini-epoch of ``steps`` steps over ``batches``, seeded
     weights with the scores spread (``spread(net)``) and GT following the
     proposals (``follow_proposals``): every term finite, the foreground
     RoIs a step (> 0), launches; then the step's stages, mean of 2 after a
@@ -3028,10 +3095,10 @@ def two_stage_training(dev, label, cfg, meta, batches, expect, terms, smi,
             if m.training and "roi_targets" in args[0] else None)
 
     counts, (net, opt, state, _), _ = run_training(
-        dev, label, cfg, meta, SyntheticLoader(batches, 2), 1, 2, expect,
+        dev, label, cfg, meta, SyntheticLoader(batches, steps), 1, steps, expect,
         counts_confidences=False, smi=smi, prepare=prepare, terms=terms)
     fg_counts = [int(x) for x in fg]
-    ok = len(fg_counts) == 2 and min(fg_counts) > 0
+    ok = len(fg_counts) == steps and min(fg_counts) > 0
     print(f"  path {label} foreground RoIs a step: {fg_counts} of "
           f"{int(cfg.MODEL.ROI_HEAD.TARGET_CONFIG.ROI_PER_IMAGE) * len(batches[0]['points_mask'])} "
           f"{'ok' if ok else 'FAIL'}")
@@ -5144,6 +5211,452 @@ def path_o(dev, smi, entries, calls, pc_range=None, points=E_POINTS, real_points
     return serve_counts, train_counts
 
 
+P_VOXEL_RCNN_CONFIG = "configs/waymo_models/voxel_rcnn_with_centerhead_dyn_voxel.yaml"
+P_PV_RCNN_CONFIG = "configs/waymo_models/pv_rcnn_with_centerhead_rpn.yaml"
+P_MPPNET_CONFIG = "configs/waymo_models/mppnet_e2e_memorybank_inference.yaml"
+P_CONFIGS = {"voxel_rcnn": P_VOXEL_RCNN_CONFIG, "pv_rcnn": P_PV_RCNN_CONFIG,
+             "mppnet": P_MPPNET_CONFIG}
+P_BATCH, P_PV_BATCH, P_MPP_BATCH = 4, 2, 2  # the YAMLs' BATCH_SIZE_PER_GPU
+P_FRAMES = 4  # MPPNetE2E's num_frames: P.4's sequence
+P_CONV = ((4, 188, 188, 256, 128), (4, 188, 188, 128, 128), (4, 94, 94, 256, 256))
+EXPECT_P_SERVING = {"conv3x3": 11, "nms": 2}  # the proposal NMS and the final one
+EXPECT_P_TRAIN = {"conv3x3": 11, "conv3x3_dgrad": 11, "conv3x3_wgrad": 11, "nms": 1,
+                  "stamp_gauss": 1}
+EXPECT_P_PV_SERVING = EXPECT_P_MPP_SERVING = {"conv3x3": 11, "nms": 1}  # top-k RoIs, final NMS
+EXPECT_P_PV_TRAIN = {"conv3x3": 11, "conv3x3_dgrad": 11, "conv3x3_wgrad": 11, "stamp_gauss": 1}
+P_TERMS = ("hm_loss_head_0", "loc_loss_head_0", "rcnn_loss_cls", "rcnn_loss_reg",
+           "rcnn_loss_corner")
+P_PV_TERMS = ("hm_loss_head_0", "loc_loss_head_0", "rcnn_loss_cls", "rcnn_loss_reg",
+              "point_loss_cls")
+P_SMALL_RANGE = (-3.2, -3.2, -2.0, 3.2, 3.2, 4.0)
+
+
+def spread_center_scores(net):
+    """A CenterHead's heatmap bias +1.5 (scores off the proposal decode's 0.1
+    threshold) and its size kernel x0.02 (boxes of about a metre)."""
+    from com_tpu_torch.models.dense_heads.center_head import SeparateHead
+
+    with torch.no_grad():
+        for mod in net.modules():
+            if isinstance(mod, SeparateHead):
+                mod.hm[-1].bias.add_(1.5)
+                mod.dim[-1].weight.mul_(0.02)
+    return net
+
+
+def centerhead_small_case(which="voxel_rcnn", seed=0, frames=1):
+    """``P_CONFIGS[which]`` narrowed as the CPU tests narrow it
+    (``tests/torch_port_centerhead_setup.py`` ``small_cfg``, written out
+    here: nothing on the card imports the JAX package's tests), f32, over a
+    64 x 64 x 40 grid of 0.1 x 0.1 x 0.15 m: 2 scenes of 3,000 points over
+    the range (95 % valid; MPPNetE2E's with a zero timestamp column),
+    4,096 voxel slots, 16 object slots with 4 boxes.  Returns (cfg, meta,
+    batch), or with ``frames`` > 1 (cfg, meta, [batch a frame]): the
+    scenes' first quarter of points moved 5 cm a frame."""
+    from com_tpu_torch.models.detectors import DatasetMeta
+
+    cfg, _, proc = load_voxel(P_CONFIGS[which])
+    m = cfg.MODEL
+    m.MIXED_PRECISION = False
+    m.BACKBONE_3D.update(CHANNELS=[8, 16, 16, 32], OUT_CHANNELS=32,
+                         VOXEL_CAPS=[4096, 2048, 1024, 512])
+    m.BACKBONE_2D.update(LAYER_NUMS=[1, 1], LAYER_STRIDES=[1, 2], NUM_FILTERS=[32, 64],
+                         UPSAMPLE_STRIDES=[1, 2], NUM_UPSAMPLE_FILTERS=[32, 32])
+    m.DENSE_HEAD.SHARED_CONV_CHANNEL = 16
+    m.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.NUM_MAX_OBJS = 16
+    r = m.ROI_HEAD
+    if which == "voxel_rcnn":
+        m.VFE.MAX_VOXELS = 4096
+        r.DP_RATIO = 0.0
+        r.SHARED_FC, r.CLS_FC, r.REG_FC = [32, 32], [32, 32], [32, 32]
+        r.ROI_GRID_POOL.GRID_SIZE = 3
+        for src, radius in (("x_conv2", 0.2), ("x_conv3", 0.4), ("x_conv4", 0.8)):
+            r.ROI_GRID_POOL.POOL_LAYERS[src].update(MLPS=[[16, 16]], QUERY_RANGES=[[2, 2, 2]],
+                                                    POOL_RADIUS=[radius], NSAMPLE=[8])
+        for mode, post in (("TRAIN", 64), ("TEST", 32)):
+            r.NMS_CONFIG[mode].NMS_POST_MAXSIZE = post
+        r.TARGET_CONFIG.ROI_PER_IMAGE = 16
+    elif which == "pv_rcnn":
+        m.PFE.update(NUM_KEYPOINTS=256, NSAMPLE=8, NUM_OUTPUT_FEATURES=32)
+        m.PFE.SA_LAYER = {"raw_points": {"RADIUS": [0.4], "MLPS": [[8, 8]]},
+                          "x_conv3": {"RADIUS": [0.8], "MLPS": [[16, 16]]},
+                          "x_conv4": {"RADIUS": [1.6], "MLPS": [[16, 16]]}}
+        m.POINT_HEAD.CLS_FC = [16]
+        r.NMS_CONFIG.TEST_POST = 32
+        r.ROI_GRID_POOL.update(GRID_SIZE=3, RADIUS=0.4, NSAMPLE=8, MLPS=[[16, 16]])
+        r.SHARED_FC = [32, 32]
+        r.TARGET_CONFIG.ROI_PER_IMAGE = 16
+    else:
+        r.TRANS_INPUT = 32
+        r.ROI_GRID_POOL.update(GRID_SIZE=2, MLPS=[[16, 16], [16, 16]], POOL_RADIUS=[0.4, 0.8],
+                               NSAMPLE=[8, 8])
+        r.Transformer.update(num_lidar_points=32, num_proxy_points=8, dim_feedforward=64,
+                             hidden_dim=32)
+        r.Transformer.use_mlp_mixer.hidden_dim = 8
+        r.TARGET_CONFIG.ROI_PER_IMAGE = 16
+    feats = 6 if which == "mppnet" else 5
+    meta = DatasetMeta(cfg.CLASS_NAMES, P_SMALL_RANGE, (0.1, 0.1, 0.15), (64, 64, 40), feats)
+    proc.MAX_NUMBER_OF_VOXELS = {"train": 4096, "test": 4096}
+    rng = np.random.RandomState(seed)
+    lo, hi = np.array(P_SMALL_RANGE[:3]) + 0.05, np.array(P_SMALL_RANGE[3:]) - 0.05
+    pts = np.concatenate([rng.uniform(lo, hi, (2, 3000, 3)), rng.rand(2, 3000, 2),
+                          np.zeros((2, 3000, feats - 5))], -1).astype(np.float32)
+    gt = np.zeros((2, 16, 8), np.float32)
+    gt[:, :4, 0:2] = rng.uniform(-2.5, 2.5, (2, 4, 2))
+    gt[:, :4, 2] = rng.uniform(-0.5, 1.0, (2, 4))
+    gt[:, :4, 3:6] = rng.uniform(0.8, 2.0, (2, 4, 3))
+    gt[:, :4, 6] = rng.uniform(-np.pi, np.pi, (2, 4))
+    gt[:, :4, 7] = rng.randint(1, 4, (2, 4))
+    real = gt[..., 7] > 0
+    base = {"points_mask": rng.rand(2, 3000) < 0.95, "gt_boxes": gt,
+            "num_points_in_gt": real.astype(np.float32) * 10,
+            "true_object": real.astype(np.float32)}
+    out = []
+    for f in range(frames):
+        moved = pts.copy()
+        moved[:, :750, 0:2] += np.float32(0.05 * f)
+        batch = dict(base, points=moved)
+        out.append(batch if which == "voxel_rcnn" else voxelize_batch(batch, meta, proc, "test"))
+    return cfg, meta, (out[0] if frames == 1 else out)
+
+
+def compare_stream(dev, cfg, meta, frames, label, prepare=None):
+    """MPPNetE2E's ``make_stream_step`` over ``frames`` on the card against
+    the CPU, the same seeded weights: each frame's detections as
+    ``check_detections`` holds them."""
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.train.eval import make_stream_step
+
+    outs = []
+    for d in (dev, "cpu"):
+        net = build_network(cfg.MODEL, meta, device=d, seed=7)
+        if prepare is not None:
+            prepare(net)
+        step = make_stream_step(net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=d)
+        bank, dets = None, []
+        for f, frame in enumerate(frames):
+            det, bank = step(frame, bank, f == 0)
+            dets.append([t.cpu().numpy() for t in det])
+        outs.append(dets)
+    for f in range(len(frames)):
+        check_detections(f"{label}, frame {f}", outs[0][f], outs[1][f])
+
+
+def check_small_centerhead_reference(dev):
+    """P.1: ``centerhead_small_case`` on the card against the CPU, the same
+    seeded weights with every norm's bias +3 (as paths N and O) and the
+    heatmap spread (``spread_center_scores``): Voxel-RCNN's eval step and
+    one train step (GT on its own proposals, a little off them: the
+    CenterHead's L1 box loss; within the tolerances or twice either
+    device's own difference with the scenes swapped, its RoI head's norms
+    over 32 RoIs), PV-RCNN's eval step (its RCNN class bias +3.5, so that
+    boxes pass the score threshold), MPPNetE2E's single-frame eval step and
+    a 3-frame stream."""
+    def prep(net):
+        return spread_center_scores(shift_norm_biases(net))
+
+    def prep_pv(net):  # its RCNN logits sit at ~-3.5 after the shift: lift them past 0.1
+        with torch.no_grad():
+            prep(net).roi_head.cls_layers[-1].bias.add_(3.5)
+        return net
+
+    for which, name in (("voxel_rcnn", "Voxel-RCNN"), ("pv_rcnn", "PV-RCNN"),
+                        ("mppnet", "MPPNetE2E")):
+        cfg, meta, batch = centerhead_small_case(which)
+        label = f"path P small reference ({name} CenterHead RPN narrowed, f32, 64x64x40"
+        compare_eval_step(dev, cfg, meta, batch, f"{label}, eval step, card vs CPU)",
+                          prepare=prep_pv if which == "pv_rcnn" else prep)
+        if which == "voxel_rcnn":
+            compare_train_step(dev, cfg, meta, batch, f"{label}, train step, card vs CPU)",
+                               counts_confidences=False, own_noise=True,
+                               prepare=lambda net: follow_proposals(
+                                   spread_center_scores(net), per_scene=2, off=True))
+        if which == "mppnet":
+            cfg, meta, frames = centerhead_small_case(which, frames=3)
+            compare_stream(dev, cfg, meta, frames, f"{label}, 3-frame stream, card vs CPU)",
+                           prepare=prep)
+
+
+def report_voxel_cap(dev, net, batch, smi):
+    """DynamicMeanVFE's voxels a scene before its MAX_VOXELS cap and after:
+    the same VFE with a slot a point, and the model's own."""
+    from com_tpu_torch.models.vfe import DynamicMeanVFE
+
+    vfe = net.vfe
+    uncapped = DynamicMeanVFE({"MAX_VOXELS": batch["points"].shape[1]}, vfe.num_point_features,
+                              vfe.voxel_size, vfe.point_cloud_range, vfe.grid_size)
+    inputs = {k: torch.as_tensor(batch[k], device=dev) for k in ("points", "points_mask")}
+    with torch.no_grad():
+        before = (uncapped(dict(inputs))["voxel_coords"][..., 0] >= 0).sum(1).tolist()
+        coords = vfe(dict(inputs))["voxel_coords"]
+    after = (coords[..., 0] >= 0).sum(1).tolist()
+    top = [int(c[c[:, 0] >= 0, 0].max()) for c in coords]
+    z0, vz = vfe.point_cloud_range[2], vfe.voxel_size[2]
+    print(f"path P.2 DynamicMeanVFE: voxels a scene before the {vfe.max_voxels:,} cap {before}, "
+          f"after {after} (dropped {[b - a for b, a in zip(before, after)]}: the highest z; "
+          f"the top z plane kept {top} of {vfe.grid_size[2] - 1}, nothing kept above z "
+          f"{[round(z0 + (t + 1) * vz, 2) for t in top]} m) ({smi})")
+
+
+def p2_voxel_rcnn(dev, smi, entries, calls, pc_range=None, points=POINTS):
+    """P.2: ``voxel_rcnn_with_centerhead_dyn_voxel.yaml`` at full width
+    (DynamicMeanVFE into 80,000 slots, the 1498 x 1498 x 40 grid,
+    VoxelBackBone8x, the CenterHead's top 512 a scene through the proposal
+    NMS (K4 at (4, 512)) to 100 RoIs in serving, 512 -> 128 sampled in
+    training), batch 4 of Waymo-like scenes of 163,840 points with ~100
+    objects in 500 slots, seeded weights: the voxels the cap drops; three
+    serving batches and the eval step's stages; K4 on the serving and
+    train proposals and the final NMS's (4, 100); K2, dgrad and K2w at its
+    BEV shapes, K3 at (4, 3, 188, 188); 2 train steps with GT on its own
+    proposals.  Returns the launch counts of a serving forward and of the
+    steps."""
+    cfg, meta, _ = load_voxel(P_VOXEL_RCNN_CONFIG, pc_range)
+    rng = np.random.RandomState(61)
+
+    def batches(count):
+        return [waymo_like_batch(rng, P_BATCH, points, meta.point_cloud_range, (0.32, 0.32, 6.0),
+                                 len(meta.class_names)) for _ in range(count)]
+
+    serve_b, train_b = batches(3), batches(2)
+    label = "P.2 (Voxel-RCNN, CenterHead RPN, DynamicMeanVFE, Waymo)"
+    net, step, serve_counts = check_two_stage_serving(dev, label, cfg, meta, serve_b,
+                                                      EXPECT_P_SERVING, smi, spread=lambda n: n)
+    report_voxel_cap(dev, net, serve_b[0], smi)
+    two_stage_breakdown(net, lambda: step(serve_b[0]), "path P.2 eval step", smi=smi)
+    for what, kernel, (over, sv) in (
+            ("serving proposals", "P:nms",
+             proposal_candidates(net, cfg, serve_b[0], dev, train=False)),
+            ("train proposals", "P:nms_train",
+             proposal_candidates(net, cfg, train_b[0], dev, train=True)),
+            ("final NMS", "P:nms", final_candidates(net, cfg, serve_b[0], dev))):
+        check_k4_cases(dev, entries, calls, over, sv, smi, f", path P.2 {what}", kernel,
+                       iters=50)
+    del net, step
+    torch.cuda.empty_cache()
+    check_conv3x3(dev, entries, shapes=P_CONV, dtypes=(torch.bfloat16,), path="P:")
+    check_conv3x3_backward(dev, entries, shapes=P_CONV, wgrad_dtypes=(torch.bfloat16,),
+                           path="P:")
+    check_stamp(dev, entries, calls, hw=(188, 188), path="P:", b=P_BATCH, modes=("gauss",))
+    torch.cuda.empty_cache()
+    train_counts = two_stage_training(dev, label, cfg, meta, train_b, EXPECT_P_TRAIN, P_TERMS,
+                                      smi, spread=lambda n: n)
+    return serve_counts, train_counts
+
+
+def p2_clis(dev, smi, pc_range=None, bg_points=120000):
+    """P.2's YAML through the port's train and test CLIs
+    (``voxel_yaml_clis``, batch 4), as ``com_tpu``'s CLIs run it (checked
+    over such a dataset at a 12.8 m range).  Launches: P.2's a train
+    step."""
+    cfg, _, _ = load_voxel(P_VOXEL_RCNN_CONFIG, pc_range)
+    voxel_yaml_clis(dev, smi, P_VOXEL_RCNN_CONFIG, "P.2", EXPECT_P_TRAIN, P_BATCH,
+                    int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE), pc_range,
+                    bg_points)
+
+
+def p3_pv_rcnn(dev, smi, entries, calls, pc_range=None, points=POINTS):
+    """P.3: ``pv_rcnn_with_centerhead_rpn.yaml`` at full width (MeanVFE over
+    the host voxelizer's 90,000 / 80,000 slots, VoxelSetAbstraction's 4,096
+    FPS keypoints over the raw points, the CenterHead's top 512 a scene,
+    the top 100 RoIs in serving, PVRCNNHead), batch 2: two serving batches
+    and the eval step's stages (FPS, each source's query and block), K4 on
+    the final NMS's (2, 100); 1 train step.  Returns the launch counts of
+    a serving forward and of the step."""
+    cfg, meta, proc = load_voxel(P_PV_RCNN_CONFIG, pc_range)
+    rng = np.random.RandomState(62)
+
+    def batches(mode, count):
+        return [voxelize_batch(waymo_like_batch(rng, P_PV_BATCH, points, meta.point_cloud_range,
+                                                (0.32, 0.32, 6.0), len(meta.class_names)),
+                               meta, proc, mode) for _ in range(count)]
+
+    serve_b = batches("test", 2)
+    label = "P.3 (PV-RCNN, CenterHead RPN, Waymo)"
+    net, step, serve_counts = check_two_stage_serving(dev, label, cfg, meta, serve_b,
+                                                      EXPECT_P_PV_SERVING, smi,
+                                                      spread=lambda n: n)
+    two_stage_breakdown(net, lambda: step(serve_b[0]), "path P.3 eval step", smi=smi)
+    over, sv = final_candidates(net, cfg, serve_b[0], dev)
+    check_k4_cases(dev, entries, calls, over, sv, smi, ", path P.3 final NMS", "P:nms_pv",
+                   iters=50)
+    del net, step
+    torch.cuda.empty_cache()
+    train_counts = two_stage_training(dev, label, cfg, meta, batches("train", 1),
+                                      EXPECT_P_PV_TRAIN, P_PV_TERMS, smi, spread=lambda n: n,
+                                      steps=1)
+    return serve_counts, train_counts
+
+
+def p_sequence(rng, meta, proc, b, n, frames=P_FRAMES):
+    """A synthetic sequence: Waymo-like scenes whose object blobs (the first
+    quarter of the points) move 0.3 m in x and -0.2 m in y a frame, each
+    frame a batch of its own (the timestamp column 0: each is the current
+    frame when it is served), voxelized to the test slots."""
+    base = waymo_like_points(rng, b, n, meta.point_cloud_range)
+    out = []
+    for f in range(frames):
+        pts = base.copy()
+        pts[:, :n // 4, 0:2] += np.array([0.3, -0.2], np.float32) * f
+        pts[..., 0:2] = np.clip(pts[..., 0:2], meta.point_cloud_range[0],
+                                meta.point_cloud_range[3] - 1e-3)
+        pts = np.concatenate([pts, np.zeros((b, n, 1), np.float32)], -1)
+        out.append(voxelize_batch({"points": pts, "points_mask": np.ones((b, n), bool)}, meta,
+                                  proc, "test"))
+    return out
+
+
+def _mark_mppnet_steps(net, mark):
+    """Marks of an MPPNetE2E forward for ``two_stage_breakdown``: the first
+    stage's slots, the CenterHead's proposal decode ("proposal.decode"),
+    then in the memory-bank head the trajectory linking ("roi.trajectory":
+    a rotated 3D IoU a past frame), the point crop ("roi.crop"), the
+    geometry MLP ("roi.geometry"), the proxy grid's ball queries and pool
+    ("roi.grid_pool"), the motion features ("roi.motion"), the box sequence
+    ("roi.seqbox"), the transformer ("roi.transformer"), the joint head
+    ("roi.joint"), then the final NMS's steps ("final.*").  Returns the
+    function that removes them."""
+    from com_tpu_torch.models.mppnet import mppnet_e2e
+
+    hooks = []
+    for s in ("vfe", "backbone_3d", "map_to_bev", "backbone_2d", "dense_head"):
+        hooks.append(getattr(net, s).register_forward_pre_hook(lambda *_, s=s: mark(s)))
+        hooks.append(getattr(net, s).register_forward_hook(
+            lambda *_, s=s: mark("proposal.decode" if s == "dense_head" else "gap")))
+    head = net.roi_head
+    hooks.append(head.register_forward_pre_hook(lambda *_: mark("roi.trajectory")))
+    for name, sub in (("roi.geometry", head.up_dimension_geometry),
+                      ("roi.motion", head.up_dimension_motion), ("roi.seqbox", head.seqboxembed),
+                      ("roi.transformer", head.transformer), ("roi.joint", head.jointembed)):
+        hooks.append(sub.register_forward_pre_hook(lambda *_, n=name: mark(n)))
+    hooks.append(head.register_forward_hook(lambda *_: mark("final.decode")))
+    orig_crop, orig_pool = mppnet_e2e.crop_trajectory_points, head.roi_grid_pool
+
+    def crop(*args, **kw):
+        mark("roi.crop")
+        return orig_crop(*args, **kw)
+
+    def pool(*args, **kw):
+        mark("roi.grid_pool")
+        return orig_pool(*args, **kw)
+
+    mppnet_e2e.crop_trajectory_points, head.roi_grid_pool = crop, pool
+    nms_names = {"sort": "sort_gathers", "iou": "iou", "k4": "k4", "k4_end": "kept_slots",
+                 "rest": "rest"}
+    undo_nms = _mark_nms_steps(lambda n: mark(f"final.{nms_names[n]}"))
+
+    def undo():
+        undo_nms()
+        mppnet_e2e.crop_trajectory_points = orig_crop
+        del head.roi_grid_pool
+        for h in hooks:
+            h.remove()
+
+    return undo
+
+
+def p4_mppnet(dev, smi, entries, calls, pc_range=None, points=POINTS):
+    """P.4: ``mppnet_e2e_memorybank_inference.yaml`` at full width (MeanVFE
+    over 400,000 voxel slots, VoxelResBackBone8x, a CenterHead with
+    velocity, its top 96 boxes as RoIs, MPPNetHeadE2E: 128 points a RoI, a
+    4^3 proxy grid at two radii, 3 encoder layers of 4 heads over 4 frames
+    in 4 groups, TRANS_INPUT 256), batch 2 over a 4-frame synthetic
+    sequence (``p_sequence``): frame 0 through ``make_eval_step`` (three
+    timed runs, a zero bank), then the 4 frames through
+    ``make_stream_step``, each step timed; the first stream step's
+    detections as the eval step's; the RoIs a later step links to a banked
+    proposal; the eval step's stages; K4 on the final NMS's (2, 96).
+    Returns the launch counts of the stream's steps."""
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.train.eval import make_eval_step, make_stream_step
+
+    cfg, meta, proc = load_voxel(P_MPPNET_CONFIG, pc_range)
+    names = list(cfg.CLASS_NAMES)
+    frames = p_sequence(np.random.RandomState(63), meta, proc, P_MPP_BATCH, points)
+    net = build_network(cfg.MODEL, meta, device=dev, seed=0)
+    eval_step = make_eval_step(net, cfg.MODEL, names, meta, device=dev)
+    stream_step = make_stream_step(net, cfg.MODEL, names, meta, device=dev)
+    linked = []
+    hook = net.roi_head.register_forward_hook(
+        lambda m, args, out: linked.append(out["valid_length"][:, 1:].sum().item()))
+    eval_step(frames[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    single, latencies = None, []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        single = [t.cpu().numpy() for t in eval_step(frames[0])]
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+    check_launches("path P.4 eval forward", read_counters(), EXPECT_P_MPP_SERVING, 3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"path P.4 (MPPNetE2E, Waymo) one frame through make_eval_step (batch {P_MPP_BATCH}, "
+          f"{[int((f['voxel_num_points'] > 0).sum(1).min()) for f in frames]} voxels at least "
+          f"a scene a frame): latency ms {[round(x, 2) for x in latencies]}, "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB ({smi})")
+    linked.clear()
+    reset_counters()
+    bank, stream, step_ms = None, [], []
+    for f, frame in enumerate(frames):
+        t0 = time.perf_counter()
+        det, bank = stream_step(frame, bank, f == 0)
+        stream.append([t.cpu().numpy() for t in det])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counters()
+    hook.remove()
+    diff = max(float(np.abs(a.astype(np.float64) - b).max()) for a, b in zip(stream[0], single))
+    same_valid = np.array_equal(stream[0][3], single[3])
+    ok = same_valid and diff <= 1e-4 and bool(bank.geo[:, 1:].abs().max() > 0)
+    for i, (boxes, scores, labels, valid) in enumerate(stream):
+        ok = ok and (boxes.shape[1] == int(cfg.MODEL.ROI_HEAD.TARGET_CONFIG.ROI_PER_IMAGE)
+                     and bool(valid.any(1).all()) and np.isfinite(boxes[valid]).all()
+                     and (scores[valid] > 0.1).all() and np.isin(labels[valid], [1, 2, 3]).all())
+    print(f"path P.4 stream of {len(frames)} frames through make_stream_step: ms a step "
+          f"{[round(x, 2) for x in step_ms]}; detections a step "
+          f"{[d[3].sum(1).tolist() for d in stream]}; RoIs linked to a banked proposal in a past "
+          f"frame, a step {[int(x) for x in linked]}; the first step against the eval step: "
+          f"valid slots equal {same_valid}, max abs diff {diff:.3e} (<= 1e-4) ({smi}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("path P.4: the stream's detections or its bank are wrong")
+    check_launches("path P.4 stream step", counts, EXPECT_P_MPP_SERVING, len(frames))
+    two_stage_breakdown(net, lambda: eval_step(frames[0]), "path P.4 eval step", smi=smi,
+                        marks_fn=_mark_mppnet_steps)
+    over, sv = final_candidates(net, cfg, frames[0], dev)
+    check_k4_cases(dev, entries, calls, over, sv, smi, ", path P.4 final NMS", "P:nms_mpp",
+                   iters=50)
+    del net, eval_step, stream_step, bank
+    torch.cuda.empty_cache()
+    return counts
+
+
+def path_p(dev, smi, entries, calls, pc_range=None, points=POINTS, bg_points=120000):
+    """Path P, the CenterHead RPN (``decode_center_proposals``),
+    DynamicMeanVFE and MPPNetE2E's memory-bank head: P.1 the small f32
+    references, card against CPU (``check_small_centerhead_reference``);
+    P.2 Voxel-RCNN with the CenterHead RPN (``p2_voxel_rcnn``); P.3 PV-RCNN
+    with it (``p3_pv_rcnn``) and through the train and test CLIs
+    (``p2_clis``); P.4 MPPNetE2E streaming (``p4_mppnet``).  Returns the
+    launch counts {P.2 serving, P.2 steps, P.3 serving, P.3 step, P.4
+    stream}.  ``pc_range``, ``points`` and ``bg_points`` are for
+    rehearsals."""
+    start = time.perf_counter()
+    check_small_centerhead_reference(dev)
+    torch.cuda.empty_cache()
+    out = {}
+    out["serve"], out["train"] = p2_voxel_rcnn(dev, smi, entries, calls, pc_range, points)
+    torch.cuda.empty_cache()
+    p2_clis(dev, smi, pc_range, bg_points)
+    torch.cuda.empty_cache()
+    out["pv_serve"], out["pv_train"] = p3_pv_rcnn(dev, smi, entries, calls, pc_range, points)
+    torch.cuda.empty_cache()
+    out["mpp"] = p4_mppnet(dev, smi, entries, calls, pc_range, points)
+    torch.cuda.empty_cache()
+    print(f"path P: {time.perf_counter() - start:.1f} s wall in all")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5206,6 +5719,8 @@ def main():
     n_serve_counts, n_train_counts = path_n(dev, smi, entries, calls)
     torch.cuda.empty_cache()
     o_serve_counts, o_train_counts = path_o(dev, smi, entries, calls)
+    torch.cuda.empty_cache()
+    p_counts = path_p(dev, smi, entries, calls)
     # each kernel's launches on the path that runs it: training path A,
     # serving for K4, path B for K3's last_wins mode, the sweep for T1-T4;
     # paths E, F, G and J's shapes: their training, and their serving for
@@ -5213,7 +5728,9 @@ def main():
     # steps and serving forward, L.4's test CLI; path M's: its training,
     # and its serving for K4; path N's: its serving (K4 twice a forward) and
     # its 2 steps; path O's: its 2 steps, and its serving for K4 (its train
-    # proposals: the steps)
+    # proposals: the steps); path P's: P.2's 2 steps (K2, dgrad, K2w, K3, its
+    # train proposals' K4) and serving (K4 twice a forward), P.3's serving
+    # and P.4's stream for their final NMS
     counts = {**a_counts, "nms": serve_counts["nms"],
               "stamp_last_wins": b_counts["stamp_last_wins"],
               **{f"wgrad_{v}": sweep_counts[f"wgrad_{v}"] for v in WGRAD_VARIANTS},
@@ -5225,7 +5742,10 @@ def main():
               "J:nms": j_serve_counts["nms"], "J:nms_train": j_train_counts["nms"], **l_counts,
               "M:nms": m_serve_counts["nms"], "N:nms": n_serve_counts["nms"],
               "N:nms_train": n_train_counts["nms"], "O:nms": o_serve_counts["nms"],
-              "O:nms_train": o_train_counts["nms"]}
+              "O:nms_train": o_train_counts["nms"],
+              **{f"P:{k}": v for k, v in p_counts["train"].items()},
+              "P:nms": p_counts["serve"]["nms"], "P:nms_train": p_counts["train"]["nms"],
+              "P:nms_pv": p_counts["pv_serve"]["nms"], "P:nms_mpp": p_counts["mpp"]["nms"]}
     if not profile:
         check_device_kernels(calls)
     for e in entries:

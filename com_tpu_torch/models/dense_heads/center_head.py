@@ -1,4 +1,5 @@
-"""CenterHead (+ curriculum names), box decoding and NMS post-processing.
+"""CenterHead (+ curriculum names), box decoding, the two-stage detectors'
+proposal decode and NMS post-processing.
 
 Counterpart of ``com_tpu/models/dense_heads/center_head.py`` (pcdet
 center_head.py:48-369).  The JAX package runs the five branches as one fused
@@ -129,6 +130,33 @@ def decode_center_boxes(pred_dict, class_ids, point_cloud_range, voxel_size,
         valid = valid & (boxes[..., :3] >= lim[:3]).all(-1) & (boxes[..., :3] <= lim[3:6]).all(-1)
     label_map = torch.as_tensor(list(class_ids), dtype=torch.int32, device=boxes.device)
     return boxes, scores, label_map[cls], valid
+
+
+def decode_center_proposals(batch, dh_cfg, meta, k: int = 512):
+    """The CenterHead's per-head top-``k`` boxes as one flat set of proposal
+    candidates (the JAX package's ``detectors.decode_center_proposals``):
+    (boxes (B, P, 7+), scores (B, P), labels (B, P), valid (B, P)), heads
+    concatenated, no NMS.  ``decode_center_boxes`` at its default score
+    threshold and without POST_CENTER_LIMIT_RANGE; a score is multiplied
+    by its validity.  A CLASS_NAMES_EACH_HEAD entry missing from the
+    dataset's class names raises ValueError (a head would keep that
+    channel with no label for it)."""
+    stride = int(dh_cfg["TARGET_ASSIGNER_CONFIG"].get("FEATURE_MAP_STRIDE", 1))
+    class_names = list(meta.class_names)
+    parts = []
+    for pred_dict, names in zip(batch["pred_dicts"], dh_cfg["CLASS_NAMES_EACH_HEAD"]):
+        missing = [n for n in names if n not in class_names]
+        if missing:
+            raise ValueError(f"CLASS_NAMES_EACH_HEAD entries {missing} are not in the "
+                             f"dataset CLASS_NAMES {class_names}")
+        ids = tuple(class_names.index(n) + 1 for n in names)
+        hm = pred_dict["hm"]
+        boxes, scores, labels, valid = decode_center_boxes(
+            pred_dict, ids, meta.point_cloud_range, meta.voxel_size, stride,
+            k=min(k, int(hm.shape[1] * hm.shape[2] * hm.shape[3])),
+            head_order=tuple(dh_cfg["SEPARATE_HEAD_CFG"]["HEAD_ORDER"]))
+        parts.append((boxes, scores * valid.to(scores.dtype), labels, valid))
+    return tuple(torch.cat(p, dim=1) for p in zip(*parts))
 
 
 def post_process_nms(boxes, scores, labels, valid, nms_cfg, num_out: int):

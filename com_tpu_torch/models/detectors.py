@@ -12,7 +12,11 @@ SECONDNetIoU (``roi_head.*``), PV-RCNN and PV-RCNN++ (``pfe.*``,
 MeanVFE and UNetV2 for PartA2-free) and PartA2Net (UNetV2, the part head
 ``point_head.*``, ``roi_head.*``) are ported, for inference and training
 (``net.train()`` puts the norms in batch-statistics mode; the dense head
-returns raw predictions in both modes); the MPPNet and CaDDN detectors
+returns raw predictions in both modes).  The two-stage detectors take
+their proposals from an anchor head or from a CenterHead
+(``decode_center_proposals``: the *_with_centerhead_* configs).
+MPPNetE2E (a CenterHead with velocity, then MPPNet's memory-bank head over
+its top proposals) is ported for inference; the MPPNet and CaDDN detectors
 raise by name.
 """
 from __future__ import annotations
@@ -37,7 +41,9 @@ from .backbone2d import Deconv
 from .backbone3d import SparseConv3d
 from .dense_heads.anchor_head import (box_coder_for, build_anchors, decode_anchor_boxes,
                                       top_candidates)
+from .dense_heads.center_head import decode_center_proposals
 from .layers import BatchNorm, Conv1x1, Conv2d
+from .mppnet.mppnet_e2e import init_bank, mppnet_e2e_stream_step, zero_geo
 from .roi_heads.proposal_layer import proposal_layer, take_rows
 from .roi_heads.roi_targets import assign_roi_targets
 
@@ -199,23 +205,25 @@ class RoIStage:
 class TwoStageDetector(RoIStage, Detector3D):
     """A detector with a second stage (the JAX package's ``PVRCNN`` base:
     ``_build_roi_head``, ``_proposals``, ``_stage2_rois``): the first stage
-    as ``Detector3D``, then the anchor head's decoded boxes through the
-    proposal layer (``NMS_CONFIG`` TRAIN or TEST by the module's mode), the
-    RoI flow of ``RoIStage`` and the RoI head, mounted as ``roi_head``.
-    Voxel-RCNN and SECOND-IoU keep every RoI in eval."""
+    as ``Detector3D``, then the dense head's decoded boxes (every anchor of
+    an anchor head, or a CenterHead's top 512 a head by
+    ``decode_center_proposals``) through the proposal layer (``NMS_CONFIG``
+    TRAIN or TEST by the module's mode) or, without NMS_THRESH, the top
+    TRAIN_PRE / TEST_PRE; the RoI flow of ``RoIStage`` and the RoI head,
+    mounted as ``roi_head``.  Voxel-RCNN and SECOND-IoU keep every RoI in
+    eval."""
 
     extra_slots = ("ROI_HEAD",)
 
     def __init__(self, model_cfg, meta: DatasetMeta):
-        head_cfg = model_cfg["DENSE_HEAD"]
-        if "ANCHOR_GENERATOR_CONFIG" not in head_cfg:
-            raise NotImplementedError("decode_center_proposals (the CenterHead RPN of the "
-                                      "*_with_centerhead_* configs) is not ported yet")
         super().__init__(model_cfg, meta)
-        anchors = build_anchors(head_cfg, list(meta.class_names), meta.grid_size,
-                                meta.point_cloud_range)[0]
-        self.register_buffer("anchors", torch.as_tensor(anchors), persistent=False)
-        self.box_coder = box_coder_for(head_cfg)
+        head_cfg = model_cfg["DENSE_HEAD"]
+        self.anchor_rpn = "ANCHOR_GENERATOR_CONFIG" in head_cfg
+        if self.anchor_rpn:  # a CenterHead RPN has neither anchors nor a box coder
+            anchors = build_anchors(head_cfg, list(meta.class_names), meta.grid_size,
+                                    meta.point_cloud_range)[0]
+            self.register_buffer("anchors", torch.as_tensor(anchors), persistent=False)
+            self.box_coder = box_coder_for(head_cfg)
         roi_cfg = model_cfg["ROI_HEAD"]
         self.roi_head = ROI_HEADS.get(roi_cfg["NAME"])(
             roi_cfg, num_class=1, point_cloud_range=meta.point_cloud_range,
@@ -230,9 +238,13 @@ class TwoStageDetector(RoIStage, Detector3D):
         head_cfg = self.model_cfg["DENSE_HEAD"]
         nms_cfg = self.nms_config()
         with torch.no_grad():
-            boxes, scores, labels = decode_anchor_boxes(
-                batch, self.anchors, len(self.meta.class_names), self.box_coder,
-                dir_cfg=head_cfg if head_cfg.get("USE_DIRECTION_CLASSIFIER") else None)
+            if self.anchor_rpn:  # every anchor is a candidate
+                boxes, scores, labels = decode_anchor_boxes(
+                    batch, self.anchors, len(self.meta.class_names), self.box_coder,
+                    dir_cfg=head_cfg if head_cfg.get("USE_DIRECTION_CLASSIFIER") else None)
+            else:
+                boxes, scores, labels, valid = decode_center_proposals(batch, head_cfg, self.meta)
+                scores = torch.where(valid, scores, torch.full_like(scores, -math.inf))
         if "NMS_THRESH" in nms_cfg:
             return proposal_layer(
                 boxes, scores, labels,
@@ -403,8 +415,58 @@ class PointRCNN(RoIStage, nn.Module):
         return self.roi_head(self._stage2_rois(batch, self._proposals(batch)))
 
 
+@DETECTORS.register
+class MPPNetE2E(Detector3D):
+    """MPPNet's end-to-end streaming detector (detectors/mppnet_e2e.py), for
+    inference: the first stage as ``Detector3D`` (a CenterHead with a
+    velocity branch), its top ROI_PER_IMAGE boxes of
+    ``decode_center_proposals`` as the RoIs, then ``MPPNetHeadE2E``
+    (``roi_head``).  Without ``batch["memory_bank"]`` the bank is the RoIs
+    with zero features in every frame, as a sequence's first frame;
+    ``stream_step`` rolls a bank from frame to frame."""
+
+    extra_slots = ("ROI_HEAD",)
+
+    def __init__(self, model_cfg, meta: DatasetMeta):
+        super().__init__(model_cfg, meta)
+        roi_cfg = model_cfg["ROI_HEAD"]
+        self.roi_head = ROI_HEADS.get(roi_cfg["NAME"])(
+            roi_cfg, num_class=1, num_point_features=meta.num_point_features)
+
+    def proposals(self, batch):
+        """The first stage and its RoIs: batch["rois" / "roi_scores" /
+        "roi_labels" / "roi_valid"], (B, ROI_PER_IMAGE, ...)."""
+        batch = super().forward(batch)
+        num_p = int(self.model_cfg["ROI_HEAD"].get("TARGET_CONFIG", {}).get("ROI_PER_IMAGE", 96))
+        with torch.no_grad():
+            boxes, scores, labels, valid = decode_center_proposals(
+                batch, self.model_cfg["DENSE_HEAD"], self.meta, k=num_p)
+            top, idx = top_candidates(torch.where(valid, scores,
+                                                  torch.full_like(scores, -math.inf)),
+                                      min(num_p, int(scores.shape[1])))
+        roi_valid = torch.isfinite(top)
+        batch.update(rois=take_rows(boxes, idx),
+                     roi_scores=torch.where(roi_valid, top, torch.zeros_like(top)),
+                     roi_labels=take_rows(labels, idx), roi_valid=roi_valid)
+        return batch
+
+    def forward(self, batch):
+        batch = self.proposals(batch)
+        if "memory_bank" not in batch:
+            head_cfg = self.model_cfg["ROI_HEAD"]
+            batch["memory_bank"] = init_bank(
+                batch["rois"], batch["roi_labels"], batch["roi_scores"],
+                zero_geo(head_cfg, batch["rois"]), int(head_cfg["Transformer"]["num_frames"]))
+        return self.roi_head(batch)
+
+    def stream_step(self, batch, bank, is_first: bool):
+        """One frame of a sequence: the proposals, then
+        ``mppnet_e2e_stream_step`` (the bank started or rolled, the head,
+        the frame's features written back).  Returns (outputs, bank)."""
+        return mppnet_e2e_stream_step(self.roi_head, self.proposals(batch), bank, is_first)
+
+
 for _name, _what in (("MPPNet", "multi-frame proxy points"),
-                     ("MPPNetE2E", "multi-frame proxy points"),
                      ("CaDDN", "the image depth frustum")):
     DETECTORS.register_unported(_name, _what)
 

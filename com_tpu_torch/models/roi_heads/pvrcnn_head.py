@@ -161,7 +161,3 @@ class PVRCNNPlusPlusHead(nn.Module):
         batch["rcnn_cls"] = self._fc_branch("cls", x, gen)[..., 0]
         batch["rcnn_reg"] = self._fc_branch("reg", x, gen)
         return batch
-
-
-ROI_HEADS.register_unported("MPPNetHead", "MPPNet's multi-frame proxy points")
-ROI_HEADS.register_unported("MPPNetHeadE2E", "MPPNet's multi-frame proxy points")

@@ -1,5 +1,5 @@
 """Voxel feature encoders (counterpart of ``com_tpu/models/vfe.py``): the
-dynamic pillar encoder's sorted-scan path and MeanVFE.
+dynamic pillar encoder's sorted-scan path, MeanVFE and DynamicMeanVFE.
 
 DynamicPillarVFE (``DynamicPillarVFE._sorted_scan``):
 
@@ -45,7 +45,67 @@ class MeanVFE(nn.Module):
 
 
 VFES.register_unported("PillarVFE", "hard-voxel pillar encoder")
-VFES.register_unported("DynamicMeanVFE", "dynamic voxel mean")
+
+INT32_MAX = 2 ** 31 - 1  # the key of a point outside the grid, and of an empty voxel slot
+
+
+@VFES.register
+class DynamicMeanVFE(nn.Module):
+    """Voxelization on the device and the mean of each voxel's points
+    (dynamic_mean_vfe.py): each scene's raw points (B, N, F) get a z-major
+    cell key ``(iz * ny + iy) * nx + ix``, the sorted unique keys fill
+    ``MAX_VOXELS`` slots, and a point's slot is found by binary search ->
+    ``batch["pillar_features"]`` (B, V, F), the mean of every feature of
+    the slot's points, and ``batch["voxel_coords"]`` (B, V, 3) int32 zyx,
+    -1 in an empty slot.  As the JAX package's, the cap keeps the lowest
+    keys: a scene with more voxels than slots loses its highest-z voxels
+    and their points."""
+
+    def __init__(self, model_cfg, num_point_features, voxel_size, point_cloud_range, grid_size):
+        super().__init__()
+        self.max_voxels = int(model_cfg.get("MAX_VOXELS", 60000))
+        self.num_point_features = int(num_point_features)
+        self.voxel_size = tuple(float(v) for v in voxel_size)
+        self.point_cloud_range = tuple(float(v) for v in point_cloud_range)
+        self.grid_size = tuple(int(g) for g in grid_size)
+
+    def forward(self, batch):
+        points, pmask = batch["points"], batch["points_mask"]
+        b, _, f = points.shape
+        cap = self.max_voxels
+        nx, ny, nz = self.grid_size
+        cells = [torch.floor((points[..., i] - lo) / size).to(torch.int64)
+                 for i, (lo, size) in enumerate(zip(self.point_cloud_range[:3], self.voxel_size))]
+        inb = pmask.to(torch.bool)
+        for c, n in zip(cells, (nx, ny, nz)):
+            inb = inb & (c >= 0) & (c < n)
+        ix, iy, iz = cells
+        keys = torch.where(inb, (iz * ny + iy) * nx + ix, torch.full_like(ix, INT32_MAX))
+        skeys = torch.sort(keys, dim=1).values
+        first = torch.ones_like(skeys, dtype=torch.bool)
+        first[:, 1:] = skeys[:, 1:] != skeys[:, :-1]
+        first &= skeys != INT32_MAX
+        rank = torch.cumsum(first, dim=1) - 1
+        # the first ``cap`` unique keys in order; the rest fall in a dropped column
+        slot_of = torch.where(first & (rank < cap), rank, torch.full_like(rank, cap))
+        ukeys = torch.full((b, cap + 1), INT32_MAX, dtype=torch.int64, device=points.device)
+        ukeys.scatter_(1, slot_of, skeys)
+        ukeys = ukeys[:, :cap].contiguous()
+        slot = torch.clamp(torch.searchsorted(ukeys, keys), max=cap - 1)
+        hit = (torch.gather(ukeys, 1, slot) == keys) & inb
+        seg = torch.where(hit, slot, torch.full_like(slot, cap))
+        ones = hit.to(points.dtype)[..., None]
+        sums = torch.zeros((b, cap + 1, f + 1), dtype=points.dtype, device=points.device)
+        sums.scatter_add_(1, seg[..., None].expand(-1, -1, f + 1),
+                          torch.cat([points * ones, ones], dim=-1))
+        batch["pillar_features"] = sums[:, :cap, :f] / torch.clamp(sums[:, :cap, f:], min=1.0)
+        vvalid = ukeys != INT32_MAX
+        safe = torch.where(vvalid, ukeys, torch.zeros_like(ukeys))
+        coords = torch.stack([torch.div(safe, ny * nx, rounding_mode="floor"),
+                              torch.div(safe, nx, rounding_mode="floor") % ny, safe % nx], dim=-1)
+        batch["voxel_coords"] = torch.where(vvalid[..., None], coords,
+                                            torch.full_like(coords, -1)).to(torch.int32)
+        return batch
 
 
 def decorate_points(xyz, feats, pillar_xy_center, cluster_mean, use_absolute_xyz=True):

@@ -2,7 +2,8 @@
 tools/eval_utils/eval_utils.py:12-136).
 
 ``make_eval_step`` (CenterPoint, anchor and two-stage branches, PointRCNN's
-among the last): forward
+and MPPNetE2E's among the last; ``make_stream_step`` runs MPPNetE2E frame
+by frame with its memory bank): forward
 -> per-head top-K decode -> NMS, or every anchor decoded -> top
 ``NMS_PRE_MAXSIZE`` -> NMS, or the RCNN head's boxes -> NMS, all on the
 device, fixed shapes with validity masks.  ``eval_model``
@@ -106,10 +107,24 @@ def _make_anchor_eval_step(net, model_cfg, class_names, meta, dev):
 
 
 def _make_two_stage_eval_step(net, model_cfg, class_names, meta, dev):
-    """Two-stage inference (detector3d_template post_processing): the RCNN
-    head's boxes, not the proposals, are scored, filtered by SCORE_THRESH
-    and the RoIs' validity, and NMS'd (``MODEL.POST_PROCESSING.NMS_CONFIG``,
-    its TEST entries over it).  A head that decodes (SECONDHead) writes
+    """Two-stage inference: the forward, then ``two_stage_post_process``."""
+    keys = model_input_keys(model_cfg)
+    post = two_stage_post_process(model_cfg, class_names, dev)
+
+    @torch.no_grad()
+    def eval_step(batch):
+        return post(net({k: torch.as_tensor(batch[k], device=dev) for k in keys}), batch)
+
+    return eval_step
+
+
+def two_stage_post_process(model_cfg, class_names, dev):
+    """A ``post(out, batch) -> (boxes, scores, labels, valid)`` over a
+    two-stage forward's outputs (detector3d_template post_processing): the
+    RCNN head's boxes, not the proposals, are scored, filtered by
+    SCORE_THRESH and the RoIs' validity, and NMS'd
+    (``MODEL.POST_PROCESSING.NMS_CONFIG``, its TEST entries over it).  A
+    head that decodes its own boxes (SECONDHead, MPPNet's) writes
     ``batch_box_preds`` / ``batch_cls_preds``; a refinement head's
     ``rcnn_reg`` decodes against the RoIs.  SCORE_TYPE ranks SECOND-IoU's
     boxes (second_net_iou.py post_processing): "iou" (the default), "cls",
@@ -124,7 +139,6 @@ def _make_two_stage_eval_step(net, model_cfg, class_names, meta, dev):
     score_type = str(nms_cfg.get("SCORE_TYPE", "iou"))
     if score_type not in ("iou", "cls", "weighted_iou_cls", "num_pts_iou_cls", "score_by_class"):
         raise NotImplementedError(f"SCORE_TYPE {score_type}")
-    keys = model_input_keys(model_cfg)
 
     def fused_scores(out, batch, iou_scores, labels):
         if score_type == "iou" or "roi_scores" not in out:
@@ -151,8 +165,7 @@ def _make_two_stage_eval_step(net, model_cfg, class_names, meta, dev):
         return torch.where(use_iou, iou_scores, cls_scores)
 
     @torch.no_grad()
-    def eval_step(batch):
-        out = net({k: torch.as_tensor(batch[k], device=dev) for k in keys})
+    def post_process(out, batch):
         cls_labels = None
         if "batch_box_preds" in out:
             boxes = out["batch_box_preds"][..., :7]
@@ -182,7 +195,28 @@ def _make_two_stage_eval_step(net, model_cfg, class_names, meta, dev):
         return (torch.gather(boxes, 1, sel[..., None].expand(-1, -1, boxes.shape[-1])),
                 torch.gather(scores, 1, sel), torch.gather(labels, 1, sel), sel_valid)
 
-    return eval_step
+    return post_process
+
+
+def make_stream_step(net, model_cfg, class_names, meta, device=None):
+    """MPPNetE2E's streaming inference: a ``stream_step(batch, bank,
+    is_first) -> ((boxes, scores, labels, valid), bank)`` over ``net``
+    (``MPPNetE2E.stream_step``: the first stage, the bank started or
+    rolled, the memory-bank head) and the two-stage post-processing, as
+    ``make_eval_step``'s outputs.  ``batch`` holds the model's inputs (a
+    frame's voxels, and its points with their timestamp last); ``bank`` is
+    the previous step's (None on a sequence's first frame)."""
+    dev = resolve_device(device)
+    keys = model_input_keys(model_cfg)
+    post = two_stage_post_process(model_cfg, class_names, dev)
+
+    @torch.no_grad()
+    def stream_step(batch, bank, is_first: bool):
+        out, bank = net.stream_step({k: torch.as_tensor(batch[k], device=dev) for k in keys},
+                                    bank, is_first)
+        return post(out, batch), bank
+
+    return stream_step
 
 
 def recall_stats(pred_boxes, gt_boxes, thresh_list=(0.3, 0.5, 0.7)):

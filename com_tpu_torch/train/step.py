@@ -63,6 +63,10 @@ def device_batch_keys(model_cfg) -> set:
         keys |= {"voxels", "voxel_coords", "voxel_num_points"}
     if model_cfg.get("PFE") is not None:  # keypoint abstraction reads raw points
         keys |= {"points", "points_mask"}
+    if str((model_cfg.get("ROI_HEAD") or {}).get("NAME", "")).startswith("MPPNet"):
+        # MPPNet's head crops the points around its RoIs (the JAX package's
+        # eval step feeds the model the whole batch and its function omits them)
+        keys |= {"points", "points_mask"}
     if model_cfg.get("BACKBONE_3D", {}).get("USE_IMG"):
         keys |= {"images", "image_shape", "trans_lidar_to_cam", "trans_cam_to_img", "noise_rot",
                  "noise_scale", "flip_x", "flip_y"}

@@ -27,7 +27,9 @@ and PVRCNNHead (their norms shifted as the RoI heads'), and
 PVRCNNPlusPlusHead under its flax names, PointRCNN's PointNet2MSG and
 head, and PartA2's UNetV2 (its inverse convs as sparse convs),
 PointIntraPartOffsetHead and PartA2FCHead (its pooled-grid convs, dense
-flax Conv (kz, ky, kx, I, O) -> spconv 2.x (O, kz, ky, kx, I)).  For
+flax Conv (kz, ky, kx, I, O) -> spconv 2.x (O, kz, ky, kx, I)), and
+MPPNet's heads under their flax names (attention projections (C, H, D) ->
+Linear (H * D, C)).  For
 comparing a train
 step, ``params_from_jax`` maps any tree shaped like flax "params" (its
 gradients, its updated parameters) into the same pcdet names, and
@@ -56,6 +58,12 @@ _TRANSFORMS = {
     # flax Conv (kz, ky, kx, I, O) -> spconv 2.x (O, kz, ky, kx, I): PartA2's
     # pooled-grid convs, dense in both packages, pcdet's sparse in layout
     "spconv_dense": lambda a: a.transpose(4, 0, 1, 2, 3),
+    # flax MultiHeadDotProductAttention's DenseGeneral projections: query /
+    # key / value (C, H, D) -> Linear (H * D, C), their biases (H, D) ->
+    # (H * D,), out (H, D, C) -> Linear (C, H * D)
+    "mha_in": lambda a: a.reshape(a.shape[0], -1).T,
+    "flatten": lambda a: a.reshape(-1),
+    "mha_out": lambda a: a.reshape(-1, a.shape[-1]).T,
 }
 # A running statistic's rule, never a parameter's: the RoI heads'
 # BatchNorm1d holds var + (1e-3 - 1e-5) (models/layers.py).
@@ -473,6 +481,100 @@ def _pvrcnn_plusplus_head_rules(cfg, top):
     return rules
 
 
+def _dense(tkey, path, bias=True):
+    """A flax Dense at ``path`` -> Linear ``tkey``."""
+    out = [(f"{tkey}.weight", "params", (*path, "kernel"), "linear")]
+    return out + ([(f"{tkey}.bias", "params", (*path, "bias"), "copy")] if bias else [])
+
+
+def _ln(tkey, path):
+    """A flax LayerNorm -> nn.LayerNorm."""
+    return [(f"{tkey}.weight", "params", (*path, "scale"), "copy"),
+            (f"{tkey}.bias", "params", (*path, "bias"), "copy")]
+
+
+def _mlp(tkey, path, n):
+    """MPPNet's ``MLP``: ``{tkey}.layers.{i}`` <- ``{path}/Dense_{i}``."""
+    return [r for i in range(n) for r in _dense(f"{tkey}.layers.{i}", (*path, f"Dense_{i}"))]
+
+
+def _attention(tkey, path):
+    return [rule for name in ("query", "key", "value", "out")
+            for rule in ((f"{tkey}.{name}.weight", "params", (*path, name, "kernel"),
+                          "mha_out" if name == "out" else "mha_in"),
+                         (f"{tkey}.{name}.bias", "params", (*path, name, "bias"),
+                          "copy" if name == "out" else "flatten"))]
+
+
+def _ffn(tkey, path):
+    """``FFN``: linear1 <- Dense_1, linear2 <- Dense_0 (flax names the outer
+    Dense first), norm{1,2} <- LayerNorm_{0,1}."""
+    return (_dense(f"{tkey}.linear1", (*path, "Dense_1"))
+            + _dense(f"{tkey}.linear2", (*path, "Dense_0"))
+            + _ln(f"{tkey}.norm1", (*path, "LayerNorm_0"))
+            + _ln(f"{tkey}.norm2", (*path, "LayerNorm_1")))
+
+
+def _mppnet_head_rules(cfg, top):
+    """MPPNetHead and MPPNetHeadE2E: the flax scopes' names (pcdet's importer
+    has no table for them), MLPs' ``Dense_{i}`` as ``layers.{i}``; the
+    transformer's layers as ``com_tpu_torch/models/mppnet/transformer.py``
+    names them; ``seqboxembed``'s auto-named Dense and BatchNorm scopes by
+    their order of creation (fc1, fc2, then each residual's output before
+    its hidden layer)."""
+    t = "roi_head"
+    tcfg = cfg["Transformer"]
+    groups, frames = int(tcfg["num_groups"]), int(tcfg["num_frames"])
+    rules = (_mlp(f"{t}.up_dimension_geometry", (top, "up_dimension_geometry"), 3)
+             + _mlp(f"{t}.up_dimension_motion", (top, "up_dimension_motion"), 3)
+             + _mlp(f"{t}.jointembed", (top, "jointembed"), 4)
+             + _mlp(f"{t}.grid_pos_embeded", (top, "grid_pos_embeded"), 2)
+             + _dense(f"{t}.class_embed", (top, "class_embed")))
+    if cfg["NAME"] == "MPPNetHead":  # the E2E head never calls its per-group boxes
+        for g in range(groups):
+            rules += _mlp(f"{t}.bbox_embed.{g}", (top, f"bbox_embed_{g}"), 4)
+    for r, mlp in enumerate(cfg["ROI_GRID_POOL"]["MLPS"]):
+        for li in range(len(mlp)):
+            rules += _dense(f"{t}.roi_grid_pool_layers.{r}.{li}", (top, f"pool_r{r}_l{li}"))
+    sb, s = f"{t}.seqboxembed", (top, "seqboxembed")
+    rules += _bn(f"{sb}.pre_bn", (*s, "pre_bn"))
+    for i in range(4):
+        rules += _dense(f"{sb}.feat.fcs.{i}", (*s, "PointNetFeat_0", f"Dense_{i}"))
+        rules += _bn(f"{sb}.feat.bns.{i}", (*s, "PointNetFeat_0", f"BatchNorm_{i}"))
+    for i, name in enumerate(("fc1", "fc2")):
+        rules += _dense(f"{sb}.{name}", (*s, f"Dense_{i}")) + _bn(f"{sb}.bn{i + 1}",
+                                                                 (*s, f"BatchNorm_{i}"))
+    for i, name in enumerate(("center", "size", "heading")):
+        rules += _dense(f"{sb}.{name}_out", (*s, f"Dense_{2 + 2 * i}"), bias=False)
+        rules += _dense(f"{sb}.{name}_hidden", (*s, f"Dense_{3 + 2 * i}"))
+    tr, tp = f"{t}.transformer", (top, "transformer")
+    rules.append((f"{tr}.token", "params", (*tp, "token"), "copy"))
+    if frames > 4:
+        rules += _mlp(f"{tr}.fusion_all_group", (*tp, "fusion_all_group"), 4)
+        rules += _ffn(f"{tr}.fusion_norm", (*tp, "fusion_norm"))
+    n_layers = int(tcfg["enc_layers"])
+    for li in range(n_layers):
+        lt, lp = f"{tr}.layers.{li}", (*tp, f"layer_{li}")
+        mt, mp = f"{lt}.mixer", (*lp, "SpatialMixerBlock_0")
+        for a in ("x", "y", "z"):
+            rules += _mlp(f"{mt}.mixer_{a}", (*mp, f"mixer_{a}"), 3)
+            rules += _ln(f"{mt}.mixer_{a}_norm", (*mp, f"mixer_{a}_norm"))
+        rules += (_dense(f"{mt}.linear1", (*mp, "Dense_0"))
+                  + _dense(f"{mt}.linear2", (*mp, "Dense_1"))
+                  + _ln(f"{mt}.norm", (*mp, "LayerNorm_0")))
+        rules += _attention(f"{lt}.self_attn", (*lp, "MultiHeadDotProductAttention_0"))
+        rules += (_ln(f"{lt}.norm1", (*lp, "LayerNorm_0"))
+                  + _ln(f"{lt}.norm2", (*lp, "LayerNorm_1"))
+                  + _dense(f"{lt}.linear1", (*lp, "Dense_1"))
+                  + _dense(f"{lt}.linear2", (*lp, "Dense_0")))
+        if li < n_layers - 1:
+            rules += _mlp(f"{lt}.fusion_all_groups", (*lp, "fusion_all_groups"), 4)
+            rules += _ffn(f"{lt}.ffn", (*lp, "FFN_0"))
+            for g in range(groups):
+                rules += _attention(f"{lt}.cross_attn.{g}", (*lp, f"cross_attn_{g}"))
+    return rules
+
+
 def bridge_rules(model_cfg, class_names, params) -> list:
     """Every (pcdet key, collection, flax path, transform) of the model.
     ``params`` (the flax "params" tree) gives the top-level scope names."""
@@ -522,6 +624,8 @@ def bridge_rules(model_cfg, class_names, params) -> list:
             rules += _parta2_head_rules(roi, roi_top)
         elif roi["NAME"] == "PVRCNNPlusPlusHead":
             rules += _pvrcnn_plusplus_head_rules(roi, roi_top)
+        elif roi["NAME"] in ("MPPNetHead", "MPPNetHeadE2E"):
+            rules += _mppnet_head_rules(roi, roi_top)
         else:
             rules += _roi_head_rules(roi, roi_top)
     return rules

@@ -1216,6 +1216,97 @@ def test_k4_in_the_parta2_proposal_layer(dev):
     assert torch.equal(gl, cl) and float((gr - cr).abs().max()) <= 1e-5
 
 
+def test_centerhead_rpn_eval_step_matches_cpu(dev):
+    """Voxel-RCNN with the CenterHead RPN and DynamicMeanVFE narrowed as the
+    CPU tests narrow it (``chip_smoke.centerhead_small_case``) in f32: card
+    (K2 in the BEV backbone, K4 in the proposal NMS and the final one)
+    against the CPU, the same seeded weights, norm biases +3 and the
+    heatmap spread: the detections to 1e-3."""
+    from chip_smoke import (centerhead_small_case, check_detections, shift_norm_biases,
+                            spread_center_scores)
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.train.eval import make_eval_step
+
+    cfg, meta, batch = centerhead_small_case("voxel_rcnn", seed=2)
+    outs = []
+    for d in (dev, "cpu"):
+        net = spread_center_scores(shift_norm_biases(build_network(cfg.MODEL, meta, device=d,
+                                                                   seed=3)))
+        k2, k4 = conv2d.launches, nms.launches
+        outs.append([t.cpu().numpy() for t in make_eval_step(
+            net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=d)(batch)])
+        assert (conv2d.launches - k2, nms.launches - k4) == ((3, 2) if d == dev else (0, 0))
+    assert outs[1][3].sum() > 0
+    check_detections("CenterHead-RPN Voxel-RCNN eval step, card vs CPU", *outs)
+
+
+def test_centerhead_rpn_train_step_matches_cpu(dev):
+    """One step of the narrowed Voxel-RCNN with the CenterHead RPN in f32,
+    norm biases +3, GT a little off its own proposals: the card (K2, dgrad
+    and K2w, K3 for the heatmap targets, K4 in the proposal NMS) against
+    the CPU, as ``chip_smoke``'s P.1 holds it."""
+    from chip_smoke import (centerhead_small_case, compare_train_step, follow_proposals,
+                            spread_center_scores)
+
+    cfg, meta, batch = centerhead_small_case("voxel_rcnn", seed=4)
+    compare_train_step(dev, cfg, meta, batch, "CenterHead-RPN Voxel-RCNN train step, card vs CPU",
+                       counts_confidences=False, own_noise=True,
+                       prepare=lambda net: follow_proposals(spread_center_scores(net),
+                                                            per_scene=2, off=True))
+
+
+def test_mppnet_e2e_eval_and_stream_match_cpu(dev):
+    """MPPNetE2E narrowed (``centerhead_small_case("mppnet")``) in f32: the
+    single-frame eval step and a 3-frame stream through ``make_stream_step``
+    on the card (K2, K4 in the final NMS) against the CPU, each frame's
+    detections to 1e-3."""
+    from chip_smoke import (centerhead_small_case, compare_eval_step, compare_stream,
+                            shift_norm_biases, spread_center_scores)
+
+    def prep(net):
+        return spread_center_scores(shift_norm_biases(net))
+
+    cfg, meta, frames = centerhead_small_case("mppnet", seed=6, frames=3)
+    k4 = nms.launches
+    compare_eval_step(dev, cfg, meta, frames[0], "MPPNetE2E eval step, card vs CPU", prepare=prep)
+    compare_stream(dev, cfg, meta, frames, "MPPNetE2E stream, card vs CPU", prepare=prep)
+    assert nms.launches - k4 == 4  # one final NMS a forward on the card
+
+
+def test_k4_in_the_centerhead_proposal_layer(dev):
+    """The CenterHead RPN's proposals at full size: a (4, 188, 188, 3)
+    heatmap's top 512 a scene (``decode_center_proposals``) through the
+    proposal layer (NMS_THRESH 0.7 -> 100 RoIs, the invalid ones at -inf):
+    K4 launched once, the RoIs as the CPU's."""
+    from com_tpu_torch.models.dense_heads.center_head import decode_center_proposals
+    from com_tpu_torch.models.detectors import DatasetMeta
+    from com_tpu_torch.models.roi_heads.proposal_layer import proposal_layer
+
+    rng = np.random.RandomState(37)
+    widths = {"hm": 3, "center": 2, "center_z": 1, "dim": 3, "rot": 2}
+    pred = {k: rng.randn(4, 188, 188, w).astype(np.float32) for k, w in widths.items()}
+    pred["dim"] *= 0.1
+    pred["hm"] = pred["hm"] * 1.5 - 2.0
+    dh = {"TARGET_ASSIGNER_CONFIG": {"FEATURE_MAP_STRIDE": 8},
+          "CLASS_NAMES_EACH_HEAD": [["Vehicle", "Pedestrian", "Cyclist"]],
+          "SEPARATE_HEAD_CFG": {"HEAD_ORDER": ["center", "center_z", "dim", "rot"]}}
+    meta = DatasetMeta(("Vehicle", "Pedestrian", "Cyclist"), (-74.88, -74.88, -2, 74.88, 74.88, 4),
+                       (0.1, 0.1, 0.15), (1498, 1498, 40), 5)
+    outs = []
+    for d in (dev, "cpu"):
+        boxes, scores, labels, valid = decode_center_proposals(
+            {"pred_dicts": [{k: torch.from_numpy(v).to(d) for k, v in pred.items()}]}, dh, meta)
+        assert boxes.shape == (4, 512, 7)
+        k4 = nms.launches
+        out = proposal_layer(boxes, torch.where(valid, scores, torch.full_like(scores, -math.inf)),
+                             labels, nms_pre=512, nms_post=100, nms_thresh=0.7)
+        assert nms.launches - k4 == (1 if d == dev else 0)
+        outs.append([t.cpu() for t in out])
+    (gr, gs, gl, gv), (cr, cs, cl, cv) = outs
+    assert torch.equal(gv, cv) and int(gv.sum()) > 100
+    assert torch.equal(gl, cl) and float((gr - cr).abs().max()) <= 1e-4
+
+
 @pytest.mark.parametrize("k", [4096, 1024, 100])
 def test_k4_at_the_proposal_shapes(dev, k):
     """K4 at the two-stage path's (2, 4096) train and (2, 1024) serving

@@ -353,9 +353,16 @@ def test_canonical_transform_and_decode_round_trip():
                                   "PointRCNNHead", "MPPNetHead"])
 def test_unported_roi_heads_raise_by_name(name):
     """The unported heads raise by name; the PV-RCNN heads, ported, build
-    from their defaults (the JAX heads' own), PointRCNN's and PartA2's from
-    ``tests/test_pointrcnn.py``'s and ``tests/test_parta2.py``'s configs
-    (the JAX heads have no default for their pools)."""
+    from their defaults (the JAX heads' own), PointRCNN's, PartA2's and
+    MPPNet's from ``tests/test_pointrcnn.py``'s, ``tests/test_parta2.py``'s
+    and ``tests/test_mppnet.py``'s configs (the JAX heads have no default
+    for their pools)."""
+    if name == "MPPNetHead":
+        from test_mppnet import HEAD_CFG
+
+        head = ROI_HEADS.get(name)(HEAD_CFG, num_class=1, num_point_features=6)
+        assert type(head).__name__ == name and len(head.bbox_embed) == 4
+        return
     if name == "PartA2FCHead":
         from test_parta2 import parta2_cfg
 

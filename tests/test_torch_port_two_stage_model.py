@@ -162,10 +162,21 @@ def test_second_iou_head_keeps_pcdet_layout(second_iou):
 @pytest.mark.parametrize("name", ["PVRCNN", "PVRCNNPlusPlus", "PartA2Net", "PointRCNN",
                                   "MPPNet", "MPPNetE2E"])
 def test_unported_two_stage_detectors_raise_by_name(name):
-    """The unported detectors raise by name; PV-RCNN, PV-RCNN++, PartA2 and
-    PointRCNN, ported, build (``tests/torch_port_pvrcnn_setup.py``'s,
+    """The unported detectors raise by name; PV-RCNN, PV-RCNN++, PartA2,
+    PointRCNN and MPPNetE2E, ported, build (``tests/torch_port_pvrcnn_setup.py``'s,
     ``tests/test_parta2.py``'s and ``tests/test_pointrcnn.py``'s small
-    configs)."""
+    configs; MPPNetE2E its YAML at its own Waymo grid)."""
+    if name == "MPPNetE2E":
+        from com_tpu_torch.utils.config import cfg_from_yaml_file
+
+        cfg = cfg_from_yaml_file(
+            "configs/waymo_models/mppnet_e2e_memorybank_inference.yaml")
+        meta = DatasetMeta(cfg.CLASS_NAMES, (-74.88, -74.88, -2, 74.88, 74.88, 4),
+                           (0.1, 0.1, 0.15), (1498, 1498, 40), 6)
+        net = DETECTORS.get(name)(cfg.MODEL, meta)
+        assert type(net).__name__ == name and type(net.roi_head).__name__ == "MPPNetHeadE2E"
+        assert not hasattr(net.roi_head, "bbox_embed")
+        return
     if name == "PartA2Net":
         from test_parta2 import CLASS_NAMES, parta2_cfg
 
@@ -195,13 +206,24 @@ def test_unported_two_stage_detectors_raise_by_name(name):
 
 
 def test_unported_two_stage_options_raise_by_name(voxel_rcnn):
-    cfg, _, pmeta, _, _, net, _ = voxel_rcnn
+    cfg, _, pmeta, _, _, net, host = voxel_rcnn
     names = list(cfg.CLASS_NAMES)
+    # a CenterHead RPN (decode_center_proposals, ported): the composition
+    # builds without anchors and proposes the top 512 candidates through K4's
+    # proposal layer, TEST's NMS_POST_MAXSIZE RoIs a scene
+    from com_tpu_torch.utils.config import cfg_from_yaml_file
+
     centerhead = small_cfg("voxel_rcnn")
-    centerhead.MODEL.DENSE_HEAD.pop("ANCHOR_GENERATOR_CONFIG")
-    centerhead.MODEL.DENSE_HEAD.NAME = "CenterHead"
-    with pytest.raises(NotImplementedError, match="decode_center_proposals"):
-        build_network(centerhead.MODEL, pmeta, device="cpu")
+    head = cfg_from_yaml_file(
+        "configs/waymo_models/voxel_rcnn_with_centerhead_dyn_voxel.yaml").MODEL.DENSE_HEAD
+    head.update(SHARED_CONV_CHANNEL=16, CLASS_NAMES_EACH_HEAD=[names])
+    centerhead.MODEL.DENSE_HEAD = head
+    center_net = build_network(centerhead.MODEL, pmeta, device="cpu")
+    assert not center_net.anchor_rpn and not hasattr(center_net, "anchors")
+    with torch.no_grad():
+        out = center_net({k: torch.as_tensor(np.array(host[k]))
+                          for k in model_input_keys(centerhead.MODEL)})
+    assert out["rois"].shape == (2, 32, 7) and out["roi_valid"].any()
     pointnet = small_cfg("voxel_rcnn")
     pointnet.MODEL.ROI_HEAD.ROI_GRID_POOL.PRE_MLP = False
     with pytest.raises(NotImplementedError, match="PointNetBlock"):

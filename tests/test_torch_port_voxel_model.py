@@ -314,11 +314,16 @@ def test_waymo_second_grid_fails_alike(config):
     (VFES, "PillarVFE"), (VFES, "DynamicMeanVFE"),
     (MAP_TO_BEV, "PointPillarScatter"), (MAP_TO_BEV, "Conv2DCollapse")])
 def test_unported_voxel_names_raise_by_name(registry, name):
-    """The unported names raise by name; UNetV2, ported, builds from its
-    defaults (the JAX backbone's own)."""
+    """The unported names raise by name; UNetV2 and DynamicMeanVFE, ported,
+    build from their defaults (the JAX modules' own: DynamicMeanVFE's 60,000
+    voxel slots)."""
     if name == "UNetV2":
         unet = registry.get(name)({}, 5, (64, 64, 40), (0.5, 0.5, 0.1), (-16, -16, -2, 16, 16, 2))
         assert unet.num_point_features == 16 and unet.num_bev_features == 256
+        return
+    if name == "DynamicMeanVFE":
+        vfe = registry.get(name)({}, 5, (0.5, 0.5, 0.1), (-16, -16, -2, 16, 16, 2), (64, 64, 40))
+        assert vfe.max_voxels == 60000 and vfe.num_point_features == 5
         return
     with pytest.raises(NotImplementedError, match=name):
         registry.get(name)({}, 5, (64, 64, 40))
