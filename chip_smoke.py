@@ -2,8 +2,9 @@
 data pipeline, through its train, test and demo CLIs, for the PointPillars
 anchor head, the sparse-voxel detectors, the two-stage Voxel-RCNN and
 SECOND-IoU, PV-RCNN, PointRCNN and PartA2, the CenterHead-RPN Voxel-RCNN
-and PV-RCNN on Waymo, and MPPNetE2E's streaming; the KITTI configs from a
-KITTI tree on disk), its
+and PV-RCNN on Waymo, MPPNetE2E's streaming, and the nuScenes and Lyft
+configs; the KITTI, nuScenes, Lyft and Pandaset configs from trees on disk),
+its
 serving artifact (export, load and the HTTP server), its data-parallel
 training and evaluation, and its wgrad sweep on one NVIDIA GPU.
 
@@ -268,9 +269,20 @@ Phases (any failure raises, and the script exits non-zero):
    sequence, frame 0 through the eval step and the 4 frames through
    ``make_stream_step`` (the first step equal to the eval step), its
    stages, K4 on the (2, 96) final NMS.
-22. Launch counts: every counter is zeroed just before each path (the
+22. Path Q, the nuScenes, Lyft and Pandaset datasets (``path_q``'s
+   docstring): trees written from a seed (``com_tpu_torch/tools/
+   dataset_trees.py``), Q.1 small f32 references card against CPU, Q.2
+   ``nuscenes_models/cbgs_dyn_pp_centerpoint.yaml`` at full width (512 x 512,
+   batch 4, 262,144 points a scene from 10 fused sweeps) fed by the port's
+   loader: serving, stages, K1 / its backward / K3 / K4 on the inputs the
+   path gave them, K2 / dgrad / K2w at its shapes, 2 steps of
+   ``train_model``; Q.3 ``cbgs_pp_multihead``, ``cbgs_voxel0075`` /
+   ``voxel01_res3d_centerpoint`` and Lyft's two SECOND-multihead configs,
+   Lyft's mAP; Q.4 the train and test CLIs on both trees, the three
+   loaders' rates.
+23. Launch counts: every counter is zeroed just before each path (the
    sweep, serving, A, B, C, D's, E's, F's, G's, J's, K's, H's, L's, M's,
-   N's, O's and P's phases, and in each rank of I) and read just after, against the calls the sweep
+   N's, O's, P's and Q's phases, and in each rank of I) and read just after, against the calls the sweep
    reports and the expected counts per
    forward or per step.  The device
    kernels one K3 call issues (1) and one K4 call (2, the pack and the
@@ -984,8 +996,6 @@ def check_stamp(dev, entries, calls, hw=(468, 468), path="", b=BATCH,
     mask).  Each mode's call goes into ``calls`` with the one device kernel
     it must issue (counted by ``check_device_kernels`` at the end).
     ``path`` prefixes the counters whose launches the entries report."""
-    from com_tpu_torch.ops import stamp
-
     rng = np.random.RandomState(14)
     n, c, (h, w) = NUM_MAX_OBJS, 3, hw
     centers = np.stack([rng.randint(0, w, (b, n)), rng.randint(0, h, (b, n))], -1)
@@ -999,44 +1009,18 @@ def check_stamp(dev, entries, calls, hw=(468, 468), path="", b=BATCH,
     valid[:, :REAL_OBJS] = rng.rand(b, REAL_OBJS) > 0.05
     cen, rad, cl32, val, vld = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
         centers.astype(np.int32), radii.astype(np.int32), cls.astype(np.int32), values, valid))
-    r = np.clip(radii, 0, 16)
-    cells = int(((2 * r + 1) ** 2 * valid).sum())
     for mode, fill, args in (("gauss", 0.0, (cen, rad, cl32, None, vld)),
                              ("last_wins", 1.0, (cen, rad, cl32.long(), val, vld))):
         if mode not in modes:
             continue
-        got = stamp.stamp_windows(*args, c, h, w, mode, fill=fill)
-        want = stamp.stamp_windows_plain(*args, c, h, w, mode, fill=fill)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        if mode == "gauss":
+        got = check_k3_call(dev, entries, calls, (*args, c, h, w, mode), {"fill": fill}, "",
+                            f"{path}stamp_{mode}", "")
+        if mode == "gauss":  # every valid object's centre cell exactly 1.0
             bi, oi = np.nonzero(valid)
             centre = got[tuple(torch.as_tensor(a, device=dev) for a in (
                 bi, cls[bi, oi], centers[bi, oi, 1], centers[bi, oi, 0]))]
-            ok = err <= 2e-6 and bool((centre == 1.0).all())
-            tol = "<= 2e-6 (analytic f32 exp against the f64-built table), centers exactly 1.0"
-        else:
-            ok, tol = err == 0.0, "exact"
-        print(f"K3 stamp_windows {mode} ({b},3,{h},{w}) {int(valid.sum())} objects in "
-              f"{b * n} slots: max_abs_err={err:.3e} ({tol}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"K3 {mode} disagrees with its plain version")
-        calls.append((f"K3 stamp_windows {mode} ({h},{w})", 1, lambda a=args, m=mode, f=fill:
-                      stamp.stamp_windows(*a, c, h, w, m, fill=f)))
-        ms = cuda_ms(lambda: stamp.stamp_windows(*args, c, h, w, mode, fill=fill), 50)
-        dev_ms = device_ms(lambda: stamp.stamp_windows(*args, c, h, w, mode, fill=fill), 50)
-        plain_ms = cuda_ms(lambda: stamp.stamp_windows_plain(*args, c, h, w, mode, fill=fill), 10)
-        print(f"K3 {mode}: {ms:.4f} ms a call as the host issues them, {dev_ms:.4f} ms queued on "
-              f"the card")
-        # the canvas written once, the objects read once; an exp and a max
-        # (gauss) or one index max (last_wins) per window cell of a valid object
-        bms, by = bound_ms(nbytes(got, *(a for a in args if a is not None)),
-                           cells * (2 if mode == "gauss" else 1), torch.float32)
-        entries.append(dict(name=f"stamp.stamp_windows {mode} ({b},3,{h},{w}) 500 slots",
-                            route="cuda", source="com_tpu_torch/csrc/stamp.cu",
-                            replaces="com_tpu/ops/pallas/stamp.py:137", max_abs_err=err, ms=ms,
-                            device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                            library_ms=None, kernel=f"{path}stamp_{mode}"))
+            if not bool((centre == 1.0).all()):
+                raise AssertionError("K3 gauss: a valid object's centre is not 1.0")
 
 
 def load_config(grid=None, config=CONFIG):
@@ -1306,6 +1290,11 @@ def stage_breakdown(net, step, batch, label, iters=5, smi=""):
             labels = [name for name, _ in sub]
             part_names = {tuple(NMS_MARKS): NMS_PARTS, ("topk", *NMS_MARKS): E_NMS_PARTS,
                           tuple(MULTI_NMS_MARKS): MULTI_NMS_PARTS}.get(tuple(labels))
+            groups = len(labels) // len(NMS_MARKS)
+            if part_names is None and groups > 1 and labels == NMS_MARKS * groups:
+                # one decode and NMS a head group: "rest" then runs on to the
+                # next group's sort (its decode included), summed over groups
+                part_names = NMS_PARTS[:1] + NMS_PARTS[1:] * groups
             if part_names is None:
                 raise AssertionError(f"decode_nms ran its steps as {labels}")
             seq = [marks[-2], *(ev for _, ev in sub), marks[-1]]
@@ -2137,7 +2126,6 @@ def spread_anchor_scores(net):
 def check_e_seg_scan(dev, entries, batch, meta, smi):
     """K1's sum at path E's VFE input, (4, 32768, 8) f32: the cluster sums
     over the presorted pillar runs (padding in the trash run)."""
-    from com_tpu_torch.ops import seg_scan
     from com_tpu_torch.ops.voxelize import point_voxel_ids
 
     pts = torch.as_tensor(batch["points"], device=dev)
@@ -2151,29 +2139,8 @@ def check_e_seg_scan(dev, entries, batch, meta, smi):
         raise AssertionError("path E: the batch is not presorted by pillar")
     ones = valid.to(torch.float32)[..., None]
     vals = torch.cat([pts[..., :3] * ones, ones, torch.zeros_like(pts)], -1).contiguous()
-    got = seg_scan.run_bcast(vals, seg, "sum")
-    want = seg_scan.run_bcast_plain(vals, seg, "sum")
-    scale = seg_scan.run_bcast_plain(vals.abs(), seg, "sum")
-    torch.cuda.synchronize()
-    err = (got - want).abs()
-    ok = bool((err <= 1e-5 * scale + 1e-6).all())
-    label = f"f32 ({tuple(vals.shape)[0]},{vals.shape[1]},{vals.shape[2]}), path E"
-    ms = cuda_ms(lambda: seg_scan.run_bcast(vals, seg, "sum"), 50)
-    dev_ms = device_ms(lambda: seg_scan.run_bcast(vals, seg, "sum"), 50)
-    plain_ms = cuda_ms(lambda: seg_scan.run_bcast_plain(vals, seg, "sum"), 10)
-    bms, by = bound_ms(nbytes(vals, seg, got), vals.numel(), torch.float32)
-    print(f"K1 run_bcast sum {label}: {int(valid.sum())} valid points, max_abs_err="
-          f"{err.max().item():.3e} (|err| <= 1e-5 * run sum|x| + 1e-6); {ms:.4f} ms a call as "
-          f"the host issues them, {dev_ms:.4f} ms queued on the card, bound {bms:.5f} ms ({smi}) "
-          f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("K1 sum at path E's input disagrees with its plain version")
-    entries.append(dict(name=f"seg_scan.run_bcast sum {label}", route="cuda",
-                        source="com_tpu_torch/csrc/seg_scan.cu",
-                        replaces="com_tpu/ops/pallas/seg_scan.py:122",
-                        max_abs_err=err.max().item(), ms=ms, device_ms=dev_ms,
-                        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
-                        kernel="E:seg_scan"))
+    print(f"path E: {int(valid.sum())} valid points in K1's input")
+    check_k1_call(dev, entries, vals, seg, "sum", "path E", "E:seg_scan", smi)
 
 
 def e_decoded_candidates(net, cfg, meta, batch, dev):
@@ -4027,11 +3994,14 @@ def road_plane_tally(pc_range):
 
 def spread_multihead_scores(net):
     """``spread_anchor_scores`` for AnchorHeadMulti: each head's class bias
-    +4, its box weights x0.02."""
+    +4, its box weights x0.02 (each regression conv's, with
+    SEPARATE_REG_CONFIG)."""
     with torch.no_grad():
         for head in net.dense_head.rpn_heads:
             head.conv_cls.bias.add_(4.0)
-            head.conv_box.weight.mul_(0.02)
+            for conv in (head.conv_box.values() if isinstance(head.conv_box, torch.nn.ModuleDict)
+                         else (head.conv_box,)):
+                conv.weight.mul_(0.02)
     return net
 
 
@@ -5657,6 +5627,571 @@ def path_p(dev, smi, entries, calls, pc_range=None, points=POINTS, bg_points=120
     return out
 
 
+Q_DIR = REPO / "build" / "path_q"  # path Q's trees and CLI outputs, removed after the path
+Q_NUS_CONFIG = "configs/nuscenes_models/cbgs_dyn_pp_centerpoint.yaml"
+Q_MULTI_CONFIG = "configs/nuscenes_models/cbgs_pp_multihead.yaml"
+Q_V0075_CONFIG = "configs/nuscenes_models/cbgs_voxel0075_res3d_centerpoint.yaml"
+Q_V01_CONFIG = "configs/nuscenes_models/cbgs_voxel01_res3d_centerpoint.yaml"
+Q_LYFT_CONFIG = "configs/lyft_models/cbgs_second_multihead.yaml"
+Q_LYFT_NORES_CONFIG = "configs/lyft_models/cbgs_second-nores_multihead.yaml"
+Q_PANDASET_CONFIG = "configs/dataset_configs/pandaset_dataset.yaml"
+Q_SEED, Q_WORKERS, Q_BATCH = 22, 4, 4  # Q_BATCH: the YAMLs' BATCH_SIZE_PER_GPU
+Q_NUS_TRAIN, Q_LYFT_TRAIN, Q_VAL = 2, 8, 8  # 10 CBGS items / 8 frames: 2 steps; 2 val batches
+Q_SWEEP_POINTS = {"nuscenes": 34000, "lyft": 60000, "pandaset": 110000}
+Q_CONV = ((4, 256, 256, 64), (4, 128, 128, 128), (4, 64, 64, 256))  # K2's at the 512 x 512 grid
+EXPECT_Q_SERVING = {"seg_scan": 2, "conv3x3": 13, "nms": 6}  # a K4 a head group
+EXPECT_Q_TRAIN = {"seg_scan": 2, "seg_scan_bwd": 1, "conv3x3": 13, "conv3x3_dgrad": 13,
+                  "conv3x3_wgrad": 13, "stamp_gauss": 6}
+# the BEV backbone's 13, the heads' shared conv and each group's middle conv
+EXPECT_Q_MULTI_SERVING = {"seg_scan": 2, "conv3x3": 20, "nms": 1}
+EXPECT_Q_MULTI_TRAIN = {"seg_scan": 2, "seg_scan_bwd": 1, "conv3x3": 20, "conv3x3_dgrad": 20,
+                        "conv3x3_wgrad": 20}
+EXPECT_Q_VOXEL_SERVING = {"conv3x3": 11, "nms": 6}
+EXPECT_Q_VOXEL_TRAIN = {"conv3x3": 11, "conv3x3_dgrad": 11, "conv3x3_wgrad": 11,
+                        "stamp_gauss": 6}
+EXPECT_Q_LYFT_SERVING = {"conv3x3": 12, "nms": 1}  # SECOND's 11 and the heads' shared conv
+EXPECT_Q_LYFT_TRAIN = {"conv3x3": 12, "conv3x3_dgrad": 12, "conv3x3_wgrad": 12}
+
+
+def _short(t):
+    """A tensor's dtype and shape as the entries name them: f32 (4,262144,8)."""
+    dt = {torch.float32: "f32", torch.bfloat16: "bf16"}.get(t.dtype, str(t.dtype))
+    return f"{dt} ({','.join(map(str, t.shape))})"
+
+
+@contextlib.contextmanager
+def captured(module, name):
+    """Record each call's (args, kwargs) of ``module.name`` for the duration
+    (the callers look the name up at call time); yields the list."""
+    orig, calls = getattr(module, name), []
+
+    def wrapper(*args, **kw):
+        calls.append((args, kw))
+        return orig(*args, **kw)
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def check_k1_call(dev, entries, vals, seg, op, label, kernel, smi):
+    """K1 (``run_bcast``) on inputs a model gave it: the max bit-exact, the
+    sum to f32 rounding of a differently ordered sum; timed."""
+    from com_tpu_torch.ops import seg_scan
+
+    got = seg_scan.run_bcast(vals, seg, op)
+    want = seg_scan.run_bcast_plain(vals, seg, op)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    if op == "max":
+        ok, tol = torch.equal(got, want), "bit-exact"
+    else:
+        scale = seg_scan.run_bcast_plain(vals.float().abs(), seg, "sum")
+        ok, tol = bool((err <= 1e-5 * scale + 1e-6).all()), "|err| <= 1e-5 * run sum|x| + 1e-6"
+    ms = cuda_ms(lambda: seg_scan.run_bcast(vals, seg, op), 50)
+    dev_ms = device_ms(lambda: seg_scan.run_bcast(vals, seg, op), 50)
+    plain_ms = cuda_ms(lambda: seg_scan.run_bcast_plain(vals, seg, op), 10)
+    bms, by = bound_ms(nbytes(vals, seg, got), vals.numel(), torch.float32)
+    name = f"{_short(vals)}, {label}"
+    print(f"K1 run_bcast {op} {name}: max_abs_err={err.max().item():.3e} ({tol}); {ms:.4f} ms a "
+          f"call as the host issues them, {dev_ms:.4f} ms queued on the card, bound {bms:.5f} ms"
+          f"{f' ({smi})' if smi else ''} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"K1 {op} at {label} disagrees with its plain version")
+    entries.append(dict(name=f"seg_scan.run_bcast {op} {name}", route="cuda",
+                        source="com_tpu_torch/csrc/seg_scan.cu",
+                        replaces="com_tpu/ops/pallas/seg_scan.py:122",
+                        max_abs_err=err.max().item(), ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=by, library_ms=None, kernel=kernel))
+
+
+def check_k1_bwd_call(dev, entries, g, vals, out, seg, label, kernel, smi):
+    """K1's fused max backward on the (g, vals, out, seg) a train step gave
+    it, against ``run_bcast_max_bwd_plain``: f32 rounding of the split, and
+    for bf16 one rounding more; timed."""
+    from com_tpu_torch.ops import seg_scan
+
+    got = seg_scan.run_bcast_max_bwd(g, vals, out, seg)
+    want = seg_scan.run_bcast_max_bwd_plain(g, vals, out, seg)
+    torch.cuda.synchronize()
+    scale = seg_scan.run_bcast_plain(g.float().abs(), seg, "sum")
+    err = (got.float() - want.float()).abs()
+    rnd = 0.0 if g.dtype == torch.float32 else 2.0 ** -7
+    ok = bool((err <= 1e-5 * scale + rnd * want.float().abs() + 1e-6).all())
+    ms = cuda_ms(lambda: seg_scan.run_bcast_max_bwd(g, vals, out, seg), 50)
+    dev_ms = device_ms(lambda: seg_scan.run_bcast_max_bwd(g, vals, out, seg), 50)
+    plain_ms = cuda_ms(lambda: seg_scan.run_bcast_max_bwd_plain(g, vals, out, seg), 10)
+    bms, by = bound_ms(nbytes(g, vals, out, seg, got), 6 * g.numel(), torch.float32)
+    name = f"{_short(g)}, {label}"
+    print(f"K1 run_bcast max backward {name}: max_abs_err={err.max().item():.3e} (|err| <= "
+          f"1e-5 * run sum|g| + {rnd:g} * |plain| + 1e-6); {ms:.4f} ms a fused call as the host "
+          f"issues them, {dev_ms:.4f} ms queued on the card, bound {bms:.5f} ms ({smi}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"K1 backward at {label} disagrees with its plain version")
+    entries.append(dict(name=f"seg_scan.run_bcast max backward {name}", route="cuda",
+                        source="com_tpu_torch/csrc/seg_scan.cu",
+                        replaces="com_tpu/ops/pallas/seg_scan.py:284",
+                        max_abs_err=err.max().item(), ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=by, library_ms=None, kernel=kernel))
+
+
+def check_k3_call(dev, entries, calls, args, kw, label, kernel, smi):
+    """K3 (``stamp_windows``) on ``args`` / ``kw`` (the objects a train
+    step's targets gave it, or a synthetic case): gauss within 2e-6 of the
+    plain version, last_wins exact; timed; its call goes into ``calls`` (one
+    device kernel).  Returns K3's output."""
+    from com_tpu_torch.ops import gaussian, stamp
+
+    centers, radii, _, _, valid, c, h, w, mode = args[:9]
+    got = stamp.stamp_windows(*args, **kw)
+    want = stamp.stamp_windows_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    ok = err <= 2e-6 if mode == "gauss" else err == 0.0
+    calls.append((f"K3 stamp_windows {mode} ({h},{w})" + (f", {label}" if label else ""), 1,
+                  lambda: stamp.stamp_windows(*args, **kw)))
+    ms = cuda_ms(lambda: stamp.stamp_windows(*args, **kw), 50)
+    dev_ms = device_ms(lambda: stamp.stamp_windows(*args, **kw), 50)
+    plain_ms = cuda_ms(lambda: stamp.stamp_windows_plain(*args, **kw), 10)
+    r = radii.clamp(0, kw.get("max_radius", gaussian.MAX_STAMP_RADIUS))
+    cells = int((((2 * r + 1) ** 2) * valid).sum())
+    bms, by = bound_ms(nbytes(got, *(a for a in args[:5] if a is not None)),
+                       cells * (2 if mode == "gauss" else 1), torch.float32)
+    b = got.shape[0]
+    print(f"K3 stamp_windows {mode} ({b},{c},{h},{w}) {int(valid.sum())} objects in "
+          f"{valid.numel()} slots{', ' + label if label else ''}: max_abs_err={err:.3e} "
+          f"({'<= 2e-6' if mode == 'gauss' else 'exact'}); {ms:.4f} ms a call as the host issues "
+          f"them, {dev_ms:.4f} ms queued on the card{f' ({smi})' if smi else ''} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"K3 {mode} {label} disagrees with its plain version")
+    entries.append(dict(name=f"stamp.stamp_windows {mode} ({b},{c},{h},{w}) {valid.shape[1]} "
+                             f"slots" + (f", {label}" if label else ""), route="cuda",
+                        source="com_tpu_torch/csrc/stamp.cu",
+                        replaces="com_tpu/ops/pallas/stamp.py:137", max_abs_err=err, ms=ms,
+                        device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                        library_ms=None, kernel=kernel))
+    return got
+
+
+def q_small_case(which, root, seed=0):
+    """Q.1's small cases, the YAML at its own width over a small tree written
+    from ``seed`` under ``root`` (the key frame and its sweeps of 2,000
+    points), f32, batch 2 from the port's loader (one thread): "nuscenes",
+    ``Q_NUS_CONFIG`` at 64 x 64 x 1 (1.6 m pillars over its range), 2 train
+    and 2 val frames; "lyft", ``Q_LYFT_CONFIG`` at 64 x 64 x 40 (2.5 x 2.5 x
+    0.2 m voxels, 8,192 voxel slots and backbone caps), 4 train and 2 val
+    frames.  Returns (cfg, meta, the val batch, a train batch's arrays the
+    train step reads)."""
+    from com_tpu_torch.data import build_dataloader
+    from com_tpu_torch.tools.dataset_trees import write_lyft_tree, write_nuscenes_tree
+    from com_tpu_torch.tools.train import dataset_meta
+    from com_tpu_torch.train.step import device_batch_keys
+
+    if which == "nuscenes":
+        write_nuscenes_tree(root, seed=seed, num_train=2, num_val=2, num_points=2000)
+        cfg = l_cfg(Q_NUS_CONFIG, root, ("DATA_CONFIG.DATA_PROCESSOR.2.VOXEL_SIZE",
+                                         "[1.6, 1.6, 8.0]"))
+    else:
+        write_lyft_tree(root, seed=seed, num_train=4, num_val=2, num_points=2000)
+        cfg = l_cfg(Q_LYFT_CONFIG, root, (
+            "DATA_CONFIG.DATA_PROCESSOR.2.VOXEL_SIZE", "[2.5, 2.5, 0.2]",
+            "DATA_CONFIG.DATA_PROCESSOR.2.MAX_NUMBER_OF_VOXELS.train", "8192",
+            "DATA_CONFIG.DATA_PROCESSOR.2.MAX_NUMBER_OF_VOXELS.test", "8192",
+            "MODEL.BACKBONE_3D.VOXEL_CAPS", "[8192, 8192, 4096, 2048]"))
+    cfg.MODEL.MIXED_PRECISION = False
+    names = list(cfg.CLASS_NAMES)
+    out = []
+    for training in (False, True):
+        dataset, loader = build_dataloader(cfg.DATA_CONFIG, names, 2, training=training,
+                                           workers=1, seed=seed)
+        out.append(next(iter(loader)))
+    train = {k: out[1][k] for k in device_batch_keys(cfg.MODEL)}
+    return cfg, dataset_meta(cfg, dataset), out[0], train
+
+
+def q1_small_references(dev):
+    """Q.1: ``q_small_case`` on the card against the CPU (plain versions),
+    the same seeded weights with every norm's bias +3: the nuScenes
+    CenterPoint-pillar eval step (heatmaps spread, ``spread_center_scores``)
+    and one train step (within the tolerances or twice either device's own
+    difference with the scenes swapped: the pillar VFE over ~20,000 points a
+    scene); the Lyft SECOND-multihead eval step (``spread_multihead_
+    scores``)."""
+    import tempfile
+
+    Q_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=Q_DIR) as tmp:
+        cfg, meta, val, train = q_small_case("nuscenes", Path(tmp) / "nuscenes")
+        label = "path Q.1 small reference (nuScenes CenterPoint-pillar, f32, 64x64x1"
+        compare_eval_step(dev, cfg, meta, val, f"{label}, eval step, card vs CPU)",
+                          prepare=lambda net: spread_center_scores(shift_norm_biases(net)))
+        compare_train_step(dev, cfg, meta, train, f"{label}, train step, card vs CPU)",
+                           counts_confidences=False, own_noise=True)
+        cfg, meta, val, _ = q_small_case("lyft", Path(tmp) / "lyft")
+        compare_eval_step(dev, cfg, meta, val, "path Q.1 small reference (Lyft SECOND-multihead, "
+                          "f32, 64x64x40, eval step, card vs CPU)",
+                          prepare=lambda net: spread_multihead_scores(shift_norm_biases(net)))
+
+
+def q_loader(cfg, training):
+    """(dataset, loader, meta) of ``cfg``'s DATA_CONFIG at batch Q_BATCH."""
+    from com_tpu_torch.data import build_dataloader
+    from com_tpu_torch.tools.train import dataset_meta
+
+    dataset, loader = build_dataloader(cfg.DATA_CONFIG, list(cfg.CLASS_NAMES), Q_BATCH,
+                                       training=training, workers=Q_WORKERS, seed=Q_SEED)
+    return dataset, loader, dataset_meta(cfg, dataset)
+
+
+def q_serve(dev, smi, label, cfg, meta, batches, expect, spread, runs=None):
+    """``make_eval_step`` over ``batches`` (``runs``: their order, default
+    each once) after a warm-up: latency a batch, peak memory, launches a
+    forward, finite detections above the score threshold with labels in
+    range.  Returns (net, step, launch counts, the outputs)."""
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.train.eval import make_eval_step
+
+    names = list(cfg.CLASS_NAMES)
+    net = spread(build_network(cfg.MODEL, meta, device=dev, seed=0))
+    step = make_eval_step(net, cfg.MODEL, names, meta, device=dev)
+    step(batches[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    runs = runs or list(range(len(batches)))
+    latencies, outs = [], []
+    for i in runs:
+        t0 = time.perf_counter()
+        outs.append([t.cpu().numpy() for t in step(batches[i])])
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    post = cfg.MODEL.get("POST_PROCESSING", {})
+    thresh = float(cfg.MODEL.DENSE_HEAD.get("POST_PROCESSING", post).get("SCORE_THRESH", 0.1))
+    ok = all(bool(v.any(1).all()) and np.isfinite(b[v]).all() and (s[v] >= thresh).all()
+             and np.isin(lab[v], np.arange(1, len(names) + 1)).all() for b, s, lab, v in outs)
+    shown = sorted({int(x) for _, _, lab, v in outs for x in lab[v]})
+    print(f"path {label} serving ({tuple(meta.grid_size)} grid, batch "
+          f"{len(batches[0]['frame_id'])} of the tree's val frames): latency ms "
+          f"{[round(x, 2) for x in latencies]} (host clock, outputs copied back), detections a "
+          f"batch {[int(o[3].sum()) for o in outs]}, labels {shown}, max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB ({smi}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"path {label}: malformed detections")
+    check_launches(f"{label} serving forward", counts, expect, len(runs))
+    return net, step, counts, outs
+
+
+def q_train(dev, smi, label, cfg, meta, loader, steps, expect, terms=()):
+    """``train_model`` over ``loader`` for ``steps`` steps (one mini-epoch),
+    with the main thread's wait for each batch (host clock from a step's
+    end to the next one's start).  Returns the launch counts."""
+    waits, last = [], {"t": None}
+
+    def step_wrap(step):
+        def wrapped(state, batch, epoch):
+            t = time.perf_counter()
+            if last["t"] is not None:
+                waits.append(t - last["t"])
+            out = step(state, batch, epoch)
+            last["t"] = time.perf_counter()
+            return out
+        return wrapped
+
+    counts, _, _ = run_training(dev, label, cfg, meta, loader, 1, steps, expect,
+                                step_wrap=step_wrap, counts_confidences=False, smi=smi,
+                                terms=terms)
+    if waits:
+        print(f"  {label}: the main thread's wait for a batch (host clock between steps) ms "
+              f"{[round(1e3 * x, 3) for x in waits]}")
+    return counts
+
+
+def q2_centerpoint(dev, smi, entries, calls, tree, extra_set=()):
+    """Q.2: ``Q_NUS_CONFIG`` at full width from the nuScenes tree: three
+    serving batches of 4 val frames and the eval step's stages; K1's sum
+    and max at the VFE's inputs of a serving forward, K4 at each head
+    group's (4, 500) candidates; K2, dgrad and K2w at the BEV backbone's
+    shapes; K1's max backward and K3 at each group's targets from one train
+    step; the host pipeline's own rate over the train split; 2 steps of
+    ``train_model`` over the port's loader (CBGS, GT sampling, world
+    augmentations).  Returns (serving counts, train counts, the serving
+    det_annos' evaluation input)."""
+    from com_tpu_torch.models import vfe as vfe_mod
+    from com_tpu_torch.ops import nms, seg_scan, stamp
+    from com_tpu_torch.train.eval import eval_model
+    from com_tpu_torch.train.step import device_batch_keys
+
+    cfg = l_cfg(Q_NUS_CONFIG, tree, extra_set)
+    names = list(cfg.CLASS_NAMES)
+    dataset, loader, meta = q_loader(cfg, False)
+    t0 = time.perf_counter()
+    val = list(loader)
+    print(f"path Q.2 val loader: {len(val)} batches of {Q_BATCH} in "
+          f"{time.perf_counter() - t0:.2f} s; real points a scene "
+          f"{[int(m.sum()) for b in val for m in b['points_mask']]} of "
+          f"{val[0]['points'].shape[1]} slots")
+    net, step, serve_counts, outs = q_serve(dev, smi, "Q.2 (nuScenes CenterPoint-pillar)", cfg,
+                                            meta, val, EXPECT_Q_SERVING, spread_center_scores,
+                                            runs=[0, 1, 0])
+    stage_breakdown(net, step, val[0], "path Q.2 ", iters=3, smi=smi)
+    annos, _, sec = eval_model(step, val, names)
+    with captured(vfe_mod, "run_bcast") as k1, captured(nms, "greedy_suppress") as k4:
+        step(val[0])
+    torch.cuda.synchronize()
+    for (vals, seg, op), _ in k1:
+        check_k1_call(dev, entries, vals, seg, op, "path Q.2's VFE", "Q:seg_scan", smi)
+    sizes = [int(a[1].sum()) for a, _ in k4]
+    print(f"path Q.2 K4 calls a forward: {len(k4)} of shape {tuple(k4[0][0][0].shape)}, valid "
+          f"candidates a group {sizes}")
+    big = max(range(len(k4)), key=sizes.__getitem__)
+    for i in sorted({0, big}):
+        over, sv = k4[i][0]
+        check_k4_cases(dev, entries, calls, over, sv, smi, f", path Q.2 head group {i}",
+                       "Q:nms", iters=50)
+    del net, step, k1, k4
+    torch.cuda.empty_cache()
+    check_conv3x3(dev, entries, shapes=Q_CONV, dtypes=(torch.bfloat16,), path="Q:")
+    check_conv3x3_backward(dev, entries, shapes=Q_CONV, wgrad_dtypes=(torch.bfloat16,),
+                           path="Q:")
+    torch.cuda.empty_cache()
+    train_ds, train_loader, _ = q_loader(cfg, True)
+    rate_loader = q_loader(cfg, True)[1]
+    n, t0 = 0, time.perf_counter()
+    for epoch in range(3):  # an epoch is 2 batches: each epoch's workers start cold
+        rate_loader.set_epoch(epoch)
+        n += sum(1 for _ in rate_loader)
+    rate = Q_BATCH * n / (time.perf_counter() - t0)
+    print(f"path Q.2 host pipeline alone (CBGS: {len(train_ds)} items of {Q_NUS_TRAIN} train "
+          f"frames; GT sampling, flip, rotation, scaling, range mask, shuffle, voxels): "
+          f"{rate:.3f} scenes/s with {Q_WORKERS} workers ({n} batches over 3 epochs, host clock "
+          f"from the first request)")
+    # one step's K1 backward and K3 calls, captured outside the counted run
+    first = next(iter(train_loader))
+    _, _, state, tstep = build_trainer(dev, cfg, meta, 1)
+    keys = device_batch_keys(cfg.MODEL)
+    with captured(seg_scan, "run_bcast_max_bwd") as bwd, captured(stamp, "stamp_windows") as k3:
+        tstep.loss_fn(state, {k: first[k] for k in keys}, 0)[0].backward()
+    torch.cuda.synchronize()
+    for (g, vals, out, seg), _ in bwd:
+        check_k1_bwd_call(dev, entries, g, vals, out, seg, "path Q.2's VFE", "Q:seg_scan_bwd",
+                          smi)
+    print(f"path Q.2 K3 calls a step: {len(k3)}, (B, C, H, W) "
+          f"{[(a[0].shape[0], a[5], a[6], a[7]) for a, _ in k3]}")
+    for i in sorted({0, len(k3) - 1}):
+        check_k3_call(dev, entries, calls, *k3[i], f"path Q.2 head group {i}", "Q:stamp_gauss",
+                      smi)
+    del state, tstep, bwd, k3
+    torch.cuda.empty_cache()
+    steps = len(train_loader)
+    train_counts = q_train(dev, smi, "Q.2 (nuScenes CenterPoint-pillar, the port's loader)", cfg,
+                           meta, train_loader, steps, EXPECT_Q_TRAIN,
+                           terms=tuple(f"hm_loss_head_{i}" for i in range(6)))
+    return serve_counts, train_counts, (dataset, annos, sec)
+
+
+def q3_configs(dev, smi, entries, calls, nus_tree, lyft_tree, sets=None):
+    """Q.3: ``cbgs_pp_multihead`` (2 serving batches, a step), ``cbgs_voxel0075_
+    res3d_centerpoint`` (2 and a step), ``cbgs_voxel01_res3d_centerpoint`` (1)
+    on the nuScenes tree; Lyft ``cbgs_second_multihead`` (2 serving batches
+    and their stages, K4 on its nine-class candidates, a step, the
+    ``lyft_eval`` mAP table of its val frames) and ``cbgs_second-nores_
+    multihead`` (1) on the Lyft tree.  Returns the Lyft serving counts."""
+    from com_tpu_torch.train.eval import eval_model
+
+    sets = sets or {}
+    plan = (
+        ("Q.3 (nuScenes PointPillars-multihead)", Q_MULTI_CONFIG, nus_tree,
+         EXPECT_Q_MULTI_SERVING, EXPECT_Q_MULTI_TRAIN, spread_multihead_scores, 2, True),
+        ("Q.3 (nuScenes CenterPoint voxel0075)", Q_V0075_CONFIG, nus_tree,
+         EXPECT_Q_VOXEL_SERVING, EXPECT_Q_VOXEL_TRAIN, spread_center_scores, 2, True),
+        ("Q.3 (nuScenes CenterPoint voxel01)", Q_V01_CONFIG, nus_tree,
+         EXPECT_Q_VOXEL_SERVING, None, spread_center_scores, 1, False),
+        ("Q.3 (Lyft SECOND-multihead)", Q_LYFT_CONFIG, lyft_tree,
+         EXPECT_Q_LYFT_SERVING, EXPECT_Q_LYFT_TRAIN, spread_multihead_scores, 2, True),
+        ("Q.3 (Lyft SECOND-multihead, no res)", Q_LYFT_NORES_CONFIG, lyft_tree,
+         EXPECT_Q_LYFT_SERVING, None, spread_multihead_scores, 1, False))
+    lyft_counts = None
+    for label, config, tree, expect, expect_train, spread, serve_n, train in plan:
+        cfg = l_cfg(config, tree, sets.get(config, ()))
+        names = list(cfg.CLASS_NAMES)
+        dataset, loader, meta = q_loader(cfg, False)
+        val = [b for _, b in zip(range(serve_n), loader)]
+        net, step, counts, _ = q_serve(dev, smi, label, cfg, meta, val, expect, spread)
+        if config == Q_LYFT_CONFIG:
+            lyft_counts = counts
+            stage_breakdown(net, step, val[0], "path Q.3 Lyft ", iters=3, smi=smi)
+            over, sv = e_decoded_candidates(net, cfg, meta, val[0], dev)
+            check_k4_cases(dev, entries, calls, over, sv, smi, ", path Q.3 Lyft (nine-class)",
+                           "Q3:nms", iters=20)
+            del over, sv
+            annos, _, sec = eval_model(step, val, names)
+            text, res = dataset.evaluation(annos, names, eval_metric="lyft")
+            ok = set(res) == {*names, "mAP"} and all(np.isfinite(v) for v in res.values())
+            print(f"path Q.3 Lyft mAP (lyft_eval over EVAL_LYFT_IOU_LIST) of {len(annos)} val "
+                  f"frames, seeded weights ({sec:.4f} s a frame through eval_model) "
+                  f"{'ok' if ok else 'FAIL'}:\n    " + text.strip().replace("\n", "\n    "))
+            if not ok:
+                raise AssertionError("path Q.3: the Lyft evaluation is malformed")
+        del net, step
+        torch.cuda.empty_cache()
+        if train:
+            _, train_loader, _ = q_loader(cfg, True)
+            q_train(dev, smi, f"{label}, one step", cfg, meta,
+                    SyntheticLoader([next(iter(train_loader))], 1), 1, expect_train)
+            torch.cuda.empty_cache()
+    return lyft_counts
+
+
+def q4_clis(dev, smi, nus_tree, lyft_tree, sets=None):
+    """Q.4: the train CLI (1 epoch: 2 steps) and the test CLI (the 8 val
+    frames) of ``Q_NUS_CONFIG`` on the nuScenes tree and of
+    ``Q_LYFT_CONFIG`` on the Lyft tree, as ``com_tpu``'s CLIs run them."""
+    from com_tpu_torch.tools import test, train
+
+    _quiet_cli_logger()
+    sets = sets or {}
+    for config, tree, expect_train, expect_serve in (
+            (Q_NUS_CONFIG, nus_tree, EXPECT_Q_TRAIN, EXPECT_Q_SERVING),
+            (Q_LYFT_CONFIG, lyft_tree, EXPECT_Q_LYFT_TRAIN, EXPECT_Q_LYFT_SERVING)):
+        stem = Path(config).stem
+        cfg = l_cfg(config, tree, sets.get(config, ()))
+        base = ["--cfg_file", str(REPO / config), "--output_dir", str(Q_DIR / "out"),
+                "--workers", str(Q_WORKERS), "--device", str(dev)]
+        data = ["--set", "DATA_CONFIG.DATA_PATH", str(tree), *sets.get(config, ())]
+        reset_counters()
+        t0 = time.perf_counter()
+        first = train.main(base + ["--epochs", "1", "--seed", str(Q_SEED)] + data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = first["iterations"]
+        check_launches(f"Q.4 {stem} train step (CLI)", read_counters(), expect_train, steps)
+        ckpt = first["ckpt_dir"] / "checkpoint_epoch_1.pth"
+        ok = steps == 2 and ckpt.exists()
+        print(f"path Q.4 train CLI ({stem}, batch {Q_BATCH}): {steps} steps, {wall:.2f} s wall "
+              f"(dataset, model and loader included) ({smi}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"path Q.4: the {stem} train CLI failed its checks")
+        del first
+        torch.cuda.empty_cache()
+        reset_counters()
+        (res,) = test.main(base + ["--ckpt", str(ckpt), "--infer_time"] + data)
+        torch.cuda.synchronize()
+        annos = res["det_annos"]
+        check_launches(f"Q.4 {stem} eval forward (test CLI)", read_counters(), expect_serve,
+                       res["infer_batches"] + 1 + -(-len(annos) // Q_BATCH))
+        ok = (len(annos) == Q_VAL and all(np.isfinite(a["boxes_lidar"]).all()
+                                          and (np.diff(a["score"]) <= 0).all() for a in annos)
+              and bool(res["result_str"]))
+        print(f"path Q.4 test CLI ({stem}): {len(annos)} val frames, detections a frame "
+              f"{[len(a['score']) for a in annos]}, {res['sec_per_frame']:.4f} s a frame, "
+              f"--infer_time {res['infer_ms_per_frame']:.3f} ms a frame ({smi}) "
+              f"{'ok' if ok else 'FAIL'}; EVAL_METRIC {cfg.MODEL.POST_PROCESSING.EVAL_METRIC}:\n"
+              "    " + res["result_str"].strip().replace("\n", "\n    "))
+        if not ok:
+            raise AssertionError(f"path Q.4: the {stem} test CLI failed its checks")
+        torch.cuda.empty_cache()
+
+
+def q4_loaders(smi, nus_tree, lyft_tree, panda_tree, sets=None):
+    """Q.4: the host loader of the three datasets, training mode under
+    their configs' DATA_CONFIG (``Q_PANDASET_CONFIG`` alone for Pandaset, its
+    training categories as classes): scenes/s on one thread (each
+    augmentation's ms a scene) and through Q_WORKERS loader threads, 8
+    scenes each (host clock)."""
+    from com_tpu_torch.data import build_dataloader
+    from com_tpu_torch.utils.config import cfg_from_list, cfg_from_yaml_file
+
+    sets = sets or {}
+    for label, config, tree in (("nuScenes", Q_NUS_CONFIG, nus_tree),
+                                ("Lyft", Q_LYFT_CONFIG, lyft_tree),
+                                ("Pandaset (pre-extracted)", Q_PANDASET_CONFIG, panda_tree)):
+        if config == Q_PANDASET_CONFIG:
+            ds_cfg = cfg_from_yaml_file(str(REPO / config))
+            cfg_from_list(["DATA_PATH", str(tree), *sets.get(config, ())], ds_cfg)
+            names = sorted(set(ds_cfg.TRAINING_CATEGORIES.values()))
+        else:
+            cfg = l_cfg(config, tree, sets.get(config, ()))
+            ds_cfg, names = cfg.DATA_CONFIG, list(cfg.CLASS_NAMES)
+        dataset, loader = build_dataloader(ds_cfg, names, Q_BATCH, training=True,
+                                           workers=Q_WORKERS, seed=Q_SEED)
+        times = timed_queue(dataset.data_augmentor, ds_cfg.DATA_AUGMENTOR)
+        n = min(8, len(dataset))
+        t0 = time.perf_counter()
+        pts = [dataset[i]["points"].shape[0] for i in range(n)]
+        one = n / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        got = sum(b["batch_size"] for _, b in zip(range(-(-n // Q_BATCH)), loader))
+        threaded = got / (time.perf_counter() - t0)
+        ms = {k: round(1e3 * float(np.mean(v)), 3) for k, v in times.items() if v}
+        print(f"path Q.4 host loader {label}: {one:.2f} scenes/s on one thread ({n} scenes of "
+              f"{min(pts)}-{max(pts)} points after the pipeline), {threaded:.2f} scenes/s through "
+              f"{Q_WORKERS} loader threads ({got} scenes, batch {Q_BATCH}); ms a scene a step: "
+              f"{json.dumps(ms)} ({smi})")
+
+
+def path_q(dev, smi, entries, calls, points=None, sets=None):
+    """Path Q, the nuScenes, Lyft and Pandaset datasets: Q.1 the small f32
+    references, card against CPU; the trees written from Q_SEED under
+    Q_DIR (nuScenes: 2 train and 8 val frames, each a key frame and 9
+    sweeps of 34,000 points; Lyft: 8 and 8, a key frame and 4 sweeps of
+    60,000; Pandaset pre-extracted: 8 and 2 frames of 110,000); Q.2
+    ``cbgs_dyn_pp_centerpoint`` at full width (``q2_centerpoint``); Q.3 the
+    other five configs (``q3_configs``); Q.4 the CLIs and the loaders.
+    Returns the launch counts its kernel entries report: Q.2's steps (K1,
+    its backward, K2, dgrad, K2w, K3) and serving forwards (K4), Q.3
+    Lyft's serving (K4).  ``points`` ({kind: points a sweep or frame}) and
+    ``sets`` ({config: ``--set`` pairs}) are for rehearsals."""
+    import shutil
+
+    from com_tpu_torch.tools.dataset_trees import (write_lyft_tree, write_nuscenes_tree,
+                                                   write_pandaset_tree)
+
+    points = {**Q_SWEEP_POINTS, **(points or {})}
+    sets = sets or {}
+    shutil.rmtree(Q_DIR, ignore_errors=True)
+    Q_DIR.mkdir(parents=True)
+    start = time.perf_counter()
+    try:
+        q1_small_references(dev)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        nus = write_nuscenes_tree(Q_DIR / "nuscenes", seed=Q_SEED, num_train=Q_NUS_TRAIN,
+                                  num_val=Q_VAL, num_points=points["nuscenes"])
+        lyft = write_lyft_tree(Q_DIR / "lyft", seed=Q_SEED, num_train=Q_LYFT_TRAIN,
+                               num_val=Q_VAL, num_points=points["lyft"])
+        write_pandaset_tree(Q_DIR / "pandaset", seed=Q_SEED, num_train=8, num_val=2,
+                            num_points=points["pandaset"])
+        print(f"path Q: trees written in {time.perf_counter() - t0:.1f} s: nuScenes GT database "
+              f"{json.dumps(nus['db'])}; Lyft {json.dumps(lyft['db'])}")
+        nus_tree, lyft_tree = Q_DIR / "nuscenes", Q_DIR / "lyft"
+        serve_counts, train_counts, (nus_ds, annos, sec) = q2_centerpoint(
+            dev, smi, entries, calls, nus_tree, sets.get(Q_NUS_CONFIG, ()))
+        names = list(nus_ds.class_names)
+        text, res = nus_ds.evaluation(annos, names)
+        ok = set(res) == {f"{c}_{m}" for c in names for m in ("bev", "3d")}
+        print(f"path Q.2 nuScenes evaluation of {len(annos)} val frames (no devkit: the KITTI-"
+              f"style fallback), seeded weights ({sec:.4f} s a frame through eval_model) "
+              f"{'ok' if ok else 'FAIL'}:\n    " + text.strip().replace("\n", "\n    "))
+        if not ok:
+            raise AssertionError("path Q.2: the nuScenes evaluation is malformed")
+        torch.cuda.empty_cache()
+        lyft_counts = q3_configs(dev, smi, entries, calls, nus_tree, lyft_tree, sets)
+        torch.cuda.empty_cache()
+        q4_clis(dev, smi, nus_tree, lyft_tree, sets)
+        torch.cuda.empty_cache()
+        q4_loaders(smi, nus_tree, lyft_tree, Q_DIR / "pandaset", sets)
+        print(f"path Q: {time.perf_counter() - start:.1f} s wall in all")
+    finally:
+        shutil.rmtree(Q_DIR, ignore_errors=True)
+    return {**{f"Q:{k}": v for k, v in train_counts.items()}, "Q:nms": serve_counts["nms"],
+            "Q3:nms": lyft_counts["nms"]}
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5721,6 +6256,8 @@ def main():
     o_serve_counts, o_train_counts = path_o(dev, smi, entries, calls)
     torch.cuda.empty_cache()
     p_counts = path_p(dev, smi, entries, calls)
+    torch.cuda.empty_cache()
+    q_counts = path_q(dev, smi, entries, calls)
     # each kernel's launches on the path that runs it: training path A,
     # serving for K4, path B for K3's last_wins mode, the sweep for T1-T4;
     # paths E, F, G and J's shapes: their training, and their serving for
@@ -5730,7 +6267,9 @@ def main():
     # its 2 steps; path O's: its 2 steps, and its serving for K4 (its train
     # proposals: the steps); path P's: P.2's 2 steps (K2, dgrad, K2w, K3, its
     # train proposals' K4) and serving (K4 twice a forward), P.3's serving
-    # and P.4's stream for their final NMS
+    # and P.4's stream for their final NMS; path Q's: Q.2's 2 steps (K1, its
+    # backward, K2, dgrad, K2w, K3) and serving (K4 six times a forward), Q.3
+    # Lyft's serving (K4)
     counts = {**a_counts, "nms": serve_counts["nms"],
               "stamp_last_wins": b_counts["stamp_last_wins"],
               **{f"wgrad_{v}": sweep_counts[f"wgrad_{v}"] for v in WGRAD_VARIANTS},
@@ -5745,7 +6284,8 @@ def main():
               "O:nms_train": o_train_counts["nms"],
               **{f"P:{k}": v for k, v in p_counts["train"].items()},
               "P:nms": p_counts["serve"]["nms"], "P:nms_train": p_counts["train"]["nms"],
-              "P:nms_pv": p_counts["pv_serve"]["nms"], "P:nms_mpp": p_counts["mpp"]["nms"]}
+              "P:nms_pv": p_counts["pv_serve"]["nms"], "P:nms_mpp": p_counts["mpp"]["nms"],
+              **q_counts}
     if not profile:
         check_device_kernels(calls)
     for e in entries:

@@ -80,6 +80,12 @@ class DatasetTemplate:
         self.max_gt = int(dataset_cfg.get("MAX_GT_OBJECTS", 500))
         self.epoch = 0
 
+    @property
+    def mode(self):
+        """The split selector of ``INFO_PATH`` and ``DATA_SPLIT``: 'train' or
+        'test' (pcdet dataset.py:60-62)."""
+        return "train" if self.training else "test"
+
     def __len__(self):
         raise NotImplementedError
 

@@ -265,8 +265,21 @@ RAISES = {"configs/kitti_models/CaDDN.yaml": (NotImplementedError, "CaDDN"),
 
 def test_shipped_config_census():
     """49 configs ship under ``configs/`` (dataset configs aside): 44 build,
-    4 raise NotImplementedError by name, 1 a RuntimeError."""
+    4 raise NotImplementedError by name, 1 a RuntimeError.  The port
+    registers every one's DATA_CONFIG.DATASET (KITTI, custom, synthetic,
+    Waymo, nuScenes, Lyft), so all 44 that build have their data side too
+    (38 before the nuScenes and Lyft datasets)."""
+    import com_tpu_torch.data  # noqa: F401  (registers the datasets)
+    from com_tpu_torch.utils.config import cfg_from_yaml_file
+    from com_tpu_torch.utils.registry import DATASETS
+
     assert len(SHIPPED) == 49 and set(RAISES) <= set(SHIPPED)
+    datasets = {c: cfg_from_yaml_file(str(REPO / c)).DATA_CONFIG.DATASET for c in SHIPPED}
+    registered = {c for c, d in datasets.items() if d in DATASETS}
+    assert registered == set(SHIPPED)
+    assert len(registered - set(RAISES)) == 44
+    assert sum(datasets[c] in ("NuScenesDataset", "LyftDataset")
+               for c in registered - set(RAISES)) == 6
 
 
 @pytest.mark.parametrize("config", SHIPPED)

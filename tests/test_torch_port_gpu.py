@@ -1464,3 +1464,70 @@ def test_data_parallel_step_on_card_matches_one_process(dev, tmp_path):
                                    atol=1e-6, err_msg=k)
     for k in ("k1", "k1_bwd", "k2", "k2_dgrad", "k2w", "k3"):
         assert got[f"launches/{k}"] > 0 and got[f"launches/{k}"] == one["launches"][k], k
+
+
+def test_nuscenes_centerpoint_eval_step_matches_cpu(dev, tmp_path):
+    """``nuscenes_models/cbgs_dyn_pp_centerpoint.yaml`` at its width on a
+    64 x 64 x 1 grid in f32, fed by the port's loader from a seeded nuScenes
+    tree (``chip_smoke.q_small_case``): the card (K1's sum and max in the
+    pillar VFE, K2 in the BEV backbone, K4 once a head group) against the
+    CPU, the same seeded weights, norm biases +3 and the heatmaps spread:
+    the detections to 1e-3."""
+    from chip_smoke import (check_detections, q_small_case, shift_norm_biases,
+                            spread_center_scores)
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.train.eval import make_eval_step
+
+    cfg, meta, batch, _ = q_small_case("nuscenes", tmp_path, seed=5)
+    outs = []
+    for d in (dev, "cpu"):
+        net = spread_center_scores(shift_norm_biases(build_network(cfg.MODEL, meta, device=d,
+                                                                   seed=6)))
+        before = (seg_scan.launches, conv2d.launches, nms.launches)
+        outs.append([t.cpu().numpy() for t in make_eval_step(
+            net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=d)(batch)])
+        ran = tuple(a - b for a, b in zip((seg_scan.launches, conv2d.launches, nms.launches),
+                                          before))
+        assert ran == ((2, 13, 6) if d == dev else (0, 0, 0))
+    assert outs[1][3].sum() > 100
+    check_detections("nuScenes CenterPoint-pillar eval step, card vs CPU", *outs)
+
+
+def test_k1_at_the_nuscenes_vfe_shape(dev):
+    """K1 at the nuScenes pillar VFE's shapes, (4, 262144, C) over a 512 x 512
+    grid of 0.2 m pillars, points denser near the sensor: the cluster sum
+    (f32, 8 channels), the max (bf16, 32) and its fused backward, against
+    the plain versions; one launch each."""
+    from com_tpu_torch.ops.voxelize import point_voxel_ids
+
+    rng = np.random.RandomState(41)
+    b, n = 4, 262144
+    r = 1.0 + 47.0 * rng.rand(b, n) ** 2
+    az = rng.uniform(-np.pi, np.pi, (b, n))
+    xyz = np.stack([r * np.cos(az), r * np.sin(az), rng.uniform(-2.0, 1.0, (b, n))], -1)
+    pts = torch.from_numpy(xyz.astype(np.float32)).to(dev)
+    flat, _ = point_voxel_ids(pts, (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0), (0.2, 0.2, 8.0),
+                              (512, 512, 1))
+    seg, order = torch.sort(flat, dim=1)
+    seg = seg.contiguous()
+    sxyz = torch.gather(pts, 1, order[..., None].expand(-1, -1, 3))
+    vals = torch.cat([sxyz, torch.ones_like(sxyz[..., :1]), torch.zeros_like(sxyz),
+                      torch.zeros_like(sxyz[..., :1])], -1).contiguous()
+    before = seg_scan.launches
+    got = seg_scan.run_bcast(vals, seg, "sum")
+    assert seg_scan.launches == before + 1
+    want = seg_scan.run_bcast_plain(vals, seg, "sum")
+    scale = seg_scan.run_bcast_plain(vals.abs(), seg, "sum")
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+    gen = torch.Generator(device=dev).manual_seed(42)
+    x = ((torch.randn((b, n, 32), device=dev, generator=gen) * 2).round() / 2).to(torch.bfloat16)
+    assert torch.equal(seg_scan.run_bcast(x, seg, "max"), seg_scan.run_bcast_plain(x, seg, "max"))
+    g = torch.randn((b, n, 32), device=dev, generator=gen).to(torch.bfloat16)
+    out = seg_scan.run_bcast_plain(x, seg, "max")
+    before = seg_scan.bwd_launches
+    got = seg_scan.run_bcast_max_bwd(g, x, out, seg)
+    assert seg_scan.bwd_launches == before + 1
+    want = seg_scan.run_bcast_max_bwd_plain(g, x, out, seg)
+    scale = seg_scan.run_bcast_plain(g.float().abs(), seg, "sum")
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= 1e-5 * scale + 2.0 ** -7 * want.float().abs() + 1e-6).all())

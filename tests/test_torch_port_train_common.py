@@ -73,12 +73,13 @@ def run_slice(ucl: bool, epoch: int = 0):
     return run_step_pair(cfg, meta, host, ("points", "points_mask"), epoch)
 
 
-def run_step_pair(cfg, meta, host, input_keys, epoch=0, seed=2):
+def run_step_pair(cfg, meta, host, input_keys, epoch=0, seed=2, probes=()):
     """The JAX loss, gradients and optax update against the port's
     ``loss_fn`` + backward and a whole ``train_step``, from the same
     perturbed start (``perturb(seed)``, the curriculum EMA away from zero);
-    ``input_keys`` are the model's inputs in ``host`` (for the JAX init)."""
-    j = jax_step(cfg, meta, host, input_keys, epoch, seed)
+    ``input_keys`` are the model's inputs in ``host`` (for the JAX init);
+    ``probes`` as ``jax_step``'s."""
+    j = jax_step(cfg, meta, host, input_keys, epoch, seed, probes=probes)
     net, state, step = port_start(cfg, meta, j["variables"], j["jcur"])
     start = copy.deepcopy(net.state_dict())
     loss, new_cur, aux, tb = step.loss_fn(state, host, epoch)
@@ -109,18 +110,29 @@ def jax_value_and_grad(loss_fn, variables, host, mesh=None):
     return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(*args)
 
 
-def jax_step(cfg, meta, host, input_keys, epoch=0, seed=2, mesh=None):
+def jax_value_and_grad_many(loss_fn, variables, hosts):
+    """``jax_value_and_grad`` on one device over each batch of ``hosts``
+    through one jitted function (compiled once for batches of one shape)."""
+    fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    return [fn(variables["params"], variables["batch_stats"], h) for h in hosts]
+
+
+def jax_step(cfg, meta, host, input_keys, epoch=0, seed=2, mesh=None, probes=()):
     """The JAX half of ``run_step_pair`` (on ``mesh``'s data axis when
     given): the perturbed variables, the curriculum start ``jcur``, and the
     loss, terms, gradients, batch statistics, curriculum, confidence sums
-    and parameters after the optax update, as the port's names."""
+    and parameters after the optax update, as the port's names.  Each batch
+    of ``probes`` (one device) goes through the same jitted gradient; their
+    gradients are ``jax_probe_grads``, for a step's own rounding noise."""
     names = list(cfg.CLASS_NAMES)
     jnet = jax_build_network(cfg.MODEL, meta)
     variables = jax.jit(jnet.init, static_argnames=("train",))(
         jax.random.PRNGKey(0), {k: host[k] for k in input_keys}, train=False)
     variables = perturb(jax.tree_util.tree_map(np.asarray, dict(variables)), seed=seed)
+    # one curriculum state a head group, as tools/train.py creates them
     cur = (JaxCurriculumState(avg_confidence=jnp.float32(0.12), mean=jnp.float32(0.2),
-                              std=jnp.float32(0.05), initialized=jnp.asarray(True)),)
+                              std=jnp.float32(0.05), initialized=jnp.asarray(True)),
+           ) * len(cfg.MODEL.DENSE_HEAD.get("CLASS_NAMES_EACH_HEAD", [None]))
 
     def loss_fn(params, batch_stats, batch):
         out, mut = jnet.apply({"params": params, "batch_stats": batch_stats}, dict(batch),
@@ -129,7 +141,13 @@ def jax_step(cfg, meta, host, input_keys, epoch=0, seed=2, mesh=None):
                                                   GRID[:2])
         return loss, (mut["batch_stats"], new_cur, aux, tb)
 
-    (jloss, (jbs, jcur, jaux, jtb)), jgrads = jax_value_and_grad(loss_fn, variables, host, mesh)
+    if mesh is None:
+        out = jax_value_and_grad_many(loss_fn, variables, [host, *probes])
+    else:
+        assert not probes
+        out = [jax_value_and_grad(loss_fn, variables, host, mesh)]
+    (jloss, (jbs, jcur, jaux, jtb)), jgrads = out[0]
+    probe_grads = [params_from_jax(o[1], cfg.MODEL, names) for o in out[1:]]
     tx, _ = jax_build_optimizer(variables["params"], cfg.OPTIMIZATION, TOTAL_STEPS, 10)
     updates, _ = tx.update(jgrads, tx.init(variables["params"]), variables["params"])
     jparams = jax.tree_util.tree_map(lambda p, u: np.asarray(p + u), variables["params"], updates)
@@ -142,7 +160,7 @@ def jax_step(cfg, meta, host, input_keys, epoch=0, seed=2, mesh=None):
             if "running" in k},
         jax_cur=jcur[0], jax_conf=(np.asarray(sum(a.confidence_sum for a in jaux)),
                                    np.asarray(sum(a.confidence_cnt for a in jaux))),
-        jax_params=params_from_jax(jparams, cfg.MODEL, names),
+        jax_params=params_from_jax(jparams, cfg.MODEL, names), jax_probe_grads=probe_grads,
     )
 
 
@@ -155,7 +173,8 @@ def port_start(cfg, meta, variables, jcur):
     net = build_network(cfg.MODEL, pmeta, device="cpu")
     load_jax_variables(net, variables, cfg.MODEL, names)
     opt, _ = build_optimizer(net, cfg.OPTIMIZATION, TOTAL_STEPS, 10)
-    state = TrainState.create(net, opt, 1, conf_shape_for(cfg.MODEL, names), device="cpu")
+    state = TrainState.create(net, opt, len(jcur), conf_shape_for(cfg.MODEL, names),
+                              device="cpu")
     state.curriculum = curriculum_state_from_jax(jcur)
     step = make_train_step(net, cfg.MODEL, names, pmeta, opt, GRID[:2], device="cpu")
     return net, state, step

@@ -109,7 +109,7 @@ def flax_transforms(nheads):
 def flax_variables(net, cfg, scopes):
     """The flax variables of ``net``'s weights, through the weight bridge's
     rules backwards; ``scopes`` are the top-level flax scope names."""
-    nheads = int(cfg.MODEL.ROI_HEAD.get("Transformer", {}).get("nheads", 1))
+    nheads = int((cfg.MODEL.get("ROI_HEAD") or {}).get("Transformer", {}).get("nheads", 1))
     to_flax = flax_transforms(nheads)
     tree = {"params": {}, "batch_stats": {}}
     sd = {k: v.numpy() for k, v in net.state_dict().items()}
