@@ -2,8 +2,8 @@
 data pipeline, through its train, test and demo CLIs, for the PointPillars
 anchor head, the sparse-voxel detectors, the two-stage Voxel-RCNN and
 SECOND-IoU, PV-RCNN, PointRCNN and PartA2, the CenterHead-RPN Voxel-RCNN
-and PV-RCNN on Waymo, MPPNetE2E's streaming, and the nuScenes and Lyft
-configs; the KITTI, nuScenes, Lyft and Pandaset configs from trees on disk),
+and PV-RCNN on Waymo, MPPNetE2E's streaming, the nuScenes and Lyft
+configs, MPPNet and the other Waymo configs; the KITTI, nuScenes, Lyft and Pandaset configs from trees on disk),
 its
 serving artifact (export, load and the HTTP server), its data-parallel
 training and evaluation, and its wgrad sweep on one NVIDIA GPU.
@@ -280,9 +280,24 @@ Phases (any failure raises, and the script exits non-zero):
    ``voxel01_res3d_centerpoint`` and Lyft's two SECOND-multihead configs,
    Lyft's mAP; Q.4 the train and test CLIs on both trees, the three
    loaders' rates.
-23. Launch counts: every counter is zeroed just before each path (the
+23. Path R, MPPNet and the eight Waymo configs no earlier path runs
+   (``path_r``'s docstring): R.0 MPPNet at the YAMLs' widths over 2,000
+   points and 48 proposals a frame, card against CPU (linking, eval step,
+   one f32 step); R.1 / R.2 ``mppnet_4frames`` /
+   ``mppnet_16frames.yaml`` serving at full width (batch 2, 4 / 16 frames
+   of 163,840 points fused, 500 proposals a frame), stages, K4 at the final
+   NMS's (2, 500); R.3 both trained at the function level (20 steps, the
+   loss below 0.8 of its first); R.4 ``centerpoint_4frames.yaml``'s boxes
+   served through MPPNet; R.5 ``centerpoint``, ``centerpoint_without_
+   resnet``, ``centerpoint_pillar``, the three ``com/`` single-class
+   configs (2 epochs of 2 steps over their own YAML's pipeline, path C's
+   gates: the epoch-end feedback reaching the dataset's COM2 sampler,
+   (1, 96) / (1, 15), which draws the next epoch by it; K3 at (2, 1, 468,
+   468)) and Waymo ``pointrcnn.yaml``: card against CPU small, a serving
+   batch and two steps at full width each.
+24. Launch counts: every counter is zeroed just before each path (the
    sweep, serving, A, B, C, D's, E's, F's, G's, J's, K's, H's, L's, M's,
-   N's, O's, P's and Q's phases, and in each rank of I) and read just after, against the calls the sweep
+   N's, O's, P's, Q's and R's phases, and in each rank of I) and read just after, against the calls the sweep
    reports and the expected counts per
    forward or per step.  The device
    kernels one K3 call issues (1) and one K4 call (2, the pack and the
@@ -491,12 +506,20 @@ def check_device_kernels(calls):
     (one ``spin_kernel``): a session whose trace lacks the marker saw no
     device activity at all, which happens now and then after earlier
     profiling sessions or long runs of threads on the card, and is run
-    again, up to ``PROFILE_SESSIONS`` times.  Run after every timed phase (a
-    profiling session left the host's launches after it slower)."""
+    again, up to ``PROFILE_SESSIONS`` times.  A label is profiled once: it
+    names the kernel and its shape, which decide the kernels a call issues
+    (one process saw no device activity from its 79th session on, so the
+    paths' repeats of a shape are not profiled again).  Run after every
+    timed phase (a profiling session left the host's launches after it
+    slower)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    seen = set()
     for label, count, fn in calls:
+        if label in seen:
+            continue
+        seen.add(label)
         fn()
         torch.cuda.synchronize()
         for attempt in range(1, PROFILE_SESSIONS + 1):
@@ -1585,20 +1608,22 @@ def train_path(dev, config, label, epochs, steps, expect_conf, expect_launches, 
     return counts, (net, opt, state, step, batches[0], cfg, meta)
 
 
-def path_c_dataset_cfg(cfg, bg_points=120000, max_points=POINTS):
+def path_c_dataset_cfg(cfg, bg_points=120000, max_points=POINTS, scenes=BATCH * C_STEPS,
+                       objects=48):
     """The synthetic dataset of path C (the JAX package's end-to-end bench
-    loader, ``bench.py`` ``_make_loader``): one epoch's scenes of
-    ``bg_points`` ground points and up to 48 objects, the in-memory GT
-    database, the flagship's DATA_AUGMENTOR (COM2 GT-paste, world flip,
-    rotation, scaling) and DATA_PROCESSOR (range mask, shuffle, pillar
-    presort at 0.32 m), 500 object slots."""
+    loader, ``bench.py`` ``_make_loader``): ``scenes`` scenes (path C's
+    epoch) of ``bg_points`` ground points and up to ``objects`` objects,
+    the in-memory GT database, ``cfg``'s DATA_AUGMENTOR (the flagship's:
+    COM2 GT-paste, world flip, rotation, scaling) and DATA_PROCESSOR (the
+    flagship's: range mask, shuffle, pillar presort at 0.32 m), 500 object
+    slots."""
     import copy
 
     from com_tpu_torch.utils.config import CfgNode
 
     d = cfg.DATA_CONFIG
-    return CfgNode({"DATASET": "SyntheticDataset", "NUM_SCENES": BATCH * C_STEPS,
-                    "NUM_OBJECTS": 48,
+    return CfgNode({"DATASET": "SyntheticDataset", "NUM_SCENES": scenes,
+                    "NUM_OBJECTS": objects,
                     "NUM_BG_POINTS": bg_points, "POINT_CLOUD_RANGE": list(d.POINT_CLOUD_RANGE),
                     "MAX_POINTS_PER_SCENE": max_points, "MAX_GT_OBJECTS": NUM_MAX_OBJS,
                     "POINT_FEATURE_ENCODING": copy.deepcopy(d.POINT_FEATURE_ENCODING),
@@ -1703,20 +1728,9 @@ class CheckedLoader:
 def train_path_c(dev, grid=None, bg_points=120000, max_points=POINTS):
     """Training path C: the flagship's model and optimizer at full width
     (unless a smaller ``grid`` is given, for rehearsals) over the port's own
-    data pipeline, ``build_dataloader`` -> ``PrefetchLoader`` (COM2 GT-paste,
-    world augmentations, presort, collate) -> ``DevicePrefetcher`` ->
-    ``make_train_step``, with the curriculum loop closed: each epoch's
-    card-computed confidences reach the COM2 sampler, which draws the next
-    epoch's pastes by them.  Gates: fixed shapes and pasted objects
-    (``CheckedLoader``); every sample's valid points sorted by pillar on the
-    card (``point_voxel_ids``); the sampler holding each epoch's confidences
-    bitwise; COM2's group probabilities away from the size-proportional ones
-    at epochs 1 and 2; finite losses, gradients and parameters; path A's
-    launch counts a step.  Prints the step time, the host pipeline's own
-    rate, the main thread's wait for a batch and peak memory."""
-    from com_tpu_torch.data.dataset import build_dataloader
+    data pipeline (``pipeline_training``), its DATA_PROCESSOR presorting
+    the points by pillar.  Prints the host pipeline's own rate first."""
     from com_tpu_torch.data.processor import pipeline_presorts_points
-    from com_tpu_torch.ops.voxelize import point_voxel_ids
 
     cfg, meta = load_config(grid)
     names = list(cfg.CLASS_NAMES)
@@ -1733,13 +1747,39 @@ def train_path_c(dev, grid=None, bg_points=120000, max_points=POINTS):
     rate, n_host = host_pipeline_rate(ds_cfg, names)
     print(f"path C host pipeline alone: {rate:.2f} scenes/s with {C_WORKERS} workers "
           f"({n_host} batches timed after a warm-up batch)")
+    counts, _, step_ms, _ = pipeline_training(dev, "path C", "C (flagship, own pipeline)", cfg,
+                                              meta, ds_cfg, C_EPOCHS, C_STEPS, EXPECT_TRAIN,
+                                              (len(names), 96))
+    return counts, step_ms
 
+
+def pipeline_training(dev, name, label, cfg, meta, ds_cfg, epochs, steps, expect, conf_shape):
+    """``train_model`` (``label``) over the port's own data pipeline on
+    ``ds_cfg``: ``build_dataloader`` -> ``PrefetchLoader`` (COM2 GT-paste,
+    world augmentations, the processor, collate) -> ``DevicePrefetcher``
+    -> ``make_train_step``, with the curriculum loop closed: each epoch's
+    card-computed confidences reach the dataset's COM2 sampler through
+    ``DatasetTemplate.set_confidence_groups``, and the sampler draws the
+    next epoch's pastes by them.  Gates: fixed shapes and pasted objects
+    (``CheckedLoader``); every sample's valid points sorted by pillar on
+    the card (``point_voxel_ids``) where ASSUME_SORTED_POINTS is set; the
+    sampler a DataBaseSamplerCOM2 holding each epoch's confidences
+    bitwise, of ``conf_shape``; COM2's group probabilities away from the
+    size-proportional ones at every epoch past the first; finite losses,
+    gradients and parameters; ``expect`` launches a step.  Prints the step
+    time, the main thread's wait for a batch and peak memory.  Returns the
+    counts, the trainer (net, opt, state, step), the step times and the
+    sampler."""
+    from com_tpu_torch.data.dataset import build_dataloader
+    from com_tpu_torch.ops.voxelize import point_voxel_ids
+
+    names = list(cfg.CLASS_NAMES)
+    sorted_in = bool(cfg.MODEL.VFE.get("ASSUME_SORTED_POINTS", False))
     ds, loader = build_dataloader(ds_cfg, names, BATCH, training=True, seed=C_SEED,
                                   workers=C_WORKERS)
     sampler = ds.data_augmentor.gt_sampler
     aug = next(c for c in ds_cfg.DATA_AUGMENTOR.AUG_CONFIG_LIST if c.NAME == "gt_sampling")
-    checked = CheckedLoader(loader, names, max_points, aug.SAMPLE_GROUPS)
-    conf_shape = (len(names), 96)
+    checked = CheckedLoader(loader, names, int(ds_cfg.MAX_POINTS_PER_SCENE), aug.SAMPLE_GROUPS)
     acc = {}  # epoch -> (sum, count) of the steps' confidence statistics, on the card
     sorted_ok, waits, shares = [], [], []
     seen = {}  # epoch -> the sampler's confidences at its first step
@@ -1750,11 +1790,11 @@ def train_path_c(dev, grid=None, bg_points=120000, max_points=POINTS):
             t = time.perf_counter()
             if last["t"] is not None and epoch == last["epoch"]:
                 waits.append(t - last["t"])
-            # every sample's valid points non-decreasing in pillar id
-            ids, _ = point_voxel_ids(batch["points"][..., :3], meta.point_cloud_range,
-                                     meta.voxel_size, meta.grid_size)
-            pair = batch["points_mask"][:, 1:] & batch["points_mask"][:, :-1]
-            sorted_ok.append(((ids[:, 1:] >= ids[:, :-1]) | ~pair).all(dim=1))
+            if sorted_in:  # every sample's valid points non-decreasing in pillar id
+                ids, _ = point_voxel_ids(batch["points"][..., :3], meta.point_cloud_range,
+                                         meta.voxel_size, meta.grid_size)
+                pair = batch["points_mask"][:, 1:] & batch["points_mask"][:, :-1]
+                sorted_ok.append(((ids[:, 1:] >= ids[:, :-1]) | ~pair).all(dim=1))
             state, metrics = step(state, batch, epoch)
             s, c = acc.get(epoch, (torch.zeros(conf_shape, device=dev),
                                    torch.zeros(conf_shape, device=dev)))
@@ -1777,38 +1817,40 @@ def train_path_c(dev, grid=None, bg_points=120000, max_points=POINTS):
             shares.append((epoch, c, k, u, float(np.abs(prob - sizes / sizes.sum()).max()),
                            len(sizes)))
 
-    counts, trainer, step_ms = run_training(dev, "C (flagship, own pipeline)", cfg, meta,
-                                            checked, C_EPOCHS, C_STEPS, EXPECT_TRAIN,
-                                            step_wrap=step_wrap, epoch_hook=epoch_hook)
+    counts, trainer, step_ms = run_training(dev, label, cfg, meta, checked, epochs, steps,
+                                            expect, step_wrap=step_wrap, epoch_hook=epoch_hook)
     state = trainer[2]
-    seen[C_EPOCHS] = np.array(sampler.confidence_groups)
+    seen[epochs] = np.array(sampler.confidence_groups)
     held = []
-    for epoch in range(1, C_EPOCHS + 1):  # the feedback of epoch - 1 against the card's
+    for epoch in range(1, epochs + 1):  # the feedback of epoch - 1 against the card's
         s_, c_ = acc[epoch - 1]
         want = (s_ / (c_ + 0.01)).cpu().numpy()
         got = seen[epoch]
-        held.append(got.shape == want.shape and got.dtype == want.dtype
+        held.append(got.shape == want.shape == conf_shape and got.dtype == want.dtype
                     and got.tobytes() == want.tobytes())
     for epoch, c, k, u, diff, n in shares:
         print(f"  epoch {epoch} {c}: pacing index k = {k}, centre u = {u:.6f}, "
               f"max |p - size share| = {diff:.3e} over {n} groups")
     moved = [diff > 1e-6 for *_, diff, _n in shares]
-    ok_sorted = bool(torch.stack(sorted_ok).all())
+    ok_sorted = bool(torch.stack(sorted_ok).all()) if sorted_in else True
     room = sum(1 for *_, q, _p in checked.samples if sum(max(v, 0) for v in q.values()))
     with_paste = sum(1 for *_, p in checked.samples if sum(p.values()))
     pasted = sum(sum(p.values()) for *_, p in checked.samples)
-    print(f"path C checks: {len(checked.samples)} samples, fixed shapes and pasted objects "
+    kind = type(sampler).__name__
+    print(f"{name} checks: {len(checked.samples)} samples, fixed shapes and pasted objects "
           f"{'ok' if not checked.errors else checked.errors}; {room} with room under "
-          f"LIMIT_WHOLE_SCENE, {with_paste} carry pasted objects, {pasted} in all; valid points "
-          f"pillar-sorted on the card {ok_sorted}; sampler holds each epoch's confidences "
-          f"bitwise {held}; COM2 leaves the size shares {moved}")
+          f"LIMIT_WHOLE_SCENE, {with_paste} carry pasted objects, {pasted} in all; "
+          + (f"valid points pillar-sorted on the card {ok_sorted}; " if sorted_in else "")
+          + f"the dataset's {kind} holds each epoch's confidences {conf_shape} bitwise {held}; "
+          f"COM2 leaves the size shares {moved}")
     print(f"  main thread's wait for a batch (host clock between steps, the first of each "
           f"epoch left out): mean {1e3 * np.mean(waits):.3f} ms over {len(waits)}")
     if (checked.errors or not pasted or not ok_sorted or not all(held)
-            or len(moved) != (C_EPOCHS - 1) * len(names) or not all(moved)
+            or kind != "DataBaseSamplerCOM2"
+            or len(moved) != (epochs - 1) * len(names) or not all(moved)
             or tuple(state.conf_sum.shape) != conf_shape):
-        raise AssertionError("training path C failed its checks")
-    return counts, step_ms
+        raise AssertionError(f"training {name} failed its checks")
+    return counts, trainer, step_ms, sampler
 
 
 def _plain(node):
@@ -3037,7 +3079,8 @@ def final_candidates(net, cfg, batch, dev):
         else:
             boxes = decode_rcnn_boxes(out["rois"][..., :7], out["rcnn_reg"])
             scores = torch.sigmoid(out["rcnn_cls"])
-        valid = (scores > float(post.get("SCORE_THRESH", 0.1))) & out["roi_valid"]
+        roi_valid = out.get("roi_valid", torch.ones_like(scores, dtype=torch.bool))
+        valid = (scores > float(post.get("SCORE_THRESH", 0.1))) & roi_valid
         _, sb, sv = nms._sorted(boxes, scores, valid)
         thresh = float(post.get("NMS_CONFIG", {}).get("NMS_THRESH", 0.7))
         over = (nms._self_iou(sb) > thresh).contiguous()
@@ -5492,14 +5535,29 @@ def _mark_mppnet_steps(net, mark):
         hooks.append(getattr(net, s).register_forward_pre_hook(lambda *_, s=s: mark(s)))
         hooks.append(getattr(net, s).register_forward_hook(
             lambda *_, s=s: mark("proposal.decode" if s == "dense_head" else "gap")))
-    head = net.roi_head
-    hooks.append(head.register_forward_pre_hook(lambda *_: mark("roi.trajectory")))
+    hooks.append(net.roi_head.register_forward_pre_hook(lambda *_: mark("roi.trajectory")))
+    undo_head = _mark_mppnet_head(net.roi_head, mppnet_e2e, mark)
+
+    def undo():
+        undo_head()
+        for h in hooks:
+            h.remove()
+
+    return undo
+
+
+def _mark_mppnet_head(head, module, mark):
+    """The marks inside an MPPNet head (``_mark_mppnet_steps``' "roi.crop"
+    through "roi.joint", then "final.decode" and the final NMS's steps),
+    its crop looked up in ``module``.  Returns the function that removes
+    them."""
+    hooks = []
     for name, sub in (("roi.geometry", head.up_dimension_geometry),
                       ("roi.motion", head.up_dimension_motion), ("roi.seqbox", head.seqboxembed),
                       ("roi.transformer", head.transformer), ("roi.joint", head.jointembed)):
         hooks.append(sub.register_forward_pre_hook(lambda *_, n=name: mark(n)))
     hooks.append(head.register_forward_hook(lambda *_: mark("final.decode")))
-    orig_crop, orig_pool = mppnet_e2e.crop_trajectory_points, head.roi_grid_pool
+    orig_crop, orig_pool = module.crop_trajectory_points, head.roi_grid_pool
 
     def crop(*args, **kw):
         mark("roi.crop")
@@ -5509,14 +5567,14 @@ def _mark_mppnet_steps(net, mark):
         mark("roi.grid_pool")
         return orig_pool(*args, **kw)
 
-    mppnet_e2e.crop_trajectory_points, head.roi_grid_pool = crop, pool
+    module.crop_trajectory_points, head.roi_grid_pool = crop, pool
     nms_names = {"sort": "sort_gathers", "iou": "iou", "k4": "k4", "k4_end": "kept_slots",
                  "rest": "rest"}
     undo_nms = _mark_nms_steps(lambda n: mark(f"final.{nms_names[n]}"))
 
     def undo():
         undo_nms()
-        mppnet_e2e.crop_trajectory_points = orig_crop
+        module.crop_trajectory_points = orig_crop
         del head.roi_grid_pool
         for h in hooks:
             h.remove()
@@ -5872,12 +5930,13 @@ def q_serve(dev, smi, label, cfg, meta, batches, expect, spread, runs=None):
     counts = read_counters()
     peak = torch.cuda.max_memory_allocated(dev)
     post = cfg.MODEL.get("POST_PROCESSING", {})
-    thresh = float(cfg.MODEL.DENSE_HEAD.get("POST_PROCESSING", post).get("SCORE_THRESH", 0.1))
+    thresh = float((cfg.MODEL.get("DENSE_HEAD") or {}).get("POST_PROCESSING", post)
+                   .get("SCORE_THRESH", 0.1))
     ok = all(bool(v.any(1).all()) and np.isfinite(b[v]).all() and (s[v] >= thresh).all()
              and np.isin(lab[v], np.arange(1, len(names) + 1)).all() for b, s, lab, v in outs)
     shown = sorted({int(x) for _, _, lab, v in outs for x in lab[v]})
     print(f"path {label} serving ({tuple(meta.grid_size)} grid, batch "
-          f"{len(batches[0]['frame_id'])} of the tree's val frames): latency ms "
+          f"{len(batches[0]['points_mask'])}): latency ms "
           f"{[round(x, 2) for x in latencies]} (host clock, outputs copied back), detections a "
           f"batch {[int(o[3].sum()) for o in outs]}, labels {shown}, max_memory_allocated "
           f"{peak / 2**30:.2f} GiB ({smi}) {'ok' if ok else 'FAIL'}")
@@ -6192,6 +6251,724 @@ def path_q(dev, smi, entries, calls, points=None, sets=None):
     return {**{f"Q:{k}": v for k, v in train_counts.items()}, "Q:nms": serve_counts["nms"],
             "Q3:nms": lyft_counts["nms"]}
 
+R_MPP4_CONFIG = "configs/waymo_models/mppnet_4frames.yaml"
+R_MPP16_CONFIG = "configs/waymo_models/mppnet_16frames.yaml"
+R_CP4_CONFIG = "configs/waymo_models/centerpoint_4frames.yaml"
+R_BATCH = 2  # the MPPNet YAMLs' BATCH_SIZE_PER_GPU
+R_PROPOSALS = 500  # centerpoint.yaml's NMS_POST_MAXSIZE: a first stage's stored boxes a frame
+R_OBJECTS, R_COPIES = 32, 4  # moving objects a scene, jittered proposals of each a frame
+R_SIZES = np.array([[4.6, 2.0, 1.7], [0.9, 0.9, 1.8], [1.8, 0.8, 1.7]], np.float32)
+R_SMALL_RANGE = (-12.8, -12.8, -2.0, 12.8, 12.8, 4.0)
+
+
+def mppnet_sequence(rng, b, n, frames, pc_range, proposals=R_PROPOSALS, objects=R_OBJECTS,
+                    copies=R_COPIES, m=64):
+    """A synthetic sequence for MPPNet: ``b`` Waymo-like scenes
+    (``waymo_like_points``, ``n`` points a frame) whose first quarter of
+    points lie in ``objects`` boxes of the three classes, each box moving
+    by its own displacement a frame (uniform in +-0.6 m in x and y), frame
+    f being f frames back.  Returns {"points" (b, frames * n, 6): the
+    frames fused, the timestamp 0.1 f last (the sequence loader's layout);
+    "points_mask"; "frames": each frame's (b, n, 5) points; "roi_boxes" (b,
+    frames, proposals, 9): a first stage's stored boxes a frame, ``copies``
+    jittered copies of each object's box (about 0.15 m, 4 % of the size,
+    0.05 rad) with the displacement (+ 2 cm of noise) at 7:9, scored
+    0.4-0.95, then background boxes scored 0.02-0.2, shuffled a frame;
+    "roi_scores" (b, frames, proposals); "roi_labels" (b, proposals): frame
+    0's classes; "gt_boxes" (b, m, 8): the objects' frame-0 boxes with
+    their class}."""
+    half = min(pc_range[3], pc_range[4]) * 0.8
+    cls = rng.randint(1, 4, (b, objects))
+    box = np.zeros((b, objects, 7), np.float32)
+    box[..., 0:2] = rng.uniform(-half, half, (b, objects, 2))
+    box[..., 2] = rng.uniform(0.3, 1.2, (b, objects))
+    box[..., 3:6] = R_SIZES[cls - 1] * rng.uniform(0.9, 1.1, (b, objects, 3))
+    box[..., 6] = rng.uniform(-np.pi, np.pi, (b, objects))
+    vel = rng.uniform(-0.6, 0.6, (b, objects, 2)).astype(np.float32)
+    base = waymo_like_points(rng, b, n, pc_range)
+    n_obj = n // 4
+    owner = rng.randint(0, objects, (b, n_obj))
+    own = np.take_along_axis(box, owner[..., None], axis=1)  # (b, n_obj, 7)
+    local = rng.uniform(-0.5, 0.5, (b, n_obj, 3)).astype(np.float32) * own[..., 3:6]
+    c, s = np.cos(own[..., 6]), np.sin(own[..., 6])
+    rot = np.stack([local[..., 0] * c - local[..., 1] * s, local[..., 0] * s + local[..., 1] * c,
+                    local[..., 2]], -1)
+    fused, per_frame = [], []
+    for f in range(frames):
+        pts = base.copy()
+        shift = np.take_along_axis(vel, owner[..., None], axis=1) * f
+        pts[:, :n_obj, 0:3] = rot + own[..., 0:3]
+        pts[:, :n_obj, 0:2] += shift
+        per_frame.append(pts)
+        fused.append(np.concatenate([pts, np.full((b, n, 1), 0.1 * f, np.float32)], -1))
+    k = objects * copies
+    roi_boxes = np.zeros((b, frames, proposals, 9), np.float32)
+    roi_scores = np.zeros((b, frames, proposals), np.float32)
+    roi_labels = np.zeros((b, proposals), np.int32)
+    for f in range(frames):
+        obj = np.repeat(box, copies, axis=1)
+        obj[..., 0:2] += np.repeat(vel, copies, axis=1) * f + rng.normal(0, 0.15, (b, k, 2))
+        obj[..., 2] += rng.normal(0, 0.05, (b, k))
+        obj[..., 3:6] *= 1 + rng.normal(0, 0.04, (b, k, 3))
+        obj[..., 6] += rng.normal(0, 0.05, (b, k))
+        bg_cls = rng.randint(1, 4, (b, proposals - k))
+        bg = np.zeros((b, proposals - k, 7), np.float32)
+        bg[..., 0:2] = rng.uniform(-half, half, (b, proposals - k, 2))
+        bg[..., 2] = rng.uniform(0.0, 1.5, (b, proposals - k))
+        bg[..., 3:6] = R_SIZES[bg_cls - 1] * rng.uniform(0.8, 1.2, (b, proposals - k, 3))
+        bg[..., 6] = rng.uniform(-np.pi, np.pi, (b, proposals - k))
+        rows = np.concatenate([obj, bg], 1)
+        disp = np.concatenate([np.repeat(vel, copies, axis=1) + rng.normal(0, 0.02, (b, k, 2)),
+                               np.zeros((b, proposals - k, 2))], 1)
+        score = np.concatenate([rng.uniform(0.4, 0.95, (b, k)),
+                                rng.uniform(0.02, 0.2, (b, proposals - k))], 1)
+        label = np.concatenate([np.repeat(cls, copies, axis=1), bg_cls], 1)
+        for i in range(b):
+            perm = rng.permutation(proposals)
+            roi_boxes[i, f] = np.concatenate([rows[i], disp[i]], -1)[perm]
+            roi_scores[i, f] = score[i][perm]
+            if f == 0:
+                roi_labels[i] = label[i][perm]
+    gt = np.zeros((b, m, 8), np.float32)
+    gt[:, :objects, :7] = box
+    gt[:, :objects, 7] = cls
+    points = np.concatenate(fused, 1)
+    return {"points": points, "points_mask": np.ones(points.shape[:2], bool),
+            "frames": per_frame, "roi_boxes": roi_boxes, "roi_scores": roi_scores,
+            "roi_labels": roi_labels, "gt_boxes": gt}
+
+
+R_OTHER_VOXEL = (("R.5 (centerpoint.yaml)", "configs/waymo_models/centerpoint.yaml"),
+                 ("R.5 (centerpoint_without_resnet.yaml)",
+                  "configs/waymo_models/centerpoint_without_resnet.yaml"))
+R_PILLAR_CONFIG = "configs/waymo_models/centerpoint_pillar.yaml"
+R_COM_CONFIGS = (("R.5 (car_com2, COM2 sampler)",
+                  "configs/waymo_models/com/centerpoint_pillar_car_com2.yaml", (1, 96)),
+                 ("R.5 (ped_com)", "configs/waymo_models/com/centerpoint_pillar_ped_com.yaml",
+                  (1, 15)),
+                 ("R.5 (ped_com2)", "configs/waymo_models/com/centerpoint_pillar_ped_com2.yaml",
+                  (1, 15)))
+# R.5's COM configs over their own pipeline: mini-epochs, steps an epoch, objects a scene at
+# most (one class a scene: LIMIT_WHOLE_SCENE leaves room for 15 - 8 Vehicles, 10 - 8
+# Pedestrians)
+R_COM_EPOCHS, R_COM_STEPS, R_COM_OBJECTS = 2, 2, 8
+R_POINTRCNN_CONFIG = "configs/waymo_models/pointrcnn.yaml"
+R_POINTRCNN_BATCH, R_POINTRCNN_POINTS = 4, 16384  # the YAML's batch and sample_points
+EXPECT_R_MPP_SERVING = {"nms": 1}  # the final NMS; MPPNet's head runs no other kernel
+EXPECT_R_VOXEL_SERVING = {"conv3x3": 11, "nms": 1}
+EXPECT_R_VOXEL_TRAIN = {"conv3x3": 11, "conv3x3_dgrad": 11, "conv3x3_wgrad": 11,
+                        "stamp_gauss": 1}
+EXPECT_R_PILLAR_SERVING = {"seg_scan": 2, "conv3x3": 14, "nms": 1}
+EXPECT_R_PILLAR_TRAIN = {"seg_scan": 2, "seg_scan_bwd": 1, "conv3x3": 14, "conv3x3_dgrad": 14,
+                         "conv3x3_wgrad": 14, "stamp_gauss": 1}
+R_TRAIN_STEPS = 20
+# mppnet_16frames.yaml keeps the 4-frame YAML's pool MLPS [[128, 128], [128, 128]] with
+# TRANS_INPUT 64: its pooled geometry (2 x 128) cannot add to its motion features (64), and
+# its forward fails in both packages (tests/test_torch_port_mppnet.py).  Path R runs it with
+# the pool's last widths summing to TRANS_INPUT, as the 4-frame YAML's do (2 x 128 = 256)
+R_MPP16_MLPS = [[32, 32], [32, 32]]
+R_LOSS_DROP = 0.8  # the loss must end below this share of its first value (tests/test_mppnet.py)
+
+
+def load_points_yaml(config, pc_range=None):
+    """A YAML without a voxel processor (MPPNet's, Waymo PointRCNN's) and
+    its meta: the YAML's range (or ``pc_range``), 0.1 x 0.1 x 0.15 m cells
+    (read by neither model), its points' features."""
+    from com_tpu_torch.models.detectors import DatasetMeta
+    from com_tpu_torch.ops.voxelize import grid_size_from_range
+    from com_tpu_torch.utils.config import cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file(str(REPO / config))
+    pr = list(pc_range or cfg.DATA_CONFIG.POINT_CLOUD_RANGE)
+    vsize = [0.1, 0.1, 0.15]
+    feats = len(cfg.DATA_CONFIG.POINT_FEATURE_ENCODING.used_feature_list)
+    return cfg, DatasetMeta(cfg.CLASS_NAMES, pr, vsize, grid_size_from_range(pr, vsize), feats)
+
+
+def load_mppnet(config, pc_range=None):
+    """``load_points_yaml`` of an MPPNet YAML, the 16-frame one's pool MLPS
+    set to R_MPP16_MLPS."""
+    cfg, meta = load_points_yaml(config, pc_range)
+    if config == R_MPP16_CONFIG:
+        cfg.MODEL.ROI_HEAD.ROI_GRID_POOL.MLPS = R_MPP16_MLPS
+    return cfg, meta
+
+
+def mppnet_width_case(config=R_MPP4_CONFIG, seed=0, points=2000, proposals=48, objects=6):
+    """An MPPNet YAML at its own head widths (``load_mppnet``), f32,
+    dropout 0 and 16 RoIs a sample in training, over ``mppnet_sequence``
+    of ``objects`` boxes and ``proposals`` boxes a frame on R_SMALL_RANGE,
+    ``points`` points a frame, batch 2: few points and RoIs, so that a
+    comparison's CPU side stays quick.  Returns (cfg, meta, batch)."""
+    cfg, meta = load_mppnet(config, R_SMALL_RANGE)
+    r = cfg.MODEL.ROI_HEAD
+    r.Transformer.dropout = 0.0
+    r.TARGET_CONFIG.ROI_PER_IMAGE = 16
+    frames = int(r.Transformer.num_frames)
+    batch = mppnet_sequence(np.random.RandomState(seed), 2, points, frames, R_SMALL_RANGE,
+                            proposals=proposals, objects=objects, copies=4, m=16)
+    return cfg, meta, batch
+
+
+def mppnet_small_case(config=R_MPP4_CONFIG, seed=0, points=2000, proposals=48, objects=6):
+    """``mppnet_width_case`` narrowed as the CPU tests narrow it
+    (TRANS_INPUT 32, a 2^3 proxy grid at the YAML's two radii of 8
+    neighbours, 32 points a RoI, FFN 64, mixer 8).  Returns (cfg, meta,
+    batch)."""
+    cfg, meta, batch = mppnet_width_case(config, seed, points, proposals, objects)
+    r = cfg.MODEL.ROI_HEAD
+    r.TRANS_INPUT = 32
+    r.ROI_GRID_POOL.update(GRID_SIZE=2, MLPS=[[16, 16], [16, 16]], NSAMPLE=[8, 8])
+    r.Transformer.update(num_lidar_points=32, num_proxy_points=8, dim_feedforward=64,
+                         hidden_dim=32)
+    r.Transformer.use_mlp_mixer.hidden_dim = 8
+    return cfg, meta, batch
+
+
+def mppnet_links(cfg, batch, dev):
+    """The linking's validity (B, F, R) and each linked frame's best IoU
+    (B, F - 1, R), from ``batch`` on ``dev``."""
+    from com_tpu_torch.models.mppnet import generate_trajectory
+    from com_tpu_torch.ops.iou import boxes_iou3d
+
+    props = torch.as_tensor(batch["roi_boxes"], device=dev)
+    traj, valid = generate_trajectory(props[:, 0], props)
+    best = []
+    for i in range(1, props.shape[1]):
+        prev = traj[:, i - 1]
+        pred = torch.cat([prev[..., 0:2] + prev[..., 7:9], prev[..., 2:7]], -1)
+        best.append(boxes_iou3d(pred, props[:, i, :, :7]).max(dim=2).values)
+    return valid.cpu(), torch.stack(best, 1).cpu()
+
+
+def compare_mppnet(dev, cfg, meta, batch, label):
+    """MPPNet on the card against the CPU, the same seeded weights, every
+    norm's bias +3: the trajectory linking (a (RoI, frame) pair that links
+    on one device and not on the other is reported with its IoU, and
+    fails unless that IoU is within 1e-4 of the 0.5 threshold), the eval
+    step's detections (``check_detections``), the train-mode targets (the
+    foreground mask; a flip must sit within 1e-4 of REG_FG_THRESH) and one
+    f32 step's loss (rel 1e-4) and gradients (within 1e-3 of each
+    gradient's max + 1e-5 of the net's max, or twice either device's own
+    difference with the scenes swapped)."""
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.models.mppnet import mppnet_loss
+    from com_tpu_torch.train.eval import make_eval_step
+
+    (vc, ic), (vp, ip) = mppnet_links(cfg, batch, dev), mppnet_links(cfg, batch, "cpu")
+    flips = (vc != vp)[:, 1:]
+    near = bool((torch.abs(ip[flips] - 0.5) <= 1e-4).all())
+    print(f"{label}, linking card vs CPU: {int(vc[:, 1:].sum())} vs {int(vp[:, 1:].sum())} "
+          f"linked (RoI, frame) pairs, {int(flips.sum())} flipped"
+          + (f" at IoUs {ip[flips].tolist()}" if flips.any() else "")
+          + f" {'ok' if near else 'FAIL'}")
+    if not near:
+        raise AssertionError(f"{label}: the card links trajectories the CPU does not")
+    compare_eval_step(dev, cfg, meta, batch, f"{label}, eval step, card vs CPU",
+                      prepare=shift_norm_biases)
+    keys = ("roi_boxes", "roi_scores", "roi_labels", "points", "points_mask", "gt_boxes")
+    loss_cfg = cfg.MODEL.ROI_HEAD.LOSS_CONFIG
+
+    def run(d, b):
+        net = shift_norm_biases(build_network(cfg.MODEL, meta, device=d, seed=7)).train()
+        out = net({k: torch.as_tensor(b[k], device=d) for k in keys})
+        loss, _ = mppnet_loss(out["mppnet_preds"], out["mppnet_targets"], loss_cfg)
+        loss.backward()
+        grads = {k: p.grad.float().cpu() for k, p in net.named_parameters()}
+        return float(loss.detach()), grads, out["mppnet_targets"].reg_valid.cpu()
+
+    def gerr(ga, gb):
+        gmax = max(float(g.abs().max()) for g in gb.values())
+        return max(float(((ga[k] - gb[k]).abs() / (1e-3 * gb[k].abs().max() + 1e-5 * gmax)).max())
+                   for k in gb)
+
+    card, cpu = run(dev, batch), run("cpu", batch)
+    fg_flips = int((card[2] != cpu[2]).sum())
+    swapped = {k: np.ascontiguousarray(batch[k][::-1]) for k in keys}
+    own = max(gerr(run(dev, swapped)[1], card[1]), gerr(run("cpu", swapped)[1], cpu[1]))
+    lerr, err = abs(card[0] - cpu[0]) / abs(cpu[0]), gerr(card[1], cpu[1])
+    ok = fg_flips == 0 and lerr <= 1e-4 and err <= max(1.0, 2 * own)
+    print(f"{label}, one f32 train step card vs CPU: loss {card[0]:.6f} vs {cpu[0]:.6f} (rel "
+          f"{lerr:.2e} <= 1e-4); foreground RoIs {int(card[2].sum())} vs {int(cpu[2].sum())} "
+          f"({fg_flips} flipped); {len(cpu[1])} gradients at {err:.3f} of the tolerance (allowed "
+          f"{max(1.0, 2 * own):.3f}: each device against itself with the scenes swapped "
+          f"{own:.3f}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the card's MPPNet step disagrees with the CPU")
+
+
+def r_serve_mppnet(dev, smi, entries, calls, label, config, points, kernel, batch=None):
+    """MPPNet at full width through ``make_eval_step``: one warm-up, then
+    three timed batches of ``mppnet_sequence`` (R_BATCH scenes of
+    ``points`` points a frame, R_PROPOSALS proposals a frame; or ``batch``):
+    latency, peak memory, the linked (RoI, frame) pairs (> 0), finite
+    detections above SCORE_THRESH with labels in range, K4 once a forward;
+    the eval step's stages; K4 on the final NMS's candidates.  Returns
+    (counts, cfg, meta, batch)."""
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.models.mppnet import mppnet_head
+    from com_tpu_torch.train.eval import make_eval_step
+    from com_tpu_torch.train.step import model_input_keys
+
+    cfg, meta = load_mppnet(config)
+    frames = int(cfg.MODEL.ROI_HEAD.Transformer.num_frames)
+    if batch is None:
+        batch = mppnet_sequence(np.random.RandomState(71), R_BATCH, points, frames,
+                                meta.point_cloud_range)
+    inputs = {k: batch[k] for k in model_input_keys(cfg.MODEL)}
+    net = build_network(cfg.MODEL, meta, device=dev, seed=0)
+    step = make_eval_step(net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=dev)
+    linked = []
+    hook = net.roi_head.register_forward_hook(
+        lambda m, args, out: linked.append(out["valid_length"][:, 1:].sum()))
+    step(inputs)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    linked.clear()
+    reset_counters()
+    latencies, outs = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        outs.append([t.cpu().numpy() for t in step(inputs)])
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    hook.remove()
+    pairs = [int(x) for x in linked]
+    thresh = float(cfg.MODEL.POST_PROCESSING.SCORE_THRESH)
+    # a zero-padded proposal slot has label 0 and, as in com_tpu (no roi_valid), may surface
+    padded = int((np.abs(inputs["roi_boxes"][:, 0, :, :6]).sum(-1) == 0).sum())
+    ok = min(pairs) > 0 and all(
+        bool(v.any(1).all()) and np.isfinite(b[v]).all() and (s[v] > thresh).all()
+        and np.isin(lab[v], [1, 2, 3] if padded == 0 else [0, 1, 2, 3]).all()
+        for b, s, lab, v in outs)
+    n_roi = inputs["roi_boxes"].shape[2]
+    mlps = cfg.MODEL.ROI_HEAD.ROI_GRID_POOL.MLPS
+    print(f"path {label} serving through make_eval_step (batch {R_BATCH}, {frames} frames fused: "
+          f"{inputs['points'].shape[1]:,} points a scene, {n_roi} proposals a frame, TRANS_INPUT "
+          f"{cfg.MODEL.ROI_HEAD.TRANS_INPUT}, pool MLPS {list(map(list, mlps))}): latency ms "
+          f"{[round(x, 2) for x in latencies]} (host clock, outputs copied back), "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; linked (RoI, frame) pairs past frame 0 "
+          f"{pairs} of {R_BATCH * n_roi * (frames - 1)}; detections a batch "
+          f"{[int(o[3].sum()) for o in outs]}"
+          + (f" ({int(((outs[0][2] == 0) & outs[0][3]).sum())} of the first from the "
+             f"{padded} zero-padded proposal slots, label 0, as com_tpu's)" if padded else "")
+          + f" ({smi}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"path {label}: no linked pair or malformed detections")
+    check_launches(f"{label} eval forward", counts, EXPECT_R_MPP_SERVING, 3)
+    two_stage_breakdown(
+        net, lambda: step(inputs), f"path {label} eval step", smi=smi,
+        marks_fn=lambda n, mark: _mark_detector_then_head(n, mppnet_head, mark))
+    over, sv = final_candidates(net, cfg, inputs, dev)
+    check_k4_cases(dev, entries, calls, over, sv, smi, f", path {label} final NMS", kernel,
+                   iters=50)
+    del net, step
+    torch.cuda.empty_cache()
+    return counts, cfg, meta, batch
+
+
+def _mark_detector_then_head(net, module, mark):
+    """MPPNet's marks: "roi.trajectory" as the detector starts (the
+    linking), then ``_mark_mppnet_head``'s."""
+    hook = net.register_forward_pre_hook(lambda *_: mark("roi.trajectory"))
+    undo = _mark_mppnet_head(net.roi_head, module, mark)
+
+    def undo_all():
+        undo()
+        hook.remove()
+
+    return undo_all
+
+
+def r_train_mppnet(dev, smi, label, cfg, meta, batch, steps=R_TRAIN_STEPS):
+    """MPPNet trained at the function level at full width, as either
+    package trains it: the detector in train mode (ROI_PER_IMAGE
+    trajectories sampled a sample, dropout from ``step_generators``),
+    ``mppnet_loss``, backward and ``AdamOneCycle`` (the YAML's schedule over
+    ``steps``), ``steps`` steps on one batch: every loss finite, foreground
+    RoIs every step, the last loss below R_LOSS_DROP of the first, no
+    kernel launched; step ms (CUDA events, the first left out) and peak
+    memory.  Returns the counts."""
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.models.mppnet import mppnet_loss
+    from com_tpu_torch.train.optim import build_optimizer
+    from com_tpu_torch.train.step import step_generators
+
+    keys = ("roi_boxes", "roi_scores", "roi_labels", "points", "points_mask", "gt_boxes")
+    inputs = {k: torch.as_tensor(batch[k], device=dev) for k in keys}
+    net = build_network(cfg.MODEL, meta, device=dev, seed=0).train()
+    opt, _ = build_optimizer(net, cfg.OPTIMIZATION, steps, steps)
+    loss_cfg = cfg.MODEL.ROI_HEAD.LOSS_CONFIG
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    losses, fg, marks = [], [], []
+    for i in range(steps):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        out = net(dict(inputs, rngs=step_generators(17, i, dev)))
+        loss, parts = mppnet_loss(out["mppnet_preds"], out["mppnet_targets"], loss_cfg)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        losses.append(torch.stack([loss.detach(), *(v.detach() for v in parts.values())]))
+        fg.append(out["mppnet_targets"].reg_valid.sum())
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    marks.append(ev)
+    torch.cuda.synchronize()
+    counts = read_counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    rows = torch.stack(losses).cpu().numpy()
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks[1:], marks[2:])]
+    fg = [int(x) for x in fg]
+    ok = (np.isfinite(rows).all() and min(fg) > 0 and rows[-1, 0] < R_LOSS_DROP * rows[0, 0])
+    print(f"path {label} training at the function level ({steps} steps on one batch, "
+          f"{int(cfg.MODEL.ROI_HEAD.TARGET_CONFIG.ROI_PER_IMAGE)} RoIs a sample): loss "
+          f"{[round(float(x), 4) for x in rows[:, 0]]} (last below {R_LOSS_DROP} of the first: "
+          f"{rows[-1, 0] / rows[0, 0]:.3f}); parts at the first and last step "
+          f"{dict(zip(('cls', 'reg', 'corner'), rows[0, 1:].round(4).tolist()))} -> "
+          f"{dict(zip(('cls', 'reg', 'corner'), rows[-1, 1:].round(4).tolist()))}; foreground "
+          f"RoIs a step {fg[:3]}...; step ms median {np.median(step_ms):.2f} "
+          f"[{min(step_ms):.2f}, {max(step_ms):.2f}], max_memory_allocated {peak / 2**30:.2f} GiB "
+          f"({smi}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"path {label}: MPPNet's loss did not fall or was not finite")
+    check_launches(f"{label} function-level step", counts, {}, steps)
+    del net, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
+def r_first_stage(dev, smi, seq):
+    """R.4: ``centerpoint_4frames.yaml`` at full width (MeanVFE over 90,000
+    voxel slots of 0.1 x 0.1 x 0.15 m, VoxelResBackBone8x, a CenterHead
+    with velocity) serves each frame of ``seq`` as the current one, fused
+    with its past frames of the sequence in the sequence loader's layout
+    (the current frame's points with time 0, a past frame's with 0.1 a
+    frame back; the sequence's last frames have fewer past frames, as a
+    sequence's start has); its boxes (up to 500 a frame, velocity at 7:9)
+    are packed as ``roi_boxes`` (invalid slots zero) with their scores and
+    frame 0's labels.  Then two train steps of the YAML at full width.
+    Returns (the MPPNet batch, launch counts of the forwards, of the
+    step)."""
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.train.eval import make_eval_step
+
+    cfg, meta, proc = load_voxel(R_CP4_CONFIG)
+    frames = seq["frames"]
+    f_n, (b, n) = len(frames), frames[0].shape[:2]
+    net = build_network(cfg.MODEL, meta, device=dev, seed=0)
+    step = make_eval_step(net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=dev)
+    boxes = np.zeros((b, f_n, R_PROPOSALS, 9), np.float32)
+    scores = np.zeros((b, f_n, R_PROPOSALS), np.float32)
+    labels = np.zeros((b, R_PROPOSALS), np.int32)
+    batches = []
+    for f in range(f_n):
+        pts = np.zeros((b, f_n * n, 6), np.float32)
+        mask = np.zeros((b, f_n * n), bool)
+        for j in range(f, f_n):
+            pts[:, (j - f) * n:(j - f + 1) * n] = np.concatenate(
+                [frames[j], np.full((b, n, 1), 0.1 * (j - f), np.float32)], -1)
+            mask[:, (j - f) * n:(j - f + 1) * n] = True
+        batches.append(voxelize_batch({"points": pts, "points_mask": mask}, meta, proc, "test"))
+    step(batches[0])  # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    ms = []
+    for f, vb in enumerate(batches):
+        t0 = time.perf_counter()
+        bx, sc, lb, vd = (t.cpu().numpy() for t in step(vb))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        boxes[:, f, :bx.shape[1]] = np.where(vd[..., None], bx, 0.0)
+        scores[:, f, :sc.shape[1]] = np.where(vd, sc, 0.0)
+        if f == 0:
+            labels[:, :lb.shape[1]] = np.where(vd, lb, 0)
+    counts = read_counters()
+    valid = (np.abs(boxes[..., :6]).sum(-1) > 0).sum(-1)
+    ok = boxes.shape[-1] == 9 and bool((valid > 0).all()) and np.isfinite(boxes).all()
+    print(f"path R.4 centerpoint_4frames.yaml as MPPNet's first stage (batch {b}, "
+          f"{[int((v['voxel_num_points'] > 0).sum(1).min()) for v in batches]} voxels at least a "
+          f"scene a frame): ms a frame {[round(x, 2) for x in ms]}; boxes a frame with velocity "
+          f"{valid.tolist()} of {R_PROPOSALS} ({smi}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("path R.4: the first stage gave no boxes")
+    check_launches("R.4 centerpoint_4frames eval forward", counts, EXPECT_R_VOXEL_SERVING, f_n)
+    del net, step
+    torch.cuda.empty_cache()
+    tb = waymo_like_batch(np.random.RandomState(72), R_BATCH, n, meta.point_cloud_range,
+                          (0.32, 0.32, 6.0), len(meta.class_names))
+    tb["points"] = np.concatenate([tb["points"], np.zeros((b, n, 1), np.float32)], -1)
+    gt = tb["gt_boxes"]  # a velocity head's GT carries (vx, vy) before the class: zero here
+    tb["gt_boxes"] = np.concatenate([gt[..., :7], np.zeros((*gt.shape[:2], 2), np.float32),
+                                     gt[..., 7:]], -1)
+    train_counts = r_train_config(dev, smi, "R.4 (centerpoint_4frames.yaml)", cfg, meta,
+                                  voxelize_batch(tb, meta, proc, "train"), EXPECT_R_VOXEL_TRAIN)
+    mpp = {"roi_boxes": boxes, "roi_scores": scores, "roi_labels": labels,
+           "points": seq["points"], "points_mask": seq["points_mask"]}
+    return mpp, counts, train_counts
+
+
+def r_train_config(dev, smi, label, cfg, meta, batch, expect, counts_confidences=False,
+                   prepare=None):
+    """Two ``train_model`` steps of ``cfg`` at full width on ``batch``
+    (``run_training``; the second timed): finite loss, gradients and
+    parameters, launches."""
+    counts, _, _ = run_training(dev, label, cfg, meta, SyntheticLoader([batch], 2), 1, 2, expect,
+                                counts_confidences=counts_confidences, smi=smi, prepare=prepare)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def r_small_voxel(config):
+    """``config`` at its own width and cell, f32, over P_SMALL_RANGE (64 x 64
+    x 40 cells of 0.1 x 0.1 x 0.15 m), 4,096 voxel slots and backbone caps,
+    2 Waymo-like scenes of 3,000 points (a zero time column for a
+    6-feature YAML)."""
+    cfg, meta, proc = load_voxel(config, P_SMALL_RANGE)
+    cfg.MODEL.MIXED_PRECISION = False
+    cfg.MODEL.BACKBONE_3D.VOXEL_CAPS = [4096, 4096, 2048, 1024]
+    proc.MAX_NUMBER_OF_VOXELS = {"train": 4096, "test": 4096}
+    pts = waymo_like_points(np.random.RandomState(73), 2, 3000, P_SMALL_RANGE)
+    if meta.num_point_features == 6:
+        pts = np.concatenate([pts, np.zeros((2, 3000, 1), np.float32)], -1)
+    batch = voxelize_batch({"points": pts, "points_mask": np.ones((2, 3000), bool)}, meta, proc,
+                           "test")
+    return cfg, meta, batch
+
+
+def r_pointrcnn_small_case():
+    """Waymo ``pointrcnn.yaml`` narrowed as ``pointrcnn_small_case`` narrows
+    PointRCNN (its SA levels, FPs, point head and RoI head widths, 128 ->
+    16 proposals), the YAML's own targets, coder and NMS thresholds, f32,
+    over that case's 2 scenes of 1,024 points.  Returns (cfg, meta,
+    batch)."""
+    small, meta, batch = pointrcnn_small_case(seed=1)
+    cfg, _ = load_points_yaml(R_POINTRCNN_CONFIG)
+    m, sm = cfg.MODEL, small.MODEL
+    m.MIXED_PRECISION = False
+    m.BACKBONE_3D = sm.BACKBONE_3D
+    m.POINT_HEAD.update(CLS_FC=sm.POINT_HEAD.CLS_FC, REG_FC=sm.POINT_HEAD.REG_FC)
+    for k in ("ROI_POINT_POOL", "XYZ_UP_LAYER", "CLS_FC", "REG_FC", "SA_CONFIG"):
+        m.ROI_HEAD[k] = sm.ROI_HEAD[k]
+    m.ROI_HEAD.TARGET_CONFIG.ROI_PER_IMAGE = 16
+    for mode in ("TRAIN", "TEST"):
+        m.ROI_HEAD.NMS_CONFIG[mode].update(NMS_PRE_MAXSIZE=128, NMS_POST_MAXSIZE=16)
+    return cfg, meta, batch
+
+
+def report_pointrcnn_full_width(dev, cfg, meta, rng):
+    """Not a gate: the full-width Waymo PointRCNN on 4,096 points a scene
+    (``cfg``: f32, NMS_PRE_MAXSIZE 256), the card against the CPU (the same
+    seeded weights, scores spread): the
+    first level's FPS indices, the point scores, and the top-256 candidate
+    sets.  A discrete choice made either way in rounding (an FPS argmax, a
+    score at the cut) sends the two devices' detections apart from there."""
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.ops.pointnet2 import farthest_point_sample
+
+    pts = waymo_like_points(rng, 2, 4096, meta.point_cloud_range)
+    outs = []
+    for d in (dev, "cpu"):
+        xyz = torch.as_tensor(pts[..., :3], device=d)
+        valid = torch.ones((2, 4096), dtype=torch.bool, device=d)
+        fps = farthest_point_sample(xyz, valid, 1024).cpu()
+        net = spread_point_scores(build_network(cfg.MODEL, meta, device=d, seed=7))
+        with torch.no_grad():
+            out = net({"points": torch.as_tensor(pts, device=d), "points_mask": valid})
+        score = out["point_cls_scores"].float().cpu()
+        outs.append((fps, score, set(map(tuple, torch.topk(score, 256, dim=1).indices.tolist()))))
+    (fa, sa, ta), (fb, sb, tb) = outs
+    first = (fa != fb).any(0).nonzero()
+    print(f"path R.5 Waymo PointRCNN at full width, 4,096 points a scene, card vs CPU (a "
+          f"report): FPS of 1,024 from 4,096 differs at {int((fa != fb).sum())} slots (first at "
+          f"{int(first[0]) if len(first) else None}); point scores max abs diff "
+          f"{float((sa - sb).abs().max()):.3e}; the top-256 candidate sets "
+          f"{'equal' if ta == tb else 'differ'}")
+
+
+def r_pointrcnn(dev, smi, entries, calls):
+    """Waymo ``pointrcnn.yaml`` through ``make_eval_step`` and
+    ``make_train_step`` (neither package's CLI runs PointRCNN): the f32 eval
+    step card against CPU on ``r_pointrcnn_small_case``, and a report of
+    the full width on 4,096 points (``report_pointrcnn_full_width``); then
+    at full width (batch 4 of 16,384 Waymo-like points a scene, scores
+    spread): one serving batch, K4 on its (4, 4096) proposal candidates,
+    two train steps with GT on its own proposals.  Returns (serving counts,
+    step counts)."""
+    cfg, meta = load_points_yaml(R_POINTRCNN_CONFIG)
+    rng = np.random.RandomState(74)
+    scfg, smeta, sbatch = r_pointrcnn_small_case()
+    compare_eval_step(dev, scfg, smeta, sbatch, "path R.5 small reference (Waymo PointRCNN "
+                      "narrowed, f32, 1,024 points, eval step, card vs CPU)",
+                      prepare=spread_point_scores)
+    import copy
+
+    small = copy.deepcopy(cfg)
+    small.MODEL.MIXED_PRECISION = False
+    for mode in ("TRAIN", "TEST"):  # the CPU's (2, 4096) rotated IoU would take minutes
+        small.MODEL.ROI_HEAD.NMS_CONFIG[mode].NMS_PRE_MAXSIZE = 256
+    report_pointrcnn_full_width(dev, small, meta, rng)
+
+    def batch():
+        return waymo_like_batch(rng, R_POINTRCNN_BATCH, R_POINTRCNN_POINTS,
+                                meta.point_cloud_range, (0.32, 0.32, 6.0), 3)
+
+    serve_b, train_b = batch(), batch()
+    label = "R.5 (Waymo PointRCNN)"
+    net, _, serve_counts, _ = q_serve(dev, smi, label, cfg, meta, [serve_b], EXPECT_N_SERVING,
+                                      spread_point_scores)
+    over, sv = point_proposal_candidates(net, cfg, serve_b, dev, train=False)
+    check_k4_cases(dev, entries, calls, over, sv, smi, ", path R.5 Waymo PointRCNN proposals",
+                   "R:nms_prcnn", iters=20)
+    del net, over, sv
+    torch.cuda.empty_cache()
+    train_counts = two_stage_training(dev, label, cfg, meta, [train_b], EXPECT_N_TRAIN, N_TERMS,
+                                      smi, spread=spread_point_scores)
+    return serve_counts, train_counts
+
+
+def r_com_configs(dev, smi, entries, calls, grid=None, points=POINTS, bg_points=120000):
+    """The paper's single-class COM configs (``COM: True``: the COM2
+    sampler; ``UCL: True``): each one's f32 eval step at a 64 x 64 grid
+    card against CPU, one serving batch at full width (468 x 468, batch 2
+    of 163,840 points), then ``pipeline_training`` over the port's
+    ``SyntheticDataset`` built from the YAML's own DATA_AUGMENTOR and
+    DATA_PROCESSOR (R_COM_EPOCHS mini-epochs of R_COM_STEPS steps, scenes
+    of ``bg_points`` ground points and up to R_COM_OBJECTS objects, room
+    under LIMIT_WHOLE_SCENE): ``train_model``'s epoch-end confidences reach
+    the dataset's own DataBaseSamplerCOM2 through its
+    ``set_confidence_groups``, (1, 96) for the vehicle config and (1, 15)
+    for the pedestrian ones, and the sampler draws the next epoch's
+    pastes by them.  K3 in both modes at car_com2's (2, 1, 468, 468) from
+    one step.  Returns car_com2's train counts (the K3 entries'
+    launches)."""
+    from com_tpu_torch.ops import stamp
+    from com_tpu_torch.train.step import device_batch_keys
+
+    first = None
+    for label, config, conf in R_COM_CONFIGS:
+        cfg, meta = load_config(grid=(64, 64, 1), config=config)
+        cfg.MODEL.MIXED_PRECISION = False
+        pts = waymo_like_points(np.random.RandomState(75), BATCH, 4096, meta.point_cloud_range)
+        compare_eval_step(dev, cfg, meta, {"points": pts, "points_mask": np.ones((BATCH, 4096),
+                                                                                 bool)},
+                          f"path {label} small reference (64x64 f32, eval step, card vs CPU)",
+                          prepare=spread_center_scores)
+        cfg, meta = load_config(grid, config)
+        serve_b = waymo_like_batch(np.random.RandomState(76), BATCH, points,
+                                   meta.point_cloud_range, meta.voxel_size, 1)
+        q_serve(dev, smi, label, cfg, meta, [serve_b], EXPECT_SERVING, lambda n: n)
+        torch.cuda.empty_cache()
+        ds_cfg = path_c_dataset_cfg(cfg, bg_points=bg_points, max_points=points,
+                                    scenes=BATCH * R_COM_STEPS, objects=R_COM_OBJECTS)
+        ds_cfg.POINT_CLOUD_RANGE = list(meta.point_cloud_range)
+        counts, trainer, _, _ = pipeline_training(dev, f"path {label}", label, cfg, meta, ds_cfg,
+                                                  R_COM_EPOCHS, R_COM_STEPS, EXPECT_TRAIN_UCL,
+                                                  conf)
+        if first is None:
+            first = counts
+            net, _, state, step = trainer
+            keys = device_batch_keys(cfg.MODEL)
+            with captured(stamp, "stamp_windows") as k3:
+                step.loss_fn(state, {k: serve_b[k] for k in keys}, 0)
+            torch.cuda.synchronize()
+            for args, kw in k3:
+                check_k3_call(dev, entries, calls, args, kw, f"path {label}",
+                              f"R:stamp_{args[8]}", smi)
+            del k3, net, state, step
+        del trainer
+        torch.cuda.empty_cache()
+    return first
+
+
+def path_r(dev, smi, entries, calls, points=POINTS, grid=None, voxel_range=None,
+           bg_points=120000):
+    """Path R, MPPNet (the multi-frame second stage over a first stage's
+    stored boxes) and the eight Waymo configs no earlier path runs: R.0 the
+    small f32 references, card against CPU (``compare_mppnet`` on
+    ``mppnet_width_case``: the YAMLs' head widths, few points and RoIs); R.1 / R.2 ``mppnet_4frames.yaml`` /
+    ``mppnet_16frames.yaml`` serving at full width over a 4- / 16-frame
+    ``mppnet_sequence`` (``points`` points a frame, 500 proposals a frame)
+    with K4 at the final NMS's (2, 500); R.3 both trained at the function
+    level (``r_train_mppnet``); R.4 ``centerpoint_4frames.yaml`` as the
+    first stage, its boxes served through ``mppnet_4frames.yaml``
+    (``r_first_stage``); R.5 ``centerpoint.yaml``, ``centerpoint_
+    without_resnet.yaml`` and ``centerpoint_pillar.yaml`` (card against
+    CPU at a small grid, a serving batch and two steps at full width), the COM
+    configs (``r_com_configs``) and Waymo PointRCNN (``r_pointrcnn``).
+    Returns the launch counts its kernel entries report.  ``points``,
+    ``grid``, ``voxel_range`` and ``bg_points`` are for rehearsals."""
+    start = time.perf_counter()
+    out = {}
+    for config in (R_MPP4_CONFIG, R_MPP16_CONFIG):
+        cfg, meta, batch = mppnet_width_case(config)
+        compare_mppnet(dev, cfg, meta, batch, f"path R.0 small reference ({Path(config).stem} "
+                       "at its widths, 2,000 points and 48 proposals a frame, f32)")
+    torch.cuda.empty_cache()
+    counts4, cfg4, meta4, seq4 = r_serve_mppnet(
+        dev, smi, entries, calls, "R.1 (mppnet_4frames)", R_MPP4_CONFIG, points, "R:nms_mpp4")
+    counts16, cfg16, meta16, seq16 = r_serve_mppnet(
+        dev, smi, entries, calls, "R.2 (mppnet_16frames)", R_MPP16_CONFIG, points, "R:nms_mpp16")
+    out.update({"R:nms_mpp4": counts4["nms"], "R:nms_mpp16": counts16["nms"]})
+    del seq16["frames"]
+    r_train_mppnet(dev, smi, "R.3 (mppnet_4frames)", cfg4, meta4, seq4)
+    r_train_mppnet(dev, smi, "R.3 (mppnet_16frames)", cfg16, meta16, seq16)
+    del seq16
+    torch.cuda.empty_cache()
+    mpp, _, _ = r_first_stage(dev, smi, seq4)
+    r_serve_mppnet(dev, smi, [], [], "R.4 (mppnet_4frames over centerpoint_4frames' boxes)",
+                   R_MPP4_CONFIG, points, "R:nms_mpp4", batch=mpp)
+    print("  R.4: the weights are random, so most of the first stage's boxes link to none "
+          "in a past frame (a trajectory of length 1)")
+    del seq4, mpp
+    torch.cuda.empty_cache()
+    out.update(r5_configs(dev, smi, entries, calls, points, grid, voxel_range, bg_points))
+    print(f"path R: {time.perf_counter() - start:.1f} s wall in all")
+    return out
+
+
+def r5_configs(dev, smi, entries, calls, points=POINTS, grid=None, voxel_range=None,
+               bg_points=120000):
+    """R.5: the seven Waymo configs besides centerpoint_4frames (``path_r``).
+    Returns the launch counts of the kernel entries it adds."""
+    out = {}
+    rng = np.random.RandomState(77)
+    for label, config in R_OTHER_VOXEL:
+        cfg, meta, batch = r_small_voxel(config)
+        compare_eval_step(dev, cfg, meta, batch, f"path {label} small reference (64x64x40 f32, "
+                          "eval step, card vs CPU)", prepare=spread_center_scores)
+        cfg, meta, proc = load_voxel(config, voxel_range)
+        b = waymo_like_batch(rng, R_BATCH, points, meta.point_cloud_range, (0.32, 0.32, 6.0),
+                             len(meta.class_names))
+        q_serve(dev, smi, label, cfg, meta, [voxelize_batch(b, meta, proc, "test")],
+                EXPECT_R_VOXEL_SERVING, lambda n: n)
+        torch.cuda.empty_cache()
+        r_train_config(dev, smi, label, cfg, meta, voxelize_batch(b, meta, proc, "train"),
+                       EXPECT_R_VOXEL_TRAIN)
+    label = "R.5 (centerpoint_pillar.yaml)"
+    cfg, meta = load_config(grid=(64, 64, 1), config=R_PILLAR_CONFIG)
+    cfg.MODEL.MIXED_PRECISION = False
+    pts = waymo_like_points(np.random.RandomState(78), BATCH, 4096, meta.point_cloud_range)
+    compare_eval_step(dev, cfg, meta, {"points": pts, "points_mask": np.ones((BATCH, 4096), bool)},
+                      f"path {label} small reference (64x64 f32, eval step, card vs CPU)",
+                      prepare=spread_center_scores)
+    cfg, meta = load_config(grid, R_PILLAR_CONFIG)
+    b = waymo_like_batch(rng, BATCH, points, meta.point_cloud_range, meta.voxel_size, 3)
+    q_serve(dev, smi, label, cfg, meta, [b], EXPECT_R_PILLAR_SERVING, lambda n: n)
+    torch.cuda.empty_cache()
+    r_train_config(dev, smi, label, cfg, meta, b, EXPECT_R_PILLAR_TRAIN)
+    com_counts = r_com_configs(dev, smi, entries, calls, grid, points, bg_points)
+    out.update({f"R:{k}": v for k, v in com_counts.items() if k.startswith("stamp")})
+    prcnn_serve, _ = r_pointrcnn(dev, smi, entries, calls)
+    out["R:nms_prcnn"] = prcnn_serve["nms"]
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6258,6 +7035,8 @@ def main():
     p_counts = path_p(dev, smi, entries, calls)
     torch.cuda.empty_cache()
     q_counts = path_q(dev, smi, entries, calls)
+    torch.cuda.empty_cache()
+    r_counts = path_r(dev, smi, entries, calls)
     # each kernel's launches on the path that runs it: training path A,
     # serving for K4, path B for K3's last_wins mode, the sweep for T1-T4;
     # paths E, F, G and J's shapes: their training, and their serving for
@@ -6269,7 +7048,9 @@ def main():
     # train proposals' K4) and serving (K4 twice a forward), P.3's serving
     # and P.4's stream for their final NMS; path Q's: Q.2's 2 steps (K1, its
     # backward, K2, dgrad, K2w, K3) and serving (K4 six times a forward), Q.3
-    # Lyft's serving (K4)
+    # Lyft's serving (K4); path R's: R.1 / R.2's MPPNet serving (K4 at the
+    # final NMS), car_com2's 2 x 2 steps (K3 at (2, 1, 468, 468)), Waymo
+    # PointRCNN's serving (K4 twice a forward)
     counts = {**a_counts, "nms": serve_counts["nms"],
               "stamp_last_wins": b_counts["stamp_last_wins"],
               **{f"wgrad_{v}": sweep_counts[f"wgrad_{v}"] for v in WGRAD_VARIANTS},
@@ -6285,7 +7066,7 @@ def main():
               **{f"P:{k}": v for k, v in p_counts["train"].items()},
               "P:nms": p_counts["serve"]["nms"], "P:nms_train": p_counts["train"]["nms"],
               "P:nms_pv": p_counts["pv_serve"]["nms"], "P:nms_mpp": p_counts["mpp"]["nms"],
-              **q_counts}
+              **q_counts, **r_counts}
     if not profile:
         check_device_kernels(calls)
     for e in entries:

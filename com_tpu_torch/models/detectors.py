@@ -16,8 +16,9 @@ returns raw predictions in both modes).  The two-stage detectors take
 their proposals from an anchor head or from a CenterHead
 (``decode_center_proposals``: the *_with_centerhead_* configs).
 MPPNetE2E (a CenterHead with velocity, then MPPNet's memory-bank head over
-its top proposals) is ported for inference; the MPPNet and CaDDN detectors
-raise by name.
+its top proposals) is ported for inference; MPPNet (the multi-frame head
+over a first stage's stored proposals, ``roi_head.*``) for inference and,
+in train mode, its target sampling; the CaDDN detector raises by name.
 """
 from __future__ import annotations
 
@@ -44,6 +45,8 @@ from .dense_heads.anchor_head import (box_coder_for, build_anchors, decode_ancho
 from .dense_heads.center_head import decode_center_proposals
 from .layers import BatchNorm, Conv1x1, Conv2d
 from .mppnet.mppnet_e2e import init_bank, mppnet_e2e_stream_step, zero_geo
+from .mppnet.mppnet_head import generate_trajectory
+from .mppnet.targets import sample_mppnet_targets
 from .roi_heads.proposal_layer import proposal_layer, take_rows
 from .roi_heads.roi_targets import assign_roi_targets
 
@@ -466,9 +469,60 @@ class MPPNetE2E(Detector3D):
         return mppnet_e2e_stream_step(self.roi_head, self.proposals(batch), bank, is_first)
 
 
-for _name, _what in (("MPPNet", "multi-frame proxy points"),
-                     ("CaDDN", "the image depth frustum")):
-    DETECTORS.register_unported(_name, _what)
+@DETECTORS.register
+class MPPNet(nn.Module):
+    """MPPNet's second stage alone (detectors/mppnet.py:12-43): a first
+    stage's stored boxes a frame (batch["roi_boxes"] (B, F, P, 9+), the
+    backward displacement at 7:9; "roi_scores" (B, F, P); "roi_labels" (B,
+    P)) linked into trajectories (``generate_trajectory``), then
+    ``MPPNetHead`` (``roi_head``) over the fused points (timestamp last).
+    In train mode with "gt_boxes" it samples ROI_PER_IMAGE trajectories a
+    sample (``sample_mppnet_targets``) and writes batch["mppnet_targets"],
+    for ``mppnet_loss``; the head's dropout draws from
+    batch["rngs"]["dropout"] where given."""
+
+    # the batch keys it reads besides the ground truth (``device_batch_keys``)
+    input_keys = frozenset({"roi_boxes", "roi_scores", "roi_labels", "points", "points_mask"})
+    # why ``make_train_step`` and the CLIs do not run it
+    no_step_reason = (
+        "com_tpu's train step adds no mppnet_loss, and no dataset of either package fills "
+        "roi_boxes (the first stage's boxes a frame; USE_PREDBOX / ROI_BOXES_PATH are read by "
+        "no code), so com_tpu's step and CLIs cannot run it either; use build_network, "
+        "make_eval_step and, for training, the detector in train mode (it samples "
+        "batch['mppnet_targets']) with models.mppnet.mppnet_loss")
+
+    def __init__(self, model_cfg, meta: DatasetMeta):
+        super().__init__()
+        self.model_cfg, self.meta = model_cfg, meta
+        roi_cfg = model_cfg["ROI_HEAD"]
+        self.roi_head = ROI_HEADS.get(roi_cfg["NAME"])(
+            roi_cfg, num_class=1, num_point_features=meta.num_point_features)
+
+    def forward(self, batch):
+        proposals = batch["roi_boxes"]
+        with torch.no_grad():
+            trajectory, valid_length = generate_trajectory(proposals[:, 0], proposals)
+        if self.training and "gt_boxes" in batch:
+            tc = self.model_cfg["ROI_HEAD"]["TARGET_CONFIG"]
+            with torch.no_grad():
+                targets = sample_mppnet_targets(
+                    trajectory, valid_length, batch["roi_scores"][:, 0], batch["roi_labels"],
+                    batch["gt_boxes"], roi_per_image=int(tc.get("ROI_PER_IMAGE", 96)),
+                    fg_ratio=float(tc.get("FG_RATIO", 0.5)),
+                    reg_fg_thresh=float(tc.get("REG_FG_THRESH", 0.55)),
+                    cls_fg_thresh=float(tc.get("CLS_FG_THRESH", 0.75)),
+                    cls_bg_thresh=float(tc.get("CLS_BG_THRESH", 0.25)),
+                    sample_by_class=bool(tc.get("SAMPLE_ROI_BY_EACH_CLASS", True)))
+            batch.update(mppnet_targets=targets, trajectory_rois=targets.trajectory_rois,
+                         valid_length=targets.valid_length, roi_labels_sampled=targets.roi_labels)
+        else:
+            batch.update(trajectory_rois=trajectory, valid_length=valid_length,
+                         roi_scores_cur=batch["roi_scores"][:, 0],
+                         roi_labels_sampled=batch["roi_labels"])
+        return self.roi_head(batch)
+
+
+DETECTORS.register_unported("CaDDN", "the image depth frustum")
 
 
 def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -508,6 +562,15 @@ def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
             elif isinstance(mod, (AnchorHeadSingle, SingleHead)):
                 mod.conv_cls.bias.fill_(CLS_BIAS_INIT)
     return net
+
+
+def detector_class(model_cfg):
+    """The class ``build_network`` builds for ``model_cfg["NAME"]`` (None
+    for a name outside the registry), for what it declares: ``input_keys``
+    where it names the batch keys it reads, ``no_step_reason`` where the
+    train step and the CLIs do not run it."""
+    name = model_cfg.get("NAME")
+    return DETECTORS.get(name) if name in DETECTORS else None
 
 
 def build_network(model_cfg, meta: DatasetMeta, device=None, seed: int = 0):

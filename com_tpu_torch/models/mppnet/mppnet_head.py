@@ -3,8 +3,8 @@ mppnet/mppnet_head.py``; pcdet roi_heads/mppnet_head.py): the trajectory
 linking, the point crop a (RoI, frame), the proxy-point geometry and motion
 features, the box-sequence embedding, the grouped transformer and the box
 decode, over fixed-size (B, F, R, ...) tensors in plain PyTorch as the JAX
-package's are plain XLA.  Its loss and target sampling are not ported yet
-(``train/step.py`` raises for this head).
+package's are plain XLA, and its loss (``mppnet_loss``; the target
+sampling is ``targets.py``).
 
 Sub-modules keep the JAX package's scope names (``up_dimension_geometry``,
 ``up_dimension_motion``, ``seqboxembed``, ``jointembed``, ``transformer``,
@@ -18,7 +18,7 @@ import math
 import torch
 from torch import nn
 
-from ...ops.boxes import ResidualCoder
+from ...ops.boxes import ResidualCoder, corner_loss
 from ...ops.iou import boxes_iou3d
 from ...ops.pointnet2 import query_and_group
 from ...utils.registry import ROI_HEADS
@@ -102,6 +102,12 @@ def generate_trajectory_with_idx(cur_boxes, proposals_list, iou_thresh: float = 
             torch.stack(idxs, 1))
 
 
+def generate_trajectory(cur_boxes, proposals_list, iou_thresh: float = 0.5):
+    """``generate_trajectory_with_idx`` without the indices: (trajectory
+    (B, F, R, D), valid_length (B, F, R) f32)."""
+    return generate_trajectory_with_idx(cur_boxes, proposals_list, iou_thresh)[:2]
+
+
 def first_hits(ok, k: int):
     """(..., N) bool -> (..., k) indices of the first ``k`` true entries in
     index order (``lax.top_k`` of the 0/1 mask), the slots past the last
@@ -115,6 +121,9 @@ def first_hits(ok, k: int):
     return torch.clamp(idx, max=n - 1), hit
 
 
+CROP_BLOCK = 1 << 28  # (B, RoIs, points) entries of a crop's distance tensor a block
+
+
 def crop_trajectory_points(points, pmask, trajectory, valid_length, num_lidar_points: int,
                            frame_dt: float = 0.1):
     """Up to ``num_lidar_points`` points a (RoI, frame) within 1.1 times the
@@ -122,24 +131,32 @@ def crop_trajectory_points(points, pmask, trajectory, valid_length, num_lidar_po
     timestamp (the last channel) is the frame's (mppnet_head.py:470-549).
     points (B, N, C), trajectory (B, F, R, D).  Returns (B, R, F * K, C - 1),
     the timestamp dropped, a RoI's rows zero where its frame has no hit
-    (or, past frame 0, no match)."""
-    c = points.shape[-1]
+    (or, past frame 0, no match).  The RoIs go in blocks of at most
+    CROP_BLOCK // (B * N) (at least one): a RoI's points depend on its box
+    alone, so the blocks change nothing but the (B, R, N) transients."""
+    b, n, c = points.shape
+    r = trajectory.shape[2]
+    step = max(1, CROP_BLOCK // max(b * n, 1))
     xy, t = points[..., 0:2], points[..., -1]
     outs = []
     for i in range(trajectory.shape[1]):
-        boxes = trajectory[:, i]
-        radii2 = ((boxes[..., 3] / 2) ** 2 + (boxes[..., 4] / 2) ** 2) * (1.1 ** 2)
-        d2 = ((xy[:, None, :, :] - boxes[..., None, 0:2]) ** 2).sum(-1)  # (B, R, N)
-        tmask = torch.abs(t - i * frame_dt) < 1e-3
-        ok = (d2 <= radii2[..., None]) & (tmask & pmask)[:, None, :]
-        idx, hit = first_hits(ok, num_lidar_points)
-        b, r, k = idx.shape
-        pts = torch.gather(points[:, None].expand(b, r, -1, c), 2,
-                           idx[..., None].expand(-1, -1, -1, c))
-        keep = hit.any(dim=-1, keepdim=True)
-        if i > 0:
-            keep = keep & (valid_length[:, i, :, None] > 0)
-        outs.append((pts * keep[..., None].to(pts.dtype))[..., :c - 1])
+        tmask = (torch.abs(t - i * frame_dt) < 1e-3) & pmask
+        frame = []
+        for lo in range(0, r, step):
+            boxes = trajectory[:, i, lo:lo + step]
+            radii2 = ((boxes[..., 3] / 2) ** 2 + (boxes[..., 4] / 2) ** 2) * (1.1 ** 2)
+            d2 = ((xy[:, None, :, :] - boxes[..., None, 0:2]) ** 2).sum(-1)  # (B, r, N)
+            ok = (d2 <= radii2[..., None]) & tmask[:, None, :]
+            del d2
+            idx, hit = first_hits(ok, num_lidar_points)
+            rb, k = idx.shape[1:]
+            pts = torch.gather(points[:, None].expand(b, rb, -1, c), 2,
+                               idx[..., None].expand(-1, -1, -1, c))
+            keep = hit.any(dim=-1, keepdim=True)
+            if i > 0:
+                keep = keep & (valid_length[:, i, lo:lo + step, None] > 0)
+            frame.append((pts * keep[..., None].to(pts.dtype))[..., :c - 1])
+        outs.append(torch.cat(frame, dim=1))
     return torch.cat(outs, dim=2)
 
 
@@ -298,3 +315,67 @@ class MPPNetHead(nn.Module):
         rot = rotate_z(dec[..., 0:3], rois[..., 6])
         return torch.cat([rot + rois[..., 0:3], dec[..., 3:6], dec[..., 6:7] + rois[..., 6:7]],
                          dim=-1)
+
+
+def mppnet_loss(preds, targets, loss_cfg, box_coder=None):
+    """MPPNet's training loss (mppnet_head.py:801-960; ``com_tpu``'s
+    ``mppnet_loss``): ``preds`` the head's ``mppnet_preds`` (rcnn_cls (L,
+    BR, 1), rcnn_reg (BR, 7), point_reg (G * L, BR, 7), box_reg (BR, 7));
+    ``targets`` a dict (or ``MPPNetTargets``) with rois (B, R, 7),
+    gt_of_rois_ct, gt_of_rois_src (B, R, 7), cls_labels and reg_valid (B,
+    R).  The class loss is each layer's BCE against the soft IoU labels
+    (probabilities clipped to [1e-7, 1]), over the labelled RoIs, averaged
+    over the layers; the regression a smooth-L1 (beta 1) against the
+    ``ResidualCoder`` encoding of the canonical GT on size-only anchors,
+    over the foregrounds, for the joint, the sequence and the mean of the
+    per-(group, layer) heads, weighted by ``traj_reg_weight``; with
+    CORNER_LOSS_REGULARIZATION the joint boxes' corner loss.  Returns
+    (total, {"rcnn_loss_cls", "rcnn_loss_reg", "rcnn_loss_corner"})."""
+    if hasattr(targets, "_asdict"):
+        targets = targets._asdict()
+    w = loss_cfg["LOSS_WEIGHTS"]
+    coder = box_coder or ResidualCoder()
+    rois = targets["rois"].reshape(-1, 7)
+    code_w = torch.as_tensor(list(w["code_weights"]), dtype=torch.float32, device=rois.device)
+    gt_ct = targets["gt_of_rois_ct"].reshape(-1, 7)
+    gt_src = targets["gt_of_rois_src"].reshape(-1, 7)
+    cls_labels = targets["cls_labels"].reshape(-1)
+    fg = targets["reg_valid"].reshape(-1).to(torch.float32)
+    fg_sum = torch.clamp(fg.sum(), min=1.0)
+
+    cls_valid = (cls_labels >= 0).to(torch.float32)
+    labels = torch.clamp(cls_labels, 0.0, 1.0)[None]
+    p = torch.sigmoid(preds["rcnn_cls"][..., 0])  # (L, BR)
+    bce = -(labels * torch.log(torch.clamp(p, 1e-7, 1.0))
+            + (1 - labels) * torch.log(torch.clamp(1 - p, 1e-7, 1.0)))
+    loss_cls = (bce * cls_valid[None]).sum(dim=1) / torch.clamp(cls_valid.sum(), min=1.0)
+    loss_cls = loss_cls.mean() * float(w["rcnn_cls_weight"])
+
+    anchor = torch.cat([torch.zeros_like(rois[:, 0:3]), rois[:, 3:6],
+                        torch.zeros_like(rois[:, 6:7])], dim=-1)
+    reg_targets = coder.encode(gt_ct, anchor)
+
+    def smooth_l1(pred):
+        diff = (pred - reg_targets) * code_w[None]
+        ad = torch.abs(diff)
+        per = torch.where(ad < 1.0, 0.5 * diff ** 2, ad - 0.5)
+        return (per.sum(-1) * fg).sum() / fg_sum
+
+    reg_w = float(w["rcnn_reg_weight"])
+    traj_w = [float(x) for x in w.get("traj_reg_weight", [2.0, 2.0, 2.0])]
+    gl = preds["point_reg"].shape[0]
+    loss_reg = (smooth_l1(preds["rcnn_reg"]) * reg_w * traj_w[0]
+                + sum(smooth_l1(preds["point_reg"][i]) for i in range(gl)) / gl * reg_w
+                * traj_w[2]
+                + smooth_l1(preds["box_reg"]) * reg_w * traj_w[1])
+
+    loss_corner = torch.zeros((), device=rois.device)
+    if loss_cfg.get("CORNER_LOSS_REGULARIZATION", False):
+        dec = coder.decode(preds["rcnn_reg"][:, :7], anchor)
+        boxes = torch.cat([rotate_z(dec[..., 0:3], rois[:, 6]) + rois[:, 0:3], dec[..., 3:6],
+                           dec[..., 6:7] + rois[:, 6:7]], dim=-1)
+        loss_corner = ((corner_loss(boxes, gt_src) * fg).sum() / fg_sum
+                       * float(w["rcnn_corner_weight"]))
+    total = loss_cls + loss_reg + loss_corner
+    return total, {"rcnn_loss_cls": loss_cls, "rcnn_loss_reg": loss_reg,
+                   "rcnn_loss_corner": loss_corner}

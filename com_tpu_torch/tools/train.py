@@ -118,10 +118,18 @@ def dataset_meta(cfg, dataset):
 
 
 def require_dense_head(cfg, cli: str):
-    """Raise for a detector without ``MODEL.DENSE_HEAD`` (PointRCNN): the JAX
-    package's train and test CLIs read it (and its train CLI initialises the
-    model from ``device_batch_keys``, which give PointRCNN no points), so
-    they cannot run one, and neither do these."""
+    """Raise, by name, for a detector that declares a ``no_step_reason``
+    (MPPNet: no dataset of either package fills its ``roi_boxes``, so the
+    JAX package's CLIs cannot run it); and for any other detector without
+    ``MODEL.DENSE_HEAD`` (PointRCNN): the JAX package's train and test CLIs
+    read it (and its train CLI initialises the model from
+    ``device_batch_keys``, which give PointRCNN no points), so they cannot
+    run one, and neither do these."""
+    from ..models.detectors import detector_class
+
+    reason = getattr(detector_class(cfg.MODEL), "no_step_reason", None)
+    if reason is not None:
+        raise NotImplementedError(f"the {cli} CLI for {cfg.MODEL.NAME} is not ported: {reason}")
     if cfg.MODEL.get("DENSE_HEAD") is None:
         raise NotImplementedError(
             f"the {cli} CLI for a detector without MODEL.DENSE_HEAD ({cfg.MODEL.NAME}) is not "

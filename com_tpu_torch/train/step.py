@@ -28,6 +28,7 @@ from ..models.dense_heads.anchor_head import box_coder_for, build_anchors, resha
 from ..models.dense_heads.point_head import (point_head_box_loss, point_head_loss,
                                              point_part_loss)
 from ..models.dense_heads.target_assign import assign_centerpoint_targets, cluster_com_groups
+from ..models.detectors import detector_class
 from ..models.roi_heads.roi_targets import decode_rcnn_boxes
 from ..models.roi_heads.second_head import second_iou_loss
 from ..ops.boxes import corner_loss
@@ -47,6 +48,13 @@ def device_batch_keys(model_cfg) -> set:
     copies only these to the device, and the rest of a collated batch
     (voxels, frame ids, the augmentations' parameters) stays on the host."""
     keys = set(GT_KEYS)
+    declared = getattr(detector_class(model_cfg), "input_keys", None)
+    if declared is not None:
+        # a detector that names what it reads (MPPNet: a first stage's boxes,
+        # scores and labels a frame, and the points).  The JAX package's eval
+        # step feeds the model the whole batch, and its function gives MPPNet
+        # the voxel keys instead; this port's steps filter the batch
+        return keys | declared
     vfe = model_cfg.get("VFE", {}).get("NAME", "")
     if model_cfg.get("BACKBONE_3D", {}).get("NAME") == "PointNet2MSG":
         # PointRCNN's point backbone reads the raw points.  The JAX package's
@@ -375,6 +383,9 @@ def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, devic
     ph_cfg = model_cfg.get("POINT_HEAD")
     if ph_cfg is not None and ph_cfg.get("NAME") not in PORTED_POINT_HEADS:
         raise NotImplementedError(f"the POINT_HEAD loss of {ph_cfg.get('NAME')} is not ported yet")
+    reason = getattr(detector_class(model_cfg), "no_step_reason", None)
+    if reason is not None:
+        raise NotImplementedError(f"make_train_step does not train {model_cfg['NAME']}: {reason}")
     roi_cfg = model_cfg.get("ROI_HEAD")
     if roi_cfg is not None and roi_cfg.get("NAME") not in PORTED_ROI_HEADS:
         raise NotImplementedError(f"the ROI_HEAD loss of {roi_cfg.get('NAME')} is not ported yet")

@@ -257,18 +257,16 @@ SHIPPED = sorted(str(p.relative_to(REPO)) for p in (REPO / "configs").rglob("*.y
 RAISES = {"configs/kitti_models/CaDDN.yaml": (NotImplementedError, "CaDDN"),
           "configs/kitti_models/voxel_rcnn_car_focal_multimodal.yaml":
               (NotImplementedError, "VoxelBackBone8xFocal"),
-          "configs/waymo_models/mppnet_4frames.yaml": (NotImplementedError, "MPPNet"),
-          "configs/waymo_models/mppnet_16frames.yaml": (NotImplementedError, "MPPNet"),
           # a head's deblock takes a negative width, in both packages (ROADMAP Queue 3)
           "configs/nuscenes_models/cbgs_second_multihead.yaml": (RuntimeError, "negative")}
 
 
 def test_shipped_config_census():
-    """49 configs ship under ``configs/`` (dataset configs aside): 44 build,
-    4 raise NotImplementedError by name, 1 a RuntimeError.  The port
-    registers every one's DATA_CONFIG.DATASET (KITTI, custom, synthetic,
-    Waymo, nuScenes, Lyft), so all 44 that build have their data side too
-    (38 before the nuScenes and Lyft datasets)."""
+    """49 configs ship under ``configs/`` (dataset configs aside): 46 build
+    (44 before the MPPNet detector), 2 raise NotImplementedError by name, 1
+    a RuntimeError.  The port registers every one's DATA_CONFIG.DATASET
+    (KITTI, custom, synthetic, Waymo, nuScenes, Lyft), so all 46 that build
+    have their data side too."""
     import com_tpu_torch.data  # noqa: F401  (registers the datasets)
     from com_tpu_torch.utils.config import cfg_from_yaml_file
     from com_tpu_torch.utils.registry import DATASETS
@@ -277,7 +275,7 @@ def test_shipped_config_census():
     datasets = {c: cfg_from_yaml_file(str(REPO / c)).DATA_CONFIG.DATASET for c in SHIPPED}
     registered = {c for c, d in datasets.items() if d in DATASETS}
     assert registered == set(SHIPPED)
-    assert len(registered - set(RAISES)) == 44
+    assert len(registered - set(RAISES)) == 46
     assert sum(datasets[c] in ("NuScenesDataset", "LyftDataset")
                for c in registered - set(RAISES)) == 6
 
@@ -308,6 +306,8 @@ def test_shipped_configs_build_at_their_own_grid(config):
         return
     net = DETECTORS.get(cfg.MODEL.NAME)(cfg.MODEL, meta)
     assert type(net).__name__ == cfg.MODEL.NAME
+    if config.startswith("configs/waymo_models/mppnet_") and "e2e" not in config:
+        assert type(net.roi_head).__name__ == "MPPNetHead" and not hasattr(net, "dense_head")
     if "centerhead" in config or "mppnet_e2e" in config:
         assert meta.grid_size == (1498, 1498, 40)
         assert type(net.dense_head).__name__ == "CenterHead"

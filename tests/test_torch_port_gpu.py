@@ -1531,3 +1531,19 @@ def test_k1_at_the_nuscenes_vfe_shape(dev):
     scale = seg_scan.run_bcast_plain(g.float().abs(), seg, "sum")
     err = (got.float() - want.float()).abs()
     assert bool((err <= 1e-5 * scale + 2.0 ** -7 * want.float().abs() + 1e-6).all())
+
+
+@pytest.mark.parametrize("config", ["configs/waymo_models/mppnet_4frames.yaml",
+                                    "configs/waymo_models/mppnet_16frames.yaml"])
+def test_mppnet_on_card_matches_cpu(dev, config):
+    """MPPNet at the YAML's head widths over few points and RoIs
+    (``chip_smoke.mppnet_width_case``) in f32, the card against the CPU
+    (``compare_mppnet``): the trajectory linking, the eval step's
+    detections (K4 once in its final NMS), the train-mode targets and one
+    step's loss and gradients."""
+    from chip_smoke import compare_mppnet, mppnet_width_case
+
+    cfg, meta, batch = mppnet_width_case(config, seed=4)
+    k4 = nms.launches
+    compare_mppnet(dev, cfg, meta, batch, f"MPPNet ({config}), card vs CPU")
+    assert nms.launches - k4 == 1  # the card's eval step: one final NMS

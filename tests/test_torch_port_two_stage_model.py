@@ -163,9 +163,19 @@ def test_second_iou_head_keeps_pcdet_layout(second_iou):
                                   "MPPNet", "MPPNetE2E"])
 def test_unported_two_stage_detectors_raise_by_name(name):
     """The unported detectors raise by name; PV-RCNN, PV-RCNN++, PartA2,
-    PointRCNN and MPPNetE2E, ported, build (``tests/torch_port_pvrcnn_setup.py``'s,
+    PointRCNN, MPPNet and MPPNetE2E, ported, build (``tests/torch_port_pvrcnn_setup.py``'s,
     ``tests/test_parta2.py``'s and ``tests/test_pointrcnn.py``'s small
-    configs; MPPNetE2E its YAML at its own Waymo grid)."""
+    configs; MPPNet and MPPNetE2E their YAMLs at their own Waymo grid)."""
+    if name == "MPPNet":
+        from com_tpu_torch.utils.config import cfg_from_yaml_file
+
+        cfg = cfg_from_yaml_file("configs/waymo_models/mppnet_4frames.yaml")
+        meta = DatasetMeta(cfg.CLASS_NAMES, (-75.2, -75.2, -2, 75.2, 75.2, 4),
+                           (0.1, 0.1, 0.15), (1504, 1504, 40), 6)
+        net = DETECTORS.get(name)(cfg.MODEL, meta)
+        assert type(net).__name__ == name and type(net.roi_head).__name__ == "MPPNetHead"
+        assert len(net.roi_head.bbox_embed) == 4
+        return
     if name == "MPPNetE2E":
         from com_tpu_torch.utils.config import cfg_from_yaml_file
 
