@@ -3,7 +3,9 @@ data pipeline, through its train, test and demo CLIs, for the PointPillars
 anchor head, the sparse-voxel detectors, the two-stage Voxel-RCNN and
 SECOND-IoU, PV-RCNN, PointRCNN and PartA2, the CenterHead-RPN Voxel-RCNN
 and PV-RCNN on Waymo, MPPNetE2E's streaming, the nuScenes and Lyft
-configs, MPPNet and the other Waymo configs; the KITTI, nuScenes, Lyft and Pandaset configs from trees on disk),
+configs, MPPNet and the other Waymo configs; the KITTI, nuScenes, Lyft and
+Pandaset configs from trees on disk; the flagship from a Waymo tree the port
+prepares, with the COM rehearsal),
 its
 serving artifact (export, load and the HTTP server), its data-parallel
 training and evaluation, and its wgrad sweep on one NVIDIA GPU.
@@ -160,8 +162,8 @@ Phases (any failure raises, and the script exits non-zero):
    batches each after 3 warm-up, alternating.  A CPU-exported artifact of
    the synthetic config run on the card (``move_to_device_pass``) against
    the CPU, with the eager step's launches; the anchor branch exported on
-   path E's configuration and held to its eager step with path E's
-   launches.
+   path E's configuration at batch 2 and held to its eager step with path
+   E's launches.
 16. Path I, the data mesh (``com_tpu_torch/parallel``): two ranks
    spawned on the card (``parallel.launch.run_ranks``, gloo: NCCL takes one
    rank a card) after the kernels are built.  I.1: the flagship at full
@@ -295,15 +297,26 @@ Phases (any failure raises, and the script exits non-zero):
    (1, 96) / (1, 15), which draws the next epoch by it; K3 at (2, 1, 468,
    468)) and Waymo ``pointrcnn.yaml``: card against CPU small, a serving
    batch and two steps at full width each.
-24. Launch counts: every counter is zeroed just before each path (the
+24. Path S, the flagship from raw frames (``path_s``'s docstring): a
+   seeded Waymo tree (2 train sequences of 20 frames, 163,840 points a
+   frame), its COM database through the port's ``create_data`` CLI
+   (created, annotated, packed; every entry checked) and the COM2
+   sampler's 96 / 15 / 15 groups; WaymoDataset's host rate; the flagship's
+   feedback loop through the train CLI (3 epochs and one resumed: the
+   rehearsal's table, the confidences reaching the sampler bitwise); the
+   test CLI's Waymo AP; the rehearsal (``com_tpu_torch.tools.
+   com_rehearsal``) with its bars on its synthetic config.
+25. Launch counts: every counter is zeroed just before each path (the
    sweep, serving, A, B, C, D's, E's, F's, G's, J's, K's, H's, L's, M's,
-   N's, O's, P's, Q's and R's phases, and in each rank of I) and read just after, against the calls the sweep
+   N's, O's, P's, Q's, R's and S's phases, and in each rank of I) and read
+   just after, against the calls the sweep
    reports and the expected counts per
    forward or per step.  The device
    kernels one K3 call issues (1) and one K4 call (2, the pack and the
    sweep), counted by torch.profiler after every timed phase.  Then the
    ``kernels`` line, the card's name and power limit, and the device line
-   as the last line.
+   as the last line.  Each phase's wall seconds are printed as it ends
+   (``phase time``) and all together before the ``kernels`` line.
 
 ``python3 chip_smoke.py --profile`` also runs torch.profiler over one sweep
 pass over T1-T4, three eval steps and three train steps and prints the
@@ -317,6 +330,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import pickle
 import subprocess
 import sys
 import time
@@ -376,6 +390,9 @@ G_CONV = ((4, 200, 176, 256, 128), (4, 200, 176, 128, 128), (4, 100, 88, 256, 25
 H_DIR = REPO / "build" / "path_h"  # path H's artifacts, removed after the path
 H_REQUESTS, H_CLIENTS, H_WARMUP, H_TIMED = 6, 3, 3, 20
 H_SMALL_POINTS = 2048
+# the anchor artifact's batch: its export traces the row-blocked IoU once a
+# row block a sample (8 blocks a sample at NMS_PRE_MAXSIZE 4,096), ~3.7 s a block
+H_ANCHOR_BATCH = 2
 SYNTH_CONFIG = "configs/synthetic_models/centerpoint_synth_com.yaml"
 # TF32 as a fresh process has it, read before phase 1 turns it off
 LIBRARY_TF32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -3471,8 +3488,8 @@ def h_cpu_artifact(dev, smi, points=H_SMALL_POINTS):
 
 def h_anchor(dev, smi, grid=None):
     """The anchor branch exported on path E's configuration (KITTI
-    PointPillars, batch 4, K4 at NMS_PRE_MAXSIZE 4,096, scores spread) and
-    held to its eager step on one batch."""
+    PointPillars, K4 at NMS_PRE_MAXSIZE 4,096, scores spread) at batch
+    H_ANCHOR_BATCH and held to its eager step on one batch."""
     from com_tpu_torch.models.detectors import build_network
     from com_tpu_torch.train.eval import make_eval_step
     from com_tpu_torch.utils.serving import (export_eval_step, load_artifact, make_manifest,
@@ -3482,18 +3499,18 @@ def h_anchor(dev, smi, grid=None):
     cfg.MODEL.VFE.ASSUME_SORTED_POINTS = True  # the scenes come presorted
     names = list(cfg.CLASS_NAMES)
     net = spread_anchor_scores(build_network(cfg.MODEL, meta, device=dev, seed=0))
-    spec = {"points": ((E_BATCH, E_POINTS, E_FEATS), torch.float32),
-            "points_mask": ((E_BATCH, E_POINTS), torch.bool)}
+    spec = {"points": ((H_ANCHOR_BATCH, E_POINTS, E_FEATS), torch.float32),
+            "points_mask": ((H_ANCHOR_BATCH, E_POINTS), torch.bool)}
     stem = H_DIR / "kitti_pointpillar"
     t0 = time.perf_counter()
     program = export_eval_step(net, cfg.MODEL, names, meta, spec, device=dev)
     write_artifact(stem, program, make_manifest(cfg, meta, spec, [dev.type]))
     export_s = time.perf_counter() - t0
     run, _ = load_artifact(stem, device=dev)
-    print(f"path H anchor export (KITTI PointPillars, batch {E_BATCH}, grid "
+    print(f"path H anchor export (KITTI PointPillars, batch {H_ANCHOR_BATCH}, grid "
           f"{list(meta.grid_size)}): {export_s:.2f} s, artifact "
           f"{stem.with_suffix('.pt2').stat().st_size / 1e6:.2f} MB ({smi})")
-    batch = kitti_like_batch(np.random.RandomState(21), E_BATCH, meta.point_cloud_range,
+    batch = kitti_like_batch(np.random.RandomState(21), H_ANCHOR_BATCH, meta.point_cloud_range,
                              meta.voxel_size, n=E_POINTS, real_points=E_REAL_POINTS)
     batch = {k: batch[k] for k in ("points", "points_mask")}
     step = make_eval_step(net, cfg.MODEL, names, meta, device=dev)
@@ -4230,15 +4247,15 @@ def l3_loaders(dev, smi, tree, extra_set=()):
         times = timed_queue(dataset.data_augmentor, cfg.DATA_CONFIG.DATA_AUGMENTOR)
         with road_plane_tally(cfg.DATA_CONFIG.POINT_CLOUD_RANGE) as tally:
             t0 = time.perf_counter()
-            for i in range(8):
+            for i in range(4):
                 dataset[i]
-            one = 8 / (time.perf_counter() - t0)
+            one = 4 / (time.perf_counter() - t0)
             t0 = time.perf_counter()
             batches = [b for _, b in zip(range(2), loader)]
             threaded = 8 / (time.perf_counter() - t0)
         ms = {k: round(1e3 * float(np.mean(v)), 3) for k, v in times.items() if v}
-        print(f"path L.3 host loader {label}: {one:.2f} scenes/s on one thread, "
-              f"{threaded:.2f} scenes/s through {L_WORKERS} loader threads (8 scenes, batch 4, "
+        print(f"path L.3 host loader {label}: {one:.2f} scenes/s on one thread (4 scenes), "
+              f"{threaded:.2f} scenes/s through {L_WORKERS} loader threads (8 scenes, batch 4; "
               f"host clock); ms a scene a step: {json.dumps(ms)}; road plane {json.dumps(tally)}")
         meta = dataset_meta(cfg, dataset)
         run_training(dev, f"L.3 ({label}, one step)", cfg, meta, SyntheticLoader(batches[:1], 1),
@@ -6497,14 +6514,15 @@ def compare_mppnet(dev, cfg, meta, batch, label):
         raise AssertionError(f"{label}: the card's MPPNet step disagrees with the CPU")
 
 
-def r_serve_mppnet(dev, smi, entries, calls, label, config, points, kernel, batch=None):
+def r_serve_mppnet(dev, smi, entries, calls, label, config, points, kernel, batch=None,
+                   timed=3, stage_iters=3):
     """MPPNet at full width through ``make_eval_step``: one warm-up, then
-    three timed batches of ``mppnet_sequence`` (R_BATCH scenes of
+    ``timed`` timed batches of ``mppnet_sequence`` (R_BATCH scenes of
     ``points`` points a frame, R_PROPOSALS proposals a frame; or ``batch``):
     latency, peak memory, the linked (RoI, frame) pairs (> 0), finite
     detections above SCORE_THRESH with labels in range, K4 once a forward;
-    the eval step's stages; K4 on the final NMS's candidates.  Returns
-    (counts, cfg, meta, batch)."""
+    the eval step's stages (the mean of ``stage_iters``); K4 on the final
+    NMS's candidates.  Returns (counts, cfg, meta, batch)."""
     from com_tpu_torch.models.detectors import build_network
     from com_tpu_torch.models.mppnet import mppnet_head
     from com_tpu_torch.train.eval import make_eval_step
@@ -6527,7 +6545,7 @@ def r_serve_mppnet(dev, smi, entries, calls, label, config, points, kernel, batc
     linked.clear()
     reset_counters()
     latencies, outs = [], []
-    for _ in range(3):
+    for _ in range(timed):
         t0 = time.perf_counter()
         outs.append([t.cpu().numpy() for t in step(inputs)])
         torch.cuda.synchronize()
@@ -6557,9 +6575,9 @@ def r_serve_mppnet(dev, smi, entries, calls, label, config, points, kernel, batc
           + f" ({smi}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"path {label}: no linked pair or malformed detections")
-    check_launches(f"{label} eval forward", counts, EXPECT_R_MPP_SERVING, 3)
+    check_launches(f"{label} eval forward", counts, EXPECT_R_MPP_SERVING, timed)
     two_stage_breakdown(
-        net, lambda: step(inputs), f"path {label} eval step", smi=smi,
+        net, lambda: step(inputs), f"path {label} eval step", iters=stage_iters, smi=smi,
         marks_fn=lambda n, mark: _mark_detector_then_head(n, mppnet_head, mark))
     over, sv = final_candidates(net, cfg, inputs, dev)
     check_k4_cases(dev, entries, calls, over, sv, smi, f", path {label} final NMS", kernel,
@@ -6913,7 +6931,8 @@ def path_r(dev, smi, entries, calls, points=POINTS, grid=None, voxel_range=None,
     counts4, cfg4, meta4, seq4 = r_serve_mppnet(
         dev, smi, entries, calls, "R.1 (mppnet_4frames)", R_MPP4_CONFIG, points, "R:nms_mpp4")
     counts16, cfg16, meta16, seq16 = r_serve_mppnet(
-        dev, smi, entries, calls, "R.2 (mppnet_16frames)", R_MPP16_CONFIG, points, "R:nms_mpp16")
+        dev, smi, entries, calls, "R.2 (mppnet_16frames)", R_MPP16_CONFIG, points, "R:nms_mpp16",
+        timed=2, stage_iters=1)  # 2.4 s a batch
     out.update({"R:nms_mpp4": counts4["nms"], "R:nms_mpp16": counts16["nms"]})
     del seq16["frames"]
     r_train_mppnet(dev, smi, "R.3 (mppnet_4frames)", cfg4, meta4, seq4)
@@ -6969,13 +6988,371 @@ def r5_configs(dev, smi, entries, calls, points=POINTS, grid=None, voxel_range=N
     return out
 
 
+S_DIR = REPO / "build" / "path_s"  # path S's tree, rehearsal and test outputs, removed after it
+S_SEED = 24
+S_TRAIN_FRAMES, S_VAL_FRAMES = 20, 4  # a train sequence's frames (2 sequences), the val one's
+S_OBJECTS = (30, 60)
+S_EPOCHS = 3  # the flagship's feedback loop: epochs, then one more resumed
+S_REHEARSAL = (3, 5)  # the rehearsal's epochs, and again at 5 where a bar is not met at 3
+EXPECT_SYNTH_TRAIN = {"seg_scan": 2, "seg_scan_bwd": 1, "conv3x3": 5, "conv3x3_dgrad": 5,
+                      "conv3x3_wgrad": 5, "stamp_gauss": 1, "stamp_last_wins": 1}
+S_DB = "waymo_dbinfos_train.pkl"
+S_ANNOTATED = "waymo_dbinfos_train_annotated.pkl"
+S_GROUPS = {"Vehicle": 96, "Pedestrian": 15, "Cyclist": 15}
+
+
+def s_yaml(path, cfg, tree, db_info=None):
+    """A YAML of the flagship's CLASS_NAMES, MODEL, OPTIMIZATION and
+    DATA_CONFIG, the last with DATA_PATH ``tree`` (and DB_INFO_PATH
+    ``[db_info]`` where given) and nothing else changed."""
+    import yaml
+
+    data_cfg = _plain(cfg.DATA_CONFIG)
+    data_cfg["DATA_PATH"] = str(tree)
+    if db_info is not None:
+        (aug,) = [a for a in data_cfg["DATA_AUGMENTOR"]["AUG_CONFIG_LIST"]
+                  if a["NAME"] == "gt_sampling"]
+        aug["DB_INFO_PATH"] = [db_info]
+    path.write_text(yaml.safe_dump({
+        "CLASS_NAMES": list(cfg.CLASS_NAMES), "DATA_CONFIG": data_cfg,
+        "MODEL": _plain(cfg.MODEL), "OPTIMIZATION": _plain(cfg.OPTIMIZATION)}))
+    return path
+
+
+def s1_prepare(smi, cfg, root, points):
+    """S.1: the Waymo tree and its COM database through the port's
+    ``create_data`` CLI (create_gt_database, annotate_database,
+    integrate_database), each entry checked; the COM2 sampler's 96 / 15
+    groups from the annotated pickle.  Returns the rehearsal's YAML."""
+    from com_tpu_torch.data import build_dataloader
+    from com_tpu_torch.data.augmentor.database_sampler import DataBaseSamplerCOM2
+    from com_tpu_torch.tools import create_data
+    from com_tpu_torch.tools.dataset_trees import write_waymo_tree
+    from com_tpu_torch.utils.config import cfg_from_yaml_file
+
+    tree, secs = root / "tree", {}
+    t0 = time.perf_counter()
+    out = write_waymo_tree(tree, seed=S_SEED, num_train=S_TRAIN_FRAMES, num_val=S_VAL_FRAMES,
+                           num_points=points, objects=S_OBJECTS)
+    secs["write_waymo_tree"] = time.perf_counter() - t0
+    prep = s_yaml(root / "flagship_path_s_prepare.yaml", cfg, tree)
+    db = tree / S_DB
+    for func, argv in (("create_gt_database", ["--cfg_file", str(prep)]),
+                       ("annotate_database", ["--db_info_path", str(db)]),
+                       ("integrate_database", ["--db_info_path", str(tree / S_ANNOTATED)])):
+        t0 = time.perf_counter()
+        create_data.main(["--func", func, *argv])
+        secs[func] = time.perf_counter() - t0
+    with open(tree / S_ANNOTATED, "rb") as f:
+        ann = pickle.load(f)
+    bad = []
+    for name, entries in ann.items():
+        for e in entries:
+            occ, fac = e["occupancy_ratio"], e["facade_type"]
+            pts = np.fromfile(tree / e["path"], np.float32).reshape(-1, FEATS)
+            if not (0 <= occ <= 1 and round(occ * 12) == occ * 12
+                    and fac in ((0, 1, 2, 3) if name == "Vehicle" else (-1,))
+                    and e["num_points_in_gt"] == len(pts)):
+                bad.append((name, e["path"], occ, fac, e["num_points_in_gt"], len(pts)))
+    frames = sum(out["frames"][q] for q in out["train"])
+    print(f"path S.1: Waymo tree of {len(out['train'])} train sequences x {S_TRAIN_FRAMES} "
+          f"frames and {len(out['val'])} val x {S_VAL_FRAMES}, {points} points a frame; "
+          f"create_data: {json.dumps({k: len(v) for k, v in ann.items()})} entries from the "
+          f"{frames // 5} frames SAMPLED_INTERVAL 5 keeps of {frames}; seconds "
+          f"{json.dumps({k: round(v, 2) for k, v in secs.items()})} (host, {smi})")
+    for name, entries in ann.items():
+        occ = np.bincount([round(e["occupancy_ratio"] * 12) for e in entries], minlength=13)
+        fac = {int(k): int(v) for k, v in zip(*np.unique([e["facade_type"] for e in entries],
+                                                         return_counts=True))}
+        print(f"  {name}: occupancy k/12 for k=0..12 {occ.tolist()}; facade {json.dumps(fac)}")
+    ok = not bad and set(ann) == set(S_GROUPS) and all(ann.values())
+    print(f"  every entry: occupancy on the 1/12 lattice in [0, 1], facade_type in "
+          f"{{-1, 0, 1, 2, 3}} (-1 exactly off Vehicle), num_points_in_gt its .bin's points "
+          f"{'ok' if ok else f'FAIL {bad[:5]}'}")
+    if not ok:
+        raise AssertionError("path S.1: the annotated database failed its checks")
+    glob = np.load(tree / "waymo_dbinfos_train_annotated_global.npy")
+    if len(glob) != sum(e["num_points_in_gt"] for v in ann.values() for e in v):
+        raise AssertionError("path S.1: the integrated array is not the entries' points")
+
+    rehearsal_yaml = s_yaml(root / "flagship_path_s.yaml", cfg, tree, db_info=S_ANNOTATED)
+    rcfg = cfg_from_yaml_file(str(rehearsal_yaml))
+    ds, _ = build_dataloader(rcfg.DATA_CONFIG, list(rcfg.CLASS_NAMES), BATCH, training=True,
+                             workers=1)
+    sampler = ds.data_augmentor.gt_sampler
+    sizes = {c: [len(g) for g in sampler.sample_groups[c]["indices"]] for c in S_GROUPS}
+    ok = isinstance(sampler, DataBaseSamplerCOM2) and all(
+        len(sizes[c]) == n and sum(sizes[c]) > 0 for c, n in S_GROUPS.items())
+    for c, s in sizes.items():
+        print(f"  COM2 groups {c}: {len(s)} groups, {sum(1 for x in s if x)} non-empty, "
+              f"{sum(s)} entries: {s}")
+    print(f"path S.1: the flagship's COM2 sampler from {S_ANNOTATED} forms its 96 / 15 / 15 "
+          f"groups {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("path S.1: the COM2 sampler's groups")
+    return rehearsal_yaml, rcfg
+
+
+def s_host_rate(smi, rcfg, points):
+    """Scenes a second of the flagship's training pipeline from disk
+    (WaymoDataset, the COM2 paste, augmentations, range mask, presort,
+    collate) with 1 and 2 loader threads: 2 epochs, the first batch
+    untimed."""
+    from com_tpu_torch.data import build_dataloader
+
+    rates = {}
+    for workers in (1, 2):
+        _, loader = build_dataloader(rcfg.DATA_CONFIG, list(rcfg.CLASS_NAMES), BATCH,
+                                     training=True, workers=workers, seed=S_SEED)
+        n, t0 = 0, None
+        for epoch in range(2):
+            loader.set_epoch(epoch)
+            for batch in loader:
+                if t0 is None:
+                    t0 = time.perf_counter()
+                else:
+                    n += 1
+                if batch["points"].shape != (BATCH, rcfg.DATA_CONFIG.MAX_POINTS_PER_SCENE, FEATS):
+                    raise AssertionError(f"path S: a batch of {batch['points'].shape}")
+        rates[workers] = BATCH * n / (time.perf_counter() - t0)
+    print(f"path S host rate of WaymoDataset from disk ({points} points a frame, the flagship's "
+          f"train pipeline): {rates[1]:.2f} scenes/s with 1 loader thread, {rates[2]:.2f} with 2 "
+          f"(host clock, {smi})")
+    return rates
+
+
+def s_train_runner(dev, record, expect=EXPECT_TRAIN):
+    """A ``train(argv)`` for the rehearsal: the port's train CLI in-process
+    (``train.main``), its launches counted against ``expect`` a step, CUDA
+    events after each step, and on a resume the dataset's sampler checked
+    against the checkpoint it started from, bitwise.  Each run appends
+    {"steps", "start_epoch", "step_ms", "resume", "ckpt_dir", "confidence"
+    (the dataset's sampler's at the end)} to ``record``."""
+    from com_tpu_torch.tools import train
+
+    def run(argv):
+        marks, seen = [], {}
+
+        def hook(epoch, it, metrics):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((epoch, ev))
+
+        def on_start(info):
+            seen["dataset"] = info["dataset"]
+            payload = info["payload"]
+            if payload is not None:
+                conf = info["dataset"].data_augmentor.gt_sampler.confidence_groups
+                want = payload["sampler"]["confidence_groups"].cpu().numpy()
+                seen["resume"] = (conf is not None and conf.dtype == want.dtype
+                                  and conf.tobytes() == want.tobytes())
+
+        reset_counters()
+        out = train.main(argv, on_start=on_start, metric_hook=hook)
+        torch.cuda.synchronize()
+        steps = out["iterations"] - out["start_iter"]
+        check_launches("S train step (train CLI)", read_counters(), expect, steps)
+        record.append({"steps": steps, "start_epoch": out["start_epoch"],
+                       "step_ms": [a.elapsed_time(b) for (ea, a), (eb, b)
+                                   in zip(marks, marks[1:]) if ea == eb],
+                       "resume": seen.get("resume"), "ckpt_dir": out["ckpt_dir"],
+                       "confidence": seen["dataset"].data_augmentor.gt_sampler.confidence_groups})
+        return out
+
+    return run
+
+
+def s_resumed_ok(first, resumed, epochs):
+    """The resume started at ``epochs`` with the sampler's confidences
+    bitwise the file's, and the dataset's sampler ends holding the resumed
+    epoch's confidences (the file ``checkpoint_epoch_{epochs + 1}.pth``)."""
+    from com_tpu_torch.tools.com_rehearsal import checkpoint_confidences
+
+    last = first["ckpt_dir"] / f"checkpoint_epoch_{epochs + 1}.pth"
+    held, want = resumed["confidence"], checkpoint_confidences(last)
+    return last, (resumed["resume"] is True and resumed["start_epoch"] == epochs
+                  and held is not None and held.tobytes() == want.tobytes())
+
+
+def s2_feedback(dev, smi, rehearsal_yaml, root):
+    """S.2: the flagship's feedback loop over the tree through the train CLI
+    on the card, as the rehearsal drives it (``com_rehearsal.train_argv``):
+    S_EPOCHS epochs, then one more as a resume.  Each epoch's (3, 96)
+    confidences reach the dataset's COM2 sampler (the resume checked
+    bitwise against the file, the sampler at the end holding the last
+    epoch's), and the rehearsal's table of the group distribution a fed
+    epoch (``distribution_report`` over ``sampler_for``), every fed epoch
+    off the size prior.  The rehearsal's L1 > 0.05 bar is not this path's:
+    at this size the flagship moves the draw by ~0.001 (120 steps: 0.03-0.05;
+    ``com_tpu_torch/tools/perf/rehearsal_scale.py``); ``s2_rehearsal`` holds
+    the bars.  Returns the resumed epoch's file."""
+    from com_tpu_torch.tools import com_rehearsal
+    from com_tpu_torch.utils.config import cfg_from_yaml_file
+
+    out_dir, record = root / "feedback", []
+    run = s_train_runner(dev, record)
+    run(com_rehearsal.train_argv(rehearsal_yaml, S_EPOCHS, out_dir, str(dev)))
+    saved = record[0]["ckpt_dir"] / f"checkpoint_epoch_{S_EPOCHS}.pth"
+    before = com_rehearsal.checkpoint_confidences(saved)
+    run(com_rehearsal.train_argv(rehearsal_yaml, S_EPOCHS + 1, out_dir, str(dev)))
+    first, resumed = record
+    last, ok = s_resumed_ok(first, resumed, S_EPOCHS)
+    ok = ok and before.tobytes() == com_rehearsal.checkpoint_confidences(saved).tobytes()
+    cfg = cfg_from_yaml_file(str(rehearsal_yaml))
+    names = list(cfg.CLASS_NAMES)
+    sampler = com_rehearsal.sampler_for(cfg)
+    rows = []
+    for ep, path in com_rehearsal.epoch_checkpoints(out_dir).items():
+        conf = com_rehearsal.checkpoint_confidences(path)
+        ok = ok and conf.shape == (len(names), 96) and bool(np.isfinite(conf).all())
+        sampler.epoch, sampler.confidence_groups = ep, conf
+        rows.append({"epoch": ep, "conf_mean": float(conf.mean()),
+                     "dist": com_rehearsal.distribution_report(sampler, names)})
+    l1 = [[d["l1_from_size_prior"] for d in r["dist"].values()] for r in rows]
+    ok = ok and len(rows) == S_EPOCHS + 1 and all(min(x) > 0 for x in l1)
+    step_ms = first["step_ms"] + resumed["step_ms"]
+    print(f"path S.2 the flagship's feedback through the train CLI: {first['steps']} + "
+          f"{resumed['steps']} steps ({S_EPOCHS} epochs and one resumed); the group "
+          "distribution a fed epoch:")
+    print("  | epoch | conf mean | class | entropy | top group | L1 vs size prior |")
+    for line in com_rehearsal.report_rows(rows):
+        print(f"  {line}")
+    print(f"  confidences (3, 96) and finite every epoch, every fed epoch off the size prior, "
+          f"the resume at epoch {resumed['start_epoch']} with the sampler's confidences "
+          f"bitwise the file's (the file unchanged by it), the sampler ending on epoch "
+          f"{S_EPOCHS + 1}'s {'ok' if ok else 'FAIL'}")
+    print(f"  step time through the train CLI (CUDA events between steps, each epoch's first "
+          f"left out): mean {np.mean(step_ms):.3f} ms over {len(step_ms)} "
+          f"{[round(x, 3) for x in step_ms]} ({smi})")
+    if not ok:
+        raise AssertionError("path S.2: the flagship's feedback loop")
+    return last
+
+
+def s2_rehearsal(dev, smi, root):
+    """S.2: the port's rehearsal (``com_tpu_torch.tools.com_rehearsal``, its
+    default config: ``centerpoint_synth_com.yaml``, 32 scenes, 16 steps an
+    epoch) on the card through the train CLI in-process, at S_REHEARSAL[0]
+    epochs and, where a bar is not met, at S_REHEARSAL[1]: every bar, the
+    per-epoch table (printed by the tool), its launches a step and step
+    times, the resume bitwise, the sampler ending on the resumed epoch's
+    confidences."""
+    from com_tpu_torch.tools import com_rehearsal
+
+    for epochs in S_REHEARSAL:
+        record = []
+        try:
+            result = com_rehearsal.main(["--epochs", str(epochs), "--device", str(dev),
+                                         "--output_dir", str(root / "rehearsal")],
+                                        train=s_train_runner(dev, record, EXPECT_SYNTH_TRAIN))
+            break
+        except AssertionError as e:
+            print(f"path S.2: the rehearsal at {epochs} epochs missed a bar: {e}")
+            if epochs == S_REHEARSAL[-1]:
+                raise
+    first, resumed = record
+    _, ok = s_resumed_ok(first, resumed, epochs)
+    ok = ok and first["steps"] == epochs * resumed["steps"] and result["conf_shape"] == (3, 96)
+    step_ms = first["step_ms"] + resumed["step_ms"]
+    print(f"path S.2 rehearsal ({Path(SYNTH_CONFIG).name}): bars met at {epochs} epochs (L1 > "
+          f"0.05 at the last fed epoch, epoch-1 shift > 0, move > 0.01, the epoch-{epochs} file "
+          f"unchanged by the resume, finite confidences); the resume at epoch "
+          f"{resumed['start_epoch']} with the sampler's confidences bitwise the file's, the "
+          f"sampler ending on epoch {epochs + 1}'s {'ok' if ok else 'FAIL'}; step time mean "
+          f"{np.mean(step_ms):.3f} ms over {len(step_ms)} (CUDA events, {smi})")
+    if not ok:
+        raise AssertionError("path S.2: the rehearsal's resume or fed-back confidences")
+
+
+def s3_test(dev, smi, cfg, rehearsal_yaml, last, root):
+    """S.3: the test CLI on the resumed checkpoint over the val split
+    (``--infer_time``), the numpy Waymo AP; path A's serving launches."""
+    from com_tpu_torch.tools import test
+
+    reset_counters()
+    (res,) = test.main(["--cfg_file", str(rehearsal_yaml), "--ckpt", str(last), "--infer_time",
+                        "--device", str(dev), "--output_dir", str(root / "test")])
+    torch.cuda.synchronize()
+    annos = res["det_annos"]
+    check_launches("S eval forward (test CLI)", read_counters(), EXPECT_SERVING,
+                   res["infer_batches"] + 1 + -(-len(annos) // BATCH))
+    names = list(cfg.CLASS_NAMES)
+    result = res["result"]
+    aps = {k: round(v, 4) for k, v in result.items() if k.endswith(("/AP", "/APH"))}
+    ok = (len(annos) == S_VAL_FRAMES and "TF-free" in res["result_str"]
+          and all(np.isfinite(a["boxes_lidar"]).all() and np.isfinite(a["score"]).all()
+                  and (np.diff(a["score"]) <= 0).all()
+                  and set(a["pred_labels"].tolist()) <= set(range(1, len(names) + 1))
+                  for a in annos)
+          and aps and all(np.isfinite(v) and 0 <= v <= 1 for v in aps.values()))
+    print(f"path S.3 test CLI: {len(annos)} val frames, detections a frame "
+          f"{[len(a['score']) for a in annos]}, {res['sec_per_frame']:.4f} s a frame (eval_model, "
+          f"host clock), --infer_time {res['infer_ms_per_frame']:.3f} ms a frame ({smi}); "
+          f"Waymo AP (numpy) {json.dumps(aps)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("path S.3: the test CLI failed its checks")
+
+
+def path_s(dev, smi, points=POINTS):
+    """Path S: the flagship from raw frames, as a user prepares and trains
+    it on Waymo (``com_tpu_torch.tools``: ``dataset_trees.write_waymo_tree``,
+    ``create_data``, the train CLI, ``com_rehearsal``, the test CLI), at
+    full width from the flagship's own DATA_CONFIG with only DATA_PATH and
+    DB_INFO_PATH set.  S.1 (``s1_prepare``): a seeded Waymo tree of 2 train
+    sequences of 20 frames (8 after SAMPLED_INTERVAL 5: 4 steps an epoch)
+    and a val sequence of 4, ``points`` a frame, 30-60 objects; the
+    database created, annotated and integrated, and checked; the COM2
+    sampler's groups.  The WaymoDataset pipeline's host rate.  S.2
+    (``s2_feedback``, ``s2_rehearsal``): the flagship's feedback loop and
+    the rehearsal with its bars, on the card, their tables, launches and
+    step times.  S.3 (``s3_test``): the test CLI and its Waymo AP.  Peak
+    memory.  Everything is written under ``build/path_s`` and removed."""
+    import shutil
+
+    from com_tpu_torch.utils.config import cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file(str(REPO / CONFIG))
+    shutil.rmtree(S_DIR, ignore_errors=True)
+    S_DIR.mkdir(parents=True)
+    try:
+        _quiet_cli_logger()
+        rehearsal_yaml, rcfg = s1_prepare(smi, cfg, S_DIR, points)
+        s_host_rate(smi, rcfg, points)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        last = s2_feedback(dev, smi, rehearsal_yaml, S_DIR)
+        s3_test(dev, smi, cfg, rehearsal_yaml, last, S_DIR)
+        print(f"path S peak memory (S.2's flagship and S.3) "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB ({smi})")
+        s2_rehearsal(dev, smi, S_DIR)
+    finally:
+        shutil.rmtree(S_DIR, ignore_errors=True)
+
+
+class Laps:
+    """Wall seconds of each phase of ``main``, printed as each ends."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.seconds = {}
+
+    def __call__(self, label):
+        now = time.perf_counter()
+        self.seconds[label] = now - self.last
+        print(f"phase time: {label} {now - self.last:.1f} s (total {now - self.start:.1f} s)",
+              flush=True)
+        self.last = now
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
     dev = torch.device("cuda", 0)
     profile = "--profile" in sys.argv[1:]
+    lap = Laps()
     smi = phase_device_and_build()
+    lap("build")
     entries = []
     check_seg_scan(dev, entries)
     check_seg_scan_bwd(dev, entries)
@@ -6983,10 +7360,12 @@ def main():
     check_conv3x3_backward(dev, entries)
     check_wgrad_variants(dev, entries)
     sweep_counts = wgrad_sweep(dev)
+    lap("kernels against plain, sweep")
     calls = []  # (label, device kernels a call, call) for check_device_kernels
     check_stamp(dev, entries, calls)
     check_small_reference(dev)
     check_small_train_reference(dev)
+    lap("K3, small references")
     serve_counts, net, step, cfg, meta, scenes = serve(dev)
     stage_breakdown(net, step, {"points": scenes[:2], "points_mask": np.ones((2, POINTS), bool)},
                     "")
@@ -6997,46 +7376,68 @@ def main():
         profile_step(step, scenes)
     del net, step
     torch.cuda.empty_cache()
+    lap("serving")
     a_counts, trainer = train_path(dev, CONFIG, "A (flagship)", 2, 3, (3, 96), EXPECT_TRAIN)
     step, dev_batch, _ = stage_and_overfit(dev, trainer)
     if profile:
         profile_train(trainer[2], step, dev_batch)
     del trainer, step, dev_batch
     torch.cuda.empty_cache()
+    lap("A")
     b_counts, _ = train_path(dev, CAR_CONFIG, "B (car_com1, UCL)", 1, 2, (1, 96),
                              EXPECT_TRAIN_UCL)
     torch.cuda.empty_cache()
+    lap("B")
     train_path_c(dev)
+    lap("C")
     torch.cuda.empty_cache()
     path_d(dev, smi)
+    lap("D")
     torch.cuda.empty_cache()
     e_serve_counts, e_train_counts = path_e(dev, smi, entries, calls)
+    lap("E")
     torch.cuda.empty_cache()
     _, f_train_counts = path_f(dev, smi, entries, calls)
+    lap("F")
     torch.cuda.empty_cache()
     g_serve_counts, g_train_counts = path_g(dev, smi, entries, calls)
+    lap("G")
     torch.cuda.empty_cache()
     j_serve_counts, j_train_counts = path_j(dev, smi, entries, calls)
+    lap("J")
     torch.cuda.empty_cache()
     path_k(dev, smi)
+    lap("K")
     torch.cuda.empty_cache()
     path_h(dev, smi)
+    lap("H")
     torch.cuda.empty_cache()
     path_i(dev, smi)
+    lap("I")
     torch.cuda.empty_cache()
     l_counts = path_l(dev, smi, entries, calls)
+    lap("L")
     torch.cuda.empty_cache()
     m_serve_counts, m_train_counts = path_m(dev, smi, entries, calls)
+    lap("M")
     torch.cuda.empty_cache()
     n_serve_counts, n_train_counts = path_n(dev, smi, entries, calls)
+    lap("N")
     torch.cuda.empty_cache()
     o_serve_counts, o_train_counts = path_o(dev, smi, entries, calls)
+    lap("O")
     torch.cuda.empty_cache()
     p_counts = path_p(dev, smi, entries, calls)
+    lap("P")
     torch.cuda.empty_cache()
     q_counts = path_q(dev, smi, entries, calls)
+    lap("Q")
     torch.cuda.empty_cache()
     r_counts = path_r(dev, smi, entries, calls)
+    lap("R")
+    torch.cuda.empty_cache()
+    path_s(dev, smi)
+    lap("S")
     # each kernel's launches on the path that runs it: training path A,
     # serving for K4, path B for K3's last_wins mode, the sweep for T1-T4;
     # paths E, F, G and J's shapes: their training, and their serving for
@@ -7069,6 +7470,8 @@ def main():
               **q_counts, **r_counts}
     if not profile:
         check_device_kernels(calls)
+    lap("device kernels")
+    print(f"phase times: {json.dumps({k: round(v, 1) for k, v in lap.seconds.items()})}")
     for e in entries:
         e["launches"] = counts[e.pop("kernel")]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "device_ms",

@@ -8,9 +8,10 @@ elongation NLZ], GT boxes with speed, optional COM side annotations
 (occupancy_ratio / facade_type) in the annos.  Frames are read with the
 intensity squashed by tanh and the no-label-zone points dropped; multi-frame
 configs fuse past sweeps by pose.  ``evaluation`` gives Waymo AP/APH
-(``waymo_eval``, ``waymo_ap``).  ``create_groundtruth_database`` is not ported yet,
-nor the tfrecord conversion (``waymo_utils.py``, which needs the
-waymo-open-dataset package).
+(``waymo_eval``, ``waymo_ap``).  ``create_groundtruth_database`` crops each
+object's points into the GT database the COM samplers read; the tfrecord
+conversion that writes the frames is ``waymo_utils`` (it needs tensorflow
+and the waymo-open-dataset package).
 """
 from __future__ import annotations
 
@@ -179,3 +180,54 @@ class WaymoDataset(DatasetTemplate):
             result_str, result = compute_waymo_ap(det_annos, self.infos, class_names)
             return ("TF-free numpy AP/APH (waymo-open-dataset unavailable)\n" + result_str,
                     result)
+
+    # ---- data preparation ----
+    def create_groundtruth_database(self, out_dir, used_classes=None,
+                                    processed_tag="waymo_processed_data_v0_5_0"):
+        """Crop each object's points into ``out_dir/gt_database/
+        {seq}_{idx}_{name}_{i}.bin`` (float32, box-relative xyz) and write
+        their entries to ``out_dir/waymo_dbinfos_train.pkl``
+        (waymo_dataset.py:504-741; the host ``points_in_rbbox`` in place of
+        the CUDA points_in_boxes, run a box at a time on the points near
+        it: the same mask).  It walks ``self.infos``, which
+        ``SAMPLED_INTERVAL`` has thinned, and reads frames through
+        ``get_lidar`` (NLZ points dropped, intensity squashed), as
+        ``com_tpu`` does."""
+        from ...ops.host_boxes import points_in_rbbox_by_box
+
+        out_dir = Path(out_dir)
+        (out_dir / "gt_database").mkdir(parents=True, exist_ok=True)
+        db_infos = {}
+        for info in self.infos:
+            pc = info["point_cloud"]
+            seq, sample_idx = pc["lidar_sequence"], pc["sample_idx"]
+            points = self.get_lidar(seq, sample_idx)
+            annos = info["annos"]
+            boxes = annos["gt_boxes_lidar"][:, :7]
+            names = annos["name"]
+            inbox = points_in_rbbox_by_box(points[:, :3], boxes)
+            difficulty = annos.get("difficulty", np.zeros(len(names)))
+            for i, name in enumerate(names):
+                if used_classes is not None and name not in used_classes:
+                    continue
+                obj = points[inbox[:, i]].copy()
+                obj[:, :3] -= boxes[i, :3]
+                fname = f"{seq}_{sample_idx}_{name}_{i}.bin"
+                obj.astype(np.float32).tofile(out_dir / "gt_database" / fname)
+                entry = {
+                    "name": name,
+                    "path": f"gt_database/{fname}",
+                    "sequence_name": seq,
+                    "sample_idx": sample_idx,
+                    "gt_idx": i,
+                    "box3d_lidar": boxes[i],
+                    "num_points_in_gt": int(inbox[:, i].sum()),
+                    "difficulty": int(difficulty[i]),
+                }
+                for key in ("occupancy_ratio", "facade_type"):
+                    if key in annos:
+                        entry[key] = float(np.asarray(annos[key])[i])
+                db_infos.setdefault(name, []).append(entry)
+        with open(out_dir / "waymo_dbinfos_train.pkl", "wb") as f:
+            pickle.dump(db_infos, f)
+        return db_infos

@@ -54,6 +54,20 @@ def points_in_rbbox(points, boxes):
     return in_xy & (np.abs(pz) <= boxes[None, :, 5] / 2)
 
 
+def points_in_rbbox_by_box(points, boxes, margin=0.01):
+    """``points_in_rbbox``'s mask, the test run a box at a time on the points
+    within ``margin`` of the box's bounding square only: the same
+    elementwise arithmetic on fewer points, so the same mask, at a fraction
+    of the (N, M) work when boxes are small against the scene."""
+    mask = np.zeros((len(points), len(boxes)), bool)
+    reach = np.hypot(boxes[:, 3], boxes[:, 4]) / 2 + margin
+    for i in range(len(boxes)):
+        near = np.flatnonzero((np.abs(points[:, 0] - boxes[i, 0]) <= reach[i])
+                              & (np.abs(points[:, 1] - boxes[i, 1]) <= reach[i]))
+        mask[near, i] = points_in_rbbox(points[near], boxes[i:i + 1])[:, 0]
+    return mask
+
+
 def enlarge_box3d(boxes, extra_width=(0.0, 0.0, 0.0)):
     """Grow dx/dy/dz by extra widths (box_utils.enlarge_box3d parity)."""
     return np.concatenate(

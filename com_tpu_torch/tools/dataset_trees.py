@@ -1,8 +1,8 @@
-"""Write a nuScenes, Lyft or Pandaset tree from a seed, for those datasets'
-configs under their own DATA_CONFIG when no scan is at hand (tests, the card
-smoke run).
+"""Write a nuScenes, Lyft, Pandaset or Waymo tree from a seed, for those
+datasets' configs under their own DATA_CONFIG when no scan is at hand
+(tests, the card smoke run).
 
-    python -m com_tpu_torch.tools.dataset_trees --kind nuscenes|lyft|pandaset
+    python -m com_tpu_torch.tools.dataset_trees --kind nuscenes|lyft|pandaset|waymo
         --out DIR [--seed 0] [--train N] [--val 8] [--points N]
         [--layout extracted|devkit]
 
@@ -39,6 +39,25 @@ background's within 0.3 m of it).  A ``.bin`` scan is (N, 5) f32.
   categories as ``gt_names``; ``--layout devkit`` the devkit's pandas frames
   in the world frame, ``poses.json`` and the raw cuboid labels
   (``dataset/<seq>/...``; needs pandas), for ``create_pandaset_infos``.
+* ``waymo`` (``write_waymo_tree``; the layout ``waymo_utils`` converts
+  tfrecords into): ``ImageSets/{train,val}.txt`` naming the sequences,
+  ``waymo_processed_data_v0_5_0/<seq>/<idx:04d>.npy`` ((N, 6) f32 x y z
+  intensity elongation NLZ, default 163,840 points over the flagship's
+  +-74.88 m, 1 % of them in a no-label zone) and ``<seq>.pkl`` /
+  ``<seq>_short.pkl`` infos with a 4x4 pose a frame and annos in
+  ``waymo_utils.generate_labels``' layout.  Each frame (from its own
+  seed) holds 30-60 Vehicles (15 % longer than 6 m), Pedestrians and
+  Cyclists up to 72 m out, each with points on the side it shows the
+  sensor and across a random 5-100 % of its width (the rest occluded), as
+  many as density x that share / distance**2 allows (capped), so
+  occupancy, the minimum-point filters and the distance groups all see
+  spread; two Signs; ground and 3 % clutter up to 3 m.  The
+  ``_short.pkl`` annos carry ``occupancy_ratio`` and ``facade_type`` from
+  ``annotator.annotate_frame_annos`` over the frame's points as the dataset
+  reads them (the no-label zone dropped).  ``--train`` is the frames of each
+  of the two train sequences (default 20), ``--val`` of the one val
+  sequence (default 4).  No GT database: ``create_data``'s
+  ``create_gt_database`` writes it.
 """
 from __future__ import annotations
 
@@ -49,8 +68,10 @@ from pathlib import Path
 
 import numpy as np
 
+from ..data.annotator import annotate_frame_annos
 from ..data.nuscenes.nuscenes_utils import transform_matrix
 from ..ops.host_boxes import enlarge_box3d, points_in_rbbox
+from ..ops.host_native import points_in_rbbox_native
 
 # (dx, dy, dz) a class, the configs' anchor sizes
 NUSCENES_SIZES = {
@@ -86,10 +107,11 @@ SWEEP_DT = 0.05  # s between sweeps (a 20 Hz spin)
 NUSCENES_VERSION = "v1.0-trainval"
 
 
-def place_boxes(rng, sizes, count, must, r_max):
-    """(count, 7) boxes on the ground around the ego (3 m to ``r_max``), not
-    touching in BEV, and their class names: ``must`` first, then drawn from
-    ``sizes`` ({name: (dx, dy, dz)}) with weights falling along it."""
+def place_boxes(rng, sizes, count, must, r_max, ground=GROUND_Z):
+    """(count, 7) boxes on the ground (at z ``ground``) around the ego (3 m
+    to ``r_max``), not touching in BEV, and their class names: ``must``
+    first, then drawn from ``sizes`` ({name: (dx, dy, dz)}) with weights
+    falling along it."""
     keys = list(sizes)
     w = 1.0 / (1.0 + np.arange(len(keys)))
     rest = [keys[i] for i in rng.choice(len(keys), max(count - len(must), 0), p=w / w.sum())]
@@ -102,7 +124,7 @@ def place_boxes(rng, sizes, count, must, r_max):
             x, y = r * np.cos(az), r * np.sin(az)
             if all(np.hypot(x - b[0], y - b[1]) > (dims[0] + b[3]) / 2 + 1.0 for b in boxes):
                 break
-        boxes.append([x, y, GROUND_Z + dims[2] / 2, *dims, rng.uniform(-np.pi, np.pi)])
+        boxes.append([x, y, ground + dims[2] / 2, *dims, rng.uniform(-np.pi, np.pi)])
     return np.asarray(boxes, np.float64).reshape(-1, 7), np.asarray(chosen)
 
 
@@ -131,7 +153,7 @@ def scene_points(rng, boxes, num_points, r_max, density, shown=None):
                             rng.uniform(0.2, 3.0, draw))
     bg = np.stack([r * np.cos(az), r * np.sin(az), z], axis=1)
     if len(boxes):
-        bg = bg[~points_in_rbbox(bg, enlarge_box3d(boxes, (0.6, 0.6, 0.6))).any(axis=1)]
+        bg = bg[~points_in_rbbox_native(bg, enlarge_box3d(boxes, (0.6, 0.6, 0.6))).any(axis=1)]
     if len(bg) < rest:
         raise ValueError(f"{len(bg)} background points left of {rest}")
     return np.concatenate(objs + [bg[:rest]])
@@ -363,14 +385,164 @@ def _pandaset_devkit(root, rng, splits):
     return out
 
 
+WAYMO_SIZES = {"Vehicle": (4.7, 2.1, 1.7), "Pedestrian": (0.91, 0.86, 1.73),
+               "Cyclist": (1.78, 0.84, 1.78), "Sign": (0.2, 0.8, 1.0)}
+WAYMO_DENSITY = {"Vehicle": 250000.0, "Pedestrian": 30000.0, "Cyclist": 40000.0,
+                 "Sign": 4000.0}  # an object's points at 1 m; they fall as distance**-2
+WAYMO_OBJ_CAP = 2000  # points an object at most: a frame with pastes stays under 180,224
+WAYMO_CLUTTER = 0.03  # the share of the background above the ground (up to 3 m)
+WAYMO_SEEN = 0.05  # the least share of an object's width that is not occluded
+WAYMO_TAG = "waymo_processed_data_v0_5_0"
+
+
+def _shown_points(rng, box, count, seen=1.0):
+    """Up to ``count`` points inside a box on the part it shows the sensor
+    at the origin: its local points beyond a random cut along the direction
+    to the sensor (from the whole box to its near face), within a random
+    ``seen`` share of its width across that direction (the rest occluded)."""
+    local = rng.uniform(-0.49, 0.49, (int(4 * count / seen) + 8, 3)) * box[3:6]
+    c, s = np.cos(box[6]), np.sin(box[6])
+    to_sensor = -np.array([box[0] * c + box[1] * s, -box[0] * s + box[1] * c])
+    to_sensor /= max(np.linalg.norm(to_sensor), 1e-9)
+    across = np.array([-to_sensor[1], to_sensor[0]])
+    extent = 0.5 * (abs(to_sensor[0]) * box[3] + abs(to_sensor[1]) * box[4])
+    width = 0.5 * (abs(across[0]) * box[3] + abs(across[1]) * box[4])
+    lo = rng.uniform(-width, width - 2 * width * seen)
+    lat = local[:, :2] @ across
+    local = local[(local[:, :2] @ to_sensor >= rng.uniform(-1.0, 0.5) * extent)
+                  & (lat >= lo) & (lat <= lo + 2 * width * seen)][:count]
+    return np.stack([local[:, 0] * c - local[:, 1] * s, local[:, 0] * s + local[:, 1] * c,
+                     local[:, 2]], axis=1) + box[:3]
+
+
+def _waymo_objects(rng, objects):
+    """A frame's objects: boxes (M, 7) and names,
+    30-60 Vehicles (15 % of them trucks and buses longer than 6 m),
+    Pedestrians and Cyclists up to 72 m out, and two Signs."""
+    count = rng.randint(objects[0], objects[1] + 1)
+    boxes, names = place_boxes(rng, {k: v for k, v in WAYMO_SIZES.items() if k != "Sign"},
+                               count, ["Vehicle", "Pedestrian", "Cyclist"], 72.0, ground=0.0)
+    long = (names == "Vehicle") & (rng.uniform(size=len(names)) < 0.15)
+    boxes[long, 3] *= rng.uniform(1.5, 2.6, int(long.sum()))  # trucks and buses
+    boxes[long, 5] *= 1.6
+    boxes[long, 2] = boxes[long, 5] / 2
+    signs, sign_names = place_boxes(rng, WAYMO_SIZES, 2, ["Sign", "Sign"], 40.0, ground=1.0)
+    far = np.hypot(signs[:, None, 0] - boxes[None, :, 0], signs[:, None, 1] - boxes[None, :, 1])
+    keep = (far > 2.0 + boxes[None, :, 3] / 2).all(axis=1)
+    return np.concatenate([boxes, signs[keep]]), np.concatenate([names, sign_names[keep]])
+
+
+def _waymo_points(rng, boxes, names, num_points):
+    """A frame's (num_points, 6) f32 points around ``boxes`` in the sensor
+    frame (the objects' density and cap scaled by ``num_points`` /
+    163,840)."""
+    scale = num_points / 163840
+    objs = []
+    for box, name in zip(boxes, names):
+        dist = max(np.hypot(box[0], box[1]), 1.0)
+        seen = rng.uniform(WAYMO_SEEN, 1.0)  # the share of its width not occluded
+        objs.append(_shown_points(rng, box, min(rng.poisson(scale * seen * WAYMO_DENSITY[name]
+                                                            / dist ** 2),
+                                                int(scale * WAYMO_OBJ_CAP)), seen))
+    rest = num_points - sum(len(o) for o in objs)
+    if rest < 0:
+        raise ValueError(f"the objects take {-rest} points more than the scan's {num_points}")
+    draw = int(rest * 1.3) + 64
+    az = rng.uniform(-np.pi, np.pi, draw)
+    r = 2.0 + 78.0 * rng.uniform(0.0, 1.0, draw) ** 2
+    z = np.where(rng.uniform(size=draw) < WAYMO_CLUTTER, rng.uniform(0.2, 3.0, draw),
+                 rng.normal(0.0, 0.03, draw))
+    bg = np.stack([r * np.cos(az), r * np.sin(az), z], axis=1)
+    bg = bg[~points_in_rbbox_native(bg, enlarge_box3d(boxes, (0.6, 0.6, 0.6))).any(axis=1)]
+    if len(bg) < rest:
+        raise ValueError(f"{len(bg)} background points left of {rest}")
+    xyz = np.concatenate(objs + [bg[:rest]])
+    nlz = np.where(rng.uniform(size=len(xyz)) < 0.01, 1.0, -1.0)
+    pts = np.concatenate([xyz, rng.uniform(0.0, 1.5, (len(xyz), 1)),
+                          rng.uniform(0.0, 0.5, (len(xyz), 1)), nlz[:, None]], axis=1)
+    return pts[rng.permutation(len(pts))].astype(np.float32)
+
+
+def _waymo_annos(rng, boxes, names, points, pose):
+    """A frame's annos in ``waymo_utils.generate_labels``' layout (speeds
+    from global to the sensor frame by the pose, LEVEL_2 difficulty at 5
+    points or fewer, as the dataset's labels mark it)."""
+    npts = points_in_rbbox_native(points[:, :3], boxes).sum(axis=0).astype(np.int64)
+    moving = (names == "Vehicle") & (rng.uniform(size=len(names)) < 0.5)
+    speed_global = np.where(moving[:, None], rng.uniform(-10.0, 10.0, (len(names), 2)), 0.0)
+    speed = np.pad(speed_global, ((0, 0), (0, 1))) @ np.linalg.inv(pose[:3, :3].T)
+    return {
+        "name": names, "difficulty": np.where(npts <= 5, 2, 0),
+        "dimensions": boxes[:, 3:6], "location": boxes[:, :3], "heading_angles": boxes[:, 6],
+        "obj_ids": np.array([f"{rng.randint(2**31):08x}{k:04d}" for k in range(len(names))]),
+        "tracking_difficulty": np.zeros(len(names), np.int64), "num_points_in_gt": npts,
+        "speed_global": speed_global, "accel_global": np.zeros((len(names), 2)),
+        "gt_boxes_lidar": np.concatenate([boxes, speed[:, :2]], axis=1)}
+
+
+def _waymo_frame(task):
+    """One frame of a Waymo sequence, from its own seed (sequence, index):
+    its points saved to ``path``, and its info, plain and annotated."""
+    import copy
+
+    seed, k, idx, seq, path, num_points, objects, speed, yaw0 = task
+    rng = np.random.RandomState([seed, k, idx])
+    boxes, names = _waymo_objects(rng, objects)
+    pts = _waymo_points(rng, boxes, names, num_points)
+    np.save(path, pts)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:2, :2] = [[np.cos(yaw0), -np.sin(yaw0)], [np.sin(yaw0), np.cos(yaw0)]]
+    pose[:3, 3] = [speed * idx * np.cos(yaw0), speed * idx * np.sin(yaw0), 0.0]
+    info = {
+        "point_cloud": {"num_features": 5, "lidar_sequence": seq, "sample_idx": idx},
+        "frame_id": seq + ("_%03d" % idx),
+        "metadata": {"context_name": seq[len("segment-"):-len("_with_camera_labels")],
+                     "timestamp_micros": 1_550_000_000_000_000 + 100_000 * idx},
+        "image": {f"image_shape_{j}": (1280, 1920) if j < 3 else (886, 1920) for j in range(5)},
+        "pose": pose,
+        "annos": _waymo_annos(rng, boxes, names, pts, pose),
+        "num_points_of_each_lidar": [len(pts), 0, 0, 0, 0]}
+    short = copy.deepcopy(info)
+    annotate_frame_annos(short["annos"], pts[pts[:, 5] == -1])
+    return info, short
+
+
+def write_waymo_tree(root, seed=0, num_train=20, num_val=4, num_points=163840,
+                     objects=(30, 60), train_sequences=2):
+    """The Waymo tree under ``root`` (the module's docstring): returns
+    {"train": sequences, "val": sequences, "frames": {sequence: count}}."""
+    root = Path(root)
+    (root / "ImageSets").mkdir(parents=True, exist_ok=True)
+    seqs = [f"segment-{seed:010d}{k:09d}_0000_000_0200_000_with_camera_labels"
+            for k in range(train_sequences + 1)]
+    out = {"train": seqs[:-1], "val": seqs[-1:],
+           "frames": {q: num_train for q in seqs[:-1]} | {seqs[-1]: num_val}}
+    for split in ("train", "val"):
+        (root / "ImageSets" / f"{split}.txt").write_text(
+            "".join(f"{q}.tfrecord\n" for q in out[split]))
+    for k, seq in enumerate(seqs):
+        seq_dir = root / WAYMO_TAG / seq
+        seq_dir.mkdir(parents=True, exist_ok=True)
+        speed, yaw0 = np.random.RandomState([seed, k]).uniform([0.0, -np.pi], [1.5, np.pi])
+        frames = [_waymo_frame((seed, k, idx, seq, seq_dir / f"{idx:04d}.npy", num_points,
+                                objects, speed, yaw0)) for idx in range(out["frames"][seq])]
+        for suffix, part in (("", 0), ("_short", 1)):
+            with open(seq_dir / f"{seq}{suffix}.pkl", "wb") as f:
+                pickle.dump([m[part] for m in frames], f)
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--kind", required=True, choices=("nuscenes", "lyft", "pandaset"))
+    parser.add_argument("--kind", required=True,
+                        choices=("nuscenes", "lyft", "pandaset", "waymo"))
     parser.add_argument("--out", required=True)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--train", type=int, default=None,
-                        help="train frames (default 2 nuScenes: 10 CBGS items; 8 Lyft, 2 Pandaset)")
-    parser.add_argument("--val", type=int, default=None, help="val frames (default 8)")
+                        help="train frames (default 2 nuScenes: 10 CBGS items; 8 Lyft, 2 "
+                             "Pandaset; Waymo: a train sequence's, 20)")
+    parser.add_argument("--val", type=int, default=None,
+                        help="val frames (default 8; Waymo 4)")
     parser.add_argument("--points", type=int, default=None,
                         help="points a sweep (a frame for pandaset)")
     parser.add_argument("--layout", default="extracted", choices=("extracted", "devkit"))
@@ -381,6 +553,8 @@ def main(argv=None):
         out = write_nuscenes_tree(args.out, args.seed, **kw)
     elif args.kind == "lyft":
         out = write_lyft_tree(args.out, args.seed, **kw)
+    elif args.kind == "waymo":
+        out = write_waymo_tree(args.out, args.seed, **kw)
     else:
         out = write_pandaset_tree(args.out, args.seed, layout=args.layout, **kw)
     print(out)

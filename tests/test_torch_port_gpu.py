@@ -1547,3 +1547,42 @@ def test_mppnet_on_card_matches_cpu(dev, config):
     k4 = nms.launches
     compare_mppnet(dev, cfg, meta, batch, f"MPPNet ({config}), card vs CPU")
     assert nms.launches - k4 == 1  # the card's eval step: one final NMS
+
+
+def test_com_feedback_reaches_the_sampler_through_the_train_cli(dev, tmp_path):
+    """The flagship's YAML (DATA_PATH and DB_INFO_PATH set) over a small
+    Waymo tree prepared by the port (``dataset_trees.write_waymo_tree``,
+    ``create_data``'s create_gt_database and annotate_database), 2 epochs
+    through the train CLI on the card: the dataset's COM2 sampler ends
+    holding the last epoch's (3, 96) confidences, bitwise those of
+    ``checkpoint_epoch_2.pth``, and every step launched path A's kernels."""
+    from chip_smoke import EXPECT_TRAIN, read_counters, reset_counters, s_yaml
+    from com_tpu_torch.tools import create_data, train
+    from com_tpu_torch.tools.dataset_trees import write_waymo_tree
+    from com_tpu_torch.utils.checkpoint import load_checkpoint, sampler_confidences
+    from com_tpu_torch.utils.config import cfg_from_yaml_file
+
+    tree = tmp_path / "tree"
+    write_waymo_tree(tree, seed=3, num_train=10, num_val=2, num_points=40000, objects=(20, 30))
+    cfg = cfg_from_yaml_file("configs/waymo_models/com/centerpoint_pillar_3cls_com.yaml")
+    create_data.main(["--func", "create_gt_database", "--cfg_file",
+                      str(s_yaml(tmp_path / "prep.yaml", cfg, tree))])
+    create_data.main(["--func", "annotate_database", "--db_info_path",
+                      str(tree / "waymo_dbinfos_train.pkl")])
+    yaml_path = s_yaml(tmp_path / "train.yaml", cfg, tree,
+                       db_info="waymo_dbinfos_train_annotated.pkl")
+    seen = {}
+    reset_counters()
+    out = train.main(["--cfg_file", str(yaml_path), "--epochs", "2", "--device", "cuda",
+                      "--workers", "1", "--output_dir", str(tmp_path / "out")],
+                     on_start=lambda info: seen.update(dataset=info["dataset"]))
+    torch.cuda.synchronize()
+    steps = out["iterations"]
+    assert steps == 2 * 2  # 4 frames after SAMPLED_INTERVAL 5, batch 2
+    counts = read_counters()
+    assert all(counts[k] == EXPECT_TRAIN.get(k, 0) * steps for k in counts), counts
+    conf = seen["dataset"].data_augmentor.gt_sampler.confidence_groups
+    want = sampler_confidences(load_checkpoint(out["ckpt_dir"] / "checkpoint_epoch_2.pth",
+                                               map_location="cpu"))
+    assert conf.shape == want.shape == (3, 96) and conf.dtype == np.float32
+    assert conf.tobytes() == want.tobytes() and np.isfinite(conf).all() and conf.any()
