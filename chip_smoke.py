@@ -5,7 +5,8 @@ SECOND-IoU, PV-RCNN, PointRCNN and PartA2, the CenterHead-RPN Voxel-RCNN
 and PV-RCNN on Waymo, MPPNetE2E's streaming, the nuScenes and Lyft
 configs, MPPNet and the other Waymo configs; the KITTI, nuScenes, Lyft and
 Pandaset configs from trees on disk; the flagship from a Waymo tree the port
-prepares, with the COM rehearsal),
+prepares, with the COM rehearsal; two-stage training under a data mesh; the
+image models CaDDN and the focal multimodal Voxel-RCNN),
 its
 serving artifact (export, load and the HTTP server), its data-parallel
 training and evaluation, and its wgrad sweep on one NVIDIA GPU.
@@ -288,7 +289,7 @@ Phases (any failure raises, and the script exits non-zero):
    one f32 step); R.1 / R.2 ``mppnet_4frames`` /
    ``mppnet_16frames.yaml`` serving at full width (batch 2, 4 / 16 frames
    of 163,840 points fused, 500 proposals a frame), stages, K4 at the final
-   NMS's (2, 500); R.3 both trained at the function level (20 steps, the
+   NMS's (2, 500); R.3 both trained at the function level (12 steps, the
    loss below 0.8 of its first); R.4 ``centerpoint_4frames.yaml``'s boxes
    served through MPPNet; R.5 ``centerpoint``, ``centerpoint_without_
    resnet``, ``centerpoint_pillar``, the three ``com/`` single-class
@@ -306,14 +307,34 @@ Phases (any failure raises, and the script exits non-zero):
    rehearsal's table, the confidences reaching the sampler bitwise); the
    test CLI's Waymo AP; the rehearsal (``com_tpu_torch.tools.
    com_rehearsal``) with its bars on its synthetic config.
-25. Launch counts: every counter is zeroed just before each path (the
+25. Path T, two-stage training under a data mesh (``path_t``):
+   ``voxel_rcnn_car.yaml`` at full width in f32 on 2 ranks spawned on the
+   card over gloo (2 scenes a rank), one step against one process over the
+   global batch of 4 (loss and terms, foreground RoIs, running statistics,
+   the gradient), the all-reduces a step; K2, dgrad and K2w in f32 at a
+   rank's BEV shapes.
+26. Path U, the image models (``path_u``): U.1 CaDDN, the focal backbone
+   and ``focal_split_and_spawn`` card against CPU; U.2 ``CaDDN.yaml`` at
+   full width (375 x 1242 images, batch 2): 3 serving batches and their
+   stages, K4 on its (2, 4096) candidates, K2 / dgrad / K2w in f32 at its
+   BEV shapes, 2 train steps with ``ddn_loss``; U.3
+   ``voxel_rcnn_car_focal_multimodal.yaml`` from its own DATA_CONFIG over a
+   seeded KITTI tree with PNG images (the loader's rate, the pastes that
+   survive the 2D prefilter, 3 serving batches, 2 steps, K2 and its
+   backward at SemSegEncoder's shapes, the train and test CLIs with the
+   KITTI AP line); U.4 a pcdet-layout Voxel-RCNN state dict through the
+   train CLI's ``--pretrained_model``, its eval step against the folded
+   model's.
+27. Launch counts: every counter is zeroed just before each path (the
    sweep, serving, A, B, C, D's, E's, F's, G's, J's, K's, H's, L's, M's,
-   N's, O's, P's, Q's, R's and S's phases, and in each rank of I) and read
+   N's, O's, P's, Q's, R's, S's, T's and U's phases, and in each rank of
+   I and T) and read
    just after, against the calls the sweep
    reports and the expected counts per
    forward or per step.  The device
    kernels one K3 call issues (1) and one K4 call (2, the pack and the
-   sweep), counted by torch.profiler after every timed phase.  Then the
+   sweep), counted by torch.profiler in a child process after every timed
+   phase.  Then the
    ``kernels`` line, the card's name and power limit, and the device line
    as the last line.  Each phase's wall seconds are printed as it ends
    (``phase time``) and all together before the ``kernels`` line.
@@ -392,7 +413,7 @@ H_REQUESTS, H_CLIENTS, H_WARMUP, H_TIMED = 6, 3, 3, 20
 H_SMALL_POINTS = 2048
 # the anchor artifact's batch: its export traces the row-blocked IoU once a
 # row block a sample (8 blocks a sample at NMS_PRE_MAXSIZE 4,096), ~3.7 s a block
-H_ANCHOR_BATCH = 2
+H_ANCHOR_BATCH = 1
 SYNTH_CONFIG = "configs/synthetic_models/centerpoint_synth_com.yaml"
 # TF32 as a fresh process has it, read before phase 1 turns it off
 LIBRARY_TF32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -517,48 +538,87 @@ def device_ms(fn, iters):
 
 
 def check_device_kernels(calls):
-    """For each (label, count, fn) the device kernels one call of fn issues
-    (torch.profiler over one call after a warm-up call) must number
-    ``count``.  Each session first runs ``torch.cuda._sleep`` as a marker
-    (one ``spin_kernel``): a session whose trace lacks the marker saw no
-    device activity at all, which happens now and then after earlier
-    profiling sessions or long runs of threads on the card, and is run
-    again, up to ``PROFILE_SESSIONS`` times.  A label is profiled once: it
-    names the kernel and its shape, which decide the kernels a call issues
-    (one process saw no device activity from its 79th session on, so the
-    paths' repeats of a shape are not profiled again).  Run after every
-    timed phase (a profiling session left the host's launches after it
-    slower)."""
+    """For each (label, count, op, args, kw) the device kernels one call of
+    ``com_tpu_torch.ops.<op>(*args, **kw)`` issues must number ``count``.
+    A label is counted once: it names the kernel and its shape, which decide
+    the kernels a call issues.  The count runs in a child process
+    (``count_device_kernels``), since in a process that has run the paths a
+    profiling session now and then sees no device activity at all, every
+    try after some session (once from the 79th on, once from the 29th)."""
+    cases, seen = [], set()
+    for label, count, op, args, kw in calls:
+        if label not in seen:
+            seen.add(label)
+            cases.append((label, count, op, moved(args, "cpu"), moved(kw, "cpu")))
+    path = REPO / "build" / "device_kernels.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(cases, path)
+    sys.stdout.flush()
+    try:
+        subprocess.run([sys.executable, str(Path(__file__).resolve()), "--device-kernels",
+                        str(path)], check=True, timeout=600)
+    finally:
+        path.unlink(missing_ok=True)
+
+
+def moved(x, dev):
+    """``x`` with every tensor in it (in tuples, lists and dicts) on ``dev``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, (tuple, list)):
+        return type(x)(moved(v, dev) for v in x)
+    if isinstance(x, dict):
+        return {k: moved(v, dev) for k, v in x.items()}
+    return x
+
+
+def count_device_kernels(path):
+    """``--device-kernels PATH``: the cases ``check_device_kernels`` saved,
+    counted in one torch.profiler session after a warm-up call of each: a
+    marker (``torch.cuda._sleep``, one ``spin_kernel``) before each call and
+    after the last, so the device events between two markers are one call's.
+    A session that lacks a marker is run again, up to ``PROFILE_SESSIONS``
+    times."""
+    import importlib
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    seen = set()
-    for label, count, fn in calls:
-        if label in seen:
-            continue
-        seen.add(label)
+    dev = torch.device("cuda", 0)
+    fns = []
+    for label, count, op, args, kw in torch.load(path, weights_only=False):
+        mod, name = op.rsplit(".", 1)
+        fn = getattr(importlib.import_module(f"com_tpu_torch.ops.{mod}"), name)
+        fns.append((label, count, lambda f=fn, a=moved(args, dev), k=moved(kw, dev): f(*a, **k)))
+    for _, _, fn in fns:
         fn()
-        torch.cuda.synchronize()
-        for attempt in range(1, PROFILE_SESSIONS + 1):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    torch.cuda.synchronize()
+    for attempt in range(1, PROFILE_SESSIONS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _, _, fn in fns:
                 torch.cuda._sleep(1000)
                 fn()
-                torch.cuda.synchronize()
-            names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-            if any("spin_kernel" in n for n in names):
-                break
-            print(f"{label}: profiling session {attempt} saw no device activity (no marker)")
-        else:
-            raise AssertionError(f"{label}: {PROFILE_SESSIONS} profiling sessions saw no device "
-                                 "activity")
-        names = [n for n in names if "spin_kernel" not in n]
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+        if len(marks) == len(fns) + 1:
+            break
+        print(f"device kernels: profiling session {attempt} saw {len(marks)} of "
+              f"{len(fns) + 1} markers")
+    else:
+        raise AssertionError(f"{PROFILE_SESSIONS} profiling sessions missed markers")
+    bad = []
+    for (label, count, _), a, b in zip(fns, marks, marks[1:]):
+        names = [e.name for e in events[a + 1:b]]
         ok = len(names) == count
         print(f"{label}: one call issues {len(names)} device kernel(s) "
               f"{[n.replace('(anonymous namespace)::', '').split('(')[0] for n in names]} "
-              f"({count}) "
-              f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{label} issues {len(names)} device kernels, not {count}")
+              f"({count}) {'ok' if ok else 'FAIL'}")
+        bad += [] if ok else [label]
+    if bad:
+        raise AssertionError(f"{bad} issue other numbers of device kernels")
 
 
 def bound_ms(nbytes, ops, dtype):
@@ -866,20 +926,22 @@ def check_seg_scan_bwd(dev, entries):
 
 
 def check_conv3x3_backward(dev, entries, shapes=FLAGSHIP_CONV,
-                           wgrad_dtypes=(torch.float32, torch.bfloat16), path=""):
+                           wgrad_dtypes=(torch.float32, torch.bfloat16), path="",
+                           dgrad_dtype=torch.bfloat16):
     """K2 dgrad (K2 on the output gradient with the rotated kernel) checked
     through the autograd.Function and timed as the call its backward makes
-    (``conv3x3_dgrad``), and K2w, at the backbone's shapes ``shapes``;
-    ``path`` prefixes the counters whose launches the entries report."""
+    (``conv3x3_dgrad``) in ``dgrad_dtype``, and K2w, at the backbone's
+    shapes ``shapes``; ``path`` prefixes the counters whose launches the
+    entries report."""
     from com_tpu_torch.ops import conv2d
 
     gen = torch.Generator(device=dev).manual_seed(13)
     for b, h, wd, c, co in map(conv_shape, shapes):
         flops = 2 * 9 * c * co * b * h * wd
-        x0 = torch.randn((b, h, wd, c), device=dev, generator=gen).to(torch.bfloat16)
+        x0 = torch.randn((b, h, wd, c), device=dev, generator=gen).to(dgrad_dtype)
         w = (torch.randn((3, 3, c, co), device=dev, generator=gen) / math.sqrt(9 * c))
-        w = w.to(torch.bfloat16)
-        g = torch.randn((b, h, wd, co), device=dev, generator=gen).to(torch.bfloat16)
+        w = w.to(dgrad_dtype)
+        g = torch.randn((b, h, wd, co), device=dev, generator=gen).to(dgrad_dtype)
         runs = []
         for fn in (conv2d.conv3x3, conv2d.conv3x3_plain):
             x = x0.clone().requires_grad_()
@@ -889,10 +951,11 @@ def check_conv3x3_backward(dev, entries, shapes=FLAGSHIP_CONV,
         (x, y, got), (px, py, want) = runs
         absref = conv2d.conv3x3_plain(g.float().abs(), conv2d.rotate_kernel(w.float().abs()))
         err = (got.float() - want.float()).abs()
-        ok = bool((err <= 1e-5 * absref + 2.0 ** -7 * want.float().abs()).all())
-        label = f"bf16 ({b},{h},{wd},{c}->{co})"
+        rnd = 0.0 if dgrad_dtype == torch.float32 else 2.0 ** -7
+        ok = bool((err <= 1e-5 * absref + rnd * want.float().abs()).all())
+        label = f"{str(dgrad_dtype).split('.')[-1]} ({b},{h},{wd},{c}->{co})"
         print(f"K2 conv3x3 dgrad {label}: max_abs_err={err.max().item():.3e} "
-              f"(|err| <= 1e-5 * conv(|g|,|w_rot|) + 2^-7 * |plain|) {'ok' if ok else 'FAIL'}")
+              f"(|err| <= 1e-5 * conv(|g|,|w_rot|) + {rnd:g} * |plain|) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K2 dgrad {label} disagrees with its plain version")
         # the call the backward makes: K2 on g with the rotated kernel
@@ -903,7 +966,7 @@ def check_conv3x3_backward(dev, entries, shapes=FLAGSHIP_CONV,
         wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         lib_ms = cuda_ms(lambda: torch.nn.grad.conv2d_input((b, c, h, wd), wc, gc,
                                                             padding=1), 10)
-        bms, by = bound_ms(nbytes(g, w, got), flops, torch.bfloat16)
+        bms, by = bound_ms(nbytes(g, w, got), flops, dgrad_dtype)
         entries.append(dict(name=f"conv2d.conv3x3 dgrad {label}", route="cuda",
                             source="com_tpu_torch/csrc/conv3x3.cu",
                             replaces="com_tpu/ops/pallas/conv2d.py:544",
@@ -1132,8 +1195,8 @@ def check_k4_cases(dev, entries, calls, over, sv, smi, where, kernel, iters):
         if err:
             raise AssertionError(f"K4 at ({b},{k}) on {label} disagrees with its plain version")
         # the pack and the sweep
-        calls.append((f"K4 greedy_suppress ({b},{k}) {label}", 2,
-                      lambda a=ov, v=vd: nms.greedy_suppress(a, v)))
+        calls.append((f"K4 greedy_suppress ({b},{k}) {label}", 2, "nms.greedy_suppress",
+                      (ov, vd), {}))
         plain_ms = cuda_ms(lambda: nms.greedy_suppress_plain(ov, vd), 2 if k > 1024 else 3,
                            warmup=1)
         bms, by = bound_ms(nbytes(ov, vd, got), ov.numel(), torch.float32)
@@ -1280,14 +1343,16 @@ def _mark_nms_steps(mark):
     return lambda: [setattr(nms, n, f) for n, f in orig.items()]
 
 
-def stage_breakdown(net, step, batch, label, iters=5, smi=""):
+def stage_breakdown(net, step, batch, label, iters=5, smi="", inner=()):
     """Where one full-size eval step spends its time on the card: CUDA
     events recorded by forward hooks at each slot's start and end, mean over
     ``iters`` steps.  "upload" is the host-to-card copy of the batch,
     "decode_nms" the decode and NMS after the head, itself split into the
     decode, for an anchor head the top NMS_PRE_MAXSIZE ("topk"), the score
     sort and gathers, the self-IoU, K4, ``_kept_slots`` and the rest (the
-    final gathers)."""
+    final gathers).  ``inner`` holds (slot, name, module) triples: a module
+    that the slot's forward calls once, timed under ``name`` and taken out
+    of the slot's time."""
     from com_tpu_torch.models.dense_heads import anchor_head
 
     marks, sub = [], []
@@ -1304,8 +1369,9 @@ def stage_breakdown(net, step, batch, label, iters=5, smi=""):
         ev.record()
         sub.append((name, ev))
 
-    hooks = [h for s in slots for h in (getattr(net, s).register_forward_pre_hook(mark),
-                                        getattr(net, s).register_forward_hook(mark))]
+    hooks = [h for m in [getattr(net, s) for s in slots] + [m for _, _, m in inner]
+             for h in (m.register_forward_pre_hook(mark), m.register_forward_hook(mark))]
+    split = {s: (s, n, s) for s, n, _ in inner}  # the slot's time either side of the module
     undo = _mark_nms_steps(sub_mark)
     orig_top = anchor_head.top_candidates
 
@@ -1314,7 +1380,8 @@ def stage_breakdown(net, step, batch, label, iters=5, smi=""):
         return orig_top(*args, **kw)
 
     anchor_head.top_candidates = top
-    names = ["upload"] + [n for s in slots for n in (s, "gap")][:-1] + ["decode_nms"]
+    names = (["upload"] + [n for s in slots for n in (*split.get(s, (s,)), "gap")][:-1]
+             + ["decode_nms"])
     sums = dict.fromkeys(names, 0.0)
     parts = {}
     try:
@@ -5827,7 +5894,7 @@ def check_k3_call(dev, entries, calls, args, kw, label, kernel, smi):
     err = (got - want).abs().max().item()
     ok = err <= 2e-6 if mode == "gauss" else err == 0.0
     calls.append((f"K3 stamp_windows {mode} ({h},{w})" + (f", {label}" if label else ""), 1,
-                  lambda: stamp.stamp_windows(*args, **kw)))
+                  "stamp.stamp_windows", args, kw))
     ms = cuda_ms(lambda: stamp.stamp_windows(*args, **kw), 50)
     dev_ms = device_ms(lambda: stamp.stamp_windows(*args, **kw), 50)
     plain_ms = cuda_ms(lambda: stamp.stamp_windows_plain(*args, **kw), 10)
@@ -6378,7 +6445,7 @@ EXPECT_R_VOXEL_TRAIN = {"conv3x3": 11, "conv3x3_dgrad": 11, "conv3x3_wgrad": 11,
 EXPECT_R_PILLAR_SERVING = {"seg_scan": 2, "conv3x3": 14, "nms": 1}
 EXPECT_R_PILLAR_TRAIN = {"seg_scan": 2, "seg_scan_bwd": 1, "conv3x3": 14, "conv3x3_dgrad": 14,
                          "conv3x3_wgrad": 14, "stamp_gauss": 1}
-R_TRAIN_STEPS = 20
+R_TRAIN_STEPS = 12
 # mppnet_16frames.yaml keeps the 4-frame YAML's pool MLPS [[128, 128], [128, 128]] with
 # TRANS_INPUT 64: its pooled geometry (2 x 128) cannot add to its motion features (64), and
 # its forward fails in both packages (tests/test_torch_port_mppnet.py).  Path R runs it with
@@ -7329,6 +7396,697 @@ def path_s(dev, smi, points=POINTS):
         shutil.rmtree(S_DIR, ignore_errors=True)
 
 
+# ---- path T: two-stage training under a data mesh ----
+
+T_DIR = REPO / "build" / "path_t"  # the ranks' results, removed after the path
+T_RANKS, T_BATCH, T_SEED = 2, 2, 25  # ranks on the card, scenes a rank
+T_TERMS = ("rpn_loss_cls", "rpn_loss_loc", "rpn_loss_dir", "rcnn_loss_cls", "rcnn_loss_reg",
+           "rcnn_loss_corner")
+# the ranks against one process over the global batch, f32 with every norm's
+# bias +3 (the repo's setting for whole-model gradient comparisons): a rank's
+# norms sum its rows and the all-reduce adds the partial sums, and the card's
+# GEMMs may tile two scenes otherwise than four, so the sums round apart:
+T_LOSS_RTOL = 1e-4  # the loss and each term
+T_STATS_TOL = 1e-3  # ``stat_err`` of the running statistics
+T_GRAD_RTOL = 1e-3  # the whole net's gradient, relative L2 norm of the difference
+
+
+def t_case(pc_range=None, points=E_POINTS, real_points=E_REAL_POINTS):
+    """``voxel_rcnn_car.yaml`` at full width in f32 and one global batch of
+    T_RANKS x T_BATCH KITTI-like scenes."""
+    cfg, meta, proc = load_voxel(VOXEL_RCNN_CONFIG, pc_range)
+    cfg.MODEL.MIXED_PRECISION = False
+    batch = kitti_voxel_batches(np.random.RandomState(T_SEED), meta, proc, "train", 1,
+                                T_RANKS * T_BATCH, points, real_points)[0]
+    return cfg, meta, batch
+
+
+def t_step(dev, case, mesh=None):
+    """``case``'s model (seeded weights, scores spread, GT on the model's own
+    proposals, norm biases +3) on its batch or, under ``mesh``, on the
+    rank's rows.  First the compared step: ``loss_fn`` with deterministic
+    RoI sampling and dropout off (a random draw is a slot's: a near-tie in
+    the proposals' scores, ordered otherwise by a rounding, would hand a
+    slot's draw to another RoI), backward and the reduction over the
+    ranks: loss, terms, foreground RoIs, gradients, running statistics,
+    launches.  Then the whole ``train_step`` with its seeded RoI sampling
+    and the YAML's dropout: its loss and the step's all-reduces (bytes)."""
+    from com_tpu_torch.models.roi_heads.fc import Dropout
+    from com_tpu_torch.parallel.mesh import shard_batch
+    from com_tpu_torch.parallel.sharding import reduce_gradients
+    from com_tpu_torch.train.step import device_batch_keys
+
+    cfg, meta, batch = case
+    if mesh is not None:
+        batch = shard_batch(batch, mesh)
+    net, _, state, step = build_trainer(dev, cfg, meta, 1, seed=T_SEED)
+    shift_norm_biases(follow_proposals(spread_anchor_scores(net)))
+    fg = []
+    net.roi_head.register_forward_pre_hook(lambda m, args: fg.append(
+        int(args[0]["roi_targets"].reg_valid.sum())) if "roi_targets" in args[0] else None)
+    keys = device_batch_keys(cfg.MODEL)
+    dev_batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items() if k in keys}
+    drops = [(m, m.p) for m in net.modules() if isinstance(m, Dropout)]
+    for m, _ in drops:
+        m.p = 0.0
+    _sync(dev)
+    reset_counters()
+    loss, _, _, tb = step.loss_fn(state, dev_batch, 0)
+    loss.backward()
+    reduce_gradients(net.parameters())
+    _sync(dev)
+    out = dict(loss=float(loss.detach()), terms={k: float(tb[k]) for k in T_TERMS}, fg=fg[:1],
+               counts=read_counters(),
+               grads={k: p.grad.detach().float().cpu() for k, p in net.named_parameters()
+                      if p.grad is not None},
+               stats={k: v.cpu().clone() for k, v in net.state_dict().items()
+                      if "running" in k})
+    for m, p in drops:
+        m.p = p
+    log = []
+    t0 = time.perf_counter()
+    with counted_collectives(log):
+        state, metrics = step(state, dev_batch, 0)
+        _sync(dev)
+    out.update(ms=1e3 * (time.perf_counter() - t0), collectives=[b for b, _ in log],
+               step_loss=float(metrics["loss"]), step_fg=fg[1:], dropout=[p for _, p in drops])
+    return out
+
+
+def t_rank(mesh, out, pc_range, points, real_points):
+    """A rank of path T (spawned): ``t_step`` on its scenes of the global
+    batch; results to ``rank{r}.pt``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.save(t_step(mesh.device, t_case(pc_range, points, real_points), mesh),
+               Path(out) / f"rank{mesh.rank}.pt")
+
+
+def t_check(one, ranks, smi):
+    """The ranks bitwise alike; the compared step against one process over
+    the global batch: the loss and terms (T_LOSS_RTOL), the foreground
+    RoIs, the running statistics (T_STATS_TOL) and the gradient
+    (T_GRAD_RTOL); the seeded whole step finite and alike on the ranks;
+    the launches of the compared step and the all-reduces of a whole one."""
+    a = ranks[0]
+    for r in ranks[1:]:
+        same = (r["loss"] == a["loss"] and r["terms"] == a["terms"]
+                and all(torch.equal(r["grads"][k], v) for k, v in a["grads"].items())
+                and all(torch.equal(r["stats"][k], v) for k, v in a["stats"].items()))
+        if not same:
+            raise AssertionError("path T: the ranks' loss, gradients or statistics differ")
+    fails = []
+    for name, want, got in [("loss", one["loss"], a["loss"])] + [
+            (k, one["terms"][k], a["terms"][k]) for k in T_TERMS]:
+        err = abs(got - want) / max(abs(want), 1e-6)
+        print(f"  path T {name}: ranks {got:.6f}, one process {want:.6f}, rel err {err:.2e} "
+              f"(<= {T_LOSS_RTOL:g})")
+        if err > T_LOSS_RTOL and abs(got - want) > 1e-7:
+            fails.append(name)
+    seeded = [r["step_loss"] for r in ranks]
+    print(f"  path T whole step (seeded RoI sampling, dropout {a['dropout']}): loss ranks "
+          f"{seeded}, one process {one['step_loss']:.6f} (the RoIs a slot's draw picks follow "
+          f"the proposals' order), foreground RoIs ranks {[r['step_fg'] for r in ranks]}")
+    if len(set(seeded)) != 1 or not all(math.isfinite(x) for x in seeded + [one["step_loss"]]):
+        fails.append("the seeded step's loss (ranks alike, finite)")
+    fg = sum(r["fg"][0] for r in ranks)
+    print(f"  path T foreground RoIs: ranks {[r['fg'][0] for r in ranks]} (sum {fg}), one "
+          f"process {one['fg'][0]}")
+    if fg != one["fg"][0] or fg == 0:
+        fails.append("foreground RoIs")
+    norms = sorted({k.rsplit(".", 1)[0] for k in one["stats"] if k.endswith("running_mean")})
+    worst_stat = max(float(stat_err(a["stats"], one["stats"], n).max()) for n in norms)
+    diff = sum(float(((a["grads"][k] - g) ** 2).sum()) for k, g in one["grads"].items())
+    total = sum(float((g ** 2).sum()) for g in one["grads"].values())
+    grad_err = math.sqrt(diff / max(total, 1e-30))
+    worst_tensor = max(one["grads"], key=lambda k: float((a["grads"][k] - one["grads"][k]).abs()
+                                                         .max() / one["grads"][k].abs().max()
+                                                         .clamp_min(1e-30)))
+    print(f"  path T running statistics: worst stat_err {worst_stat:.2e} (<= {T_STATS_TOL:g}); "
+          f"gradient: relative L2 error {grad_err:.2e} (<= {T_GRAD_RTOL:g}), worst tensor "
+          f"{worst_tensor}")
+    if worst_stat > T_STATS_TOL:
+        fails.append("running statistics")
+    if grad_err > T_GRAD_RTOL:
+        fails.append("gradients")
+    per_step = [len(r["collectives"]) for r in ranks]
+    print(f"path T: all-reduces a step {per_step[0]} a rank ({sum(a['collectives']) / 1e6:.3f} "
+          f"MB), a rank's step {[round(r['ms'], 1) for r in ranks]} ms against one process "
+          f"{one['ms']:.1f} ms over the global batch ({smi}); two ranks sharing one card over "
+          "gloo are no scaling figure")
+    for r, res in enumerate(ranks):
+        check_launches(f"path T rank {r} step", res["counts"], EXPECT_J_TRAIN, 1)
+    if fails:
+        raise AssertionError(f"path T: the ranks disagree with one process on {fails}")
+
+
+def path_t(dev, smi, entries, pc_range=None, points=E_POINTS, real_points=E_REAL_POINTS):
+    """Path T, two-stage training under a data mesh: ``voxel_rcnn_car.yaml``
+    at full width in f32, T_RANKS ranks spawned on the card over gloo (as
+    path I), T_BATCH scenes a rank, one step against one process over the
+    global batch of T_RANKS x T_BATCH (``t_step``); K2, dgrad and K2w in
+    f32 at a rank's BEV shapes.  Returns a rank's launch counts (the
+    compared step's forward and backward)."""
+    import shutil
+
+    from com_tpu_torch.parallel.launch import run_ranks
+
+    shutil.rmtree(T_DIR, ignore_errors=True)
+    T_DIR.mkdir(parents=True)
+    try:
+        one = t_step(dev, t_case(pc_range, points, real_points))
+        check_launches("path T one process step", one["counts"], EXPECT_J_TRAIN, 1)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        run_ranks(t_rank, T_RANKS, args=(str(T_DIR), pc_range, points, real_points),
+                  backend="gloo", device=str(dev), timeout_s=I_TIMEOUT_S, init_dir=T_DIR,
+                  threads=I_THREADS)
+        print(f"path T: {T_RANKS} ranks spawned on {dev} over gloo ran their step in "
+              f"{time.perf_counter() - t0:.1f} s wall")
+        ranks = [torch.load(T_DIR / f"rank{r}.pt", weights_only=False) for r in range(T_RANKS)]
+        t_check(one, ranks, smi)
+    finally:
+        shutil.rmtree(T_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    check_conv3x3(dev, entries, shapes=J_CONV, dtypes=(torch.float32,), path="T:")
+    check_conv3x3_backward(dev, entries, shapes=J_CONV, wgrad_dtypes=(torch.float32,),
+                           dgrad_dtype=torch.float32, path="T:")
+    return ranks[0]["counts"]
+
+
+# ---- path U: the image models ----
+
+U_DIR = REPO / "build" / "path_u"  # path U's tree, checkpoints and CLI outputs, removed after it
+CADDN_CONFIG = "configs/kitti_models/CaDDN.yaml"
+FOCAL_CONFIG = "configs/kitti_models/voxel_rcnn_car_focal_multimodal.yaml"
+U_BATCH, U_SEED = 2, 25
+U_IMAGE = (375, 1242)  # KITTI's camera images
+U_CADDN_CONV = ((2, 188, 140, 64), (2, 94, 70, 128), (2, 47, 35, 256))  # its BEV blocks' K2
+# SemSegEncoder's stride-1 conv at the collate's padded 384 x 1280 and at the
+# unpadded 375 x 1242 (an odd width)
+U_SEMSEG_CONV = ((2, 96, 320, 64), (2, 94, 311, 64))
+EXPECT_U_CADDN_SERVING = {"conv3x3": 30, "nms": 1}
+EXPECT_U_CADDN_TRAIN = {"conv3x3": 30, "conv3x3_dgrad": 30, "conv3x3_wgrad": 30}
+EXPECT_U_FOCAL_SERVING = {"conv3x3": 12, "nms": 2}  # the BEV's 11 and SemSegEncoder's body
+EXPECT_U_FOCAL_TRAIN = {"conv3x3": 12, "conv3x3_dgrad": 12, "conv3x3_wgrad": 12, "nms": 1}
+U_TRAIN, U_VAL, U_TREE_POINTS = 8, 6, 120000
+U_TERMS = T_TERMS + ("loss_box_of_pts",)
+U_POOL_TOL = 1e-4  # U.4: the eval step of the unfolded-then-folded pool against the folded
+
+
+def kitti_camera_batch(rng, b, meta, image=None, objects=12, m=64):
+    """A camera batch as ``tests/test_caddn.py`` builds one, at KITTI's
+    image size and calibration (``tools/kitti_tree``'s frame 000000):
+    images and depth maps from the seed, GT boxes in the camera's view
+    inside ``meta``'s range (KITTI's three classes) and their image boxes."""
+    from com_tpu_torch.data.kitti.calibration import (boxes3d_kitti_camera_to_imageboxes,
+                                                      boxes3d_lidar_to_kitti_camera,
+                                                      calib_to_matricies)
+    from com_tpu_torch.tools.kitti_tree import calibration
+
+    image = image or U_IMAGE
+    calib = calibration()
+    l2c, c2i = calib_to_matricies(calib)
+    pr = meta.point_cloud_range
+    gt = np.zeros((b, m, 8), np.float32)
+    g2 = np.zeros((b, m, 4), np.float32)
+    for i in range(b):
+        cls = rng.randint(0, 3, objects)
+        x = rng.uniform(pr[0] + 4, pr[3] - 4, objects)
+        y = rng.uniform(-0.45, 0.45, objects) * x
+        gt[i, :objects, :3] = np.stack([x, y, np.full(objects, -1.0)], -1)
+        gt[i, :objects, 3:6] = KITTI_SIZES[cls]
+        gt[i, :objects, 6] = rng.uniform(-np.pi, np.pi, objects)
+        gt[i, :objects, 7] = cls + 1
+        g2[i, :objects] = boxes3d_kitti_camera_to_imageboxes(
+            boxes3d_lidar_to_kitti_camera(gt[i, :objects, :7], calib), calib, image)
+    return {"images": rng.rand(b, *image, 3).astype(np.float32),
+            "depth_maps": rng.uniform(2.5, 45.0, (b, *image)).astype(np.float32),
+            "image_shape": np.tile(np.array(image, np.int32), (b, 1)),
+            "trans_lidar_to_cam": np.tile(l2c.astype(np.float32), (b, 1, 1)),
+            "trans_cam_to_img": np.tile(c2i.astype(np.float32), (b, 1, 1)),
+            "gt_boxes": gt, "gt_boxes2d": g2}
+
+
+def caddn_small_case(seed=0):
+    """``tests/test_caddn.py``'s small CaDDN (16 LID bins, 16 channels, a 32
+    x 32 x 16 grid, one Car anchor) with post-processing, on a batch of 2
+    built as that test builds one (64 x 96 images)."""
+    from com_tpu_torch.models.detectors import DatasetMeta
+    from com_tpu_torch.utils.config import CfgNode
+
+    model = {
+        "NAME": "CaDDN",
+        "VFE": {"NAME": "ImageVFE", "DOWNSAMPLE_FACTOR": 4,
+                "FFN": {"NAME": "DepthFFN",
+                        "DISCRETIZE": {"mode": "LID", "num_bins": 16, "depth_min": 2.0,
+                                       "depth_max": 30.0},
+                        "CHANNEL_REDUCE": {"out_channels": 16},
+                        "LOSS": {"NAME": "DDNLoss", "ARGS": {"weight": 3.0, "alpha": 0.25,
+                                                            "gamma": 2.0, "fg_weight": 13,
+                                                            "bg_weight": 1}}}},
+        "MAP_TO_BEV": {"NAME": "Conv2DCollapse", "NUM_BEV_FEATURES": 32},
+        "BACKBONE_2D": {"NAME": "BaseBEVBackbone", "LAYER_NUMS": [1], "LAYER_STRIDES": [1],
+                        "NUM_FILTERS": [32], "UPSAMPLE_STRIDES": [1],
+                        "NUM_UPSAMPLE_FILTERS": [32]},
+        "DENSE_HEAD": {"NAME": "AnchorHeadSingle", "USE_DIRECTION_CLASSIFIER": True,
+                       "DIR_OFFSET": 0.78539, "NUM_DIR_BINS": 2,
+                       "ANCHOR_GENERATOR_CONFIG": [
+                           {"class_name": "Car", "anchor_sizes": [[4.0, 1.8, 1.6]],
+                            "anchor_rotations": [0, 1.57], "anchor_bottom_heights": [0],
+                            "align_center": False, "feature_map_stride": 1,
+                            "matched_threshold": 0.6, "unmatched_threshold": 0.45}],
+                       "LOSS_CONFIG": {"LOSS_WEIGHTS": {"cls_weight": 1.0, "loc_weight": 2.0,
+                                                        "dir_weight": 0.2,
+                                                        "code_weights": [1.0] * 7}}},
+        "POST_PROCESSING": {"SCORE_THRESH": 0.1, "NMS_CONFIG": {
+            "MULTI_CLASSES_NMS": False, "NMS_TYPE": "nms_gpu", "NMS_THRESH": 0.7,
+            "NMS_PRE_MAXSIZE": 256, "NMS_POST_MAXSIZE": 50}}}
+    cfg = CfgNode({"CLASS_NAMES": ["Car"], "MODEL": model})
+    rng = np.random.RandomState(seed)
+    b, h, w = 2, 64, 96
+    l2c = np.zeros((b, 4, 4), np.float32)
+    l2c[:, 0, 1], l2c[:, 1, 2], l2c[:, 2, 0], l2c[:, 3, 3] = -1.0, -1.0, 1.0, 1.0
+    c2i = np.zeros((b, 3, 4), np.float32)
+    c2i[:, 0, 0] = c2i[:, 1, 1] = 60.0
+    c2i[:, 0, 2], c2i[:, 1, 2], c2i[:, 2, 2] = w / 2, h / 2, 1.0
+    batch = {"images": rng.rand(b, h, w, 3).astype(np.float32),
+             "trans_lidar_to_cam": l2c, "trans_cam_to_img": c2i}
+    meta = DatasetMeta(["Car"], (2.0, -8.0, -2.0, 18.0, 8.0, 2.0), (0.5, 0.5, 0.25),
+                       (32, 32, 16), 0)
+    return cfg, meta, batch
+
+
+def focal_small_case(seed=0):
+    """``tests/test_focal_multimodal.py``'s SECONDNet over the focal
+    backbone (IMG_CHANNELS 8, focal convs at stages 0 and 1 beside the
+    multimodal one) on 2 scenes of 2,000 points with their images (96 x
+    160) and calibration, voxelized by the port's host voxelizer."""
+    from com_tpu_torch.data.kitti.calibration import Calibration, calib_to_matricies
+    from com_tpu_torch.models.detectors import DatasetMeta
+    from com_tpu_torch.utils.config import CfgNode
+
+    rng = np.random.RandomState(seed)
+    pc_range, vsize = (0.0, -16.0, -2.0, 32.0, 16.0, 2.0), (0.5, 0.5, 0.1)
+    meta = DatasetMeta(["Car"], pc_range, vsize, (64, 64, 40), 4)
+    pts = np.concatenate([rng.uniform(1, 30, (2, 2000, 1)), rng.uniform(-14, 14, (2, 2000, 1)),
+                          rng.uniform(-1.4, 1.4, (2, 2000, 1)), rng.rand(2, 2000, 1)],
+                         -1).astype(np.float32)
+    proc = {"MAX_NUMBER_OF_VOXELS": {"test": 1024}, "MAX_POINTS_PER_VOXEL": 5}
+    batch = voxelize_batch({"points": pts, "points_mask": np.ones((2, 2000), bool)}, meta,
+                           CfgNode(proc), "test")
+    v2c = np.array([[0, -1, 0, 0], [0, 0, -1, 0], [1, 0, 0, 0]], np.float64)
+    l2c, c2i = calib_to_matricies(Calibration({
+        "P2": np.array([100.0, 0, 200, 0, 0, 100, 150, 0, 0, 0, 1, 0]),
+        "R0_rect": np.eye(3).ravel(), "Tr_velo_to_cam": v2c.ravel()}))
+    batch.update(images=rng.rand(2, 96, 160, 3).astype(np.float32),
+                 image_shape=np.array([[96, 160], [90, 150]], np.int32),
+                 trans_lidar_to_cam=np.stack([l2c, l2c]).astype(np.float32),
+                 trans_cam_to_img=np.stack([c2i, c2i]).astype(np.float32),
+                 noise_rot=np.array([0.0, 0.1], np.float32),
+                 noise_scale=np.array([1.0, 1.02], np.float32),
+                 flip_x=np.array([False, True]), flip_y=np.array([False, False]))
+    model = {
+        "NAME": "SECONDNet", "VFE": {"NAME": "MeanVFE"},
+        "BACKBONE_3D": {"NAME": "VoxelBackBone8xFocal", "USE_IMG": True, "IMG_CHANNELS": 8,
+                        "CHANNELS": [8, 16, 32, 32], "VOXEL_CAPS": [1024, 512, 256, 128],
+                        "FOCAL_STAGES": [0, 1], "FOCAL_THRESHOLD": 0.5, "SPAWN_CAP": 256},
+        "MAP_TO_BEV": {"NAME": "HeightCompression", "NUM_BEV_FEATURES": 32},
+        "BACKBONE_2D": {"NAME": "BaseBEVBackbone", "LAYER_NUMS": [1], "LAYER_STRIDES": [1],
+                        "NUM_FILTERS": [32], "UPSAMPLE_STRIDES": [1],
+                        "NUM_UPSAMPLE_FILTERS": [32]},
+        "DENSE_HEAD": {"NAME": "AnchorHeadSingle", "USE_DIRECTION_CLASSIFIER": True,
+                       "DIR_OFFSET": 0.78539, "NUM_DIR_BINS": 2,
+                       "ANCHOR_GENERATOR_CONFIG": [
+                           {"class_name": "Car", "anchor_sizes": [[4.7, 2.1, 1.7]],
+                            "anchor_rotations": [0, 1.57], "anchor_bottom_heights": [0],
+                            "align_center": False, "feature_map_stride": 8,
+                            "matched_threshold": 0.55, "unmatched_threshold": 0.4}],
+                       "LOSS_CONFIG": {"LOSS_WEIGHTS": {"cls_weight": 1.0, "loc_weight": 2.0,
+                                                        "dir_weight": 0.2,
+                                                        "code_weights": [1.0] * 7}}},
+        "POST_PROCESSING": {"SCORE_THRESH": 0.1, "NMS_CONFIG": {
+            "MULTI_CLASSES_NMS": False, "NMS_TYPE": "nms_gpu", "NMS_THRESH": 0.7,
+            "NMS_PRE_MAXSIZE": 256, "NMS_POST_MAXSIZE": 50}}}
+    return CfgNode({"CLASS_NAMES": ["Car"], "MODEL": model}), meta, batch
+
+
+def card_vs_cpu_forward(dev, cfg, meta, batch, label, keys, prepare=None):
+    """The eval-mode forward of ``cfg`` (seeded weights, ``prepare(net)``
+    applied) on ``batch`` on the card and on the CPU: each of ``keys``
+    within 1e-4 of its largest magnitude.  (A detection comparison would
+    hang on near-tied scores of random weights at the top-k and NMS cuts.)
+    Returns both outputs."""
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.train.step import model_input_keys
+
+    outs = []
+    for d in (dev, "cpu"):
+        net = build_network(cfg.MODEL, meta, device=d, seed=7)
+        if prepare is not None:
+            prepare(net)
+        with torch.no_grad():
+            outs.append(net({k: torch.as_tensor(batch[k], device=d)
+                             for k in model_input_keys(cfg.MODEL) if k in batch}))
+    for k in keys:
+        got, want = outs[0][k].cpu(), outs[1][k]
+        err = float((got - want).abs().max() / want.abs().max().clamp_min(1e-12))
+        print(f"{label} {k} {tuple(want.shape)}: max err {err:.2e} of its max (<= 1e-4)")
+        if err > 1e-4:
+            raise AssertionError(f"{label}: {k} differs on the card")
+    return outs
+
+
+def u1_small_references(dev):
+    """Card against CPU in f32: CaDDN's forward (depth logits, voxel volume,
+    BEV map, head), the focal model's with its norm biases +3 (seeded norms
+    at identity shrink its activations layer by layer until the importance
+    logits sit at 0, every focal decision on its threshold; then its focal
+    convs' voxel sets exact, their importance, the volume, the head) and
+    ``focal_split_and_spawn`` (exact, tied scores) at the focal YAML's
+    stage-1 size."""
+    from com_tpu_torch.ops.sparse import focal_split_and_spawn
+
+    cfg, meta, batch = caddn_small_case()
+    card_vs_cpu_forward(dev, cfg, meta, batch, "path U.1 small reference (CaDDN)",
+                        ("depth_logits", "encoded_spconv_tensor", "spatial_features",
+                         "cls_preds_raw", "box_preds_raw"))
+    cfg, meta, batch = focal_small_case()
+    card, cpu = card_vs_cpu_forward(dev, cfg, meta, batch,
+                                    "path U.1 small reference (focal multimodal)",
+                                    ("encoded_spconv_tensor", "cls_preds_raw", "box_preds_raw"),
+                                    prepare=shift_norm_biases)
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(card["focal_coords"] + card["focal_valid"],
+                                                       cpu["focal_coords"] + cpu["focal_valid"]))
+    perr = max(float((a.cpu() - b)[v].abs().max())
+               for a, b, v in zip(card["focal_probs"], cpu["focal_probs"], cpu["focal_valid"]))
+    print(f"path U.1 focal convs' voxel sets card vs CPU: {'exact' if same else 'DIFFER'}, own "
+          f"importance max err {perr:.2e} (<= 1e-5)")
+    if not same or perr > 1e-5:
+        raise AssertionError("path U.1: the focal convs' voxel sets differ on the card")
+    gen = np.random.RandomState(U_SEED)
+    b, v, c, grid = 2, 20000, 16, (41, 1600, 1408)
+    coords = np.stack([gen.randint(0, 41, (b, v)), gen.randint(0, 1600, (b, v)),
+                       gen.randint(0, 1408, (b, v))], -1).astype(np.int32)
+    coords[:, :, 1:] = coords[:, :, 1:] // 8  # clustered: neighbours exist and collide
+    valid = np.ones((b, v), bool)
+    for i in range(b):
+        valid[i] = False
+        valid[i, np.unique(coords[i] @ np.array([1600 * 1408, 1408, 1]), return_index=True)[1]] \
+            = True
+    args = (gen.randn(b, v, c).astype(np.float32), coords, valid,
+            np.round(gen.randn(b, v, 27) * 2).astype(np.float32))  # rounded: tied scores
+    res = [focal_split_and_spawn(*(torch.as_tensor(a, device=d) for a in args), grid, 0.5, 2500)
+           for d in (dev, "cpu")]
+    exact = all(torch.equal(x.cpu(), y) for x, y in zip(res[0][1:3], res[1][1:3]))
+    ferr = float((res[0][0].cpu() - res[1][0]).abs().max())
+    spawned = int(res[1][2][:, v:].sum())
+    print(f"path U.1 focal_split_and_spawn (2, {v}, {c}) cap 2500 card vs CPU: {spawned} spawned, "
+          f"voxels and slots {'exact' if exact else 'DIFFER'}, features max err {ferr:.2e}")
+    if not exact or ferr > 1e-6 or spawned == 0:
+        raise AssertionError("path U.1: focal_split_and_spawn differs on the card")
+
+
+def u2_caddn(dev, smi, entries, calls):
+    """CaDDN.yaml at full width (80 LID bins, 64 channels, the 280 x 376 x 25
+    grid of 0.16 m, 375 x 1242 images), batch 2 on a batch built as
+    ``tests/test_caddn.py`` builds one (KITTI's calibration): 3 serving
+    batches and their stages from the DDN to the final NMS; K4 on its
+    three-class candidates (2, 4096) and K2 / dgrad / K2w at its BEV shapes
+    in f32; 2 train steps with ``ddn_loss``; peak memory.  Returns the
+    launch counts of the serving forward and of the steps."""
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.train.eval import make_eval_step
+
+    cfg, meta, _ = load_voxel(CADDN_CONFIG)
+    rng = np.random.RandomState(U_SEED)
+    batches = [kitti_camera_batch(rng, U_BATCH, meta) for _ in range(3)]
+    net = spread_anchor_scores(build_network(cfg.MODEL, meta, device=dev, seed=0))
+    step = make_eval_step(net, cfg.MODEL, list(cfg.CLASS_NAMES), meta, device=dev)
+    step(batches[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    lat, outs = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        outs.append([t.cpu().numpy() for t in step(b)])
+        torch.cuda.synchronize()
+        lat.append(1e3 * (time.perf_counter() - t0))
+    counts = read_counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    ok = all(np.isfinite(bx[v]).all() and v.any() for bx, _, _, v in outs)
+    print(f"path U.2 CaDDN serving (batch {U_BATCH}, 375 x 1242): latency ms a batch "
+          f"{[round(x, 2) for x in lat]}, detections {[int(o[3].sum()) for o in outs]}, "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB ({smi}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("path U.2: CaDDN's serving returned no or non-finite detections")
+    check_launches("path U.2 CaDDN serving forward", counts, EXPECT_U_CADDN_SERVING, len(batches))
+    stage_breakdown(net, step, batches[0], "path U.2 CaDDN ", iters=3, smi=smi,
+                    inner=[("vfe", "ddn", net.vfe.ffn)])
+    over, sv = e_decoded_candidates(net, cfg, meta, batches[0], dev)
+    check_k4_cases(dev, entries, calls, over, sv, smi, ", path U.2 CaDDN candidates", "U:nms",
+                   iters=10)
+    del net, step, over, sv
+    torch.cuda.empty_cache()
+    check_conv3x3(dev, entries, shapes=U_CADDN_CONV, dtypes=(torch.float32,), path="U:")
+    check_conv3x3_backward(dev, entries, shapes=U_CADDN_CONV, wgrad_dtypes=(torch.float32,),
+                           dgrad_dtype=torch.float32, path="U:")
+    torch.cuda.empty_cache()
+    train_counts = u_train_steps(dev, smi, "U.2 (CaDDN)", cfg, meta, batches[:2],
+                                 EXPECT_U_CADDN_TRAIN, ("rpn_loss_cls", "rpn_loss_loc",
+                                                       "rpn_loss_dir", "ddn_loss"))
+    return counts, train_counts
+
+
+def u_train_steps(dev, smi, label, cfg, meta, batches, expect, terms):
+    """A step on each of ``batches`` from seeded weights (scores spread):
+    every term finite, ``ddn_loss`` / ``loss_box_of_pts`` > 0 where named,
+    the step times (host clock, synced), peak memory, launches."""
+    from com_tpu_torch.train.step import device_batch_keys
+
+    net, _, state, step = build_trainer(dev, cfg, meta, len(batches), seed=0)
+    spread_anchor_scores(net)
+    keys = device_batch_keys(cfg.MODEL)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    ms, rows = [], []
+    for b in batches:
+        dev_b = {k: torch.as_tensor(v, device=dev) for k, v in b.items() if k in keys}
+        t0 = time.perf_counter()
+        state, metrics = step(state, dev_b, 0)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        rows.append({k: float(metrics[k]) for k in ("loss",) + tuple(terms)})
+    counts = read_counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    ok = all(np.isfinite(list(r.values())).all() for r in rows) and all(
+        r[k] > 0 for r in rows for k in ("ddn_loss", "loss_box_of_pts") if k in r)
+    ok = ok and all(torch.isfinite(p).all() for p in net.parameters())
+    print(f"path {label} train steps (batch {len(batches[0]['gt_boxes'])}): "
+          f"{json.dumps([{k: round(v, 5) for k, v in r.items()} for r in rows])}, ms "
+          f"{[round(x, 1) for x in ms]}, max_memory_allocated {peak / 2**30:.2f} GiB ({smi}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"path {label}: a train step is not finite or a term is 0")
+    check_launches(f"path {label} train step", counts, expect, len(batches))
+    return counts
+
+
+def u_focal_cfg(tree):
+    from com_tpu_torch.utils.config import cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file(str(REPO / FOCAL_CONFIG))
+    cfg.DATA_CONFIG.DATA_PATH = str(tree)
+    return cfg
+
+
+def u3_focal(dev, smi, entries, calls, tree_points=U_TREE_POINTS, sets=()):
+    """``voxel_rcnn_car_focal_multimodal.yaml`` from its own DATA_CONFIG over
+    a KITTI tree with images written from the seed (``kitti_tree
+    --images``): the loader's rate (2 threads, an epoch) and the pastes that
+    survive the 2D prefilter; 3 serving batches of the val frames; 2 train
+    steps (GT on the model's proposals); K2 and its backward in f32 at
+    SemSegEncoder's shapes; then the train and test CLIs for one epoch
+    (the KITTI AP line).  ``sets`` are --set pairs for a rehearsal.
+    Returns the launch counts of the serving forward and of the steps."""
+    from com_tpu_torch.data import build_dataloader
+    from com_tpu_torch.tools import test, train
+    from com_tpu_torch.tools.kitti_tree import write_kitti_tree
+    from com_tpu_torch.tools.train import dataset_meta
+    from com_tpu_torch.utils.config import cfg_from_list
+
+    root = U_DIR / "kitti"
+    t0 = time.perf_counter()
+    write_kitti_tree(root, seed=U_SEED, num_train=U_TRAIN, num_val=U_VAL,
+                     num_points=tree_points, images=True)
+    print(f"path U.3 tree: {U_TRAIN} + {U_VAL} frames of {tree_points} points with 375 x 1242 "
+          f"PNG images in {time.perf_counter() - t0:.2f} s")
+    cfg = u_focal_cfg(root)
+    if sets:
+        cfg_from_list(list(sets), cfg)
+    names = list(cfg.CLASS_NAMES)
+    ds, loader = build_dataloader(cfg.DATA_CONFIG, names, U_BATCH, training=True, seed=3,
+                                  workers=2)
+    loader.set_epoch(0)
+    t0 = time.perf_counter()
+    train_batches = list(loader)
+    rate = len(train_batches) * U_BATCH / (time.perf_counter() - t0)
+    pastes = sum(int((b["true_object"] == 2).sum()) for b in train_batches)
+    print(f"path U.3 loader (2 threads, images read by the port's PNG decoder, the image "
+          f"copy-paste): {rate:.2f} scenes/s over {len(train_batches) * U_BATCH} scenes; "
+          f"{pastes} pasted objects survive the 2D prefilter ({smi})")
+    if pastes == 0 or train_batches[0]["images"].shape[1:] != (384, 1280, 3):
+        raise AssertionError("path U.3: no paste survived, or the images are not batched")
+    _, val_loader = build_dataloader(cfg.DATA_CONFIG, names, U_BATCH, training=False, seed=3,
+                                     workers=2)
+    val_batches = list(val_loader)
+    meta = dataset_meta(cfg, ds)
+    net, step, serve_counts = check_two_stage_serving(dev, "U.3 (focal multimodal, KITTI)", cfg,
+                                                      meta, val_batches, EXPECT_U_FOCAL_SERVING,
+                                                      smi)
+    del net, step
+    torch.cuda.empty_cache()
+    check_conv3x3(dev, entries, shapes=U_SEMSEG_CONV, dtypes=(torch.float32,), path="U.3:")
+    check_conv3x3_backward(dev, entries, shapes=U_SEMSEG_CONV, wgrad_dtypes=(torch.float32,),
+                           dgrad_dtype=torch.float32, path="U.3:")
+    torch.cuda.empty_cache()
+    train_counts = two_stage_training(dev, "U.3 (focal multimodal, KITTI)", cfg, meta,
+                                      train_batches[:2], EXPECT_U_FOCAL_TRAIN, U_TERMS, smi)
+    torch.cuda.empty_cache()
+    _quiet_cli_logger()
+    base = ["--cfg_file", str(REPO / FOCAL_CONFIG), "--workers", "2", "--output_dir",
+            str(U_DIR / "out"), "--batch_size", str(U_BATCH), "--device", str(dev)]
+    data = ["--set", "DATA_CONFIG.DATA_PATH", str(root), *sets]
+    t0 = time.perf_counter()
+    first = train.main(base + ["--epochs", "1", "--seed", "3"] + data)
+    t_train = time.perf_counter() - t0
+    ckpt = first["ckpt_dir"] / "checkpoint_epoch_1.pth"
+    t0 = time.perf_counter()
+    (res,) = test.main(base + ["--ckpt", str(ckpt)] + data)
+    line = res["result_str"].splitlines()[0]
+    print(f"path U.3 CLIs: train 1 epoch ({first['iterations']} steps) {t_train:.1f} s, test "
+          f"{len(res['det_annos'])} frames {time.perf_counter() - t0:.1f} s; {line}")
+    if first["iterations"] != U_TRAIN // U_BATCH or not line.startswith("Car AP_bev R40"):
+        raise AssertionError("path U.3: the train or test CLI did not run the focal config")
+    return serve_counts, train_counts, meta
+
+
+def pcdet_pool_state(net, rng):
+    """``net``'s state dict in pcdet's Voxel-RCNN layout: each grid pool's
+    ``pre`` unfolded into mlps_in / mlps_pos (Conv1d) with norms of seeded
+    statistics (eps 1e-5) that fold back to it, ``out`` / ``out_bn`` as
+    mlps_out and its norm (the running variance moved to eps 1e-5)."""
+    sd = {k: v.detach().cpu().double() for k, v in net.state_dict().items()}
+    out = {k: v.float() for k, v in sd.items() if ".roi_grid_pool_layers." not in k}
+    for i in range(len(net.roi_head.roi_grid_pool_layers)):
+        t = f"roi_head.roi_grid_pool_layers.{i}"
+        pre_w, pre_b = sd[f"{t}.pre.weight"], sd[f"{t}.pre.bias"]
+        mid = pre_w.shape[0]
+        b_pos = None
+        for name, cols in (("mlps_pos", slice(0, 3)), ("mlps_in", slice(3, None))):
+            gamma = torch.from_numpy(rng.uniform(0.8, 1.2, mid))
+            mean = torch.from_numpy(0.1 * rng.randn(mid))
+            var = torch.from_numpy(rng.uniform(0.5, 1.5, mid))
+            scale = gamma / torch.sqrt(var + 1e-5)
+            if name == "mlps_pos":
+                beta = torch.from_numpy(0.1 * rng.randn(mid))
+                b_pos = beta - mean * scale  # the pos norm's share of pre's bias
+            else:
+                beta = pre_b - b_pos + mean * scale
+            out[f"{t}.{name}.0.0.weight"] = (pre_w[:, cols] / scale[:, None])[..., None].float()
+            for k, v in (("weight", gamma), ("bias", beta), ("running_mean", mean),
+                         ("running_var", var)):
+                out[f"{t}.{name}.0.1.{k}"] = v.float()
+        out[f"{t}.mlps_out.0.0.weight"] = sd[f"{t}.out.weight"][..., None].float()
+        for k in ("weight", "bias", "running_mean"):
+            out[f"{t}.mlps_out.0.1.{k}"] = sd[f"{t}.out_bn.{k}"].float()
+        out[f"{t}.mlps_out.0.1.running_var"] = (sd[f"{t}.out_bn.running_var"]
+                                                + (1e-3 - 1e-5)).float()
+    return out
+
+
+def u4_pcdet_pool(dev, smi, tree, pc_range=None, points=E_POINTS, real_points=E_REAL_POINTS,
+                  sets=()):
+    """A pcdet-layout Voxel-RCNN state dict (``pcdet_pool_state`` of seeded
+    weights) saved as a .pth and loaded by the train CLI's
+    ``--pretrained_model`` (its ``on_start`` reads the net before the first
+    step): the eval step on the card against the folded model's, detections
+    within U_POOL_TOL."""
+    from com_tpu_torch.models.detectors import build_network
+    from com_tpu_torch.tools import train
+    from com_tpu_torch.train.eval import make_eval_step
+
+    cfg, meta, proc = load_voxel(VOXEL_RCNN_CONFIG, pc_range)
+    names = list(cfg.CLASS_NAMES)
+    batch = kitti_voxel_batches(np.random.RandomState(U_SEED), meta, proc, "test", 1, J_BATCH,
+                                points, real_points)[0]
+    folded = spread_anchor_scores(build_network(cfg.MODEL, meta, device=dev, seed=0))
+    want = [t.cpu().numpy() for t in make_eval_step(folded, cfg.MODEL, names, meta,
+                                                     device=dev)(batch)]
+    path = U_DIR / "voxel_rcnn_pcdet.pth"
+    torch.save({"model_state": pcdet_pool_state(folded, np.random.RandomState(U_SEED))}, path)
+    del folded
+    got = {}
+
+    class Loaded(Exception):
+        pass
+
+    def on_start(info):
+        net = info["state"].net.eval()
+        got["out"] = [t.cpu().numpy() for t in make_eval_step(net, cfg.MODEL, names, meta,
+                                                              device=dev)(batch)]
+        raise Loaded
+
+    _quiet_cli_logger()
+    try:
+        train.main(["--cfg_file", str(REPO / VOXEL_RCNN_CONFIG), "--workers", "1",
+                    "--device", str(dev),
+                    "--output_dir", str(U_DIR / "pcdet"), "--batch_size", str(J_BATCH),
+                    "--epochs", "1", "--pretrained_model", str(path),
+                    "--set", "DATA_CONFIG.DATA_PATH", str(tree), *sets], on_start=on_start)
+    except Loaded:
+        pass
+    (wb, ws, wl, wv), (gb, gs, gl, gv) = want, got["out"]
+    worst = max(float(np.abs(gb[gv] - wb[wv]).max()), float(np.abs(gs[gv] - ws[wv]).max())) \
+        if wv.any() and (gv == wv).all() else math.inf
+    ok = bool((gv == wv).all()) and wv.any() and worst <= U_POOL_TOL and (gl[gv] == wl[wv]).all()
+    print(f"path U.4 pcdet-layout Voxel-RCNN pool through --pretrained_model: {int(gv.sum())} "
+          f"detections, worst box/score diff {worst:.2e} against the folded model (<= "
+          f"{U_POOL_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("path U.4: the folded pcdet pool disagrees with the port's")
+
+
+def path_u(dev, smi, entries, calls, tree_points=U_TREE_POINTS, sets=None, pc_range=None):
+    """Path U, the image models: U.1 the small references card against CPU;
+    U.2 CaDDN at full width; U.3 the focal multimodal Voxel-RCNN from its
+    own DATA_CONFIG over a seeded KITTI tree with images, through the CLIs;
+    U.4 a pcdet-layout Voxel-RCNN state dict through ``--pretrained_model``.
+    ``sets`` maps "U.3" and "U.4" to --set pairs and ``pc_range`` is U.4's
+    range, for a rehearsal.  Returns the
+    launch counts keyed as the ``kernels`` line reads them."""
+    import shutil
+
+    sets = sets or {}
+    shutil.rmtree(U_DIR, ignore_errors=True)
+    U_DIR.mkdir(parents=True)
+    try:
+        u1_small_references(dev)
+        torch.cuda.empty_cache()
+        caddn_serve, caddn_train = u2_caddn(dev, smi, entries, calls)
+        torch.cuda.empty_cache()
+        focal_serve, focal_train, _ = u3_focal(dev, smi, entries, calls, tree_points,
+                                               sets.get("U.3", ()))
+        torch.cuda.empty_cache()
+        u4_pcdet_pool(dev, smi, U_DIR / "kitti", pc_range, sets=sets.get("U.4", ()))
+    finally:
+        shutil.rmtree(U_DIR, ignore_errors=True)
+    return {**{f"U:{k}": v for k, v in caddn_train.items()}, "U:nms": caddn_serve["nms"],
+            **{f"U.3:{k}": v for k, v in focal_train.items()}}
+
+
 class Laps:
     """Wall seconds of each phase of ``main``, printed as each ends."""
 
@@ -7348,6 +8106,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
+    if sys.argv[1:2] == ["--device-kernels"]:
+        count_device_kernels(sys.argv[2])
+        return
     dev = torch.device("cuda", 0)
     profile = "--profile" in sys.argv[1:]
     lap = Laps()
@@ -7361,7 +8122,7 @@ def main():
     check_wgrad_variants(dev, entries)
     sweep_counts = wgrad_sweep(dev)
     lap("kernels against plain, sweep")
-    calls = []  # (label, device kernels a call, call) for check_device_kernels
+    calls = []  # (label, device kernels a call, op, args, kw) for check_device_kernels
     check_stamp(dev, entries, calls)
     check_small_reference(dev)
     check_small_train_reference(dev)
@@ -7438,6 +8199,12 @@ def main():
     torch.cuda.empty_cache()
     path_s(dev, smi)
     lap("S")
+    torch.cuda.empty_cache()
+    t_counts = path_t(dev, smi, entries)
+    lap("T")
+    torch.cuda.empty_cache()
+    u_counts = path_u(dev, smi, entries, calls)
+    lap("U")
     # each kernel's launches on the path that runs it: training path A,
     # serving for K4, path B for K3's last_wins mode, the sweep for T1-T4;
     # paths E, F, G and J's shapes: their training, and their serving for
@@ -7451,7 +8218,9 @@ def main():
     # backward, K2, dgrad, K2w, K3) and serving (K4 six times a forward), Q.3
     # Lyft's serving (K4); path R's: R.1 / R.2's MPPNet serving (K4 at the
     # final NMS), car_com2's 2 x 2 steps (K3 at (2, 1, 468, 468)), Waymo
-    # PointRCNN's serving (K4 twice a forward)
+    # PointRCNN's serving (K4 twice a forward); path T's: a rank's step (f32);
+    # path U's: U.2 CaDDN's 2 steps and its serving (K4 once a forward), U.3's
+    # 2 steps (SemSegEncoder's body among its K2 calls)
     counts = {**a_counts, "nms": serve_counts["nms"],
               "stamp_last_wins": b_counts["stamp_last_wins"],
               **{f"wgrad_{v}": sweep_counts[f"wgrad_{v}"] for v in WGRAD_VARIANTS},
@@ -7467,7 +8236,7 @@ def main():
               **{f"P:{k}": v for k, v in p_counts["train"].items()},
               "P:nms": p_counts["serve"]["nms"], "P:nms_train": p_counts["train"]["nms"],
               "P:nms_pv": p_counts["pv_serve"]["nms"], "P:nms_mpp": p_counts["mpp"]["nms"],
-              **q_counts, **r_counts}
+              **q_counts, **r_counts, **{f"T:{k}": v for k, v in t_counts.items()}, **u_counts}
     if not profile:
         check_device_kernels(calls)
     lap("device kernels")

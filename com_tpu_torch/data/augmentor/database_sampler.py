@@ -23,7 +23,15 @@ robin ``pointer``/``indices`` of ``sample_groups`` are shared by every
 loader worker thread, as in ``com_tpu``, so with several workers the draws
 depend on thread timing.  ``USE_ROAD_PLANE`` lifts the pasted boxes and
 their points onto the frame's road plane (``put_boxes_on_road_planes``).
-The KITTI image copy-paste (``IMG_AUG_TYPE``) is not ported yet and raises.
+``IMG_AUG_TYPE: kitti`` adds the KITTI image copy-paste
+(database_sampler.py:180-374) on an item with ``images`` and ``calib``:
+the sampled boxes lifted to the road, projected, and dropped where their
+2D IoU with the scene's boxes or each other reaches ``IMG_AUG_IOU_THRESH``;
+each survivor's points and box moved through its donor frame's calibration
+into this one, its donor crop pasted far to near, and the scene's points
+that a pasted crop now hides removed.  The donor's calib and image come
+from the info (``calib``, ``image``) or the tree (``training/calib``,
+``training/image_2``, by ``image_idx``; ``bbox`` is its image box).
 """
 from __future__ import annotations
 
@@ -32,16 +40,18 @@ from pathlib import Path
 
 import numpy as np
 
-from ...ops.host_boxes import enlarge_box3d, remove_points_in_boxes3d
+from ...ops.host_boxes import boxes_to_corners_3d, enlarge_box3d, remove_points_in_boxes3d
 from ...ops.host_native import boxes_iou_bev_native
+from ..kitti.calibration import (Calibration, boxes3d_kitti_camera_to_imageboxes,
+                                 boxes3d_kitti_camera_to_lidar, boxes3d_lidar_to_kitti_camera,
+                                 corners_rect_to_camera, pairwise_iou_2d)
+from ..kitti.png import read_png
 from ..processor import GT_SIDE_KEYS
 
 
 class DataBaseSampler:
     def __init__(self, root_path, sampler_cfg, class_names, logger=None,
                  db_infos=None, rng=None):
-        if sampler_cfg.get("IMG_AUG_TYPE") is not None:
-            raise NotImplementedError("the KITTI image copy-paste is not ported yet")
         self.root_path = Path(root_path) if root_path is not None else None
         self.sampler_cfg = sampler_cfg
         self.class_names = list(class_names)
@@ -65,6 +75,8 @@ class DataBaseSampler:
             self.db_infos = getattr(self, func_name)(self.db_infos, val)
 
         self.limit_whole_scene = sampler_cfg.get("LIMIT_WHOLE_SCENE", False)
+        self.img_aug_type = sampler_cfg.get("IMG_AUG_TYPE", None)
+        self.img_aug_iou_thresh = float(sampler_cfg.get("IMG_AUG_IOU_THRESH", 0.5))
         self.sample_class_num = {}
         self.sample_groups = {}
         for x in sampler_cfg["SAMPLE_GROUPS"]:
@@ -143,14 +155,133 @@ class DataBaseSampler:
         boxes[:, 2] -= mv_height
         return boxes, mv_height
 
+    # ---- the KITTI image copy-paste (IMG_AUG_TYPE: kitti) ----
+
+    def _donor_calib_and_image(self, info):
+        """The donor frame's calibration and image (0-255 floats): from the
+        info when it carries them, else ``training/calib`` and
+        ``training/image_2`` by ``image_idx`` (collect_image_crops_kitti)."""
+        if isinstance(info.get("calib"), Calibration):
+            calib = info["calib"]
+        elif "calib" in info:
+            calib = Calibration(info["calib"])
+        else:
+            calib = Calibration(str(self.root_path / "training" / "calib"
+                                    / f"{int(info['image_idx']):06d}.txt"))
+        if "image" in info:
+            image = np.asarray(info["image"], np.float32)
+        else:
+            image = read_png(self.root_path / "training" / "image_2"
+                             / f"{int(info['image_idx']):06d}.png").astype(np.float32)
+        return calib, image
+
+    def _sample_boxes_2d_kitti(self, data_dict, sampled_boxes):
+        """Road-plane lift, projection and the 2D-IoU prefilter against the
+        scene's boxes and the other samples (sample_gt_boxes_2d_kitti):
+        (boxes, boxes2d, mv_height or None, keep)."""
+        mv_height = None
+        if self.sampler_cfg.get("USE_ROAD_PLANE", False) and "road_plane" in data_dict:
+            sampled_boxes, mv_height = self.put_boxes_on_road_planes(
+                sampled_boxes, data_dict["road_plane"], data_dict.get("calib"))
+        calib = data_dict["calib"]
+        cam = boxes3d_lidar_to_kitti_camera(sampled_boxes[:, :7], calib)
+        boxes2d = boxes3d_kitti_camera_to_imageboxes(cam, calib, data_dict["images"].shape[:2])
+        iou1 = pairwise_iou_2d(boxes2d, data_dict.get("gt_boxes2d", np.zeros((0, 4))))
+        iou2 = pairwise_iou_2d(boxes2d, boxes2d)
+        np.fill_diagonal(iou2, 0)
+        m1 = iou1.max(axis=1) if iou1.shape[1] else iou2.max(axis=1)
+        keep = (m1 < self.img_aug_iou_thresh) & (iou2.max(axis=1) < self.img_aug_iou_thresh)
+        return sampled_boxes, boxes2d, mv_height, keep
+
+    def _collect_image_crop_kitti(self, info, data_dict, obj_points, box3d, box2d):
+        """The donor's points and box carried through its calibration into
+        this frame's, and its image cropped around its donor box at the new
+        box's size (clipped; on a clip the new box shrinks to the crop)
+        (collect_image_crops_kitti, 'point_refine').  Returns (new box2d
+        int, crop in [0, 1], points, box3d)."""
+        calib = data_dict["calib"]
+        donor_calib, donor_image = self._donor_calib_and_image(info)
+        pts_2d, depth = donor_calib.lidar_to_img(obj_points[:, :3])
+        obj_points = obj_points.copy()
+        obj_points[:, :3] = calib.rect_to_lidar(calib.img_to_rect(pts_2d[:, 0], pts_2d[:, 1],
+                                                                  depth))
+        corners = boxes_to_corners_3d(box3d[None, :7])[0]
+        c2d, cd = donor_calib.lidar_to_img(corners)
+        cam_box = corners_rect_to_camera(calib.img_to_rect(c2d[:, 0], c2d[:, 1], cd))[None]
+        box3d = np.concatenate([boxes3d_kitti_camera_to_lidar(cam_box, calib)[0], box3d[7:]])
+        box2d = boxes3d_kitti_camera_to_imageboxes(cam_box, calib,
+                                                   data_dict["images"].shape[:2])[0]
+        new_box = box2d.astype(np.int64)
+        raw_center = np.asarray(info["bbox"], np.float64).reshape(2, 2).mean(0)
+        new_shape = np.array([new_box[2] - new_box[0], new_box[3] - new_box[1]])
+        raw_box = np.concatenate([raw_center - new_shape / 2,
+                                  raw_center + new_shape / 2]).astype(np.int64)
+        raw_box[0::2] = np.clip(raw_box[0::2], 0, donor_image.shape[1])
+        raw_box[1::2] = np.clip(raw_box[1::2], 0, donor_image.shape[0])
+        if (raw_box[2] - raw_box[0]) != new_shape[0] or (raw_box[3] - raw_box[1]) != new_shape[1]:
+            new_center = new_box.reshape(2, 2).mean(0)
+            new_shape = np.array([raw_box[2] - raw_box[0], raw_box[3] - raw_box[1]])
+            new_box = np.concatenate([new_center - new_shape / 2,
+                                      new_center + new_shape / 2]).astype(np.int64)
+        crop = donor_image[raw_box[1]:raw_box[3], raw_box[0]:raw_box[2]] / 255.0
+        return new_box, crop, obj_points, box3d
+
+    def _paste_crops_to_image_kitti(self, data_dict, crops, gt_number, point_idxes):
+        """Paste the crops far to near and keep a point where it projects
+        onto its own pasted object, onto an original box's region still
+        owned by an original box, or onto untouched background
+        (copy_paste_to_image_kitti, by depth, 'annotation').  Returns
+        (data_dict, keep)."""
+        image = data_dict["images"]
+        boxes2d = np.asarray(data_dict["gt_boxes2d"], np.int64)
+        paste_order = data_dict["gt_boxes"][:, 0].argsort()[::-1]  # far first
+        paste_mask = -255 * np.ones(image.shape[:2], np.int64)
+        fg_mask = np.zeros(image.shape[:2], np.int64)
+        pts_2d, _ = data_dict["calib"].lidar_to_img(data_dict["points"][:, :3])
+        pts_2d[:, 0] = np.clip(pts_2d[:, 0], 0, image.shape[1] - 1)
+        pts_2d[:, 1] = np.clip(pts_2d[:, 1], 0, image.shape[0] - 1)
+        pts_2d = pts_2d.astype(np.int64)
+        h_img, w_img = image.shape[:2]
+        for o in paste_order:
+            x1, y1, x2, y2 = boxes2d[o]
+            # the region clipped to the image, the crop to the region (the
+            # centre +- half-size truncation can leave them a pixel apart)
+            x1c, y1c = max(int(x1), 0), max(int(y1), 0)
+            x2c, y2c = min(int(x2), w_img), min(int(y2), h_img)
+            crop = crops[o][y1c - y1:, x1c - x1:]
+            rh, rw = min(y2c - y1c, crop.shape[0]), min(x2c - x1c, crop.shape[1])
+            if rh <= 0 or rw <= 0:
+                continue
+            image[y1c:y1c + rh, x1c:x1c + rw] = crop[:rh, :rw]
+            paste_mask[y1c:y1c + rh, x1c:x1c + rw] = o
+            if o < gt_number:
+                fg_mask[y1c:y1c + rh, x1c:x1c + rw] = 1
+        data_dict["images"] = image
+        new_mask = paste_mask[pts_2d[:, 1], pts_2d[:, 0]] == (point_idxes + gt_number)
+        raw_fg = (fg_mask == 1) & (paste_mask >= 0) & (paste_mask < gt_number)
+        raw_bg = (fg_mask == 0) & (paste_mask < 0)
+        keep = new_mask | raw_fg[pts_2d[:, 1], pts_2d[:, 0]] | raw_bg[pts_2d[:, 1], pts_2d[:, 0]]
+        data_dict["points"] = data_dict["points"][keep]
+        data_dict["points_2d"] = pts_2d[keep]
+        return data_dict, keep
+
     def add_sampled_boxes_to_scene(self, data_dict, sampled_boxes, sampled_infos):
         gt_mask = data_dict["gt_boxes_mask"]
         gt_boxes = data_dict["gt_boxes"][gt_mask]
         gt_names = data_dict["gt_names"][gt_mask]
         side = {k: data_dict[k][gt_mask] for k in GT_SIDE_KEYS if k in data_dict}
 
+        img_aug = (self.img_aug_type == "kitti" and "images" in data_dict
+                   and data_dict.get("calib") is not None)
         mv_height = None
-        if self.sampler_cfg.get("USE_ROAD_PLANE", False) and "road_plane" in data_dict:
+        if img_aug:
+            sampled_boxes, sampled_boxes2d, mv_height, keep2d = self._sample_boxes_2d_kitti(
+                data_dict, sampled_boxes)
+            sampled_boxes, sampled_boxes2d = sampled_boxes[keep2d], sampled_boxes2d[keep2d]
+            if mv_height is not None:
+                mv_height = mv_height[keep2d]
+            sampled_infos = [info for info, k in zip(sampled_infos, keep2d) if k]
+        elif self.sampler_cfg.get("USE_ROAD_PLANE", False) and "road_plane" in data_dict:
             sampled_boxes, mv_height = self.put_boxes_on_road_planes(
                 sampled_boxes, data_dict["road_plane"], data_dict.get("calib"))
 
@@ -163,18 +294,56 @@ class DataBaseSampler:
                     p = p.copy()
                     p[:, 2] -= mv_height[i]
                     obj_points[i] = p
+        crops, crop_boxes2d, obj_idx_list = [], [], []
+        if img_aug:
+            # point-less entries leave every parallel array first, so that the
+            # paste indices stay aligned with the boxes and infos
+            has_pts = np.array([p is not None for p in obj_points], bool)
+            if not has_pts.all():
+                obj_points = [p for p in obj_points if p is not None]
+                sampled_boxes, sampled_boxes2d = sampled_boxes[has_pts], sampled_boxes2d[has_pts]
+                sampled_infos = [info for info, k in zip(sampled_infos, has_pts) if k]
+            for i, p in enumerate(obj_points):
+                nb, crop, p, b3d = self._collect_image_crop_kitti(
+                    sampled_infos[i], data_dict, p, sampled_boxes[i], sampled_boxes2d[i])
+                obj_points[i] = p
+                sampled_boxes[i] = b3d[: sampled_boxes.shape[1]]
+                crops.append(crop)
+                crop_boxes2d.append(nb)
+                obj_idx_list.append(np.full(len(p), len(crops) - 1, np.int64))
         obj_points = [p for p in obj_points if p is not None]
         obj_points = (np.concatenate(obj_points, axis=0) if obj_points
                       else np.zeros((0, points.shape[1]), np.float32))
 
+        gt_number = len(gt_boxes)
+        gt_crops2d, gt_boxes2d_int = [], np.zeros((0, 4), np.int64)
+        if img_aug:
+            # the scene's own boxes' crops, copied from the image before the paste
+            gt_boxes2d_int = np.asarray(data_dict.get("gt_boxes2d", np.zeros((0, 4)))
+                                        )[gt_mask].astype(np.int64)
+            gt_crops2d = [data_dict["images"][b[1]:b[3], b[0]:b[2]].copy()
+                          for b in gt_boxes2d_int]
+
         big = enlarge_box3d(sampled_boxes[:, :7],
                             self.sampler_cfg.get("REMOVE_EXTRA_WIDTH", [0.0, 0.0, 0.0]))
         points = remove_points_in_boxes3d(points, big)
-        data_dict["points"] = np.concatenate([obj_points[:, : points.shape[1]], points], axis=0)
+        points = np.concatenate([obj_points[:, : points.shape[1]], points], axis=0)
+        data_dict["points"] = points
         data_dict["gt_boxes"] = np.concatenate(
             [gt_boxes, sampled_boxes[:, : gt_boxes.shape[1]]], axis=0)
         data_dict["gt_names"] = np.concatenate(
             [gt_names, np.array([i["name"] for i in sampled_infos])])
+        if img_aug:
+            # the pasted objects' points lead the concatenation; the scene's get -1
+            obj_idx = np.concatenate(obj_idx_list) if obj_idx_list else np.zeros(0, np.int64)
+            point_idxes = -np.ones(len(points), np.int64)
+            point_idxes[: len(obj_idx)] = obj_idx
+            data_dict["gt_boxes2d"] = np.concatenate([
+                gt_boxes2d_int.astype(np.float32),
+                np.asarray(crop_boxes2d, np.float32).reshape(-1, 4)])
+            data_dict, _ = self._paste_crops_to_image_kitti(data_dict, gt_crops2d + crops,
+                                                            gt_number, point_idxes)
+            data_dict.pop("road_plane", None)
         n_s = len(sampled_infos)
         defaults = {
             "num_points_in_gt": np.array([i["num_points_in_gt"] for i in sampled_infos],

@@ -22,7 +22,6 @@ from .augmentor.data_augmentor import DataAugmentor
 from .point_feature_encoder import PointFeatureEncoder
 from .processor import GT_SIDE_KEYS, DataProcessor
 
-IMAGE_KEYS = ("images", "gt_boxes2d", "trans_lidar_to_cam", "trans_cam_to_img")
 
 
 class _ThreadLocalRng:
@@ -134,6 +133,8 @@ class DatasetTemplate:
             for k in GT_SIDE_KEYS:
                 if k in data_dict and len(np.atleast_1d(data_dict[k])) == len(keep):
                     data_dict[k] = np.asarray(data_dict[k])[keep]
+            if "gt_boxes2d" in data_dict and len(data_dict["gt_boxes2d"]) == len(keep):
+                data_dict["gt_boxes2d"] = np.asarray(data_dict["gt_boxes2d"])[keep]
             classes = np.array([self.class_names.index(n) + 1 for n in data_dict["gt_names"]],
                                np.float32)
             data_dict["gt_boxes"] = np.concatenate(
@@ -155,10 +156,6 @@ class DatasetTemplate:
         for s in samples:
             for k, v in s.items():
                 batch[k].append(v)
-        image_keys = [k for k in IMAGE_KEYS if k in batch]
-        if image_keys:
-            raise NotImplementedError(f"{image_keys}: image batches are not ported yet "
-                                      "(the image VFE)")
         bs = len(samples)
         out = {"batch_size": bs}
 
@@ -211,6 +208,28 @@ class DatasetTemplate:
             out["voxels"] = vox
             out["voxel_coords"] = coords
             out["voxel_num_points"] = vnum
+
+        if "images" in batch:
+            # zero-padded to the config's static IMAGE_PAD_SHAPE (a per-batch
+            # size would change the shape from batch to batch), each image's
+            # own (H, W) in image_shape
+            ph, pw = (int(v) for v in self.dataset_cfg.get("IMAGE_PAD_SHAPE", (384, 1280)))
+            imgs = np.zeros((bs, ph, pw, batch["images"][0].shape[-1]), np.float32)
+            for i, im in enumerate(batch["images"]):
+                h, w = min(im.shape[0], ph), min(im.shape[1], pw)
+                imgs[i, :h, :w] = im[:h, :w]
+            out["images"] = imgs
+            out["image_shape"] = np.stack([np.asarray(im.shape[:2], np.int32)
+                                           for im in batch["images"]])
+        for k in ("trans_lidar_to_cam", "trans_cam_to_img"):
+            if k in batch:
+                out[k] = np.stack(batch[k]).astype(np.float32)
+        if "gt_boxes2d" in batch and batch["gt_boxes2d"][0] is not None:
+            g2 = np.zeros((bs, self.max_gt, 4), np.float32)
+            for i, g in enumerate(batch["gt_boxes2d"]):
+                n = min(len(g), self.max_gt)
+                g2[i, :n] = np.asarray(g, np.float32)[:n]
+            out["gt_boxes2d"] = g2
 
         # the world augmentations' parameters
         for k, default in (("noise_rot", 0.0), ("noise_scale", 1.0), ("flip_x", False),

@@ -14,8 +14,11 @@ the whole 360 degree scan goes on (the collate subsamples it to
 ``MAX_POINTS_PER_SCENE``); ``calib`` joins the item only when
 ``GET_ITEM_LIST`` asks for more than ``points``, so the GT sampler lifts
 pasted boxes onto the road plane without it (``database_sampler.py``
-``put_boxes_on_road_planes``).  The image items wait for the image models
-and raise by name.
+``put_boxes_on_road_planes``).  ``GET_ITEM_LIST`` may ask for the image
+items: ``images`` (``image_2/<id>.png`` as float32 in [0, 1], read by the
+port's own PNG decoder, ``png.py``), ``calib_matricies``
+(``trans_lidar_to_cam`` (4, 4) and ``trans_cam_to_img`` (3, 4)) and
+``gt_boxes2d`` (the labels' image boxes).
 """
 from __future__ import annotations
 
@@ -26,9 +29,9 @@ import numpy as np
 from ...utils.registry import DATASETS
 from ..dataset import DatasetTemplate
 from .calibration import (Calibration, boxes3d_kitti_camera_to_imageboxes,
-                          boxes3d_kitti_camera_to_lidar, boxes3d_lidar_to_kitti_camera)
-
-IMAGE_ITEMS = ("images", "gt_boxes2d", "calib_matricies")
+                          boxes3d_kitti_camera_to_lidar, boxes3d_lidar_to_kitti_camera,
+                          calib_to_matricies)
+from .png import read_png
 
 
 def parse_label_file(path):
@@ -66,11 +69,6 @@ def parse_label_file(path):
 class KittiDataset(DatasetTemplate):
     def __init__(self, dataset_cfg, class_names, training=True, root_path=None,
                  logger=None, db_infos=None, seed=None):
-        image_items = [k for k in dataset_cfg.get("GET_ITEM_LIST", ["points"])
-                       if k in IMAGE_ITEMS]
-        if image_items:
-            raise NotImplementedError(f"KittiDataset GET_ITEM_LIST {image_items}: the image "
-                                      "items are not ported yet (the image models)")
         super().__init__(dataset_cfg, class_names, training, root_path, logger,
                          db_infos=db_infos, seed=seed)
         self.split = dataset_cfg.get("DATA_SPLIT", {}).get("train" if training else "test",
@@ -93,6 +91,10 @@ class KittiDataset(DatasetTemplate):
 
     def get_calib(self, idx):
         return Calibration(str(self.root_split / "calib" / f"{idx}.txt"))
+
+    def get_image(self, idx):
+        """The camera image as float32 in [0, 1] (kitti_dataset.get_image)."""
+        return read_png(self.root_split / "image_2" / f"{idx}.png").astype(np.float32) / 255.0
 
     def get_road_plane(self, idx):
         """The rect-frame road plane (a, b, c, d), normalised, b made
@@ -130,12 +132,20 @@ class KittiDataset(DatasetTemplate):
         self._reseed_for_item(index)
         idx = self.sample_ids[index]
         data = {"points": self.get_lidar(idx), "frame_id": idx}
-        if (self.root_split / "label_2" / f"{idx}.txt").exists():
+        labelled = (self.root_split / "label_2" / f"{idx}.txt").exists()
+        if labelled:
             gt = self.frame_gt_annos(idx)
             data["gt_names"] = gt["name"]
             data["gt_boxes"] = gt["gt_boxes_lidar"][:, :7]
-        if set(self.dataset_cfg.get("GET_ITEM_LIST", ["points"])) - {"points"}:
-            data["calib"] = self.get_calib(idx)
+        items = self.dataset_cfg.get("GET_ITEM_LIST", ["points"])
+        if set(items) - {"points"}:
+            calib = data["calib"] = self.get_calib(idx)
+            if "images" in items:
+                data["images"] = self.get_image(idx)
+            if "calib_matricies" in items:
+                data["trans_lidar_to_cam"], data["trans_cam_to_img"] = calib_to_matricies(calib)
+            if "gt_boxes2d" in items and labelled:
+                data["gt_boxes2d"] = self.get_label(idx)["bbox"]
         # the plane is read whatever GET_ITEM_LIST says, as the reference does
         plane = self.get_road_plane(idx)
         if plane is not None:

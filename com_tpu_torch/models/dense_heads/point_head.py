@@ -21,6 +21,7 @@ from torch import nn
 
 from ...losses.anchor_losses import sigmoid_ce_with_logits
 from ...ops.boxes import PointResidualCoder, enlarge_box3d, points_in_rbbox
+from ...parallel.sharding import global_sum
 from ...utils.registry import DENSE_HEADS
 from ..layers import BatchNorm1d, run_masked
 
@@ -169,14 +170,17 @@ def point_head_box_loss(batch, model_cfg):
     cls_valid = (cls_t >= 0) & pvalid
     fg_valid = (cls_t > 0) & pvalid
     per = focal_terms(logits, one_hot)
-    cls_loss = (per.sum(dim=-1) * cls_valid).sum() / torch.clamp(fg_valid.sum(), min=1)
 
     fgf = fg_valid.to(torch.float32)
     d = box_raw - enc_t
     ad = torch.abs(d)
     beta = 1.0 / 9.0
     sl1 = torch.where(ad < beta, 0.5 * d ** 2 / beta, ad - 0.5 * beta).sum(dim=-1)
-    box_loss = (sl1 * fgf).sum() / torch.clamp(fgf.sum(), min=1.0)
+    # the whole batch's sums and counts under a data mesh
+    cls_sum, n_fg, box_sum, fg_sum = global_sum((per.sum(dim=-1) * cls_valid).sum(),
+                                                fg_valid.sum(), (sl1 * fgf).sum(), fgf.sum())
+    cls_loss = cls_sum / torch.clamp(n_fg, min=1)
+    box_loss = box_sum / torch.clamp(fg_sum, min=1.0)
 
     lw = model_cfg.get("LOSS_CONFIG", {}).get("LOSS_WEIGHTS", {})
     total = (cls_loss * float(lw.get("point_cls_weight", 1.0))
@@ -222,11 +226,14 @@ def point_part_loss(batch, extra_width=(0.2, 0.2, 0.2), include_cls=True):
     label, part_t = point_part_targets(batch["point_coords"], batch["gt_boxes"], extra_width)
     fg = torch.clamp(label, 0.0, 1.0)
     cls_valid = ((label >= 0) & kp_valid).to(logits.dtype)
-    cls_loss = (focal_terms(logits, fg) * cls_valid).sum() / torch.clamp((fg * cls_valid).sum(),
-                                                                        min=1.0)
     fg_mask = ((label > 0) & kp_valid).to(logits.dtype)
     part_bce = sigmoid_ce_with_logits(part_logits, part_t)
-    part_loss = (part_bce.mean(dim=-1) * fg_mask).sum() / torch.clamp(fg_mask.sum(), min=1.0)
+    # the whole batch's sums and counts under a data mesh
+    cls_sum, cls_n, part_sum, part_n = global_sum(
+        (focal_terms(logits, fg) * cls_valid).sum(), (fg * cls_valid).sum(),
+        (part_bce.mean(dim=-1) * fg_mask).sum(), fg_mask.sum())
+    cls_loss = cls_sum / torch.clamp(cls_n, min=1.0)
+    part_loss = part_sum / torch.clamp(part_n, min=1.0)
     if not include_cls:
         return part_loss, {"point_loss_part": part_loss}
     return cls_loss + part_loss, {"point_loss_cls": cls_loss, "point_loss_part": part_loss}
@@ -246,5 +253,6 @@ def point_head_loss(batch, extra_width=(0.2, 0.2, 0.2)):
               & (gt[..., -1] > 0)[:, None, :])
     fg = inside.any(dim=-1).to(torch.float32)
     loss = focal_terms(logits, fg) * kp_valid.to(logits.dtype)
-    pos = (fg * kp_valid.to(fg.dtype)).sum()
-    return loss.sum() / torch.clamp(pos, min=1.0)
+    # the whole batch's sum and count under a data mesh
+    total, pos = global_sum(loss.sum(), (fg * kp_valid.to(fg.dtype)).sum())
+    return total / torch.clamp(pos, min=1.0)

@@ -18,7 +18,8 @@ their proposals from an anchor head or from a CenterHead
 MPPNetE2E (a CenterHead with velocity, then MPPNet's memory-bank head over
 its top proposals) is ported for inference; MPPNet (the multi-frame head
 over a first stage's stored proposals, ``roi_head.*``) for inference and,
-in train mode, its target sampling; the CaDDN detector raises by name.
+in train mode, its target sampling; CaDDN (``ImageVFE``, ``Conv2DCollapse``)
+for inference and training.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from ..utils.registry import (BACKBONES_2D, BACKBONES_3D, DENSE_HEADS, DETECTORS
 from . import backbone2d as _b2  # noqa: F401 (register)
 from . import backbone3d as _b3  # noqa: F401
 from . import dense_heads as _dh  # noqa: F401
+from . import image_vfe as _ivfe  # noqa: F401
 from . import map_to_bev as _mb  # noqa: F401
 from . import pfe as _pfe  # noqa: F401
 from . import pointnet2_backbone as _pn2  # noqa: F401
@@ -95,8 +97,12 @@ class Detector3D(nn.Module):
         self.map_to_bev = None
         if bev_ch is None:
             m2b_cfg = model_cfg["MAP_TO_BEV"]
-            self.map_to_bev = MAP_TO_BEV.get(m2b_cfg["NAME"])(m2b_cfg)
-            bev_ch = self.backbone_3d.num_bev_features
+            # the dense volume's z-folded width: the 3D backbone's, else an
+            # image VFE's (CaDDN)
+            vol_ch = (self.backbone_3d.num_bev_features if self.backbone_3d is not None
+                      else self.vfe.volume_channels)
+            self.map_to_bev = MAP_TO_BEV.get(m2b_cfg["NAME"])(m2b_cfg, vol_ch)
+            bev_ch = self.map_to_bev.num_bev_features
 
         b2_cfg = model_cfg.get("BACKBONE_2D")
         self.backbone_2d = None
@@ -522,7 +528,11 @@ class MPPNet(nn.Module):
         return self.roi_head(batch)
 
 
-DETECTORS.register_unported("CaDDN", "the image depth frustum")
+@DETECTORS.register
+class CaDDN(Detector3D):
+    """CaDDN (detectors/caddn.py): ``ImageVFE``'s depth frustum sampled into
+    the voxel grid, ``Conv2DCollapse``, the BEV backbone and an anchor head;
+    the train step adds ``ddn_loss`` to the anchor loss."""
 
 
 def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -540,7 +550,7 @@ def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
 
     with torch.no_grad():
         for mod in net.modules():
-            if isinstance(mod, (Conv2d, Deconv, nn.Linear, Conv1x1)):
+            if isinstance(mod, (Conv2d, Deconv, nn.Linear, Conv1x1, nn.Conv2d)):
                 w = mod.weight
                 bound = 1.0 / math.sqrt(w.shape[0] if isinstance(mod, Deconv) else w[0].numel())
                 draw(w, bound)

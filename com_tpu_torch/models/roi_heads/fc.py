@@ -9,13 +9,16 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...parallel.sharding import rank_rand
 from ..layers import BatchNorm1d
 
 
 class Dropout(nn.Module):
     """flax's ``nn.Dropout`` in training (units kept with probability 1 - p,
     scaled by 1 / (1 - p)), the identity in eval; the draw comes from the
-    generator passed to ``forward`` (torch's default one when None)."""
+    generator passed to ``forward`` (torch's default one when None), under
+    a data mesh the rank's rows of the global batch's draw
+    (``parallel.sharding.rank_rand``)."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -24,8 +27,7 @@ class Dropout(nn.Module):
     def forward(self, x, generator: torch.Generator | None = None):
         if not self.training or self.p <= 0:
             return x
-        dev = generator.device if generator is not None else x.device
-        u = torch.rand(x.shape, generator=generator, device=dev).to(x.device)
+        u = rank_rand(x.shape, generator, x.device)
         return torch.where(u < 1.0 - self.p, x / (1.0 - self.p), torch.zeros_like(x))
 
 

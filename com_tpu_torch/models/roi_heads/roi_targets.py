@@ -6,7 +6,9 @@ and emit IoU-derived soft class labels and canonical-frame regression
 targets, over the batch at once.
 
 Sampling is random when the caller gives uniforms ``u`` (B, P), one a
-proposal, or a ``torch.Generator`` to draw them from: foregrounds uniform,
+proposal, or a ``torch.Generator`` to draw them from (under a data mesh
+the rank's rows of the global batch's draw, ``parallel.sharding.
+rank_rand``): foregrounds uniform,
 backgrounds split into a hard tier (IoU >= CLS_BG_THRESH_LO) holding
 HARD_BG_RATIO of the background slots and an easy tier, random within
 each, unfilled slots backfilled.  Without either it is deterministic
@@ -22,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from ...ops.iou import boxes_iou3d
+from ...parallel.sharding import rank_rand
 from .proposal_layer import take_rows
 
 _TWO_PI = 2 * math.pi
@@ -116,8 +119,7 @@ def assign_roi_targets(rois, roi_scores, roi_labels, roi_valid, gt_boxes,
     is_bg = ~is_fg & roi_valid
     if u is not None or generator is not None:
         if u is None:
-            u = torch.rand(max_iou.shape, generator=generator,
-                           device=generator.device).to(rois.device)
+            u = rank_rand(max_iou.shape, generator, rois.device)
         fg_key = torch.where(is_fg, u, neg_inf)
         hard = is_bg & (max_iou >= cls_bg_thresh_lo)
         easy = is_bg & ~hard

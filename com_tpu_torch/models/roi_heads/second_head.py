@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...parallel.sharding import global_sum
 from ...utils.registry import ROI_HEADS
 from ..layers import Conv1x1
 from .fc import fc_stack, run_stack
@@ -118,7 +119,8 @@ def second_iou_loss(batch, loss_cfg):
         per = torch.where(d < beta, 0.5 * d ** 2 / beta, d - 0.5 * beta)
     else:
         raise NotImplementedError(f"IOU_LOSS {kind}")
-    loss = (per * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    total, count = global_sum((per * valid).sum(), valid.sum())  # the whole batch's
+    loss = total / torch.clamp(count, min=1.0)
     return loss * float(loss_cfg["LOSS_WEIGHTS"].get("rcnn_iou_weight", 1.0))
 
 

@@ -11,7 +11,8 @@ The pool is the JAX package's folded form (pcdet's ``mlps_in`` +
 ``out`` and ``out_bn`` (statistics over the non-empty balls) + ReLU on the
 pooled point; an empty ball pools to zero, as in the JAX package (pcdet
 feeds its norms' biases through there).  Layers ``roi_grid_pool_layers.
-{i}.{pre,out,out_bn}``.  The FCs keep pcdet's names (``shared_fc_layer``,
+{i}.{pre,out,out_bn}``; ``utils.checkpoint.load_params_only`` folds a pcdet
+state dict's pair and its eval-mode norms into them.  The FCs keep pcdet's names (``shared_fc_layer``,
 ``{cls,reg}_fc_layers``, ``{cls,reg}_pred_layer``), with dropout after
 the shared blocks but the last, as the JAX head.  The head runs in f32.
 """

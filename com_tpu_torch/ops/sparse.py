@@ -533,5 +533,64 @@ def voxel_query(query_vox, coords, valid, grid_zyx, max_range: int = 4, radius_v
     return idx[0], empty[0], slot[0]
 
 
-def focal_split_and_spawn(*args, **kwargs):
-    raise NotImplementedError("focal_split_and_spawn (VoxelBackBone8xFocal) is not ported yet")
+def focal_split_and_spawn(feats, coords, valid, imps, grid_zyx, threshold: float,
+                          spawn_cap: int, mask_multi: bool = False):
+    """The focal sparse conv's split and spawn over a batch
+    (``com_tpu/ops/sparse.py`` ``focal_split_and_spawn``, vmapped there;
+    focal_sparse_conv.py _gen_sparse_features): feats (B, V, C), coords
+    (B, V, 3), valid (B, V), imps (B, V, 27) importance logits (26 neighbour
+    offsets in the row-major cube order less the centre, then the voxel's
+    own).  A valid voxel whose own sigmoid passes ``threshold`` is
+    foreground and is scaled by it (by it and its validity, for every
+    voxel, with ``mask_multi``); each foreground voxel spawns a voxel at
+    each in-grid neighbour offset whose sigmoid passes the threshold and
+    that no voxel of the scene holds, carrying its features times that
+    score.  Spawns at one cell keep the highest score (equal scores: the
+    lowest parent row, then offset), and a scene keeps its ``spawn_cap``
+    highest (equal: the lower cell key), as the JAX package's sort on (key,
+    -score) and ``top_k``.  Returns (feats (B, V + cap, C), coords, valid,
+    own (B, V)); an unused spawn slot is invalid with coords -1."""
+    b, v, c = feats.shape
+    own = torch.sigmoid(imps[..., -1])
+    fg = (own > threshold) & valid
+    if mask_multi:
+        base = feats * (own * valid.to(own.dtype))[..., None]
+    else:
+        base = feats * torch.where(fg, own, torch.ones_like(own))[..., None]
+    cube = _cube((-1, -1, -1), (2, 2, 2), coords.device)
+    offs = torch.cat([cube[:13], cube[14:]])  # 26 neighbours, the centre removed
+    k = offs.shape[0]
+    cand = (coords.to(torch.int64)[:, :, None, :] + offs).reshape(b, v * k, 3)
+    score = torch.sigmoid(imps[..., :k]).reshape(b, v * k)
+    ok = ((score > threshold) & fg.repeat_interleave(k, dim=1)
+          & _in_grid(cand, grid_zyx, torch.ones_like(score, dtype=torch.bool)))
+    exists = _lookup(coords, valid, grid_zyx, cand[None], ok[None])[0] >= 0
+    ok = ok & ~exists
+    flat_score = torch.where(ok, score, torch.zeros_like(score))
+    keys = flat_key(cand, grid_zyx, ok)  # the sentinel where not a candidate
+    # lexicographic (key, -score, row) by two stable sorts: the first of each
+    # key's run is its best spawn
+    by_score = torch.argsort(-flat_score.detach(), dim=1, stable=True)
+    order = torch.gather(by_score, 1, torch.argsort(torch.gather(keys, 1, by_score), dim=1,
+                                                    stable=True))
+    skeys = torch.gather(keys, 1, order)
+    first = torch.ones_like(skeys, dtype=torch.bool)
+    first[:, 1:] = skeys[:, 1:] != skeys[:, :-1]
+    first = first & (skeys != _KEY_SENTINEL)
+    uniq = torch.where(first, torch.gather(flat_score.detach(), 1, order),
+                       torch.full_like(flat_score, -1.0))
+    top = torch.argsort(-uniq, dim=1, stable=True)[:, :spawn_cap]  # lax.top_k's order
+    sel = torch.gather(order, 1, top)
+    sel_valid = torch.gather(uniq, 1, top) > 0
+    sel_score = torch.where(sel_valid, torch.gather(flat_score, 1, sel),
+                            torch.zeros_like(sel, dtype=flat_score.dtype))
+    parent = sel // k
+    spawn_feats = torch.gather(feats, 1, parent[..., None].expand(-1, -1, c)) \
+        * sel_score[..., None].to(feats.dtype)
+    spawn_coords = torch.gather(cand, 1, sel[..., None].expand(-1, -1, 3)).to(coords.dtype)
+    spawn_coords = torch.where(sel_valid[..., None], spawn_coords, torch.full_like(spawn_coords,
+                                                                                   -1))
+    out_coords = torch.cat([torch.where(valid[..., None], coords, torch.full_like(coords, -1)),
+                            spawn_coords], dim=1)
+    return (torch.cat([base, spawn_feats], dim=1), out_coords,
+            torch.cat([valid, sel_valid], dim=1), own)

@@ -15,7 +15,10 @@ sums explicit:
 * ``all_reduce_(*tensors)``: in place, outside autograd (the epoch's
   confidence accumulators; recall counts);
 * ``gather_objects(obj)``: every rank's object, in rank order (the eval's
-  detections).
+  detections);
+* ``rank_rand(shape, generator)``: a rank's rows of the whole batch's
+  uniforms (the RoI sampling and the RoI heads' dropout), so that each rank
+  draws what one process over the global batch draws for its scenes.
 
 With no active mesh, or one without a process group, each is the identity
 and issues no collective.  ``constrain`` and ``replicate`` of the JAX
@@ -127,6 +130,23 @@ def all_reduce_(*tensors, mesh=None):
             t.copy_(flat[offset:offset + t.numel()].view_as(t))
             offset += t.numel()
     return tensors
+
+
+def rank_rand(shape, generator: torch.Generator | None, device) -> torch.Tensor:
+    """Uniforms in [0, 1) of ``shape`` on ``device``, drawn from
+    ``generator`` (torch's default one when None) on its own device.  Under
+    a grouped mesh ``shape[0]`` is the rank's share of a batch-major leading
+    axis: the whole batch's draw (``world`` times the rows) is made, as one
+    process over the global batch makes it, and the rank takes its
+    contiguous rows (``mesh.shard_batch``'s).  Without one it is the plain
+    draw."""
+    mesh = _grouped()
+    src = generator.device if generator is not None else device
+    if mesh is None or mesh.world == 1:
+        return torch.rand(shape, generator=generator, device=src).to(device)
+    n = int(shape[0])
+    u = torch.rand((n * mesh.world, *shape[1:]), generator=generator, device=src)
+    return u[mesh.rank * n:(mesh.rank + 1) * n].to(device)
 
 
 def gather_objects(obj, mesh=None) -> list:

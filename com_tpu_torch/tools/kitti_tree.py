@@ -2,7 +2,7 @@
 DATA_CONFIG when no KITTI download is at hand (tests, the card smoke run).
 
     python -m com_tpu_torch.tools.kitti_tree --out DIR [--seed 0] [--train 16]
-        [--val 8] [--points 120000] [--custom]
+        [--val 8] [--points 120000] [--images] [--custom]
 
 The KITTI layout (pcdet's, as ``KittiDataset`` and the GT sampler read it):
 ``training/{velodyne,calib,label_2,planes}``, ``ImageSets/{train,val}.txt``,
@@ -12,7 +12,12 @@ pcdet's keys) over the train frames.  Each scan is a full 360 degree
 sweep: ground on the frame's road plane (``planes/``, rect frame), clutter,
 and 10-15 labelled Cars, Pedestrians and Cyclists in the camera's view
 (at least 4 / 3 / 3 a frame, each with 24 or more points), plus one
-DontCare row.  The calibration is KITTI's frame 000000.  ``--custom``
+DontCare row.  The calibration is KITTI's frame 000000.  ``--images``
+also writes ``training/image_2/<id>.png`` at KITTI's 375 x 1242 (RGB,
+drawn from the seed apart from the scans, so that a tree with images
+holds the same scans and labels as one without): sky over road with
+noise, and each object's image box filled far to near in its class's
+colour with a texture.  ``--custom``
 writes the custom dataset's layout instead: ``points/<id>.npy``,
 ``labels/<id>.txt`` (``x y z dx dy dz heading class`` in the lidar frame,
 classes Vehicle / Pedestrian / Cyclist) and the split files.
@@ -29,6 +34,7 @@ from ..data.kitti.calibration import (Calibration, boxes3d_kitti_camera_to_image
                                       boxes3d_kitti_camera_to_lidar,
                                       boxes3d_lidar_to_kitti_camera)
 from ..data.kitti.kitti_dataset import parse_label_file
+from ..data.kitti.png import write_png
 from ..ops.host_boxes import enlarge_box3d, points_in_rbbox
 
 # KITTI training frame 000000's calibration
@@ -126,6 +132,29 @@ def label_lines(rng, calib, boxes, cls):
     return lines
 
 
+COLOURS = np.array([[200, 40, 40], [40, 180, 60], [50, 80, 220]], np.float32)  # a class each
+
+
+def draw_image(rng, boxes2d, cls, depth):
+    """A (375, 1242, 3) uint8 camera image: a sky-to-road gradient with
+    noise, then each object's image box, far to near, filled with its
+    class's colour shaded by distance and textured."""
+    h, w = IMAGE_SHAPE
+    rows = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None, None]
+    img = (np.array([150, 180, 220], np.float32) * (1 - rows)
+           + np.array([90, 90, 95], np.float32) * rows)
+    img = img + rng.normal(0.0, 8.0, (h, w, 3)).astype(np.float32)
+    for k in np.argsort(-depth):
+        x1, y1, x2, y2 = (int(v) for v in boxes2d[k])
+        x1, y1, x2, y2 = max(x1, 0), max(y1, 0), min(x2, w), min(y2, h)
+        if x2 <= x1 or y2 <= y1:
+            continue
+        shade = np.clip(1.2 - depth[k] / 80.0, 0.4, 1.2)
+        img[y1:y2, x1:x2] = (COLOURS[cls[k]] * shade
+                             + rng.normal(0.0, 12.0, (y2 - y1, x2 - x1, 3)).astype(np.float32))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
 def difficulty(height, occluded, truncated):
     """KITTI's level (0 easy, 1 moderate, 2 hard, -1 none) of a label."""
     for level, (min_h, max_occ, max_trunc) in enumerate(((40, 0, 0.15), (25, 1, 0.30),
@@ -136,12 +165,13 @@ def difficulty(height, occluded, truncated):
 
 
 def write_kitti_tree(root, seed=0, num_train=16, num_val=8, num_points=120000,
-                     objects=(10, 15)):
+                     objects=(10, 15), images=False):
     """Write the tree under ``root``; returns {"train": ids, "val": ids,
-    "db": {class: count}}.  Frames are drawn from ``seed`` in order."""
+    "db": {class: count}}.  Frames are drawn from ``seed`` in order; with
+    ``images`` each frame's PNG from its own stream (``draw_image``)."""
     root = Path(root)
     split = root / "training"
-    for sub in ("velodyne", "calib", "label_2", "planes"):
+    for sub in ("velodyne", "calib", "label_2", "planes") + (("image_2",) if images else ()):
         (split / sub).mkdir(parents=True, exist_ok=True)
     (root / "ImageSets").mkdir(parents=True, exist_ok=True)
     (root / "gt_database").mkdir(parents=True, exist_ok=True)
@@ -161,6 +191,11 @@ def write_kitti_tree(root, seed=0, num_train=16, num_val=8, num_points=120000,
             "# Plane\nWidth 4\nHeight 1\n" + " ".join(f"{v:.6e}" for v in plane) + "\n")
         (split / "label_2" / f"{idx}.txt").write_text(
             "\n".join(label_lines(rng, calib, boxes, cls)) + "\n")
+        if images:
+            cam = boxes3d_lidar_to_kitti_camera(boxes, calib)
+            write_png(split / "image_2" / f"{idx}.png", draw_image(
+                np.random.RandomState((seed * 1_000_003 + n) % 2 ** 32),
+                boxes3d_kitti_camera_to_imageboxes(cam, calib, IMAGE_SHAPE), cls, cam[:, 2]))
         if n >= num_train:
             continue
         # the database from the labels as written (the GT the dataset reads)
@@ -218,12 +253,14 @@ def main(argv=None):
     parser.add_argument("--train", type=int, default=16)
     parser.add_argument("--val", type=int, default=8)
     parser.add_argument("--points", type=int, default=120000)
+    parser.add_argument("--images", action="store_true")
     parser.add_argument("--custom", action="store_true")
     args = parser.parse_args(argv)
     if args.custom:
         out = write_custom_tree(args.out, args.seed, args.train, args.val, args.points)
     else:
-        out = write_kitti_tree(args.out, args.seed, args.train, args.val, args.points)
+        out = write_kitti_tree(args.out, args.seed, args.train, args.val, args.points,
+                               images=args.images)
     print(out)
     return out
 

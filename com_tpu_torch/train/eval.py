@@ -63,7 +63,7 @@ def make_eval_step(net, model_cfg, class_names, meta, device=None):
 
     @torch.no_grad()
     def eval_step(batch):
-        out = net({k: torch.as_tensor(batch[k], device=dev) for k in keys})
+        out = net({k: torch.as_tensor(batch[k], device=dev) for k in keys if k in batch})
         parts = []
         for pred_dict, class_ids in zip(out["pred_dicts"], groups):
             decoded = decode_center_boxes(
@@ -98,7 +98,7 @@ def _make_anchor_eval_step(net, model_cfg, class_names, meta, dev):
 
     @torch.no_grad()
     def eval_step(batch):
-        out = net({k: torch.as_tensor(batch[k], device=dev) for k in keys})
+        out = net({k: torch.as_tensor(batch[k], device=dev) for k in keys if k in batch})
         boxes, scores, labels = decode_anchor_boxes(out, anchors, num_class, coder, dir_cfg)
         return anchor_post_process(boxes, scores, labels, nms_cfg, score_thresh,
                                    num_classes=num_class)
@@ -113,7 +113,7 @@ def _make_two_stage_eval_step(net, model_cfg, class_names, meta, dev):
 
     @torch.no_grad()
     def eval_step(batch):
-        return post(net({k: torch.as_tensor(batch[k], device=dev) for k in keys}), batch)
+        return post(net({k: torch.as_tensor(batch[k], device=dev) for k in keys if k in batch}), batch)
 
     return eval_step
 

@@ -28,11 +28,13 @@ from ..models.dense_heads.anchor_head import box_coder_for, build_anchors, resha
 from ..models.dense_heads.point_head import (point_head_box_loss, point_head_loss,
                                              point_part_loss)
 from ..models.dense_heads.target_assign import assign_centerpoint_targets, cluster_com_groups
+from ..models.backbone3d import focal_conv_loss
 from ..models.detectors import detector_class
+from ..models.image_vfe import ddn_loss
 from ..models.roi_heads.roi_targets import decode_rcnn_boxes
 from ..models.roi_heads.second_head import second_iou_loss
 from ..ops.boxes import corner_loss
-from ..parallel.sharding import active_mesh, global_sum, reduce_gradients
+from ..parallel.sharding import global_sum, reduce_gradients
 from .state import check_same_device
 
 _VEHICLE_NAMES = ("vehicle", "car", "truck", "bus", "van", "trailer", "construction_vehicle")
@@ -302,20 +304,28 @@ def compute_roi_loss(batch, model_cfg):
     lw = loss_cfg.get("LOSS_WEIGHTS", {})
     t = batch["roi_targets"]
     valid = (t.cls_labels >= 0).to(torch.float32)
-    cls_loss = sigmoid_ce_with_logits(batch["rcnn_cls"], torch.clamp(t.cls_labels, 0.0, 1.0))
-    cls_loss = (cls_loss * valid).sum() / torch.clamp(valid.sum(), min=1.0)
-    cls_loss = cls_loss * float(lw.get("rcnn_cls_weight", 1.0))
+    cls_per = sigmoid_ce_with_logits(batch["rcnn_cls"], torch.clamp(t.cls_labels, 0.0, 1.0))
     fg = t.reg_valid.to(torch.float32)
-    fg_norm = torch.clamp(fg.sum(), min=1.0)
-    reg_loss = weighted_smooth_l1(batch["rcnn_reg"], t.reg_targets, fg).sum() / fg_norm
-    reg_loss = reg_loss * float(lw.get("rcnn_reg_weight", 1.0))
-    tb = {"rcnn_loss_cls": cls_loss, "rcnn_loss_reg": reg_loss}
-    total = cls_loss + reg_loss
-    if loss_cfg.get("CORNER_LOSS_REGULARIZATION", False):
+    sums = [(cls_per * valid).sum(), valid.sum(),
+            weighted_smooth_l1(batch["rcnn_reg"], t.reg_targets, fg).sum(), fg.sum()]
+    corner = loss_cfg.get("CORNER_LOSS_REGULARIZATION", False)
+    if corner:
         rois = t.rois.reshape(-1, 7)
         reg = batch["rcnn_reg"].reshape(-1, batch["rcnn_reg"].shape[-1])
         per = corner_loss(decode_rcnn_boxes(rois, reg[:, :7]), t.gt_of_rois_src.reshape(-1, 7))
-        c_loss = (per * fg.reshape(-1)).sum() / fg_norm
+        sums.append((per * fg.reshape(-1)).sum())
+    # under a data mesh the sums and counts are the whole batch's, as under
+    # the JAX package's SPMD step (one all-reduce)
+    sums = global_sum(*sums)
+    cls_loss = sums[0] / torch.clamp(sums[1], min=1.0)
+    cls_loss = cls_loss * float(lw.get("rcnn_cls_weight", 1.0))
+    fg_norm = torch.clamp(sums[3], min=1.0)
+    reg_loss = sums[2] / fg_norm
+    reg_loss = reg_loss * float(lw.get("rcnn_reg_weight", 1.0))
+    tb = {"rcnn_loss_cls": cls_loss, "rcnn_loss_reg": reg_loss}
+    total = cls_loss + reg_loss
+    if corner:
+        c_loss = sums[4] / fg_norm
         c_loss = c_loss * float(lw.get("rcnn_corner_weight", 1.0))
         total = total + c_loss
         tb["rcnn_loss_corner"] = c_loss
@@ -370,11 +380,17 @@ def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, devic
     unchanged and the confidence sums and counts are zeros of
     (num_class, 1), as in the JAX step.
     ``loss_fn(state, batch, epoch, rngs=None)`` takes the model's ``rngs``
-    (none: deterministic RoI sampling).
+    (none: deterministic RoI sampling).  A focal backbone
+    (``VoxelBackBone8xFocal``) adds ``focal_conv_loss`` ("loss_box_of_pts"),
+    CaDDN's ``ImageVFE`` with "depth_maps" in the batch ``ddn_loss``
+    ("ddn_loss").
 
     Under an active data mesh (``parallel.sharding.activate``) ``batch`` is
-    the rank's shard: the norms' statistics, the loss, its terms and the
-    curriculum EMA are the global batch's on every rank, the gradients are
+    the rank's shard: the norms' statistics, the loss, its terms (the RoI
+    and point-head losses' normalisers too) and the curriculum EMA are the
+    global batch's on every rank; the RoI sampling and dropout take the
+    rank's rows of the global batch's draw from the step's generators
+    (``parallel.sharding.rank_rand``); the gradients are
     averaged over the ranks before the optimizer, and the confidence
     accumulators (and ``metrics``' confidence sums) hold the rank's own
     sums until ``train_model`` reduces them at the epoch's end.
@@ -440,13 +456,22 @@ def make_train_step(net, model_cfg, class_names, meta, optimizer, fmap_hw, devic
                 loss = loss + p_loss
             return loss, new_cur, aux_list, tb
 
+    model_loss = compute_loss  # plus the focal and depth terms its forward made
+
+    def compute_loss(out, curriculum, epoch):
+        loss, new_cur, aux_list, tb = model_loss(out, curriculum, epoch)
+        if "focal_probs" in out:  # the focal convs' in-box supervision
+            f_loss = tb["loss_box_of_pts"] = focal_conv_loss(out, meta.voxel_size,
+                                                             meta.point_cloud_range)
+            loss = loss + f_loss
+        if "depth_logits" in out and "depth_maps" in out:  # CaDDN's depth bins
+            d_loss = tb["ddn_loss"] = ddn_loss(out, model_cfg["VFE"])
+            loss = loss + d_loss
+        return loss, new_cur, aux_list, tb
+
     batch_keys = device_batch_keys(model_cfg)
 
     def forward(batch, rngs=None):
-        if roi_cfg is not None and active_mesh() is not None and active_mesh().world > 1:
-            raise NotImplementedError(
-                "ROI_HEAD under a data mesh of world > 1 is not ported yet: the RoI losses' "
-                "normalisers and the RoI head's norms are not made global")
         inputs = {k: torch.as_tensor(batch[k], device=dev) for k in batch_keys if k in batch}
         if rngs is not None:
             inputs["rngs"] = rngs

@@ -165,6 +165,54 @@ def sampler_confidences(payload: dict):
     return payload["sampler"]["confidence_groups"].cpu().numpy()
 
 
+def _fold_bn1d(w, bn, src, eps=1e-5):
+    """An eval-mode torch norm (its running statistics, eps 1e-5) folded
+    into the bias-free linear map before it: (W (O, I), bias (O,)) in
+    float64 (the JAX package's ``_fold_bn1d``)."""
+    w = np.asarray(w, np.float64).reshape(w.shape[0], w.shape[1])
+    gamma, beta, mean, var = (np.asarray(src[f"{bn}.{k}"], np.float64)
+                              for k in ("weight", "bias", "running_mean", "running_var"))
+    scale = gamma / np.sqrt(var + eps)
+    return w * scale[:, None], beta - mean * scale
+
+
+def fold_voxelrcnn_pool(src: dict) -> list:
+    """Fold pcdet's Voxel-RCNN grid pool into the port's layers, in place
+    in the state dict ``src`` (``com_tpu/utils/torch_import.py``
+    ``fold_voxelrcnn_pool``).  pcdet's first layer is relu(BN_in(W_in @
+    feats) + BN_pos(W_pos @ rel_xyz)); in eval both norms are affine, so
+    ``pre`` (over [rel_xyz, feats]) is [fold(BN_pos) W_pos, fold(BN_in)
+    W_in] with bias b_pos + b_in; ``out`` is ``mlps_out.0.0``, ``out_bn``
+    its norm with the running variance moved from eps 1e-5 to the port's
+    1e-3.  A layer missing any of its keys is left alone.  Returns the pcdet
+    keys folded."""
+    folded = []
+    i = 0
+    while f"roi_head.roi_grid_pool_layers.{i}.mlps_in.0.0.weight" in src:
+        t = f"roi_head.roi_grid_pool_layers.{i}"
+        i += 1
+        keys = [f"{t}.{m}.0.0.weight" for m in ("mlps_in", "mlps_pos", "mlps_out")]
+        keys += [f"{t}.{m}.0.1.{k}" for m in ("mlps_in", "mlps_pos", "mlps_out")
+                 for k in ("weight", "bias", "running_mean", "running_var")]
+        if any(k not in src for k in keys):
+            continue
+        arr = {k: torch.as_tensor(src[k]).double().numpy() for k in keys}
+        w_in, b_in = _fold_bn1d(arr[keys[0]], f"{t}.mlps_in.0.1", arr)
+        w_pos, b_pos = _fold_bn1d(arr[keys[1]], f"{t}.mlps_pos.0.1", arr)
+        out_w = arr[keys[2]]
+        bn = f"{t}.mlps_out.0.1"
+        src[f"{t}.pre.weight"] = torch.from_numpy(np.concatenate([w_pos, w_in], axis=1))
+        src[f"{t}.pre.bias"] = torch.from_numpy(b_in + b_pos)
+        src[f"{t}.out.weight"] = torch.from_numpy(out_w.reshape(out_w.shape[0], out_w.shape[1]))
+        src[f"{t}.out_bn.weight"] = torch.from_numpy(arr[f"{bn}.weight"])
+        src[f"{t}.out_bn.bias"] = torch.from_numpy(arr[f"{bn}.bias"])
+        src[f"{t}.out_bn.running_mean"] = torch.from_numpy(arr[f"{bn}.running_mean"])
+        src[f"{t}.out_bn.running_var"] = torch.from_numpy(
+            np.maximum(arr[f"{bn}.running_var"] - (1e-3 - 1e-5), 1e-12))
+        folded += keys
+    return folded
+
+
 def load_params_only(path, net: torch.nn.Module, logger=None):
     """Initialise ``net``'s parameters and buffers from a checkpoint,
     keeping its own value where a key is absent or its shape differs
@@ -182,14 +230,21 @@ def load_params_only(path, net: torch.nn.Module, logger=None):
     loads unpermuted, as the JAX package's importer leaves it: pcdet's
     HeightCompression orders its channels ``c*D + d``, both packages
     ``d*C + c`` (ROADMAP Queue 3), so such a file's BEV input channels
-    arrive mixed in both.  Returns (loaded, skipped) counts."""
+    arrive mixed in both.  A pcdet Voxel-RCNN grid pool
+    (``roi_head.roi_grid_pool_layers.{i}.mlps_in`` / ``mlps_pos`` /
+    ``mlps_out``) is folded into the port's ``pre`` / ``out`` / ``out_bn``
+    first (``fold_voxelrcnn_pool``), and the logger names the keys folded.
+    Returns (loaded, skipped) counts."""
     try:
         payload = torch.load(Path(path), map_location="cpu", weights_only=True)
     except pickle.UnpicklingError:
         if logger:
             logger.warning("%s holds more than tensors: read with weights_only=False", path)
         payload = torch.load(Path(path), map_location="cpu", weights_only=False)
-    src = payload.get("model_state", payload)
+    src = dict(payload.get("model_state", payload))
+    folded = fold_voxelrcnn_pool(src)
+    if folded and logger:
+        logger.info("pretrained: folded pcdet's Voxel-RCNN grid pool: %s", ", ".join(folded))
     own = net.state_dict()
     loaded = skipped = 0
     with torch.no_grad():

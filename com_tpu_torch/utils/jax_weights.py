@@ -26,6 +26,8 @@ VoxelSetAbstraction (Conv2d 1x1 (out, in, 1, 1) blocks), PointHeadSimple
 and PVRCNNHead (their norms shifted as the RoI heads'), and
 PVRCNNPlusPlusHead under its flax names, PointRCNN's PointNet2MSG and
 head, and PartA2's UNetV2 (its inverse convs as sparse convs),
+CaDDN's ImageVFE and Conv2DCollapse, VoxelBackBone8xFocal's image
+encoder and focal convs (``_image_vfe_rules``, ``_focal_rules``),
 PointIntraPartOffsetHead and PartA2FCHead (its pooled-grid convs, dense
 flax Conv (kz, ky, kx, I, O) -> spconv 2.x (O, kz, ky, kx, I)), and
 MPPNet's heads under their flax names (attention projections (C, H, D) ->
@@ -117,6 +119,65 @@ def _voxel_backbone_rules(top, residual):
         for j in (1, 2):
             body(f"backbone_3d.conv{s}.{j}", f"subm{s - 1}_{j - 1}")
     block("backbone_3d.conv_out", "conv_out", "spconv3")
+    return rules
+
+
+def _focal_rules(cfg, top):
+    """VoxelBackBone8xFocal's additions (the JAX scopes ``semseg``,
+    ``focal_mm``, ``focal{s}``) under pcdet's placement: ``semseg.{stem0,
+    stem1,body}.{0,1}`` and ``.channel_reduce``; ``conv_focal_multimodal``;
+    a stage's focal conv the last child of ``conv{s+1}``; each focal conv's
+    ``conv_imp`` (the importance kernel), ``conv_block.{0,1}`` and, when
+    the image width differs from the block's, ``img_proj``."""
+    rules = []
+    t = "backbone_3d"
+
+    def focal(tkey, scope, img_proj=False):
+        p = (top, scope)
+        rules.append((f"{tkey}.conv_imp.weight", "params", (*p, "imp_kernel"), "spconv27"))
+        rules.append((f"{tkey}.conv_block.0.weight", "params", (*p, "conv", "kernel"),
+                      "spconv27"))
+        rules.extend(_bn(f"{tkey}.conv_block.1", (*p, "conv", "MaskedBatchNorm_0")))
+        if img_proj:
+            rules.append((f"{tkey}.img_proj.weight", "params", (*p, "img_proj", "kernel"),
+                          "linear"))
+
+    ch = list(cfg.get("CHANNELS", [16, 32, 64, 64]))
+    if cfg.get("USE_IMG", False):
+        for name in ("stem0", "stem1", "body"):
+            rules.append((f"{t}.semseg.{name}.0.weight", "params",
+                          (top, "semseg", name, "Conv_0", "kernel"), "conv2d"))
+            rules.extend(_bn(f"{t}.semseg.{name}.1", (top, "semseg", name, "BatchNorm_0")))
+        rules.append((f"{t}.semseg.channel_reduce.weight", "params",
+                      (top, "semseg", "channel_reduce", "kernel"), "conv2d"))
+        focal(f"{t}.conv_focal_multimodal", "focal_mm",
+              img_proj=int(cfg.get("IMG_CHANNELS", 16)) != int(ch[0]))
+    for s in sorted(int(v) for v in cfg.get("FOCAL_STAGES", [0, 1])):
+        focal(f"{t}.conv{s + 1}.{1 if s == 0 else 3}", f"focal{s}")
+    return rules
+
+
+def _image_vfe_rules(cfg, top):
+    """CaDDN's ImageVFE (JAX scopes ``ddn/...``): ``vfe.ffn.ddn.{stem0,stem1}
+    .{0,1}``, ``vfe.ffn.ddn.aspp.{i}.{0,1}``, ``vfe.ffn.ddn.depth_logits``
+    and ``vfe.ffn.channel_reduce.{conv,bn}`` (the DDN's ``feat_out``)."""
+    d = (top, "ddn")
+    rules = []
+    stems = ("stem0", "stem1") if int(cfg.get("DOWNSAMPLE_FACTOR", 4)) >= 4 else ("stem0",)
+    for name in stems:
+        rules.append((f"vfe.ffn.ddn.{name}.0.weight", "params", (*d, name, "Conv_0", "kernel"),
+                      "conv2d"))
+        rules.extend(_bn(f"vfe.ffn.ddn.{name}.1", (*d, name, "BatchNorm_0")))
+    for i in range(3):
+        rules.append((f"vfe.ffn.ddn.aspp.{i}.0.weight", "params", (*d, f"aspp_{i}", "kernel"),
+                      "conv2d"))
+        rules.extend(_bn(f"vfe.ffn.ddn.aspp.{i}.1", (*d, f"aspp_bn_{i}")))
+    rules += [("vfe.ffn.ddn.depth_logits.weight", "params", (*d, "depth_logits", "kernel"),
+               "conv2d"),
+              ("vfe.ffn.ddn.depth_logits.bias", "params", (*d, "depth_logits", "bias"), "copy"),
+              ("vfe.ffn.channel_reduce.conv.weight", "params",
+               (*d, "feat_out", "Conv_0", "kernel"), "conv2d")]
+    rules.extend(_bn("vfe.ffn.channel_reduce.bn", (*d, "feat_out", "BatchNorm_0")))
     return rules
 
 
@@ -589,6 +650,8 @@ def bridge_rules(model_cfg, class_names, params) -> list:
     vfe = model_cfg.get("VFE") or {}
     if vfe.get("NUM_FILTERS"):
         rules += _pfn_rules(vfe, top(vfe["NAME"]))
+    if vfe.get("NAME") == "ImageVFE":
+        rules += _image_vfe_rules(vfe, top("ImageVFE"))
     b3 = model_cfg.get("BACKBONE_3D")
     if b3 is not None and b3["NAME"] == "PointNet2MSG":  # PointRCNN's, scope "backbone_3d"
         rules += _pointnet2_rules(b3, top("backbone_3d"))
@@ -597,6 +660,13 @@ def bridge_rules(model_cfg, class_names, params) -> list:
     elif b3 is not None:
         rules += _voxel_backbone_rules(top(b3["NAME"]),
                                        residual=b3["NAME"] == "VoxelResBackBone8x")
+        if b3["NAME"] == "VoxelBackBone8xFocal":
+            rules += _focal_rules(b3, top(b3["NAME"]))
+    m2b = model_cfg.get("MAP_TO_BEV") or {}
+    if m2b.get("NAME") == "Conv2DCollapse":
+        c = top("Conv2DCollapse")
+        rules += [("map_to_bev.block.conv.weight", "params", (c, "Conv_0", "kernel"), "conv2d")]
+        rules += _bn("map_to_bev.block.bn", (c, "BatchNorm_0"))
     if model_cfg.get("BACKBONE_2D") is not None:
         rules += _backbone_rules(model_cfg["BACKBONE_2D"], top("BaseBEVBackbone"))
     head = model_cfg.get("DENSE_HEAD")

@@ -254,19 +254,16 @@ def test_voxel_rcnn_centerhead_train_step_matches_jax(pair):
 
 SHIPPED = sorted(str(p.relative_to(REPO)) for p in (REPO / "configs").rglob("*.yaml")
                  if "dataset_configs" not in p.parts)
-RAISES = {"configs/kitti_models/CaDDN.yaml": (NotImplementedError, "CaDDN"),
-          "configs/kitti_models/voxel_rcnn_car_focal_multimodal.yaml":
-              (NotImplementedError, "VoxelBackBone8xFocal"),
-          # a head's deblock takes a negative width, in both packages (ROADMAP Queue 3)
+RAISES = {# a head's deblock takes a negative width, in both packages (ROADMAP Queue 3)
           "configs/nuscenes_models/cbgs_second_multihead.yaml": (RuntimeError, "negative")}
 
 
 def test_shipped_config_census():
-    """49 configs ship under ``configs/`` (dataset configs aside): 46 build
-    (44 before the MPPNet detector), 2 raise NotImplementedError by name, 1
-    a RuntimeError.  The port registers every one's DATA_CONFIG.DATASET
-    (KITTI, custom, synthetic, Waymo, nuScenes, Lyft), so all 46 that build
-    have their data side too."""
+    """49 configs ship under ``configs/`` (dataset configs aside): 48 build
+    (46 before CaDDN and the focal multimodal Voxel-RCNN, 44 before the
+    MPPNet detector), 1 raises a RuntimeError in both packages.  The port
+    registers every one's DATA_CONFIG.DATASET (KITTI, custom, synthetic,
+    Waymo, nuScenes, Lyft), so all 48 that build have their data side too."""
     import com_tpu_torch.data  # noqa: F401  (registers the datasets)
     from com_tpu_torch.utils.config import cfg_from_yaml_file
     from com_tpu_torch.utils.registry import DATASETS
@@ -275,7 +272,7 @@ def test_shipped_config_census():
     datasets = {c: cfg_from_yaml_file(str(REPO / c)).DATA_CONFIG.DATASET for c in SHIPPED}
     registered = {c for c, d in datasets.items() if d in DATASETS}
     assert registered == set(SHIPPED)
-    assert len(registered - set(RAISES)) == 46
+    assert len(registered - set(RAISES)) == 48
     assert sum(datasets[c] in ("NuScenesDataset", "LyftDataset")
                for c in registered - set(RAISES)) == 6
 
@@ -308,6 +305,13 @@ def test_shipped_configs_build_at_their_own_grid(config):
     assert type(net).__name__ == cfg.MODEL.NAME
     if config.startswith("configs/waymo_models/mppnet_") and "e2e" not in config:
         assert type(net.roi_head).__name__ == "MPPNetHead" and not hasattr(net, "dense_head")
+    if config.endswith(("CaDDN.yaml", "focal_multimodal.yaml")):  # the image models
+        assert (type(net.vfe).__name__ == "ImageVFE") == config.endswith("CaDDN.yaml")
+        assert (type(net.map_to_bev).__name__ == "Conv2DCollapse") == config.endswith(
+            "CaDDN.yaml")
+        if config.endswith("focal_multimodal.yaml"):
+            assert type(net.backbone_3d).__name__ == "VoxelBackBone8xFocal"
+            assert hasattr(net.backbone_3d, "semseg") and len(net.backbone_3d.conv2) == 4
     if "centerhead" in config or "mppnet_e2e" in config:
         assert meta.grid_size == (1498, 1498, 40)
         assert type(net.dense_head).__name__ == "CenterHead"

@@ -165,12 +165,13 @@ def test_com2_pacing_and_groups():
 
 
 def test_unported_sampler_options_raise():
-    """The KITTI image copy-paste raises; ``USE_ROAD_PLANE``, which raised
-    until it was ported, builds (``test_torch_port_kitti.py`` holds its
-    lift to ``com_tpu``)."""
-    with pytest.raises(NotImplementedError, match="image copy-paste"):
-        port_ds.build_gt_sampler(None, _sampler_cfg("base", IMG_AUG_TYPE="kitti"), NAMES,
-                                 db_infos=_db())
+    """The KITTI image copy-paste and ``USE_ROAD_PLANE``, which raised until
+    they were ported, build (``test_torch_port_kitti_images.py`` and
+    ``test_torch_port_kitti.py`` hold them to ``com_tpu``)."""
+    sampler = port_ds.build_gt_sampler(None, _sampler_cfg("base", IMG_AUG_TYPE="kitti",
+                                                          IMG_AUG_IOU_THRESH=0.3), NAMES,
+                                       db_infos=_db())
+    assert (sampler.img_aug_type, sampler.img_aug_iou_thresh) == ("kitti", 0.3)
     sampler = port_ds.build_gt_sampler(None, _sampler_cfg("base", USE_ROAD_PLANE=True), NAMES,
                                        db_infos=_db())
     assert sampler.sampler_cfg["USE_ROAD_PLANE"] is True

@@ -425,7 +425,7 @@ def test_collate_subsample_breaks_the_presort_in_both():
 
 def test_loader_shards_failures_and_unported_options():
     """Strided shards by process, a worker's failure raised in the consumer,
-    ``dist`` without a process group, image batches not ported."""
+    ``dist`` without a process group, image batches padded."""
     cfg = _synth_cfg(config)
     ds, _ = build_dataloader(cfg.DATA_CONFIG, NAMES, 2, seed=4, workers=1)
     orders = []
@@ -442,8 +442,12 @@ def test_loader_shards_failures_and_unported_options():
     assert (single.process_index, single.process_count) == (0, 1)
     np.testing.assert_array_equal(single._shard_order(), build_dataloader(
         cfg.DATA_CONFIG, NAMES, 2, seed=4, workers=1)[1]._shard_order())
-    with pytest.raises(NotImplementedError, match="image"):
-        ds.collate_batch([{"images": np.zeros((4, 4, 3))}])
+    # image batches, which raised until the image models: padded to the
+    # static IMAGE_PAD_SHAPE, each image's own extent kept
+    imgs = ds.collate_batch([{"images": np.ones((4, 5, 3), np.float32)},
+                             {"images": np.ones((3, 6, 3), np.float32)}])
+    assert imgs["images"].shape == (2, 384, 1280, 3) and imgs["images"].sum() == 3 * (20 + 18)
+    np.testing.assert_array_equal(imgs["image_shape"], [[4, 5], [3, 6]])
 
     class Broken(type(ds)):
         def __getitem__(self, index):

@@ -1586,3 +1586,84 @@ def test_com_feedback_reaches_the_sampler_through_the_train_cli(dev, tmp_path):
                                                map_location="cpu"))
     assert conf.shape == want.shape == (3, 96) and conf.dtype == np.float32
     assert conf.tobytes() == want.tobytes() and np.isfinite(conf).all() and conf.any()
+
+
+@pytest.mark.parametrize("case", ["caddn", "focal"])
+def test_image_models_eval_step_on_card_match_cpu(dev, case):
+    """``chip_smoke``'s small CaDDN and focal multimodal models (path U.1),
+    the card's eval-mode forward against the CPU's: the voxel volume and the
+    head's outputs within 1e-4 of their largest magnitude; the focal convs'
+    voxel sets exact (the focal model's norm biases +3, as path U.1)."""
+    from chip_smoke import (caddn_small_case, card_vs_cpu_forward, focal_small_case,
+                            shift_norm_biases)
+
+    cfg, meta, batch = (caddn_small_case if case == "caddn" else focal_small_case)()
+    card, cpu = card_vs_cpu_forward(dev, cfg, meta, batch, case, (
+        "encoded_spconv_tensor", "cls_preds_raw", "box_preds_raw"),
+        prepare=shift_norm_biases if case == "focal" else None)
+    for a, b in zip(card.get("focal_coords", []), cpu.get("focal_coords", [])):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_focal_split_and_spawn_on_card_matches_cpu(dev):
+    """Spawned voxels, their slots and validity exact with tied scores."""
+    from com_tpu_torch.ops.sparse import focal_split_and_spawn
+
+    rng = np.random.RandomState(2)
+    b, v, grid = 2, 3000, (9, 40, 40)
+    coords = np.stack([rng.randint(0, g, (b, v)) for g in grid], -1).astype(np.int32)
+    valid = np.zeros((b, v), bool)
+    for i in range(b):
+        valid[i, np.unique(coords[i] @ np.array([1600, 40, 1]), return_index=True)[1]] = True
+    args = (rng.randn(b, v, 8).astype(np.float32), coords, valid,
+            np.round(rng.randn(b, v, 27) * 2).astype(np.float32))
+    got, want = (focal_split_and_spawn(*(torch.as_tensor(a, device=d) for a in args), grid, 0.5,
+                                       500) for d in (dev, "cpu"))
+    assert int(want[2][:, v:].sum()) > 0
+    for g, w in zip(got[1:3], want[1:3]):
+        assert torch.equal(g.cpu(), w)
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got[3].cpu(), want[3], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(2, 94, 311, 64), (2, 94, 70, 128), (1, 47, 35, 256)])
+def test_conv3x3_at_the_image_models_shapes(dev, shape):
+    """K2 forward, dgrad and K2w in f32 at SemSegEncoder's unpadded KITTI
+    width (311, odd) and CaDDN's BEV shapes, against the plain versions'
+    autograd."""
+    b, h, w, c = shape
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((b, h, w, c), device=dev, generator=gen, requires_grad=True)
+    k = (torch.randn((3, 3, c, c), device=dev, generator=gen) / math.sqrt(9 * c)).requires_grad_()
+    g = torch.randn((b, h, w, c), device=dev, generator=gen)
+    y = conv2d.conv3x3(x, k)
+    dx, dk = torch.autograd.grad(y, (x, k), g)
+    xp, kp = x.detach().clone().requires_grad_(), k.detach().clone().requires_grad_()
+    yp = conv2d.conv3x3_plain(xp, kp)
+    dxp, dkp = torch.autograd.grad(yp, (xp, kp), g)
+    torch.testing.assert_close(y, yp, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(dx, dxp, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(dk, dkp, rtol=1e-4, atol=1e-2)
+
+
+def test_two_stage_mesh_on_card_matches_one_process(dev):
+    """Path T at a 12.8 m range: Voxel-RCNN in f32 on two ranks sharing the
+    card over gloo against one process over the global batch of 4
+    (``chip_smoke.t_check``: loss and terms 1e-4, statistics, gradient)."""
+    import shutil
+
+    import chip_smoke as cs
+    from com_tpu_torch.parallel.launch import run_ranks
+
+    pr = (0, -6.4, -3, 12.8, 6.4, 1)
+    one = cs.t_step(dev, cs.t_case(pr, 4096, 3000))
+    out = cs.T_DIR.with_name("path_t_test")
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    try:
+        run_ranks(cs.t_rank, 2, args=(str(out), pr, 4096, 3000), device=str(dev),
+                  init_dir=out, threads=2)
+        ranks = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    cs.t_check(one, ranks, "")

@@ -152,12 +152,26 @@ def test_dataset_items_match_jax_bitwise(tree, training):
 
 
 def test_image_items_raise_by_name(tree):
+    """The image items, which raised by name until the image models, build:
+    ``gt_boxes2d`` and ``calib_matricies`` items equal ``com_tpu``'s; on a
+    tree without ``image_2`` an ``images`` item fails alike in both
+    (FileNotFoundError; ``test_torch_port_kitti_images.py`` reads them)."""
     root, _ = tree
-    _, pcfg = configs(PP, root)
+    jcfg, pcfg = configs(PP, root)
     for item in ("images", "gt_boxes2d", "calib_matricies"):
-        pcfg.DATA_CONFIG.GET_ITEM_LIST = ["points", item]
-        with pytest.raises(NotImplementedError, match=item):
-            pkd.KittiDataset(pcfg.DATA_CONFIG, list(pcfg.CLASS_NAMES), training=False)
+        for cfg in (jcfg, pcfg):
+            cfg.DATA_CONFIG.GET_ITEM_LIST = ["points", item]
+        jds = jkd.KittiDataset(jcfg.DATA_CONFIG, list(jcfg.CLASS_NAMES), training=False)
+        pds = pkd.KittiDataset(pcfg.DATA_CONFIG, list(pcfg.CLASS_NAMES), training=False)
+        if item == "images":
+            for ds in (jds, pds):
+                with pytest.raises(FileNotFoundError):
+                    ds[0]
+            continue
+        a, b = jds[0], pds[0]
+        a.pop("calib"), b.pop("calib")
+        assert {"gt_boxes2d": "gt_boxes2d", "calib_matricies": "trans_cam_to_img"}[item] in b
+        assert_same(a, b)
 
 
 def test_calib_item_and_velodyne_glob_match_jax(tree, tmp_path):

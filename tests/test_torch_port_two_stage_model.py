@@ -19,8 +19,11 @@ from com_tpu.utils.torch_import import import_torch_state_dict
 from com_tpu_torch.models.dense_heads.anchor_head import decode_anchor_boxes
 from com_tpu_torch.models.detectors import DatasetMeta, build_network
 from com_tpu_torch.parallel import sharding
+from com_tpu_torch.parallel.mesh import DataMesh
 from com_tpu_torch.train.eval import make_eval_step
-from com_tpu_torch.train.step import make_train_step, model_input_keys
+from com_tpu_torch.train.state import TrainState
+from com_tpu_torch.train.step import (conf_shape_for, curriculum_kwargs, make_train_step,
+                                      model_input_keys, step_generators)
 from com_tpu_torch.utils.registry import DETECTORS
 from test_torch_port_slice import _match
 from torch_port_two_stage_setup import setup, small_cfg
@@ -249,18 +252,27 @@ def test_unported_two_stage_options_raise_by_name(voxel_rcnn):
 
 
 def test_two_stage_training_under_a_data_mesh_raises(voxel_rcnn):
+    """Two-stage training under a data mesh of world 2, which raised until
+    the RoI and point-head losses' normalisers went global: the step runs.
+    A mesh of world 2 without a process group issues no collective, so its
+    loss (seeded RoI sampling, dropout 0.3) is the single process's
+    bitwise; the two-rank gloo run against
+    ``com_tpu``'s 2-device mesh step is ``test_torch_port_two_stage_mesh.py``."""
     cfg, _, pmeta, _, _, net, host = voxel_rcnn
+    net = copy.deepcopy(net)
+    start = copy.deepcopy(net.state_dict())
+    names = list(cfg.CLASS_NAMES)
     opt = torch.optim.SGD(net.parameters(), lr=0.0)
-
-    class Mesh:
-        world = 2
-
-    step = make_train_step(net, cfg.MODEL, list(cfg.CLASS_NAMES), pmeta, opt, None,
-                           device="cpu")
-    sharding.activate(Mesh())
+    state = TrainState.create(net, opt, conf_shape=conf_shape_for(cfg.MODEL, names),
+                              device="cpu", **curriculum_kwargs(cfg.MODEL, names))
+    step = make_train_step(net, cfg.MODEL, names, pmeta, opt, None, device="cpu")
+    plain, _, _, tb = step.loss_fn(state, host, 0, rngs=step_generators(5, 0, "cpu"))
+    net.load_state_dict(start)
+    sharding.activate(DataMesh(0, 2, torch.device("cpu")))
     try:
-        with pytest.raises(NotImplementedError, match="ROI_HEAD under a data mesh"):
-            step.loss_fn(None, host, 0)
+        meshed, _, _, mtb = step.loss_fn(state, host, 0, rngs=step_generators(5, 0, "cpu"))
     finally:
         sharding.activate(None)
+    assert torch.equal(plain, meshed) and set(tb) == set(mtb)
+    assert {"rcnn_loss_cls", "rcnn_loss_reg", "rcnn_loss_corner"} <= set(tb)
     assert isinstance(pmeta, DatasetMeta)

@@ -203,10 +203,12 @@ def test_dense_and_sorted_lookups_agree(monkeypatch):
 
 @pytest.mark.parametrize("name", ["inverse_conv3d", "focal_split_and_spawn"])
 def test_unported_engine_functions_raise_by_name(name):
-    """``focal_split_and_spawn`` raises by name; ``inverse_conv3d``, ported
-    (held to the JAX engine in ``test_torch_port_parta2.py``), runs: a
-    centre-tap inverse of a stride-2 conv gives each even high-resolution
-    site its low-resolution row."""
+    """Both engine functions, which raised by name until ported, run (held
+    to the JAX engine in ``test_torch_port_parta2.py`` and
+    ``test_torch_port_image_models.py``): a centre-tap inverse of a
+    stride-2 conv gives each even high-resolution site its low-resolution
+    row; a foreground voxel with one confident offset spawns that neighbour
+    (its features times the score), the rest of the cap invalid."""
     if name == "inverse_conv3d":
         c = torch.tensor([[0, 0, 0], [2, 2, 4], [3, 1, 1], [4, 6, 2]])
         valid = torch.ones(4, dtype=torch.bool)
@@ -217,5 +219,12 @@ def test_unported_engine_functions_raise_by_name(name):
         out = ps.inverse_conv3d(feats, oc, ov, w, c, valid, (4, 4, 4))
         assert torch.equal(out, torch.stack([feats[0], feats[1], torch.zeros(2), feats[2]]))
         return
-    with pytest.raises(NotImplementedError, match=name):
-        getattr(ps, name)()
+    coords = torch.tensor([[[1, 1, 1], [-1, -1, -1]]])
+    imps = torch.full((1, 2, 27), -9.0)
+    imps[0, 0, 26] = imps[0, 0, 25] = 9.0  # its own and its last offset, (+1, +1, +1)
+    feats = torch.ones(1, 2, 3)
+    out, oc, ov, own = ps.focal_split_and_spawn(feats, coords, torch.tensor([[True, False]]),
+                                                imps, (4, 4, 4), 0.5, 3)
+    assert ov.tolist() == [[True, False, True, False, False]]
+    assert oc[0, 2].tolist() == [2, 2, 2] and (oc[0, 3:] == -1).all()
+    torch.testing.assert_close(out[0, 2], torch.full((3,), float(torch.sigmoid(torch.tensor(9.0)))))

@@ -314,9 +314,20 @@ def test_waymo_second_grid_fails_alike(config):
     (VFES, "PillarVFE"), (VFES, "DynamicMeanVFE"),
     (MAP_TO_BEV, "PointPillarScatter"), (MAP_TO_BEV, "Conv2DCollapse")])
 def test_unported_voxel_names_raise_by_name(registry, name):
-    """The unported names raise by name; UNetV2 and DynamicMeanVFE, ported,
-    build from their defaults (the JAX modules' own: DynamicMeanVFE's 60,000
-    voxel slots)."""
+    """The unported names raise by name; UNetV2, DynamicMeanVFE,
+    VoxelBackBone8xFocal and Conv2DCollapse, ported, build from their
+    defaults (the JAX modules' own: DynamicMeanVFE's 60,000 voxel slots,
+    focal convs at stages 0 and 1, 256 BEV channels)."""
+    if name == "VoxelBackBone8xFocal":
+        focal = registry.get(name)({}, 5, (64, 64, 40), (0.5, 0.5, 0.1), (-16, -16, -2, 16, 16, 2))
+        assert focal.focal_stages == {0, 1} and not focal.use_img
+        assert len(focal.conv1) == 2 and len(focal.conv2) == 4 and len(focal.conv3) == 3
+        return
+    if name == "Conv2DCollapse":
+        collapse = registry.get(name)({}, 1600)
+        assert collapse.num_bev_features == 256
+        assert tuple(collapse.block.conv.weight.shape) == (256, 1600, 1, 1)
+        return
     if name == "UNetV2":
         unet = registry.get(name)({}, 5, (64, 64, 40), (0.5, 0.5, 0.1), (-16, -16, -2, 16, 16, 2))
         assert unet.num_point_features == 16 and unet.num_bev_features == 256
@@ -332,7 +343,9 @@ def test_unported_voxel_names_raise_by_name(registry, name):
 def test_unported_voxel_options_raise_by_name():
     from com_tpu_torch.models.backbone3d import SemSegEncoder
 
-    with pytest.raises(NotImplementedError, match="SemSegEncoder"):
-        SemSegEncoder()
+    # SemSegEncoder, which raised until the focal backbone, builds: (B, H, W,
+    # 3) -> (B, H/4, W/4, out_channels)
+    enc = SemSegEncoder(8)
+    assert enc(torch.zeros(1, 16, 40, 3)).shape == (1, 4, 10, 8)
     with pytest.raises(NotImplementedError, match="VOXELIZE_ON_DEVICE"):
         VFES.get("MeanVFE")({"VOXELIZE_ON_DEVICE": True}, 5)
