@@ -19,7 +19,8 @@ Phases (any failure raises, and the script exits non-zero):
    printed, every CUDA kernel built from ``com_tpu_torch/csrc`` at once (one
    ``nvcc`` per source, all started together), the tensor-core
    instructions (HGMMA, HMMA) in the SASS of K2 and K2w counted (a source
-   with none fails), and in each kernel function of T1-T4
+   with none fails), TF32 ones in each instance of the f32 K2 and K2w
+   kernels, and in each kernel function of T1-T4
    (``wgrad_variants.cu``: T1, T3 and T4 on ``wgmma``, T2 on ``mma.sync``;
    a function without its instructions fails).
 2. Each kernel against its plain PyTorch version on the card, at the shapes
@@ -33,7 +34,10 @@ Phases (any failure raises, and the script exits non-zero):
    issues them; ``device_ms``: the calls queued behind a spin kernel, the
    device time of a call even where it is shorter than its launch), the
    plain version and, where one exists, a single library call computing the
-   same function.
+   same function (the convs' under ``cudnn.benchmark``: cuDNN's fastest
+   algorithm, TF32 off).  A row's bound is max(bytes / 3.35 TB/s,
+   operations / peak): bf16 989 TFLOP/s, f32 67 (FMA), the f32 convs 495 / 3
+   (three TF32 products an operation).
 3. The wgrad-formulation sweep (``com_tpu_torch.tools.perf.
    microbench_wgrad_kernels.run``) at those shapes over T1-T4 and K2w, the
    path of T1-T4: every line within the oracle's tolerance.
@@ -387,6 +391,9 @@ EXPECT_TRAIN = {"seg_scan": 2, "seg_scan_bwd": 1, "conv3x3": 14, "conv3x3_dgrad"
 EXPECT_TRAIN_UCL = {**EXPECT_TRAIN, "stamp_last_wins": 1}
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 non-tensor
+# the conv kernels' peaks: bf16 on the tensor cores; f32 as three TF32
+# products on them (dense TF32 495 TFLOP/s, three passes an operation)
+CONV_PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 STATS_RTOL = 1e-5  # small train reference: batch statistics, card against CPU
 WGRAD_SHAPES = ((2, 468, 468, 64, 64), (2, 468, 468, 128, 64))  # the sweep's (B, H, W, Cin, Cout)
 FLAGSHIP_CONV = ((2, 468, 468, 64), (2, 234, 234, 128), (2, 117, 117, 256))  # K2's (B, H, W, C)
@@ -486,6 +493,11 @@ WGRAD_SOURCE = "com_tpu_torch/csrc/wgrad_variants.cu"
 # piece of the mangled name of each of its instances, the tensor-core instruction)
 WGRAD_SASS = {"T1": ("gtcol_kernelILi1E", "HGMMA"), "T2": ("xcol_kernelI", "HMMA"),
               "T3": ("gt9_kernelI", "HGMMA"), "T4": ("gtcol_kernelILi4E", "HGMMA")}
+# the f32 K2 and K2w kernels: source -> (a piece of the mangled name of each
+# instance, the instances: the 16- and 4-byte load branches, K2's for 2 and
+# 4 warpgroups a block); each must hold TF32 tensor-core instructions
+# (HGMMA or HMMA ... TF32)
+F32_SASS = {"conv3x3": ("conv3x3_f32_kernelI", 4), "conv3x3_wgrad": ("wgrad_f32_kernelI", 2)}
 
 
 def waymo_like_points(rng, b, n, pc_range):
@@ -526,6 +538,18 @@ def cuda_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def library_ms(fn, iters):
+    """``cuda_ms`` of one PyTorch library call under ``cudnn.benchmark``, so
+    that cuDNN times its algorithms on the first calls and keeps the fastest
+    (TF32 stays as set); the setting is restored afterwards."""
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        return cuda_ms(fn, iters, warmup=3)
+    finally:
+        torch.backends.cudnn.benchmark = prev
 
 
 def device_ms(fn, iters):
@@ -621,9 +645,9 @@ def count_device_kernels(path):
         raise AssertionError(f"{bad} issue other numbers of device kernels")
 
 
-def bound_ms(nbytes, ops, dtype):
+def bound_ms(nbytes, ops, dtype, peaks=PEAK_OPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    t_ops = ops / peaks[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -748,6 +772,8 @@ def phase_device_and_build():
             raise AssertionError(f"csrc/{name}.cu holds no tensor-core instruction")
         if name == "wgrad_variants":
             check_wgrad_sass(sass)
+        if name in F32_SASS:
+            check_f32_sass(sass, name)
     return smi
 
 
@@ -755,6 +781,21 @@ def sass_functions(sass):
     """cuobjdump's SASS split by kernel function: mangled name -> its code."""
     parts = sass.split("Function : ")[1:]
     return {p.split(None, 1)[0]: p for p in parts}
+
+
+def check_f32_sass(sass, name):
+    """Each instance of the f32 K2 / K2w kernel holds TF32 tensor-core
+    instructions: the per-file count above would pass on the bf16 kernels
+    alone."""
+    piece, instances = F32_SASS[name]
+    found = {f: sum(1 for line in code.splitlines()
+                    if ("HGMMA." in line or "HMMA." in line) and "TF32" in line)
+             for f, code in sass_functions(sass).items() if piece in f}
+    ok = len(found) == instances and all(found.values())
+    print(f"sass: csrc/{name}.cu's f32 kernels hold {sorted(found.values())} TF32 tensor-core "
+          f"instructions {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"csrc/{name}.cu: TF32 tensor-core instructions {found}")
 
 
 def check_wgrad_sass(sass):
@@ -829,10 +870,10 @@ def conv_shape(shape):
 
 
 def check_conv3x3(dev, entries, shapes=FLAGSHIP_CONV, dtypes=(torch.float32, torch.bfloat16),
-                  path=""):
+                  path="", f32_path=None):
     """K2 at each (B, H, W, C) (C -> C) or (B, H, W, Cin, Cout) of ``shapes``
     in each dtype; ``path`` prefixes the counter whose launches the entries
-    report."""
+    report (``f32_path``, where given, the f32 entries')."""
     import torch.nn.functional as F
 
     from com_tpu_torch.ops import conv2d
@@ -860,16 +901,17 @@ def check_conv3x3(dev, entries, shapes=FLAGSHIP_CONV, dtypes=(torch.float32, tor
             plain_ms = cuda_ms(lambda: conv2d.conv3x3_plain(x, w), 5)
             xc = x.permute(0, 3, 1, 2)  # NHWC storage = channels_last NCHW view
             wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-            lib_ms = cuda_ms(lambda: F.conv2d(xc, wc, padding=1), 10)
+            lib_ms = library_ms(lambda: F.conv2d(xc, wc, padding=1), 10)
             flops = 2 * 9 * c * co * b * h * wd  # the serving path runs the bf16 case
-            bms, by = bound_ms(nbytes(x, w, got), flops, dt)
+            bms, by = bound_ms(nbytes(x, w, got), flops, dt, CONV_PEAK_OPS)
             entries.append(dict(name=f"conv2d.conv3x3 {label}", route="cuda",
                                 source="com_tpu_torch/csrc/conv3x3.cu",
                                 replaces="com_tpu/ops/pallas/conv2d.py:208",
                                 max_abs_err=err.max().item(), ms=ms,
                                 device_ms=dev_ms, plain_ms=plain_ms,
                                 bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                                kernel=path + "conv3x3"))
+                                kernel=(f32_path if dt == torch.float32 and f32_path else path)
+                                + "conv3x3"))
 
 
 def check_seg_scan_bwd(dev, entries):
@@ -927,12 +969,12 @@ def check_seg_scan_bwd(dev, entries):
 
 def check_conv3x3_backward(dev, entries, shapes=FLAGSHIP_CONV,
                            wgrad_dtypes=(torch.float32, torch.bfloat16), path="",
-                           dgrad_dtype=torch.bfloat16):
+                           dgrad_dtype=torch.bfloat16, f32_path=None):
     """K2 dgrad (K2 on the output gradient with the rotated kernel) checked
     through the autograd.Function and timed as the call its backward makes
     (``conv3x3_dgrad``) in ``dgrad_dtype``, and K2w, at the backbone's
     shapes ``shapes``; ``path`` prefixes the counters whose launches the
-    entries report."""
+    entries report (``f32_path``, where given, the f32 entries')."""
     from com_tpu_torch.ops import conv2d
 
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -964,15 +1006,17 @@ def check_conv3x3_backward(dev, entries, shapes=FLAGSHIP_CONV,
         plain_ms = cuda_ms(lambda: conv2d.conv3x3_plain(g, conv2d.rotate_kernel(w)), 5)
         gc = g.permute(0, 3, 1, 2)  # NHWC storage = channels_last NCHW view
         wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        lib_ms = cuda_ms(lambda: torch.nn.grad.conv2d_input((b, c, h, wd), wc, gc,
-                                                            padding=1), 10)
-        bms, by = bound_ms(nbytes(g, w, got), flops, dgrad_dtype)
+        lib_ms = library_ms(lambda: torch.nn.grad.conv2d_input((b, c, h, wd), wc, gc,
+                                                               padding=1), 10)
+        bms, by = bound_ms(nbytes(g, w, got), flops, dgrad_dtype, CONV_PEAK_OPS)
         entries.append(dict(name=f"conv2d.conv3x3 dgrad {label}", route="cuda",
                             source="com_tpu_torch/csrc/conv3x3.cu",
                             replaces="com_tpu/ops/pallas/conv2d.py:544",
                             max_abs_err=err.max().item(), ms=ms,
                             device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms,
-                            bound_by=by, library_ms=lib_ms, kernel=path + "conv3x3_dgrad"))
+                            bound_by=by, library_ms=lib_ms,
+                            kernel=(f32_path if dgrad_dtype == torch.float32 and f32_path
+                                    else path) + "conv3x3_dgrad"))
         del runs, x, y, px, py, got, want, absref, err
 
         for dt in wgrad_dtypes:
@@ -993,16 +1037,17 @@ def check_conv3x3_backward(dev, entries, shapes=FLAGSHIP_CONV,
             dev_ms = device_ms(lambda: conv2d.conv3x3_wgrad(xd, gd), 10)
             plain_ms = cuda_ms(lambda: conv2d.conv3x3_wgrad_plain(xd, gd), 5)
             xc, gc = xd.permute(0, 3, 1, 2), gd.permute(0, 3, 1, 2)
-            lib_ms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(xc, (co, c, 3, 3), gc,
-                                                                 padding=1), 10)
-            bms, by = bound_ms(nbytes(xd, gd, got), flops, dt)
+            lib_ms = library_ms(lambda: torch.nn.grad.conv2d_weight(xc, (co, c, 3, 3), gc,
+                                                                    padding=1), 10)
+            bms, by = bound_ms(nbytes(xd, gd, got), flops, dt, CONV_PEAK_OPS)
             entries.append(dict(name=f"conv2d.conv3x3_wgrad {label}", route="cuda",
                                 source="com_tpu_torch/csrc/conv3x3_wgrad.cu",
                                 replaces="com_tpu/ops/pallas/conv2d.py:235",
                                 max_abs_err=err.max().item(), ms=ms,
                                 device_ms=dev_ms, plain_ms=plain_ms,
                                 bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                                kernel=path + "conv3x3_wgrad"))
+                                kernel=(f32_path if dt == torch.float32 and f32_path else path)
+                                + "conv3x3_wgrad"))
             del got, want, absref, err
 
 
@@ -1017,8 +1062,8 @@ def check_wgrad_variants(dev, entries):
         g = (torch.randn((b, h, w, cout), device=dev, generator=gen) * 0.3).to(torch.bfloat16)
         absref = wv.oracle(x.abs(), g.abs())
         xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)  # channels_last NCHW views
-        lib_ms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(xc, (cout, cin, 3, 3), gc,
-                                                             padding=1), 10)
+        lib_ms = library_ms(lambda: torch.nn.grad.conv2d_weight(xc, (cout, cin, 3, 3), gc,
+                                                                padding=1), 10)
         flops = 2 * 9 * cin * cout * b * h * w
         label = f"bf16 ({b},{h},{w},{cin}->{cout})"
         for th in WGRAD_THS:
@@ -4037,7 +4082,8 @@ def path_i(dev, smi, grid=None, points=POINTS, bg_points=120000):
     ranks on one card) against one process; I.4 through torchrun and the
     train CLI (NCCL on the card); I.1 again over NCCL where there are two
     cards.  ``grid``, ``points`` (a scene's point slots) and ``bg_points``
-    are for rehearsals."""
+    are for rehearsals.  Returns the launch counts of I.1's one-process f32
+    steps (the flagship's f32 K2, dgrad and K2w rows report them)."""
     import shutil
 
     from com_tpu_torch.parallel.launch import run_ranks
@@ -4077,6 +4123,7 @@ def path_i(dev, smi, grid=None, points=POINTS, bg_points=120000):
         print(f"path I: {time.perf_counter() - start:.1f} s wall in all")
     finally:
         shutil.rmtree(I_DIR, ignore_errors=True)
+    return ref["f32"]["counts"]
 
 
 def l_cfg(config, tree, extra_set=()):
@@ -8117,8 +8164,11 @@ def main():
     entries = []
     check_seg_scan(dev, entries)
     check_seg_scan_bwd(dev, entries)
-    check_conv3x3(dev, entries)
-    check_conv3x3_backward(dev, entries)
+    # the flagship's f32 rows report path I.1's one-process f32 steps
+    check_conv3x3(dev, entries, f32_path="I.f32:")
+    check_conv3x3_backward(dev, entries, f32_path="I.f32:")
+    check_conv3x3_backward(dev, entries, wgrad_dtypes=(), dgrad_dtype=torch.float32,
+                           f32_path="I.f32:")
     check_wgrad_variants(dev, entries)
     sweep_counts = wgrad_sweep(dev)
     lap("kernels against plain, sweep")
@@ -8173,7 +8223,7 @@ def main():
     path_h(dev, smi)
     lap("H")
     torch.cuda.empty_cache()
-    path_i(dev, smi)
+    i_counts = path_i(dev, smi)
     lap("I")
     torch.cuda.empty_cache()
     l_counts = path_l(dev, smi, entries, calls)
@@ -8205,7 +8255,8 @@ def main():
     torch.cuda.empty_cache()
     u_counts = path_u(dev, smi, entries, calls)
     lap("U")
-    # each kernel's launches on the path that runs it: training path A,
+    # each kernel's launches on the path that runs it: training path A (the
+    # flagship's f32 K2, dgrad and K2w: path I.1's one-process f32 steps),
     # serving for K4, path B for K3's last_wins mode, the sweep for T1-T4;
     # paths E, F, G and J's shapes: their training, and their serving for
     # K4 (path J's train proposals: its training); path L's shapes: L.2's
@@ -8236,7 +8287,8 @@ def main():
               **{f"P:{k}": v for k, v in p_counts["train"].items()},
               "P:nms": p_counts["serve"]["nms"], "P:nms_train": p_counts["train"]["nms"],
               "P:nms_pv": p_counts["pv_serve"]["nms"], "P:nms_mpp": p_counts["mpp"]["nms"],
-              **q_counts, **r_counts, **{f"T:{k}": v for k, v in t_counts.items()}, **u_counts}
+              **q_counts, **r_counts, **{f"T:{k}": v for k, v in t_counts.items()}, **u_counts,
+              **{f"I.f32:{k}": v for k, v in i_counts.items()}}
     if not profile:
         check_device_kernels(calls)
     lap("device kernels")

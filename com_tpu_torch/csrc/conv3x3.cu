@@ -11,7 +11,8 @@
 // 468, 64->64), (2, 234, 234, 128->128) and (2, 117, 117, 256->256) each
 // call is 32.3 GFLOP against 28-56 MB of traffic, far above the card's
 // ratio of operations to bytes; at the bf16 tensor-core peak the bound is
-// about 33 us a call.
+// about 33 us a call, in f32 (three TF32 products an operation at 495
+// TFLOP/s) about 196 us.
 //
 // bf16 (`k2_conv3x3_bf16`): an implicit GEMM on the tensor cores.  M is the
 // output pixels of kTR = 8 image rows x one 64-pixel row segment, N a tile
@@ -44,11 +45,37 @@
 // its shared-memory descriptor layout (the weights re-laid out as (Cout, 3,
 // 3, Cin) and staged as 8-row x 16-byte core matrices).
 //
-// f32 (`k2_conv3x3_f32`, unchanged from the first port): a direct
-// convolution on the CUDA cores (f32 FMA).  A block owns an output tile of
-// kTH x kTW pixels and kCO output channels of one sample; it walks the
-// input channels in chunks of kCK (halo tile and weights in shared memory
-// as f32), every thread accumulating 4 pixels x 8 output channels.
+// f32 (`k2_conv3x3_f32`): an implicit GEMM in three TF32 passes on `wgmma`.
+// TF32 keeps 10 of f32's 23 mantissa bits, so each operand is split once,
+// v = hi + lo (`hopper::split_tf32`: hi rounded to TF32, lo the rest, which
+// the tensor cores truncate), and each product runs as lo*hi + hi*lo +
+// hi*hi, the small products first; that holds the result to about 2^-20 of
+// sum |x||w|.  The tensor cores' f32 sums round toward zero (accumulated
+// there over a whole Cin, positive sums come out low by more than the 1e-5
+// gate: the tile sweep's `inacc`), so each stage's 27 products go into
+// accumulators of their own,
+// added to the f32 accumulators with round-to-nearest adds after the stage:
+// the order is fixed, no atomics, the same bits on every run.  A work item
+// is 64 * WG output pixels (R rows of S columns: the map's width cut into
+// equal segments of at most 64, the count that needs the fewest items) x
+// 64 output channels; a block is WG warpgroups, each issuing
+// `wgmma.m64n64k8` on its 64 pixels: A (pixels x 8 input channels) from
+// registers, loaded with `ldmatrix` from the halo at each tap's offset and
+// split there; B from shared memory, the tap's 64 output channels x 8 input
+// channels in the 32-byte swizzled K-major layout (the wrapper passes the
+// weights as (3, 3, Cout, Cin)).  A stage holds the item's (R + 2) x (S + 2)
+// halo pixels and the nine taps' B tiles for kFKc = 8 input channels,
+// copied by `cp.async` (16 bytes, or 4 where Cin or a pointer is ragged)
+// into a ring of kFStages = 2; each thread rounds the weights it copied to
+// TF32 in place and writes their remainders to a second tile (double
+// buffered), so a stage needs one barrier.  WG is 4 (one block an SM,
+// twice the pixels a stage's weights serve) where those items fill the card
+// kFWideItems = 3 times over, else 2 (two blocks an SM, twice the items on
+// small maps: CaDDN's (2,47,35,256) has 128).  The tile sweep (noload,
+// nomma, nosplit) finds the staging and the products each about a third of
+// the call and the splits a tenth: B is read from shared memory by each of
+// the three passes, and the stages' copies and splits share that memory
+// with them.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,102 +85,6 @@
 namespace {
 
 using hopper::bf16;
-
-// ---- f32: direct convolution on the CUDA cores ----
-
-constexpr int kTH = 8;    // output rows per block
-constexpr int kTW = 16;   // output columns per block
-constexpr int kCO = 64;   // output channels per block
-constexpr int kCK = 8;    // input channels per chunk
-constexpr int kCKP = kCK + 1;  // padded pixel stride in shared memory (no bank conflicts)
-constexpr int kThreads = 256;
-constexpr int kHaloW = kTW + 2;
-constexpr int kHalo = (kTH + 2) * kHaloW;
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, int H, int W,
-           int Cin, int Cout, int tiles_w) {
-  __shared__ float s_in[kHalo * kCKP];
-  __shared__ __align__(16) float s_w[9 * kCK * kCO];  // [tap][ci][co]
-  const int ty = blockIdx.x / tiles_w, tx = blockIdx.x % tiles_w;
-  const int h0 = ty * kTH, w0 = tx * kTW;
-  const int co0 = blockIdx.y * kCO;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int g = tid & 7;          // output channels co0 + 8g .. 8g + 7
-  const int pg = tid >> 3;        // pixel group 0..31
-  const int pr = pg >> 2;         // tile row 0..7
-  const int pc = (pg & 3) * 4;    // tile columns pc .. pc + 3
-  const T* xb = x + (size_t)b * H * W * Cin;
-
-  float acc[4][8];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int k = 0; k < 8; ++k) acc[j][k] = 0.f;
-
-  for (int c0 = 0; c0 < Cin; c0 += kCK) {
-    for (int e = tid; e < kHalo * kCK; e += kThreads) {
-      const int ci = e % kCK, p = e / kCK;
-      const int gh = h0 - 1 + p / kHaloW, gw = w0 - 1 + p % kHaloW, gc = c0 + ci;
-      float v = 0.f;
-      if (gh >= 0 && gh < H && gw >= 0 && gw < W && gc < Cin)
-        v = to_f(xb[((size_t)gh * W + gw) * Cin + gc]);
-      s_in[p * kCKP + ci] = v;
-    }
-    for (int e = tid; e < 9 * kCK * kCO; e += kThreads) {
-      const int co = e % kCO, q = e / kCO;
-      const int ci = q % kCK, tap = q / kCK;
-      const int gc = c0 + ci, gco = co0 + co;
-      float v = 0.f;
-      if (gc < Cin && gco < Cout) v = to_f(w[((size_t)tap * Cin + gc) * Cout + gco]);
-      s_w[e] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-#pragma unroll
-        for (int ci = 0; ci < kCK; ++ci) {
-          float xin[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            xin[j] = s_in[((pr + dy) * kHaloW + pc + j + dx) * kCKP + ci];
-          const float4* wp =
-              reinterpret_cast<const float4*>(&s_w[((dy * 3 + dx) * kCK + ci) * kCO + g * 8]);
-          const float4 wa = wp[0], wb = wp[1];
-          const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int k = 0; k < 8; ++k) acc[j][k] = fmaf(xin[j], wv[k], acc[j][k]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  const int oh = h0 + pr;
-  if (oh >= H) return;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int ow = w0 + pc + j;
-    if (ow >= W) continue;
-    T* yp = y + (((size_t)b * H + oh) * W + ow) * Cout;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int co = co0 + g * 8 + k;
-      if (co < Cout) yp[co] = from_f<T>(acc[j][k]);
-    }
-  }
-}
 
 // ---- bf16: implicit GEMM on the tensor cores ----
 
@@ -359,19 +290,288 @@ cudaError_t launch_tc(const TcArgs& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// ---- f32: three-pass TF32 implicit GEMM on the tensor cores (wgmma) ----
+
+constexpr int kFKc = 8;             // input channels a stage: one k8 step a tap (32-byte B rows)
+constexpr int kFStages = 2;         // the cp.async ring
+constexpr int kFABufs = 3;          // A fragment buffers: taps whose products are in flight
+constexpr int kFWideItems = 3;      // 4 warpgroups a block from this many wide items an SM on
+constexpr int kFN = 64;             // output channels an item: wgmma's N
+constexpr int kFSeg = 64;           // the widest row segment
+constexpr int kFXStride = kFKc + 4;  // floats a halo pixel: 8 pixels' 16-byte rows on 8 bank groups
+constexpr int kFWTap = kFN * kFKc;  // floats of a tap's B tile (64 rows of 32 bytes)
+constexpr int kFWElems = 9 * kFWTap;
+static_assert(kFKc == 8, "a B row is one 32-byte swizzle row");
+static_assert(kFWTap % 64 == 0, "256-byte aligned B tiles");
+
+// The tiles of WG warpgroups a block, each owning 64 of an item's pixels:
+// 2 (two blocks an SM) or 4 (one, sharing a stage's weights over twice the
+// pixels).
+template <int WG>
+struct FTile {
+  static constexpr int kThreads = 128 * WG;
+  static constexpr int kMinBlocks = 4 / WG;  // blocks an SM
+  static constexpr int kM = 64 * WG;         // output pixels an item
+  static constexpr int kHaloCap = (kM / kFSeg + 2) * (kFSeg + 2) + 4;  // halo pixels a stage holds
+  static constexpr int kHaloElems = (kHaloCap * kFXStride + 63) / 64 * 64;  // 256-byte multiple
+  static constexpr int kStageElems = kHaloElems + kFWElems;
+  // the ring, two stages' weight remainders, 256 bytes to align the base
+  static constexpr size_t kSmem = sizeof(float) * (kFStages * kStageElems + 2 * kFWElems) + 256;
+};
+
+struct FArgs {
+  const float* x;  // (B, H, W, Cin)
+  const float* w;  // (3, 3, Cout, Cin): K-major, the wrapper's re-layout
+  float* y;        // (B, H, W, Cout)
+  int H, W, Cin, Cout;
+  int S, R;        // an item's pixels: R rows of S columns
+  int segs, ntiles, rsteps, chunks, items;
+};
+
+// Work items run with the channel tile fastest, then the segment, the row
+// step and the sample, as the bf16 kernel's.
+__device__ __forceinline__ Item f_item_at(const FArgs& a, int item) {
+  Item it;
+  const int nt = item % a.ntiles;
+  int q = item / a.ntiles;
+  const int seg = q % a.segs;
+  q /= a.segs;
+  it.h0 = (q % a.rsteps) * a.R;
+  it.b = q / a.rsteps;
+  it.c0 = seg * a.S;
+  it.co0 = nt * kFN;
+  return it;
+}
+
+// One stage: the item's halo, rows h0-1 .. h0+R x columns c0-1 .. c0+S, for
+// input channels ci0 .. ci0+7 (kFXStride floats a pixel), and each tap's B
+// tile: output channels co0 .. co0+63 as rows of those 8 input channels, in
+// wgmma's 32-byte swizzled layout; zero wherever the map, Cin or Cout ends.
+template <int WG, bool kVec>
+__device__ __forceinline__ void f_load_stage(const FArgs& a, const Item& it, int ci0,
+                                             float* __restrict__ hs, float* __restrict__ ws) {
+  const float* xb = a.x + (size_t)it.b * a.H * a.W * a.Cin;
+  const int hw = a.S + 2;
+  for (int i = threadIdx.x; i < (a.R + 2) * hw * 2; i += FTile<WG>::kThreads) {
+    const int grp = i & 1, p = i >> 1;
+    const int row = it.h0 - 1 + p / hw, col = it.c0 - 1 + p % hw, c = ci0 + grp * 4;
+    const bool pin = row >= 0 && row < a.H && col >= 0 && col < a.W;
+    const float* src = xb + ((size_t)row * a.W + col) * a.Cin + c;
+    float* dst = hs + p * kFXStride + grp * 4;
+    if (kVec) {  // Cin is a multiple of 4: the group is all in or all out
+      hopper::cp_async16(dst, pin && c < a.Cin ? src : a.x, pin && c < a.Cin);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        hopper::cp_async4(dst + j, pin && c + j < a.Cin ? src + j : a.x, pin && c + j < a.Cin);
+    }
+  }
+  for (int i = threadIdx.x; i < 9 * kFN * 2; i += FTile<WG>::kThreads) {
+    const int half = i & 1, r = i >> 1;  // r = tap * kFN + n
+    const int tap = r / kFN, n = r % kFN;
+    const int co = it.co0 + n, ci = ci0 + half * 4;
+    float* dst = ws + tap * kFWTap + n * kFKc + ((half ^ ((n >> 2) & 1)) * 4);
+    const float* src = a.w + ((size_t)tap * a.Cout + co) * a.Cin + ci;
+    if (kVec) {
+      const bool in = co < a.Cout && ci < a.Cin;
+      hopper::cp_async16(dst, in ? src : a.w, in);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool in = co < a.Cout && ci + j < a.Cin;
+        hopper::cp_async4(dst + j, in ? src + j : a.w, in);
+      }
+    }
+  }
+}
+
+template <int WG, bool kVec>
+__global__ void __launch_bounds__(FTile<WG>::kThreads, FTile<WG>::kMinBlocks)
+    conv3x3_f32_kernel(FArgs a) {
+  using Tile = FTile<WG>;
+  extern __shared__ unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(
+      smem_raw + ((256 - (hopper::smem_addr(smem_raw) & 255)) & 255));
+  float* lo_tiles = ring + kFStages * Tile::kStageElems;  // stage t's B remainders at t % 2
+
+  const int my_items = (a.items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int T = my_items * a.chunks;  // this block's stages: (item, Cin chunk), chunk fastest
+  auto fetch = [&](int t) {
+    if (t < T) {
+      const Item it = f_item_at(a, blockIdx.x + (t / a.chunks) * gridDim.x);
+      float* hs = ring + (t % kFStages) * Tile::kStageElems;
+      f_load_stage<WG, kVec>(a, it, (t % a.chunks) * kFKc, hs, hs + Tile::kHaloElems);
+    }
+    hopper::cp_async_commit();  // one group a stage, empty past the end
+  };
+#pragma unroll
+  for (int s = 0; s < kFStages - 1; ++s) fetch(s);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, t4 = lane & 3;
+  const int hw = a.S + 2;
+  // the halo row this lane gives `ldmatrix` (A's rows 0-7 / 8-15 of the
+  // warp's 16, channels 0-3 / 4-7): its pixel at tap (0, 0); a pixel slot
+  // past the item's R rows reads halo pixel 0 and is not stored
+  const int wrow = 64 * (warp >> 2) + 16 * (warp & 3);  // the warp's first row of the item
+  const int m = wrow + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int a_off = (m / a.S < a.R ? (m / a.S * hw + m % a.S) * kFXStride : 0) + 4 * (lane >> 4);
+
+  float acc[32], part[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = part[i] = 0.f;
+
+  for (int t = 0; t < T; ++t) {
+    hopper::cp_async_wait<kFStages - 2>();  // stage t has landed (this thread's copies)
+    const float* hs = ring + (t % kFStages) * Tile::kStageElems;
+    float* ws = ring + (t % kFStages) * Tile::kStageElems + Tile::kHaloElems;
+    float* w_lo = lo_tiles + (t & 1) * kFWElems;  // last read by stage t - 2's products
+    // B: each weight this thread copied rounded to TF32 in place, its
+    // remainder to w_lo (the chunks of f_load_stage's loop)
+    for (int i = threadIdx.x; i < 9 * kFN * 2; i += Tile::kThreads) {
+      const int half = i & 1, r = i >> 1, n = r % kFN;
+      const int off = r / kFN * kFWTap + n * kFKc + ((half ^ ((n >> 2) & 1)) * 4);
+      const float4 v = *reinterpret_cast<const float4*>(ws + off);
+      uint4 hi, lo;
+      hopper::split_tf32(v.x, hi.x, lo.x);
+      hopper::split_tf32(v.y, hi.y, lo.y);
+      hopper::split_tf32(v.z, hi.z, lo.z);
+      hopper::split_tf32(v.w, hi.w, lo.w);
+      *reinterpret_cast<uint4*>(ws + off) = hi;
+      *reinterpret_cast<uint4*>(w_lo + off) = lo;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma's reads
+    __syncthreads();  // everyone's stage t; stage t-1's products are done, its slot free
+    fetch(t + kFStages - 1);
+    const uint64_t d_hi = hopper::wg_desc_sw32(ws), d_lo = hopper::wg_desc_sw32(w_lo);
+    uint32_t a_hi[kFABufs][4], a_lo[kFABufs][4];  // a tap's fragments stay until its products end
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int b = tap % kFABufs;
+      if (tap >= kFABufs) hopper::wgmma_wait<kFABufs - 1>();  // tap - kFABufs's products are done
+      uint32_t raw[4];
+      hopper::ldmatrix_x4(raw, reinterpret_cast<const bf16*>(
+                                   hs + a_off + ((tap / 3) * hw + tap % 3) * kFXStride));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hopper::split_tf32(__uint_as_float(raw[e]), a_hi[b][e], a_lo[b][e]);
+      const uint64_t off = (uint64_t)(tap * kFWTap * 4) >> 4;  // the tap's B tile
+      hopper::wgmma_fence();
+      hopper::wgmma_3xtf32(part, a_hi[b], a_lo[b], d_hi + off, d_lo + off, tap > 0);
+      hopper::wgmma_commit();
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(part);
+    // the stage's sums, rounded toward zero in the tensor cores, into the
+    // f32 accumulators with round-to-nearest adds
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] += part[i];
+
+    if (t % a.chunks == a.chunks - 1) {  // the item's last Cin chunk: store and restart
+      const Item it = f_item_at(a, blockIdx.x + (t / a.chunks) * gridDim.x);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int mm = wrow + gid + 8 * half;
+        const int r = mm / a.S, c = mm % a.S;
+        const int oh = it.h0 + r, ow = it.c0 + c;
+        const bool pix = r < a.R && oh < a.H && ow < a.W;
+        float* yp = a.y + (((size_t)it.b * a.H + oh) * a.W + ow) * a.Cout;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {  // columns 8 j + 2 t4, + 1
+          const int co = it.co0 + 8 * j + 2 * t4;
+          const float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+          if (!pix || co >= a.Cout) continue;
+          if (a.Cout % 2 == 0) {  // both in, 8-byte aligned
+            *reinterpret_cast<float2*>(yp + co) = make_float2(v0, v1);
+          } else {
+            yp[co] = v0;
+            if (co + 1 < a.Cout) yp[co + 1] = v1;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    }
+  }
+  hopper::cp_async_wait<0>();
+}
+
+// The blocks of the WG-warpgroup kernel the current device holds at once.
+template <int WG, bool kVec>
+cudaError_t f_resident(int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_f32_kernel<WG, kVec>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)FTile<WG>::kSmem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err != cudaSuccess || (err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, conv3x3_f32_kernel<WG, kVec>, FTile<WG>::kThreads, FTile<WG>::kSmem)) !=
+          cudaSuccess)
+    return err;
+  *blocks = sms * (per_sm > 0 ? per_sm : 1);
+  return cudaSuccess;
+}
+
+template <int WG, bool kVec>
+cudaError_t launch_f32(const FArgs& a, cudaStream_t st) {
+  int resident = 0;
+  const cudaError_t err = f_resident<WG, kVec>(&resident);
+  if (err != cudaSuccess) return err;
+  const int grid = a.items < resident ? a.items : resident;  // the blocks that fit, persistent
+  conv3x3_f32_kernel<WG, kVec><<<grid, FTile<WG>::kThreads, FTile<WG>::kSmem, st>>>(a);
+  return cudaGetLastError();
+}
+
+// Row segments of S <= 64 columns and items of R rows for WG-warpgroup
+// tiles: the fewest items (segments x row steps) over a few segment counts,
+// then the fewest segments.
+template <int WG>
+void f_plan(FArgs& a, int B) {
+  long long best = -1;
+  for (int segs = (a.W + kFSeg - 1) / kFSeg, n = 0; n < 4 && segs <= a.W; ++segs, ++n) {
+    const int S = (a.W + segs - 1) / segs;
+    const int R = min(FTile<WG>::kM / S, FTile<WG>::kHaloCap / (S + 2) - 2);
+    const long long cost = (long long)segs * ((a.H + R - 1) / R);
+    if (best < 0 || cost < best) best = cost, a.segs = segs, a.S = S, a.R = R;
+  }
+  a.rsteps = (a.H + a.R - 1) / a.R;
+  a.ntiles = (a.Cout + kFN - 1) / kFN;
+  a.chunks = (a.Cin + kFKc - 1) / kFKc;
+  const long long items = (long long)B * a.rsteps * a.segs * a.ntiles;
+  a.items = items * a.chunks > INT32_MAX ? -1 : (int)items;
+}
+
 }  // namespace
 
-// x: (B, H, W, Cin), w: (3, 3, Cin, Cout), y: (B, H, W, Cout), float32,
-// contiguous.  Returns a cudaError_t.
+// x: (B, H, W, Cin), w: (3, 3, Cout, Cin) (K-major: the HWIO kernel with
+// its channel axes swapped), y: (B, H, W, Cout), float32, contiguous; on
+// the tensor cores in three TF32 passes.  Returns a cudaError_t.
 extern "C" int k2_conv3x3_f32(const void* x, const void* w, void* y, int B, int H, int W,
                               int Cin, int Cout, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles_w = (W + kTW - 1) / kTW, tiles_h = (H + kTH - 1) / kTH;
-  dim3 grid(tiles_w * tiles_h, (Cout + kCO - 1) / kCO, B);
-  conv3x3_kernel<float><<<grid, kThreads, 0, st>>>(static_cast<const float*>(x),
-                                               static_cast<const float*>(w),
-                                               static_cast<float*>(y), H, W, Cin, Cout, tiles_w);
-  return (int)cudaGetLastError();
+  if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0) return (int)cudaErrorInvalidValue;
+  FArgs a;
+  a.x = static_cast<const float*>(x);
+  a.w = static_cast<const float*>(w);
+  a.y = static_cast<float*>(y);
+  a.H = H, a.W = W, a.Cin = Cin, a.Cout = Cout;
+  // four warpgroups a block where their items fill the card kFWideItems
+  // times over (their weights serve twice the pixels), else two
+  int dev = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  FArgs wide = a;
+  f_plan<4>(wide, B);
+  const bool use_wide = wide.items >= (long long)kFWideItems * sms;
+  if (use_wide) a = wide;
+  else f_plan<2>(a, B);
+  if (a.items < 0) return (int)cudaErrorInvalidValue;
+  const bool vec = Cin % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  if (use_wide) return (int)(vec ? launch_f32<4, true>(a, st) : launch_f32<4, false>(a, st));
+  return (int)(vec ? launch_f32<2, true>(a, st) : launch_f32<2, false>(a, st));
 }
 
 // The same for bfloat16 x, w and y, on the tensor cores.  Returns a

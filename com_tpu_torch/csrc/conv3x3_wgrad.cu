@@ -9,7 +9,8 @@
 // What bounds it on an H100: operations.  At the training shapes (2, 468,
 // 468, 64->64), (2, 234, 234, 128->128) and (2, 117, 117, 256->256) each
 // call is 2 * 9 * Cin * Cout * B*H*W = 32.3 GFLOP against 28-56 MB read;
-// at the bf16 tensor-core peak the bound is about 33 us a call.
+// at the bf16 tensor-core peak the bound is about 33 us a call, in f32
+// (three TF32 products an operation at 495 TFLOP/s) about 196 us.
 //
 // The reduction runs over B*H*W pixels (438,048 at 468 x 468) and the
 // output is small (36,864-589,824 values), so the work is split along the
@@ -43,17 +44,30 @@
 // its transposed shared-memory descriptor layout; this version stays on
 // the warp-level instruction.
 //
-// f32 (`k2w_conv3x3_wgrad_f32`, unchanged from the first port): CUDA
-// cores.  A block owns one (tap, 64-wide Cin tile, 64-wide Cout tile) and
-// one chunk of pixels; 32 pixels at a time of the shifted input and of g go
-// to shared memory as f32, and each of 256 threads accumulates a 4 x 4
-// (ci, co) piece of the outer products (f32 FMA).  Each thread loads one
-// pixel's eight channels of x and of g per batch (16-byte loads where the
-// channel counts and pointers allow) and the next batch into registers
-// while the block multiplies the current one.  The tile index runs fastest
-// in the grid, so the blocks that read one chunk of pixels run together and
-// share it through L2; the wrapper sizes the grid to two full waves
-// (`k2w_resident_blocks_f32`).
+// f32 (`k2w_conv3x3_wgrad_f32`): three TF32 passes on `wgmma`
+// (`hopper::split_tf32`: each value split once into hi + lo; lo*hi + hi*lo
+// + hi*hi, to about 2^-20 of sum |x||g|).  A block owns one kernel row dy,
+// 64 input and 64 output channels and runs three warpgroups, one a tap dx:
+// each `wgmma.m64n64k8` has M = 64 input channels, N = 64 output channels,
+// K = 8 pixels.  The pixels go as row segments, the map's width cut into
+// ceil(W / 64) equal ones (35 of 35 pixels, not 35 of 64), a segment a
+// stage and its K the segment rounded up to 8, the pixels past it zero.  A
+// stage holds x's row h + dy - 1 over the segment and its halo ([pixel]
+// [channel], 72 floats a pixel) and g's row segment.  A = x^T at pixel k +
+// dx comes from registers: 8-byte loads along the channels (M rows gid and
+// gid + 8 of a warp's 16 are channels 2 gid and 2 gid + 1), split there.  B
+// must be K-major for TF32, so the thread that copies a 4-channel x
+// 4-pixel piece of g transposes it into the k8 steps' 32-byte swizzled
+// tiles (channel rows of 8 pixels), rounded to TF32, with the remainders in
+// tiles beside (double buffered): one barrier a stage.  The tensor cores'
+// f32 sums round toward zero, so a stage's products go into accumulators
+// of their own, added to the block's f32 accumulators with round-to-nearest
+// adds.  Stages go through a ring of kFStages = 2 buffers filled by
+// `cp.async` (4-byte copies where channel counts or pointers are ragged);
+// 139 KB of shared memory, one block an SM; the wrapper sizes the chunks to
+// two waves of those blocks (`k2w_resident_blocks_f32`, `ops/conv2d.py`
+// `wgrad_plan`).  The tile sweep finds the staging and the products each
+// about a quarter of the call, the splits a twentieth.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,113 +75,6 @@
 #include "hopper.cuh"
 
 namespace {
-
-// ---- f32: CUDA cores ----
-
-constexpr int kTile = 64;      // Cin and Cout per block
-constexpr int kPix = 32;       // pixels per shared-memory batch
-constexpr int kRow = kTile + 4;  // row stride in shared memory (keeps float4 alignment)
-constexpr int kThreads = 256;
-constexpr int kGroup = 8;      // channels one thread loads per pixel (kThreads = kPix * kTile / kGroup)
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-
-// Eight consecutive channels from src (16-byte aligned) as f32.
-__device__ __forceinline__ void load8(const float* src, float* v) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(src));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(src) + 1);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-// Channels c0 .. c0+7 (those below n) of the row at src, zero past n.
-template <typename T, bool kVec>
-__device__ __forceinline__ void load_group(const T* src, int c0, int n, float* v) {
-  if (kVec) {  // n is a multiple of 8, so the group is all in or all out
-    if (c0 < n) load8(src + c0, v);
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < kGroup; ++i)
-    if (c0 + i < n) v[i] = to_f(src[c0 + i]);
-}
-
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __restrict__ part,
-                     int H, int W, int Cin, int Cout, int P, int chunk, int ci_tiles,
-                     int co_tiles) {
-  __shared__ __align__(16) float s_x[kPix * kRow];
-  __shared__ __align__(16) float s_g[kPix * kRow];
-  const int grp = blockIdx.x;
-  const int cot = grp % co_tiles;
-  const int cit = (grp / co_tiles) % ci_tiles;
-  const int tap = grp / (co_tiles * ci_tiles);
-  const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-  const int ci0 = cit * kTile, co0 = cot * kTile;
-  const int p0 = blockIdx.y * chunk;
-  const int p1 = min(P, p0 + chunk);
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;  // ci = ci0 + 4 ty + i, co = co0 + 4 tx + j
-  const int lk = tid / (kTile / kGroup);   // the pixel this thread loads in a batch
-  const int lc = (tid % (kTile / kGroup)) * kGroup;  // and its first channel in the tile
-
-  // one pixel's channels lc .. lc+7 of x (shifted by the tap) and of g
-  float xr[kGroup], gr[kGroup];
-  auto load = [&](int p) {
-#pragma unroll
-    for (int i = 0; i < kGroup; ++i) xr[i] = gr[i] = 0.f;
-    if (p >= p1) return;
-    const int w = p % W, row = p / W, h = row % H;  // row = b * H + h
-    load_group<T, kVec>(g + (size_t)p * Cout + co0, lc, Cout - co0, gr);
-    const int hs = h + dy, ws = w + dx;
-    if (hs >= 0 && hs < H && ws >= 0 && ws < W)
-      load_group<T, kVec>(x + ((size_t)(row + dy) * W + ws) * Cin + ci0, lc, Cin - ci0, xr);
-  };
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  load(p0 + lk);
-  for (int pb = p0; pb < p1; pb += kPix) {
-    float4* sx = reinterpret_cast<float4*>(&s_x[lk * kRow + lc]);
-    float4* sg = reinterpret_cast<float4*>(&s_g[lk * kRow + lc]);
-    sx[0] = make_float4(xr[0], xr[1], xr[2], xr[3]);
-    sx[1] = make_float4(xr[4], xr[5], xr[6], xr[7]);
-    sg[0] = make_float4(gr[0], gr[1], gr[2], gr[3]);
-    sg[1] = make_float4(gr[4], gr[5], gr[6], gr[7]);
-    __syncthreads();
-    load(pb + kPix + lk);  // the next batch, in flight while this one is multiplied
-#pragma unroll 8
-    for (int k = 0; k < kPix; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&s_x[k * kRow + ty * 4]);
-      const float4 q = *reinterpret_cast<const float4*>(&s_g[k * kRow + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float qv[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], qv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* out = part + ((size_t)blockIdx.y * 9 + tap) * Cin * Cout;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int ci = ci0 + ty * 4 + i;
-    if (ci >= Cin) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int co = co0 + tx * 4 + j;
-      if (co < Cout) out[(size_t)ci * Cout + co] = acc[i][j];
-    }
-  }
-}
 
 // dw[i] = sum over chunks c = 0, 1, ... of part[c][i], in that order.
 __global__ void wgrad_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw,
@@ -177,23 +84,6 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ part, float* __res
   float s = 0.f;
   for (int c = 0; c < chunks; ++c) s += part[(size_t)c * n + i];
   dw[i] = s;
-}
-
-template <typename T>
-void launch_partial(const void* x, const void* g, float* part, int H, int W, int Cin, int Cout,
-                    int P, int chunk, int chunks, int ci_tiles, int co_tiles, cudaStream_t st) {
-  const dim3 grid(9 * ci_tiles * co_tiles, chunks);
-  const T* xt = static_cast<const T*>(x);
-  const T* gt = static_cast<const T*>(g);
-  const bool vec = Cin % kGroup == 0 && Cout % kGroup == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(g) % 16 == 0;
-  if (vec)
-    wgrad_partial_kernel<T, true><<<grid, kThreads, 0, st>>>(xt, gt, part, H, W, Cin, Cout, P,
-                                                             chunk, ci_tiles, co_tiles);
-  else
-    wgrad_partial_kernel<T, false><<<grid, kThreads, 0, st>>>(xt, gt, part, H, W, Cin, Cout, P,
-                                                              chunk, ci_tiles, co_tiles);
 }
 
 
@@ -340,40 +230,247 @@ cudaError_t tc_occupancy(int* blocks) {
                                                        kTcSmem);
 }
 
+// ---- f32: three-pass TF32 on the tensor cores (wgmma) ----
+
+constexpr int kFCi = 64;            // input channels a block: wgmma's M
+constexpr int kFCo = 64;            // output channels a block: wgmma's N
+constexpr int kFStages = 2;         // the cp.async ring
+constexpr int kFABufs = 3;          // A fragment buffers: k8 steps whose products are in flight
+constexpr int kFThreads = 384;      // 3 warpgroups, one a tap dx
+constexpr int kFSeg = 64;           // the widest row segment: K slots a stage
+constexpr int kFXStride = kFCi + 8;  // floats a staged x pixel: rows t4 on 4 octets of banks
+constexpr int kFGStride = kFCo + 4;  // floats a staged g pixel
+constexpr int kFXElems = (kFSeg + 2) * kFXStride;
+constexpr int kFStageElems = (kFXElems + kFSeg * kFGStride + 63) / 64 * 64;  // 256-byte multiple
+constexpr int kFBTile = kFCo * 8;   // floats of a k8 step's B tile: 64 rows of 8 pixels (32 bytes)
+constexpr int kFBElems = kFSeg / 8 * kFBTile;  // a stage's B tiles
+// the ring, two stages' B tiles rounded to TF32 and their remainders, 256
+// bytes to align the base
+constexpr size_t kFSmem = sizeof(float) * (kFStages * kFStageElems + 4 * kFBElems) + 256;
+static_assert(kFCi == 64 && kFCo == 64 && kFSeg % 8 == 0, "wgmma m64n64k8 tiles");
+static_assert(kFXStride % 32 == 8, "conflict-free A loads");
+
+struct FArgs {
+  const float* x;  // (B, H, W, Cin)
+  const float* g;  // (B, H, W, Cout)
+  float* part;     // (chunks, 3, 3, Cin, Cout)
+  int H, W, Cin, Cout;
+  int S, segs, ksteps;  // segment width, segments a row, k8 steps a stage (S rounded up)
+  int ci_tiles, co_tiles, steps, steps_per_chunk;
+};
+
+template <bool kVec>
+__global__ void __launch_bounds__(kFThreads, 1) wgrad_f32_kernel(FArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(
+      smem_raw + ((256 - (hopper::smem_addr(smem_raw) & 255)) & 255));
+  float* b_tiles = ring + kFStages * kFStageElems;  // [t & 1][hi, lo][k8 step] B tiles
+
+  const int cot = blockIdx.x % a.co_tiles;
+  const int cit = (blockIdx.x / a.co_tiles) % a.ci_tiles;
+  const int dy = blockIdx.x / (a.co_tiles * a.ci_tiles);
+  const int ci0 = cit * kFCi, co0 = cot * kFCo;
+  const int s0 = blockIdx.y * a.steps_per_chunk;
+  const int T = max(0, min(a.steps, s0 + a.steps_per_chunk) - s0);  // this block's segments
+  const int kpix = a.ksteps * 8;
+  const int pieces = kFCo / 4 * (kpix / 4);  // g's 4-channel x 4-pixel pieces a stage
+
+  auto fetch = [&](int t) {
+    if (t < T) {
+      const int s = s0 + t;  // s = (b * H + h) * segs + seg
+      const int seg = s % a.segs, bh = s / a.segs;
+      const int h = bh % a.H, b = bh / a.H;
+      const int c0 = seg * a.S;
+      float* xs = ring + (t % kFStages) * kFStageElems;
+      // x's row h + dy - 1 over the segment and its halo, zero past them
+      hopper::stage_row_f32<kFThreads, kVec>(xs, kFXStride, kFCi / 4,
+                                             a.x + (size_t)b * a.H * a.W * a.Cin, a.x,
+                                             h + dy - 1, c0 - 1, kpix + 2, c0 - 1, c0 + a.S + 1,
+                                             ci0, a.Cin, a.H, a.W);
+      // g's row h over the segment (zero past it), in pieces of 4 channels x
+      // 4 pixels: the thread that copies a piece transposes it
+      const bool row_in = h < a.H;
+      const float* gb = a.g + ((size_t)b * a.H + h) * a.W * a.Cout;
+      float* gs = xs + kFXElems;
+      for (int q = threadIdx.x; q < pieces; q += kFThreads) {
+        const int cg = q % (kFCo / 4), pb = q / (kFCo / 4);
+        const int co = co0 + cg * 4;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int p = pb * 4 + j, col = c0 + p;
+          const bool in = row_in && p < a.S && col < a.W;
+          const float* src = gb + (size_t)col * a.Cout + co;
+          float* dst = gs + p * kFGStride + cg * 4;
+          if (kVec) {  // Cout is a multiple of 4: the group is all in or all out
+            hopper::cp_async16(dst, in && co < a.Cout ? src : a.g, in && co < a.Cout);
+          } else {
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              hopper::cp_async4(dst + k, in && co + k < a.Cout ? src + k : a.g,
+                                in && co + k < a.Cout);
+          }
+        }
+      }
+    }
+    hopper::cp_async_commit();  // one group a stage, empty past the end
+  };
+#pragma unroll
+  for (int s = 0; s < kFStages - 1; ++s) fetch(s);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, t4 = lane & 3;
+  const int dx = warp >> 2, w4 = warp & 3;  // this warp's tap and its 16 of the 64 channels
+  // A (M = ci x K = pixels) from x's [pixel][channel] rows at pixel k + dx:
+  // rows gid and gid + 8 of the warp's 16 are channels 2 gid and 2 gid + 1
+  const int a_off = (t4 + dx) * kFXStride + 16 * w4 + 2 * gid;
+
+  float acc[32], part[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = part[i] = 0.f;
+
+  for (int t = 0; t < T; ++t) {
+    hopper::cp_async_wait<kFStages - 2>();  // stage t has landed (this thread's copies)
+    const float* xs = ring + (t % kFStages) * kFStageElems;
+    const float* gs = xs + kFXElems;
+    float* bt = b_tiles + (t & 1) * 2 * kFBElems;  // last read by stage t - 2's products
+    // B: this thread's pieces of g transposed to [channel][pixel] rows of the
+    // k8 steps' tiles (32-byte swizzle), rounded to TF32, remainders beside
+    for (int q = threadIdx.x; q < pieces; q += kFThreads) {
+      const int cg = q % (kFCo / 4), pb = q / (kFCo / 4);
+      float v[4][4];  // [pixel][channel]
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 r = *reinterpret_cast<const float4*>(gs + (pb * 4 + j) * kFGStride + cg * 4);
+        v[j][0] = r.x, v[j][1] = r.y, v[j][2] = r.z, v[j][3] = r.w;
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int n = cg * 4 + c;
+        const int off = pb / 2 * kFBTile + n * 8 + (((pb & 1) ^ ((n >> 2) & 1)) * 4);
+        uint4 hi, lo;
+        hopper::split_tf32(v[0][c], hi.x, lo.x);
+        hopper::split_tf32(v[1][c], hi.y, lo.y);
+        hopper::split_tf32(v[2][c], hi.z, lo.z);
+        hopper::split_tf32(v[3][c], hi.w, lo.w);
+        *reinterpret_cast<uint4*>(bt + off) = hi;
+        *reinterpret_cast<uint4*>(bt + kFBElems + off) = lo;
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma's reads
+    __syncthreads();  // everyone's stage t; stage t-1's products are done, its slot free
+    fetch(t + kFStages - 1);
+    const uint64_t d_hi = hopper::wg_desc_sw32(bt), d_lo = hopper::wg_desc_sw32(bt + kFBElems);
+    uint32_t a_hi[kFABufs][4], a_lo[kFABufs][4];  // a step's fragments stay until its products end
+#pragma unroll
+    for (int ks = 0; ks < kFSeg / 8; ++ks) {
+      if (ks >= a.ksteps) break;
+      const int b = ks % kFABufs;
+      if (ks >= kFABufs) hopper::wgmma_wait<kFABufs - 1>();  // ks - kFABufs's products are done
+      // a0, a1 = pixel 8 ks + t4 (+ dx), channels 2 gid, 2 gid + 1; a2, a3 = pixel + 4
+      const float2 u = *reinterpret_cast<const float2*>(xs + ks * 8 * kFXStride + a_off);
+      const float2 w = *reinterpret_cast<const float2*>(xs + (ks * 8 + 4) * kFXStride + a_off);
+      hopper::split_tf32(u.x, a_hi[b][0], a_lo[b][0]);
+      hopper::split_tf32(u.y, a_hi[b][1], a_lo[b][1]);
+      hopper::split_tf32(w.x, a_hi[b][2], a_lo[b][2]);
+      hopper::split_tf32(w.y, a_hi[b][3], a_lo[b][3]);
+      const uint64_t off = (uint64_t)(ks * kFBTile * 4) >> 4;  // the step's B tile
+      hopper::wgmma_fence();
+      hopper::wgmma_3xtf32(part, a_hi[b], a_lo[b], d_hi + off, d_lo + off, ks > 0);
+      hopper::wgmma_commit();
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(part);
+    // the stage's sums, rounded toward zero in the tensor cores, into the
+    // f32 accumulators with round-to-nearest adds
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] += part[i];
+  }
+  hopper::cp_async_wait<0>();
+
+  // this chunk's partial of dw[dy, dx, ci, co] (zeros for an empty chunk)
+  float* out = a.part + ((size_t)blockIdx.y * 9 + dy * 3 + dx) * a.Cin * a.Cout;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int ci = ci0 + 16 * w4 + 2 * gid + half;
+    if (ci >= a.Cin) continue;
+    float* row = out + (size_t)ci * a.Cout;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {  // columns 8 j + 2 t4, + 1
+      const int co = co0 + 8 * j + 2 * t4;
+      const float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+      if (co >= a.Cout) continue;
+      if (a.Cout % 2 == 0) {  // both in, 8-byte aligned (part is the wrapper's allocation)
+        *reinterpret_cast<float2*>(row + co) = make_float2(v0, v1);
+      } else {
+        row[co] = v0;
+        if (co + 1 < a.Cout) row[co + 1] = v1;
+      }
+    }
+  }
+}
+
+template <bool kVec>
+cudaError_t f32_occupancy(int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(wgrad_f32_kernel<kVec>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFSmem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, wgrad_f32_kernel<kVec>, kFThreads,
+                                                       kFSmem);
+}
+
 }  // namespace
 
-// Blocks of the f32 partial kernel that the current device runs at once
-// (the fewer of its two variants), or -1 on an error.
+// Blocks of the f32 tensor-core kernel that the current device runs at
+// once (the fewer of its two variants), or -1 on an error.
 extern "C" int k2w_resident_blocks_f32() {
   int dev = 0, sms = 0, a = 0, b = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&a, wgrad_partial_kernel<float, true>,
-                                                    kThreads, 0) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, wgrad_partial_kernel<float, false>,
-                                                    kThreads, 0) != cudaSuccess)
+      f32_occupancy<true>(&a) != cudaSuccess || f32_occupancy<false>(&b) != cudaSuccess)
     return -1;
   return sms * min(a, b);
 }
 
 // x: (B, H, W, Cin), g: (B, H, W, Cout), float32, contiguous; part:
-// (chunks, 3, 3, Cin, Cout) f32 scratch; dw: (3, 3, Cin, Cout) f32.
-// Returns a cudaError_t.
+// (chunks, 3, 3, Cin, Cout) f32 scratch; dw: (3, 3, Cin, Cout) f32.  The
+// pixels go as B * H * ceil(W / 64) row segments of equal width, chunk c
+// taking segments c * per .. (c + 1) * per - 1 with per = ceil(segments /
+// chunks) (a chunk past the last segment writes a zero partial).  Returns a
+// cudaError_t.
 extern "C" int k2w_conv3x3_wgrad_f32(const void* x, const void* g, void* part, void* dw, int B,
                                      int H, int W, int Cin, int Cout, int chunks, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long P = (long long)B * H * W;
-  if (P > INT32_MAX - 2 * kPix) return (int)cudaErrorInvalidValue;  // pixel indices are int
-  const int chunk = (int)((P + chunks - 1) / chunks);
-  const int ci_tiles = (Cin + kTile - 1) / kTile, co_tiles = (Cout + kTile - 1) / kTile;
-  float* fpart = static_cast<float*>(part);
-  launch_partial<float>(x, g, fpart, H, W, Cin, Cout, (int)P, chunk, chunks, ci_tiles, co_tiles,
-                        st);
-  cudaError_t err = cudaGetLastError();
+  if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || chunks <= 0 || chunks > 65535)
+    return (int)cudaErrorInvalidValue;
+  FArgs a;
+  a.x = static_cast<const float*>(x);
+  a.g = static_cast<const float*>(g);
+  a.part = static_cast<float*>(part);
+  a.H = H, a.W = W, a.Cin = Cin, a.Cout = Cout;
+  a.segs = (W + kFSeg - 1) / kFSeg;
+  a.S = (W + a.segs - 1) / a.segs;
+  a.ksteps = (a.S + 7) / 8;
+  a.ci_tiles = (Cin + kFCi - 1) / kFCi;
+  a.co_tiles = (Cout + kFCo - 1) / kFCo;
+  const long long steps = (long long)B * H * a.segs;
+  if (steps > INT32_MAX) return (int)cudaErrorInvalidValue;
+  a.steps = (int)steps;
+  a.steps_per_chunk = (int)((steps + chunks - 1) / chunks);
+  const bool vec = Cin % 4 == 0 && Cout % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  int dummy = 0;
+  cudaError_t err = vec ? f32_occupancy<true>(&dummy) : f32_occupancy<false>(&dummy);
   if (err != cudaSuccess) return (int)err;
+  const dim3 grid(3 * a.ci_tiles * a.co_tiles, chunks);  // (dy, Cin tile, Cout tile) x chunks
+  if (vec)
+    wgrad_f32_kernel<true><<<grid, kFThreads, kFSmem, st>>>(a);
+  else
+    wgrad_f32_kernel<false><<<grid, kFThreads, kFSmem, st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long n = 9LL * Cin * Cout;
-  wgrad_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(fpart, static_cast<float*>(dw),
-                                                                    n, chunks);
+  wgrad_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(a.part,
+                                                                    static_cast<float*>(dw), n,
+                                                                    chunks);
   return (int)cudaGetLastError();
 }
 

@@ -16,8 +16,10 @@ the input gradient (dgrad) is K2 again on the output gradient with the
 kernel rotated 180 degrees and its channel axes swapped
 (``rotate_kernel``); the weight gradient is K2w, f32 (3, 3, Cin, Cout) cast
 to w's dtype.  Each op launches its CUDA kernel (``csrc/conv3x3.cu``,
-``csrc/conv3x3_wgrad.cu``) for a CUDA tensor: bf16 on the tensor cores, f32
-on the CUDA cores.  For a CPU tensor each runs its plain version
+``csrc/conv3x3_wgrad.cu``) for a CUDA tensor, on the tensor cores in both
+dtypes: bf16 products, and f32 as three TF32 products a pair of operands
+(each split into a TF32 head and tail), to about 2^-20 of sum |x||w|.  For
+a CPU tensor each runs its plain version
 (``conv3x3_plain``, ``conv3x3_wgrad_plain``); a fake implementation gives
 shapes only.  The TPU kernel's split of wide inputs into <=128-channel
 slices existed only for the TPU's VMEM and is not carried over.
@@ -34,11 +36,13 @@ dgrad_launches = 0  # K2 launches by conv3x3's backward (dgrad) since the last r
 wgrad_launches = 0  # K2w launches since the last reset
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}  # the C entry points' dtype suffix
-# K2w's grid: this many full waves of the blocks a card holds at once (f32:
-# fixed pixel chunks, so a second wave evens out the tail; bf16: chunks cut
-# to equal runs of row segments, so one wave)
+# K2w's grid: this many waves of the blocks a card holds at once, its row
+# segments cut into equal runs, one f32 partial each.  bf16: one wave (3-4
+# blocks an SM).  f32: one block an SM, so at the small maps one wave leaves
+# SMs idle (CaDDN's (2,47,35,256): 48 tiles, 2 chunks, 96 blocks); two
+# waves fill them at the cost of twice the partials to add
 _WGRAD_WAVES = {torch.float32: 2, torch.bfloat16: 1}
-WGRAD_SEGMENT = 64  # pixels of a row segment, the bf16 K2w's step
+WGRAD_SEGMENT = 64  # the widest row segment: K2w's step is ceil(W / 64) equal ones a row
 _resident_blocks: dict[tuple[int, torch.dtype], int] = {}  # (device, dtype) -> K2w blocks at once
 
 
@@ -77,14 +81,16 @@ def rotate_kernel(w: torch.Tensor) -> torch.Tensor:
     return w.flip(0).flip(1).transpose(2, 3).contiguous()
 
 
-def wgrad_plan(b: int, h: int, wd: int, cin: int, cout: int, resident: int) -> tuple[int, int]:
-    """(chunks, steps a chunk) of the bf16 K2w: its B * H * ceil(W / 64) row
-    segments cut into equal runs, one f32 partial each, so that the grid
-    (3 * ceil(Cin / 64) * ceil(Cout / 64) tiles x chunks) is one wave of the
-    ``resident`` blocks the card holds at once.  No chunk is empty."""
+def wgrad_plan(b: int, h: int, wd: int, cin: int, cout: int, resident: int,
+               dtype: torch.dtype = torch.bfloat16) -> tuple[int, int]:
+    """(chunks, steps a chunk) of K2w in ``dtype``: its B * H * ceil(W / 64)
+    row segments cut into equal runs, one f32 partial each, so that the grid
+    (3 * ceil(Cin / 64) * ceil(Cout / 64) tiles x chunks) is
+    ``_WGRAD_WAVES[dtype]`` waves of the ``resident`` blocks the card holds
+    at once.  No chunk is empty."""
     steps = b * h * -(-wd // WGRAD_SEGMENT)
     tiles = 3 * -(-cin // 64) * -(-cout // 64)
-    chunks = max(1, min(_WGRAD_WAVES[torch.bfloat16] * resident // tiles, steps, 65535))
+    chunks = max(1, min(_WGRAD_WAVES[dtype] * resident // tiles, steps, 65535))
     per = -(-steps // chunks)
     return -(-steps // per), per
 
@@ -101,14 +107,18 @@ def _check(x, w, what):
 def _k2(x: torch.Tensor, w: torch.Tensor, counter: str) -> torch.Tensor:
     """One K2 call: the kernel for a CUDA tensor, the plain version for a
     CPU tensor.  A launch adds one to the module counter named ``counter``
-    (``launches`` or ``dgrad_launches``)."""
+    (``launches`` or ``dgrad_launches``).  The f32 kernel reads w K-major,
+    (3, 3, Cout, Cin): copied here from the HWIO w (a view whose channel
+    axes swapped back are contiguous is not copied)."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, w)
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, x.shape[-1]):
         raise ValueError(f"conv3x3: x {tuple(x.shape)} and w {tuple(w.shape)}")
-    _check(x, w, "conv3x3")
     b, h, wd, cin = x.shape
     cout = w.shape[-1]
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        w = w.transpose(2, 3).contiguous()
+    _check(x, w, "conv3x3")
     y = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
@@ -143,14 +153,8 @@ def _conv3x3_wgrad_op(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         if cap <= 0:
             raise RuntimeError("conv3x3_wgrad (K2w): occupancy query failed")
         _resident_blocks[key] = cap
-    if x.dtype == torch.bfloat16:
-        chunks, per = wgrad_plan(b, h, wd, cin, cout, _resident_blocks[key])
-        args = (chunks, per)
-    else:
-        groups = 9 * -(-cin // 64) * -(-cout // 64)
-        chunks = max(1, min(_WGRAD_WAVES[x.dtype] * _resident_blocks[key] // groups,
-                            -(-(b * h * wd) // 256)))
-        args = (chunks,)
+    chunks, per = wgrad_plan(b, h, wd, cin, cout, _resident_blocks[key], x.dtype)
+    args = (chunks, per) if x.dtype == torch.bfloat16 else (chunks,)  # f32: per from chunks
     part = torch.empty((chunks, 3, 3, cin, cout), dtype=torch.float32, device=x.device)
     _kernels.launch("conv3x3_wgrad", f"k2w_conv3x3_wgrad_{sfx}", "conv3x3_wgrad (K2w)",
                     x.get_device(), x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(),
@@ -174,6 +178,10 @@ def _conv3x3_op(x: torch.Tensor, w: torch.Tensor, dgrad: bool) -> torch.Tensor:
     (``rotate_kernel``); its launches count in ``dgrad_launches``, the
     forward's in ``launches``."""
     if dgrad:
+        if x.device.type == "cuda" and x.dtype == torch.float32:
+            # the rotated kernel as a view: K-major, as the f32 kernel reads
+            # it, it is the kernel flipped, so no transpose is copied
+            return _k2(x, w.flip(0, 1).transpose(2, 3), "dgrad_launches")
         return _k2(x, rotate_kernel(w), "dgrad_launches")
     return _k2(x, w, "launches")
 

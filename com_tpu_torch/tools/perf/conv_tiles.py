@@ -1,21 +1,37 @@
-"""Tile sweep of the tensor-core K2 and K2w, of T1-T4, and of K1, K3 and K4,
-on the card.
+"""Tile sweep of the tensor-core K2 and K2w (bf16 and f32), of T1-T4, and of
+K1, K3 and K4, on the card.
 
     python -m com_tpu_torch.tools.perf.conv_tiles [VARIANT ...]
 
 Builds copies of ``csrc/conv3x3.cu`` / ``csrc/conv3x3_wgrad.cu`` with their
 tile constants replaced and times each bf16 entry point at the backbone's
-three shapes (2,468,468,64->64), (2,234,234,128->128), (2,117,117,256->256)
-against the plain version.  A variant names the kernel and its constants,
-with an optional diagnostic:
+three shapes (2,468,468,64->64), (2,234,234,128->128), (2,117,117,256->256),
+and each f32 entry point at path T's (2,200,176,256->128),
+(2,200,176,128->128), (2,100,88,256->256) and path U.2's (CaDDN)
+(2,188,140,64->64), (2,94,70,128->128), (2,47,35,256->256), against the
+plain version.  A variant names the kernel and its constants, with an
+optional diagnostic:
 
   k2:TR,KC,STAGES              kTR, kKc, kStages of conv3x3.cu
   k2w:DY,CI,CO,WARPS_M,STAGES  kDY, kCi, kCo, kWarpsM, kStages of conv3x3_wgrad.cu
+  k2f:STAGES,ABUFS,WIDE        kFStages, kFABufs, kFWideItems of conv3x3.cu (f32;
+                               WIDE 0: always 4 warpgroups a block, a large
+                               number: always 2)
+  k2wf:STAGES,ABUFS            kFStages, kFABufs of conv3x3_wgrad.cu (f32)
   ...,noload                   stages loaded only before the main loop (the
                                products run on stale data): the time without
                                the loads
-  ...,nomma                    each mma.sync replaced by one add: the time
-                               without the products
+  ...,nomma                    each mma.sync (f32: each three-pass product)
+                               replaced by one add of its fragments' bits:
+                               the time without the products
+  ...,nosplit                  (f32) the fragments passed unsplit, hi = lo =
+                               the f32 value: the time without the TF32 splits
+  ...,inacc                    (f32) the products summed in the tensor cores'
+                               accumulators for the whole call, without the
+                               stages' round-to-nearest adds: its pos_err
+                               (the largest and the mean relative error on
+                               |x|, |w| against f64, printed for every f32
+                               variant) shows their rounding toward zero
   t1:STAGES                    kStages (T1's, T2's and T4's ring),
   t2:WARPS_M,STAGES            kXcolWarpsM (T2's warps along M), and
   t3:STAGES                    kGt9Stages (T3's ring) of wgrad_variants.cu
@@ -50,7 +66,8 @@ with an optional diagnostic:
                                constant; no cell computed, leaving the object
                                loads, the compaction and the canvas write)
 
-Without arguments it runs the shipped tiles and the two diagnostics of each,
+Without arguments it runs the shipped tiles and the diagnostics of each
+(bf16 and f32), six other sets of the f32 kernels' constants,
 T1-T4's shipped constants, their diagnostics, T3's other base offset and
 other stage counts of each, K1's shipped constants, its three diagnostics and four other sets, and
 four sets each of K4 and K3 (the first of each the shipped one).
@@ -77,8 +94,12 @@ from com_tpu_torch.utils.device import resolve_device
 
 SHAPES = ((2, 468, 468, 64, 64), (2, 234, 234, 128, 128), (2, 117, 117, 256, 256))
 ITERS = 20
+F32_SHAPES = ((2, 200, 176, 256, 128), (2, 200, 176, 128, 128), (2, 100, 88, 256, 256),
+              (2, 188, 140, 64, 64), (2, 94, 70, 128, 128), (2, 47, 35, 256, 256))
 CONSTANTS = {"k2": ("conv3x3", ("kTR", "kKc", "kStages")),
              "k2w": ("conv3x3_wgrad", ("kDY", "kCi", "kCo", "kWarpsM", "kStages")),
+             "k2f": ("conv3x3", ("kFStages", "kFABufs", "kFWideItems")),
+             "k2wf": ("conv3x3_wgrad", ("kFStages", "kFABufs")),
              "k1": ("seg_scan", ("kFwdRows", "kBwdRows", "kThreads", "kMinBlocks")),
              "k4": ("nms", ("kThreads", "kPackThreads")),
              "k3": ("stamp", ("kTileH", "kObjs")),
@@ -88,6 +109,11 @@ CONSTANTS = {"k2": ("conv3x3", ("kTR", "kKc", "kStages")),
              "t4": ("wgrad_variants", ("kStages",))}
 DEFAULT = ("k2:8,32,2", "k2:8,32,2,noload", "k2:8,32,2,nomma",
            "k2w:1,64,64,4,4", "k2w:1,64,64,4,4,noload", "k2w:1,64,64,4,4,nomma")
+F32_DEFAULT = ("k2f:2,3,3", "k2f:2,3,3,noload", "k2f:2,3,3,nomma", "k2f:2,3,3,nosplit",
+               "k2f:2,3,3,inacc", "k2f:2,3,0", "k2f:2,3,1000000", "k2f:3,3,3", "k2f:2,2,3",
+               "k2wf:2,3", "k2wf:2,3,noload", "k2wf:2,3,nomma", "k2wf:2,3,nosplit",
+               "k2wf:2,3,inacc", "k2wf:3,3", "k2wf:2,2")
+F32_SHIPPED = ("k2f:2,3,3", "k2wf:2,3")
 K1_DEFAULT = ("k1:8,4,256,2", "k1:8,4,256,2,noload", "k1:8,4,256,2,noscan",
               "k1:8,4,256,2,mainonly", "k1:8,4,256,1", "k1:16,8,256,1", "k1:4,4,256,3",
               "k1:8,4,128,4")
@@ -100,7 +126,8 @@ T_DEFAULT = ("t1:3", "t1:3,noload", "t1:3,nomma", "t1:3,nocol", "t1:4",
              "t4:3", "t4:3,noload", "t4:3,nomma", "t4:3,nocol", "t4:4")
 T_SHIPPED = ("t1:3", "t2:4,3", "t3:3", "t4:3")
 DIAGS = {"k1": ("noload", "noscan", "mainonly"), "k2": ("noload", "nomma"),
-         "k2w": ("noload", "nomma"), "k3": ("noexp", "nocells"), "k4": (),
+         "k2w": ("noload", "nomma"), "k2f": ("noload", "nomma", "nosplit", "inacc"),
+         "k2wf": ("noload", "nomma", "nosplit", "inacc"), "k3": ("noexp", "nocells"), "k4": (),
          "t1": ("noload", "nomma", "nocol"), "t2": ("noload", "nomma", "nocol"),
          "t3": ("noload", "nomma", "viewbase"), "t4": ("noload", "nomma", "nocol")}
 _K3_EXP = "exp2f((float)(dx * dx + dy * dy) * ob.v)"
@@ -108,6 +135,20 @@ _K3_CELLS = "    for (int q = 0; q < count; ++q) {\n"
 _MMA = re.compile(r"hopper::mma_bf16\(acc\[i\]\[j\], af\[i\], bfr\[j >> 1\]\[\(j & 1\) \* 2\],"
                   r"\s*bfr\[j >> 1\]\[\(j & 1\) \* 2 \+ 1\]\);")
 _FETCH = "    fetch(t + kStages - 1);\n"
+# the f32 kernels' diagnostics: the main loop's fetch, the three-pass
+# product (replaced by an add of its register fragments' bits, so that no
+# load or split goes unused), the split (a local one passing the value
+# unsplit)
+_F32_FETCH = "    fetch(t + kFStages - 1);\n"
+_F32_MMA = {  # the product's call in each f32 kernel, and its replacement
+    k: (f"hopper::wgmma_3xtf32(part, a_hi[b], a_lo[b], d_hi + off, d_lo + off, {i} > 0);",
+        "part[0] += __uint_as_float(a_hi[b][0] ^ a_hi[b][1] ^ a_hi[b][2] ^ a_hi[b][3] ^ "
+        "a_lo[b][0] ^ a_lo[b][1] ^ a_lo[b][2] ^ a_lo[b][3] ^ (uint32_t)(d_hi ^ d_lo));")
+    for k, i in (("k2f", "tap"), ("k2wf", "ks"))}
+_F32_FLUSH = "    for (int i = 0; i < 32; ++i) acc[i] += part[i];\n"  # a stage's sums into acc
+_F32_SPLIT = "hopper::split_tf32("
+_F32_NOSPLIT = ('#include "hopper.cuh"\n\n__device__ __forceinline__ void nosplit_tf32(float v, '
+                'uint32_t& hi, uint32_t& lo) { hi = lo = __float_as_uint(v); }\n')
 # T1-T4's diagnostics: (line of the kernel, its replacement); T1 and T4
 # share one templated kernel, so their lines are the same
 _GTCOL_DIAGS = {
@@ -152,7 +193,26 @@ def variant_source(kernel: str, values, diag=None) -> str:
         text, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};", text)
         if n != 1:
             raise ValueError(f"{src}.cu: constant {name} not found once")
-    if diag in _T_DIAGS.get(kernel, {}):
+    if kernel in ("k2f", "k2wf") and diag:
+        if diag == "noload":
+            old, new, n = _F32_FETCH, "", text.count(_F32_FETCH)
+            text = text.replace(old, new)
+        elif diag == "nomma":
+            old, new = _F32_MMA[kernel]
+            n = text.count(old)
+            text = text.replace(old, new)
+        elif diag == "inacc":
+            old = _F32_MMA[kernel][0]
+            n = min(text.count(old), text.count(_F32_FLUSH))
+            text = text.replace(old, old.replace("(part,", "(acc,").rsplit(",", 1)[0] + ", 1);")
+            text = text.replace(_F32_FLUSH, "")
+        else:  # nosplit
+            n = text.count('#include "hopper.cuh"\n')
+            text = text.replace('#include "hopper.cuh"\n', _F32_NOSPLIT)
+            text = text.replace(_F32_SPLIT, "nosplit_tf32(")
+        if n != 1:
+            raise ValueError(f"{src}.cu: the f32 kernel's {diag} pattern not found once")
+    elif diag in _T_DIAGS.get(kernel, {}):
         old, new = _T_DIAGS[kernel][diag]
         if text.count(old) != 1:
             raise ValueError(f"{src}.cu: {old.strip()!r} not found once")
@@ -221,64 +281,106 @@ def call_ms(fn, iters=ITERS, queued=False):
 
 
 def run(variants=DEFAULT, device=None):
-    """One dict a (variant, shape): variant, shape, ms, tflops, ok."""
+    """One dict a (variant, shape): variant, shape, ms, tflops, ok.  bf16
+    variants (k2, k2w) at ``SHAPES``, f32 ones (k2f, k2wf) at
+    ``F32_SHAPES``; ok: within ``chip_smoke.py``'s tolerance of the plain
+    version (f32: 1e-5 * the conv of |x| and |w|, no rounding allowance)."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError("conv_tiles times kernels: it needs a CUDA device")
-    with ThreadPoolExecutor(len(variants)) as ex:
-        libs = dict(zip(variants, ex.map(_build, variants)))
+    libs = _load_conv(variants)
     gen = torch.Generator(device=dev).manual_seed(3)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rows = []
-    for b, h, w, cin, cout in SHAPES:
-        x = torch.randn((b, h, w, cin), device=dev, generator=gen).to(torch.bfloat16)
-        wt = (torch.randn((3, 3, cin, cout), device=dev, generator=gen) / math.sqrt(9 * cin))
-        wt = wt.to(torch.bfloat16)
-        g = torch.randn((b, h, w, cout), device=dev, generator=gen).to(torch.bfloat16)
-        refs = {}
-        for variant, so in libs.items():
-            kernel, values, diag = parse(variant)
-            lib = ctypes.CDLL(str(so))
-            for fn, (res, args) in _kernels.SIGNATURES[CONSTANTS[kernel][0]].items():
-                getattr(lib, fn).restype, getattr(lib, fn).argtypes = res, list(args)
-            if kernel == "k2":
-                y = torch.empty((b, h, w, cout), dtype=torch.bfloat16, device=dev)
+    for dt, shapes, kinds in ((torch.bfloat16, SHAPES, ("k2", "k2w")),
+                              (torch.float32, F32_SHAPES, ("k2f", "k2wf"))):
+        mine = {v: lib for v, lib in libs.items() if v.split(":")[0] in kinds}
+        if not mine:
+            continue
+        f32 = dt == torch.float32
+        rnd = 0.0 if f32 else 2.0 ** -7
+        for b, h, w, cin, cout in shapes:
+            x = torch.randn((b, h, w, cin), device=dev, generator=gen).to(dt)
+            wt = (torch.randn((3, 3, cin, cout), device=dev, generator=gen) / math.sqrt(9 * cin))
+            wt = wt.to(dt)
+            g = torch.randn((b, h, w, cout), device=dev, generator=gen).to(dt)
+            refs = {}
+            for variant, lib in mine.items():
+                kernel = variant.split(":")[0]
+                if kernel in ("k2", "k2f"):
+                    y = torch.empty((b, h, w, cout), dtype=dt, device=dev)
+                    entry = lib.k2_conv3x3_f32 if f32 else lib.k2_conv3x3_bf16
+                    # the f32 kernel's K-major w (a copy)
+                    wk = wt.transpose(2, 3).contiguous() if f32 else wt
 
-                def call():
-                    return lib.k2_conv3x3_bf16(x.data_ptr(), wt.data_ptr(), y.data_ptr(), b, h, w,
-                                               cin, cout, stream)
-                if "k2" not in refs:
-                    want = conv2d.conv3x3_plain(x, wt).float()
-                    absref = conv2d.conv3x3_plain(x.float().abs(), wt.float().abs())
-                    refs["k2"] = (want, 1e-5 * absref + 2.0 ** -7 * want.abs())
-                out = y
-            else:
-                dy, ci, co = values[:3]
-                steps = b * h * -(-w // conv2d.WGRAD_SEGMENT)
-                tiles = 3 // dy * -(-cin // ci) * -(-cout // co)
-                chunks = max(1, min(lib.k2w_resident_blocks_bf16() // tiles, steps))
-                per = -(-steps // chunks)
-                chunks = -(-steps // per)
-                part = torch.empty((chunks, 3, 3, cin, cout), device=dev)
-                out = torch.empty((3, 3, cin, cout), device=dev)
+                    def call():
+                        return entry(x.data_ptr(), wk.data_ptr(), y.data_ptr(), b, h, w, cin,
+                                     cout, stream)
+                    if "k2" not in refs:
+                        want = conv2d.conv3x3_plain(x, wt).float()
+                        absref = conv2d.conv3x3_plain(x.float().abs(), wt.float().abs())
+                        refs["k2"] = (want, 1e-5 * absref + rnd * want.abs())
+                    out, ref = y, "k2"
+                else:
+                    if f32:
+                        chunks, per = conv2d.wgrad_plan(b, h, w, cin, cout,
+                                                        lib.k2w_resident_blocks_f32(), dt)
+                    else:  # one wave of the variant's own tiles
+                        dy, ci, co = parse(variant)[1][:3]
+                        steps = b * h * -(-w // conv2d.WGRAD_SEGMENT)
+                        tiles = 3 // dy * -(-cin // ci) * -(-cout // co)
+                        chunks = max(1, min(lib.k2w_resident_blocks_bf16() // tiles, steps))
+                        per = -(-steps // chunks)
+                        chunks = -(-steps // per)
+                    part = torch.empty((chunks, 3, 3, cin, cout), device=dev)
+                    out = torch.empty((3, 3, cin, cout), device=dev)
+                    args = (chunks,) if f32 else (chunks, per)
+                    entry = lib.k2w_conv3x3_wgrad_f32 if f32 else lib.k2w_conv3x3_wgrad_bf16
 
-                def call():
-                    return lib.k2w_conv3x3_wgrad_bf16(x.data_ptr(), g.data_ptr(), part.data_ptr(),
-                                                      out.data_ptr(), b, h, w, cin, cout, chunks,
-                                                      per, stream)
-                if "k2w" not in refs:
-                    want = conv2d.conv3x3_wgrad_plain(x, g)
-                    absref = conv2d.conv3x3_wgrad_plain(x.float().abs(), g.float().abs())
-                    refs["k2w"] = (want, 1e-5 * absref + 2.0 ** -8 * want.abs())
-            _kernels.check(call(), variant)
-            torch.cuda.synchronize()
-            want, tol = refs[kernel]
-            ok = bool(((out.float() - want).abs() <= tol).all())
-            ms = call_ms(call)
-            rows.append(dict(variant=variant, shape=(b, h, w, cin, cout), ms=ms,
-                             tflops=2 * 9 * cin * cout * b * h * w / ms / 1e9, ok=ok))
-        del refs
+                    def call():
+                        return entry(x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr(),
+                                     b, h, w, cin, cout, *args, stream)
+                    if "k2w" not in refs:
+                        want = conv2d.conv3x3_wgrad_plain(x, g)
+                        absref = conv2d.conv3x3_wgrad_plain(x.float().abs(), g.float().abs())
+                        refs["k2w"] = (want, 1e-5 * absref + rnd / 2 * want.abs())
+                    ref = "k2w"
+                _kernels.check(call(), variant)
+                torch.cuda.synchronize()
+                want, tol = refs[ref]
+                ok = bool(((out.float() - want).abs() <= tol).all())
+                ms = call_ms(call)
+                row = dict(variant=variant, shape=(b, h, w, cin, cout), ms=ms,
+                           tflops=2 * 9 * cin * cout * b * h * w / ms / 1e9, ok=ok)
+                if f32:  # the same call on |x|, |w|, |g| (one-signed sums) against f64
+                    saved = [a.clone() for a in (x, wt, g)]
+                    for a in (x, wt, g):
+                        a.abs_()
+                    if ref == "k2":
+                        wk.copy_(wt.transpose(2, 3))
+                        want = conv2d.conv3x3_plain(x.double(), wt.double())
+                    else:
+                        want = conv2d.conv3x3_wgrad_plain(x.double(), g.double())
+                    _kernels.check(call(), variant)
+                    torch.cuda.synchronize()
+                    rel = (out.double() - want) / want.abs().clamp_min(1e-30)
+                    row["pos_err"] = (float(rel.abs().max()), float(rel.mean()))
+                    for a, v in zip((x, wt, g), saved):
+                        a.copy_(v)
+                    if ref == "k2":
+                        wk.copy_(wt.transpose(2, 3))
+                    del want, rel, saved
+                rows.append(row)
+            del refs
     return rows
+
+
+def _load_conv(variants):
+    """Each conv variant built and loaded with its source's C signatures."""
+    by_src = {}
+    for v in variants:
+        by_src.setdefault(CONSTANTS[parse(v)[0]][0], []).append(v)
+    return {v: lib for src, vs in by_src.items() for v, lib in _load(tuple(vs), src).items()}
 
 
 def run_t(variants=T_DEFAULT, device=None):
@@ -508,14 +610,18 @@ def run_k3(variants=K3_DEFAULT, device=None):
 
 def main(argv=None):
     variants = (tuple(argv) if argv
-                else DEFAULT + T_DEFAULT + K1_DEFAULT + K4_DEFAULT + K3_DEFAULT)
+                else DEFAULT + F32_DEFAULT + T_DEFAULT + K1_DEFAULT + K4_DEFAULT + K3_DEFAULT)
     by = {k: tuple(v for v in variants if v.split(":")[0] == k) for k in ("k1", "k3", "k4")}
     tvs = tuple(v for v in variants if v.split(":")[0] in _T_DIAGS)
-    conv = tuple(v for v in variants if v.split(":")[0] in ("k2", "k2w"))
-    print(f"card: {torch.cuda.get_device_name(0)}")
+    conv = tuple(v for v in variants if v.split(":")[0] in ("k2", "k2w", "k2f", "k2wf"))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"card: {smi or torch.cuda.get_device_name(0)}")
     for r in run(conv) if conv else ():
+        pos = (f"; pos_err {r['pos_err'][0]:.2e} max, {r['pos_err'][1]:.2e} mean"
+               if "pos_err" in r else "")
         print(f"{r['variant']:<28} {r['shape']}: {r['ms']:.4f} ms {r['tflops']:.1f} TFLOP/s "
-              f"{'ok' if r['ok'] else 'WRONG'}")
+              f"{'ok' if r['ok'] else 'WRONG'}{pos}")
     for r in run_t(tvs) if tvs else ():
         print(f"{r['variant']:<22} {r['shape']} th={r['th']:<2} {r['chunks']:>4} chunks: "
               f"{r['ms']:.4f} ms, queued {r['device_ms']:.4f} ms {r['tflops']:.1f} TFLOP/s "

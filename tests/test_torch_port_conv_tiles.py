@@ -1,9 +1,9 @@
 """What the tensor-core K2 and K2w leave to Python, on the CPU: the dgrad
-kernel's re-layout (``rotate_kernel``, run by ``conv3x3_dgrad``), the bf16
-K2w's split of the pixels into chunks of row segments (``wgrad_plan``), the
+kernel's re-layout (``rotate_kernel``, run by ``conv3x3_dgrad``), K2w's
+split of the pixels into chunks of row segments (``wgrad_plan``), the
 build's hash over the shared headers, and the sources that the tile sweep
-(``tools/perf/conv_tiles.py``) derives from the kernels (K2, K2w, T1-T4,
-K1, K3, K4).
+(``tools/perf/conv_tiles.py``) derives from the kernels (K2, K2w in bf16
+and f32, T1-T4, K1, K3, K4).
 
 The re-layout and the chunked sum are held against ``conv3x3_plain`` /
 ``conv3x3_wgrad_plain`` and against the JAX package's Pallas kernels in
@@ -62,6 +62,21 @@ def test_wgrad_plan_covers_every_segment_once(b, h, w, cin, cout, resident):
     assert chunks * tiles <= max(resident, tiles)      # at most one wave
 
 
+@pytest.mark.parametrize("b,h,w,cin,cout,resident", [
+    (2, 47, 35, 256, 256, 132), (2, 200, 176, 256, 128, 132), (2, 468, 468, 64, 64, 132),
+    (1, 1, 3, 13, 3, 132), (2, 94, 311, 64, 64, 1)])
+def test_f32_wgrad_plan(b, h, w, cin, cout, resident):
+    """The f32 K2w's chunks: every segment once, no chunk empty, at most
+    ``_WGRAD_WAVES[f32]`` waves of the resident blocks; the kernel, given the
+    chunk count alone, cuts the same runs (ceil(segments / chunks))."""
+    chunks, per = conv2d.wgrad_plan(b, h, w, cin, cout, resident, torch.float32)
+    steps = b * h * -(-w // conv2d.WGRAD_SEGMENT)
+    tiles = 3 * -(-cin // 64) * -(-cout // 64)
+    assert 1 <= chunks <= 65535 and (chunks - 1) * per < steps <= chunks * per
+    assert chunks * tiles <= max(conv2d._WGRAD_WAVES[torch.float32] * resident, tiles)
+    assert -(-steps // chunks) == per
+
+
 @pytest.mark.parametrize("b,h,w,cin,cout,resident", [(2, 9, 70, 8, 16, 30), (1, 7, 20, 5, 3, 9)])
 def test_wgrad_chunked_sum_matches_jax(b, h, w, cin, cout, resident):
     """The bf16 K2w's arithmetic in plain PyTorch: one f32 partial for each
@@ -116,6 +131,29 @@ def test_tile_sweep_sources(variant):
         assert text == (_kernels.CSRC / f"{src}.cu").read_text()
     with pytest.raises(ValueError):
         conv_tiles.parse(variant.replace(":", ":1,"))
+
+
+@pytest.mark.parametrize("variant", conv_tiles.F32_DEFAULT)
+def test_f32_tile_sweep_sources(variant):
+    """The f32 K2's and K2w's copies in the tile sweep: each constant set
+    once, each diagnostic's pattern found and only it changed (the main
+    loop's fetch, the three-pass product, the TF32 split, the stages'
+    round-to-nearest adds), the bf16 kernel of the same source untouched;
+    the shipped tiles are the sources' own."""
+    kernel, values, diag = conv_tiles.parse(variant)
+    text = conv_tiles.variant_source(kernel, values, diag)
+    src, names = conv_tiles.CONSTANTS[kernel]
+    for name, value in zip(names, values):
+        assert f"constexpr int {name} = {value};" in text
+    assert (conv_tiles._F32_FETCH in text) == (diag != "noload")
+    assert (conv_tiles._F32_MMA[kernel][0] in text) == (diag not in ("nomma", "inacc"))
+    assert (conv_tiles._F32_FLUSH in text) == (diag != "inacc")
+    assert ("hopper::split_tf32(" in text) == (diag != "nosplit")
+    assert "fetch(t + kStages - 1);" in text and "hopper::mma_bf16(" in text
+    shipped = (_kernels.CSRC / f"{src}.cu").read_text()
+    assert (text == shipped) == (variant in conv_tiles.F32_SHIPPED)
+    with pytest.raises(ValueError):
+        conv_tiles.parse(variant.split(",no")[0] + ",noscan")
 
 
 @pytest.mark.parametrize("variant", conv_tiles.K1_DEFAULT + ("k1:4,2,128,1,noload",

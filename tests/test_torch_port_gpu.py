@@ -21,9 +21,11 @@ exp against the f64-built table); f32 sums and convs are held to f32
 rounding, bf16 ones to one or two bf16 roundings.  The backward passes (K1
 max and sum, K2 dgrad, K2w) are held against the plain versions' autograd.
 The wgrad formulations T1-T4 are held to 1e-5 * sum |x||g| (bf16 products
-are exact in f32), also at the edges of T2's and T4's tiles and chunks.  The tensor-core K2 (forward and dgrad) and K2w get
-cases that reach their tiles' edges: Cout 256, W no multiple of 64, H = 1,
-ragged channels and x off a 16-byte boundary.
+are exact in f32), also at the edges of T2's and T4's tiles and chunks.  The
+tensor-core K2 (forward and dgrad) and K2w, bf16 and f32 (three TF32
+passes), get cases that reach their tiles' edges: Cout 256, W no multiple
+of 64, H = 1, ragged channels, x off a 16-byte boundary, and a map with
+fewer work items than SMs; each gives the same bits on a repeat.
 """
 import math
 
@@ -402,28 +404,32 @@ def test_conv3x3_backward_kernels(dev, dtype):
     assert bool(((dw.float() - pdw.float()).abs() <= 1e-5 * absdw + rnd * pdw.float().abs()).all())
 
 
-# the bf16 K2 and K2w tiles: Cout 256, W no multiple of 64, H = 1, ragged
-# channels, x off a 16-byte boundary (the element-wise loads)
-BF16_TILE_CASES = [(1, 5, 70, 256, 256, 0), (2, 1, 130, 64, 64, 0), (1, 7, 117, 8, 16, 0),
-                   (1, 9, 65, 64, 72, 0), (2, 6, 40, 64, 64, 1), (1, 3, 3, 13, 3, 0)]
+# the tensor-core K2 and K2w tiles: Cout 256, W no multiple of 64, H = 1,
+# ragged channels, x off a 16-byte boundary (the element-wise loads), and
+# CaDDN's third BEV block, whose f32 K2 has fewer work items than SMs
+TILE_CASES = [(1, 5, 70, 256, 256, 0), (2, 1, 130, 64, 64, 0), (1, 7, 117, 8, 16, 0),
+              (1, 9, 65, 64, 72, 0), (2, 6, 40, 64, 64, 1), (1, 3, 3, 13, 3, 0),
+              (2, 47, 35, 256, 256, 0)]
+ROUNDING = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}  # one rounding to the output dtype
 
 
-def _offset_randn(dev, gen, shape, offset, scale=1.0):
-    """A contiguous bf16 tensor whose data starts ``offset`` elements into
-    its storage."""
+def _offset_randn(dev, gen, shape, offset, dtype, scale=1.0):
+    """A contiguous ``dtype`` tensor whose data starts ``offset`` elements
+    into its storage."""
     flat = (torch.randn(math.prod(shape) + offset, device=dev, generator=gen) * scale)
-    return flat.to(torch.bfloat16)[offset:].view(shape)
+    return flat.to(dtype)[offset:].view(shape)
 
 
-@pytest.mark.parametrize("b,h,w,cin,cout,offset", BF16_TILE_CASES)
-def test_conv3x3_bf16_tiles_forward_and_dgrad(dev, b, h, w, cin, cout, offset):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,cin,cout,offset", TILE_CASES)
+def test_conv3x3_tiles_forward_and_dgrad(dev, dtype, b, h, w, cin, cout, offset):
     """The tensor-core K2, forward and dgrad through autograd, against
-    conv3x3_plain's autograd; one launch each."""
+    conv3x3_plain's autograd; one launch each, the same bits on a repeat."""
     gen = torch.Generator(device=dev).manual_seed(h * w + cin + cout + offset)
-    x0 = _offset_randn(dev, gen, (b, h, w, cin), offset)
+    x0 = _offset_randn(dev, gen, (b, h, w, cin), offset, dtype)
     wt = (torch.randn((3, 3, cin, cout), device=dev, generator=gen) / (3 * cin ** 0.5))
-    wt = wt.to(torch.bfloat16)
-    gy = torch.randn((b, h, w, cout), device=dev, generator=gen).to(torch.bfloat16)
+    wt = wt.to(dtype)
+    gy = torch.randn((b, h, w, cout), device=dev, generator=gen).to(dtype)
     runs = []
     for fn in (conv2d.conv3x3, conv2d.conv3x3_plain):
         x = x0.detach().requires_grad_()
@@ -433,20 +439,23 @@ def test_conv3x3_bf16_tiles_forward_and_dgrad(dev, b, h, w, cin, cout, offset):
         torch.cuda.synchronize()
         if fn is conv2d.conv3x3:
             assert (conv2d.launches, conv2d.dgrad_launches) == (before[0] + 1, before[1] + 1)
+            assert torch.equal(y, conv2d.conv3x3(x0, wt))  # no atomics: the same every run
+            assert torch.equal(dx, conv2d.conv3x3_dgrad(gy, wt))
         runs.append((y.float(), dx.float()))
     (y, dx), (py, pdx) = runs
-    rnd = 2.0 ** -7
+    rnd = ROUNDING[dtype]
     absy = conv2d.conv3x3_plain(x0.float().abs(), wt.float().abs())
     assert bool(((y - py).abs() <= 1e-5 * absy + rnd * py.abs()).all())
     absdx = conv2d.conv3x3_plain(gy.float().abs(), conv2d.rotate_kernel(wt.float().abs()))
     assert bool(((dx - pdx).abs() <= 1e-5 * absdx + rnd * pdx.abs()).all())
 
 
-@pytest.mark.parametrize("b,h,w,cin,cout,offset", BF16_TILE_CASES + [(1, 4, 200, 128, 128, 0)])
-def test_conv3x3_wgrad_bf16_tiles(dev, b, h, w, cin, cout, offset):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,cin,cout,offset", TILE_CASES + [(1, 4, 200, 128, 128, 0)])
+def test_conv3x3_wgrad_tiles(dev, dtype, b, h, w, cin, cout, offset):
     gen = torch.Generator(device=dev).manual_seed(h * w + cin + cout + offset)
-    x = _offset_randn(dev, gen, (b, h, w, cin), offset)
-    gy = torch.randn((b, h, w, cout), device=dev, generator=gen).to(torch.bfloat16)
+    x = _offset_randn(dev, gen, (b, h, w, cin), offset, dtype)
+    gy = torch.randn((b, h, w, cout), device=dev, generator=gen).to(dtype)
     before = conv2d.wgrad_launches
     got = conv2d.conv3x3_wgrad(x, gy)
     torch.cuda.synchronize()
